@@ -1,0 +1,574 @@
+"""Drive the PyTorch port on one CUDA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line (any failure exits non-zero):
+  1. the card's name and power limit (nvidia-smi);
+  2. the build of every CUDA kernel of the port, all nvcc runs at once;
+  3. each kernel against its plain PyTorch version at the full-width
+     llama3.2-3b shapes of the serving path: attention on valid rows within
+     2 bf16 ulps of the largest output of the plain version run in fp32 on
+     the same bf16 inputs, the top-k/top-p filter and the token draw
+     bitwise;
+  4. the full-width model's logits through the paged kernels against a
+     dense plain-PyTorch forward of the same weights: the final prefill
+     chunk, then four decode steps across a page edge;
+  5. serving: 8 requests through ContinuousEngine (8 slots, page 16, prefill
+     chunk 64, prompts of 128-512 tokens with 4 sharing a 100-token prefix,
+     32 new tokens, half greedy and half at temperature 0.8 / top-k 40 /
+     top-p 0.95) with every kernel's launch counter set to 0 just before
+     the run and read just after;
+     launches are also split between decode steps and prefill chunks, and
+     the top-2 logit margins of the decoded rows are compared with the
+     logit error of phase 4;
+  6. the same trace under torch.profiler: device time by kernel and kind,
+     and the device's idle share;
+  7. one JSON line of per-kernel numbers (times from CUDA events).
+The last line is {"ok": true, "device": {...}}. Weights are random, made on
+the card from a seeded torch.Generator; nothing is downloaded.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+ATTN_ULPS = 2.0                # attention tolerance, in bf16 ulps (8
+                               # significant bits) at the largest |output|:
+                               # against an fp32 plain version the kernel's
+                               # only error is rounding its fp32 result to
+                               # bf16 (half an ulp)
+SEED = 0
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _attn_tol(plain: torch.Tensor) -> float:
+    top = plain.abs().max().item()
+    return ATTN_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _bound(nbytes: float, flops: float, peak: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------- phase 3 ---
+def check_decode_attention(arch, rng, dev):
+    from repro_torch.kernels.decode_attention import ops, ref
+    import torch.nn.functional as F
+    b, page = 8, 16
+    hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.resolved_head_dim
+    seq_lens = np.asarray(rng.integers(128, 577, b), np.int32)
+    seq_lens[0], seq_lens[1] = 576, 17     # the longest row; a page edge
+    max_pages = 36
+    num_pages = b * max_pages + 1
+    sets = []
+    for _ in range(4):      # rotate 4 pool sets (76 MB) so K/V come from HBM
+        kp = torch.randn((num_pages, page, hkv, d), device=dev,
+                         dtype=torch.bfloat16)
+        vp = torch.randn_like(kp)
+        sets.append((kp, vp))
+    ids = rng.permutation(np.arange(1, num_pages))[:b * max_pages]
+    pt = torch.as_tensor(ids.reshape(b, max_pages).astype(np.int32),
+                         device=dev)
+    sl = torch.as_tensor(seq_lens, device=dev)
+    q = torch.randn((b, hq, d), device=dev, dtype=torch.bfloat16)
+    kp, vp = sets[0]
+    out = ops.paged_decode_attention(q, kp, vp, pt, sl)
+    plain = ref.paged_decode_attention(q.float(), kp.float(), vp.float(), pt,
+                                       sl)
+    torch.cuda.synchronize()
+    err = (out.float() - plain).abs().max().item()
+    tol = _attn_tol(plain)
+    if not err <= tol:
+        _fail(f"paged_decode_attention max abs err {err} > {tol}")
+    state = {"i": 0}
+
+    def kernel():
+        k, v = sets[state["i"] % 4]
+        state["i"] += 1
+        ops.paged_decode_attention(q, k, v, pt, sl)
+    ms = _time_ms(kernel, 200)
+    plain_ms = _time_ms(lambda: ref.paged_decode_attention(q, kp, vp, pt, sl),
+                        20)
+    # library yardstick: SDPA on the gathered dense K/V with a length mask
+    kd = kp[pt.long()].reshape(b, -1, hkv, d).transpose(1, 2)
+    vd = vp[pt.long()].reshape(b, -1, hkv, d).transpose(1, 2)
+    mask = (torch.arange(kd.shape[2], device=dev)[None] <
+            sl[:, None].long())[:, None, None, :]
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True), 200)
+    tokens = int(seq_lens.sum())
+    nbytes = (tokens * hkv * d * 2 * 2 + 2 * q.numel() * 2 + pt.numel() * 4
+              + sl.numel() * 4)
+    flops = 4.0 * tokens * hq * d
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                      "paged_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:164",
+            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_prefill_attention(arch, rng, dev):
+    from repro_torch.kernels.decode_attention import ops, ref
+    import torch.nn.functional as F
+    c, page = 64, 16
+    hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.resolved_head_dim
+    max_pages, num_pages = 35, 64
+    start, valid = 448, 50                 # last chunk of a 498-token prompt
+    total = start + valid
+    kp = torch.randn((num_pages, page, hkv, d), device=dev,
+                     dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    row = rng.permutation(np.arange(1, num_pages))[:max_pages]
+    pr = torch.as_tensor(row.astype(np.int32), device=dev)
+    q = torch.randn((c, hq, d), device=dev, dtype=torch.bfloat16)
+    out = ops.paged_prefill_attention(q, kp, vp, pr, start, total)
+    plain = ref.paged_prefill_attention(q.float(), kp.float(), vp.float(), pr,
+                                        start, total)[:valid]
+    torch.cuda.synchronize()
+    err = (out[:valid].float() - plain).abs().max().item()
+    tol = _attn_tol(plain)
+    if not err <= tol:
+        _fail(f"paged_prefill_attention max abs err {err} > {tol}")
+    ms = _time_ms(lambda: ops.paged_prefill_attention(q, kp, vp, pr, start,
+                                                      total), 200)
+    plain_ms = _time_ms(lambda: ref.paged_prefill_attention(
+        q, kp, vp, pr, start, total), 20)
+    kd = kp[pr.long()].reshape(1, -1, hkv, d).transpose(1, 2)
+    vd = vp[pr.long()].reshape(1, -1, hkv, d).transpose(1, 2)
+    cols = torch.arange(kd.shape[2], device=dev)[None]
+    rows = start + torch.arange(c, device=dev)[:, None]
+    mask = ((cols <= rows) & (cols < total))[None, None]
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(0, 1)[None], kd, vd, attn_mask=mask, enable_gqa=True),
+        200)
+    visible = sum(min(start + r + 1, total) for r in range(valid))
+    nbytes = total * hkv * d * 2 * 2 + 2 * valid * hq * d * 2 + max_pages * 4
+    flops = 4.0 * visible * hq * d
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+    return {"name": "paged_prefill_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                      "paged_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:113",
+            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_filter(arch, rng, dev):
+    from repro_torch.kernels.fused_sampling import ops, ref
+    from repro_torch.models.layers import pad_vocab
+    s, v = 8, pad_vocab(arch.vocab_size)
+    lg = torch.as_tensor(rng.normal(size=(s, v)).astype(np.float32) * 3.0,
+                         device=dev)
+    lg[3, :40] = lg[3, 40]                 # ties across the k-th value
+    top_k = torch.as_tensor([40, 40, 0, 40, 1, 40, 0, v + 5], dtype=torch.int32,
+                            device=dev)
+    top_p = torch.as_tensor([0.95, 1.0, 0.95, 0.95, 0.5, 0.95, 1.0, 0.99],
+                            dtype=torch.float32, device=dev)
+    out = ops.filter_logits(lg, top_k, top_p)
+    plain = ref.filter_logits_bisect(lg, top_k, top_p)
+    oracle = ref.filter_logits_ref(lg, top_k, top_p)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), plain.view(torch.int32)):
+        bad = (out.view(torch.int32) != plain.view(torch.int32)).sum().item()
+        _fail(f"filter_logits differs from its plain version in {bad} "
+              "entries (contract: bitwise equal)")
+    if not torch.equal(out.view(torch.int32), oracle.view(torch.int32)):
+        _fail("filter_logits differs from the sort-based oracle")
+    ms = _time_ms(lambda: ops.filter_logits(lg, top_k, top_p), 20)
+    plain_ms = _time_ms(lambda: ref.filter_logits_bisect(lg, top_k, top_p),
+                        2, warmup=1)
+    library_ms = _time_ms(lambda: ref.filter_logits_ref(lg, top_k, top_p),
+                          2, warmup=1)
+    bound_ms, bound_by = _bound(2 * lg.numel() * 4 + s * 8, 0.0, FP32_FLOPS)
+    return {"name": "filter_logits", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_sampling/csrc/"
+                      "sampling.cu",
+            "replaces": "src/repro/kernels/fused_sampling/kernel.py:73",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}, out
+
+
+def check_draw(lg_f, dev):
+    """The inverse-CDF draw on the filter's output rows (filtered and
+    unfiltered), bitwise against its plain version."""
+    from repro_torch.kernels.fused_lm_head import ref as head_ref
+    from repro_torch.kernels.fused_sampling import ops
+    s, v = lg_f.shape
+    idx = torch.arange(s, device=dev)
+    rs = head_ref.row_uniforms(idx + 11, idx * 37)
+    rs[0] = 0.0                            # the first token with mass
+    out = ops.draw_tokens(lg_f, rs)
+    plain = head_ref.draw_tokens(lg_f, rs)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain):
+        _fail(f"draw_tokens {out.tolist()} differs from its plain version "
+              f"{plain.tolist()} (contract: equal tokens)")
+    if not torch.isfinite(lg_f.gather(1, out.long()[:, None])).all():
+        _fail("draw_tokens drew a masked-out token")
+    ms = _time_ms(lambda: ops.draw_tokens(lg_f, rs), 200)
+    plain_ms = _time_ms(lambda: head_ref.draw_tokens(lg_f, rs), 5, warmup=1)
+    bound_ms, bound_by = _bound(lg_f.numel() * 4 + 2 * s * 4,
+                                4.0 * lg_f.numel(), FP32_FLOPS)
+    return {"name": "draw_tokens", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_sampling/csrc/"
+                      "sampling.cu",
+            "replaces": "src/repro/kernels/fused_lm_head/ref.py:90",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+# ---------------------------------------------------------------- phase 4 ---
+def dense_reference_logits(model, tokens):
+    """Plain dense forward (naive causal attention, no pages, no kernels)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_mlp, apply_norm, dense
+    arch = model.arch
+    x = model._embed(tokens)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    for blk in model.params["blocks"]:
+        h = apply_norm(arch.norm, blk["ln1"], x)
+        q, k, v = attn.qkv_project(arch, blk["attn"], h)
+        q, k = attn.position_encode(arch, q, k, pos)
+        o = attn.naive_attention(q, k, v, causal=True)
+        x = x + dense(o.reshape(*x.shape[:2], -1), blk["attn"]["wo"])
+        x = x + apply_mlp(arch.mlp, blk["mlp"],
+                          apply_norm(arch.norm, blk["ln2"], x))
+    return model._logits(x[:, -1:])[0, 0]
+
+
+def check_model_logits(model, rng, dev) -> float:
+    """The final prefill chunk's logits (positions 0-109 in chunks of 64),
+    then four decode steps (positions 110-113, across the page edge at 112,
+    beside an empty slot as the engine runs idle slots), each against the
+    dense plain forward of the same prefix. Returns the largest max abs
+    logit error."""
+    from repro_torch.models import transformer as tf
+    arch = model.arch
+    blocks = model.params["blocks"]
+    n_pre, n_dec, page = 110, 4, 16
+    toks = torch.as_tensor(rng.integers(5, arch.vocab_size,
+                                        (1, n_pre + n_dec)), device=dev)
+    with torch.inference_mode():
+        pools = tf.init_serving_state(arch, 9, page, model.dtype, dev)
+        row = torch.arange(1, 9, dtype=torch.int32, device=dev)
+        chunk = torch.zeros((1, 64), dtype=torch.long, device=dev)
+        for start in (0, 64):
+            end = min(start + 64, n_pre)
+            chunk.zero_()
+            chunk[0, :end - start] = toks[0, start:end]
+            x = tf.paged_prefill_stack(arch, blocks, pools, model._embed(chunk),
+                                       row, start, end)
+        got = [model._logits(tf.chunk_final_hidden(x, 64, n_pre))[0, 0]]
+        table = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+        table[0] = row
+        for pos in range(n_pre, n_pre + n_dec):
+            tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
+            tok[0, 0] = toks[0, pos]
+            sl = torch.tensor([pos, 0], dtype=torch.int32, device=dev)
+            x = tf.paged_decode_stack(arch, blocks, pools, model._embed(tok),
+                                      table, sl)
+            got.append(model._logits(x)[0, 0])
+        refs = [dense_reference_logits(model, toks[:, :n + 1])
+                for n in range(n_pre - 1, n_pre + n_dec)]
+    worst, lines = 0.0, []
+    for i, (g, r) in enumerate(zip(got, refs)):
+        if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
+            _fail("non-finite logits in the model check")
+        rel = ((g - r).norm() / r.norm()).item()
+        err = (g - r).abs().max().item()
+        top2 = torch.topk(r, 2).values
+        worst = max(worst, err)
+        lines.append(f"{'prefill' if i == 0 else 'decode'} pos "
+                     f"{n_pre - 1 + i}: rel L2 {rel:.3e}, max abs {err:.3e}, "
+                     f"argmax equal {int(g.argmax()) == int(r.argmax())}, "
+                     f"ref top-2 margin {(top2[0] - top2[1]).item():.3e}")
+        if not rel <= 0.05:
+            _fail(f"model logits rel L2 error {rel} > 0.05 at position "
+                  f"{n_pre - 1 + i} (bf16, 28 layers)")
+    print(f"[model] llama3.2-3b {arch.num_layers}L logits via the paged "
+          f"kernels vs dense plain forward (bf16, tol rel L2 0.05): "
+          + "; ".join(lines))
+    return worst
+
+
+# ---------------------------------------------------------------- phase 5 ---
+def trace(arch, seed):
+    """The serving trace: 8 requests, prompts of 128-512 tokens (4 sharing
+    a 100-token prefix), 32 new tokens, half greedy and half sampled."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(seed)
+    n_req, gen = 8, 32
+    shared = list(map(int, rng.integers(5, arch.vocab_size, 100)))
+    lens = rng.integers(128, 513, n_req)
+    lens[0], lens[2] = 137, max(int(lens[2]), 200)
+    prompts = []
+    for i in range(n_req):
+        tail = list(map(int, rng.integers(5, arch.vocab_size, int(lens[i]))))
+        prompts.append((shared + tail)[:int(lens[i])] if i < 4 else tail)
+    # request 2 continues request 0's whole prompt, whose last page is
+    # partial: its admission shares 8 full pages and copies the 9th (CoW)
+    prompts[2] = (prompts[0] + prompts[2])[:int(lens[2])]
+    return [Request(uid=i, prompt=prompts[i], max_new_tokens=gen,
+                    sampling=SamplingParams() if i % 2 == 0 else
+                    SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
+                                   seed=seed + i))
+            for i in range(n_req)]
+
+
+def make_engine(model):
+    from repro_torch.serving import ContinuousEngine
+    return ContinuousEngine(model, num_slots=8, num_pages=320, page_size=16,
+                            max_seq_len=512 + 32 + 16, prefill_chunk=64)
+
+
+def serve(model, logit_err: float):
+    """Serve the trace with every launch counter set to 0 just before the
+    run; count launches per decode step and per prefill chunk, and the
+    decoded rows whose top-2 logit margin is below ``logit_err``."""
+    from repro_torch.kernels.decode_attention import ops as attn_ops
+    from repro_torch.kernels.fused_sampling import ops as samp_ops
+    arch = model.arch
+    reqs = trace(arch, SEED)
+    n_req, gen = len(reqs), reqs[0].max_new_tokens
+    engine = make_engine(model)
+    counters = (attn_ops.LAUNCHES, samp_ops.LAUNCHES)
+
+    def snapshot():
+        return {k: v for d in counters for k, v in d.items()}
+    finite, margins, last = [], [], {}
+    phase = {"decode": dict.fromkeys(snapshot(), 0),
+             "prefill": dict.fromkeys(snapshot(), 0)}
+    flagged = {"sampled": 0, "filtered": 0}
+    logits_fn, decode_fn, prefill_fn = (model._logits, engine._decode,
+                                        engine._prefill)
+
+    def probed_logits(x):
+        out = logits_fn(x)
+        finite.append(torch.isfinite(out).all())
+        last["logits"] = out
+        return out
+
+    def counted(name, fn):
+        def run(*args, **kw):
+            before = snapshot()
+            out = fn(*args, **kw)
+            for k, v in snapshot().items():
+                phase[name][k] += v - before[k]
+            return out
+        return run
+
+    def decode(page_table, seq_lens, tokens, sampling_args, *, sampled,
+               filtered):
+        out = counted("decode", decode_fn)(page_table, seq_lens, tokens,
+                                           sampling_args, sampled=sampled,
+                                           filtered=filtered)
+        flagged["sampled"] += bool(sampled)
+        flagged["filtered"] += bool(filtered)
+        rows = torch.as_tensor(np.flatnonzero(seq_lens > 0),
+                               device=last["logits"].device)
+        top2 = torch.topk(last["logits"][rows, 0].float(), 2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        return out
+
+    model._logits = probed_logits
+    engine._decode, engine._prefill = decode, counted("prefill", prefill_fn)
+    for d in counters:
+        for k in d:
+            d[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = snapshot()
+    model._logits = logits_fn
+    for i in range(n_req):
+        r = res.get(i)
+        if r is None or "error" in r or len(r["tokens"]) != gen:
+            _fail(f"request {i} did not finish: {r}")
+    if not all(bool(f) for f in finite):
+        _fail("non-finite logits during serving")
+    if engine.cow_copies < 1 or engine.cached_prefill_tokens < 1:
+        _fail("the shared-prefix trace did not hit the prefix cache / CoW")
+    for name, n in launches.items():
+        if n <= 0:
+            _fail(f"kernel {name} was not launched on the main path")
+    ntok = sum(len(r["tokens"]) for r in res.values())
+    ttft = float(np.mean([res[i]["token_times"][0] for i in range(n_req)]))
+    m = torch.cat(margins)
+    print(f"[serve] llama3.2-3b {arch.num_layers}L d{arch.d_model} bf16: "
+          f"{n_req} requests x {gen} tokens in {wall:.3f}s "
+          f"({ntok / wall:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms); "
+          f"steps {engine.steps} ({flagged['sampled']} sampled, "
+          f"{flagged['filtered']} filtered), prefills {engine.prefills}, "
+          f"prefill chunks {engine.prefill_chunks}, prefill_tokens "
+          f"{engine.prefill_tokens}, cached_prefill_tokens "
+          f"{engine.cached_prefill_tokens}, cow_copies {engine.cow_copies}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches in decode {phase['decode']}, in prefill "
+          f"{phase['prefill']}")
+    print(f"[margins] decoded rows: {m.numel()}, top-2 logit margin min "
+          f"{m.min().item():.3e} median {m.median().item():.3e}; rows with "
+          f"margin below the model check's max abs logit error "
+          f"{logit_err:.3e}: {int((m < logit_err).sum())}")
+    return launches, phase, flagged, engine
+
+
+def profile_serve(model):
+    """The same trace again under torch.profiler: device time by kernel,
+    by kind, and the device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    engine = make_engine(model)
+    reqs = trace(model.arch, SEED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(k[1] for k in kernels)
+    if busy <= 0:
+        print("[profile] device time: not measured (the profiler recorded "
+              "no CUDA kernel time)")
+        return
+    kinds = {"paged attention": 0.0, "sampler": 0.0, "gemm": 0.0,
+             "other": 0.0}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        if "decode_kernel" in low or "prefill_kernel" in low:
+            kinds["paged attention"] += ms
+        elif "filter_kernel" in low or "draw_kernel" in low:
+            kinds["sampler"] += ms
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
+                                      "cutlass")):
+            kinds["gemm"] += ms
+        else:
+            kinds["other"] += ms
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    print(f"[profile] same trace under torch.profiler: wall {wall_ms:.1f} "
+          f"ms, device busy {busy:.1f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}; by kind (ms) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
+          + "; top kernels " + "; ".join(
+              f"{n[:48]} {ms:.1f} ms x{c}" for n, ms, c in top))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import _build
+        from repro_torch.models.model import Model
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is missing: {e}",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+
+    built = _build.build_all()
+    regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+            for n, log in built["ptxas"].items()}
+    print(f"[build] {built['built']} in {built['seconds']:.1f}s (nvcc, "
+          f"parallel); ptxas: {regs}")
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    arch = get_config("llama3.2-3b")
+    rows = [check_decode_attention(arch, rng, dev),
+            check_prefill_attention(arch, rng, dev)]
+    filt, lg_f = check_filter(arch, rng, dev)
+    rows += [filt, check_draw(lg_f, dev)]
+    print("[kernels vs plain] " + "; ".join(
+        f"{r['name']}: max abs err {r['max_abs_err']:.3e}"
+        + (f" (tol {r['tol']:.3e})" if "tol" in r else " (bitwise)")
+        for r in rows))
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = Model.init(arch, gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"[init] llama3.2-3b full width, {arch.num_layers} layers, bf16 "
+          f"weights on the card in {time.perf_counter() - t0:.1f}s")
+    logit_err = check_model_logits(model, rng, dev)
+    launches, phase, flagged, engine = serve(model, logit_err)
+    profile_serve(model)
+    # decode-step launches per decode step that could launch the kernel
+    per_step = {"paged_decode_attention": engine.steps,
+                "paged_prefill_attention": None,
+                "filter_logits": flagged["filtered"],
+                "draw_tokens": flagged["sampled"]}
+    for r in rows:
+        name = r["name"]
+        r["launches"] = launches[name]
+        r["launches_in_decode"] = phase["decode"][name]
+        r["launches_in_prefill"] = phase["prefill"][name]
+        n = per_step[name]
+        r["launches_per_eligible_decode_step"] = (
+            phase["decode"][name] / n if n else None)
+        r["launches_per_prefill_chunk"] = (phase["prefill"][name]
+                                           / engine.prefill_chunks)
+    print(json.dumps({"kernels": rows, "decode_steps": engine.steps,
+                      "decode_steps_sampled": flagged["sampled"],
+                      "decode_steps_filtered": flagged["filtered"],
+                      "prefill_chunks": engine.prefill_chunks,
+                      "card": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,28 @@
+"""PyTorch + CUDA port of the ``repro`` serving path for NVIDIA Hopper.
+
+The package mirrors ``repro``'s module names so each part has an obvious
+counterpart, but imports nothing from it (nor ``jax``): every piece it needs
+is its own copy. What it carries today is the continuous engine's dense
+serving path (chunked paged prefill, paged decode, per-request sampling) with
+three hand-written sm_90a kernels:
+
+- ``kernels.decode_attention``: paged decode and paged prefill attention
+- ``kernels.fused_sampling``: the top-k / top-p logit filter
+
+Entry points take a ``device`` argument that defaults to ``"cuda"``; pass
+``device="cpu"`` to run the plain PyTorch versions of the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. ``"cuda"`` (the default) demands a
+    card; the CPU is used only when the caller asks for it explicitly."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev

@@ -1,0 +1,97 @@
+"""Primitive layers as plain functions on tensors: dense, norms, activations,
+embeddings, rotary embeddings, the MLP. Counterpart of
+``repro.models.layers``; parameter names follow the same contract
+(``embedding [V, D]``, ``w1/w3 [D, F]``, ``w2 [F, D]``, ``scale [D]``)."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+Params = Dict[str, object]
+
+VOCAB_PAD = 128  # vocab padded to a multiple of this (Megatron-style)
+
+
+def pad_vocab(v: int) -> int:
+    return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def apply_norm(kind: str, p: Params, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm / LayerNorm with fp32 statistics, result in ``x``'s dtype."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+    elif kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(kind)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def embed_tokens(p: Params, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    return p["embedding"].to(dtype)[tokens]
+
+
+def unembed(p: Params, x: torch.Tensor,
+            tied_embedding: Optional[torch.Tensor],
+            softcap: float = 0.0) -> torch.Tensor:
+    """Logits in fp32: the product runs in ``x``'s dtype, then upcasts."""
+    if tied_embedding is not None:
+        w = tied_embedding.to(x.dtype).T
+    else:
+        w = p["head"].to(x.dtype)
+    logits = (x @ w).float()
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embedding. x: [..., S, H, D]; positions broadcastable to
+    [..., S]. Computed in fp32, returned in ``x``'s dtype."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)               # [D/2]
+    ang = positions.float()[..., None] * freqs                 # [..., S, D/2]
+    ang = ang[..., None, :]                                    # [..., S, 1, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mlp(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Feed-forward block (single device: no tensor-parallel reduce)."""
+    if kind != "swiglu":
+        raise NotImplementedError(
+            f"mlp {kind!r}: the port serves swiglu (dense family) only")
+    h = silu(dense(x, p["w1"], p.get("b1"))) * dense(x, p["w3"], p.get("b3"))
+    return dense(h, p["w2"], p.get("b2"))

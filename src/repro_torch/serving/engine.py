@@ -1,0 +1,345 @@
+"""ContinuousEngine of the port: continuous batching over a paged KV cache
+with chunked prefill, prefix caching (copy-on-write tail pages),
+forced-replay preemption and per-request sampling. Counterpart of
+``repro.serving.engine.ContinuousEngine`` in its single-device, one step
+per dispatch, unfused-decode configuration; the scheduler decisions, the
+counters and the per-request results are the same, so the two engines emit
+identical token streams for the same weights and requests.
+
+Each decode step runs the whole ``num_slots`` batch: embed -> per layer
+[RMSNorm -> QKV + RoPE -> K/V written into pages -> paged decode attention
+kernel -> o-proj -> residual -> RMSNorm -> SwiGLU -> residual] -> final
+norm -> LM head -> greedy argmax or the sampler (filter kernel for filtered
+requests, then the draw kernel). Slots that are empty or mid-prefill carry seq_len 0 and write to
+the null page. Prefill runs one chunk of one sequence per iteration through
+the paged prefill attention kernel; only a final chunk pays the LM head.
+PyTorch runs eagerly, so there is no compile cache: variants are plain
+Python branches on the ``sampled`` / ``filtered`` flags.
+
+Not ported yet (each raises ``NotImplementedError``): ``tp > 1``,
+``decode_steps > 1``, ``fused_decode=True``, ``sanitize=True`` and families
+other than dense.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Deque, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models import transformer as tf
+from ..models.model import Model
+from .kv_cache import pages_needed
+from .sampling import sample_tokens
+from .scheduler import Request, Scheduler, SequenceState
+
+SERVABLE_FAMILIES = ("dense",)
+
+
+def _not_ported(what: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"({slice_})")
+
+
+class ContinuousEngine:
+    def __init__(self, model: Model, *, num_slots: int = 8,
+                 num_pages: int = 256, page_size: int = 16,
+                 max_seq_len: int = 512, prefix_cache: bool = True,
+                 prefill_chunk: Optional[int] = None, tp: int = 1,
+                 sanitize: bool = False, fused_sampling: bool = True,
+                 decode_steps: int = 1, fused_decode: bool = False):
+        arch = model.arch
+        if arch.family not in SERVABLE_FAMILIES:
+            raise _not_ported(f"serving the {arch.family!r} family",
+                              "a later slice ports the other families")
+        if tp != 1:
+            raise _not_ported(f"tensor parallelism (tp={tp})",
+                              "a later slice ports TP serving")
+        if decode_steps != 1:
+            raise _not_ported(f"multi-step decode (decode_steps="
+                              f"{decode_steps})",
+                              "a later slice ports the on-device loop")
+        if fused_decode:
+            raise _not_ported("fused decode (decode_residual_norm + "
+                              "head_tokens)", "the next slice ports it")
+        if sanitize:
+            raise _not_ported("the runtime sanitizer",
+                              "a later slice ports the tools")
+        self.model = model
+        self.arch = arch
+        self.device = model.device
+        self.page_size = page_size
+        self.num_slots = num_slots
+        self.max_pages_per_seq = pages_needed(max_seq_len, page_size)
+        if prefill_chunk is None:
+            prefill_chunk = 4 * page_size
+        if prefill_chunk <= 0 or prefill_chunk % page_size:
+            raise ValueError("prefill chunk must be a positive page multiple")
+        self.prefill_chunk = prefill_chunk
+        self.fused_sampling = bool(fused_sampling)
+        self.scheduler = Scheduler(num_slots=num_slots, num_pages=num_pages,
+                                   page_size=page_size,
+                                   max_pages_per_seq=self.max_pages_per_seq,
+                                   prefix_cache=prefix_cache)
+        self.pools = tf.init_serving_state(arch, num_pages, page_size,
+                                           model.dtype, self.device)
+        self.steps = 0                  # decode steps executed
+        self.prefills = 0               # prefill completions
+        self.prefill_chunks = 0         # prefill chunks executed
+        self.prefill_tokens = 0         # prompt tokens actually computed
+        self.cached_prefill_tokens = 0  # prompt tokens served from the cache
+        self.cow_copies = 0             # divergent tail pages duplicated
+        self._prefilling: Deque[SequenceState] = deque()
+        self._null_sampling = self._sampling_tensors(
+            np.zeros((num_slots,), np.int64), np.zeros((num_slots,),
+                                                       np.float32),
+            np.zeros((num_slots,), np.int32), np.ones((num_slots,),
+                                                      np.float32))
+        self._sampling_key: Optional[Tuple] = None
+        self._sampling_args = self._null_sampling
+
+    # -------------------------------------------------------------- helpers --
+    def _sampling_tensors(self, seeds, temps, top_ks, top_ps):
+        dev = self.device
+        return (torch.as_tensor(np.asarray(seeds, np.int64), device=dev),
+                torch.as_tensor(np.asarray(temps, np.float32), device=dev),
+                torch.as_tensor(np.asarray(top_ks, np.int32), device=dev),
+                torch.as_tensor(np.asarray(top_ps, np.float32), device=dev))
+
+    def _ints(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=self.device)
+
+    def _select(self, logits, seeds, positions, temps, top_ks, top_ps, *,
+                sampled: bool, filtered: bool) -> torch.Tensor:
+        if not sampled:
+            return torch.argmax(logits, dim=-1).int()
+        return sample_tokens(logits, seeds, positions, temps, top_ks, top_ps,
+                             filtered=filtered,
+                             fused=self.fused_sampling and filtered)
+
+    # ----------------------------------------------------------------- steps --
+    @torch.inference_mode()
+    def _decode(self, page_table: np.ndarray, seq_lens: np.ndarray,
+                tokens: np.ndarray, sampling_args, *, sampled: bool,
+                filtered: bool) -> np.ndarray:
+        """tokens [S] -> next tokens [S] (host). The emitted token's stream
+        position is seq_lens + 1, derived on the device."""
+        pt, sl = self._ints(page_table), self._ints(seq_lens)
+        x = self.model._embed(self._ints(tokens)[:, None])
+        x = tf.paged_decode_stack(self.arch, self.model.params["blocks"],
+                                  self.pools, x, pt, sl)
+        logits = self.model._logits(x)[:, 0]
+        tok = self._select(logits, sampling_args[0], sl + 1,
+                           *sampling_args[1:], sampled=sampled,
+                           filtered=filtered)
+        return tok.cpu().numpy()
+
+    @torch.inference_mode()
+    def _prefill(self, chunk: np.ndarray, page_row: np.ndarray, start: int,
+                 end: int, sp, *, final: bool) -> int:
+        """One prompt chunk of one sequence; on the final chunk the token
+        after position ``end - 1`` (stream position ``end``), else 0."""
+        x = self.model._embed(self._ints(chunk))
+        x = tf.paged_prefill_stack(self.arch, self.model.params["blocks"],
+                                   self.pools, x, self._ints(page_row), start,
+                                   end)
+        if not final:
+            return 0
+        logits = self.model._logits(tf.chunk_final_hidden(x, start, end))[:, 0]
+        args = self._sampling_tensors([sp.seed], [sp.temperature],
+                                      [sp.top_k], [sp.top_p])
+        tok = self._select(logits, args[0], self._ints([end]), *args[1:],
+                           sampled=not sp.greedy,
+                           filtered=not sp.greedy and sp.filtered)
+        return int(tok[0])
+
+    @torch.inference_mode()
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate one physical page in every layer's pool."""
+        for pool in self.pools:
+            pool["k"][dst].copy_(pool["k"][src])
+            pool["v"][dst].copy_(pool["v"][src])
+
+    # --------------------------------------------------------------- prefill --
+    def _start_prefill(self, seq: SequenceState) -> None:
+        """Execute the admission's CoW copy (if any) and queue the suffix."""
+        if seq.cow is not None:
+            self._copy_page(*seq.cow)
+            self.scheduler.cow_done(seq)
+            self.cow_copies += 1
+        self.cached_prefill_tokens += seq.cached_len
+        self._prefilling.append(seq)
+
+    def _advance_prefill(self, now) -> None:
+        """Run ONE chunk of the oldest pending prefill; on the final chunk
+        emit the sequence's next token and publish its pages."""
+        sched = self.scheduler
+        while self._prefilling:
+            seq = self._prefilling[0]
+            if sched.running.get(seq.slot) is not seq:
+                self._prefilling.popleft()      # preempted while waiting
+                continue
+            ctx = seq.context
+            start = seq.prefilled
+            end = min(start + self.prefill_chunk, seq.prefill_target)
+            chunk = np.zeros((1, self.prefill_chunk), np.int32)
+            chunk[0, :end - start] = ctx[start:end]
+            final = end == seq.prefill_target
+            tok = self._prefill(chunk, sched.cache.page_table[seq.slot],
+                                start, end, seq.request.sampling, final=final)
+            seq.prefilled = end
+            self.prefill_chunks += 1
+            self.prefill_tokens += end - start
+            if final:
+                self._prefilling.popleft()
+                self.prefills += 1
+                sched.register_prefix(seq.slot, ctx)
+                seq.generated.append(tok)
+                seq.token_times.append(now())
+            return
+
+    def _prefill_pending(self, slot: int) -> bool:
+        seq = self.scheduler.running.get(slot)
+        return seq is not None and seq.prefilled < seq.prefill_target
+
+    # ------------------------------------------------------------------- run --
+    def run(self, requests: Sequence[Request], *,
+            time_fn=time.perf_counter) -> Dict[int, dict]:
+        """Serve a trace to completion. Requests with ``arrival > 0`` are held
+        back until the trace clock reaches them. Returns
+        uid -> {"tokens", "token_times", "prompt_len",
+        "cached_prefill_tokens"[, "error"]}."""
+        sched = self.scheduler
+        pending = deque(sorted(requests, key=lambda r: (r.arrival, r.uid)))
+        results: Dict[int, dict] = {}
+        t0 = time_fn()
+        skip = 0.0                      # simulated idle time (frozen time_fn)
+
+        def now() -> float:
+            return time_fn() - t0 + skip
+
+        def finish(seq: SequenceState) -> None:
+            # context[:-1] is what is in the pages (the last generated
+            # token's K/V was never written)
+            sched.register_prefix(seq.slot, seq.context[:-1])
+            sched.finish(seq)
+            results[seq.request.uid] = {
+                "tokens": list(seq.generated),
+                "token_times": list(seq.token_times),
+                "prompt_len": len(seq.request.prompt),
+                "cached_prefill_tokens": seq.cached_len,
+            }
+
+        while pending or sched.has_work:
+            while pending and pending[0].arrival <= now():
+                sched.submit(pending.popleft())
+
+            while self._prefilling and sched.running.get(
+                    self._prefilling[0].slot) is not self._prefilling[0]:
+                self._prefilling.popleft()
+            # with the prefix cache on, admit one request per iteration and
+            # only while no prefill is in flight, so a later request can
+            # prefix-match the pages the current one is about to register
+            while sched.prefix is None or not self._prefilling:
+                seq = sched.admit_next()
+                if seq is None:
+                    break
+                self._start_prefill(seq)
+            for req in sched.take_rejected():
+                results[req.uid] = {
+                    "tokens": [], "token_times": [],
+                    "prompt_len": len(req.prompt),
+                    "error": "context exceeds max_seq_len "
+                             f"({self.max_pages_per_seq} pages/seq)",
+                }
+
+            self._advance_prefill(now)
+            for slot in list(sched.running):
+                seq = sched.running[slot]
+                if seq.done and not self._prefill_pending(slot):
+                    finish(seq)
+
+            if not sched.running:
+                if pending:
+                    wait = max(0.0, pending[0].arrival - now())
+                    before = now()
+                    time.sleep(min(1e-3, wait))
+                    if now() <= before:
+                        skip += max(wait, 1e-9)
+                    continue
+                if sched.queue:
+                    seq = sched.admit_next()
+                    if seq is None:
+                        raise RuntimeError(
+                            "queue stalled: page pool cannot admit any "
+                            "request")
+                    self._start_prefill(seq)
+                    continue
+                break
+
+            sched.ensure_capacity()     # may preempt; victims re-enter later
+
+            slots = [s for s in sched.running_slots()
+                     if not self._prefill_pending(s)]
+            if not slots:
+                continue
+            cache = sched.cache
+            page_table, seq_lens = cache.page_table, cache.seq_lens
+            if len(slots) != len(sched.running):
+                page_table = page_table.copy()
+                seq_lens = seq_lens.copy()
+                for s in sched.running:
+                    if self._prefill_pending(s):
+                        page_table[s] = 0
+                        seq_lens[s] = 0
+            tokens = np.zeros((self.num_slots,), np.int32)
+            for slot in slots:
+                tokens[slot] = sched.running[slot].generated[-1]
+            active = [sched.running[s].request.sampling for s in slots]
+            sampled = any(not sp.greedy for sp in active)
+            filtered = any(not sp.greedy and sp.filtered for sp in active)
+            if sampled:
+                comp = tuple((s, sched.running[s].request.sampling)
+                             for s in slots)
+                if comp != self._sampling_key:
+                    seeds = np.zeros((self.num_slots,), np.int64)
+                    temps = np.zeros((self.num_slots,), np.float32)
+                    top_ks = np.zeros((self.num_slots,), np.int32)
+                    top_ps = np.ones((self.num_slots,), np.float32)
+                    for slot in slots:
+                        sp = sched.running[slot].request.sampling
+                        seeds[slot] = sp.seed
+                        temps[slot] = sp.temperature
+                        top_ks[slot] = sp.top_k
+                        top_ps[slot] = sp.top_p
+                    self._sampling_args = self._sampling_tensors(
+                        seeds, temps, top_ks, top_ps)
+                    self._sampling_key = comp
+                sampling_args = self._sampling_args
+            else:
+                sampling_args = self._null_sampling
+            next_np = self._decode(page_table, seq_lens, tokens,
+                                   sampling_args, sampled=sampled,
+                                   filtered=filtered)
+            self.steps += 1
+            t_tok = now()
+            for slot in slots:
+                seq = sched.running[slot]
+                cache.seq_lens[slot] += 1    # input token now cached
+                seq.generated.append(int(next_np[slot]))
+                seq.token_times.append(t_tok)
+                if seq.done:
+                    finish(seq)
+        return results
+
+    # ----------------------------------------------------------------- stats --
+    @property
+    def live_kv_tokens(self) -> int:
+        return self.scheduler.cache.live_tokens
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.scheduler.allocator.used_count
