@@ -9,20 +9,31 @@ Phases, each printing one line (any failure exits non-zero):
      llama3.2-3b shapes of the serving path: attention on valid rows within
      2 bf16 ulps of the largest output of the plain version run in fp32 on
      the same bf16 inputs, the top-k/top-p filter and the token draw
-     bitwise;
-  4. the full-width model's logits through the paged kernels against a
-     dense plain-PyTorch forward of the same weights: the final prefill
-     chunk, then four decode steps across a page edge;
-  5. serving: 8 requests through ContinuousEngine (8 slots, page 16, prefill
-     chunk 64, prompts of 128-512 tokens with 4 sharing a 100-token prefix,
-     32 new tokens, half greedy and half at temperature 0.8 / top-k 40 /
-     top-p 0.95) with every kernel's launch counter set to 0 just before
-     the run and read just after;
-     launches are also split between decode steps and prefill chunks, and
-     the top-2 logit margins of the decoded rows are compared with the
-     logit error of phase 4;
-  6. the same trace under torch.profiler: device time by kernel and kind,
-     and the device's idle share;
+     bitwise, the fused add + norm with x + y bitwise and the norm within
+     1 bf16 ulp (8 and 64 rows), the fused LM head's tokens and probe
+     bitwise on inputs whose GEMM is exact in any order (greedy,
+     temperature-only and filtered steps), and its greedy tokens on random
+     bf16 inputs wherever the plain top-2 margin exceeds 2 bf16 ulps
+     (8 rows, the serve's, and 16, two groups of the head's GEMV); the
+     filter and draw also under a short torch.profiler window;
+  4. the full-width model's logits through the paged kernels, unfused and
+     fused layer bodies, against a dense plain-PyTorch forward of the same
+     weights: the final prefill chunk, then four decode steps across a page
+     edge;
+  5. serving, two paths: 8 requests through ContinuousEngine (8 slots, page
+     16, prefill chunk 64, prompts of 128-512 tokens with 4 sharing a
+     100-token prefix, 32 new tokens, half greedy and half at temperature
+     0.8 / top-k 40 / top-p 0.95), first with fused_decode=False (the
+     attention, filter and draw kernels), then with fused decode, the
+     engine's default (attention, fused add + norm and fused head). Every
+     kernel's launch counter is set to 0 just before each run and read
+     just after; launches are split between decode steps and prefill
+     chunks; the unfused run compares the decoded rows' top-2 logit
+     margins with the logit error of phase 4, the fused run checks the
+     head's finite probe on live rows, and the two runs' streams are
+     compared (they may fork on near-tied logits);
+  6. the fused trace (the default path) under torch.profiler: device time
+     by kernel and kind, kernel launches, and the device's idle share;
   7. one JSON line of per-kernel numbers (times from CUDA events).
 The last line is {"ok": true, "device": {...}}. Weights are random, made on
 the card from a seeded torch.Generator; nothing is downloaded.
@@ -67,6 +78,23 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _profiled_ms(fn, names, iters: int = 10):
+    """Device ms per call of the kernels whose names contain one of
+    ``names``, from torch.profiler over ``iters`` calls (None if the
+    profiler recorded no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(n in e.key for n in names))
+    return us / 1e3 / iters if us > 0 else None
 
 
 def _attn_tol(plain: torch.Tensor) -> float:
@@ -213,8 +241,11 @@ def check_filter(arch, rng, dev):
                         2, warmup=1)
     library_ms = _time_ms(lambda: ref.filter_logits_ref(lg, top_k, top_p),
                           2, warmup=1)
+    dev_ms = _profiled_ms(lambda: ops.filter_logits(lg, top_k, top_p),
+                          ("filter_kernel",))
     bound_ms, bound_by = _bound(2 * lg.numel() * 4 + s * 8, 0.0, FP32_FLOPS)
     return {"name": "filter_logits", "route": "cuda",
+            "profiler_device_ms_per_call": dev_ms,
             "source": "src/repro_torch/kernels/fused_sampling/csrc/"
                       "sampling.cu",
             "replaces": "src/repro/kernels/fused_sampling/kernel.py:73",
@@ -242,14 +273,204 @@ def check_draw(lg_f, dev):
         _fail("draw_tokens drew a masked-out token")
     ms = _time_ms(lambda: ops.draw_tokens(lg_f, rs), 200)
     plain_ms = _time_ms(lambda: head_ref.draw_tokens(lg_f, rs), 5, warmup=1)
+    dev_ms = _profiled_ms(lambda: ops.draw_tokens(lg_f, rs), ("draw_kernel",))
     bound_ms, bound_by = _bound(lg_f.numel() * 4 + 2 * s * 4,
                                 4.0 * lg_f.numel(), FP32_FLOPS)
     return {"name": "draw_tokens", "route": "cuda",
+            "profiler_device_ms_per_call": dev_ms,
             "source": "src/repro_torch/kernels/fused_sampling/csrc/"
                       "sampling.cu",
             "replaces": "src/repro/kernels/fused_lm_head/ref.py:90",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp (8 significant bits) at each |t|, floored at the
+    smallest normal."""
+    mag = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_residual_norm(arch, dev):
+    """The fused add + norm at the decode shape [8, D] and a prefill chunk
+    [64, D] (rmsnorm, as llama3.2-3b), and layernorm + bias at [8, D]:
+    x + y bitwise, the norm within 1 bf16 ulp of the plain version."""
+    from repro_torch.kernels.fused_layernorm import ops, ref
+    d = arch.d_model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    err, out = 0.0, {}
+    for rows, kind in ((8, arch.norm), (64, arch.norm), (8, "layernorm")):
+        x = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        y = (torch.randn((rows, d), generator=gen, device=dev)
+             * 0.5).bfloat16()
+        scale = (1.0 + 0.1 * torch.randn((d,), generator=gen,
+                                         device=dev)).bfloat16()
+        bias = (0.1 * torch.randn((d,), generator=gen, device=dev)).bfloat16() \
+            if kind == "layernorm" else None
+        h, x2 = ops.decode_residual_norm(y, x, scale, bias, kind=kind)
+        ph, px2 = ref.decode_residual_norm(y, x, scale, bias, kind=kind)
+        torch.cuda.synchronize()
+        if not torch.equal(x2.view(torch.int16), px2.view(torch.int16)):
+            _fail(f"decode_residual_norm [{rows}, {d}] {kind}: x + y is not "
+                  "bitwise equal to the plain version")
+        diff = (h.float() - ph.float()).abs()
+        if not bool((diff <= _bf16_ulp(ph)).all()):
+            _fail(f"decode_residual_norm [{rows}, {d}] {kind}: norm differs "
+                  f"by more than 1 bf16 ulp (max abs {diff.max().item()})")
+        err = max(err, diff.max().item())
+        if kind == arch.norm:
+            out[rows] = (y, x, scale)
+    times = {}
+    for rows, (y, x, scale) in out.items():
+        times[rows] = _time_ms(lambda: ops.decode_residual_norm(
+            y, x, scale, kind=arch.norm), 200)
+    y, x, scale = out[8]
+    plain_ms = _time_ms(lambda: ref.decode_residual_norm(
+        y, x, scale, kind=arch.norm), 200)
+    bound_ms, bound_by = _bound(4 * 8 * d * 2 + d * 2, 4.0 * 8 * d,
+                                FP32_FLOPS)
+    return {"name": "decode_residual_norm", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_layernorm/csrc/"
+                      "residual_norm.cu",
+            "replaces": "src/repro/kernels/fused_layernorm/kernel.py:85",
+            "max_abs_err": err, "tol": "1 bf16 ulp of each output; x + y "
+                                      "bitwise",
+            "ms": times[8], "ms_64_rows": times[64], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_note": "no single PyTorch call adds and normalizes"}
+
+
+def _exact_head_inputs(arch, dev, gen):
+    """x [16, D] on k/8 and W [V, D] on k/64, |k| <= 8: every partial sum of
+    a logit is a multiple of 2^-9 below 2^9, exact in fp32 in any order.
+    W[:, 0] = 1/64 > 0 so rows 4 (x[4, 0] = +inf) and 5 (x[5, 0] = -inf)
+    have all-infinite logits; rows 126-130 copy row 1's argmax row, a
+    6-way tie at row 1's top that crosses the 128-lane tile edge."""
+    from repro_torch.models.layers import pad_vocab
+    v, d = pad_vocab(arch.vocab_size), arch.d_model
+    w = torch.randint(-8, 9, (v, d), generator=gen, device=dev,
+                      dtype=torch.int8).to(torch.bfloat16) / 64
+    x = torch.randint(-8, 9, (16, d), generator=gen, device=dev,
+                      dtype=torch.int8).to(torch.bfloat16) / 8
+    w[:, 0] = 1.0 / 64
+    top = int((x[1:2].float() @ w.float().T).argmax())
+    w[126:131] = w[top]
+    x[4, 0], x[5, 0] = float("inf"), float("-inf")
+    return x, w, top
+
+
+def check_head_tokens(arch, dev):
+    """The fused LM head against its plain version (cuBLAS bf16 GEMM with
+    fp32 reduction, then the plain epilogue) on exact-arithmetic inputs:
+    tokens and probe bitwise for greedy, temperature-only and filtered
+    steps, at 8 rows (the serve's slots) and 16 (two row groups of the
+    GEMV). Then random bf16 inputs: greedy tokens equal on every row whose
+    plain top-2 margin exceeds 2 bf16 ulps of the largest |logit|."""
+    from repro_torch.kernels.fused_lm_head import ops, ref
+    from repro_torch.kernels.fused_sampling import ops as samp_ops
+    from repro_torch.models.layers import unembed
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x, w, top = _exact_head_inputs(arch, dev, gen)
+    d, v = x.shape[1], w.shape[0]
+    idx = torch.arange(16, device=dev)
+    rs = ref.row_uniforms(idx + 11, idx * 37)
+    rs[1] = 0.5
+    temps = torch.tensor([0.0, 1.0, 0.8, 1.0, 0.0, 1.0, 1.3, 0.7,
+                          1.0, 0.0, 0.9, 1.0, 0.6, 1.0, 0.0, 1.2], device=dev)
+    top_k = torch.tensor([0, 3, 40, 0, 0, 40, 1, v + 5,
+                          40, 0, 5, 0, 40, 1, 0, 100], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 0.95, 0.95, 1.0, 1.0, 0.9, 1.0, 0.5,
+                          0.95, 1.0, 0.8, 0.9, 1.0, 1.0, 1.0, 0.7],
+                         device=dev)
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    lines = []
+    for s in (16, 8):
+        args = tuple(t[:s] for t in (x, rs, temps, top_k, top_p))
+        args = (args[0], w) + args[1:]
+        for sampled, filtered in ((False, False), (True, False),
+                                  (True, True)):
+            tok, ok = ops.head_tokens(*args, sampled=sampled,
+                                      filtered=filtered)
+            ptok, pok = ref.head_tokens(*args, sampled=sampled,
+                                        filtered=filtered)
+            torch.cuda.synchronize()
+            if not (torch.equal(tok, ptok) and torch.equal(ok, pok)):
+                _fail(f"head_tokens S={s} (sampled={sampled}, filtered="
+                      f"{filtered}) tokens {tok.tolist()} ok {ok.tolist()} "
+                      f"differ from the plain version's {ptok.tolist()} "
+                      f"{pok.tolist()} (contract: bitwise on "
+                      "exact-arithmetic inputs)")
+            lines.append(f"S={s} sampled={sampled} filtered={filtered}: "
+                         f"{tok.tolist()}")
+        if ok[4] or ok[5] or not ok[[i for i in range(s)
+                                     if i not in (4, 5)]].all():
+            _fail(f"head_tokens probe {ok.tolist()}: rows 4 and 5 must be "
+                  "non-finite, the rest finite")
+    s = 8                                  # the serve's rows, timed below
+    if tok[4] != 0 or tok[5] != 0 or int(tok[1]) not in (top, 126, 127, 128,
+                                                         129, 130):
+        _fail(f"head_tokens corners: row 4 (all +inf, greedy) and row 5 "
+              f"(all -inf, masked) must give 0, row 1 a tied top token; got "
+              f"{tok.tolist()}")
+
+    # random full-width bf16 inputs (the weight buffer is reused)
+    w.normal_(0.0, 0.02, generator=gen)
+    xr = torch.randn((16, d), generator=gen, device=dev).bfloat16()
+    rargs16 = (xr, w, rs, temps, top_k, top_p)
+    xr, rs, temps, top_k, top_p = (t[:s] for t in (xr, rs, temps, top_k,
+                                                  top_p))
+    rargs = (xr, w, rs, temps, top_k, top_p)
+    tok, _ = ops.head_tokens(*rargs, sampled=False, filtered=False)
+    logits = unembed({}, xr, w)
+    top2 = torch.topk(logits, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * _bf16_ulp(
+        logits.abs().max(dim=-1).values)
+    same = tok == logits.argmax(dim=-1).int()
+    if not bool(same[clear].all()):
+        _fail(f"head_tokens greedy tokens {tok.tolist()} differ from the "
+              f"plain argmax on rows with a clear top-2 margin "
+              f"({clear.tolist()})")
+    lines.append(f"random bf16: {int(clear.sum())} of {s} rows with top-2 "
+                 f"margin > 2 bf16 ulps, all equal; {int(same.sum())} of {s}"
+                 " equal in all")
+
+    ms = _time_ms(lambda: ops.head_tokens(*rargs, sampled=True,
+                                          filtered=True), 20)
+    ms_greedy = _time_ms(lambda: ops.head_tokens(*rargs, sampled=False,
+                                                 filtered=False), 20)
+    ms_16 = _time_ms(lambda: ops.head_tokens(*rargs16, sampled=True,
+                                             filtered=True), 20)
+    plain_ms = _time_ms(lambda: ref.head_tokens(*rargs, sampled=True,
+                                                filtered=True), 3, warmup=1)
+    library_ms = _time_ms(lambda: torch.matmul(xr, w.T), 20)
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+
+    def unfused_head():
+        lg = unembed({}, xr, w)
+        torch.argmax(lg, dim=-1)
+        torch.isfinite(lg).all(dim=-1)
+        samp_ops.draw_tokens(samp_ops.filter_logits(lg / safe_t[:, None],
+                                                    top_k, top_p), rs)
+    unfused_ms = _time_ms(unfused_head, 20)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+    print("[head_tokens] " + "; ".join(lines))
+    nbytes = v * d * 2 + s * d * 2 + 4 * s * 4 + s * 4 + s
+    bound_ms, bound_by = _bound(nbytes, 2.0 * s * v * d, BF16_FLOPS)
+    return {"name": "head_tokens", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_lm_head/csrc/"
+                      "head_tokens.cu",
+            "replaces": "src/repro/kernels/fused_lm_head/kernel.py:64",
+            "max_abs_err": 0.0, "ms": ms, "ms_greedy": ms_greedy,
+            "ms_16_rows": ms_16,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_note": "torch.matmul of x [8, D] by the [V, D] weight "
+                            "transposed",
+            "unfused_head_ms": unfused_ms,
+            "random_rows_clear_margin": int(clear.sum())}
 
 
 # ---------------------------------------------------------------- phase 4 ---
@@ -275,8 +496,9 @@ def check_model_logits(model, rng, dev) -> float:
     """The final prefill chunk's logits (positions 0-109 in chunks of 64),
     then four decode steps (positions 110-113, across the page edge at 112,
     beside an empty slot as the engine runs idle slots), each against the
-    dense plain forward of the same prefix. Returns the largest max abs
-    logit error."""
+    dense plain forward of the same prefix, through the unfused and the
+    fused layer bodies (each with its own pools). Returns the largest max
+    abs logit error."""
     from repro_torch.models import transformer as tf
     arch = model.arch
     blocks = model.params["blocks"]
@@ -284,42 +506,50 @@ def check_model_logits(model, rng, dev) -> float:
     toks = torch.as_tensor(rng.integers(5, arch.vocab_size,
                                         (1, n_pre + n_dec)), device=dev)
     with torch.inference_mode():
-        pools = tf.init_serving_state(arch, 9, page, model.dtype, dev)
-        row = torch.arange(1, 9, dtype=torch.int32, device=dev)
-        chunk = torch.zeros((1, 64), dtype=torch.long, device=dev)
-        for start in (0, 64):
-            end = min(start + 64, n_pre)
-            chunk.zero_()
-            chunk[0, :end - start] = toks[0, start:end]
-            x = tf.paged_prefill_stack(arch, blocks, pools, model._embed(chunk),
-                                       row, start, end)
-        got = [model._logits(tf.chunk_final_hidden(x, 64, n_pre))[0, 0]]
-        table = torch.zeros((2, 8), dtype=torch.int32, device=dev)
-        table[0] = row
-        for pos in range(n_pre, n_pre + n_dec):
-            tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
-            tok[0, 0] = toks[0, pos]
-            sl = torch.tensor([pos, 0], dtype=torch.int32, device=dev)
-            x = tf.paged_decode_stack(arch, blocks, pools, model._embed(tok),
-                                      table, sl)
-            got.append(model._logits(x)[0, 0])
         refs = [dense_reference_logits(model, toks[:, :n + 1])
                 for n in range(n_pre - 1, n_pre + n_dec)]
+        got = {}
+        for fused in (False, True):
+            pools = tf.init_serving_state(arch, 9, page, model.dtype, dev)
+            row = torch.arange(1, 9, dtype=torch.int32, device=dev)
+            chunk = torch.zeros((1, 64), dtype=torch.long, device=dev)
+            for start in (0, 64):
+                end = min(start + 64, n_pre)
+                chunk.zero_()
+                chunk[0, :end - start] = toks[0, start:end]
+                x = tf.paged_prefill_stack(arch, blocks, pools,
+                                           model._embed(chunk), row, start,
+                                           end, fused=fused)
+            out = [model._logits(tf.chunk_final_hidden(x, 64, n_pre))[0, 0]]
+            table = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+            table[0] = row
+            for pos in range(n_pre, n_pre + n_dec):
+                tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
+                tok[0, 0] = toks[0, pos]
+                sl = torch.tensor([pos, 0], dtype=torch.int32, device=dev)
+                x = tf.paged_decode_stack(arch, blocks, pools,
+                                          model._embed(tok), table, sl,
+                                          fused=fused)
+                out.append(model._logits(x)[0, 0])
+            got[fused] = out
     worst, lines = 0.0, []
-    for i, (g, r) in enumerate(zip(got, refs)):
-        if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
-            _fail("non-finite logits in the model check")
-        rel = ((g - r).norm() / r.norm()).item()
-        err = (g - r).abs().max().item()
-        top2 = torch.topk(r, 2).values
-        worst = max(worst, err)
-        lines.append(f"{'prefill' if i == 0 else 'decode'} pos "
-                     f"{n_pre - 1 + i}: rel L2 {rel:.3e}, max abs {err:.3e}, "
-                     f"argmax equal {int(g.argmax()) == int(r.argmax())}, "
-                     f"ref top-2 margin {(top2[0] - top2[1]).item():.3e}")
-        if not rel <= 0.05:
-            _fail(f"model logits rel L2 error {rel} > 0.05 at position "
-                  f"{n_pre - 1 + i} (bf16, 28 layers)")
+    for fused, out in got.items():
+        for i, (g, r) in enumerate(zip(out, refs)):
+            if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
+                _fail("non-finite logits in the model check")
+            rel = ((g - r).norm() / r.norm()).item()
+            err = (g - r).abs().max().item()
+            top2 = torch.topk(r, 2).values
+            worst = max(worst, err)
+            lines.append(f"{'fused' if fused else 'unfused'} "
+                         f"{'prefill' if i == 0 else 'decode'} pos "
+                         f"{n_pre - 1 + i}: rel L2 {rel:.3e}, max abs "
+                         f"{err:.3e}, argmax equal "
+                         f"{int(g.argmax()) == int(r.argmax())}, ref top-2 "
+                         f"margin {(top2[0] - top2[1]).item():.3e}")
+            if not rel <= 0.05:
+                _fail(f"model logits rel L2 error {rel} > 0.05 at position "
+                      f"{n_pre - 1 + i} (bf16, 28 layers, fused={fused})")
     print(f"[model] llama3.2-3b {arch.num_layers}L logits via the paged "
           f"kernels vs dense plain forward (bf16, tol rel L2 0.05): "
           + "; ".join(lines))
@@ -350,32 +580,51 @@ def trace(arch, seed):
             for i in range(n_req)]
 
 
-def make_engine(model):
+def make_engine(model, fused: bool):
     from repro_torch.serving import ContinuousEngine
     return ContinuousEngine(model, num_slots=8, num_pages=320, page_size=16,
-                            max_seq_len=512 + 32 + 16, prefill_chunk=64)
+                            max_seq_len=512 + 32 + 16, prefill_chunk=64,
+                            fused_decode=fused)
 
 
-def serve(model, logit_err: float):
-    """Serve the trace with every launch counter set to 0 just before the
-    run; count launches per decode step and per prefill chunk, and the
-    decoded rows whose top-2 logit margin is below ``logit_err``."""
+def _counters():
     from repro_torch.kernels.decode_attention import ops as attn_ops
+    from repro_torch.kernels.fused_layernorm import ops as ln_ops
+    from repro_torch.kernels.fused_lm_head import ops as head_ops
     from repro_torch.kernels.fused_sampling import ops as samp_ops
+    return (attn_ops.LAUNCHES, samp_ops.LAUNCHES, ln_ops.LAUNCHES,
+            head_ops.LAUNCHES)
+
+
+def _snapshot():
+    return {k: v for d in _counters() for k, v in d.items()}
+
+
+PATH_KERNELS = {False: ("paged_decode_attention", "paged_prefill_attention",
+                        "filter_logits", "draw_tokens"),
+                True: ("paged_decode_attention", "paged_prefill_attention",
+                       "decode_residual_norm", "head_tokens")}
+
+
+def serve(model, logit_err: float, fused: bool):
+    """Serve the trace with every launch counter set to 0 just before the
+    run; count launches per decode step and per prefill chunk. Unfused:
+    probe the logits for finiteness and count the decoded rows whose top-2
+    logit margin is below ``logit_err``. Fused: the head returns no logits,
+    so probe its all-finite flag on live rows."""
     arch = model.arch
     reqs = trace(arch, SEED)
     n_req, gen = len(reqs), reqs[0].max_new_tokens
-    engine = make_engine(model)
-    counters = (attn_ops.LAUNCHES, samp_ops.LAUNCHES)
-
-    def snapshot():
-        return {k: v for d in counters for k, v in d.items()}
+    engine = make_engine(model, fused)
+    if engine.fused_decode != fused:
+        _fail(f"engine fused_decode={engine.fused_decode}, asked {fused}: "
+              f"{engine.fused_decode_off_reason}")
     finite, margins, last = [], [], {}
-    phase = {"decode": dict.fromkeys(snapshot(), 0),
-             "prefill": dict.fromkeys(snapshot(), 0)}
+    phase = {"decode": dict.fromkeys(_snapshot(), 0),
+             "prefill": dict.fromkeys(_snapshot(), 0)}
     flagged = {"sampled": 0, "filtered": 0}
-    logits_fn, decode_fn, prefill_fn = (model._logits, engine._decode,
-                                        engine._prefill)
+    logits_fn, head_fn = model._logits, engine._fused_head
+    decode_fn, prefill_fn = engine._decode, engine._prefill
 
     def probed_logits(x):
         out = logits_fn(x)
@@ -383,11 +632,16 @@ def serve(model, logit_err: float):
         last["logits"] = out
         return out
 
+    def probed_head(*args, **kw):
+        tok, ok = head_fn(*args, **kw)
+        last["ok"] = ok
+        return tok, ok
+
     def counted(name, fn):
         def run(*args, **kw):
-            before = snapshot()
+            before = _snapshot()
             out = fn(*args, **kw)
-            for k, v in snapshot().items():
+            for k, v in _snapshot().items():
                 phase[name][k] += v - before[k]
             return out
         return run
@@ -399,15 +653,28 @@ def serve(model, logit_err: float):
                                            filtered=filtered)
         flagged["sampled"] += bool(sampled)
         flagged["filtered"] += bool(filtered)
-        rows = torch.as_tensor(np.flatnonzero(seq_lens > 0),
-                               device=last["logits"].device)
-        top2 = torch.topk(last["logits"][rows, 0].float(), 2, dim=-1).values
-        margins.append(top2[:, 0] - top2[:, 1])
+        live = np.flatnonzero(seq_lens > 0)
+        if fused:
+            finite.append(last["ok"][torch.as_tensor(
+                live, device=last["ok"].device)].all())
+        else:
+            rows = torch.as_tensor(live, device=last["logits"].device)
+            top2 = torch.topk(last["logits"][rows, 0].float(), 2,
+                              dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
         return out
 
-    model._logits = probed_logits
-    engine._decode, engine._prefill = decode, counted("prefill", prefill_fn)
-    for d in counters:
+    def prefill(*args, final, **kw):
+        out = counted("prefill", prefill_fn)(*args, final=final, **kw)
+        if fused and final:
+            finite.append(last["ok"][0])
+        return out
+
+    if not fused:
+        model._logits = probed_logits
+    engine._fused_head = probed_head
+    engine._decode, engine._prefill = decode, prefill
+    for d in _counters():
         for k in d:
             d[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -416,7 +683,7 @@ def serve(model, logit_err: float):
     res = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = snapshot()
+    launches = _snapshot()
     model._logits = logits_fn
     for i in range(n_req):
         r = res.get(i)
@@ -426,13 +693,26 @@ def serve(model, logit_err: float):
         _fail("non-finite logits during serving")
     if engine.cow_copies < 1 or engine.cached_prefill_tokens < 1:
         _fail("the shared-prefix trace did not hit the prefix cache / CoW")
-    for name, n in launches.items():
-        if n <= 0:
-            _fail(f"kernel {name} was not launched on the main path")
+    for name in PATH_KERNELS[fused]:
+        if launches[name] <= 0:
+            _fail(f"kernel {name} was not launched on the "
+                  f"{'fused' if fused else 'unfused'} path")
+    if fused:
+        want = {"decode_residual_norm":
+                arch.num_layers * (engine.steps + engine.prefill_chunks),
+                "head_tokens": engine.steps + engine.prefills}
+        for name, n in want.items():
+            if launches[name] != n:
+                _fail(f"{name}: {launches[name]} launches, expected {n} "
+                      "(one per layer per decode step and prefill chunk; "
+                      "one head per decode step and final chunk)")
+        for name in ("filter_logits", "draw_tokens"):
+            if launches[name]:
+                _fail(f"the fused path launched {name}")
     ntok = sum(len(r["tokens"]) for r in res.values())
     ttft = float(np.mean([res[i]["token_times"][0] for i in range(n_req)]))
-    m = torch.cat(margins)
-    print(f"[serve] llama3.2-3b {arch.num_layers}L d{arch.d_model} bf16: "
+    print(f"[serve] {'fused' if fused else 'unfused'} decode, llama3.2-3b "
+          f"{arch.num_layers}L d{arch.d_model} bf16: "
           f"{n_req} requests x {gen} tokens in {wall:.3f}s "
           f"({ntok / wall:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms); "
           f"steps {engine.steps} ({flagged['sampled']} sampled, "
@@ -443,18 +723,23 @@ def serve(model, logit_err: float):
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches in decode {phase['decode']}, in prefill "
           f"{phase['prefill']}")
-    print(f"[margins] decoded rows: {m.numel()}, top-2 logit margin min "
-          f"{m.min().item():.3e} median {m.median().item():.3e}; rows with "
-          f"margin below the model check's max abs logit error "
-          f"{logit_err:.3e}: {int((m < logit_err).sum())}")
-    return launches, phase, flagged, engine
+    if not fused:
+        m = torch.cat(margins)
+        print(f"[margins] decoded rows: {m.numel()}, top-2 logit margin min "
+              f"{m.min().item():.3e} median {m.median().item():.3e}; rows "
+              f"with margin below the model check's max abs logit error "
+              f"{logit_err:.3e}: {int((m < logit_err).sum())}")
+    return {"launches": launches, "phase": phase, "flagged": flagged,
+            "engine": engine, "results": res, "wall": wall}
 
 
 def profile_serve(model):
-    """The same trace again under torch.profiler: device time by kernel,
-    by kind, and the device's idle share of the wall time."""
+    """The same trace again on the fused (default) path under
+    torch.profiler: device time by kernel, by kind, kernel launches, and
+    the device's idle share of the wall time. Returns {kernel name:
+    (device ms, launches)}."""
     from torch.profiler import ProfilerActivity, profile
-    engine = make_engine(model)
+    engine = make_engine(model, True)
     reqs = trace(model.arch, SEED)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -469,29 +754,41 @@ def profile_serve(model):
                and e.self_device_time_total > 0]
     busy = sum(k[1] for k in kernels)
     if busy <= 0:
-        print("[profile] device time: not measured (the profiler recorded "
-              "no CUDA kernel time)")
-        return
-    kinds = {"paged attention": 0.0, "sampler": 0.0, "gemm": 0.0,
-             "other": 0.0}
+        print("[profile] fused: device time: not measured (the profiler "
+              "recorded no CUDA kernel time)")
+        return {}
+    kinds = {"paged attention": 0.0, "residual norm": 0.0,
+             "fused head": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
         if "decode_kernel" in low or "prefill_kernel" in low:
             kinds["paged attention"] += ms
-        elif "filter_kernel" in low or "draw_kernel" in low:
-            kinds["sampler"] += ms
+        elif "resnorm_kernel" in low:
+            kinds["residual norm"] += ms
+        elif "head_gemv_kernel" in low or "head_epilogue_kernel" in low:
+            kinds["fused head"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
                                       "cutlass")):
             kinds["gemm"] += ms
         else:
             kinds["other"] += ms
+    n_launch = sum(k[2] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    print(f"[profile] same trace under torch.profiler: wall {wall_ms:.1f} "
-          f"ms, device busy {busy:.1f} ms, idle share "
-          f"{1 - busy / wall_ms:.3f}; by kind (ms) "
+    print(f"[profile] fused trace under torch.profiler: wall "
+          f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}; kernel launches {n_launch} "
+          f"({engine.steps} decode steps, {engine.prefill_chunks} prefill "
+          f"chunks); by kind (ms) "
           + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
           + "; top kernels " + "; ".join(
               f"{n[:48]} {ms:.1f} ms x{c}" for n, ms, c in top))
+    return {name: (ms, c) for name, ms, c in kernels}
+
+
+DEVICE_NAMES = {"paged_decode_attention": ("decode_kernel",),
+                "paged_prefill_attention": ("prefill_kernel",),
+                "decode_residual_norm": ("resnorm_kernel",),
+                "head_tokens": ("head_gemv_kernel", "head_epilogue_kernel")}
 
 
 def main() -> int:
@@ -517,6 +814,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
 
+    t_start = time.perf_counter()
     built = _build.build_all()
     regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
             for n, log in built["ptxas"].items()}
@@ -526,15 +824,21 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     arch = get_config("llama3.2-3b")
+    marks = {"build": time.perf_counter()}
     rows = [check_decode_attention(arch, rng, dev),
             check_prefill_attention(arch, rng, dev)]
     filt, lg_f = check_filter(arch, rng, dev)
     rows += [filt, check_draw(lg_f, dev)]
+    del lg_f
+    rows += [check_residual_norm(arch, dev), check_head_tokens(arch, dev)]
+    torch.cuda.empty_cache()
     print("[kernels vs plain] " + "; ".join(
         f"{r['name']}: max abs err {r['max_abs_err']:.3e}"
-        + (f" (tol {r['tol']:.3e})" if "tol" in r else " (bitwise)")
+        + (f" (tol {r['tol']})" if isinstance(r.get("tol"), str) else
+           f" (tol {r['tol']:.3e})" if "tol" in r else " (bitwise)")
         for r in rows))
 
+    marks["kernel checks"] = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     model = Model.init(arch, gen, device=dev)
@@ -542,28 +846,60 @@ def main() -> int:
     print(f"[init] llama3.2-3b full width, {arch.num_layers} layers, bf16 "
           f"weights on the card in {time.perf_counter() - t0:.1f}s")
     logit_err = check_model_logits(model, rng, dev)
-    launches, phase, flagged, engine = serve(model, logit_err)
-    profile_serve(model)
-    # decode-step launches per decode step that could launch the kernel
-    per_step = {"paged_decode_attention": engine.steps,
-                "paged_prefill_attention": None,
-                "filter_logits": flagged["filtered"],
-                "draw_tokens": flagged["sampled"]}
+    marks["model checks"] = time.perf_counter()
+    runs = {fused: serve(model, logit_err, fused) for fused in (False, True)}
+    marks["serves"] = time.perf_counter()
+    same = sum(runs[False]["results"][i]["tokens"]
+               == runs[True]["results"][i]["tokens"]
+               for i in runs[False]["results"])
+    print(f"[streams] fused vs unfused serve: {same} of "
+          f"{len(runs[False]['results'])} request streams identical (bf16 "
+          "streams may fork on near-tied logits; not a failure)")
+    prof = profile_serve(model)
+    marks["profile"] = time.perf_counter()
+    prev = t_start
+    spans = []
+    for name, t in marks.items():
+        spans.append(f"{name} {t - prev:.1f}")
+        prev = t
+    print(f"[time] seconds by phase: {', '.join(spans)}; total "
+          f"{prev - t_start:.1f}")
     for r in rows:
         name = r["name"]
-        r["launches"] = launches[name]
-        r["launches_in_decode"] = phase["decode"][name]
-        r["launches_in_prefill"] = phase["prefill"][name]
-        n = per_step[name]
+        path = name in PATH_KERNELS[True]   # the fused serve is the default
+        run = runs[path]
+        engine = run["engine"]
+        per_step = {"paged_decode_attention": engine.steps,
+                    "paged_prefill_attention": None,
+                    "filter_logits": run["flagged"]["filtered"],
+                    "draw_tokens": run["flagged"]["sampled"],
+                    "decode_residual_norm": engine.steps,
+                    "head_tokens": engine.steps}[name]
+        r["launches"] = run["launches"][name]
+        r["launches_path"] = "fused serve" if path else "unfused serve"
+        r["launches_unfused_serve"] = runs[False]["launches"][name]
+        r["launches_fused_serve"] = runs[True]["launches"][name]
+        r["launches_in_decode"] = run["phase"]["decode"][name]
+        r["launches_in_prefill"] = run["phase"]["prefill"][name]
         r["launches_per_eligible_decode_step"] = (
-            phase["decode"][name] / n if n else None)
-        r["launches_per_prefill_chunk"] = (phase["prefill"][name]
+            run["phase"]["decode"][name] / per_step if per_step else None)
+        r["launches_per_prefill_chunk"] = (run["phase"]["prefill"][name]
                                            / engine.prefill_chunks)
-    print(json.dumps({"kernels": rows, "decode_steps": engine.steps,
-                      "decode_steps_sampled": flagged["sampled"],
-                      "decode_steps_filtered": flagged["filtered"],
-                      "prefill_chunks": engine.prefill_chunks,
-                      "card": smi}))
+        if path:            # filter and draw: from their phase-3 window
+            dev_ms = [v for k, v in prof.items()
+                      if any(n in k for n in DEVICE_NAMES[name])]
+            r["profiler_device_ms_per_call"] = (
+                sum(v[0] for v in dev_ms) / r["launches"]
+                if dev_ms and r["launches"] else None)
+    print(json.dumps({"kernels": rows, "serves": {
+        ("fused" if f else "unfused"): {
+            "wall_s": run["wall"], "decode_steps": run["engine"].steps,
+            "decode_steps_sampled": run["flagged"]["sampled"],
+            "decode_steps_filtered": run["flagged"]["filtered"],
+            "prefill_chunks": run["engine"].prefill_chunks,
+            "prefills": run["engine"].prefills}
+        for f, run in runs.items()},
+        "identical_streams": same, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,6 +12,7 @@ or older than its source, then loads the library.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -41,11 +42,14 @@ def _nvcc() -> str:
     return path
 
 
-def _stale(name: str, src: Path) -> bool:
+def _stale(name: str) -> bool:
+    """Whether ``name``'s library is missing or older than any CUDA source
+    or header of the package (a source may include another kernel's
+    header, as ``head_tokens.cu`` includes the sampler's device code)."""
     so = BUILD_DIR / f"{name}.so"
     if not so.exists():
         return True
-    newest = max(p.stat().st_mtime for p in src.parent.glob("*.cu*"))
+    newest = max(p.stat().st_mtime for p in KERNELS_DIR.glob("*/csrc/*.cu*"))
     return so.stat().st_mtime < newest
 
 
@@ -91,18 +95,21 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library ``name`` (built first if needed)."""
     lib = _loaded.get(name)
     if lib is None:
-        if _stale(name, sources()[name]):
+        if _stale(name):
             build_all()
         lib = ctypes.CDLL(str(BUILD_DIR / f"{name}.so"))
         _loaded[name] = lib
     return lib
 
 
-def bind(lib: ctypes.CDLL, fn: str, n_ptrs: int, n_ints: int):
-    """Declare ``fn(void* x n_ptrs, int x n_ints, void* stream) -> int``."""
-    f = getattr(lib, fn)
+@functools.lru_cache(maxsize=None)
+def bind(name: str, fn: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
+    """Library ``name``'s ``fn(void* x n_ptrs, int x n_ints, float x
+    n_floats, void* stream) -> int``, declared once and cached, so a launch
+    makes one ctypes call."""
+    f = getattr(library(name), fn)
     f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                  + [ctypes.c_void_p])
+                  + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
 

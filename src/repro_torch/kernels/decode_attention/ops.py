@@ -75,7 +75,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens):
     _check_index("page_table", page_table, (b, page_table.shape[1]), q.device)
     _check_index("seq_lens", seq_lens, (b,), q.device)
     out = torch.empty_like(q)
-    fn = _build.bind(_build.library(_LIB), "paged_decode_attention", 6, 6)
+    fn = _build.bind(_LIB, "paged_decode_attention", 6, 6)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
              b, hq, hkv, d, page_size, page_table.shape[1], _stream(q))
@@ -102,7 +102,7 @@ def paged_prefill_attention(q, k_pages, v_pages, page_row, start: int,
         raise ValueError(f"need 0 <= start ({start}) <= total_len "
                          f"({total_len}) <= page capacity")
     out = torch.empty_like(q)
-    fn = _build.bind(_build.library(_LIB), "paged_prefill_attention", 5, 8)
+    fn = _build.bind(_LIB, "paged_prefill_attention", 5, 8)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_row.data_ptr(), out.data_ptr(), c, hq, hkv, d, page_size,
              page_row.shape[0], start, total_len, _stream(q))

@@ -1,0 +1,465 @@
+// The fused LM head for Hopper (sm_90a): final hidden x [S, D] and the tied
+// embedding W [V, D] -> (tokens int32 [S], ok bool [S]): the unembed GEMM,
+// the greedy argmax, the all-finite probe, temperature scaling, the top-k /
+// top-p filter and the inverse-CDF draw, with no fp32 [S, V] logits tensor.
+//
+// Replaces the TPU kernel src/repro/kernels/fused_lm_head/kernel.py:64
+// head_tokens (pallas_call at :73). The plain version is
+// repro_torch/kernels/fused_lm_head/ref.py head_tokens: unembed, then
+// head_epilogue (argmax, probe, temperature, filter_logits_bisect,
+// draw_tokens), the same ops as the unfused sampler.
+//
+// What bounds it on this card: bytes. The weight is read once: 128256 x
+// 3072 bf16 = 788 MB, 0.235 ms at 3.35 TB/s; the 2 x S x V x D operations
+// take 0.006 ms at the bf16 tensor-core peak.
+//
+// What its design does about it. The TPU kernel keeps the [S, V] logits in
+// VMEM scratch across its sequential grid and runs the epilogue on them.
+// A Hopper CTA cannot hold a row (128256 entries), and recomputing the
+// logits for each of the ~68 sweeps of a filtered draw would read the
+// weight ~68 times (~16 ms). The logits are bf16 values by contract (the
+// product is rounded to the model dtype before the upcast, as unembed does),
+// so a bf16 [S, V] workspace holds them losslessly: 2 MB at S = 8, which
+// stays in the 50 MB L2. The op takes two launches:
+//   1. head_gemv_kernel streams W. Each CTA takes 128 vocab rows and one
+//      group of up to 8 hidden rows (the mma's N); each warp computes the
+//      logits of 16 vocab rows for the group's hidden rows with mma.sync
+//      m16n8k16 (bf16 in, fp32 accumulate), W fragments loaded straight
+//      from global memory (each thread 2 x 32 contiguous bytes per 64-wide
+//      K chunk, four chunks in flight), x from shared memory. The K order
+//      inside a chunk is permuted identically for W and x, so each thread's
+//      loads are contiguous. The group is the grid's fastest index, so the
+//      CTAs of every group of one vocab tile are dispatched together and W
+//      comes from HBM once for any S, the other groups' reads hitting L2.
+//      The fp32 sum is rounded once to bf16 and written to the workspace;
+//      each CTA also writes per-row partials (max, first argmax, all
+//      finite) of its 128 vocab rows.
+//   2. head_epilogue_kernel, one thread block cluster of 8 CTAs x 1024
+//      threads per row: the greedy token and the probe from the partials;
+//      for a sampled row each CTA scales its eighth of the workspace row
+//      once (x / t, fp32, 64 KB of shared memory), and every sweep of the
+//      sampler's device code (sampling_device.cuh: the top-k count
+//      bisection, the top-p mass bisection, the draw) reads shared memory;
+//      counts and maxima combine across the cluster through distributed
+//      shared memory, and tile masses are gathered and folded in tile
+//      order. That device code is the code of the unfused filter and draw
+//      kernels, so tokens are bitwise those of the plain epilogue fed the
+//      same logits.
+// Argmax ties go to the smallest index, NaN counts as the largest value (as
+// torch.argmax). The GEMM's summation order is the tensor core's: on inputs
+// whose every partial sum is exact in fp32 the logits, and so the tokens,
+// are bitwise those of any other GEMM.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "../../fused_sampling/csrc/sampling_device.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kGemvThreads = 256;
+constexpr int kGemvWarps = kGemvThreads / 32;
+constexpr int kRowsPerWarp = 16;                     // mma M: vocab rows
+constexpr int kRowsPerCta = kGemvWarps * kRowsPerWarp;
+constexpr int kGroupRows = 8;                        // mma N: hidden rows
+constexpr int kChunk = 64;                           // K per chunk: 4 mma
+constexpr int kUnroll = 4;                           // chunks in flight
+constexpr int kXPad = 8;                             // bf16 pad per smem row
+constexpr int kClusterCtas = 8;                      // pass 2 CTAs per row
+
+// Whether candidate (bv, bi) beats (av, ai) for the first argmax: NaN is
+// the largest value, ties go to the smaller index, bi == INT_MAX is empty.
+__device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
+  if (bi == INT_MAX) return false;
+  if (ai == INT_MAX) return true;
+  const bool an = isnan(av), bn = isnan(bv);
+  if (an != bn) return bn;
+  if (an || av == bv) return bi < ai;
+  return bv > av;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0,
+                                         unsigned a1, unsigned a2, unsigned a3,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void words(const uint4& lo, const uint4& hi,
+                                      unsigned (&w)[8]) {
+  w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
+  w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
+}
+
+// Pass 1. Grid: (hidden row group of kGroupRows, 128 vocab rows). Dynamic
+// shared memory: the group's rows of x as kGroupRows rows of (d + kXPad)
+// bf16, rows past s_rows zero.
+//
+// mma fragments (PTX ISA, m16n8k16 .bf16): lane = 4 g + t. A (16 x 16,
+// row-major) holds rows g and g + 8 at K = 2t, 2t + 1 (regs a0, a1) and
+// 2t + 8, 2t + 9 (a2, a3); B (16 x 8) holds K = 2t, 2t + 1 and 2t + 8,
+// 2t + 9 of column g; C holds rows g, g + 8 at columns 2t, 2t + 1. Logical
+// K of mma step j (0..3) inside a 64-wide chunk maps to the chunk element
+// 16 t + 4 j + (K >= 8 ? 2 : 0) + (K & 1), the same map for W and x, so
+// lane (g, t) reads elements [16 t, 16 t + 16) of its rows: 32-bit word
+// 2 j is the fragment pair for K < 8 and word 2 j + 1 the pair for K >= 8.
+__global__ void __launch_bounds__(kGemvThreads, 2)
+head_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ w, int s_rows, int d,
+                 int vocab, int n_blk, __nv_bfloat16* __restrict__ ws,
+                 float* __restrict__ pmax, int* __restrict__ pidx,
+                 int* __restrict__ pok) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float best_v[kGemvWarps][kGroupRows];
+  __shared__ int best_i[kGemvWarps][kGroupRows];
+  __shared__ int best_f[kGemvWarps][kGroupRows];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int s0 = blockIdx.x * kGroupRows, blk = blockIdx.y;
+  const int s_here = min(kGroupRows, s_rows - s0);
+  const int xstride = d + kXPad;
+  const int vec_per_row = d / 8;
+  for (int i = threadIdx.x; i < kGroupRows * vec_per_row; i += kGemvThreads) {
+    const int r = i / vec_per_row, c = (i % vec_per_row) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < s_here)
+      v = *reinterpret_cast<const uint4*>(
+          x + static_cast<size_t>(s0 + r) * d + c);
+    *reinterpret_cast<uint4*>(xs + r * xstride + c) = v;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int v0 = blk * kRowsPerCta + warp * kRowsPerWarp;
+  const bool active = v0 < vocab;            // vocab % 16 == 0
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (active) {
+    const __nv_bfloat16* wa = w + static_cast<size_t>(v0 + g) * d + t * 16;
+    const __nv_bfloat16* wb = wa + static_cast<size_t>(8) * d;
+    const __nv_bfloat16* xr = xs + g * xstride + t * 16;
+    const int n_chunk = d / kChunk;
+    for (int c0 = 0; c0 < n_chunk; c0 += kUnroll) {
+      uint4 ra[kUnroll][2], rb[kUnroll][2];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (c0 + u < n_chunk) {
+          const int off = (c0 + u) * kChunk;
+          ra[u][0] = __ldg(reinterpret_cast<const uint4*>(wa + off));
+          ra[u][1] = __ldg(reinterpret_cast<const uint4*>(wa + off + 8));
+          rb[u][0] = __ldg(reinterpret_cast<const uint4*>(wb + off));
+          rb[u][1] = __ldg(reinterpret_cast<const uint4*>(wb + off + 8));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (c0 + u < n_chunk) {
+          const int off = (c0 + u) * kChunk;
+          unsigned aw[8], bw[8], xw[8];
+          words(ra[u][0], ra[u][1], aw);
+          words(rb[u][0], rb[u][1], bw);
+          words(*reinterpret_cast<const uint4*>(xr + off),
+                *reinterpret_cast<const uint4*>(xr + off + 8), xw);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(acc, aw[2 * j], bw[2 * j], aw[2 * j + 1], bw[2 * j + 1],
+                     xw[2 * j], xw[2 * j + 1]);
+        }
+      }
+    }
+  }
+
+  // acc[q]: vocab row v0 + g + 8 (q >> 1), hidden row s0 + 2 t + (q & 1)
+  float bv[2] = {0.f, 0.f};
+  int bi[2] = {INT_MAX, INT_MAX};
+  int fin[2] = {1, 1};
+  if (active) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const __nv_bfloat16 b = __float2bfloat16_rn(acc[q]);
+      const float v = __bfloat162float(b);
+      const int vr = v0 + g + 8 * (q >> 1), s = 2 * t + (q & 1);
+      if (s < s_here) ws[static_cast<size_t>(s0 + s) * vocab + vr] = b;
+      if (beats(bv[q & 1], bi[q & 1], v, vr)) {
+        bv[q & 1] = v;
+        bi[q & 1] = vr;
+      }
+      fin[q & 1] &= isfinite(v) ? 1 : 0;
+    }
+  }
+  for (int o = 4; o < 32; o <<= 1) {          // across g (lane bits 2..4)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv[h], o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi[h], o);
+      fin[h] &= __shfl_xor_sync(0xffffffffu, fin[h], o);
+      if (beats(bv[h], bi[h], ov, oi)) {
+        bv[h] = ov;
+        bi[h] = oi;
+      }
+    }
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      best_v[warp][2 * t + h] = bv[h];
+      best_i[warp][2 * t + h] = bi[h];
+      best_f[warp][2 * t + h] = fin[h];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < s_here) {
+    const int s = threadIdx.x;
+    float v = 0.f;
+    int i = INT_MAX, f = 1;
+    for (int k = 0; k < kGemvWarps; ++k) {
+      if (beats(v, i, best_v[k][s], best_i[k][s])) {
+        v = best_v[k][s];
+        i = best_i[k][s];
+      }
+      f &= best_f[k][s];
+    }
+    const size_t o = static_cast<size_t>(s0 + s) * n_blk + blk;
+    pmax[o] = v;
+    pidx[o] = i;
+    pok[o] = f;
+  }
+}
+
+// Word views of the values a cluster reduction exchanges.
+__device__ __forceinline__ unsigned to_word(int v) {
+  return static_cast<unsigned>(v);
+}
+__device__ __forceinline__ unsigned to_word(unsigned v) { return v; }
+__device__ __forceinline__ unsigned to_word(float v) {
+  return __float_as_uint(v);
+}
+template <class T> __device__ T from_word(unsigned w);
+template <> __device__ __forceinline__ int from_word<int>(unsigned w) {
+  return static_cast<int>(w);
+}
+template <> __device__ __forceinline__ unsigned from_word<unsigned>(unsigned w) {
+  return w;
+}
+template <> __device__ __forceinline__ float from_word<float>(unsigned w) {
+  return __uint_as_float(w);
+}
+
+// A row spread over the kClusterCtas CTAs of a thread block cluster: CTA
+// `rank` owns tiles [t0, t1) and elements [lo, hi). Reductions combine the
+// CTAs' block results through distributed shared memory in rank order (the
+// ops are order-independent); the fold gathers every tile partial into each
+// CTA and folds them in tile order, the canonical order. Exchange buffers
+// alternate by call parity: a buffer is written again two exchanges later,
+// after every CTA has passed the cluster barrier that follows its last read.
+struct ClusterRow {
+  int vocab, n_tiles, lo, hi, t0, t1, rank, per;
+  float* buf[2];
+  unsigned* slot;                            // [2] words
+  sampling::Scratch& sc;
+  int phase;
+
+  __device__ float* parts() { return buf[phase & 1]; }
+  template <class T, class Op> __device__ T reduce(T v, Op op) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const T local = sampling::block_reduce(v, op, sampling::red_of(sc, v));
+    unsigned* s = slot + (phase & 1);
+    if (threadIdx.x == 0) *s = to_word(local);
+    cluster.sync();
+    T r = from_word<T>(*cluster.map_shared_rank(s, 0));
+    for (int k = 1; k < kClusterCtas; ++k)
+      r = op(r, from_word<T>(*cluster.map_shared_rank(s, k)));
+    ++phase;
+    return r;
+  }
+  __device__ float fold(float* before) {
+    cg::cluster_group cluster = cg::this_cluster();
+    float* p = buf[phase & 1];
+    cluster.sync();
+    for (int t = threadIdx.x; t < n_tiles; t += sampling::kThreads) {
+      const int owner = t / per;
+      if (owner != rank) p[t] = *cluster.map_shared_rank(p + t, owner);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float acc = 0.f;
+      for (int t = 0; t < n_tiles; ++t) {
+        if (before != nullptr) before[t] = acc;
+        acc = __fadd_rn(acc, p[t]);
+      }
+      sc.bcast = acc;
+    }
+    __syncthreads();
+    const float r = sc.bcast;
+    __syncthreads();
+    ++phase;
+    return r;
+  }
+};
+
+// The greedy token (first argmax, NaN largest) and the all-finite probe of
+// one row, from pass 1's per-CTA partials. Called by one whole CTA.
+__device__ void greedy_and_probe(const float* pmax, const int* pidx,
+                                 const int* pok, int n_blk, int row,
+                                 sampling::Scratch& sc, float* wv, int* wi,
+                                 int* greedy, int* finite) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float bv = 0.f;
+  int bi = INT_MAX, fin = 1;
+  for (int j = tid; j < n_blk; j += sampling::kThreads) {
+    const size_t o = static_cast<size_t>(row) * n_blk + j;
+    if (beats(bv, bi, pmax[o], pidx[o])) {
+      bv = pmax[o];
+      bi = pidx[o];
+    }
+    fin &= pok[o];
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (beats(bv, bi, ov, oi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  if (lane == 0) {
+    wv[warp] = bv;
+    wi[warp] = bi;
+  }
+  fin = sampling::block_reduce(fin, sampling::MinOp(), sc.ired);
+  if (tid == 0) {
+    for (int k = 1; k < sampling::kWarps; ++k)
+      if (beats(wv[0], wi[0], wv[k], wi[k])) {
+        wv[0] = wv[k];
+        wi[0] = wi[k];
+      }
+    *greedy = wi[0] == INT_MAX ? 0 : wi[0];
+    *finite = fin;
+  }
+}
+
+// Pass 2. Grid: one cluster of kClusterCtas CTAs of sampling::kThreads per
+// hidden row. Rank 0 takes the greedy token and the probe from the
+// partials; a sampled row (temperature > 0) is then split over the
+// cluster: each CTA scales its slice of the bf16 workspace row once into
+// shared memory as fp32 (x / t, as the plain version divides) and every
+// sweep of the sampler's device code reads it from there. Dynamic shared
+// memory: the slice (per * 128 floats) and three floats per 128-lane tile.
+__global__ void __cluster_dims__(kClusterCtas, 1, 1)
+__launch_bounds__(sampling::kThreads)
+head_epilogue_kernel(const __nv_bfloat16* __restrict__ ws,
+                     const float* __restrict__ pmax,
+                     const int* __restrict__ pidx, const int* __restrict__ pok,
+                     int n_blk, int vocab, const float* __restrict__ rs,
+                     const float* __restrict__ temps,
+                     const int* __restrict__ top_k,
+                     const float* __restrict__ top_p, int sampled,
+                     int filtered, int* __restrict__ tokens,
+                     bool* __restrict__ ok) {
+  extern __shared__ float smem[];
+  __shared__ sampling::Scratch sc;
+  __shared__ unsigned slot[2];
+  __shared__ float wv[sampling::kWarps];
+  __shared__ int wi[sampling::kWarps];
+  __shared__ int head[2];                    // greedy token, probe
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / kClusterCtas, tid = threadIdx.x;
+  const float temp = temps[row];
+  const bool draw = sampled && temp > 0.f;
+  if (rank == 0) {
+    greedy_and_probe(pmax, pidx, pok, n_blk, row, sc, wv, wi, &head[0],
+                     &head[1]);
+    if (tid == 0) {
+      ok[row] = head[1] != 0;
+      if (!draw) tokens[row] = head[0];
+    }
+  }
+  if (!draw) return;                         // the same for the whole cluster
+
+  const int n_tiles = (vocab + sampling::kTile - 1) / sampling::kTile;
+  const int per = (n_tiles + kClusterCtas - 1) / kClusterCtas;
+  const int t0 = min(rank * per, n_tiles), t1 = min(t0 + per, n_tiles);
+  const int lo = min(t0 * sampling::kTile, vocab);
+  const int hi = min(t1 * sampling::kTile, vocab);
+  float* vals = smem;
+  float* buf0 = vals + per * sampling::kTile;
+  float* buf1 = buf0 + n_tiles;
+  float* before = buf1 + n_tiles;
+  const __nv_bfloat16* lw = ws + static_cast<size_t>(row) * vocab;
+  for (int i = lo + tid; i < hi; i += sampling::kThreads)
+    vals[i - lo] = __fdiv_rn(__bfloat162float(lw[i]), temp);
+  __syncthreads();
+
+  ClusterRow crow{vocab, n_tiles, lo, hi, t0, t1, rank, per, {buf0, buf1},
+                  slot, sc, 0};
+  auto scaled = [&](int i) { return vals[i - lo]; };
+  float kth = -INFINITY, th = -INFINITY;
+  if (filtered)
+    sampling::filter_thresholds(scaled, crow, top_k[row], top_p[row], &kth,
+                                &th);
+  auto final_logit = [&](int i) {
+    const float s = scaled(i);
+    const float v = s < kth ? -INFINITY : s;
+    return v < th ? -INFINITY : v;
+  };
+  const int tok = sampling::draw_index(final_logit, crow, rs[row], before);
+  if (rank == 0 && tid == 0) tokens[row] = tok;
+  cluster.sync();            // no CTA leaves while another may read its smem
+}
+
+}  // namespace
+
+// x [s_rows, d] and w [vocab, d] bf16; rs, temps, top_p float32 [s_rows];
+// top_k int32 [s_rows]; ws bf16 [s_rows, vocab] and scratch int32
+// [3, s_rows, ceil(vocab / 128)] are the wrapper's workspace; tokens int32
+// and ok bool [s_rows]. Needs s_rows >= 1, d % 64 == 0, vocab % 16 == 0 and
+// ceil(vocab / 128) <= 65535 (the grid's y extent).
+extern "C" int head_tokens(const void* x, const void* w, const void* rs,
+                           const void* temps, const void* top_k,
+                           const void* top_p, void* ws, void* scratch,
+                           void* tokens, void* ok, int s_rows, int d,
+                           int vocab, int sampled, int filtered,
+                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_blk = (vocab + kRowsPerCta - 1) / kRowsPerCta;
+  float* pmax = static_cast<float*>(scratch);
+  int* pidx = static_cast<int*>(scratch) + static_cast<size_t>(s_rows) * n_blk;
+  int* pok = pidx + static_cast<size_t>(s_rows) * n_blk;
+
+  const int n_grp = (s_rows + kGroupRows - 1) / kGroupRows;
+  if (n_blk > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem1 = static_cast<size_t>(kGroupRows) * (d + kXPad) *
+                       sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      head_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem1));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  head_gemv_kernel<<<dim3(n_grp, n_blk), kGemvThreads, smem1, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), s_rows, d, vocab, n_blk,
+      static_cast<__nv_bfloat16*>(ws), pmax, pidx, pok);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int n_tiles = (vocab + sampling::kTile - 1) / sampling::kTile;
+  const int per = (n_tiles + kClusterCtas - 1) / kClusterCtas;
+  const size_t smem2 = (static_cast<size_t>(per) * sampling::kTile +
+                        3 * static_cast<size_t>(n_tiles)) * sizeof(float);
+  err = cudaFuncSetAttribute(head_epilogue_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem2));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  head_epilogue_kernel<<<s_rows * kClusterCtas, sampling::kThreads, smem2,
+                         st>>>(
+      static_cast<const __nv_bfloat16*>(ws), pmax, pidx, pok, n_blk, vocab,
+      static_cast<const float*>(rs), static_cast<const float*>(temps),
+      static_cast<const int*>(top_k), static_cast<const float*>(top_p),
+      sampled, filtered, static_cast<int*>(tokens), static_cast<bool*>(ok));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,76 @@
+"""Wrapper of the fused LM head kernel (``csrc/head_tokens.cu``): final
+hidden [S, D] and the tied embedding [V, D] -> sampled tokens, with no fp32
+[S, V] logits tensor.
+
+CPU tensors take the plain version (``ref.head_tokens``); CUDA tensors
+launch the hand-written sm_90a kernel (two launches: the GEMV into a bf16
+workspace, in groups of 8 hidden rows, then the per-row epilogue) or raise.
+Any number of rows S is served, so an engine of any slot count can run
+fused decode. ``LAUNCHES`` counts calls
+that launch the kernel.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import _build
+from . import ref
+
+LAUNCHES = {"head_tokens": 0}
+
+_LIB = "head_tokens"
+ROWS_PER_CTA = 128               # vocab rows per GEMV CTA
+MAX_VOCAB = 65535 * ROWS_PER_CTA  # the GEMV grid's y extent
+
+
+def head_tokens(x: torch.Tensor, embedding: torch.Tensor, rs: torch.Tensor,
+                temps: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
+                *, sampled: bool, filtered: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` [S, D] (model dtype), ``embedding`` [V, D] tied weight read in
+    place -> ``(tokens int32 [S], ok bool [S])``. ``rs`` float32 [S] are
+    the draw uniforms (``ref.row_uniforms``), ``temps`` / ``top_p`` float32,
+    ``top_k`` int32; rows with temperature 0 take the raw argmax.
+    ``sampled`` / ``filtered`` are the engine's step flags."""
+    if x.device.type == "cpu":
+        return ref.head_tokens(x, embedding, rs, temps, top_k, top_p,
+                               sampled=sampled, filtered=filtered)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    s, d = x.shape
+    v = embedding.shape[0]
+    if x.dtype != torch.bfloat16 or embedding.dtype != torch.bfloat16:
+        raise TypeError(f"the kernel takes bfloat16 x and weight, got "
+                        f"{x.dtype} and {embedding.dtype}")
+    if embedding.dim() != 2 or embedding.shape[1] != d:
+        raise ValueError(f"weight {tuple(embedding.shape)} is not [V, {d}]")
+    if s < 1 or d % 64 or v % 16 or v > MAX_VOCAB:
+        raise ValueError(f"the kernel needs S >= 1, D % 64 == 0, V % 16 == 0"
+                         f" and V <= {MAX_VOCAB}, got S={s} D={d} V={v}")
+    for name, t in (("x", x), ("embedding", embedding)):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned and "
+                             f"on {x.device}")
+    rows = {"rs": (rs, torch.float32), "temps": (temps, torch.float32),
+            "top_k": (top_k, torch.int32), "top_p": (top_p, torch.float32)}
+    for name, (t, dtype) in rows.items():
+        if t.dtype != dtype or tuple(t.shape) != (s,) or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} [{s}] "
+                             f"tensor on {x.device}")
+    n_blk = -(-v // ROWS_PER_CTA)
+    ws = torch.empty((s, v), dtype=torch.bfloat16, device=x.device)
+    scratch = torch.empty((3, s, n_blk), dtype=torch.int32, device=x.device)
+    tokens = torch.empty((s,), dtype=torch.int32, device=x.device)
+    ok = torch.empty((s,), dtype=torch.bool, device=x.device)
+    fn = _build.bind(_LIB, "head_tokens", 10, 5)
+    err = fn(x.data_ptr(), embedding.data_ptr(), rs.data_ptr(),
+             temps.data_ptr(), top_k.data_ptr(), top_p.data_ptr(),
+             ws.data_ptr(), scratch.data_ptr(), tokens.data_ptr(),
+             ok.data_ptr(), s, d, v, int(bool(sampled)), int(bool(filtered)),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "head_tokens")
+    LAUNCHES["head_tokens"] += 1
+    return tokens, ok

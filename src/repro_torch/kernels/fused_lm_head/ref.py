@@ -1,7 +1,8 @@
-"""The per-row draw uniforms and the canonical inverse-CDF token draw.
-Counterpart of ``repro.kernels.fused_lm_head.ref`` (``row_uniforms``,
-``pad_tiles``, ``draw_tokens``); the streaming ``head_tokens`` kernel is not
-ported yet.
+"""The per-row draw uniforms, the canonical inverse-CDF token draw and the
+fused LM head's plain version. Counterpart of
+``repro.kernels.fused_lm_head.ref`` (``row_uniforms``, ``pad_tiles``,
+``draw_tokens``, ``head_epilogue``); ``head_tokens`` is the plain version
+of the CUDA kernel in ``csrc/head_tokens.cu``.
 
 ``row_uniforms`` reproduces ``jax.random.uniform(fold_in(key(seed), pos))``
 bit for bit (threefry2x32, ``jax_threefry_partitionable=True``) with int64
@@ -10,8 +11,11 @@ sampled decode step needs no host transfer for its randomness.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from ...models.layers import unembed
 from ..fused_sampling import ref as sref
 
 RED_TILE = sref.RED_TILE
@@ -85,3 +89,38 @@ def draw_tokens(lg_f: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
     hit = (cs > target[:, None, None]).reshape(s, -1)
     idx = hit.to(torch.uint8).argmax(dim=-1)
     return torch.where(hit.any(dim=-1), idx, torch.zeros_like(idx)).int()
+
+
+def head_epilogue(logits: torch.Tensor, rs: torch.Tensor,
+                  temps: torch.Tensor, top_k: torch.Tensor,
+                  top_p: torch.Tensor, *, sampled: bool,
+                  filtered: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused head's epilogue on materialized logits [S, V] ->
+    ``(tokens int32 [S], ok bool [S])``: the greedy argmax and the
+    all-finite probe of the raw logits, then for sampled rows temperature
+    scaling, the top-k / top-p bisection filter and the inverse-CDF draw.
+    The same ops in the same order as ``serving.sampling.sample_tokens``,
+    so the tokens are bitwise those of the unfused sampler."""
+    ok = torch.isfinite(logits).all(dim=-1)
+    greedy = torch.argmax(logits, dim=-1).int()
+    if not sampled:
+        return greedy, ok
+    temps = temps.float()
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+    lg = logits.float() / safe_t[:, None]
+    if filtered:
+        lg = sref.filter_logits_bisect(lg, top_k.int(), top_p.float())
+    drawn = draw_tokens(lg, rs)
+    return torch.where(temps > 0, drawn, greedy), ok
+
+
+def head_tokens(x: torch.Tensor, embedding: torch.Tensor, rs: torch.Tensor,
+                temps: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
+                *, sampled: bool, filtered: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain fused head: final hidden ``x`` [S, D] and the tied embedding
+    [V, D] -> ``head_epilogue`` of the logits exactly as
+    ``models.layers.unembed`` computes them."""
+    logits = unembed({}, x, embedding)
+    return head_epilogue(logits, rs, temps, top_k, top_p, sampled=sampled,
+                         filtered=filtered)

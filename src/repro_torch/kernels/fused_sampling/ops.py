@@ -52,7 +52,7 @@ def filter_logits(lg: torch.Tensor, top_k: torch.Tensor,
     if s == 0:
         return lg.clone()
     out = torch.empty_like(lg)
-    fn = _build.bind(_build.library(_LIB), "filter_logits", 4, 2)
+    fn = _build.bind(_LIB, "filter_logits", 4, 2)
     err = fn(lg.data_ptr(), top_k.data_ptr(), top_p.data_ptr(),
              out.data_ptr(), s, v, _stream(lg))
     _build.check(err, "filter_logits")
@@ -71,7 +71,7 @@ def draw_tokens(lg_f: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((s,), dtype=torch.int32, device=lg_f.device)
     if s == 0:
         return out
-    fn = _build.bind(_build.library(_LIB), "draw_tokens", 3, 2)
+    fn = _build.bind(_LIB, "draw_tokens", 3, 2)
     err = fn(lg_f.data_ptr(), rs.data_ptr(), out.data_ptr(), s, v,
              _stream(lg_f))
     _build.check(err, "draw_tokens")

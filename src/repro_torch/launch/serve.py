@@ -3,7 +3,8 @@
     python -m repro_torch.launch.serve --arch llama3.2-3b --device cuda
 
 Counterpart of ``repro.launch.serve`` with ``--engine continuous
---no-fused-decode --decode-steps 1 --tp 1``, the only configuration ported.
+--decode-steps 1 --tp 1``, fused decode on or off (``--fused-decode`` /
+``--no-fused-decode``; unset follows ``REPRO_FUSED_DECODE``, default on).
 Weights are random, made on the device from ``--seed`` with a
 ``torch.Generator``; prompts are drawn with numpy from the same seed. Request i is sampled with seed
 ``--seed + i``. Runs on the card unless ``--device cpu`` is given.
@@ -37,7 +38,8 @@ def run(args) -> dict:
         model, num_slots=args.slots or b, num_pages=num_pages,
         page_size=args.page_size, max_seq_len=max_seq + args.page_size,
         prefix_cache=args.prefix_cache,
-        prefill_chunk=args.prefill_chunk or None)
+        prefill_chunk=args.prefill_chunk or None,
+        fused_decode=args.fused_decode)
     reqs = [Request(uid=i, prompt=[int(t) for t in prompt[i]],
                     max_new_tokens=glen,
                     sampling=SamplingParams(
@@ -57,7 +59,13 @@ def run(args) -> dict:
           f"{engine.cached_prefill_tokens} from prefix cache)")
     print(f"[serve/continuous] sample generations (first 8 ids/row): "
           f"{out[:2, :8].tolist()}")
+    print(f"[serve/continuous] fused decode "
+          f"{'on' if engine.fused_decode else 'off'}"
+          + (f": {engine.fused_decode_off_reason}"
+             if engine.fused_decode_off_reason else ""))
     return {"tokens": out, "wall": wall, "steps": engine.steps,
+            "fused_decode": engine.fused_decode,
+            "fused_decode_off_reason": engine.fused_decode_off_reason,
             "prefills": engine.prefills,
             "prefill_tokens": engine.prefill_tokens,
             "cached_prefill_tokens": engine.cached_prefill_tokens}
@@ -82,6 +90,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--fused-decode", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="fused decode: the ln2 add + norm and the LM head "
+                         "with token selection as kernels, no [S, V] logits "
+                         "(default from REPRO_FUSED_DECODE, unset = on)")
     args = ap.parse_args(argv)
     try:
         sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,

@@ -3,14 +3,21 @@
 so the JAX ``lax.scan`` over stacked periods becomes a Python loop over the
 per-layer parameter dicts in ``params["blocks"]``. Page pools are updated
 in place (see ``models.attention``), so the stacks return only activations.
+
+``fused=True`` runs the fused decode layer body: the residual stream rides
+as an ``(x, pending delta)`` pair, the add + norm at ln2 is one
+``decode_residual_norm`` kernel, and the MLP delta is folded by a plain add
+at the layer's end. On the CPU the kernel's plain version is the unfused
+add and norm, so both bodies give the same bits there.
 """
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels.fused_layernorm import ops as ln_ops
 from . import attention as attn_lib
 from .layers import Params, apply_mlp, apply_norm
 
@@ -42,46 +49,75 @@ def _decode_block_ffn(arch: ArchConfig, blk: Params,
                          apply_norm(arch.norm, blk["ln2"], x))
 
 
+def _fused_residual_norm(arch: ArchConfig, ln: Params, d: torch.Tensor,
+                         x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold the pending residual delta ``d`` into the stream and norm it in
+    one kernel: ``x += d; h = norm(x)`` -> ``(h, x_new)``."""
+    return ln_ops.decode_residual_norm(d, x, ln["scale"], ln.get("bias"),
+                                       kind=arch.norm)
+
+
+def _fused_block_delta(arch: ArchConfig, blk: Params,
+                       h: torch.Tensor) -> torch.Tensor:
+    """MLP tail of a fused block: the residual *delta*, whose add is
+    deferred to the layer's end."""
+    return apply_mlp(arch.mlp, blk["mlp"], h)
+
+
+def _period(arch: ArchConfig, blk: Params, x: torch.Tensor,
+            mix: Callable[[torch.Tensor], torch.Tensor],
+            fused: bool) -> torch.Tensor:
+    """One dense layer around the mixer ``mix``: unfused, or the fused
+    body (ln1 norm, mixer, fused add + ln2 norm, MLP delta, boundary add)."""
+    if not fused:
+        x = _decode_block_mix(arch, blk, x, mix)
+        return _decode_block_ffn(arch, blk, x)
+    h = apply_norm(arch.norm, blk["ln1"], x)
+    h2, x = _fused_residual_norm(arch, blk["ln2"], mix(h), x)
+    return x + _fused_block_delta(arch, blk, h2)
+
+
 def paged_decode_period(arch: ArchConfig, blk: Params, cache: Params,
                         x: torch.Tensor, page_table: torch.Tensor,
-                        seq_lens: torch.Tensor) -> torch.Tensor:
-    """One layer of single-token decode (the unfused period body)."""
+                        seq_lens: torch.Tensor,
+                        fused: bool = False) -> torch.Tensor:
+    """One layer of single-token decode."""
     def mix(h):
         return attn_lib.paged_decode_attention_layer(
             arch, blk["attn"], h, cache, page_table, seq_lens)
-    x = _decode_block_mix(arch, blk, x, mix)
-    return _decode_block_ffn(arch, blk, x)
+    return _period(arch, blk, x, mix, fused)
 
 
 def paged_decode_stack(arch: ArchConfig, blocks: List[Params],
                        caches: List[Params], x: torch.Tensor,
-                       page_table: torch.Tensor,
-                       seq_lens: torch.Tensor) -> torch.Tensor:
+                       page_table: torch.Tensor, seq_lens: torch.Tensor,
+                       fused: bool = False) -> torch.Tensor:
     """Single-token decode x [B, 1, D] through every layer."""
     for blk, cache in zip(blocks, caches):
-        x = paged_decode_period(arch, blk, cache, x, page_table, seq_lens)
+        x = paged_decode_period(arch, blk, cache, x, page_table, seq_lens,
+                                fused)
     return x
 
 
 def paged_prefill_period(arch: ArchConfig, blk: Params, cache: Params,
                          x: torch.Tensor, page_row: torch.Tensor, start: int,
-                         total_len: int) -> torch.Tensor:
+                         total_len: int, fused: bool = False) -> torch.Tensor:
     def mix(h):
         return attn_lib.paged_prefill_attention_layer(
             arch, blk["attn"], h, cache, page_row, start, total_len)
-    x = _decode_block_mix(arch, blk, x, mix)
-    return _decode_block_ffn(arch, blk, x)
+    return _period(arch, blk, x, mix, fused)
 
 
 def paged_prefill_stack(arch: ArchConfig, blocks: List[Params],
                         caches: List[Params], x: torch.Tensor,
                         page_row: torch.Tensor, start: int,
-                        total_len: int) -> torch.Tensor:
+                        total_len: int, fused: bool = False) -> torch.Tensor:
     """Chunked prefill: one prompt chunk x [1, C, D] of one sequence through
     every layer, its K/V written straight into the sequence's pages."""
     for blk, cache in zip(blocks, caches):
         x = paged_prefill_period(arch, blk, cache, x, page_row, start,
-                                 total_len)
+                                 total_len, fused)
     return x
 
 

@@ -2,23 +2,35 @@
 with chunked prefill, prefix caching (copy-on-write tail pages),
 forced-replay preemption and per-request sampling. Counterpart of
 ``repro.serving.engine.ContinuousEngine`` in its single-device, one step
-per dispatch, unfused-decode configuration; the scheduler decisions, the
-counters and the per-request results are the same, so the two engines emit
-identical token streams for the same weights and requests.
+per dispatch configuration; the scheduler decisions, the counters and the
+per-request results are the same, so the two engines emit identical token
+streams for the same weights and requests.
 
 Each decode step runs the whole ``num_slots`` batch: embed -> per layer
 [RMSNorm -> QKV + RoPE -> K/V written into pages -> paged decode attention
-kernel -> o-proj -> residual -> RMSNorm -> SwiGLU -> residual] -> final
-norm -> LM head -> greedy argmax or the sampler (filter kernel for filtered
-requests, then the draw kernel). Slots that are empty or mid-prefill carry seq_len 0 and write to
-the null page. Prefill runs one chunk of one sequence per iteration through
-the paged prefill attention kernel; only a final chunk pays the LM head.
+kernel -> o-proj -> residual add + RMSNorm -> SwiGLU -> residual add] ->
+final norm -> LM head -> token selection. Slots that are empty or
+mid-prefill carry seq_len 0 and write to the null page. Prefill runs one
+chunk of one sequence per iteration through the paged prefill attention
+kernel; only a final chunk pays the LM head.
+
+Fused decode (``fused_decode``, on by default as in the JAX engine; the
+environment rule is ``serving.sampling.fused_decode_enabled``) folds each
+layer's ln2 residual add + norm into one ``decode_residual_norm`` kernel
+and runs the final norm, the LM head and the selection as one
+``head_tokens`` kernel that reads the tied embedding in place and returns
+tokens, never logits. Unfused, the head materializes fp32 logits and
+selects with a greedy argmax or the sampler (filter kernel for filtered
+requests, then the draw kernel). On the CPU the two paths emit bitwise
+identical streams; on the card they may fork on near-tied logits. An
+untied LM head serves unfused, with ``fused_decode_off_reason`` saying why.
+
 PyTorch runs eagerly, so there is no compile cache: variants are plain
 Python branches on the ``sampled`` / ``filtered`` flags.
 
 Not ported yet (each raises ``NotImplementedError``): ``tp > 1``,
-``decode_steps > 1``, ``fused_decode=True``, ``sanitize=True`` and families
-other than dense.
+``decode_steps > 1``, ``sanitize=True``, fused decode with a logit softcap
+and families other than dense.
 """
 from __future__ import annotations
 
@@ -29,10 +41,13 @@ from typing import Deque, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.fused_lm_head import ops as head_ops
+from ..kernels.fused_lm_head import ref as head_ref
 from ..models import transformer as tf
+from ..models.layers import apply_norm
 from ..models.model import Model
 from .kv_cache import pages_needed
-from .sampling import sample_tokens
+from .sampling import fused_decode_enabled, sample_tokens
 from .scheduler import Request, Scheduler, SequenceState
 
 SERVABLE_FAMILIES = ("dense",)
@@ -49,7 +64,8 @@ class ContinuousEngine:
                  max_seq_len: int = 512, prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None, tp: int = 1,
                  sanitize: bool = False, fused_sampling: bool = True,
-                 decode_steps: int = 1, fused_decode: bool = False):
+                 decode_steps: int = 1,
+                 fused_decode: Optional[bool] = None):
         arch = model.arch
         if arch.family not in SERVABLE_FAMILIES:
             raise _not_ported(f"serving the {arch.family!r} family",
@@ -61,9 +77,17 @@ class ContinuousEngine:
             raise _not_ported(f"multi-step decode (decode_steps="
                               f"{decode_steps})",
                               "a later slice ports the on-device loop")
-        if fused_decode:
-            raise _not_ported("fused decode (decode_residual_norm + "
-                              "head_tokens)", "the next slice ports it")
+        want_fd = fused_decode_enabled() if fused_decode is None \
+            else bool(fused_decode)
+        self.fused_decode_off_reason: Optional[str] = None
+        if want_fd and arch.logit_softcap > 0:
+            raise _not_ported("fused decode with a logit softcap",
+                              "a later slice adds it to head_tokens")
+        if want_fd and not arch.tie_embeddings:
+            self.fused_decode_off_reason = (
+                "fused decode reads the tied embedding in place; an untied "
+                "LM head serves the unfused path")
+        self.fused_decode = want_fd and self.fused_decode_off_reason is None
         if sanitize:
             raise _not_ported("the runtime sanitizer",
                               "a later slice ports the tools")
@@ -120,6 +144,20 @@ class ContinuousEngine:
                              filtered=filtered,
                              fused=self.fused_sampling and filtered)
 
+    def _fused_head(self, x, positions, seeds, temps, top_ks, top_ps, *,
+                    sampled: bool, filtered: bool):
+        """Final norm + the fused LM head: final hidden ``x`` [S, 1, D] ->
+        ``(tokens int32 [S], ok bool [S])`` (``ok``: the raw logits of the
+        row are all finite). The draw uniforms come from the determinism
+        contract's key, outside the kernel, as in the JAX engine."""
+        params = self.model.params
+        hidden = apply_norm(self.arch.norm, params["final_norm"], x)[:, 0]
+        rs = head_ref.row_uniforms(seeds, positions) if sampled \
+            else torch.zeros_like(temps)
+        return head_ops.head_tokens(
+            hidden, params["embed"]["embedding"], rs, temps, top_ks, top_ps,
+            sampled=sampled, filtered=filtered)
+
     # ----------------------------------------------------------------- steps --
     @torch.inference_mode()
     def _decode(self, page_table: np.ndarray, seq_lens: np.ndarray,
@@ -130,7 +168,12 @@ class ContinuousEngine:
         pt, sl = self._ints(page_table), self._ints(seq_lens)
         x = self.model._embed(self._ints(tokens)[:, None])
         x = tf.paged_decode_stack(self.arch, self.model.params["blocks"],
-                                  self.pools, x, pt, sl)
+                                  self.pools, x, pt, sl,
+                                  fused=self.fused_decode)
+        if self.fused_decode:
+            tok, _ = self._fused_head(x, sl + 1, *sampling_args,
+                                      sampled=sampled, filtered=filtered)
+            return tok.cpu().numpy()
         logits = self.model._logits(x)[:, 0]
         tok = self._select(logits, sampling_args[0], sl + 1,
                            *sampling_args[1:], sampled=sampled,
@@ -145,15 +188,19 @@ class ContinuousEngine:
         x = self.model._embed(self._ints(chunk))
         x = tf.paged_prefill_stack(self.arch, self.model.params["blocks"],
                                    self.pools, x, self._ints(page_row), start,
-                                   end)
+                                   end, fused=self.fused_decode)
         if not final:
             return 0
-        logits = self.model._logits(tf.chunk_final_hidden(x, start, end))[:, 0]
+        xl = tf.chunk_final_hidden(x, start, end)
         args = self._sampling_tensors([sp.seed], [sp.temperature],
                                       [sp.top_k], [sp.top_p])
-        tok = self._select(logits, args[0], self._ints([end]), *args[1:],
-                           sampled=not sp.greedy,
-                           filtered=not sp.greedy and sp.filtered)
+        flags = {"sampled": not sp.greedy,
+                 "filtered": not sp.greedy and sp.filtered}
+        if self.fused_decode:
+            tok, _ = self._fused_head(xl, self._ints([end]), *args, **flags)
+        else:
+            tok = self._select(self.model._logits(xl)[:, 0], args[0],
+                               self._ints([end]), *args[1:], **flags)
         return int(tok[0])
 
     @torch.inference_mode()

@@ -12,6 +12,7 @@ draw. ``temperature == 0`` rows take the raw argmax.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -76,3 +77,11 @@ def sample_tokens(logits: torch.Tensor, seeds: torch.Tensor,
     rs = head_ref.row_uniforms(seeds, positions)
     drawn = fused_ops.draw_tokens(lg.contiguous(), rs)
     return torch.where(temps > 0, drawn, greedy)
+
+
+def fused_decode_enabled() -> bool:
+    """Environment default of the engine's ``fused_decode`` flag: on unless
+    ``REPRO_FUSED_DECODE`` is set to ``0`` or the empty string (the JAX
+    package's rule). Both paths emit the same tokens on the CPU, so the
+    flag changes memory traffic and launches."""
+    return os.environ.get("REPRO_FUSED_DECODE", "1") not in ("", "0")

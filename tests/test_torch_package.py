@@ -104,7 +104,8 @@ def test_kernel_wrappers_take_plain_path_for_cpu_tensors():
 def test_kernel_sources_exist_for_the_build():
     from repro_torch.kernels import _build
     names = set(_build.sources())
-    assert names == {"paged_attention", "sampling"}
+    assert names == {"paged_attention", "sampling", "residual_norm",
+                     "head_tokens"}
     assert _build.BUILD_DIR == REPO / "build" / "repro_torch"
     for src in _build.sources().values():
         text = src.read_text()

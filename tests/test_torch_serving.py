@@ -1,4 +1,5 @@
-"""The port's continuous engine against the JAX engine (fused_decode=False)
+"""The port's continuous engine against the JAX engine, both with
+fused_decode=False (the fused path is held in test_torch_fused_decode.py),
 on the same converted fp32 smoke weights: greedy and seeded-sampled token
 streams, a shared-prefix trace with copy-on-write, forced preemption, the
 overlong-request error result and EOS. Streams must be identical; a
@@ -50,7 +51,7 @@ def _top2_margin(model, params, context):
 def _serve_both(pair, reqs, **kw):
     model, params, t_model = pair
     j_eng = JaxEngine(model, params, fused_decode=False, **kw)
-    t_eng = ContinuousEngine(t_model, **kw)
+    t_eng = ContinuousEngine(t_model, fused_decode=False, **kw)
     j_res = j_eng.run([JaxRequest(
         uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
         eos_id=r.eos_id, sampling=JaxSampling(**dataclasses.asdict(r.sampling)))
@@ -166,7 +167,13 @@ def test_overlong_request_error_and_eos_match_jax(pair):
 
 
 @pytest.mark.parametrize("kw", [{"tp": 2}, {"decode_steps": 4},
-                                {"fused_decode": True}, {"sanitize": True}])
+                                {"sanitize": True}])
 def test_unported_engine_options_raise(pair, kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         ContinuousEngine(pair[2], num_slots=2, num_pages=8, page_size=4, **kw)
+
+
+def test_engine_constructs_with_fused_decode_on(pair):
+    eng = ContinuousEngine(pair[2], num_slots=2, num_pages=8, page_size=4,
+                           fused_decode=True)
+    assert eng.fused_decode and eng.fused_decode_off_reason is None
