@@ -15,7 +15,16 @@ Phases, each printing one line (any failure exits non-zero):
      temperature-only and filtered steps), and its greedy tokens on random
      bf16 inputs wherever the plain top-2 margin exceeds 2 bf16 ulps
      (8 rows, the serve's, and 16, two groups of the head's GEMV); the
-     filter and draw also under a short torch.profiler window;
+     filter and draw also under a short torch.profiler window; then the
+     training kernels at full-width bert-large shapes: the fused residual
+     add + layernorm at [1024, 1024] and [4096, 1024] (B8 with S128 and
+     S512) within 1 bf16 ulp of max(|output|, |output before the bias|),
+     bias + GeLU at [1024, 4096] and [4096, 4096] within 1 bf16 ulp +
+     |h| 2^-22 of its plain version run in fp32 on the same bf16 inputs,
+     and both LAMB stages on the wqkv, embedding and bias shapes and a
+     ragged 4099 (m', v' within 2 fp32 ulps, the trust ratio within 1e-5
+     relative), each timed by CUDA events and the profiler beside its
+     bound, its plain version and a library yardstick;
   4. the full-width model's logits through the paged kernels, unfused and
      fused layer bodies, against a dense plain-PyTorch forward of the same
      weights: the final prefill chunk, then four decode steps across a page
@@ -34,7 +43,24 @@ Phases, each printing one line (any failure exits non-zero):
      compared (they may fork on near-tied logits);
   6. the fused trace (the default path) under torch.profiler: device time
      by kernel and kind, kernel launches, and the device's idle share;
-  7. one JSON line of per-kernel numbers (times from CUDA events).
+  7. one full-width bert-large post-norm block, fused (kernel forward,
+     plain backward) against unfused in bf16 and both against fp32: the
+     output and the gradient of the input and of every block parameter
+     within rel L2 0.03;
+  8. training: full-width bert-large (24 layers, d_model 1024, vocab
+     30522, bf16 compute, fp32 master weights, seeded random weights), B8
+     S128, LAMB at 1e-3, 6 steps through build_train_step and train_loop
+     with REPRO_FUSED_BLOCKS=1 and fused_optimizer_kernel=True (launch
+     counters set to 0 just before, read just after: exactly 96 norms, 48
+     GeLUs and 296 launches of each LAMB stage a step), one more fused step
+     under torch.cuda.set_sync_debug_mode counting the calls that made the
+     host wait for the card, one under torch.profiler (device time by kind,
+     host time by part of the step), then 6 unfused steps from the same
+     weights and batches; every loss finite, the last below the first on
+     both paths, the step-1 losses within 1 bf16 ulp of each other;
+  9. one JSON line of per-kernel numbers (times from CUDA events).
+TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
+fp32.
 The last line is {"ok": true, "device": {...}}. Weights are random, made on
 the card from a seeded torch.Generator; nothing is downloaded.
 """
@@ -785,6 +811,486 @@ def profile_serve(model):
     return {name: (ms, c) for name, ms, c in kernels}
 
 
+# ---------------------------------------------------------------- phase 7 ---
+# The training slice: bert-large MLM, B8 / S128 (the paper's Phase 1).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 6
+GELU_TAIL = 2.0 ** -22         # the fp32 tanh-GeLU formula's own error per
+                               # |h|: 0.5 |h| times tanh's error in its
+                               # cancelling tail (h < -4, 1 + tanh ~ 0)
+BLOCK_REL_L2 = 0.03            # one block's output and grads, two bf16
+                               # paths (or bf16 vs fp32): a few roundings
+                               # of 2^-8 each through forward and backward
+
+
+def _ln_tol(p: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
+    """1 bf16 ulp of max(|output|, |output before the bias|): the kernel's
+    only freedom is the order of its fp32 statistics, and cancellation
+    against the bias can lift that difference above an ulp of a small
+    output."""
+    return _bf16_ulp(torch.maximum(p.float().abs(), pre.float().abs()))
+
+
+def check_residual_layernorm(dev):
+    """The training block's add + norm (layernorm + bias, bf16 params) at
+    [B*S, 1024] for B8 with S128 and S512."""
+    from repro_torch.kernels.fused_layernorm import ops, ref
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    d, err, times, keep = 1024, 0.0, {}, None
+    for rows in (1024, 4096):
+        x = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        r = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        s = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                   device=dev)).bfloat16()
+        b = (0.1 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
+        y = ops.fused_residual_layernorm(x, r, s, b)
+        p = ref.fused_residual_layernorm(x, r, s, b)
+        pre = ref.fused_residual_layernorm(x, r, s)
+        torch.cuda.synchronize()
+        diff = (y.float() - p.float()).abs()
+        if not bool((diff <= _ln_tol(p, pre)).all()):
+            _fail(f"fused_residual_layernorm [{rows}, {d}]: differs from its "
+                  f"plain version beyond 1 bf16 ulp (max abs "
+                  f"{diff.max().item()})")
+        err = max(err, diff.max().item())
+        times[rows] = _time_ms(
+            lambda: ops.fused_residual_layernorm(x, r, s, b), 200)
+        if rows == 1024:
+            keep = (x, r, s, b)
+    x, r, s, b = keep
+    plain_ms = _time_ms(lambda: ref.fused_residual_layernorm(x, r, s, b), 50)
+    h = x + r
+    library_ms = _time_ms(lambda: F.layer_norm(h, (d,), s, b), 200)
+    dev_ms = _profiled_ms(lambda: ops.fused_residual_layernorm(x, r, s, b),
+                          ("resln_kernel",))
+    bound_ms, bound_by = _bound(3 * 1024 * d * 2 + 2 * d * 2,
+                                10.0 * 1024 * d, FP32_FLOPS)
+    return {"name": "fused_residual_layernorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_layernorm/csrc/"
+                      "residual_layernorm.cu",
+            "replaces": "src/repro/kernels/fused_layernorm/kernel.py:36",
+            "max_abs_err": err,
+            "tol": "1 bf16 ulp of max(|output|, |output before the bias|)",
+            "ms": times[1024], "ms_4096_rows": times[4096],
+            "profiler_device_ms_per_call": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_note": "F.layer_norm of a precomputed bf16 x + "
+                            "residual: the norm only, not the add"}
+
+
+def check_bias_gelu(dev):
+    """bias + tanh-GeLU at [B*S, 4096] for B8 with S128 and S512, against
+    the plain version run in fp32 on the same bf16 inputs (the kernel's
+    arithmetic; the plain version itself adds in bf16, as JAX's)."""
+    from repro_torch.kernels.bias_gelu import ops, ref
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    f, err, err_bf16, times, keep = 4096, 0.0, 0.0, {}, None
+    for rows in (1024, 4096):
+        x = (2 * torch.randn((rows, f), generator=gen, device=dev)).bfloat16()
+        b = (0.5 * torch.randn((f,), generator=gen, device=dev)).bfloat16()
+        y = ops.bias_gelu(x, b).float()
+        h = x.float() + b.float()
+        p32 = ref.bias_gelu(x.float(), b.float()).bfloat16().float()
+        pbf = ref.bias_gelu(x, b).float()
+        torch.cuda.synchronize()
+        diff = (y - p32).abs()
+        if not bool((diff <= _bf16_ulp(p32) + h.abs() * GELU_TAIL).all()):
+            _fail(f"bias_gelu [{rows}, {f}]: differs from its plain version "
+                  f"in fp32 beyond 1 bf16 ulp + |h| 2^-22 (max abs "
+                  f"{diff.max().item()})")
+        err = max(err, diff.max().item())
+        err_bf16 = max(err_bf16, (y - pbf).abs().max().item())
+        times[rows] = _time_ms(lambda: ops.bias_gelu(x, b), 200)
+        if rows == 1024:
+            keep = (x, b)
+    x, b = keep
+    plain_ms = _time_ms(lambda: ref.bias_gelu(x, b), 50)
+    hb = x + b
+    library_ms = _time_ms(lambda: F.gelu(hb, approximate="tanh"), 200)
+    dev_ms = _profiled_ms(lambda: ops.bias_gelu(x, b), ("bias_gelu_kernel",))
+    bound_ms, bound_by = _bound(2 * 1024 * f * 2 + f * 2, 16.0 * 1024 * f,
+                                FP32_FLOPS)
+    return {"name": "bias_gelu", "route": "cuda",
+            "source": "src/repro_torch/kernels/bias_gelu/csrc/bias_gelu.cu",
+            "replaces": "src/repro/kernels/bias_gelu/kernel.py:28",
+            "max_abs_err": err, "max_abs_err_vs_bf16_plain": err_bf16,
+            "tol": "1 bf16 ulp + |h| 2^-22 of the plain version in fp32",
+            "ms": times[1024], "ms_4096_rows": times[4096],
+            "profiler_device_ms_per_call": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_note": "F.gelu(approximate='tanh') of a precomputed "
+                            "bf16 x + bias: the activation only"}
+
+
+def check_lamb(dev):
+    """Both LAMB stages on the leaf shapes of bert-large (wqkv, the
+    embedding, a bias) and a ragged length, g in bf16 as under master
+    weights: m', v' within 2 fp32 ulps (they follow the plain version's
+    operation order), the trust ratio within 1e-5 relative (sums in
+    another order), w' within 2^-22 of the leaf's largest |w|. Timed at
+    the embedding, the largest leaf."""
+    from repro_torch.kernels.fused_lamb import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
+    lr = 1e-3
+    sc = torch.tensor([0.7, 10.0, 1000.0], device=dev)   # ginv, c1, c2
+    lines, r_err, mv_err, w_err, bitwise = [], 0.0, 0.0, 0.0, True
+    for shape in ((1024, 3072), (30592, 1024), (1024,), (4099,)):
+        w = 0.02 * torch.randn(shape, generator=gen, device=dev)
+        g = (1e-3 * torch.randn(shape, generator=gen, device=dev)).bfloat16()
+        m = 1e-4 * torch.randn(shape, generator=gen, device=dev)
+        v = 1e-7 * torch.rand(shape, generator=gen, device=dev)
+        pw, pm, pv, pr = ref.lamb_stage12(w, g, m, v, ginv=sc[0], c1=sc[1],
+                                          c2=sc[2], lr=lr, **hyper)
+        r = ops.lamb_update_(w, g, m, v, sc, lr=lr, **hyper)
+        torch.cuda.synchronize()
+        ulp32 = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(pm.abs(), pv.abs()).clamp_min(2.0 ** -126))) - 23)
+        mv = max((m - pm).abs().max().item(), (v - pv).abs().max().item())
+        if not bool(((m - pm).abs() <= 2 * ulp32).all()
+                    and ((v - pv).abs() <= 2 * ulp32).all()):
+            _fail(f"lamb_stage1 {shape}: m' or v' differ from the plain "
+                  f"version beyond 2 fp32 ulps (max abs {mv})")
+        rel = abs(r.item() / pr.item() - 1.0)
+        werr = (w - pw).abs().max().item()
+        if not (rel <= 1e-5 and werr <= 2.0 ** -22 * pw.abs().max().item()):
+            _fail(f"lamb_stage2 {shape}: trust ratio rel err {rel} (tol "
+                  f"1e-5) or w' max abs err {werr}")
+        r_err, mv_err, w_err = max(r_err, rel), max(mv_err, mv), max(w_err,
+                                                                   werr)
+        bitwise &= torch.equal(m, pm) and torch.equal(v, pv)
+        lines.append(f"{shape}: m'/v' max abs {mv:.3e}, r rel {rel:.3e}, "
+                     f"w' max abs {werr:.3e}")
+        if shape == (30592, 1024):
+            keep = (w, g, m, v)
+    w, g, m, v = keep
+    n = w.numel()
+    u = torch.empty_like(w)
+    parts = torch.empty(2 * ops.grid_blocks(n), device=dev)
+    rr = torch.empty(1, device=dev)
+    ms1 = _time_ms(lambda: ops.stage1(w, g, m, v, sc, u, parts, **hyper), 50)
+    ms2 = _time_ms(lambda: ops.stage2(w, u, parts, rr, lr=lr), 50)
+    dev1 = _profiled_ms(lambda: ops.stage1(w, g, m, v, sc, u, parts,
+                                           **hyper), ("stage1_kernel",))
+    dev2 = _profiled_ms(lambda: ops.stage2(w, u, parts, rr, lr=lr),
+                        ("stage2_kernel",))
+    plain1 = _time_ms(lambda: ref.lamb_stage1(w, g, m, v, ginv=sc[0],
+                                              c1=sc[1], c2=sc[2], **hyper),
+                      10)
+    plain2 = _time_ms(lambda: ref.lamb_stage2(
+        w, u, lr=lr, r=ref.trust_ratio(w, u)), 10)
+    b1, by1 = _bound(n * (4 + 2 + 4 + 4) + n * 12, 20.0 * n, FP32_FLOPS)
+    b2, by2 = _bound(n * 8 + n * 4, 3.0 * n, FP32_FLOPS)
+    print("[lamb] " + "; ".join(lines) + f"; m'/v' bitwise equal: {bitwise}")
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/fused_lamb/csrc/"
+                        "fused_lamb.cu",
+              "library_ms": None,
+              "library_note": "no single PyTorch call computes a LAMB "
+                              "stage", "timed_shape": "[30592 x 1024] fp32, "
+                                                      "g bf16"}
+    return [dict(common, name="lamb_stage1",
+                 replaces="src/repro/kernels/fused_lamb/kernel.py:49",
+                 max_abs_err=mv_err, tol="m', v' within 2 fp32 ulps",
+                 ms=ms1, profiler_device_ms_per_call=dev1, plain_ms=plain1,
+                 bound_ms=b1, bound_by=by1),
+            dict(common, name="lamb_stage2",
+                 replaces="src/repro/kernels/fused_lamb/kernel.py:78",
+                 max_abs_err=w_err, trust_ratio_rel_err=r_err,
+                 tol="trust ratio 1e-5 relative; w' 2^-22 of max |w|",
+                 ms=ms2, profiler_device_ms_per_call=dev2, plain_ms=plain2,
+                 bound_ms=b2, bound_by=by2)]
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp_min(1e-30)).item()
+
+
+def check_block_gradients(arch, dev):
+    """One full-width post-norm block (bert-large's, biases perturbed: JAX
+    and the port start them at 0, which would hide a bias fault) on x [8,
+    128, 1024]: the fused block (kernel forward, plain backward) against
+    the unfused block in bf16 and both against the unfused block in fp32,
+    output and the gradient of every block parameter and of the input,
+    rel L2 within BLOCK_REL_L2."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import init_params
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    one = dataclasses.replace(arch, num_layers=1, remat=False)
+    blk = init_params(one, gen, dev, torch.float32)["blocks"][0]
+    for name in ("bqkv", "bo"):
+        blk["attn"][name] += 0.02 * torch.randn(blk["attn"][name].shape,
+                                                generator=gen, device=dev)
+    for name in ("b1", "b2"):
+        blk["mlp"][name] += 0.02 * torch.randn(blk["mlp"][name].shape,
+                                               generator=gen, device=dev)
+    for ln in ("ln1", "ln2"):
+        blk[ln]["bias"] += 0.1 * torch.randn((arch.d_model,), generator=gen,
+                                             device=dev)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, arch.d_model), generator=gen,
+                    device=dev)
+    ct = torch.randn(x.shape, generator=gen, device=dev)
+    pos = torch.arange(TRAIN_SEQ, device=dev)[None]
+
+    def run(fused, dtype):
+        p = tree.map(lambda t: t.to(dtype).requires_grad_(True), blk)
+        xx = x.to(dtype).requires_grad_(True)
+        y = tf.apply_block(one, p, xx, pos, causal=False, fused=fused)
+        grads = torch.autograd.grad((y.float() * ct).sum(),
+                                    [xx] + tree.leaves(p))
+        return [y.detach()] + list(grads)
+    fused, plain, exact = (run(True, torch.bfloat16),
+                           run(False, torch.bfloat16),
+                           run(False, torch.float32))
+    names = ["output", "d input"] + [
+        "d " + n for n in ("attn.bo", "attn.bqkv", "attn.wo", "attn.wqkv",
+                           "ln1.bias", "ln1.scale", "ln2.bias", "ln2.scale",
+                           "mlp.b1", "mlp.b2", "mlp.w1", "mlp.w2")]
+    worst = {"fused vs unfused": 0.0, "fused vs fp32": 0.0,
+             "unfused vs fp32": 0.0}
+    for n, f, u, e in zip(names, fused, plain, exact):
+        for k, (a, b) in (("fused vs unfused", (f, u)),
+                          ("fused vs fp32", (f, e)),
+                          ("unfused vs fp32", (u, e))):
+            err = _rel_l2(a, b)
+            worst[k] = max(worst[k], err)
+            if not err <= BLOCK_REL_L2:
+                _fail(f"block gradient check: {n} {k} rel L2 {err:.3e} > "
+                      f"{BLOCK_REL_L2}")
+    print(f"[block grads] bert-large post-norm block, x [{TRAIN_BATCH}, "
+          f"{TRAIN_SEQ}, {arch.d_model}] bf16, output and {len(names) - 1} "
+          f"gradients; worst rel L2 (tol {BLOCK_REL_L2}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+TRAIN_KERNELS = ("fused_residual_layernorm", "bias_gelu", "lamb_stage1",
+                 "lamb_stage2")
+
+
+def _train_counters():
+    from repro_torch.kernels.bias_gelu import ops as bg_ops
+    from repro_torch.kernels.fused_lamb import ops as lamb_ops
+    from repro_torch.kernels.fused_layernorm import ops as ln_ops
+    return (ln_ops.LAUNCHES, bg_ops.LAUNCHES, lamb_ops.LAUNCHES)
+
+
+def expected_train_launches(arch, n_leaves: int):
+    """Launches per step of the fused path: two norm sites and one GeLU per
+    block, again when remat recomputes the block in backward; both LAMB
+    stages once per parameter leaf."""
+    passes = 2 if arch.remat else 1
+    return {"fused_residual_layernorm": 2 * arch.num_layers * passes,
+            "bias_gelu": arch.num_layers * passes,
+            "lamb_stage1": n_leaves, "lamb_stage2": n_leaves}
+
+
+def train(arch, params0, fused: bool):
+    """TRAIN_STEPS steps of bert-large through build_train_step and
+    train_loop, LAMB at 1e-3 with fp32 master weights, from ``params0``,
+    on the synthetic MLM batches of SEED. ``fused`` turns on both switches:
+    REPRO_FUSED_BLOCKS and RunConfig.fused_optimizer_kernel. Every launch
+    counter is set to 0 just before the loop and read just after."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.steps import build_train_step
+    os.environ["REPRO_FUSED_BLOCKS"] = "1" if fused else "0"
+    tag = "fused" if fused else "unfused"
+    run = RunConfig(arch=arch, shape=ShapeConfig(
+        "chip", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
+        optimizer="lamb", learning_rate=1e-3, zero1=False,
+        fused_optimizer_kernel=fused, master_weights=True)
+    bundle = build_train_step(run, "cuda")
+    state = bundle.init(params=params0)
+    data = SyntheticPipeline(DataConfig(
+        vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, objective="mlm", seed=SEED))
+    for d in _counters() + _train_counters():
+        for k in d:
+            d[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = train_loop(bundle.fn, state, data,
+                     LoopConfig(max_steps=TRAIN_STEPS, log_every=1),
+                     log=lambda s: print(f"[train {tag}] {s}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for d in _train_counters() for k, v in d.items()}
+    serve_launches = _snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"{tag} training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        _fail(f"{tag} training: loss did not fall over {TRAIN_STEPS} steps: "
+              f"{losses}")
+    step_s = float(np.median([h["dt"] for h in hist[1:]]))
+    print(f"[train {tag}] bert-large {arch.num_layers}L d{arch.d_model} "
+          f"B{TRAIN_BATCH} S{TRAIN_SEQ} LAMB, fp32 master, bf16 compute: "
+          f"losses {[round(x, 4) for x in losses]}; step time (median of "
+          f"steps 2-{TRAIN_STEPS}) {step_s * 1e3:.2f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; wall "
+          f"{wall:.2f} s; peak memory {peak / 2**30:.2f} GiB ("
+          f"{(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+          f"held when the loop started); launches {launches}")
+    return {"losses": losses, "step_s": step_s, "wall": wall, "peak": peak,
+            "peak_above_start": peak - base,
+            "launches": launches, "serve_launches": serve_launches,
+            "bundle": bundle, "state": state, "data": data,
+            "grad_norms": [h.get("grad_norm") for h in hist]}
+
+
+def count_step_syncs(res) -> int:
+    """One more fused step under torch.cuda.set_sync_debug_mode("warn"):
+    the number of calls in it that made the host wait for the card. A step
+    makes none (train_loop reads its metrics a step later); any fails."""
+    import warnings
+    batch = res["data"].batch(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res["bundle"].fn(res["state"], batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # PyTorch warns "called a synchronizing CUDA operation" at each one,
+    # after a one-time notice that the debug mode is a prototype
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    print(f"[syncs] one fused training step: {len(syncs)} synchronizing "
+          f"calls" + (f"; first: {sorted(set(syncs))[:3]}" if syncs else ""))
+    if syncs:
+        _fail(f"a training step made {len(syncs)} synchronizing calls")
+    return len(syncs)
+
+
+def profile_train_step(res):
+    """One more fused step under torch.profiler: device time of GEMMs, the
+    norm, GeLU, LAMB and everything else, launches, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    bundle, state = res["bundle"], res["state"]
+    batch = res["data"].batch(TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, met = bundle.fn(state, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    host = {}
+    for e in events:            # each range is a host and a device event
+        if e.key.startswith("train_step/"):
+            k = e.key.split("/")[-1]
+            host[k] = max(host.get(k, 0.0), e.cpu_time_total / 1e3)
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith("train_step/")]
+    busy = sum(k[1] for k in kernels)
+    cpu_top = sorted((e for e in events if e.self_cpu_time_total > 0),
+                     key=lambda e: -e.self_cpu_time_total)[:8]
+    print(f"[profile train] host time by part of the step (ms, profiled): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+          + "; top host ops by self time: " + "; ".join(
+              f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
+              for e in cpu_top))
+    if busy <= 0:
+        print("[profile train] device time: not measured (the profiler "
+              "recorded no CUDA kernel time)")
+        return {"host_ms": host}
+    kinds = {"gemm": 0.0, "norm": 0.0, "gelu": 0.0, "lamb": 0.0,
+             "other": 0.0}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        if "resln_kernel" in low:
+            kinds["norm"] += ms
+        elif "bias_gelu_kernel" in low:
+            kinds["gelu"] += ms
+        elif "stage1_kernel" in low or "stage2_kernel" in low:
+            kinds["lamb"] += ms
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
+                                      "cutlass")):
+            kinds["gemm"] += ms
+        else:
+            kinds["other"] += ms
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    print(f"[profile train] one fused step under torch.profiler: wall "
+          f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}; kernel launches "
+          f"{sum(k[2] for k in kernels)}; by kind (ms) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in kinds.items())
+          + "; top kernels " + "; ".join(
+              f"{n[:48]} {ms:.2f} ms x{c}" for n, ms, c in top))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds,
+            "launches": sum(k[2] for k in kernels), "host_ms": host}
+
+
+def check_training(dev):
+    """The training slice end to end: fused, then unfused from the same
+    weights and batches; exact launch counts; step-1 losses within 1 bf16
+    ulp of the loss's magnitude (the forward of the two paths differs by
+    bf16 rounding only)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    arch = get_config("bert-large")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params0 = init_params(arch, gen, dev, torch.float32)
+    n_leaves = len(tree.leaves(params0))
+    n_params = sum(p.numel() for p in tree.leaves(params0))
+    torch.cuda.synchronize()
+    print(f"[init] bert-large full width, {arch.num_layers} layers, "
+          f"{n_leaves} leaves, {n_params} parameters (fp32 master) on the "
+          f"card in {time.perf_counter() - t0:.1f}s")
+    want = expected_train_launches(arch, n_leaves)
+    fused = train(arch, params0, True)
+    syncs = count_step_syncs(fused)
+    prof = profile_train_step(fused)
+    del fused["bundle"], fused["state"]
+    torch.cuda.empty_cache()
+    plain = train(arch, params0, False)
+    del plain["bundle"], plain["state"]
+    for name, per_step in want.items():
+        if fused["launches"][name] != per_step * TRAIN_STEPS:
+            _fail(f"{name}: {fused['launches'][name]} launches in "
+                  f"{TRAIN_STEPS} fused steps, expected "
+                  f"{per_step * TRAIN_STEPS} ({per_step} a step)")
+        if plain["launches"][name]:
+            _fail(f"the unfused training path launched {name}")
+    served = {k: v for k, v in fused["serve_launches"].items()
+              if k not in TRAIN_KERNELS and v}
+    if served:
+        _fail(f"training launched serving kernels: {served}")
+    l_f, l_u = fused["losses"][0], plain["losses"][0]
+    tol = _bf16_ulp(torch.tensor(l_u)).item()
+    if not abs(l_f - l_u) <= tol:
+        _fail(f"step-1 losses differ: fused {l_f} vs unfused {l_u} (tol "
+              f"{tol}, 1 bf16 ulp)")
+    print(f"[train] step-1 loss fused {l_f:.6f} vs unfused {l_u:.6f} "
+          f"(|diff| {abs(l_f - l_u):.3e}, tol {tol}); fused step "
+          f"{fused['step_s'] * 1e3:.2f} ms vs unfused "
+          f"{plain['step_s'] * 1e3:.2f} ms")
+    return {"fused": fused, "unfused": plain, "profile": prof,
+            "syncs_in_a_step": syncs,
+            "per_step": want, "n_leaves": n_leaves, "n_params": n_params}
+
+
 DEVICE_NAMES = {"paged_decode_attention": ("decode_kernel",),
                 "paged_prefill_attention": ("prefill_kernel",),
                 "decode_residual_norm": ("resnorm_kernel",),
@@ -831,12 +1337,14 @@ def main() -> int:
     rows += [filt, check_draw(lg_f, dev)]
     del lg_f
     rows += [check_residual_norm(arch, dev), check_head_tokens(arch, dev)]
+    train_rows = [check_residual_layernorm(dev), check_bias_gelu(dev)]
+    train_rows += check_lamb(dev)
     torch.cuda.empty_cache()
     print("[kernels vs plain] " + "; ".join(
         f"{r['name']}: max abs err {r['max_abs_err']:.3e}"
         + (f" (tol {r['tol']})" if isinstance(r.get("tol"), str) else
            f" (tol {r['tol']:.3e})" if "tol" in r else " (bitwise)")
-        for r in rows))
+        for r in rows + train_rows))
 
     marks["kernel checks"] = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -857,6 +1365,12 @@ def main() -> int:
           "streams may fork on near-tied logits; not a failure)")
     prof = profile_serve(model)
     marks["profile"] = time.perf_counter()
+    del model
+    torch.cuda.empty_cache()
+    check_block_gradients(get_config("bert-large"), dev)
+    marks["block grads"] = time.perf_counter()
+    training = check_training(dev)
+    marks["training"] = time.perf_counter()
     prev = t_start
     spans = []
     for name, t in marks.items():
@@ -891,7 +1405,24 @@ def main() -> int:
             r["profiler_device_ms_per_call"] = (
                 sum(v[0] for v in dev_ms) / r["launches"]
                 if dev_ms and r["launches"] else None)
-    print(json.dumps({"kernels": rows, "serves": {
+    for r in train_rows:
+        name = r["name"]
+        r["launches"] = training["fused"]["launches"][name]
+        r["launches_path"] = (f"fused training, {TRAIN_STEPS} steps "
+                              f"(REPRO_FUSED_BLOCKS=1, "
+                              f"fused_optimizer_kernel=True)")
+        r["launches_per_step"] = training["per_step"][name]
+        r["launches_unfused_training"] = training["unfused"]["launches"][name]
+    trained = {("fused" if f else "unfused"): {
+        k: training["fused" if f else "unfused"][k]
+        for k in ("losses", "step_s", "wall", "peak", "peak_above_start")}
+        for f in (True, False)}
+    print(json.dumps({"kernels": rows + train_rows, "training": dict(
+        trained, profile=training["profile"],
+        syncs_in_a_step=training["syncs_in_a_step"],
+        n_leaves=training["n_leaves"],
+        n_params=training["n_params"], batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+        "serves": {
         ("fused" if f else "unfused"): {
             "wall_s": run["wall"], "decode_steps": run["engine"].steps,
             "decode_steps_sampled": run["flagged"]["sampled"],

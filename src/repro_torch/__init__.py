@@ -1,15 +1,19 @@
-"""PyTorch + CUDA port of the ``repro`` serving path for NVIDIA Hopper.
+"""PyTorch + CUDA port of ``repro`` for NVIDIA Hopper.
 
 The package mirrors ``repro``'s module names so each part has an obvious
 counterpart, but imports nothing from it (nor ``jax``): every piece it needs
 is its own copy. What it carries today is the continuous engine's dense
 serving path (chunked paged prefill, paged decode, per-request sampling,
-fused decode on by default) with hand-written sm_90a kernels:
+fused decode on by default) and bert-large MLM training on one device
+(``launch.train``), with hand-written sm_90a kernels:
 
 - ``kernels.decode_attention``: paged decode and paged prefill attention
 - ``kernels.fused_sampling``: the top-k / top-p logit filter and the draw
-- ``kernels.fused_layernorm``: the decode residual stream's add + norm
+- ``kernels.fused_layernorm``: the decode residual stream's add + norm, and
+  the training block's post-norm add + norm
 - ``kernels.fused_lm_head``: the LM head with token selection
+- ``kernels.bias_gelu``: the GeLU MLP's bias + activation
+- ``kernels.fused_lamb``: LAMB's two stages, one parameter leaf a call
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.

@@ -1,5 +1,7 @@
-"""Architecture config: the fields of ``repro.configs.base.ArchConfig`` that
-the dense serving path reads, as the port's own frozen dataclass."""
+"""Architecture and run configs: the fields of
+``repro.configs.base.{ArchConfig, ShapeConfig, RunConfig}`` that the dense
+serving path and the training path read, as the port's own frozen
+dataclasses (values copied, nothing imported)."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,10 +34,20 @@ class ArchConfig:
     head_dim: int = 0               # 0 -> d_model // num_heads
     mlp: str = "swiglu"
     norm: str = "rmsnorm"
-    pos_emb: str = "rope"
+    pos_emb: str = "rope"           # rope | learned | none
     rope_theta: float = 10_000.0
+    use_bias: bool = False
     tie_embeddings: bool = False
-    dtype: str = "bfloat16"         # compute / activation and weight dtype
+    dtype: str = "bfloat16"         # compute / activation dtype (serving
+                                    # weights too)
+    param_dtype: str = "float32"    # training's master parameter dtype
+    attn_chunk: int = 1024          # KV length above which JAX chunks
+                                    # attention (not ported)
+    post_norm: bool = False         # BERT-style post-LN blocks
+    bidirectional: bool = False     # encoder-only attention (BERT)
+    mlm_transform: bool = False     # BERT MLM head (dense + gelu + LN)
+    max_position: int = 512         # learned-position table size
+    remat: bool = True              # recompute each block in backward
     logit_softcap: float = 0.0
 
     @property
@@ -51,3 +63,33 @@ class ArchConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.resolved_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape: ``microbatches`` splits a train batch for gradient
+    accumulation (paper section 4.2)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+    microbatches: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """What ``build_train_step`` needs besides the architecture."""
+    arch: ArchConfig
+    shape: ShapeConfig
+    optimizer: str = "lamb"         # lamb | adamw | sgd
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.01
+    zero1: bool = True              # ZeRO layout: not ported (raises)
+    fused_optimizer_kernel: bool = False   # route LAMB through the kernels
+    # bf16 model params + fp32 master copies in the optimizer (paper
+    # section 3.2.1); False = everything fp32
+    master_weights: bool = True
+    grad_clip: float = 1.0
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,6 +1,7 @@
-"""GQA attention for the paged serving path: fused QKV projection, RoPE,
-the reference full-matrix attention, and the paged prefill / decode layers.
-Counterpart of ``repro.models.attention``.
+"""GQA attention: fused QKV projection, RoPE, the reference full-matrix
+attention, the full-sequence layer of the training path, and the paged
+prefill / decode layers of the serving path. Counterpart of
+``repro.models.attention``.
 
 The JAX layers return new page pools; here K/V rows are written into the
 pools in place with ``index_put_`` (the pools are the engine's own buffers,
@@ -41,10 +42,10 @@ def position_encode(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     if arch.pos_emb == "rope":
         return (apply_rope(q, positions, arch.rope_theta),
                 apply_rope(k, positions, arch.rope_theta))
-    if arch.pos_emb == "none":
-        return q, k
+    if arch.pos_emb in ("learned", "none"):
+        return q, k         # learned positions are added at the embedding
     raise NotImplementedError(
-        f"pos_emb {arch.pos_emb!r}: the port's paged path supports rope only")
+        f"pos_emb {arch.pos_emb!r}: the port supports rope, learned and none")
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -70,8 +71,11 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Reference full-matrix attention with an fp32 softmax."""
     d = q.shape[-1]
-    scale = torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
-    s = _gqa_scores(q, k).float() / scale.to(q.device)
+    # made on q's device: a host-made scalar copied over would make the
+    # host wait for the card at every call
+    scale = torch.sqrt(torch.full((), float(d), dtype=torch.float32,
+                                  device=q.device))
+    s = _gqa_scores(q, k).float() / scale
     sq, sk = s.shape[2], s.shape[3]
     rows = torch.arange(sq, device=q.device)[:, None] + q_offset
     cols = torch.arange(sk, device=q.device)[None, :]
@@ -82,6 +86,29 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(valid[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return _gqa_values(p, v)
+
+
+def attention_core(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, *, causal: bool) -> torch.Tensor:
+    """The JAX package takes the naive path while the KV length is at most
+    ``attn_chunk`` (bert-large: 1024 against its 512 positions); beyond it
+    JAX chunks (or runs the Pallas flash kernel), which is not ported."""
+    if k.shape[1] > arch.attn_chunk:
+        raise NotImplementedError(
+            f"KV length {k.shape[1]} > attn_chunk {arch.attn_chunk}: "
+            "chunked/flash attention not ported")
+    return naive_attention(q, k, v, causal=causal)
+
+
+def apply_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
+                    positions: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Training self-attention over the full sequence x [B, S, D]."""
+    b, s, _ = x.shape
+    q, k, v = qkv_project(arch, p, x)
+    q, k = position_encode(arch, q, k, positions)
+    o = attention_core(arch, q, k, v, causal=causal)
+    return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
 
 
 def init_paged_kv_cache(arch: ArchConfig, num_pages: int, page_size: int,

@@ -1,7 +1,8 @@
 """Primitive layers as plain functions on tensors: dense, norms, activations,
 embeddings, rotary embeddings, the MLP. Counterpart of
 ``repro.models.layers``; parameter names follow the same contract
-(``embedding [V, D]``, ``w1/w3 [D, F]``, ``w2 [F, D]``, ``scale [D]``)."""
+(``embedding [V, D]``, ``w1/w3 [D, F]``, ``w2 [F, D]``, ``b1 [F]``,
+``b2 [D]``, ``scale/bias [D]``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -25,6 +26,14 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def init_norm(kind: str, dim: int, dtype: torch.dtype, device) -> Params:
+    """``{scale: ones}`` (+ ``bias: zeros`` for layernorm)."""
+    p: Params = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
+
+
 def apply_norm(kind: str, p: Params, x: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm / LayerNorm with fp32 statistics, result in ``x``'s dtype."""
@@ -42,6 +51,11 @@ def apply_norm(kind: str, p: Params, x: torch.Tensor,
     if "bias" in p:
         y = y + p["bias"].float()
     return y.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GeLU, as BERT's (paper section 3.2.3)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -88,10 +102,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def apply_mlp(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Feed-forward block (single device: no tensor-parallel reduce)."""
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp {kind!r}: the port serves swiglu (dense family) only")
-    h = silu(dense(x, p["w1"], p.get("b1"))) * dense(x, p["w3"], p.get("b3"))
+def apply_mlp(kind: str, p: Params, x: torch.Tensor, *,
+              fused: bool = False) -> torch.Tensor:
+    """Feed-forward block (single device: no tensor-parallel reduce).
+    ``fused`` routes a gelu MLP's bias + activation through
+    ``kernels.bias_gelu`` (the dense without its bias, then one kernel);
+    swiglu has no such epilogue and ignores it."""
+    if kind == "swiglu":
+        h = silu(dense(x, p["w1"], p.get("b1"))) * dense(x, p["w3"],
+                                                         p.get("b3"))
+    elif kind == "gelu":
+        if fused:
+            from ..kernels.bias_gelu import ops as bg_ops
+            h = bg_ops.bias_gelu(dense(x, p["w1"]), p.get("b1"))
+        else:
+            h = gelu(dense(x, p["w1"], p.get("b1")))
+    else:
+        raise ValueError(kind)
     return dense(h, p["w2"], p.get("b2"))

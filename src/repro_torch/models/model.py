@@ -1,23 +1,32 @@
 """The dense model facade of the port: architecture + weights, the weight
-init, the token embedding and the LM head. Counterpart of
-``repro.models.model.Model`` (``init``, ``_embed``, ``_logits``).
+init, the token embedding, the LM head, and the training forward and loss.
+Counterpart of ``repro.models.model.Model`` (``init``, ``_embed``,
+``_logits``) and of its training forward and loss, as module functions
+(``embed``, ``logits``, ``forward``, ``loss``, ``cross_entropy``) on an
+explicit weight dict, the form the trainer differentiates.
 
 Weights are a plain nested dict of tensors with the JAX package's names,
 except that the stacked ``blocks`` become a list with one dict per layer:
 
-    embed.embedding [Vp, D]   final_norm.scale [D]   out.head [D, Vp] (untied)
-    blocks[l]: ln1.scale, attn.wqkv [D, q+2kv], attn.wo [q, D], ln2.scale,
-               mlp.w1 / mlp.w3 [D, F], mlp.w2 [F, D]
+    embed.embedding [Vp, D]   final_norm.scale [D] (.bias: layernorm)
+    out.head [D, Vp] (untied)   pos.pos_embedding [P, D] (learned positions)
+    mlm.dense [D, D], mlm.bias [D], mlm.ln.{scale, bias} (BERT's MLM head)
+    blocks[l]: ln1, attn.wqkv [D, q+2kv] (+ bqkv), attn.wo [q, D] (+ bo),
+               ln2, mlp.w1 [D, F] (+ b1), mlp.w2 [F, D] (+ b2),
+               mlp.w3 [D, F] (swiglu)
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig, torch_dtype
-from .layers import Params, apply_norm, embed_tokens, pad_vocab, unembed
+from . import transformer as tf
+from .layers import (Params, apply_norm, dense, embed_tokens, gelu,
+                     init_norm, pad_vocab, unembed)
 
 
 def _dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
@@ -29,39 +38,121 @@ def _dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
     return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
 
 
+def _normal(gen: torch.Generator, shape, device, dtype) -> torch.Tensor:
+    """N(0, 0.02^2), the embedding tables' init."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    t.normal_(0.0, 1.0, generator=gen)
+    return (t * 0.02).to(dtype)
+
+
+def _zeros(n: int, device, dtype) -> torch.Tensor:
+    return torch.zeros((n,), dtype=dtype, device=device)
+
+
 def init_params(arch: ArchConfig, gen: torch.Generator, device,
                 dtype: torch.dtype) -> Params:
     """Random weights with the JAX package's distributions (not its bits:
-    a parity test converts the JAX weights instead, see ``convert``)."""
-    if arch.family != "dense" or arch.mlp != "swiglu":
+    a parity test converts the JAX weights instead, see ``convert``).
+    Biases start at zero, as in JAX."""
+    if arch.family != "dense" or arch.mlp not in ("swiglu", "gelu"):
         raise NotImplementedError(
-            f"{arch.name}: the port initializes dense swiglu models only")
-    d, hd = arch.d_model, arch.resolved_head_dim
-    emb = torch.empty((pad_vocab(arch.vocab_size), d), dtype=torch.float32,
-                      device=device)
-    emb.normal_(0.0, 1.0, generator=gen)
-    p: Params = {"embed": {"embedding": (emb * 0.02).to(dtype)}}
-    del emb
-    ones = torch.ones((d,), dtype=dtype, device=device)
+            f"{arch.name}: the port initializes dense swiglu/gelu models only")
+    d, f, hd = arch.d_model, arch.d_ff, arch.resolved_head_dim
+    qkv = arch.q_dim + 2 * arch.kv_dim
+    p: Params = {"embed": {"embedding": _normal(
+        gen, (pad_vocab(arch.vocab_size), d), device, dtype)}}
+    if arch.pos_emb == "learned":
+        p["pos"] = {"pos_embedding": _normal(gen, (arch.max_position, d),
+                                             device, dtype)}
     blocks = []
     for _ in range(arch.num_layers):
-        blocks.append({
-            "ln1": {"scale": ones.clone()},
-            "attn": {"wqkv": _dense_init(gen, d, arch.q_dim + 2 * arch.kv_dim,
-                                         device, dtype),
-                     "wo": _dense_init(gen, arch.num_heads * hd, d, device,
-                                       dtype)},
-            "ln2": {"scale": ones.clone()},
-            "mlp": {"w1": _dense_init(gen, d, arch.d_ff, device, dtype),
-                    "w2": _dense_init(gen, arch.d_ff, d, device, dtype),
-                    "w3": _dense_init(gen, d, arch.d_ff, device, dtype)},
-        })
+        attn = {"wqkv": _dense_init(gen, d, qkv, device, dtype),
+                "wo": _dense_init(gen, arch.num_heads * hd, d, device, dtype)}
+        mlp = {"w1": _dense_init(gen, d, f, device, dtype),
+               "w2": _dense_init(gen, f, d, device, dtype)}
+        if arch.mlp == "swiglu":
+            mlp["w3"] = _dense_init(gen, d, f, device, dtype)
+        if arch.use_bias:
+            attn["bqkv"] = _zeros(qkv, device, dtype)
+            attn["bo"] = _zeros(d, device, dtype)
+            mlp["b1"] = _zeros(f, device, dtype)
+            mlp["b2"] = _zeros(d, device, dtype)
+            if arch.mlp == "swiglu":
+                mlp["b3"] = _zeros(f, device, dtype)
+        blocks.append({"ln1": init_norm(arch.norm, d, dtype, device),
+                       "attn": attn,
+                       "ln2": init_norm(arch.norm, d, dtype, device),
+                       "mlp": mlp})
     p["blocks"] = blocks
-    p["final_norm"] = {"scale": ones.clone()}
+    p["final_norm"] = init_norm(arch.norm, d, dtype, device)
     if not arch.tie_embeddings:
         p["out"] = {"head": _dense_init(gen, d, pad_vocab(arch.vocab_size),
                                         device, dtype)}
+    if arch.mlm_transform:
+        p["mlm"] = {"dense": _dense_init(gen, d, d, device, dtype),
+                    "bias": _zeros(d, device, dtype),
+                    "ln": init_norm(arch.norm, d, dtype, device)}
     return p
+
+
+def embed(arch: ArchConfig, params: Params,
+          tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] -> [B, S, D] in the compute dtype, plus the learned
+    position rows 0 .. S-1 where the arch has them."""
+    dtype = torch_dtype(arch.dtype)
+    x = embed_tokens(params["embed"], tokens.long(), dtype)
+    if arch.pos_emb == "learned":
+        x = x + params["pos"]["pos_embedding"][:tokens.shape[1]].to(dtype)
+    return x
+
+
+def logits(arch: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm (+ BERT's MLM transform) + LM head: [B, S, D] -> fp32
+    logits [B, S, Vp]."""
+    x = apply_norm(arch.norm, params["final_norm"], x)
+    if arch.mlm_transform:
+        mlm = params["mlm"]
+        x = gelu(dense(x, mlm["dense"], mlm["bias"]))
+        x = apply_norm(arch.norm, mlm["ln"], x)
+    tied = params["embed"]["embedding"] if arch.tie_embeddings else None
+    return unembed(params.get("out", {}), x, tied, arch.logit_softcap)
+
+
+def forward(arch: ArchConfig, params: Params,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The training forward -> fp32 logits [B, S, Vp]. (JAX also returns
+    an auxiliary loss, which is 0 for the dense family.)"""
+    tokens = batch["tokens"]
+    x = embed(arch, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    x = tf.apply_stack(arch, params["blocks"], x, positions,
+                       causal=not arch.bidirectional)
+    return logits(arch, params, x)
+
+
+def cross_entropy(lg: torch.Tensor, targets: torch.Tensor,
+                  mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean cross entropy and accuracy over every column of the
+    padded vocab (as ``repro.models.model._ce_pieces``). JAX's custom VJP
+    there shards the backward; its math is autodiff's, used here."""
+    lg = lg.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    target_logit = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
+    ll = target_logit - lse
+    correct = (target_logit >= lg.max(dim=-1).values).float()
+    m = torch.ones_like(ll) if mask is None else mask.float()
+    denom = torch.clamp_min(m.sum(), 1.0)
+    ce = -(ll * m).sum() / denom
+    acc = (correct * m).sum() / denom
+    return ce, acc.detach()
+
+
+def loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """-> (loss, metrics {loss, accuracy}): the masked cross entropy."""
+    ce, acc = cross_entropy(forward(arch, params, batch), batch["targets"],
+                            batch.get("loss_mask"))
+    return ce, {"loss": ce.detach(), "accuracy": acc}
 
 
 class Model:
@@ -84,12 +175,8 @@ class Model:
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, S] -> [B, S, D] in the compute dtype (rope models add
         no position embedding here)."""
-        return embed_tokens(self.params["embed"], tokens.long(), self.dtype)
+        return embed(self.arch, self.params, tokens)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + LM head: [B, S, D] -> fp32 logits [B, S, Vp]."""
-        arch = self.arch
-        x = apply_norm(arch.norm, self.params["final_norm"], x)
-        tied = self.params["embed"]["embedding"] if arch.tie_embeddings \
-            else None
-        return unembed(self.params.get("out", {}), x, tied, arch.logit_softcap)
+        return logits(self.arch, self.params, x)

@@ -1,8 +1,18 @@
-"""Layer stacks of the paged serving path. Counterpart of the paged part of
-``repro.models.transformer``: the dense family has a period of one layer,
-so the JAX ``lax.scan`` over stacked periods becomes a Python loop over the
-per-layer parameter dicts in ``params["blocks"]``. Page pools are updated
-in place (see ``models.attention``), so the stacks return only activations.
+"""Layer stacks: the training path's full-sequence blocks and the paged
+serving path. Counterpart of ``repro.models.transformer``: the dense family
+has a period of one layer, so the JAX ``lax.scan`` over stacked periods
+becomes a Python loop over the per-layer parameter dicts in
+``params["blocks"]``. Page pools are updated in place (see
+``models.attention``), so the paged stacks return only activations.
+
+Training blocks (``apply_block``, ``apply_stack``): pre-norm, or BERT's
+post-norm. ``fused`` (None = ``REPRO_FUSED_BLOCKS``, default off) routes the
+post-norm residual add + norm sites through ``fused_residual_layernorm`` and
+the gelu MLP's bias + activation through ``bias_gelu``: a tolerance contract
+with the unfused block (an fp32 add where the unfused one adds in the model
+dtype), not a bitwise one. ``arch.remat`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``), as JAX's per-block
+``jax.checkpoint(policy=nothing_saveable)`` does.
 
 ``fused=True`` runs the fused decode layer body: the residual stream rides
 as an ``(x, pending delta)`` pair, the add + norm at ln2 is one
@@ -12,14 +22,77 @@ add and norm, so both bodies give the same bits there.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+import functools
+import os
+from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.fused_layernorm import ops as ln_ops
 from . import attention as attn_lib
 from .layers import Params, apply_mlp, apply_norm
+
+
+def fused_blocks_enabled() -> bool:
+    """Training block fusion (``fused_residual_layernorm`` + ``bias_gelu``):
+    ``REPRO_FUSED_BLOCKS=1`` turns it on; off by default, as in JAX."""
+    return os.environ.get("REPRO_FUSED_BLOCKS", "0") == "1"
+
+
+def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
+                positions: torch.Tensor, causal: bool,
+                fused: Optional[bool] = None) -> torch.Tensor:
+    """One pre-norm (or BERT post-norm) attention block over x [B, S, D].
+    The dense family has no auxiliary loss (JAX's is 0 for it), so only the
+    activations are returned."""
+    if fused is None:
+        fused = fused_blocks_enabled()
+    if arch.family != "dense":
+        raise NotImplementedError(
+            f"family {arch.family!r}: the port trains the dense family only")
+
+    def mix(h):
+        return attn_lib.apply_attention(arch, p["attn"], h, positions,
+                                        causal=causal)
+
+    def add_norm(ln: Params, y: torch.Tensor, res: torch.Tensor):
+        if fused:
+            return ln_ops.fused_residual_layernorm(
+                y, res, ln["scale"], ln.get("bias"),
+                rms=arch.norm == "rmsnorm")
+        return apply_norm(arch.norm, ln, res + y)
+
+    if arch.post_norm:
+        x = add_norm(p["ln1"], mix(x), x)
+        return add_norm(p["ln2"], apply_mlp(arch.mlp, p["mlp"], x,
+                                            fused=fused), x)
+    if fused:
+        raise NotImplementedError(
+            "the fused pre-norm training block (decode_residual_norm with a "
+            "gradient) is not ported")
+    x = x + mix(apply_norm(arch.norm, p["ln1"], x))
+    return x + apply_mlp(arch.mlp, p["mlp"],
+                         apply_norm(arch.norm, p["ln2"], x))
+
+
+def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
+                positions: torch.Tensor, causal: bool,
+                fused: Optional[bool] = None) -> torch.Tensor:
+    """Every block in turn; with ``arch.remat`` each block is recomputed in
+    the backward pass, so only its [B, S, D] input stays alive."""
+    if fused is None:
+        fused = fused_blocks_enabled()
+    blk = functools.partial(apply_block, arch, positions=positions,
+                            causal=causal, fused=fused)
+    for p in blocks:
+        if arch.remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(blk, p, x,
+                                                  use_reentrant=False)
+        else:
+            x = blk(p, x)
+    return x
 
 
 def init_serving_state(arch: ArchConfig, num_pages: int, page_size: int,

@@ -1,0 +1,112 @@
+"""The training loop with a step-time monitor. Counterpart of
+``repro.train.loop`` (``LoopConfig``, ``StepMonitor``, ``train_loop``);
+checkpointing is not ported.
+
+Metrics stay on the device for one step: reading the current step's
+metrics (``float`` of a CUDA tensor) would make the host wait for the card
+before the next step is queued. Each step instead reads the previous
+step's metrics after dispatching its own, so the card always has work
+queued behind the wait, while ``dt`` still measures the card's step time
+(attributed one step late).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from typing import Any, Callable, Dict, Optional
+
+from ..data import SyntheticPipeline
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    max_steps: int = 100
+    ckpt_dir: Optional[str] = None  # checkpointing: not ported (raises)
+    log_every: int = 10
+    step_deadline_s: float = 0.0    # watchdog: abort past this (0 = off)
+    straggler_factor: float = 3.0   # a straggler: step > factor * EWMA
+    ewma_alpha: float = 0.1
+
+
+class StepMonitor:
+    """EWMA step-time tracker + hard-deadline watchdog."""
+
+    def __init__(self, cfg: LoopConfig, on_deadline: Callable[[], None]):
+        self.cfg = cfg
+        self.ewma: Optional[float] = None
+        self.stragglers = 0
+        self._deadline_timer: Optional[threading.Timer] = None
+        self._on_deadline = on_deadline
+
+    def step_started(self) -> None:
+        if self.cfg.step_deadline_s > 0:
+            self._deadline_timer = threading.Timer(
+                self.cfg.step_deadline_s, self._on_deadline)
+            self._deadline_timer.daemon = True
+            self._deadline_timer.start()
+
+    def step_finished(self, dt: float) -> bool:
+        """-> True if this step was a straggler."""
+        if self._deadline_timer is not None:
+            self._deadline_timer.cancel()
+            self._deadline_timer = None
+        straggler = (self.ewma is not None
+                     and dt > self.cfg.straggler_factor * self.ewma)
+        a = self.cfg.ewma_alpha
+        self.ewma = dt if self.ewma is None else (1 - a) * self.ewma + a * dt
+        if straggler:
+            self.stragglers += 1
+        return straggler
+
+
+def train_loop(step_fn: Callable, state: Any, data: SyntheticPipeline,
+               cfg: LoopConfig, start_step: int = 0, ckpt: Any = None,
+               log: Callable[[str], None] = print) -> Dict[str, Any]:
+    """Run training; returns ``{"state", "history", "monitor"}`` with one
+    history entry (plain floats) per step."""
+    if ckpt is not None or cfg.ckpt_dir:
+        raise NotImplementedError("checkpointing not ported")
+
+    def _abort():
+        log("[watchdog] step deadline exceeded; aborting for a scheduler "
+            "restart")
+        os._exit(42)
+
+    monitor = StepMonitor(cfg, _abort)
+    history = []
+    pending = []                        # (history index, device metrics)
+
+    def _materialize(upto=None):
+        while pending and (upto is None or pending[0][0] <= upto):
+            idx, m = pending.pop(0)
+            history[idx].update({k: float(v) for k, v in m.items()})
+
+    it = data.iterator(start_step=start_step)
+    for step in range(start_step, cfg.max_steps):
+        batch = next(it)
+        monitor.step_started()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        history.append({"step": step, "dt": 0.0})
+        pending.append((len(history) - 1, metrics))
+        _materialize(upto=len(history) - 2)   # pipeline-depth-1 sync
+        dt = time.perf_counter() - t0
+        history[-1]["dt"] = dt
+        straggler = monitor.step_finished(dt)
+        if straggler:
+            log(f"[monitor] step {step} straggled: {dt:.3f}s vs EWMA "
+                f"{monitor.ewma:.3f}s")
+        if step % cfg.log_every == 0 or straggler:
+            # log the newest completed step: flushing the in-flight one
+            # would leave the next step nothing to wait on
+            if len(history) == 1:
+                _materialize()          # very first line: one-time sync
+            done = history[-1] if len(history) == 1 else history[-2]
+            log(f"step {done['step']:5d} "
+                f"loss={done.get('loss', float('nan')):.4f} "
+                f"acc={done.get('accuracy', 0.0):.3f} "
+                f"{done['dt'] * 1e3:.0f}ms")
+    _materialize()
+    return {"state": state, "history": history, "monitor": monitor}

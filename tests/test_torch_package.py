@@ -62,10 +62,11 @@ def test_port_sources_and_chip_smoke_name_no_jax_imports():
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA default is valid here")
-    from repro_torch.configs import smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.configs import RunConfig, ShapeConfig, smoke_config
+    from repro_torch.launch import serve, train
     from repro_torch.models.convert import from_jax_params
     from repro_torch.models.model import Model
+    from repro_torch.train.steps import build_train_step
     arch = smoke_config("llama3.2-3b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model.init(arch, torch.Generator())
@@ -73,6 +74,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         from_jax_params(arch, {})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke"])
+    run = RunConfig(arch=smoke_config("bert-large"), zero1=False,
+                    shape=ShapeConfig("t", 8, 2, "train"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train_step(run)
 
 
 def test_kernel_wrappers_take_plain_path_for_cpu_tensors():
@@ -105,7 +112,8 @@ def test_kernel_sources_exist_for_the_build():
     from repro_torch.kernels import _build
     names = set(_build.sources())
     assert names == {"paged_attention", "sampling", "residual_norm",
-                     "head_tokens"}
+                     "head_tokens", "residual_layernorm", "bias_gelu",
+                     "fused_lamb"}
     assert _build.BUILD_DIR == REPO / "build" / "repro_torch"
     for src in _build.sources().values():
         text = src.read_text()
