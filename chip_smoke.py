@@ -14,8 +14,9 @@ Phases, each printing one line (any failure exits non-zero):
      bitwise on inputs whose GEMM is exact in any order (greedy,
      temperature-only and filtered steps), and its greedy tokens on random
      bf16 inputs wherever the plain top-2 margin exceeds 2 bf16 ulps
-     (8 rows, the serve's, and 16, two groups of the head's GEMV); the
-     filter and draw also under a short torch.profiler window; then the
+     (8 rows, the serve's, and 16, two groups of the head's GEMV), at
+     llama3.2-3b's D 3072 / V 128256 and again at mamba2-1.3b's D 2048 /
+     V 50304 (the mamba2 serve's shape); the filter and draw also under a short torch.profiler window; then the
      training kernels at full-width bert-large shapes: the fused residual
      add + layernorm at [1024, 1024] and [4096, 1024] (B8 with S128 and
      S512) within 1 bf16 ulp of max(|output|, |output before the bias|),
@@ -23,8 +24,11 @@ Phases, each printing one line (any failure exits non-zero):
      |h| 2^-22 of its plain version run in fp32 on the same bf16 inputs,
      and both LAMB stages on the wqkv, embedding and bias shapes and a
      ragged 4099 (m', v' within 2 fp32 ulps, the trust ratio within 1e-5
-     relative), each timed by CUDA events and the profiler beside its
-     bound, its plain version and a library yardstick;
+     relative); and the mamba mixer's gated RMSNorm at mamba2's width
+     (C 4096) on 8, 64 and 1 rows, z read in place from an in_proj row,
+     within 1 bf16 ulp of the row's largest |output|; each timed by CUDA
+     events and the profiler beside its bound, its plain version and a
+     library yardstick;
   4. the full-width model's logits through the paged kernels, unfused and
      fused layer bodies, against a dense plain-PyTorch forward of the same
      weights: the final prefill chunk, then four decode steps across a page
@@ -41,8 +45,23 @@ Phases, each printing one line (any failure exits non-zero):
      margins with the logit error of phase 4, the fused run checks the
      head's finite probe on live rows, and the two runs' streams are
      compared (they may fork on near-tied logits);
-  6. the fused trace (the default path) under torch.profiler: device time
+  6. the fused trace (the default path) under torch.profiler, recording
+     the card's activity only: device time
      by kernel and kind, kernel launches, and the device's idle share;
+     then the llama model is freed and the mamba2 phase runs: full-width
+     mamba2-1.3b (48 layers, d_model 2048, 64 SSD heads of 64, state 128,
+     bf16, seeded random weights), the logits of a 200-token prompt through
+     64-token paged prefill chunks (the last padded) and of four decode
+     steps beside an idle slot against the plain full-sequence forward
+     (rel L2 0.05, and against the fp32 forward no further than 1.25 x
+     the plain bf16 forward is; the idle slot's state must stay zero), the
+     same trace of 8 requests served through the default fused engine
+     (the prefix cache reports its off reason) with every launch counter
+     set to 0
+     just before and read just after (exactly 48 gated_rmsnorm launches a
+     decode step and a prefill chunk, one head_tokens a step and final
+     chunk), and a window of it (two requests, 8 new tokens each) under
+     torch.profiler;
   7. one full-width bert-large post-norm block, fused (kernel forward,
      plain backward) against unfused in bf16 and both against fp32: the
      output and the gradient of the input and of every block parameter
@@ -58,7 +77,8 @@ Phases, each printing one line (any failure exits non-zero):
      host time by part of the step), then 6 unfused steps from the same
      weights and batches; every loss finite, the last below the first on
      both paths, the step-1 losses within 1 bf16 ulp of each other;
-  9. one JSON line of per-kernel numbers (times from CUDA events).
+  9. one JSON line of per-kernel numbers (times from CUDA events) and of
+     the serves (llama unfused and fused, mamba2 fused).
 TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
 fp32.
 The last line is {"ok": true, "device": {...}}. Weights are random, made on
@@ -66,6 +86,8 @@ the card from a seeded torch.Generator; nothing is downloaded.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -387,12 +409,15 @@ def _exact_head_inputs(arch, dev, gen):
 
 
 def check_head_tokens(arch, dev):
-    """The fused LM head against its plain version (cuBLAS bf16 GEMM with
-    fp32 reduction, then the plain epilogue) on exact-arithmetic inputs:
-    tokens and probe bitwise for greedy, temperature-only and filtered
-    steps, at 8 rows (the serve's slots) and 16 (two row groups of the
-    GEMV). Then random bf16 inputs: greedy tokens equal on every row whose
-    plain top-2 margin exceeds 2 bf16 ulps of the largest |logit|."""
+    """The fused LM head at ``arch``'s width and padded vocab against its
+    plain version (cuBLAS bf16 GEMM with fp32 reduction, then the plain
+    epilogue) on exact-arithmetic inputs: tokens and probe bitwise for
+    greedy, temperature-only and filtered steps, at 8 rows (the serve's
+    slots) and 16 (two row groups of the GEMV). Then random bf16 inputs:
+    greedy tokens equal on every row whose plain top-2 margin exceeds 2
+    bf16 ulps of the largest |logit|. Run for llama3.2-3b (D 3072, V
+    128256) and for mamba2-1.3b (D 2048, V 50304), whose cluster epilogue
+    splits a row into narrower slices."""
     from repro_torch.kernels.fused_lm_head import ops, ref
     from repro_torch.kernels.fused_sampling import ops as samp_ops
     from repro_torch.models.layers import unembed
@@ -424,7 +449,7 @@ def check_head_tokens(arch, dev):
                                         filtered=filtered)
             torch.cuda.synchronize()
             if not (torch.equal(tok, ptok) and torch.equal(ok, pok)):
-                _fail(f"head_tokens S={s} (sampled={sampled}, filtered="
+                _fail(f"head_tokens {arch.name} S={s} (sampled={sampled}, filtered="
                       f"{filtered}) tokens {tok.tolist()} ok {ok.tolist()} "
                       f"differ from the plain version's {ptok.tolist()} "
                       f"{pok.tolist()} (contract: bitwise on "
@@ -482,13 +507,15 @@ def check_head_tokens(arch, dev):
                                                     top_k, top_p), rs)
     unfused_ms = _time_ms(unfused_head, 20)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
-    print("[head_tokens] " + "; ".join(lines))
+    print(f"[head_tokens] {arch.name} x [{s}, {d}], W [{v}, {d}]: "
+          + "; ".join(lines))
     nbytes = v * d * 2 + s * d * 2 + 4 * s * 4 + s * 4 + s
     bound_ms, bound_by = _bound(nbytes, 2.0 * s * v * d, BF16_FLOPS)
     return {"name": "head_tokens", "route": "cuda",
             "source": "src/repro_torch/kernels/fused_lm_head/csrc/"
                       "head_tokens.cu",
             "replaces": "src/repro/kernels/fused_lm_head/kernel.py:64",
+            "shape": f"x [{s}, {d}], W [{v}, {d}] bf16 ({arch.name})",
             "max_abs_err": 0.0, "ms": ms, "ms_greedy": ms_greedy,
             "ms_16_rows": ms_16,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -497,6 +524,87 @@ def check_head_tokens(arch, dev):
                             "transposed",
             "unfused_head_ms": unfused_ms,
             "random_rows_clear_margin": int(clear.sum())}
+
+
+def check_gated_rmsnorm(arch, dev):
+    """The mamba mixer's gated RMSNorm at mamba2's width C = inner: the
+    decode shape [8, C], a prefill chunk [64, C] and one ragged row, z read
+    in place as columns [0, C) of an in_proj output row as the layer gives
+    it. Every output within 1 bf16 ulp of the row's largest |output| of the
+    plain version (the kernel's statistics sum in another order). Then two
+    wide rows that need the shared-memory opt-in: C 32768 (64 KB) and the
+    wrapper's largest C; one C past it must be refused."""
+    from repro_torch.kernels.fused_layernorm import ops, ref
+    from repro_torch.models import ssm
+    import torch.nn.functional as F
+    c = ssm.inner_dim(arch)
+    proj = 2 * c + 2 * arch.ssm.ngroups * arch.ssm.state_dim \
+        + ssm.num_ssm_heads(arch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    scale = (1.0 + 0.1 * torch.randn((c,), generator=gen,
+                                     device=dev)).bfloat16()
+    err, same, total, keep = 0.0, 0, 0, {}
+    for rows in (8, 64, 1):
+        zx = (2.0 * torch.randn((rows, proj), generator=gen,
+                                device=dev)).bfloat16()
+        y = torch.randn((rows, c), generator=gen, device=dev).bfloat16()
+        z = zx[:, :c]
+        out = ops.gated_rmsnorm(y, z, scale)
+        plain = ref.gated_rmsnorm(y, z, scale)
+        torch.cuda.synchronize()
+        diff = (out.float() - plain.float()).abs()
+        tol = _bf16_ulp(plain.float().abs().amax(dim=-1, keepdim=True))
+        if not bool((diff <= tol).all()):
+            _fail(f"gated_rmsnorm [{rows}, {c}]: differs from its plain "
+                  f"version by more than 1 bf16 ulp of the row's largest "
+                  f"|output| (max abs {diff.max().item()})")
+        err = max(err, diff.max().item())
+        same += int((out.view(torch.int16) == plain.view(torch.int16)).sum())
+        total += out.numel()
+        keep[rows] = (y, z)
+    for wide in (32768, ops._GATED_MAX_C):
+        y, z = torch.randn((2, 2, wide), generator=gen, device=dev).bfloat16()
+        sc = scale.repeat(wide // c + 1)[:wide].contiguous()
+        diff = (ops.gated_rmsnorm(y, z, sc).float()
+                - ref.gated_rmsnorm(y, z, sc).float()).abs()
+        tol = _bf16_ulp(ref.gated_rmsnorm(y, z, sc).float().abs()
+                        .amax(dim=-1, keepdim=True))
+        if not bool((diff <= tol).all()):
+            _fail(f"gated_rmsnorm [2, {wide}]: differs from its plain "
+                  f"version by more than 1 bf16 ulp of the row's largest "
+                  f"|output| (max abs {diff.max().item()})")
+    try:
+        big = torch.zeros((1, ops._GATED_MAX_C + 8), dtype=torch.bfloat16,
+                          device=dev)
+        ops.gated_rmsnorm(big, big, big[0])
+        _fail(f"gated_rmsnorm took C = {ops._GATED_MAX_C + 8}, past its "
+              "shared row")
+    except ValueError:
+        pass
+    times = {rows: _time_ms(lambda: ops.gated_rmsnorm(y, z, scale), 200)
+             for rows, (y, z) in keep.items()}
+    y, z = keep[8]
+    plain_ms = _time_ms(lambda: ref.gated_rmsnorm(y, z, scale), 200)
+    gated = y * (z * torch.sigmoid(z))
+    library_ms = _time_ms(lambda: F.rms_norm(gated, (c,), scale, 1e-5), 200)
+    dev_ms = _profiled_ms(lambda: ops.gated_rmsnorm(y, z, scale),
+                          ("gated_rmsnorm_kernel",))
+    # per element: exp, add, divide, 3 products, square-add, 2 products
+    bound_ms, bound_by = _bound(3 * 8 * c * 2 + c * 2, 9.0 * 8 * c,
+                                FP32_FLOPS)
+    return {"name": "gated_rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_layernorm/csrc/"
+                      "gated_rmsnorm.cu",
+            "replaces": "src/repro/kernels/fused_layernorm/kernel.py:127",
+            "max_abs_err": err,
+            "tol": "1 bf16 ulp of the row's largest |output|",
+            "bitwise_equal_share": same / total,
+            "ms": times[8], "ms_64_rows": times[64], "ms_1_row": times[1],
+            "profiler_device_ms_per_call": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_note": "F.rms_norm of a precomputed bf16 gated product: "
+                            "the norm only, not the gate"}
 
 
 # ---------------------------------------------------------------- phase 4 ---
@@ -536,7 +644,7 @@ def check_model_logits(model, rng, dev) -> float:
                 for n in range(n_pre - 1, n_pre + n_dec)]
         got = {}
         for fused in (False, True):
-            pools = tf.init_serving_state(arch, 9, page, model.dtype, dev)
+            pools = tf.init_serving_state(arch, 9, page, 2, model.dtype, dev)
             row = torch.arange(1, 9, dtype=torch.int32, device=dev)
             chunk = torch.zeros((1, 64), dtype=torch.long, device=dev)
             for start in (0, 64):
@@ -626,6 +734,17 @@ def _snapshot():
     return {k: v for d in _counters() for k, v in d.items()}
 
 
+def _counted(into: dict, fn):
+    """``fn`` wrapped to add the launches each call makes to ``into``."""
+    def run(*args, **kw):
+        before = _snapshot()
+        out = fn(*args, **kw)
+        for k, v in _snapshot().items():
+            into[k] += v - before[k]
+        return out
+    return run
+
+
 PATH_KERNELS = {False: ("paged_decode_attention", "paged_prefill_attention",
                         "filter_logits", "draw_tokens"),
                 True: ("paged_decode_attention", "paged_prefill_attention",
@@ -663,20 +782,11 @@ def serve(model, logit_err: float, fused: bool):
         last["ok"] = ok
         return tok, ok
 
-    def counted(name, fn):
-        def run(*args, **kw):
-            before = _snapshot()
-            out = fn(*args, **kw)
-            for k, v in _snapshot().items():
-                phase[name][k] += v - before[k]
-            return out
-        return run
-
     def decode(page_table, seq_lens, tokens, sampling_args, *, sampled,
                filtered):
-        out = counted("decode", decode_fn)(page_table, seq_lens, tokens,
-                                           sampling_args, sampled=sampled,
-                                           filtered=filtered)
+        out = _counted(phase["decode"], decode_fn)(
+            page_table, seq_lens, tokens, sampling_args, sampled=sampled,
+            filtered=filtered)
         flagged["sampled"] += bool(sampled)
         flagged["filtered"] += bool(filtered)
         live = np.flatnonzero(seq_lens > 0)
@@ -691,7 +801,8 @@ def serve(model, logit_err: float, fused: bool):
         return out
 
     def prefill(*args, final, **kw):
-        out = counted("prefill", prefill_fn)(*args, final=final, **kw)
+        out = _counted(phase["prefill"], prefill_fn)(*args, final=final,
+                                                     **kw)
         if fused and final:
             finite.append(last["ok"][0])
         return out
@@ -710,7 +821,7 @@ def serve(model, logit_err: float, fused: bool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _snapshot()
-    model._logits = logits_fn
+    model.__dict__.pop("_logits", None)     # no model -> method -> model cycle
     for i in range(n_req):
         r = res.get(i)
         if r is None or "error" in r or len(r["tokens"]) != gen:
@@ -756,20 +867,20 @@ def serve(model, logit_err: float, fused: bool):
               f"with margin below the model check's max abs logit error "
               f"{logit_err:.3e}: {int((m < logit_err).sum())}")
     return {"launches": launches, "phase": phase, "flagged": flagged,
-            "engine": engine, "results": res, "wall": wall}
+            "steps": engine.steps, "prefill_chunks": engine.prefill_chunks,
+            "prefills": engine.prefills, "results": res, "wall": wall}
 
 
-def profile_serve(model):
-    """The same trace again on the fused (default) path under
-    torch.profiler: device time by kernel, by kind, kernel launches, and
-    the device's idle share of the wall time. Returns {kernel name:
-    (device ms, launches)}."""
+def profile_serve(model, engine=None, reqs=None):
+    """The same trace again (or ``reqs``) on the fused (default) path under
+    torch.profiler, recording the card's activity only: device time by
+    kernel, by kind, kernel launches, and the device's idle share of the
+    wall time. Returns {kernel name: (device ms, launches)}."""
     from torch.profiler import ProfilerActivity, profile
-    engine = make_engine(model, True)
-    reqs = trace(model.arch, SEED)
+    engine = engine or make_engine(model, True)
+    reqs = reqs or trace(model.arch, SEED)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run(reqs)
         torch.cuda.synchronize()
@@ -784,13 +895,16 @@ def profile_serve(model):
               "recorded no CUDA kernel time)")
         return {}
     kinds = {"paged attention": 0.0, "residual norm": 0.0,
-             "fused head": 0.0, "gemm": 0.0, "other": 0.0}
+             "gated rmsnorm": 0.0, "fused head": 0.0, "gemm": 0.0,
+             "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
         if "decode_kernel" in low or "prefill_kernel" in low:
             kinds["paged attention"] += ms
         elif "resnorm_kernel" in low:
             kinds["residual norm"] += ms
+        elif "gated_rmsnorm_kernel" in low:
+            kinds["gated rmsnorm"] += ms
         elif "head_gemv_kernel" in low or "head_epilogue_kernel" in low:
             kinds["fused head"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
@@ -800,7 +914,8 @@ def profile_serve(model):
             kinds["other"] += ms
     n_launch = sum(k[2] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    print(f"[profile] fused trace under torch.profiler: wall "
+    print(f"[profile] {model.arch.name} fused trace ({len(reqs)} requests) "
+          f"under torch.profiler: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
           f"{1 - busy / wall_ms:.3f}; kernel launches {n_launch} "
           f"({engine.steps} decode steps, {engine.prefill_chunks} prefill "
@@ -809,6 +924,246 @@ def profile_serve(model):
           + "; top kernels " + "; ".join(
               f"{n[:48]} {ms:.1f} ms x{c}" for n, ms, c in top))
     return {name: (ms, c) for name, ms, c in kernels}
+
+
+# ------------------------------------------------------------ mamba phase ---
+# The SSM serving slice: mamba2-1.3b at full width on the continuous engine.
+
+def mamba_reference_logits(model, tokens):
+    """Plain full-sequence mamba2 forward: ``apply_mamba`` over the whole
+    prefix (one SSD chunk, no slot state, no pages) with the gated norm's
+    plain version in place of the kernel."""
+    from repro_torch.kernels.fused_layernorm import ref as ln_ref
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import apply_norm
+    arch = dataclasses.replace(model.arch, ssm=dataclasses.replace(
+        model.arch.ssm, chunk=tokens.shape[1]))
+    x = model._embed(tokens)
+    kernel = ssm._gated_rmsnorm
+    ssm._gated_rmsnorm = ln_ref.gated_rmsnorm
+    try:
+        for blk in model.params["blocks"]:
+            x = x + ssm.apply_mamba(arch, blk["mamba"],
+                                    apply_norm(arch.norm, blk["ln1"], x))
+    finally:
+        ssm._gated_rmsnorm = kernel
+    return model._logits(x[:, -1:])[0, 0]
+
+
+def check_mamba_logits(model, rng, dev) -> float:
+    """A 200-token prompt through 64-token paged prefill chunks (the last
+    padded) in slot 1 of a 2-slot pool, then four decode steps beside the
+    idle slot 0, each final logit row against the plain full-sequence
+    forward of the same prefix (bf16, rel L2 0.05); the idle slot's state
+    must stay zero. Both bf16 paths are also measured against the plain
+    forward in fp32 (the same weights upcast): the paged path must be no
+    further from it than 1.25 x the plain bf16 forward is, so their
+    difference is bf16 rounding and not the paged path's. Returns the
+    largest max abs logit error against the bf16 plain forward."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    arch = model.arch
+    blocks = model.params["blocks"]
+    n_pre, n_dec, chunk = 200, 4, 64
+    toks = torch.as_tensor(rng.integers(5, arch.vocab_size,
+                                        (1, n_pre + n_dec)), device=dev)
+    with torch.inference_mode():
+        prefixes = [toks[:, :n + 1] for n in range(n_pre - 1, n_pre + n_dec)]
+        refs = [mamba_reference_logits(model, p) for p in prefixes]
+        m32 = Model(dataclasses.replace(arch, dtype="float32"),
+                    tree.map(lambda t: t.float(), model.params))
+        refs32 = [mamba_reference_logits(m32, p) for p in prefixes]
+        del m32
+        pools = tf.init_serving_state(arch, 1, 16, 2, model.dtype, dev)
+        row = torch.zeros((1,), dtype=torch.int32, device=dev)
+        buf = torch.zeros((1, chunk), dtype=torch.long, device=dev)
+        for start in range(0, n_pre, chunk):
+            end = min(start + chunk, n_pre)
+            buf.zero_()
+            buf[0, :end - start] = toks[0, start:end]
+            x = tf.paged_prefill_stack(arch, blocks, pools, model._embed(buf),
+                                       row, start, end, 1)
+        got = [model._logits(tf.chunk_final_hidden(x, start, n_pre))[0, 0]]
+        table = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+        for pos in range(n_pre, n_pre + n_dec):
+            tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
+            tok[1, 0] = toks[0, pos]
+            sl = torch.tensor([0, pos], dtype=torch.int32, device=dev)
+            x = tf.paged_decode_stack(arch, blocks, pools, model._embed(tok),
+                                      table, sl)
+            got.append(model._logits(x)[1, 0])
+        idle = max(max(p["state"][0].abs().max().item(),
+                       p["conv"][0].float().abs().max().item())
+                   for p in pools)
+    if idle != 0.0:
+        _fail(f"the idle slot's mamba state changed (max abs {idle})")
+    worst, lines = 0.0, []
+    for i, (g, r, r32) in enumerate(zip(got, refs, refs32)):
+        if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
+            _fail("non-finite logits in the mamba2 model check")
+        rel = ((g - r).norm() / r.norm()).item()
+        err = (g - r).abs().max().item()
+        top2 = torch.topk(r, 2).values
+        worst = max(worst, err)
+        lines.append(f"{'prefill' if i == 0 else 'decode'} pos "
+                     f"{n_pre - 1 + i}: rel L2 {rel:.3e}, max abs {err:.3e}, "
+                     f"argmax equal {int(g.argmax()) == int(r.argmax())}, "
+                     f"ref top-2 margin {(top2[0] - top2[1]).item():.3e}; "
+                     f"vs fp32: paged {_rel_l2(g, r32):.3e}, plain bf16 "
+                     f"{_rel_l2(r, r32):.3e}")
+        if not rel <= 0.05:
+            _fail(f"mamba2 logits rel L2 error {rel} > 0.05 at position "
+                  f"{n_pre - 1 + i} (bf16, {arch.num_layers} layers)")
+        if not _rel_l2(g, r32) <= 1.25 * _rel_l2(r, r32):
+            _fail(f"mamba2 logits at position {n_pre - 1 + i}: the paged "
+                  f"path is {_rel_l2(g, r32)} from the fp32 forward, more "
+                  f"than 1.25 x the plain bf16 forward's {_rel_l2(r, r32)}")
+    print(f"[model] mamba2-1.3b {arch.num_layers}L logits via 64-token paged "
+          f"prefill chunks and slot-state decode vs the plain full-sequence "
+          f"forward (bf16, tol rel L2 0.05; vs the fp32 forward within 1.25 "
+          f"x the plain bf16 forward's rel L2): " + "; ".join(lines))
+    return worst
+
+
+def make_mamba_engine(model):
+    """The engine as a user makes it: fused decode and the prefix cache
+    left at their defaults (the cache is gated off for an SSM arch)."""
+    from repro_torch.serving import ContinuousEngine
+    return ContinuousEngine(model, num_slots=8, num_pages=320, page_size=16,
+                            max_seq_len=512 + 32 + 16, prefill_chunk=64)
+
+
+def serve_mamba(model):
+    """The serving trace on mamba2 (8 requests on 8 slots, prompts of
+    128-512 tokens, 32 new tokens, half greedy and half at T 0.8 / top-k
+    40 / top-p 0.95) through the default fused engine, every launch
+    counter set to 0 just before the run and read just after: exactly one
+    gated_rmsnorm a layer per decode step and per prefill chunk, one
+    head_tokens per decode step and final chunk, no residual norm. The
+    prefix cache must report its off reason in the engine and in every
+    result."""
+    arch = model.arch
+    reqs = trace(arch, SEED)
+    n_req, gen = len(reqs), reqs[0].max_new_tokens
+    engine = make_mamba_engine(model)
+    if not engine.fused_decode:
+        _fail(f"the mamba2 engine is not fused by default: "
+              f"{engine.fused_decode_off_reason}")
+    if not engine.prefix_cache_off_reason:
+        _fail("the mamba2 engine did not gate the prefix cache off")
+    phase = {"decode": dict.fromkeys(_snapshot(), 0),
+             "prefill": dict.fromkeys(_snapshot(), 0)}
+    finite, last = [], {}
+    head_fn = engine._fused_head
+    decode_fn, prefill_fn = engine._decode, engine._prefill
+
+    def probed_head(*args, **kw):
+        tok, ok = head_fn(*args, **kw)
+        last["ok"] = ok
+        return tok, ok
+
+    def decode(page_table, seq_lens, *args, **kw):
+        out = _counted(phase["decode"], decode_fn)(page_table, seq_lens,
+                                                   *args, **kw)
+        live = torch.as_tensor(np.flatnonzero(seq_lens > 0),
+                               device=last["ok"].device)
+        finite.append(last["ok"][live].all())
+        return out
+
+    def prefill(*args, final, **kw):
+        out = _counted(phase["prefill"], prefill_fn)(*args, final=final,
+                                                     **kw)
+        if final:
+            finite.append(last["ok"][0])
+        return out
+
+    engine._fused_head = probed_head
+    engine._decode, engine._prefill = decode, prefill
+    for d in _counters():
+        for k in d:
+            d[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _snapshot()
+    for i in range(n_req):
+        r = res.get(i)
+        if r is None or "error" in r or len(r["tokens"]) != gen:
+            _fail(f"mamba2 request {i} did not finish: {r}")
+        if not r.get("prefix_cache", "").startswith("off: "):
+            _fail(f"mamba2 request {i} lacks the prefix-cache off stat: {r}")
+    if not all(bool(f) for f in finite):
+        _fail("non-finite logits during the mamba2 serve")
+    want = {"gated_rmsnorm": {"decode": arch.num_layers * engine.steps,
+                              "prefill": arch.num_layers
+                              * engine.prefill_chunks},
+            "head_tokens": {"decode": engine.steps,
+                            "prefill": engine.prefills}}
+    for name, parts in want.items():
+        for part, n in parts.items():
+            if phase[part][name] != n:
+                _fail(f"mamba2 serve: {name} launched {phase[part][name]} "
+                      f"times in {part}, expected {n}")
+    for name, n in launches.items():
+        if name not in want and n:
+            _fail(f"the mamba2 serve launched {name} {n} times")
+    state_bytes = sum(t.numel() * t.element_size() for p in engine.pools
+                      for t in p.values())
+    ntok = sum(len(r["tokens"]) for r in res.values())
+    ttft = float(np.mean([res[i]["token_times"][0] for i in range(n_req)]))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve] mamba2-1.3b {arch.num_layers}L d{arch.d_model} bf16, "
+          f"fused decode (default): {n_req} requests x {gen} tokens in "
+          f"{wall:.3f}s ({ntok / wall:.1f} tok/s, mean TTFT "
+          f"{ttft * 1e3:.1f} ms); steps {engine.steps}, prefills "
+          f"{engine.prefills}, prefill chunks {engine.prefill_chunks}, "
+          f"prefill_tokens {engine.prefill_tokens}; prefix cache off: "
+          f"{engine.prefix_cache_off_reason}; SSM slot state "
+          f"{state_bytes} bytes ({state_bytes / 2**20:.1f} MiB); peak "
+          f"memory {peak / 2**30:.2f} GiB; launches in decode "
+          f"{phase['decode']}, in prefill {phase['prefill']}")
+    return {"launches": launches, "phase": phase, "steps": engine.steps,
+            "prefill_chunks": engine.prefill_chunks,
+            "prefills": engine.prefills, "wall": wall,
+            "tok_per_s": ntok / wall, "mean_ttft_s": ttft,
+            "peak_bytes": peak, "ssm_state_bytes": state_bytes,
+            "prefill_tokens": engine.prefill_tokens}
+
+
+def mamba_phase(dev, rng, marks):
+    """Init mamba2-1.3b at full width on the card (48 layers, d_model 2048,
+    64 SSD heads of 64 channels, state 128, bf16, seeded), check its logits,
+    serve the trace and profile a window of it (its first two requests, 8
+    new tokens each)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    arch = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
+    model = Model.init(arch, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(model.params))
+    print(f"[init] mamba2-1.3b full width, {arch.num_layers} layers, "
+          f"{n_params} parameters, bf16 weights on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    logit_err = check_mamba_logits(model, rng, dev)
+    marks["mamba2 checks"] = time.perf_counter()
+    run = serve_mamba(model)
+    marks["mamba2 serve"] = time.perf_counter()
+    window = [dataclasses.replace(r, max_new_tokens=8)
+              for r in trace(arch, SEED)[:2]]
+    run["profile"] = profile_serve(model, make_mamba_engine(model), window)
+    run["logit_err"] = logit_err
+    marks["mamba2 profile"] = time.perf_counter()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
 
 
 # ---------------------------------------------------------------- phase 7 ---
@@ -1337,6 +1692,8 @@ def main() -> int:
     rows += [filt, check_draw(lg_f, dev)]
     del lg_f
     rows += [check_residual_norm(arch, dev), check_head_tokens(arch, dev)]
+    head_mamba = check_head_tokens(get_config("mamba2-1.3b"), dev)
+    mamba_rows = [check_gated_rmsnorm(get_config("mamba2-1.3b"), dev)]
     train_rows = [check_residual_layernorm(dev), check_bias_gelu(dev)]
     train_rows += check_lamb(dev)
     torch.cuda.empty_cache()
@@ -1344,7 +1701,8 @@ def main() -> int:
         f"{r['name']}: max abs err {r['max_abs_err']:.3e}"
         + (f" (tol {r['tol']})" if isinstance(r.get("tol"), str) else
            f" (tol {r['tol']:.3e})" if "tol" in r else " (bitwise)")
-        for r in rows + train_rows))
+        for r in rows + [dict(head_mamba, name="head_tokens at mamba2-1.3b")]
+        + mamba_rows + train_rows))
 
     marks["kernel checks"] = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1366,7 +1724,9 @@ def main() -> int:
     prof = profile_serve(model)
     marks["profile"] = time.perf_counter()
     del model
+    gc.collect()
     torch.cuda.empty_cache()
+    mamba = mamba_phase(dev, rng, marks)
     check_block_gradients(get_config("bert-large"), dev)
     marks["block grads"] = time.perf_counter()
     training = check_training(dev)
@@ -1382,13 +1742,12 @@ def main() -> int:
         name = r["name"]
         path = name in PATH_KERNELS[True]   # the fused serve is the default
         run = runs[path]
-        engine = run["engine"]
-        per_step = {"paged_decode_attention": engine.steps,
+        per_step = {"paged_decode_attention": run["steps"],
                     "paged_prefill_attention": None,
                     "filter_logits": run["flagged"]["filtered"],
                     "draw_tokens": run["flagged"]["sampled"],
-                    "decode_residual_norm": engine.steps,
-                    "head_tokens": engine.steps}[name]
+                    "decode_residual_norm": run["steps"],
+                    "head_tokens": run["steps"]}[name]
         r["launches"] = run["launches"][name]
         r["launches_path"] = "fused serve" if path else "unfused serve"
         r["launches_unfused_serve"] = runs[False]["launches"][name]
@@ -1398,13 +1757,34 @@ def main() -> int:
         r["launches_per_eligible_decode_step"] = (
             run["phase"]["decode"][name] / per_step if per_step else None)
         r["launches_per_prefill_chunk"] = (run["phase"]["prefill"][name]
-                                           / engine.prefill_chunks)
+                                           / run["prefill_chunks"])
         if path:            # filter and draw: from their phase-3 window
             dev_ms = [v for k, v in prof.items()
                       if any(n in k for n in DEVICE_NAMES[name])]
             r["profiler_device_ms_per_call"] = (
                 sum(v[0] for v in dev_ms) / r["launches"]
                 if dev_ms and r["launches"] else None)
+    for r in rows:
+        if r["name"] == "head_tokens":
+            r["mamba2_shape"] = {k: head_mamba[k] for k in (
+                "shape", "max_abs_err", "ms", "ms_greedy", "ms_16_rows",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "unfused_head_ms", "random_rows_clear_margin")}
+            r["launches_mamba2_serve"] = mamba["launches"]["head_tokens"]
+    for r in mamba_rows:
+        name, ph = r["name"], mamba["phase"]
+        r["launches"] = mamba["launches"][name]
+        r["launches_path"] = "mamba2-1.3b fused serve (the engine's default)"
+        r["launches_in_decode"] = ph["decode"][name]
+        r["launches_in_prefill"] = ph["prefill"][name]
+        r["launches_per_decode_step"] = ph["decode"][name] / mamba["steps"]
+        r["launches_per_prefill_chunk"] = (ph["prefill"][name]
+                                           / mamba["prefill_chunks"])
+        hits = [v for k, v in mamba["profile"].items()
+                if "gated_rmsnorm_kernel" in k]
+        r["serve_profiler_device_ms_per_call"] = (
+            sum(v[0] for v in hits) / sum(v[1] for v in hits)
+            if hits else None)
     for r in train_rows:
         name = r["name"]
         r["launches"] = training["fused"]["launches"][name]
@@ -1417,19 +1797,24 @@ def main() -> int:
         k: training["fused" if f else "unfused"][k]
         for k in ("losses", "step_s", "wall", "peak", "peak_above_start")}
         for f in (True, False)}
-    print(json.dumps({"kernels": rows + train_rows, "training": dict(
+    print(json.dumps({"kernels": rows + mamba_rows + train_rows,
+                      "training": dict(
         trained, profile=training["profile"],
         syncs_in_a_step=training["syncs_in_a_step"],
         n_leaves=training["n_leaves"],
         n_params=training["n_params"], batch=TRAIN_BATCH, seq=TRAIN_SEQ),
         "serves": {
         ("fused" if f else "unfused"): {
-            "wall_s": run["wall"], "decode_steps": run["engine"].steps,
+            "wall_s": run["wall"], "decode_steps": run["steps"],
             "decode_steps_sampled": run["flagged"]["sampled"],
             "decode_steps_filtered": run["flagged"]["filtered"],
-            "prefill_chunks": run["engine"].prefill_chunks,
-            "prefills": run["engine"].prefills}
-        for f, run in runs.items()},
+            "prefill_chunks": run["prefill_chunks"],
+            "prefills": run["prefills"]}
+        for f, run in runs.items()} | {"mamba2-1.3b fused": {
+            k: mamba[k] for k in ("wall", "tok_per_s", "mean_ttft_s",
+                                  "steps", "prefill_chunks", "prefills",
+                                  "prefill_tokens", "peak_bytes",
+                                  "ssm_state_bytes", "logit_err")}},
         "identical_streams": same, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

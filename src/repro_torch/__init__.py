@@ -2,15 +2,18 @@
 
 The package mirrors ``repro``'s module names so each part has an obvious
 counterpart, but imports nothing from it (nor ``jax``): every piece it needs
-is its own copy. What it carries today is the continuous engine's dense
-serving path (chunked paged prefill, paged decode, per-request sampling,
-fused decode on by default) and bert-large MLM training on one device
-(``launch.train``), with hand-written sm_90a kernels:
+is its own copy. What it carries today is the continuous engine serving
+the dense family and the attention-free ssm family (mamba2) through the
+per-layer decode-state protocol (chunked paged prefill, paged decode,
+per-slot mamba state, per-request sampling, fused decode on by default)
+and bert-large MLM training on one device (``launch.train``), with
+hand-written sm_90a kernels:
 
 - ``kernels.decode_attention``: paged decode and paged prefill attention
 - ``kernels.fused_sampling``: the top-k / top-p logit filter and the draw
-- ``kernels.fused_layernorm``: the decode residual stream's add + norm, and
-  the training block's post-norm add + norm
+- ``kernels.fused_layernorm``: the decode residual stream's add + norm,
+  the training block's post-norm add + norm, and the mamba mixer's
+  SiLU-gated RMSNorm
 - ``kernels.fused_lm_head``: the LM head with token selection
 - ``kernels.bias_gelu``: the GeLU MLP's bias + activation
 - ``kernels.fused_lamb``: LAMB's two stages, one parameter leaf a call

@@ -4,11 +4,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from . import bert_large, llama3p2_3b
-from .base import ArchConfig, RunConfig, ShapeConfig, torch_dtype
+from . import bert_large, llama3p2_3b, mamba2_1p3b
+from .base import ArchConfig, RunConfig, ShapeConfig, SSMConfig, torch_dtype
 
 REGISTRY: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG
-                                   for m in (llama3p2_3b, bert_large)}
+                                   for m in (llama3p2_3b, bert_large,
+                                             mamba2_1p3b)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -21,13 +22,29 @@ def get_config(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     """A reduced same-family config with the reductions of
-    ``repro.configs.smoke_config`` for a dense arch."""
+    ``repro.configs.smoke_config``: an attention-free arch keeps 0 heads
+    and no MLP, and its SSD shrinks to state 16, head 16, chunk 16."""
     full = get_config(name)
-    return dataclasses.replace(
-        full, name=full.name + "-smoke", num_layers=2, d_model=128, d_ff=256,
-        vocab_size=512, head_dim=32, num_heads=4, attn_chunk=64,
-        num_kv_heads=min(4, max(1, full.num_kv_heads // 4)) or 1)
+    kw = dict(
+        name=full.name + "-smoke",
+        num_layers=2,
+        d_model=128,
+        d_ff=0 if full.family == "ssm" else 256,
+        vocab_size=512,
+        head_dim=32,
+        attn_chunk=64,
+    )
+    if full.num_heads:
+        kw["num_heads"] = 4
+        kw["num_kv_heads"] = min(4, max(1, full.num_kv_heads // 4)) or 1
+    else:
+        kw["num_heads"] = 0
+        kw["num_kv_heads"] = 0
+    if full.ssm is not None:
+        kw["ssm"] = dataclasses.replace(full.ssm, state_dim=16, head_dim=16,
+                                        chunk=16)
+    return dataclasses.replace(full, **kw)
 
 
-__all__ = ["ArchConfig", "REGISTRY", "RunConfig", "ShapeConfig",
+__all__ = ["ArchConfig", "REGISTRY", "RunConfig", "SSMConfig", "ShapeConfig",
            "get_config", "smoke_config", "torch_dtype"]

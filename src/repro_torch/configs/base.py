@@ -1,10 +1,11 @@
 """Architecture and run configs: the fields of
-``repro.configs.base.{ArchConfig, ShapeConfig, RunConfig}`` that the dense
-serving path and the training path read, as the port's own frozen
-dataclasses (values copied, nothing imported)."""
+``repro.configs.base.{SSMConfig, ArchConfig, ShapeConfig, RunConfig}`` that
+the dense and SSM serving paths and the training path read, as the port's
+own frozen dataclasses (values copied, nothing imported)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -22,9 +23,22 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD, arXiv:2405.21060) sub-config."""
+
+    state_dim: int = 128            # N: SSM state size per head
+    head_dim: int = 64              # P: channels per SSD head
+    expand: int = 2                 # inner dim = expand * d_model
+    chunk: int = 256                # SSD chunk length
+    conv_width: int = 4             # depthwise causal conv width
+    ngroups: int = 1                # B/C groups
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # only "dense" is served by the port
+    family: str                     # dense | ssm | hybrid (the port serves
+                                    # dense and ssm, trains dense)
     num_layers: int
     d_model: int
     num_heads: int
@@ -49,6 +63,10 @@ class ArchConfig:
     max_position: int = 512         # learned-position table size
     remat: bool = True              # recompute each block in backward
     logit_softcap: float = 0.0
+    ssm: Optional[SSMConfig] = None
+    # hybrid: period and which index within the period is attention
+    hybrid_period: int = 0
+    hybrid_attn_index: int = 0
 
     @property
     def resolved_head_dim(self) -> int:
@@ -63,6 +81,15 @@ class ArchConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.resolved_head_dim
+
+    def is_attention_layer(self, layer_idx: int) -> bool:
+        """For hybrid stacks: does layer ``layer_idx`` use attention?"""
+        if self.family in ("dense", "moe", "encdec", "vlm"):
+            return True
+        if self.family == "ssm":
+            return False
+        assert self.hybrid_period > 0
+        return layer_idx % self.hybrid_period == self.hybrid_attn_index
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,7 @@
-"""Wrappers of the fused residual add + norm kernels: the decode residual
-stream's (``csrc/residual_norm.cu``) and the training block's post-norm
-site (``csrc/residual_layernorm.cu``).
+"""Wrappers of the fused norm kernels: the decode residual stream's add +
+norm (``csrc/residual_norm.cu``), the training block's post-norm site
+(``csrc/residual_layernorm.cu``) and the mamba mixer's SiLU-gated RMSNorm
+(``csrc/gated_rmsnorm.cu``).
 
 CPU tensors take the plain versions in ``ref.py``; CUDA tensors launch the
 hand-written sm_90a kernels or raise. ``LAUNCHES`` counts kernel launches.
@@ -18,10 +19,15 @@ from .. import _build
 from .._grad import PlainBackward
 from . import ref
 
-LAUNCHES = {"decode_residual_norm": 0, "fused_residual_layernorm": 0}
+LAUNCHES = {"decode_residual_norm": 0, "fused_residual_layernorm": 0,
+            "gated_rmsnorm": 0}
 
 _LIB = "residual_norm"
 _TRAIN_LIB = "residual_layernorm"
+_GATED_LIB = "gated_rmsnorm"
+# the gated bf16 row is kept in shared memory beside the kernel's 36 bytes
+# of static shared memory (its reduction scratch), within Hopper's 227 KB
+_GATED_MAX_C = (227 * 1024 - 36) // 2 // 8 * 8
 _TRAIN_DIMS = (256, 512, 768, 1024, 1536, 2048, 3072, 4096)
 _KINDS = {"rmsnorm": 0, "layernorm": 1}
 
@@ -128,3 +134,56 @@ def fused_residual_layernorm(x: torch.Tensor, residual: torch.Tensor,
                              " (the kernel moves 16 bytes a lane)")
     kernel = functools.partial(_residual_layernorm_kernel, eps=eps, rms=rms)
     return PlainBackward.apply(kernel, plain, x, residual, scale, bias)
+
+
+def _rows(t: torch.Tensor, name: str, c: int) -> torch.Tensor:
+    """``t`` as a ``[R, C]`` view with unit column stride, a row stride
+    that is a multiple of 8 and a 16-byte aligned base; raises otherwise
+    (the kernel moves 8 bf16 values a lane). Leading dims are merged
+    without a copy where the strides allow it, so a column slice of a
+    wider row (z inside the in_proj output) keeps its row stride."""
+    t2 = t.reshape(-1, c)
+    if t2.stride(1) != 1 or (t2.shape[0] > 1 and t2.stride(0) % 8) \
+            or t2.data_ptr() % 16:
+        raise ValueError(f"{name} must have unit column stride, a row stride "
+                         f"that is a multiple of 8 and a 16-byte aligned "
+                         f"base, got strides {t2.stride()}")
+    return t2
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """SiLU-gated RMSNorm (the mamba mixer epilogue): ``rmsnorm(y *
+    silu(z)) * scale``, any leading shape with the channel dim C last. On
+    the card y, z and scale are bfloat16, C a multiple of 8, and y and z
+    may be row-strided views (z is a column slice of the in_proj
+    output); the result is a new contiguous tensor of y's shape."""
+    if y.device.type == "cpu":
+        return ref.gated_rmsnorm(y, z, scale, eps=eps)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    c = y.shape[-1]
+    for name, t in (("y", y), ("z", z), ("scale", scale)):
+        if t.dtype != torch.bfloat16 or t.device != y.device:
+            raise TypeError(f"the kernel takes bfloat16 tensors on "
+                            f"{y.device}; {name} is {t.dtype} on {t.device}")
+    if z.shape != y.shape or tuple(scale.shape) != (c,):
+        raise ValueError(f"y {tuple(y.shape)}, z {tuple(z.shape)} and scale "
+                         f"{tuple(scale.shape)} must be [..., C], [..., C] "
+                         "and [C]")
+    if c % 8 or c > _GATED_MAX_C:
+        raise ValueError(f"C = {c}: the kernel takes a multiple of 8 up to "
+                         f"{_GATED_MAX_C} (its shared row)")
+    y2d, z2d = _rows(y, "y", c), _rows(z, "z", c)
+    if not scale.is_contiguous() or scale.data_ptr() % 16:
+        raise ValueError("scale must be contiguous and 16-byte aligned")
+    out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    rows = y2d.shape[0]
+    if rows:
+        fn = _build.bind(_GATED_LIB, "gated_rmsnorm", 4, 4, 1)
+        err = fn(y2d.data_ptr(), z2d.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), rows, c, y2d.stride(0), z2d.stride(0),
+                 float(eps), torch.cuda.current_stream(y.device).cuda_stream)
+        _build.check(err, "gated_rmsnorm")
+        LAUNCHES["gated_rmsnorm"] += 1
+    return out

@@ -9,6 +9,9 @@ Counterparts of ``repro.kernels.fused_layernorm.ref``.
 - ``fused_residual_layernorm``: the training block's post-norm site (the
   paper's Fig. 13 "LN" fusion). The add runs in fp32, so it matches the
   unfused ``apply_norm(x + y)`` (a model-dtype add) to rounding, not bitwise.
+- ``gated_rmsnorm``: the mamba mixer's epilogue, verbatim the JAX reference:
+  the SiLU gate in the model dtype (three roundings: ``sigmoid(z)``,
+  ``z * s``, ``y * g``), then an fp32 RMSNorm times the scale.
 """
 from __future__ import annotations
 
@@ -49,3 +52,13 @@ def fused_residual_layernorm(x: torch.Tensor, residual: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """SiLU-gated RMSNorm of the mamba mixer output, any leading shape with
+    the channel dim last: ``rmsnorm(y * silu(z)) * scale`` in ``y``'s
+    dtype."""
+    yf = (y * (z * torch.sigmoid(z))).float()
+    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)

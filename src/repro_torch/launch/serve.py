@@ -1,13 +1,17 @@
 """Serve a batch of requests with the port's continuous engine.
 
     python -m repro_torch.launch.serve --arch llama3.2-3b --device cuda
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
 
 Counterpart of ``repro.launch.serve`` with ``--engine continuous
 --decode-steps 1 --tp 1``, fused decode on or off (``--fused-decode`` /
 ``--no-fused-decode``; unset follows ``REPRO_FUSED_DECODE``, default on).
 Weights are random, made on the device from ``--seed`` with a
-``torch.Generator``; prompts are drawn with numpy from the same seed. Request i is sampled with seed
-``--seed + i``. Runs on the card unless ``--device cpu`` is given.
+``torch.Generator``; prompts are drawn with numpy from the same seed.
+Request i is sampled with seed ``--seed + i``. Runs on the card unless
+``--device cpu`` is given. An explicit ``--prefix-cache`` is refused for an
+SSM-bearing arch (its recurrent state is not page-decomposable); without
+the flag the engine gates the cache off itself and the reason is printed.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from .. import resolve_device
 from ..configs import get_config, smoke_config
 from ..models.model import Model
 from ..serving import ContinuousEngine, Request, SamplingParams, pages_needed
+from ..serving.engine import prefix_cache_off_reason
 
 
 def run(args) -> dict:
@@ -63,9 +68,13 @@ def run(args) -> dict:
           f"{'on' if engine.fused_decode else 'off'}"
           + (f": {engine.fused_decode_off_reason}"
              if engine.fused_decode_off_reason else ""))
+    if engine.prefix_cache_off_reason:
+        print(f"[serve/continuous] prefix cache off: "
+              f"{engine.prefix_cache_off_reason}")
     return {"tokens": out, "wall": wall, "steps": engine.steps,
             "fused_decode": engine.fused_decode,
             "fused_decode_off_reason": engine.fused_decode_off_reason,
+            "prefix_cache_off_reason": engine.prefix_cache_off_reason,
             "prefills": engine.prefills,
             "prefill_tokens": engine.prefill_tokens,
             "cached_prefill_tokens": engine.cached_prefill_tokens}
@@ -88,7 +97,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0)
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
-                    default=True)
+                    default=None,
+                    help="prefix caching (default on; refused for SSM-"
+                         "bearing archs, whose engine gates it off)")
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--fused-decode", action=argparse.BooleanOptionalAction,
                     default=None,
@@ -103,6 +114,18 @@ def main(argv=None) -> dict:
         ap.error(str(e))
     if sp.greedy and sp.filtered:
         ap.error("--top-k/--top-p have no effect at --temperature 0")
+    # an explicit --prefix-cache on an SSM-bearing arch fails here with the
+    # reason; unset stays True so the engine gates it and records why
+    if args.prefix_cache:
+        try:
+            reason = prefix_cache_off_reason(get_config(args.arch))
+        except KeyError as e:
+            ap.error(str(e))
+        if reason:
+            ap.error(f"--prefix-cache: {reason}; rerun without "
+                     "--prefix-cache")
+    if args.prefix_cache is None:
+        args.prefix_cache = True
     return run(args)
 
 

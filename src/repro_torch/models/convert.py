@@ -2,10 +2,13 @@
 numpy arrays) and the port's weight dict (see ``models.model``), both ways.
 
 The JAX stack keeps its layers as stacked periods: either one dict whose
-leaves carry a leading ``[num_layers]`` axis (``blocks.layer_0.*``, the
-scanned layout) or ``blocks.period_<z>.layer_0.*`` dicts. Both become the
-port's list of per-layer dicts. The fused ``wqkv`` projection is kept
-fused. Nothing here imports JAX: callers hand in ``np.asarray`` leaves.
+leaves carry a leading ``[num_periods]`` axis (``blocks.layer_<i>.*``, the
+scanned layout) or ``blocks.period_<z>.layer_<i>.*`` dicts. Both become the
+port's list of per-layer dicts, periods flattened in order (period z's
+layer i is layer ``z * period + i``). The fused ``wqkv`` projection is kept
+fused; a mamba block keeps its ``mamba`` leaves (``in_proj``, ``conv``,
+``A_log``, ``D``, ``dt_bias``, ``norm_scale``, ``out_proj``) by name.
+Nothing here imports JAX: callers hand in ``np.asarray`` leaves.
 ``to_jax_layout`` goes back, for any tree in the port's layout (params,
 or the optimizer's ``m``, ``v`` and ``master``), so tests can hold the two
 trainers' states side by side.
@@ -19,6 +22,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig, torch_dtype
+from ..tree import leaves
 from .layers import Params
 
 
@@ -29,33 +33,43 @@ def _tensors(tree: Any, device, dtype: torch.dtype) -> Any:
     return t.to(dtype) if t.is_floating_point() else t
 
 
-def _unstack(blocks: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]]:
-    if any(k.startswith("period_") for k in blocks):
-        return [blocks[f"period_{z}"]["layer_0"] for z in range(num_layers)]
-    layer = blocks["layer_0"]
+def _period_layers(period: Dict[str, Any]) -> List[Any]:
+    return [period[f"layer_{i}"] for i in range(len(period))]
 
-    def take(tree, i):
-        if isinstance(tree, dict):
-            return {k: take(v, i) for k, v in tree.items()}
-        return np.asarray(tree)[i]
-    return [take(layer, i) for i in range(num_layers)]
+
+def _unstack(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
+    if any(k.startswith("period_") for k in blocks):
+        periods = [blocks[f"period_{z}"] for z in range(len(blocks))]
+    else:
+        def take(tree, z):
+            if isinstance(tree, dict):
+                return {k: take(v, z) for k, v in tree.items()}
+            return np.asarray(tree)[z]
+
+        nper = np.asarray(leaves(blocks)[0]).shape[0]
+        periods = [take(blocks, z) for z in range(nper)]
+    return [layer for per in periods for layer in _period_layers(per)]
 
 
 def from_jax_params(arch: ArchConfig, params: Dict[str, Any],
                     device="cuda") -> Params:
-    """Convert a dense-family JAX param tree (numpy leaves) to the port's
-    weights on ``device``, floats cast to the config's dtype (as the JAX
-    engine casts its params). Every leaf keeps its JAX name, biases,
-    ``pos`` and BERT's ``mlm`` head included."""
+    """Convert a dense- or ssm-family JAX param tree (numpy leaves) to the
+    port's weights on ``device``, floats cast to the config's dtype (as the
+    JAX serve casts its params, mamba's fp32 ``A_log``, ``D`` and
+    ``dt_bias`` included). Every leaf keeps its JAX name, biases, ``pos``
+    and BERT's ``mlm`` head included."""
     device = resolve_device(device)
     dtype = torch_dtype(arch.dtype)
-    if arch.family != "dense":
+    if arch.family not in ("dense", "ssm"):
         raise NotImplementedError(f"family {arch.family!r} is not ported")
     out: Params = {
         k: _tensors(v, device, dtype) for k, v in params.items()
         if k != "blocks"}
     out["blocks"] = [_tensors(b, device, dtype)
-                     for b in _unstack(params["blocks"], arch.num_layers)]
+                     for b in _unstack(params["blocks"])]
+    if len(out["blocks"]) != arch.num_layers:
+        raise ValueError(f"{len(out['blocks'])} layers in the tree, "
+                         f"{arch.num_layers} in {arch.name}")
     return out
 
 
@@ -68,7 +82,8 @@ def _numpy(tree: Any) -> Any:
 def to_jax_layout(params: Params) -> Dict[str, Any]:
     """The port's tree -> the JAX package's, as float32 numpy: the per-layer
     ``blocks`` list becomes ``blocks.layer_0`` with a leading ``[L]`` axis
-    on every leaf (the scanned layout of ``repro.models.transformer``)."""
+    on every leaf (the scanned layout of ``repro.models.transformer`` for
+    a period of one layer: the dense and ssm families)."""
     out = {k: _numpy(v) for k, v in params.items() if k != "blocks"}
     layers = [_numpy(b) for b in params["blocks"]]
 

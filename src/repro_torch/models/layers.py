@@ -5,6 +5,7 @@ embeddings, rotary embeddings, the MLP. Counterpart of
 ``b2 [D]``, ``scale/bias [D]``)."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -24,6 +25,15 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
+               dtype) -> torch.Tensor:
+    """Truncated-normal fan-in init: N(0, 1) cut at +-2, times 1/sqrt(in)."""
+    w = torch.empty((in_dim, out_dim), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                generator=gen)
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
 
 
 def init_norm(kind: str, dim: int, dtype: torch.dtype, device) -> Params:
@@ -60,6 +70,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it (logaddexp with
+    0), with no linear cut-off above a threshold as ``F.softplus`` has."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor,

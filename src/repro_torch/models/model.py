@@ -1,6 +1,6 @@
-"""The dense model facade of the port: architecture + weights, the weight
-init, the token embedding, the LM head, and the training forward and loss.
-Counterpart of ``repro.models.model.Model`` (``init``, ``_embed``,
+"""The model facade of the port (dense and ssm): architecture + weights,
+the weight init, the token embedding, the LM head, and the training
+forward and loss. Counterpart of ``repro.models.model.Model`` (``init``, ``_embed``,
 ``_logits``) and of its training forward and loss, as module functions
 (``embed``, ``logits``, ``forward``, ``loss``, ``cross_entropy``) on an
 explicit weight dict, the form the trainer differentiates.
@@ -14,28 +14,21 @@ except that the stacked ``blocks`` become a list with one dict per layer:
     blocks[l]: ln1, attn.wqkv [D, q+2kv] (+ bqkv), attn.wo [q, D] (+ bo),
                ln2, mlp.w1 [D, F] (+ b1), mlp.w2 [F, D] (+ b2),
                mlp.w3 [D, F] (swiglu)
+    blocks[l] of an ssm (mamba2) model: ln1 and mamba.{in_proj, conv,
+               A_log, D, dt_bias, norm_scale, out_proj} (``models.ssm``)
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig, torch_dtype
+from . import ssm as ssm_lib
 from . import transformer as tf
-from .layers import (Params, apply_norm, dense, embed_tokens, gelu,
-                     init_norm, pad_vocab, unembed)
-
-
-def _dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
-                dtype) -> torch.Tensor:
-    """Truncated-normal fan-in init: N(0, 1) cut at +-2, times 1/sqrt(in)."""
-    w = torch.empty((in_dim, out_dim), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
-                                generator=gen)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+from .layers import (Params, apply_norm, dense, dense_init, embed_tokens,
+                     gelu, init_norm, pad_vocab, unembed)
 
 
 def _normal(gen: torch.Generator, shape, device, dtype) -> torch.Tensor:
@@ -54,9 +47,11 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
     """Random weights with the JAX package's distributions (not its bits:
     a parity test converts the JAX weights instead, see ``convert``).
     Biases start at zero, as in JAX."""
-    if arch.family != "dense" or arch.mlp not in ("swiglu", "gelu"):
+    if arch.family not in ("dense", "ssm") \
+            or arch.mlp not in ("swiglu", "gelu"):
         raise NotImplementedError(
-            f"{arch.name}: the port initializes dense swiglu/gelu models only")
+            f"{arch.name}: the port initializes dense swiglu/gelu models and "
+            "attention-free ssm (mamba2) models only")
     d, f, hd = arch.d_model, arch.d_ff, arch.resolved_head_dim
     qkv = arch.q_dim + 2 * arch.kv_dim
     p: Params = {"embed": {"embedding": _normal(
@@ -66,12 +61,17 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
                                              device, dtype)}
     blocks = []
     for _ in range(arch.num_layers):
-        attn = {"wqkv": _dense_init(gen, d, qkv, device, dtype),
-                "wo": _dense_init(gen, arch.num_heads * hd, d, device, dtype)}
-        mlp = {"w1": _dense_init(gen, d, f, device, dtype),
-               "w2": _dense_init(gen, f, d, device, dtype)}
+        if arch.family == "ssm":        # mamba2 blocks: no ln2, no MLP
+            blocks.append({"ln1": init_norm(arch.norm, d, dtype, device),
+                           "mamba": ssm_lib.init_mamba(gen, arch, device,
+                                                       dtype)})
+            continue
+        attn = {"wqkv": dense_init(gen, d, qkv, device, dtype),
+                "wo": dense_init(gen, arch.num_heads * hd, d, device, dtype)}
+        mlp = {"w1": dense_init(gen, d, f, device, dtype),
+               "w2": dense_init(gen, f, d, device, dtype)}
         if arch.mlp == "swiglu":
-            mlp["w3"] = _dense_init(gen, d, f, device, dtype)
+            mlp["w3"] = dense_init(gen, d, f, device, dtype)
         if arch.use_bias:
             attn["bqkv"] = _zeros(qkv, device, dtype)
             attn["bo"] = _zeros(d, device, dtype)
@@ -86,10 +86,10 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
     p["blocks"] = blocks
     p["final_norm"] = init_norm(arch.norm, d, dtype, device)
     if not arch.tie_embeddings:
-        p["out"] = {"head": _dense_init(gen, d, pad_vocab(arch.vocab_size),
+        p["out"] = {"head": dense_init(gen, d, pad_vocab(arch.vocab_size),
                                         device, dtype)}
     if arch.mlm_transform:
-        p["mlm"] = {"dense": _dense_init(gen, d, d, device, dtype),
+        p["mlm"] = {"dense": dense_init(gen, d, d, device, dtype),
                     "bias": _zeros(d, device, dtype),
                     "ln": init_norm(arch.norm, d, dtype, device)}
     return p

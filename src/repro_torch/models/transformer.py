@@ -1,9 +1,11 @@
 """Layer stacks: the training path's full-sequence blocks and the paged
-serving path. Counterpart of ``repro.models.transformer``: the dense family
-has a period of one layer, so the JAX ``lax.scan`` over stacked periods
-becomes a Python loop over the per-layer parameter dicts in
-``params["blocks"]``. Page pools are updated in place (see
-``models.attention``), so the paged stacks return only activations.
+serving path. Counterpart of ``repro.models.transformer``: the JAX
+``lax.scan`` over stacked periods becomes a Python loop over the per-layer
+parameter dicts in ``params["blocks"]``, the periods flattened (layer ``l``
+has the mixer kind ``layer_kinds(arch)[l % period_length(arch)]``; dense
+and ssm have a period of one layer). Page pools and mamba slot state are
+updated in place (see ``models.attention`` and ``models.ssm``), so the
+paged stacks return only activations.
 
 Training blocks (``apply_block``, ``apply_stack``): pre-norm, or BERT's
 post-norm. ``fused`` (None = ``REPRO_FUSED_BLOCKS``, default off) routes the
@@ -32,6 +34,7 @@ import torch.utils.checkpoint
 from ..configs.base import ArchConfig
 from ..kernels.fused_layernorm import ops as ln_ops
 from . import attention as attn_lib
+from . import ssm as ssm_lib
 from .layers import Params, apply_mlp, apply_norm
 
 
@@ -95,17 +98,45 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
     return x
 
 
+def period_length(arch: ArchConfig) -> int:
+    """Layers in the smallest repeating group of the stack (a hybrid
+    stack's period; 1 for dense and ssm, the families the port serves)."""
+    return arch.hybrid_period if arch.family == "hybrid" else 1
+
+
+def layer_kinds(arch: ArchConfig) -> Tuple[str, ...]:
+    """The mixer kind of each layer within one period: "attn" or
+    "mamba". Layer ``l`` of the flattened stack has kind
+    ``layer_kinds(arch)[l % period_length(arch)]``."""
+    return tuple("attn" if arch.is_attention_layer(i) else "mamba"
+                 for i in range(period_length(arch)))
+
+
+def _stack_kinds(arch: ArchConfig) -> List[str]:
+    kinds = layer_kinds(arch)
+    return [kinds[i % len(kinds)] for i in range(arch.num_layers)]
+
+
 def init_serving_state(arch: ArchConfig, num_pages: int, page_size: int,
-                       dtype: torch.dtype, device) -> List[Params]:
-    """One paged KV pool ``{k, v}: [P, page, Hkv, Dh]`` per layer. Every
-    layer shares one logical page table: a sequence's page ids index the
-    same rows of every layer's pool."""
-    if arch.family != "dense":
-        raise NotImplementedError(
-            f"family {arch.family!r}: the port serves the dense family only")
-    return [attn_lib.init_paged_kv_cache(arch, num_pages, page_size, dtype,
-                                         device)
-            for _ in range(arch.num_layers)]
+                       num_slots: int, dtype: torch.dtype,
+                       device) -> List[Params]:
+    """Per-layer decode state of the continuous engine, one entry per layer
+    of the flattened stack; each layer kind declares its own:
+
+    - ``attn``: a paged KV pool ``{k, v}: [P, page, Hkv, Dh]``. Every
+      attention layer shares one logical page table: a sequence's page ids
+      index the same rows of every layer's pool.
+    - ``mamba``: a pooled, constant-size per-slot state ``{conv: [slot,
+      W-1, C], state: [slot, H, N, P]}`` (``ssm.init_mamba_cache``): the
+      recurrence folds all history into fixed size, so it rides the decode
+      slot, not pages.
+    """
+    def layer_state(kind):
+        if kind == "attn":
+            return attn_lib.init_paged_kv_cache(arch, num_pages, page_size,
+                                                dtype, device)
+        return ssm_lib.init_mamba_cache(arch, num_slots, dtype, device)
+    return [layer_state(k) for k in _stack_kinds(arch)]
 
 
 def _decode_block_mix(arch: ArchConfig, blk: Params, x: torch.Tensor,
@@ -117,7 +148,10 @@ def _decode_block_mix(arch: ArchConfig, blk: Params, x: torch.Tensor,
 
 def _decode_block_ffn(arch: ArchConfig, blk: Params,
                       x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm MLP tail of a block with its residual add."""
+    """Pre-norm MLP tail of a block with its residual add (none for a block
+    without ln2: mamba2's have no MLP)."""
+    if "ln2" not in blk:
+        return x
     return x + apply_mlp(arch.mlp, blk["mlp"],
                          apply_norm(arch.norm, blk["ln2"], x))
 
@@ -141,9 +175,13 @@ def _fused_block_delta(arch: ArchConfig, blk: Params,
 def _period(arch: ArchConfig, blk: Params, x: torch.Tensor,
             mix: Callable[[torch.Tensor], torch.Tensor],
             fused: bool) -> torch.Tensor:
-    """One dense layer around the mixer ``mix``: unfused, or the fused
-    body (ln1 norm, mixer, fused add + ln2 norm, MLP delta, boundary add)."""
-    if not fused:
+    """One layer around the mixer ``mix``: unfused, or the fused body (ln1
+    norm, mixer, fused add + ln2 norm, MLP delta, boundary add). A mamba2
+    block has no ln2 and no MLP: its fused body's pending delta is the
+    mixer output itself, folded by the boundary add, so with a period of
+    one layer fused and unfused are the same operations and no
+    ``decode_residual_norm`` runs (fused decode changes only the head)."""
+    if not fused or "ln2" not in blk:
         x = _decode_block_mix(arch, blk, x, mix)
         return _decode_block_ffn(arch, blk, x)
     h = apply_norm(arch.norm, blk["ln1"], x)
@@ -153,12 +191,18 @@ def _period(arch: ArchConfig, blk: Params, x: torch.Tensor,
 
 def paged_decode_period(arch: ArchConfig, blk: Params, cache: Params,
                         x: torch.Tensor, page_table: torch.Tensor,
-                        seq_lens: torch.Tensor,
+                        seq_lens: torch.Tensor, active: torch.Tensor,
+                        kind: str = "attn",
                         fused: bool = False) -> torch.Tensor:
-    """One layer of single-token decode."""
+    """One layer of single-token decode, dispatched on its mixer ``kind``.
+    ``active`` [S] (``seq_lens > 0``) guards a mamba layer's state rows:
+    attention routes an idle slot's write to the null page instead."""
     def mix(h):
-        return attn_lib.paged_decode_attention_layer(
-            arch, blk["attn"], h, cache, page_table, seq_lens)
+        if kind == "attn":
+            return attn_lib.paged_decode_attention_layer(
+                arch, blk["attn"], h, cache, page_table, seq_lens)
+        return ssm_lib.paged_decode_mamba_layer(arch, blk["mamba"], h, cache,
+                                                active)
     return _period(arch, blk, x, mix, fused)
 
 
@@ -166,31 +210,43 @@ def paged_decode_stack(arch: ArchConfig, blocks: List[Params],
                        caches: List[Params], x: torch.Tensor,
                        page_table: torch.Tensor, seq_lens: torch.Tensor,
                        fused: bool = False) -> torch.Tensor:
-    """Single-token decode x [B, 1, D] through every layer."""
-    for blk, cache in zip(blocks, caches):
+    """Single-token decode x [B, 1, D] through every layer. A slot with
+    seq_len 0 is empty or mid-prefill: its state is left as it was."""
+    active = seq_lens > 0
+    for blk, cache, kind in zip(blocks, caches, _stack_kinds(arch)):
         x = paged_decode_period(arch, blk, cache, x, page_table, seq_lens,
-                                fused)
+                                active, kind, fused)
     return x
 
 
 def paged_prefill_period(arch: ArchConfig, blk: Params, cache: Params,
                          x: torch.Tensor, page_row: torch.Tensor, start: int,
-                         total_len: int, fused: bool = False) -> torch.Tensor:
+                         total_len: int, slot: int = 0, kind: str = "attn",
+                         fused: bool = False) -> torch.Tensor:
+    """One layer of one prompt chunk, dispatched on its mixer ``kind``:
+    attention writes K/V into the sequence's pages, mamba advances the
+    state in the sequence's ``slot`` row."""
     def mix(h):
-        return attn_lib.paged_prefill_attention_layer(
-            arch, blk["attn"], h, cache, page_row, start, total_len)
+        if kind == "attn":
+            return attn_lib.paged_prefill_attention_layer(
+                arch, blk["attn"], h, cache, page_row, start, total_len)
+        return ssm_lib.paged_prefill_mamba_layer(arch, blk["mamba"], h,
+                                                 cache, slot, start,
+                                                 total_len)
     return _period(arch, blk, x, mix, fused)
 
 
 def paged_prefill_stack(arch: ArchConfig, blocks: List[Params],
                         caches: List[Params], x: torch.Tensor,
                         page_row: torch.Tensor, start: int,
-                        total_len: int, fused: bool = False) -> torch.Tensor:
+                        total_len: int, slot: int = 0,
+                        fused: bool = False) -> torch.Tensor:
     """Chunked prefill: one prompt chunk x [1, C, D] of one sequence through
-    every layer, its K/V written straight into the sequence's pages."""
-    for blk, cache in zip(blocks, caches):
+    every layer, its K/V written straight into the sequence's pages and
+    its mamba state into its slot's rows."""
+    for blk, cache, kind in zip(blocks, caches, _stack_kinds(arch)):
         x = paged_prefill_period(arch, blk, cache, x, page_row, start,
-                                 total_len, fused)
+                                 total_len, slot, kind, fused)
     return x
 
 

@@ -1,6 +1,6 @@
-"""Continuous-batching serving engine of the port (dense family, one
-device): host-side page bookkeeping and scheduler (own copies of the JAX
-package's), the sampler, and ``ContinuousEngine``."""
+"""Continuous-batching serving engine of the port (dense and ssm
+families, one device): host-side page bookkeeping and scheduler (own
+copies of the JAX package's), the sampler, and ``ContinuousEngine``."""
 from .engine import ContinuousEngine
 from .kv_cache import PageAllocator, PagedCacheState, pages_needed
 from .sampling import SamplingParams, sample_tokens

@@ -6,22 +6,35 @@ per dispatch configuration; the scheduler decisions, the counters and the
 per-request results are the same, so the two engines emit identical token
 streams for the same weights and requests.
 
-Each decode step runs the whole ``num_slots`` batch: embed -> per layer
-[RMSNorm -> QKV + RoPE -> K/V written into pages -> paged decode attention
-kernel -> o-proj -> residual add + RMSNorm -> SwiGLU -> residual add] ->
-final norm -> LM head -> token selection. Slots that are empty or
-mid-prefill carry seq_len 0 and write to the null page. Prefill runs one
-chunk of one sequence per iteration through the paged prefill attention
-kernel; only a final chunk pays the LM head.
+The stack is driven through the per-layer decode-state protocol
+(``models.transformer.init_serving_state``): attention layers keep paged
+KV pools, mamba layers a pooled, constant-size state per slot. The dense
+family and the attention-free ssm family (mamba2) are served. Slot
+recycling resets a mamba row at the next sequence's first chunk, and
+preemption stays forced replay: re-prefilling the victim's context
+recomputes the state. Prefix caching shares pages, which recurrent state is
+not decomposable into, so an SSM-bearing arch gates it off with a reason on
+the engine (``prefix_cache_off_reason``) and in every request's result.
+
+Each decode step of a dense model runs the whole ``num_slots`` batch:
+embed -> per layer [RMSNorm -> QKV + RoPE -> K/V written into pages ->
+paged decode attention kernel -> o-proj -> residual add + RMSNorm ->
+SwiGLU -> residual add] -> final norm -> LM head -> token selection.
+Slots that are empty or mid-prefill carry seq_len 0 and write to the null
+page. Prefill runs one chunk of one sequence per iteration through the
+paged prefill attention kernel; only a final chunk pays the LM head. A
+mamba2 layer is [RMSNorm -> in_proj -> causal conv + SiLU -> SSD step
+(decode) or chunked SSD scan (prefill) -> gated RMSNorm kernel ->
+out_proj -> residual add]; an idle slot's state row is left as it was.
 
 Fused decode (``fused_decode``, on by default as in the JAX engine; the
 environment rule is ``serving.sampling.fused_decode_enabled``) folds each
 layer's ln2 residual add + norm into one ``decode_residual_norm`` kernel
-and runs the final norm, the LM head and the selection as one
-``head_tokens`` kernel that reads the tied embedding in place and returns
-tokens, never logits. Unfused, the head materializes fp32 logits and
-selects with a greedy argmax or the sampler (filter kernel for filtered
-requests, then the draw kernel). On the CPU the two paths emit bitwise
+(dense only: a mamba2 block has no ln2 site) and runs the final norm, the
+LM head and the selection as one ``head_tokens`` kernel that reads the
+tied embedding in place and returns tokens, never logits. Unfused, the
+head materializes fp32 logits and selects with a greedy argmax or the
+sampler (filter kernel for filtered requests, then the draw kernel). On the CPU the two paths emit bitwise
 identical streams; on the card they may fork on near-tied logits. An
 untied LM head serves unfused, with ``fused_decode_off_reason`` saying why.
 
@@ -30,7 +43,7 @@ Python branches on the ``sampled`` / ``filtered`` flags.
 
 Not ported yet (each raises ``NotImplementedError``): ``tp > 1``,
 ``decode_steps > 1``, ``sanitize=True``, fused decode with a logit softcap
-and families other than dense.
+and families other than dense and ssm (hybrid, moe, ...).
 """
 from __future__ import annotations
 
@@ -50,7 +63,17 @@ from .kv_cache import pages_needed
 from .sampling import fused_decode_enabled, sample_tokens
 from .scheduler import Request, Scheduler, SequenceState
 
-SERVABLE_FAMILIES = ("dense",)
+SERVABLE_FAMILIES = ("dense", "ssm")
+
+
+def prefix_cache_off_reason(arch) -> Optional[str]:
+    """Why the engine gates prefix caching off for ``arch``, or None.
+    Prefix caching shares pages; a mamba mixer's recurrent state is not
+    page-decomposable, so SSM-bearing archs gate it off."""
+    if "mamba" not in tf.layer_kinds(arch):
+        return None
+    return ("prefix cache unsupported for SSM-bearing archs "
+            f"({arch.name}): recurrent state is not page-decomposable")
 
 
 def _not_ported(what: str, slice_: str) -> NotImplementedError:
@@ -70,6 +93,9 @@ class ContinuousEngine:
         if arch.family not in SERVABLE_FAMILIES:
             raise _not_ported(f"serving the {arch.family!r} family",
                               "a later slice ports the other families")
+        kinds = tf.layer_kinds(arch)
+        self.has_attn = "attn" in kinds
+        self.has_ssm = "mamba" in kinds
         if tp != 1:
             raise _not_ported(f"tensor parallelism (tp={tp})",
                               "a later slice ports TP serving")
@@ -103,12 +129,17 @@ class ContinuousEngine:
             raise ValueError("prefill chunk must be a positive page multiple")
         self.prefill_chunk = prefill_chunk
         self.fused_sampling = bool(fused_sampling)
+        # the reason lands on the engine and in every request's result
+        self.prefix_cache_off_reason = (prefix_cache_off_reason(arch)
+                                        if prefix_cache else None)
+        prefix_cache = prefix_cache and self.prefix_cache_off_reason is None
         self.scheduler = Scheduler(num_slots=num_slots, num_pages=num_pages,
                                    page_size=page_size,
                                    max_pages_per_seq=self.max_pages_per_seq,
                                    prefix_cache=prefix_cache)
         self.pools = tf.init_serving_state(arch, num_pages, page_size,
-                                           model.dtype, self.device)
+                                           num_slots, model.dtype,
+                                           self.device)
         self.steps = 0                  # decode steps executed
         self.prefills = 0               # prefill completions
         self.prefill_chunks = 0         # prefill chunks executed
@@ -181,14 +212,15 @@ class ContinuousEngine:
         return tok.cpu().numpy()
 
     @torch.inference_mode()
-    def _prefill(self, chunk: np.ndarray, page_row: np.ndarray, start: int,
-                 end: int, sp, *, final: bool) -> int:
-        """One prompt chunk of one sequence; on the final chunk the token
-        after position ``end - 1`` (stream position ``end``), else 0."""
+    def _prefill(self, chunk: np.ndarray, page_row: np.ndarray, slot: int,
+                 start: int, end: int, sp, *, final: bool) -> int:
+        """One prompt chunk of one sequence (in ``slot``, whose mamba state
+        rows it advances); on the final chunk the token after position
+        ``end - 1`` (stream position ``end``), else 0."""
         x = self.model._embed(self._ints(chunk))
         x = tf.paged_prefill_stack(self.arch, self.model.params["blocks"],
                                    self.pools, x, self._ints(page_row), start,
-                                   end, fused=self.fused_decode)
+                                   end, slot, fused=self.fused_decode)
         if not final:
             return 0
         xl = tf.chunk_final_hidden(x, start, end)
@@ -205,8 +237,12 @@ class ContinuousEngine:
 
     @torch.inference_mode()
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy-on-write: duplicate one physical page in every layer's pool."""
+        """Copy-on-write: duplicate one physical page in every attention
+        layer's pool. Mamba slot state has no pages (CoW exists only under
+        prefix caching, which SSM-bearing archs gate off)."""
         for pool in self.pools:
+            if "k" not in pool:
+                continue
             pool["k"][dst].copy_(pool["k"][src])
             pool["v"][dst].copy_(pool["v"][src])
 
@@ -236,7 +272,8 @@ class ContinuousEngine:
             chunk[0, :end - start] = ctx[start:end]
             final = end == seq.prefill_target
             tok = self._prefill(chunk, sched.cache.page_table[seq.slot],
-                                start, end, seq.request.sampling, final=final)
+                                seq.slot, start, end, seq.request.sampling,
+                                final=final)
             seq.prefilled = end
             self.prefill_chunks += 1
             self.prefill_tokens += end - start
@@ -258,7 +295,9 @@ class ContinuousEngine:
         """Serve a trace to completion. Requests with ``arrival > 0`` are held
         back until the trace clock reaches them. Returns
         uid -> {"tokens", "token_times", "prompt_len",
-        "cached_prefill_tokens"[, "error"]}."""
+        "cached_prefill_tokens"[, "prefix_cache"][, "error"]}, where
+        "prefix_cache" is "off: <reason>" when the engine gated the cache
+        off."""
         sched = self.scheduler
         pending = deque(sorted(requests, key=lambda r: (r.arrival, r.uid)))
         results: Dict[int, dict] = {}
@@ -279,6 +318,9 @@ class ContinuousEngine:
                 "prompt_len": len(seq.request.prompt),
                 "cached_prefill_tokens": seq.cached_len,
             }
+            if self.prefix_cache_off_reason is not None:
+                results[seq.request.uid]["prefix_cache"] = \
+                    f"off: {self.prefix_cache_off_reason}"
 
         while pending or sched.has_work:
             while pending and pending[0].arrival <= now():

@@ -78,7 +78,7 @@ def test_full_logits_match_model_forward():
     n, page, chunk = 21, 8, 24
     tokens = rng.integers(5, t_arch.vocab_size, (1, n))
     ref, _ = model.forward(params, {"tokens": jnp.asarray(tokens)})
-    pools = tf.init_serving_state(t_arch, 5, page, torch.float32, "cpu")
+    pools = tf.init_serving_state(t_arch, 5, page, 1, torch.float32, "cpu")
     padded = np.zeros((1, chunk), np.int64)
     padded[0, :n] = tokens[0]
     with torch.inference_mode():
