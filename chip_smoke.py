@@ -6,9 +6,9 @@ Phases, each printing one line (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel of the port, all nvcc runs at once;
   3. each kernel against its plain PyTorch version at the full-width
-     llama3.2-3b shapes of the serving path: attention on valid rows within
-     2 bf16 ulps of the largest output of the plain version run in fp32 on
-     the same bf16 inputs, the top-k/top-p filter and the token draw
+     llama3.2-3b shapes of the serving path: attention on valid rows, each
+     query row within 2 bf16 ulps of its own largest output of the plain
+     version run in fp32 on the same bf16 inputs, the top-k/top-p filter and the token draw
      bitwise, the fused add + norm with x + y bitwise and the norm within
      1 bf16 ulp (8 and 64 rows), the fused LM head's tokens and probe
      bitwise on inputs whose GEMM is exact in any order (greedy,
@@ -26,9 +26,16 @@ Phases, each printing one line (any failure exits non-zero):
      ragged 4099 (m', v' within 2 fp32 ulps, the trust ratio within 1e-5
      relative); and the mamba mixer's gated RMSNorm at mamba2's width
      (C 4096) on 8, 64 and 1 rows, z read in place from an in_proj row,
-     within 1 bf16 ulp of the row's largest |output|; each timed by CUDA
-     events and the profiler beside its bound, its plain version and a
-     library yardstick;
+     within 1 bf16 ulp of the row's largest |output|; and the flash
+     attention forward at llama3.2-3b's heads with block_kv 1024 (as
+     attention_core passes it) in four cases: the static prefill's q [4,
+     4096, 24, 128] against k/v [4, 4096, 8, 128] causal, a ragged causal
+     Sq = Sk = 1500 (a length the TPU kernel rejects), Sq 256 against Sk
+     4096 non-causal with ragged kv_len and a kv_len = 0 row, and window
+     512 with q_offset 1024, each query row within 2 bf16 ulps of its own
+     largest output of the plain version run in fp32, beside SDPA; each kernel timed by CUDA events and the
+     profiler beside its bound, its plain version and a library
+     yardstick;
   4. the full-width model's logits through the paged kernels, unfused and
      fused layer bodies, against a dense plain-PyTorch forward of the same
      weights: the final prefill chunk, then four decode steps across a page
@@ -48,6 +55,16 @@ Phases, each printing one line (any failure exits non-zero):
   6. the fused trace (the default path) under torch.profiler, recording
      the card's activity only: device time
      by kernel and kind, kernel launches, and the device's idle share;
+     then the static engine (launch/serve.py run_static) on the same
+     llama3.2-3b weights with attn_impl="flash": 4 prompts of 4096 tokens,
+     32 new tokens, greedy and then at T 0.8 / top-k 40 / top-p 0.95, every
+     launch counter set to 0 just before each run and read just after
+     (exactly 28 flash launches in the prefill, none in decode, one filter
+     and one draw a token when sampled), the flash prefill's last logits
+     against the same prefill with attn_impl="chunked" (plain PyTorch; rel
+     L2 0.05, argmax agreement where the top-2 margin exceeds the error),
+     prefill ms, decode ms a token, tok/s and peak memory, and one flash
+     prefill under torch.profiler (flash against GEMM device time);
      then the llama model is freed and the mamba2 phase runs: full-width
      mamba2-1.3b (48 layers, d_model 2048, 64 SSD heads of 64, state 128,
      bf16, seeded random weights), the logits of a 200-token prompt through
@@ -60,8 +77,13 @@ Phases, each printing one line (any failure exits non-zero):
      set to 0
      just before and read just after (exactly 48 gated_rmsnorm launches a
      decode step and a prefill chunk, one head_tokens a step and final
-     chunk), and a window of it (two requests, 8 new tokens each) under
-     torch.profiler;
+     chunk), a window of it (two requests, 8 new tokens each) under
+     torch.profiler, and the static engine on 4 prompts of 512 tokens (two
+     SSD chunks) with 16 new tokens, greedy: the prefill's last logits
+     within rel L2 0.05 of the plain full-sequence forward (and against
+     its fp32 run within 1.25 x the plain bf16 forward's distance),
+     exactly 48 gated_rmsnorm launches in the prefill and 48 a decode
+     step;
   7. one full-width bert-large post-norm block, fused (kernel forward,
      plain backward) against unfused in bf16 and both against fp32: the
      output and the gradient of the input and of every block parameter
@@ -78,7 +100,8 @@ Phases, each printing one line (any failure exits non-zero):
      weights and batches; every loss finite, the last below the first on
      both paths, the step-1 losses within 1 bf16 ulp of each other;
   9. one JSON line of per-kernel numbers (times from CUDA events) and of
-     the serves (llama unfused and fused, mamba2 fused).
+     the serves (llama unfused and fused, mamba2 fused, static llama with
+     flash and static mamba2).
 TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
 fp32.
 The last line is {"ok": true, "device": {...}}. Weights are random, made on
@@ -102,10 +125,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 ATTN_ULPS = 2.0                # attention tolerance, in bf16 ulps (8
-                               # significant bits) at the largest |output|:
-                               # against an fp32 plain version the kernel's
-                               # only error is rounding its fp32 result to
-                               # bf16 (half an ulp)
+                               # significant bits) at each query row's
+                               # largest |output|: against an fp32 plain
+                               # version the kernel's only error is
+                               # rounding its fp32 result to bf16 (half an
+                               # ulp)
+ATTN_TOL = f"{ATTN_ULPS:g} bf16 ulps of each query row's largest |output|"
 SEED = 0
 
 
@@ -145,9 +170,19 @@ def _profiled_ms(fn, names, iters: int = 10):
     return us / 1e3 / iters if us > 0 else None
 
 
-def _attn_tol(plain: torch.Tensor) -> float:
-    top = plain.abs().max().item()
-    return ATTN_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+def _attn_err(out: torch.Tensor, plain: torch.Tensor, name: str):
+    """Hold each query row (the last dim) of ``out`` to ATTN_ULPS bf16 ulps
+    of that row's own largest |plain|, so that rows averaging many values
+    (small |o|) are held as tightly as rows with few. Returns the max abs
+    error and the worst row's error in its own ulps."""
+    diff = (out.float() - plain).abs().amax(-1)
+    top = plain.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    err, ulps = diff.max().item(), (diff / ulp).max().item()
+    if not ulps <= ATTN_ULPS:
+        _fail(f"{name} error {ulps} bf16 ulps of its row's largest |output| "
+              f"> {ATTN_ULPS} (max abs err {err})")
+    return err, ulps
 
 
 def _bound(nbytes: float, flops: float, peak: float):
@@ -182,10 +217,7 @@ def check_decode_attention(arch, rng, dev):
     plain = ref.paged_decode_attention(q.float(), kp.float(), vp.float(), pt,
                                        sl)
     torch.cuda.synchronize()
-    err = (out.float() - plain).abs().max().item()
-    tol = _attn_tol(plain)
-    if not err <= tol:
-        _fail(f"paged_decode_attention max abs err {err} > {tol}")
+    err, ulps = _attn_err(out, plain, "paged_decode_attention")
     state = {"i": 0}
 
     def kernel():
@@ -211,7 +243,8 @@ def check_decode_attention(arch, rng, dev):
             "source": "src/repro_torch/kernels/decode_attention/csrc/"
                       "paged_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:164",
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
@@ -234,10 +267,7 @@ def check_prefill_attention(arch, rng, dev):
     plain = ref.paged_prefill_attention(q.float(), kp.float(), vp.float(), pr,
                                         start, total)[:valid]
     torch.cuda.synchronize()
-    err = (out[:valid].float() - plain).abs().max().item()
-    tol = _attn_tol(plain)
-    if not err <= tol:
-        _fail(f"paged_prefill_attention max abs err {err} > {tol}")
+    err, ulps = _attn_err(out[:valid], plain, "paged_prefill_attention")
     ms = _time_ms(lambda: ops.paged_prefill_attention(q, kp, vp, pr, start,
                                                       total), 200)
     plain_ms = _time_ms(lambda: ref.paged_prefill_attention(
@@ -258,9 +288,116 @@ def check_prefill_attention(arch, rng, dev):
             "source": "src/repro_torch/kernels/decode_attention/csrc/"
                       "paged_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:113",
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def _valid_pairs(sq, sk, kv_len, causal, q_offset, window) -> int:
+    """(query, key) pairs that these masks leave valid, summed over the
+    batch rows of ``kv_len``: the work the inputs need."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    total = 0
+    for n in kv_len:
+        hi = np.minimum(min(int(n), sk), pos + 1) if causal else \
+            np.full(sq, min(int(n), sk))
+        lo = np.maximum(0, pos - window + 1) if window > 0 else 0
+        total += int(np.maximum(hi - lo, 0).sum())
+    return total
+
+
+def _sdpa_fn(q, k, v, mask):
+    """One SDPA call on the same inputs ([B, H, S, D] views), GQA through
+    ``enable_gqa``."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                  **kw)
+
+
+FLASH_CASES = {
+    # name: (B, Sq, Sk, causal, q_offset, window, kv_len)
+    "static prefill": (4, 4096, 4096, True, 0, 0, None),
+    "ragged causal": (4, 1500, 1500, True, 0, 0, None),
+    "kv_len, non-causal": (4, 256, 4096, False, 0, 0, [4096, 3001, 0, 1777]),
+    "window, q_offset": (4, 1024, 2048, True, 1024, 512, None),
+}
+
+
+def check_flash_attention(arch, dev):
+    """The flash kernel at llama3.2-3b's heads (24 query, 8 KV, D 128, bf16)
+    with block_kv 1024 (attn_chunk, as attention_core passes it): the static
+    prefill's shape, then a ragged length, ragged kv_len with an empty row,
+    and a window with a q_offset; each within ATTN_ULPS of the plain version
+    run in fp32 on the same bf16 inputs, timed beside its bound, the plain
+    version and SDPA. Returns the prefill shape's row with the other cases
+    under ``cases``."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for name, (b, sq, sk, causal, off, win, lens) in FLASH_CASES.items():
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k = torch.randn((b, sk, hkv, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn_like(k)
+        lens = [sk] * b if lens is None else lens
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, q_offset=off, kv_len=kv_len, window=win,
+                  block_kv=arch.attn_chunk)
+        out = ops.flash_attention(q, k, v, **kw)
+        plain = ref.flash_attention_fwd(
+            *(t.float().transpose(1, 2) for t in (q, k, v)), kv_len,
+            causal=causal, q_offset=off, window=win,
+            block_kv=arch.attn_chunk).transpose(1, 2)
+        torch.cuda.synchronize()
+        err, ulps = _attn_err(out, plain, f"flash_attention ({name})")
+        del plain
+        ms = _time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
+        dev_ms = _profiled_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                              ("flash_fwd_kernel",), iters=5)
+        plain_ms = _time_ms(lambda: ref.flash_attention_fwd(
+            *(t.transpose(1, 2) for t in (q, k, v)), kv_len, causal=causal,
+            q_offset=off, window=win, block_kv=arch.attn_chunk), 3, warmup=1)
+        mask = None
+        if not (causal and off == 0 and win == 0 and min(lens) == sk):
+            pos = torch.arange(sq, device=dev)[:, None] + off
+            cols = torch.arange(sk, device=dev)[None]
+            mask = (cols[None] < kv_len.long()[:, None, None])[:, None]
+            if causal:
+                mask = mask & (cols <= pos)
+            if win > 0:
+                mask = mask & (cols > pos - win)
+        library_ms = _time_ms(_sdpa_fn(q, k, v, mask), 10)
+        pairs = _valid_pairs(sq, sk, lens, causal, off, win)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * b
+        bound_ms, bound_by = _bound(nbytes, 4.0 * pairs * hq * d, BF16_FLOPS)
+        rows.append({"case": name, "shape": {
+            "q": [b, sq, hq, d], "kv": [b, sk, hkv, d], "causal": causal,
+            "q_offset": off, "window": win, "kv_len": lens},
+            "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
+            "ms": ms,
+            "profiler_device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "valid_pairs": pairs})
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    print("[flash] " + "; ".join(
+        f"{r['case']}: err {r['max_abs_err']:.3e} "
+        f"({r['max_err_row_ulps']:.3f} row ulps), "
+        f"{r['ms']:.4f} ms (device {r['profiler_device_ms']}), bound "
+        f"{r['bound_ms']:.4f} ({r['bound_by']}), plain {r['plain_ms']:.3f}, "
+        f"SDPA {r['library_ms']:.4f}" for r in rows))
+    main = dict(rows[0])
+    main.pop("case")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:64",
+            **main, "cases": rows[1:]}
 
 
 def check_filter(arch, rng, dev):
@@ -723,11 +860,12 @@ def make_engine(model, fused: bool):
 
 def _counters():
     from repro_torch.kernels.decode_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.fused_layernorm import ops as ln_ops
     from repro_torch.kernels.fused_lm_head import ops as head_ops
     from repro_torch.kernels.fused_sampling import ops as samp_ops
     return (attn_ops.LAUNCHES, samp_ops.LAUNCHES, ln_ops.LAUNCHES,
-            head_ops.LAUNCHES)
+            head_ops.LAUNCHES, flash_ops.LAUNCHES)
 
 
 def _snapshot():
@@ -924,6 +1062,237 @@ def profile_serve(model, engine=None, reqs=None):
           + "; top kernels " + "; ".join(
               f"{n[:48]} {ms:.1f} ms x{c}" for n, ms, c in top))
     return {name: (ms, c) for name, ms, c in kernels}
+
+
+# ----------------------------------------------------------- static phase ---
+# The static engine: the whole prompt prefilled at once into a dense cache,
+# then lock-step decode (launch/serve.py run_static).
+STATIC_BATCH, STATIC_PROMPT, STATIC_GEN = 4, 4096, 32
+STATIC_SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+
+
+def static_args(batch, prompt_len, gen_len, **kw):
+    import argparse
+    base = dict(batch=batch, prompt_len=prompt_len, gen_len=gen_len,
+                temperature=0.0, top_k=0, top_p=1.0, seed=SEED)
+    return argparse.Namespace(**{**base, **kw})
+
+
+def run_static_counted(model, args):
+    """``run_static`` with every launch counter set to 0 just before the run
+    and read just after, launches split between the prefill and the decode
+    steps; keeps the prefill's last-position logits [B, Vp]."""
+    from repro_torch.launch.serve import run_static
+    phase = {"prefill": dict.fromkeys(_snapshot(), 0),
+             "decode": dict.fromkeys(_snapshot(), 0)}
+    got = {}
+    prefill_fn, decode_fn = model.prefill, model.decode_step
+
+    def prefill(*a, **kw):
+        logits, caches = _counted(phase["prefill"], prefill_fn)(*a, **kw)
+        got["logits"] = logits[:, 0]
+        return logits, caches
+    model.prefill = prefill
+    model.decode_step = _counted(phase["decode"], decode_fn)
+    for d in _counters():
+        for k in d:
+            d[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_static(model, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _snapshot()
+    for name in ("prefill", "decode_step"):     # no model -> fn -> model cycle
+        model.__dict__.pop(name, None)
+    b, glen = args.batch, args.gen_len
+    if res["tokens"].shape != (b, glen):
+        _fail(f"static serve returned tokens {res['tokens'].shape}")
+    return dict(res, phase=phase, launches=launches, logits=got["logits"],
+                wall=wall, peak=torch.cuda.max_memory_allocated(),
+                tok_per_s=b * glen / wall,
+                decode_ms_per_token=res["t_decode"] / max(glen - 1, 1) * 1e3)
+
+
+def _expect_launches(run, want, what):
+    """``want``: {kernel: (launches in the prefill, in decode, outside
+    both)}; every other kernel must not have launched."""
+    for name, n in run["launches"].items():
+        exp = want.get(name, (0, 0, 0))
+        pre, dec = run["phase"]["prefill"][name], run["phase"]["decode"][name]
+        if (pre, dec, n - pre - dec) != exp:
+            _fail(f"{what}: {name} launched {pre} times in the prefill, "
+                  f"{dec} in decode and {n - pre - dec} outside both; "
+                  f"expected {exp}")
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _compare_logits(got, want, what):
+    """Per batch row: rel L2 (gated at 0.05), max abs error, and whether the
+    argmax agrees where the reference's top-2 margin exceeds the error."""
+    lines = []
+    for i in range(want.shape[0]):
+        g, r = got[i].float(), want[i].float()
+        if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
+            _fail(f"{what}: non-finite logits in row {i}")
+        rel, err = _rel_l2(g, r), (g - r).abs().max().item()
+        top2 = torch.topk(r, 2).values
+        margin = (top2[0] - top2[1]).item()
+        same = int(g.argmax()) == int(r.argmax())
+        lines.append(f"row {i}: rel L2 {rel:.3e}, max abs {err:.3e}, top-2 "
+                     f"margin {margin:.3e}, argmax "
+                     + ("equal" if same else "differs")
+                     + (" (margin above the error)" if margin > err else
+                        " (margin below the error)"))
+        if not rel <= 0.05:
+            _fail(f"{what}: row {i} logits rel L2 {rel} > 0.05")
+    return lines
+
+
+def profile_prefill(model, tokens, max_len):
+    """One static prefill under torch.profiler, the card's activity only:
+    device ms of the flash kernel, GEMMs and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    caches = model.init_caches(tokens.shape[0], max_len)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(caches, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"flash attention": 0.0, "gemm": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, low = e.self_device_time_total / 1e3, e.key.lower()
+        n += e.count
+        if "flash_fwd_kernel" in low:
+            kinds["flash attention"] += ms
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
+                                      "cutlass")):
+            kinds["gemm"] += ms
+        else:
+            kinds["other"] += ms
+    busy = sum(kinds.values())
+    if busy <= 0:
+        print("[profile] static prefill: device time: not measured")
+        return {}
+    print(f"[profile] static flash prefill {tuple(tokens.shape)} under "
+          f"torch.profiler: wall {wall_ms:.1f} ms, device busy {busy:.1f} "
+          f"ms, idle share {1 - busy / wall_ms:.3f}, {n} kernel launches; "
+          "by kind (ms) " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in kinds.items()))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": n, **kinds}
+
+
+def static_phase(model):
+    """llama3.2-3b through the static engine with attn_impl="flash": 4
+    prompts of 4096 tokens (above attn_chunk 1024), 32 new tokens, greedy,
+    then sampled. Exactly one flash launch a layer in the prefill and none
+    in decode (one query: naive). The flash prefill's last logits against
+    the same prefill with attn_impl="chunked" (plain PyTorch), rel L2 0.05;
+    then one flash prefill profiled."""
+    from repro_torch.models.model import Model
+    arch = model.arch
+    flash = Model(dataclasses.replace(arch, attn_impl="flash"), model.params)
+    runs = {}
+    for name, kw in (("greedy", {}), ("sampled", STATIC_SAMPLED)):
+        args = static_args(STATIC_BATCH, STATIC_PROMPT, STATIC_GEN, **kw)
+        run = run_static_counted(flash, args)
+        want = {"flash_attention": (arch.num_layers, 0, 0)}
+        if kw:      # the sampler: one filter and one draw a token
+            want.update(filter_logits=(0, 0, STATIC_GEN),
+                        draw_tokens=(0, 0, STATIC_GEN))
+        _expect_launches(run, want, f"static llama3.2-3b ({name})")
+        runs[name] = run
+        print(f"[static] llama3.2-3b {arch.num_layers}L flash, {name}: "
+              f"{STATIC_BATCH} prompts x {STATIC_PROMPT} tokens + "
+              f"{STATIC_GEN} new: prefill {run['t_prefill'] * 1e3:.1f} ms, "
+              f"decode {run['decode_ms_per_token']:.2f} ms/token, wall "
+              f"{run['wall']:.3f} s ({run['tok_per_s']:.1f} tok/s), peak "
+              f"memory {run['peak'] / 2**30:.2f} GiB; launches in prefill "
+              f"{_nonzero(run['phase']['prefill'])}, in decode "
+              f"{_nonzero(run['phase']['decode'])}, in all "
+              f"{_nonzero(run['launches'])}")
+    greedy = runs["greedy"]
+    tokens = torch.as_tensor(greedy["prompt"], device=model.device)
+    chunked = Model(dataclasses.replace(arch, attn_impl="chunked"),
+                    model.params)
+    before = _snapshot()["flash_attention"]
+    ref, _ = chunked.prefill(chunked.init_caches(STATIC_BATCH,
+                                                 STATIC_PROMPT), tokens)
+    if _snapshot()["flash_attention"] != before:
+        _fail("the chunked prefill launched the flash kernel")
+    lines = _compare_logits(greedy["logits"], ref[:, 0],
+                            "static flash vs chunked prefill")
+    print("[static] flash vs chunked (plain) prefill, last-position logits "
+          "(bf16, tol rel L2 0.05): " + "; ".join(lines))
+    del ref
+    cache_bytes = (arch.num_layers * 2 * STATIC_BATCH
+                   * (STATIC_PROMPT + STATIC_GEN) * arch.kv_dim * 2)
+    prof = profile_prefill(flash, tokens, STATIC_PROMPT + STATIC_GEN)
+    return {name: {k: run[k] for k in (
+        "t_prefill", "decode_ms_per_token", "wall", "tok_per_s", "peak")}
+        | {"launches_prefill": run["phase"]["prefill"]["flash_attention"],
+           "launches_decode": run["phase"]["decode"]["flash_attention"]}
+        for name, run in runs.items()} | {
+        "profile": prof, "dense_cache_bytes": cache_bytes,
+        "logits_vs_chunked": lines}
+
+
+def static_mamba(model):
+    """mamba2-1.3b through the static engine: 4 prompts of 512 tokens (two
+    SSD chunks of 256), 16 new tokens, greedy. The prefill's last logits
+    within rel L2 0.05 of the plain full-sequence forward, and no further
+    from its fp32 run than 1.25 x the plain bf16 forward is (so their
+    difference is bf16 rounding); exactly 48 gated_rmsnorm launches in the
+    prefill and 48 a decode step."""
+    from repro_torch import tree
+    from repro_torch.models.model import Model
+    arch = model.arch
+    gen = 16
+    run = run_static_counted(model, static_args(4, 512, gen))
+    _expect_launches(run, {"gated_rmsnorm": (
+        arch.num_layers, arch.num_layers * (gen - 1), 0)},
+        "static mamba2-1.3b")
+    tokens = torch.as_tensor(run["prompt"], device=model.device)
+    with torch.inference_mode():
+        ref = torch.stack([mamba_reference_logits(model, tokens[i:i + 1])
+                           for i in range(tokens.shape[0])])
+        m32 = Model(dataclasses.replace(arch, dtype="float32"),
+                    tree.map(lambda t: t.float(), model.params))
+        ref32 = torch.stack([mamba_reference_logits(m32, tokens[i:i + 1])
+                             for i in range(tokens.shape[0])])
+        del m32
+    lines = _compare_logits(run["logits"], ref,
+                            "static mamba2 prefill vs plain forward")
+    for i, line in enumerate(lines):
+        got32, plain32 = (_rel_l2(run["logits"][i], ref32[i]),
+                          _rel_l2(ref[i], ref32[i]))
+        lines[i] = (f"{line}; vs fp32: static {got32:.3e}, plain bf16 "
+                    f"{plain32:.3e}")
+        if not got32 <= 1.25 * plain32:
+            _fail(f"static mamba2 row {i}: {got32} from the fp32 forward, "
+                  f"more than 1.25 x the plain bf16 forward's {plain32}")
+    print(f"[static] mamba2-1.3b {arch.num_layers}L: 4 prompts x 512 tokens "
+          f"+ {gen} new: prefill {run['t_prefill'] * 1e3:.1f} ms, decode "
+          f"{run['decode_ms_per_token']:.2f} ms/token, wall "
+          f"{run['wall']:.3f} s ({run['tok_per_s']:.1f} tok/s), peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB; gated_rmsnorm launches: prefill "
+          f"{run['phase']['prefill']['gated_rmsnorm']}, decode "
+          f"{run['phase']['decode']['gated_rmsnorm']} ({gen - 1} steps); "
+          "last logits vs the plain full-sequence forward (bf16, tol rel L2 "
+          "0.05): " + "; ".join(lines))
+    return {k: run[k] for k in ("t_prefill", "decode_ms_per_token", "wall",
+                                "tok_per_s", "peak")} | {
+        "launches_prefill": run["phase"]["prefill"]["gated_rmsnorm"],
+        "launches_decode": run["phase"]["decode"]["gated_rmsnorm"],
+        "logits_vs_plain": lines}
 
 
 # ------------------------------------------------------------ mamba phase ---
@@ -1160,6 +1529,8 @@ def mamba_phase(dev, rng, marks):
     run["profile"] = profile_serve(model, make_mamba_engine(model), window)
     run["logit_err"] = logit_err
     marks["mamba2 profile"] = time.perf_counter()
+    run["static"] = static_mamba(model)
+    marks["static mamba2"] = time.perf_counter()
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1688,6 +2059,7 @@ def main() -> int:
     marks = {"build": time.perf_counter()}
     rows = [check_decode_attention(arch, rng, dev),
             check_prefill_attention(arch, rng, dev)]
+    flash_row = check_flash_attention(arch, dev)
     filt, lg_f = check_filter(arch, rng, dev)
     rows += [filt, check_draw(lg_f, dev)]
     del lg_f
@@ -1701,7 +2073,8 @@ def main() -> int:
         f"{r['name']}: max abs err {r['max_abs_err']:.3e}"
         + (f" (tol {r['tol']})" if isinstance(r.get("tol"), str) else
            f" (tol {r['tol']:.3e})" if "tol" in r else " (bitwise)")
-        for r in rows + [dict(head_mamba, name="head_tokens at mamba2-1.3b")]
+        for r in rows + [flash_row]
+        + [dict(head_mamba, name="head_tokens at mamba2-1.3b")]
         + mamba_rows + train_rows))
 
     marks["kernel checks"] = time.perf_counter()
@@ -1723,6 +2096,8 @@ def main() -> int:
           "streams may fork on near-tied logits; not a failure)")
     prof = profile_serve(model)
     marks["profile"] = time.perf_counter()
+    static = static_phase(model)
+    marks["static llama"] = time.perf_counter()
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1771,6 +2146,17 @@ def main() -> int:
                 "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "unfused_head_ms", "random_rows_clear_margin")}
             r["launches_mamba2_serve"] = mamba["launches"]["head_tokens"]
+    flash_row.update(
+        launches=static["greedy"]["launches_prefill"]
+        + static["greedy"]["launches_decode"],
+        launches_path="static llama3.2-3b serve, attn_impl='flash' (greedy "
+                      f"run: one prefill of {STATIC_BATCH} x {STATIC_PROMPT} "
+                      f"tokens, {STATIC_GEN - 1} decode steps)",
+        launches_in_prefill=static["greedy"]["launches_prefill"],
+        launches_in_decode=static["greedy"]["launches_decode"],
+        launches_sampled_run=static["sampled"]["launches_prefill"]
+        + static["sampled"]["launches_decode"],
+        static_prefill_profile=static["profile"])
     for r in mamba_rows:
         name, ph = r["name"], mamba["phase"]
         r["launches"] = mamba["launches"][name]
@@ -1797,7 +2183,7 @@ def main() -> int:
         k: training["fused" if f else "unfused"][k]
         for k in ("losses", "step_s", "wall", "peak", "peak_above_start")}
         for f in (True, False)}
-    print(json.dumps({"kernels": rows + mamba_rows + train_rows,
+    print(json.dumps({"kernels": rows + [flash_row] + mamba_rows + train_rows,
                       "training": dict(
         trained, profile=training["profile"],
         syncs_in_a_step=training["syncs_in_a_step"],
@@ -1814,7 +2200,10 @@ def main() -> int:
             k: mamba[k] for k in ("wall", "tok_per_s", "mean_ttft_s",
                                   "steps", "prefill_chunks", "prefills",
                                   "prefill_tokens", "peak_bytes",
-                                  "ssm_state_bytes", "logit_err")}},
+                                  "ssm_state_bytes", "logit_err")}} | {
+            "static llama3.2-3b flash": {
+                k: v for k, v in static.items() if k != "profile"},
+            "static mamba2-1.3b": mamba["static"]},
         "identical_streams": same, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,23 @@
 
 The package mirrors ``repro``'s module names so each part has an obvious
 counterpart, but imports nothing from it (nor ``jax``): every piece it needs
-is its own copy. What it carries today is the continuous engine serving
-the dense family and the attention-free ssm family (mamba2) through the
-per-layer decode-state protocol (chunked paged prefill, paged decode,
-per-slot mamba state, per-request sampling, fused decode on by default)
-and bert-large MLM training on one device (``launch.train``), with
-hand-written sm_90a kernels:
+is its own copy. What it carries today:
+
+- the continuous engine serving the dense family and the attention-free
+  ssm family (mamba2) through the per-layer decode-state protocol (chunked
+  paged prefill, paged decode, per-slot mamba state, per-request sampling,
+  fused decode on by default);
+- the static engine (``launch.serve --engine static``, the default, or
+  ``launch.serve.run_static``): a dense cache, the whole prompt prefilled
+  at once (``Model.prefill``; above ``attn_chunk`` the chunked attention,
+  or the flash kernel for a config with ``attn_impl="flash"``), then
+  lock-step decode (``Model.decode_step``), dense and mamba2;
+- bert-large MLM training on one device (``launch.train``);
+
+with twelve hand-written sm_90a kernels:
 
 - ``kernels.decode_attention``: paged decode and paged prefill attention
+- ``kernels.flash_attention``: the flash attention forward
 - ``kernels.fused_sampling``: the top-k / top-p logit filter and the draw
 - ``kernels.fused_layernorm``: the decode residual stream's add + norm,
   the training block's post-norm add + norm, and the mamba mixer's

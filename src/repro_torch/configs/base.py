@@ -1,6 +1,7 @@
 """Architecture and run configs: the fields of
 ``repro.configs.base.{SSMConfig, ArchConfig, ShapeConfig, RunConfig}`` that
-the dense and SSM serving paths and the training path read, as the port's
+the dense and SSM serving paths (continuous and static) and the training
+path read, as the port's
 own frozen dataclasses (values copied, nothing imported)."""
 from __future__ import annotations
 
@@ -55,8 +56,11 @@ class ArchConfig:
     dtype: str = "bfloat16"         # compute / activation dtype (serving
                                     # weights too)
     param_dtype: str = "float32"    # training's master parameter dtype
-    attn_chunk: int = 1024          # KV length above which JAX chunks
-                                    # attention (not ported)
+    attn_impl: str = "chunked"      # naive | chunked | flash: the
+                                    # attention above attn_chunk
+    attn_chunk: int = 1024          # KV length above which attention is
+                                    # chunked (or flash); its KV block
+    window: int = 0                 # sliding-window attention (0 = full)
     post_norm: bool = False         # BERT-style post-LN blocks
     bidirectional: bool = False     # encoder-only attention (BERT)
     mlm_transform: bool = False     # BERT MLM head (dense + gelu + LN)

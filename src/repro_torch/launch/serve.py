@@ -1,17 +1,33 @@
-"""Serve a batch of requests with the port's continuous engine.
+"""Serve a batch of requests with the port's static or continuous engine.
 
     python -m repro_torch.launch.serve --arch llama3.2-3b --device cuda
+    python -m repro_torch.launch.serve --engine continuous --device cuda
     python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
 
-Counterpart of ``repro.launch.serve`` with ``--engine continuous
---decode-steps 1 --tp 1``, fused decode on or off (``--fused-decode`` /
-``--no-fused-decode``; unset follows ``REPRO_FUSED_DECODE``, default on).
-Weights are random, made on the device from ``--seed`` with a
-``torch.Generator``; prompts are drawn with numpy from the same seed.
-Request i is sampled with seed ``--seed + i``. Runs on the card unless
-``--device cpu`` is given. An explicit ``--prefix-cache`` is refused for an
-SSM-bearing arch (its recurrent state is not page-decomposable); without
-the flag the engine gates the cache off itself and the reason is printed.
+Counterpart of ``repro.launch.serve`` with ``--engine {static,continuous}``
+(static by default, as in JAX):
+
+static      the fixed-batch driver: one dense KV cache (or mamba state) of
+            ``batch x (prompt_len + gen_len)`` rows, the whole prompt
+            prefilled at once (``Model.prefill``; above ``attn_chunk`` the
+            chunked attention, or the flash kernel for a config with
+            ``attn_impl="flash"``), then ``gen_len - 1`` lock-step decode
+            steps (``Model.decode_step``). ``run_static(model, args)`` takes
+            a model built by the caller, so any config can be served.
+continuous  ``ContinuousEngine`` with ``--decode-steps 1 --tp 1``: paged KV
+            cache, chunked prefill, prefix cache, fused decode on or off
+            (``--fused-decode`` / ``--no-fused-decode``; unset follows
+            ``REPRO_FUSED_DECODE``, default on).
+
+Request i is sampled with seed ``--seed + i`` in both engines, and the draw
+for stream position p uses ``fold_in(key(seed), p)``, so the two engines
+emit the same tokens at any sampling setting. Weights are random, made on
+the device from ``--seed`` with a ``torch.Generator``; prompts are drawn
+with numpy from the same seed. Runs on the card unless ``--device cpu`` is
+given. An explicit ``--prefix-cache`` is refused for an SSM-bearing arch on
+the continuous engine (its recurrent state is not page-decomposable);
+without the flag the engine gates the cache off itself and the reason is
+printed.
 """
 from __future__ import annotations
 
@@ -26,16 +42,87 @@ from ..configs import get_config, smoke_config
 from ..models.model import Model
 from ..serving import ContinuousEngine, Request, SamplingParams, pages_needed
 from ..serving.engine import prefix_cache_off_reason
+from ..serving.sampling import sample_tokens
 
 
-def run(args) -> dict:
-    device = resolve_device(args.device)
-    arch = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Model.init(arch, gen, device=device)
+def _request_seed(args, i: int) -> int:
+    """Request i is seeded ``--seed + i`` (mod 2^32, the sampler's key
+    width) in both engines."""
+    return (args.seed + i) % 2 ** 32
+
+
+def _prompts(args, arch) -> np.ndarray:
+    return np.random.default_rng(args.seed).integers(
+        5, arch.vocab_size, (args.batch, args.prompt_len))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_static(model: Model, args) -> dict:
+    """Prefill the batch's prompts at once, then decode ``gen_len - 1``
+    steps in lock-step. ``args`` needs ``batch``, ``prompt_len``,
+    ``gen_len``, ``temperature``, ``top_k``, ``top_p`` and ``seed``. Greedy
+    is a plain argmax; sampling folds request i's seed and the stream
+    position into the draw, as the continuous engine does."""
+    arch, dev = model.arch, model.device
     b, plen, glen = args.batch, args.prompt_len, args.gen_len
-    prompt = np.random.default_rng(args.seed).integers(
-        5, arch.vocab_size, (b, plen))
+    prompt = _prompts(args, arch)
+    caches = model.init_caches(b, plen + glen)
+    if args.temperature > 0:
+        filtered = args.top_k > 0 or args.top_p < 1.0
+        seeds = torch.as_tensor([_request_seed(args, i) for i in range(b)],
+                                dtype=torch.int64, device=dev)
+        temps = torch.full((b,), args.temperature, dtype=torch.float32,
+                           device=dev)
+        top_ks = torch.full((b,), args.top_k, dtype=torch.int32, device=dev)
+        top_ps = torch.full((b,), args.top_p, dtype=torch.float32,
+                            device=dev)
+
+        def pick(logits, pos):
+            positions = torch.full((b,), pos, dtype=torch.int32, device=dev)
+            return sample_tokens(logits, seeds, positions, temps, top_ks,
+                                 top_ps, filtered=filtered, fused=filtered)
+    else:
+        def pick(logits, pos):
+            return torch.argmax(logits, dim=-1).int()
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(caches, torch.as_tensor(prompt,
+                                                           device=dev))
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    # the prompt's next token sits at stream position plen; decode step i
+    # then emits position plen + 1 + i
+    t0 = time.perf_counter()
+    tok = pick(logits[:, -1], plen)
+    generated = [tok]
+    for i in range(glen - 1):
+        logits, caches = model.decode_step(
+            caches, tok[:, None],
+            torch.full((b,), plen + i, dtype=torch.int64, device=dev))
+        tok = pick(logits[:, -1], plen + 1 + i)
+        generated.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    out = torch.stack(generated, dim=1).cpu().numpy()
+    print(f"[serve/static] {arch.name} on {dev}: prefill {plen} tok x{b} "
+          f"in {t_prefill * 1e3:.1f}ms | {glen} decode steps in "
+          f"{t_decode * 1e3:.1f}ms "
+          f"({t_decode / max(glen - 1, 1) * 1e3:.1f} ms/tok)")
+    print(f"[serve/static] sample generations (first 8 ids/row): "
+          f"{out[:2, :8].tolist()}")
+    return {"tokens": out, "prompt": prompt, "t_prefill": t_prefill,
+            "t_decode": t_decode}
+
+
+def run_continuous(model: Model, args) -> dict:
+    arch, device = model.arch, model.device
+    b, plen, glen = args.batch, args.prompt_len, args.gen_len
+    prompt = _prompts(args, arch)
     max_seq = plen + glen
     num_pages = args.num_pages or (
         b * pages_needed(max_seq + 1, args.page_size) + 2)
@@ -49,12 +136,11 @@ def run(args) -> dict:
                     max_new_tokens=glen,
                     sampling=SamplingParams(
                         temperature=args.temperature, top_k=args.top_k,
-                        top_p=args.top_p, seed=(args.seed + i) % 2 ** 32))
+                        top_p=args.top_p, seed=_request_seed(args, i)))
             for i in range(b)]
     t0 = time.perf_counter()
     results = engine.run(reqs)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     wall = time.perf_counter() - t0
     out = np.stack([np.asarray(results[i]["tokens"]) for i in range(b)])
     print(f"[serve/continuous] {arch.name} on {device}: {b} requests x "
@@ -80,10 +166,24 @@ def run(args) -> dict:
             "cached_prefill_tokens": engine.cached_prefill_tokens}
 
 
+def run(args) -> dict:
+    """Build the seeded model on ``args.device`` and serve it with
+    ``args.engine``."""
+    device = resolve_device(args.device)
+    arch = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = Model.init(arch, gen, device=device)
+    if args.engine == "static":
+        return run_static(model, args)
+    return run_continuous(model, args)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--engine", choices=("static", "continuous"),
+                    default="static")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--batch", type=int, default=4)
@@ -105,7 +205,8 @@ def main(argv=None) -> dict:
                     default=None,
                     help="fused decode: the ln2 add + norm and the LM head "
                          "with token selection as kernels, no [S, V] logits "
-                         "(default from REPRO_FUSED_DECODE, unset = on)")
+                         "(default from REPRO_FUSED_DECODE, unset = on; "
+                         "continuous engine only)")
     args = ap.parse_args(argv)
     try:
         sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -114,13 +215,20 @@ def main(argv=None) -> dict:
         ap.error(str(e))
     if sp.greedy and sp.filtered:
         ap.error("--top-k/--top-p have no effect at --temperature 0")
+    if args.fused_decode is not None and args.engine != "continuous":
+        ap.error("--fused-decode requires --engine continuous (the static "
+                 "driver always materializes full logits)")
+    try:
+        arch = get_config(args.arch)
+    except KeyError as e:
+        ap.error(str(e))
+    if arch.bidirectional:
+        ap.error(f"{arch.name} is encoder-only: it has no decode step")
     # an explicit --prefix-cache on an SSM-bearing arch fails here with the
-    # reason; unset stays True so the engine gates it and records why
-    if args.prefix_cache:
-        try:
-            reason = prefix_cache_off_reason(get_config(args.arch))
-        except KeyError as e:
-            ap.error(str(e))
+    # reason (the static engine has no prefix cache); unset stays True so
+    # the engine gates it and records why
+    if args.prefix_cache and args.engine == "continuous":
+        reason = prefix_cache_off_reason(arch)
         if reason:
             ap.error(f"--prefix-cache: {reason}; rerun without "
                      "--prefix-cache")

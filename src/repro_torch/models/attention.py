@@ -1,11 +1,13 @@
 """GQA attention: fused QKV projection, RoPE, the reference full-matrix
-attention, the full-sequence layer of the training path, and the paged
-prefill / decode layers of the serving path. Counterpart of
+attention, the chunked online-softmax attention and the flash kernel's
+dispatch (``attention_core``), the full-sequence layer of the training
+path, the static engine's dense-cache layer (``extend_attention``) and the
+paged prefill / decode layers of the continuous engine. Counterpart of
 ``repro.models.attention``.
 
-The JAX layers return new page pools; here K/V rows are written into the
-pools in place with ``index_put_`` (the pools are the engine's own buffers,
-so the update costs a few rows instead of a pool copy).
+The JAX layers return new caches and page pools; here K/V rows are written
+into them in place with ``index_put_`` (the caches and pools are the
+engines' own buffers, so the update costs a few rows instead of a copy).
 """
 from __future__ import annotations
 
@@ -66,9 +68,26 @@ def _gqa_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return o.reshape(b, sq, hq, v.shape[3])
 
 
+def _mask_scores(s: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, *,
+                 causal: bool, window: int,
+                 kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """Causal / sliding-window / per-batch valid-length masking of scores
+    [B, Hq, Sq, Sk] at query positions ``rows`` [Sq, 1] and key positions
+    ``cols`` [1, Sk] (masked scores are the finite NEG_INF)."""
+    if causal:
+        s = torch.where((cols <= rows)[None, None], s, NEG_INF)
+    if window > 0:
+        s = torch.where((cols > rows - window)[None, None], s, NEG_INF)
+    if kv_len is not None:                       # per-batch valid length [B]
+        valid = cols[None] < kv_len.to(s.device)[:, None, None]  # [B,1,Sk]
+        s = torch.where(valid[:, None], s, NEG_INF)
+    return s
+
+
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset=0,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None,
+                    window: int = 0) -> torch.Tensor:
     """Reference full-matrix attention with an fp32 softmax."""
     d = q.shape[-1]
     # made on q's device: a host-made scalar copied over would make the
@@ -79,25 +98,83 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq, sk = s.shape[2], s.shape[3]
     rows = torch.arange(sq, device=q.device)[:, None] + q_offset
     cols = torch.arange(sk, device=q.device)[None, :]
-    if causal:
-        s = torch.where((cols <= rows)[None, None], s, NEG_INF)
-    if kv_len is not None:                       # per-batch valid length [B]
-        valid = cols[None] < kv_len.to(q.device)[:, None, None]   # [B,1,Sk]
-        s = torch.where(valid[:, None], s, NEG_INF)
+    s = _mask_scores(s, rows, cols, causal=causal, window=window,
+                     kv_len=kv_len)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return _gqa_values(p, v)
 
 
+def _chunk_mask(sq: int, chunk: int, j: int, *, causal: bool, q_offset: int,
+                window: int, kv_len, scores: torch.Tensor) -> torch.Tensor:
+    """Causal / window / cache-length masking of one [B, Hq, Sq, chunk]
+    score tile (key chunk ``j``)."""
+    rows = torch.arange(sq, device=scores.device)[:, None] + q_offset
+    cols = j * chunk + torch.arange(chunk, device=scores.device)[None, :]
+    return _mask_scores(scores, rows, cols, causal=causal, window=window,
+                        kv_len=kv_len)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk: int, q_offset: int = 0,
+                      kv_len: Optional[torch.Tensor] = None,
+                      window: int = 0) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the forward of JAX's
+    ``chunked_attention``; its custom VJP is not ported). The peak live score
+    tile is [B, Hq, Sq, chunk], never [Sq, Sk]. K/V are zero-padded to a
+    chunk multiple and the tail masked through ``kv_len``. p is rounded to
+    the model dtype before p V, as in JAX."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    if sk % chunk:
+        pad = chunk - sk % chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        tail = torch.full((b,), sk, dtype=torch.int64, device=q.device)
+        kv_len = tail if kv_len is None else torch.minimum(
+            kv_len.to(q.device).long(), tail)
+    scale = 1.0 / torch.sqrt(torch.full((), float(d), dtype=torch.float32,
+                                        device=q.device))
+    o = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    for j in range(k.shape[1] // chunk):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        s = _gqa_scores(q, kj).float() * scale            # [B,Hq,Sq,chunk]
+        s = _chunk_mask(sq, chunk, j, causal=causal, q_offset=q_offset,
+                        window=window, kv_len=kv_len, scores=s)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = _gqa_values(p.to(q.dtype), vj)                # [B,Sq,Hq,D]
+        o = o * alpha[..., None] + pv.transpose(1, 2).float()
+        m = m_new
+    o = o / torch.clamp_min(l, 1e-30)[..., None]
+    return o.transpose(1, 2).to(q.dtype)
+
+
 def attention_core(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor, *, causal: bool) -> torch.Tensor:
-    """The JAX package takes the naive path while the KV length is at most
-    ``attn_chunk`` (bert-large: 1024 against its 512 positions); beyond it
-    JAX chunks (or runs the Pallas flash kernel), which is not ported."""
-    if k.shape[1] > arch.attn_chunk:
-        raise NotImplementedError(
-            f"KV length {k.shape[1]} > attn_chunk {arch.attn_chunk}: "
-            "chunked/flash attention not ported")
-    return naive_attention(q, k, v, causal=causal)
+                   v: torch.Tensor, *, causal: bool, q_offset: int = 0,
+                   kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX's dispatch: the naive path for ``attn_impl == "naive"``, a KV
+    length of at most ``attn_chunk`` or a single query (decode); above it
+    the chunked online softmax, or for ``attn_impl == "flash"`` the flash
+    kernel's wrapper with ``block_kv = attn_chunk`` (on the card always the
+    kernel: JAX's TPU-only ``supported()`` gate has no counterpart)."""
+    impl = arch.attn_impl
+    kwargs = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+                  window=arch.window)
+    if impl == "naive" or k.shape[1] <= arch.attn_chunk or q.shape[1] == 1:
+        return naive_attention(q, k, v, **kwargs)
+    if impl == "flash":
+        from ..kernels.flash_attention import ops as flash_ops
+        return flash_ops.flash_attention(q, k, v, block_kv=arch.attn_chunk,
+                                         **kwargs)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, chunk=arch.attn_chunk, **kwargs)
+    raise ValueError(f"unknown attn_impl {impl!r}")
 
 
 def apply_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
@@ -109,6 +186,58 @@ def apply_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
     q, k = position_encode(arch, q, k, positions)
     o = attention_core(arch, q, k, v, causal=causal)
     return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
+
+
+def init_kv_cache(arch: ArchConfig, batch: int, max_len: int,
+                  dtype: torch.dtype, device) -> Params:
+    """The static engine's dense cache ``{k, v}: [B, max_len, Hkv, Dh]``
+    for one attention layer, zeros."""
+    shape = (batch, max_len, arch.num_kv_heads, arch.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _update_cache_row(cache: torch.Tensor, new_rows: torch.Tensor,
+                      positions: torch.Tensor) -> None:
+    """Write ``new_rows`` [B, S, Hkv, D] into ``cache`` [B, Smax, Hkv, D] at
+    rows ``positions[b] ..`` of each batch row, in place. A start that would
+    run past the cache is clamped to ``Smax - S``, as JAX's
+    ``dynamic_update_slice`` clamps it."""
+    b, s = new_rows.shape[:2]
+    start = positions.to(cache.device).long().clamp(0, cache.shape[1] - s)
+    rows = start[:, None] + torch.arange(s, device=cache.device)[None]
+    cache.index_put_((torch.arange(b, device=cache.device)[:, None], rows),
+                     new_rows.to(cache.dtype))
+
+
+def extend_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
+                     cache: Params, positions: torch.Tensor) -> torch.Tensor:
+    """Attend S new tokens x [B, S, D] against (and into) the dense cache;
+    ``positions`` [B] is the first cache row of the new tokens. The new K/V
+    rows are written into ``cache`` in place. S > 1 is prefill (positions
+    0): attention over the fresh K/V, causal, through ``attention_core``
+    (chunked or flash above ``attn_chunk``). S == 1 is decode: one query
+    against the cache with ``kv_len = positions + 1``."""
+    b, s, _ = x.shape
+    q, k, v = qkv_project(arch, p, x)                         # [B,S,H*,D]
+    qpos = positions.to(x.device).long()[:, None] \
+        + torch.arange(s, device=x.device)[None]
+    q, k = position_encode(arch, q, k, qpos)
+    _update_cache_row(cache["k"], k, positions)
+    _update_cache_row(cache["v"], v, positions)
+    if s > 1:
+        o = attention_core(arch, q, k, v, causal=True)
+    else:
+        o = attention_core(arch, q, cache["k"], cache["v"], causal=False,
+                           kv_len=positions.to(x.device) + s)
+    return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
+
+
+def decode_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
+                     cache: Params, positions: torch.Tensor) -> torch.Tensor:
+    """One-token decode. x [B, 1, D]; positions [B] (the new token's cache
+    row)."""
+    return extend_attention(arch, p, x, cache, positions)
 
 
 def init_paged_kv_cache(arch: ArchConfig, num_pages: int, page_size: int,

@@ -11,7 +11,8 @@ fused; a mamba block keeps its ``mamba`` leaves (``in_proj``, ``conv``,
 Nothing here imports JAX: callers hand in ``np.asarray`` leaves.
 ``to_jax_layout`` goes back, for any tree in the port's layout (params,
 or the optimizer's ``m``, ``v`` and ``master``), so tests can hold the two
-trainers' states side by side.
+trainers' states side by side; ``caches_from_jax`` unstacks the JAX static
+engine's caches the same way, so tests compare cache contents.
 """
 from __future__ import annotations
 
@@ -69,6 +70,26 @@ def from_jax_params(arch: ArchConfig, params: Dict[str, Any],
                      for b in _unstack(params["blocks"])]
     if len(out["blocks"]) != arch.num_layers:
         raise ValueError(f"{len(out['blocks'])} layers in the tree, "
+                         f"{arch.num_layers} in {arch.name}")
+    return out
+
+
+def caches_from_jax(arch: ArchConfig, caches: Dict[str, Any],
+                    device="cuda") -> List[Params]:
+    """The JAX static engine's caches (``Model.init_caches`` /
+    ``prefill`` / ``decode_step``, numpy leaves, stacked like ``blocks``)
+    -> the port's per-layer list: ``{k, v}`` of an attention layer in the
+    config's dtype, ``{conv, state}`` of a mamba layer with the SSD state
+    in fp32, as ``transformer.init_caches`` makes them."""
+    device = resolve_device(device)
+    dtype = torch_dtype(arch.dtype)
+    out = []
+    for layer in _unstack(caches):
+        out.append({k: torch.from_numpy(np.array(v, copy=True)).to(
+            device=device, dtype=torch.float32 if k == "state" else dtype)
+            for k, v in layer.items()})
+    if len(out) != arch.num_layers:
+        raise ValueError(f"{len(out)} layer caches in the tree, "
                          f"{arch.num_layers} in {arch.name}")
     return out
 

@@ -100,9 +100,14 @@ def unembed(p: Params, x: torch.Tensor,
 
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
+    """1 / theta^(2i / D) in fp32, evaluated as theta^(-2i / D): the form
+    XLA rewrites the JAX expression into under jit, so the frequencies are
+    bitwise those of the jitted JAX engines (an ulp apart otherwise, which
+    at position 200 moves a rotated key by 2e-5)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    base = torch.full((), theta, dtype=torch.float32, device=device)
+    return torch.pow(base, -exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

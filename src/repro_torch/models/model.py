@@ -1,9 +1,13 @@
 """The model facade of the port (dense and ssm): architecture + weights,
-the weight init, the token embedding, the LM head, and the training
-forward and loss. Counterpart of ``repro.models.model.Model`` (``init``, ``_embed``,
-``_logits``) and of its training forward and loss, as module functions
-(``embed``, ``logits``, ``forward``, ``loss``, ``cross_entropy``) on an
-explicit weight dict, the form the trainer differentiates.
+the weight init, the token embedding, the LM head, the static engine's
+``init_caches`` / ``prefill`` / ``decode_step``, and the training forward
+and loss. Counterpart of ``repro.models.model.Model`` (``init``,
+``_embed``, ``_logits``, the static serving methods) and of its training
+forward and loss, as module functions (``embed``, ``logits``,
+``forward``, ``loss``, ``cross_entropy``) on an explicit weight dict, the
+form the trainer differentiates. The static caches are a per-layer list
+updated in place; ``prefill`` and ``decode_step`` return it beside the
+logits, as JAX returns its new caches.
 
 Weights are a plain nested dict of tensors with the JAX package's names,
 except that the stacked ``blocks`` become a list with one dict per layer:
@@ -19,7 +23,7 @@ except that the stacked ``blocks`` become a list with one dict per layer:
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -180,3 +184,41 @@ class Model:
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + LM head: [B, S, D] -> fp32 logits [B, S, Vp]."""
         return logits(self.arch, self.params, x)
+
+    # --------------------------------------------------- static serving ----
+    def init_caches(self, batch: int, max_len: int) -> List[Params]:
+        """The static engine's per-layer caches (``transformer.
+        init_caches``) on the model's device, in the model dtype."""
+        return tf.init_caches(self.arch, batch, max_len, self.dtype,
+                              self.device)
+
+    @torch.inference_mode()
+    def prefill(self, caches: List[Params], tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[Params]]:
+        """Fill ``caches`` (in place) from a [B, S] prompt -> (fp32 logits
+        of the last position [B, 1, Vp], the same caches)."""
+        x = self._embed(tokens)
+        positions = torch.zeros((tokens.shape[0],), dtype=torch.int64,
+                                device=tokens.device)
+        x = tf.decode_stack(self.arch, self.params["blocks"], caches, x,
+                            positions)
+        return self._logits(x[:, -1:]), caches
+
+    @torch.inference_mode()
+    def decode_step(self, caches: List[Params], tokens: torch.Tensor,
+                    positions: torch.Tensor
+                    ) -> Tuple[torch.Tensor, List[Params]]:
+        """One token for every sequence: tokens [B, 1] at cache rows
+        ``positions`` [B] -> (fp32 logits [B, 1, Vp], the same caches,
+        updated in place). Learned positions are re-added at each
+        sequence's own row."""
+        arch = self.arch
+        if arch.pos_emb == "learned":
+            x = embed_tokens(self.params["embed"], tokens.long(), self.dtype) \
+                + self.params["pos"]["pos_embedding"][positions.long()][
+                    :, None].to(self.dtype)
+        else:
+            x = self._embed(tokens)
+        x = tf.decode_stack(arch, self.params["blocks"], caches, x,
+                            positions)
+        return self._logits(x), caches

@@ -1,6 +1,7 @@
 """Mamba-2 (SSD, state-space duality, arXiv:2405.21060): the mixer's init,
-the chunked SSD scan, the one-token update, the full-sequence block and the
-continuous engine's per-slot decode state. Counterpart of
+the chunked SSD scan, the one-token update, the full-sequence block, the
+static engine's prefill (``extend_mamba``) and the continuous engine's
+per-slot decode state. Counterpart of
 ``repro.models.ssm``; parameter names and shapes are the same
 (``in_proj [D, 2*inner + 2*G*N + H]``, ``conv [W, inner + 2*G*N]``,
 ``A_log``, ``D``, ``dt_bias [H]``, ``norm_scale [inner]``,
@@ -259,6 +260,44 @@ def decode_mamba(arch: ArchConfig, p: Params, u: torch.Tensor, cache: Params
     y = _gated_rmsnorm(y.reshape(bsz, inner_dim(arch)), z, p["norm_scale"])
     out = (y @ p["out_proj"].to(u.dtype))[:, None]
     return out, {"conv": window[:, 1:], "state": new_state}
+
+
+def extend_mamba(arch: ArchConfig, p: Params, u: torch.Tensor, cache: Params
+                 ) -> Tuple[torch.Tensor, Params]:
+    """The static engine's prefill of S tokens u [B, S, D] through a mamba
+    block, threading the conv window and the SSD state of ``cache``
+    (read, not written) -> (out [B, S, D], new ``{conv, state}``). S == 1
+    is a decode step; otherwise S must be a multiple of the SSD chunk (or
+    at most one chunk), as in JAX."""
+    s = arch.ssm
+    bsz, seq, _ = u.shape
+    if seq == 1:
+        return decode_mamba(arch, p, u, cache)
+    h, inner, width = num_ssm_heads(arch), inner_dim(arch), s.conv_width
+    zxbcdt = u @ p["in_proj"].to(u.dtype)
+    z, xin, b, c, dt = _split_proj(arch, zxbcdt)
+    xbc = torch.cat([xin, b, c], dim=-1)                      # [B, S, C]
+    ctx = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)  # [B,W-1+S,C]
+    conv_out = torch.zeros(xbc.shape, dtype=torch.float32, device=u.device)
+    for i in range(width):
+        conv_out = conv_out + ctx[:, i:i + seq].float() \
+            * p["conv"][i][None, None].float()
+    new_conv = ctx[:, seq:]                                   # last W-1 rows
+    xin, b, c = _conv_split(arch, silu(conv_out.to(u.dtype)))
+    dt = softplus(dt.float() + p["dt_bias"][None, None, :])
+    a = -torch.exp(p["A_log"])
+    xh = xin.reshape(bsz, seq, h, s.head_dim)
+    chunk = min(s.chunk, seq)
+    if seq % chunk:
+        raise ValueError(f"prefill length {seq} not a multiple of chunk "
+                         f"{chunk}")
+    y, final = ssd_chunked(xh, dt, a,
+                           b.reshape(bsz, seq, s.ngroups, s.state_dim),
+                           c.reshape(bsz, seq, s.ngroups, s.state_dim),
+                           chunk, initial_state=cache["state"])
+    y = y + xh * p["D"][None, None, :, None].to(y.dtype)
+    y = _gated_rmsnorm(y.reshape(bsz, seq, inner), z, p["norm_scale"])
+    return y @ p["out_proj"].to(u.dtype), {"conv": new_conv, "state": final}
 
 
 # ------------------------------------------- serving decode-state path -----

@@ -1,11 +1,13 @@
-"""Layer stacks: the training path's full-sequence blocks and the paged
-serving path. Counterpart of ``repro.models.transformer``: the JAX
-``lax.scan`` over stacked periods becomes a Python loop over the per-layer
-parameter dicts in ``params["blocks"]``, the periods flattened (layer ``l``
-has the mixer kind ``layer_kinds(arch)[l % period_length(arch)]``; dense
-and ssm have a period of one layer). Page pools and mamba slot state are
-updated in place (see ``models.attention`` and ``models.ssm``), so the
-paged stacks return only activations.
+"""Layer stacks: the training path's full-sequence blocks, the static
+engine's dense-cache path (``init_caches``, ``decode_stack``) and the
+continuous engine's paged serving path. Counterpart of
+``repro.models.transformer``: the JAX ``lax.scan`` over stacked periods
+becomes a Python loop over the per-layer parameter dicts in
+``params["blocks"]``, the periods flattened (layer ``l`` has the mixer kind
+``layer_kinds(arch)[l % period_length(arch)]``; dense and ssm have a period
+of one layer). Caches, page pools and mamba slot state are updated in place
+(see ``models.attention`` and ``models.ssm``), so the stacks return only
+activations.
 
 Training blocks (``apply_block``, ``apply_stack``): pre-norm, or BERT's
 post-norm. ``fused`` (None = ``REPRO_FUSED_BLOCKS``, default off) routes the
@@ -247,6 +249,52 @@ def paged_prefill_stack(arch: ArchConfig, blocks: List[Params],
     for blk, cache, kind in zip(blocks, caches, _stack_kinds(arch)):
         x = paged_prefill_period(arch, blk, cache, x, page_row, start,
                                  total_len, slot, kind, fused)
+    return x
+
+
+def init_caches(arch: ArchConfig, batch: int, max_len: int,
+                dtype: torch.dtype, device) -> List[Params]:
+    """The static engine's decode caches, one entry per layer of the
+    flattened stack: ``attn`` layers a dense ``{k, v}: [B, max_len, Hkv,
+    Dh]`` cache, ``mamba`` layers ``{conv: [B, W-1, C], state: [B, H, N,
+    P]}``. Both are updated in place."""
+    if arch.family == "encdec":
+        raise NotImplementedError(
+            "whisper's cross-attention KV cache is not ported to "
+            "repro_torch yet")
+
+    def layer_cache(kind):
+        if kind == "attn":
+            return attn_lib.init_kv_cache(arch, batch, max_len, dtype, device)
+        return ssm_lib.init_mamba_cache(arch, batch, dtype, device)
+    return [layer_cache(k) for k in _stack_kinds(arch)]
+
+
+def decode_period(arch: ArchConfig, blk: Params, cache: Params,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  kind: str = "attn") -> torch.Tensor:
+    """One layer of the static engine over S new tokens x [B, S, D] (S > 1
+    prefill, S == 1 decode) at cache rows ``positions`` [B], dispatched on
+    its mixer ``kind``; the layer's cache is updated in place."""
+    def mix(h):
+        if kind == "attn":
+            return attn_lib.extend_attention(arch, blk["attn"], h, cache,
+                                             positions)
+        y, new = ssm_lib.extend_mamba(arch, blk["mamba"], h, cache)
+        cache["conv"].copy_(new["conv"])
+        cache["state"].copy_(new["state"])
+        return y
+    x = _decode_block_mix(arch, blk, x, mix)
+    return _decode_block_ffn(arch, blk, x)
+
+
+def decode_stack(arch: ArchConfig, blocks: List[Params],
+                 caches: List[Params], x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Every layer of the static engine in turn (prefill or one decode
+    step); returns the activations, the caches are updated in place."""
+    for blk, cache, kind in zip(blocks, caches, _stack_kinds(arch)):
+        x = decode_period(arch, blk, cache, x, positions, kind)
     return x
 
 

@@ -447,8 +447,9 @@ def test_fused_decode_softcap_raises_and_untied_head_falls_back():
 
 
 def test_serve_cli_fused_decode_flag(capsys):
-    base = ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len",
-            "8", "--gen-len", "4", "--temperature", "0.8", "--top-k", "20"]
+    base = ["--engine", "continuous", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8", "--gen-len", "4",
+            "--temperature", "0.8", "--top-k", "20"]
     on = serve.main(base + ["--fused-decode"])
     assert "fused decode on" in capsys.readouterr().out
     off = serve.main(base + ["--no-fused-decode"])

@@ -2,6 +2,7 @@
 numpy inputs, fp32, atol 1e-5 (reassociation of fp32 sums only)."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,10 +38,15 @@ def test_norm_matches(kind):
 
 @pytest.mark.parametrize("theta", [10_000.0, 500_000.0])
 def test_rope_matches(theta):
+    """Against ``apply_rope`` under jit, as every JAX engine and step runs
+    it: XLA then evaluates ``1 / theta ** e`` as ``theta ** -e``, an ulp
+    away from the op-by-op result in some frequencies, and the port follows
+    the jitted form (``tl.rope_frequencies``)."""
     rng = np.random.default_rng(1)
     x = rng.normal(size=(2, 7, 4, 32)).astype(np.float32)
     pos = rng.integers(0, 4096, size=(2, 7))
-    ref = jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    ref = jax.jit(jl.apply_rope, static_argnums=2)(
+        jnp.asarray(x), jnp.asarray(pos), theta)
     out = tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
     _close(ref, out, atol=ATOL)
 

@@ -173,18 +173,18 @@ def test_prefix_cache_gate_and_stat_match_jax(pair):
 
 
 def test_serve_cli_rejects_explicit_prefix_cache_for_mamba2(capsys):
+    cont = ["--engine", "continuous", "--smoke", "--device", "cpu"]
     with pytest.raises(SystemExit):
-        serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                    "--prefix-cache"])
+        serve.main(cont + ["--arch", ARCH, "--prefix-cache"])
     assert "not page-decomposable" in capsys.readouterr().err
-    out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                      "--batch", "2", "--prompt-len", "20", "--gen-len", "3"])
+    out = serve.main(cont + ["--arch", ARCH, "--batch", "2", "--prompt-len",
+                             "20", "--gen-len", "3"])
     assert out["tokens"].shape == (2, 3)
     assert "not page-decomposable" in out["prefix_cache_off_reason"]
     assert "prefix cache off" in capsys.readouterr().out
     # a dense arch keeps an explicit --prefix-cache
-    out = serve.main(["--smoke", "--device", "cpu", "--prefix-cache",
-                      "--batch", "1", "--prompt-len", "8", "--gen-len", "2"])
+    out = serve.main(cont + ["--prefix-cache", "--batch", "1",
+                             "--prompt-len", "8", "--gen-len", "2"])
     assert out["prefix_cache_off_reason"] is None
 
 
