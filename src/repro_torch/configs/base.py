@@ -1,8 +1,8 @@
 """Architecture and run configs: the fields of
 ``repro.configs.base.{SSMConfig, ArchConfig, ShapeConfig, RunConfig}`` that
-the dense and SSM serving paths (continuous and static) and the training
-path read, as the port's
-own frozen dataclasses (values copied, nothing imported)."""
+the dense and SSM serving paths (continuous and static), the training
+path and the analytical model (``param_count``) read, as the port's own
+frozen dataclasses (values copied, nothing imported)."""
 from __future__ import annotations
 
 import dataclasses
@@ -94,6 +94,54 @@ class ArchConfig:
             return False
         assert self.hybrid_period > 0
         return layer_idx % self.hybrid_period == self.hybrid_attn_index
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Closed-form parameter count (embedding included once), as
+        ``repro.configs.base.ArchConfig.param_count`` for the families this
+        config expresses: dense, ssm and hybrid without MoE, where
+        ``active_only`` changes nothing."""
+        if self.family not in ("dense", "ssm", "hybrid"):
+            raise NotImplementedError(
+                f"param_count of the {self.family!r} family: the port's "
+                "config has no MoE or encoder fields yet (ROADMAP.md queue 1 "
+                "item 4)")
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        total = v * d                                     # embedding
+        if not self.tie_embeddings:
+            total += v * d                                # lm head
+        bias = 1 if self.use_bias else 0
+
+        def attn_params() -> int:
+            qp = d * self.q_dim + bias * self.q_dim
+            kp = d * self.kv_dim + bias * self.kv_dim
+            vp = d * self.kv_dim + bias * self.kv_dim
+            op = self.q_dim * d + bias * d
+            return qp + kp + vp + op
+
+        def mlp_params(inner: int) -> int:
+            if self.mlp == "swiglu":
+                return 3 * d * inner + bias * (2 * inner + d)
+            return 2 * d * inner + bias * (inner + d)
+
+        def ssm_params() -> int:
+            s = self.ssm
+            inner = s.expand * d
+            nheads = inner // s.head_dim
+            in_proj = d * (2 * inner + 2 * s.ngroups * s.state_dim + nheads)
+            conv = s.conv_width * (inner + 2 * s.ngroups * s.state_dim)
+            out_proj = inner * d
+            extra = 3 * nheads + inner      # A, D, dt_bias, gate norm
+            return in_proj + conv + out_proj + extra
+
+        for layer in range(self.num_layers):
+            total += 2 * d                  # two norms per block
+            if self.is_attention_layer(layer):
+                total += attn_params()
+            else:
+                total += ssm_params()
+            if self.family != "ssm":        # mamba blocks have no MLP
+                total += mlp_params(ff)
+        return total
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,10 +18,12 @@ dtype), not a bitwise one. ``arch.remat`` recomputes each block in the
 backward pass (``torch.utils.checkpoint``), as JAX's per-block
 ``jax.checkpoint(policy=nothing_saveable)`` does.
 
-``fused=True`` runs the fused decode layer body: the residual stream rides
-as an ``(x, pending delta)`` pair, the add + norm at ln2 is one
-``decode_residual_norm`` kernel, and the MLP delta is folded by a plain add
-at the layer's end. On the CPU the kernel's plain version is the unfused
+The serving layer bodies (both engines) are pre-norm, or post-norm where
+``arch.post_norm`` (BERT: the norm after the residual add), as JAX's.
+``fused=True`` runs the fused decode layer body, pre-norm only: the
+residual stream rides as an ``(x, pending delta)`` pair, the add + norm at
+ln2 is one ``decode_residual_norm`` kernel, and the MLP delta is folded by
+a plain add at the layer's end. On the CPU the kernel's plain version is the unfused
 add and norm, so both bodies give the same bits there.
 """
 from __future__ import annotations
@@ -144,18 +146,25 @@ def init_serving_state(arch: ArchConfig, num_pages: int, page_size: int,
 def _decode_block_mix(arch: ArchConfig, blk: Params, x: torch.Tensor,
                       mix_fn: Callable[[torch.Tensor], torch.Tensor]
                       ) -> torch.Tensor:
-    """Pre-norm residual wrapping of a mixer ``mix_fn(h) -> y``."""
-    return x + mix_fn(apply_norm(arch.norm, blk["ln1"], x))
+    """Pre- or post-norm residual wrapping of a mixer ``mix_fn(h) -> y``:
+    post-norm (BERT) feeds the mixer the raw stream and norms after the
+    residual add."""
+    h = x if arch.post_norm else apply_norm(arch.norm, blk["ln1"], x)
+    y = mix_fn(h)
+    return apply_norm(arch.norm, blk["ln1"], x + y) if arch.post_norm \
+        else x + y
 
 
 def _decode_block_ffn(arch: ArchConfig, blk: Params,
                       x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm MLP tail of a block with its residual add (none for a block
-    without ln2: mamba2's have no MLP)."""
+    """Pre- or post-norm MLP tail of a block with its residual add (none for
+    a block without ln2: mamba2's have no MLP)."""
     if "ln2" not in blk:
         return x
-    return x + apply_mlp(arch.mlp, blk["mlp"],
-                         apply_norm(arch.norm, blk["ln2"], x))
+    h = x if arch.post_norm else apply_norm(arch.norm, blk["ln2"], x)
+    y = apply_mlp(arch.mlp, blk["mlp"], h)
+    return apply_norm(arch.norm, blk["ln2"], x + y) if arch.post_norm \
+        else x + y
 
 
 def _fused_residual_norm(arch: ArchConfig, ln: Params, d: torch.Tensor,
@@ -182,7 +191,10 @@ def _period(arch: ArchConfig, blk: Params, x: torch.Tensor,
     block has no ln2 and no MLP: its fused body's pending delta is the
     mixer output itself, folded by the boundary add, so with a period of
     one layer fused and unfused are the same operations and no
-    ``decode_residual_norm`` runs (fused decode changes only the head)."""
+    ``decode_residual_norm`` runs (fused decode changes only the head).
+    The fused body is pre-norm only, as JAX's."""
+    if fused:
+        assert not arch.post_norm, (arch.name, "fused decode is pre-norm only")
     if not fused or "ln2" not in blk:
         x = _decode_block_mix(arch, blk, x, mix)
         return _decode_block_ffn(arch, blk, x)

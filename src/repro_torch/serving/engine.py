@@ -35,8 +35,10 @@ LM head and the selection as one ``head_tokens`` kernel that reads the
 tied embedding in place and returns tokens, never logits. Unfused, the
 head materializes fp32 logits and selects with a greedy argmax or the
 sampler (filter kernel for filtered requests, then the draw kernel). On the CPU the two paths emit bitwise
-identical streams; on the card they may fork on near-tied logits. An
-untied LM head serves unfused, with ``fused_decode_off_reason`` saying why.
+identical streams; on the card they may fork on near-tied logits. A
+post-norm stack, an MLM-transform head and an untied LM head serve
+unfused, with ``fused_decode_off_reason`` saying why (JAX's strings for
+the first two). Encoder-only (bidirectional) archs are refused.
 
 PyTorch runs eagerly, so there is no compile cache: variants are plain
 Python branches on the ``sampled`` / ``filtered`` flags.
@@ -93,6 +95,8 @@ class ContinuousEngine:
         if arch.family not in SERVABLE_FAMILIES:
             raise _not_ported(f"serving the {arch.family!r} family",
                               "a later slice ports the other families")
+        if arch.bidirectional:
+            raise ValueError("encoder-only archs have no decode step")
         kinds = tf.layer_kinds(arch)
         self.has_attn = "attn" in kinds
         self.has_ssm = "mamba" in kinds
@@ -106,14 +110,21 @@ class ContinuousEngine:
         want_fd = fused_decode_enabled() if fused_decode is None \
             else bool(fused_decode)
         self.fused_decode_off_reason: Optional[str] = None
-        if want_fd and arch.logit_softcap > 0:
+        if want_fd:
+            if arch.post_norm:
+                self.fused_decode_off_reason = \
+                    "fused decode requires a pre-norm stack"
+            elif arch.mlm_transform:
+                self.fused_decode_off_reason = \
+                    "fused decode does not support MLM-transform heads"
+            elif not arch.tie_embeddings:
+                self.fused_decode_off_reason = (
+                    "fused decode reads the tied embedding in place; an "
+                    "untied LM head serves the unfused path")
+        self.fused_decode = want_fd and self.fused_decode_off_reason is None
+        if self.fused_decode and arch.logit_softcap > 0:
             raise _not_ported("fused decode with a logit softcap",
                               "a later slice adds it to head_tokens")
-        if want_fd and not arch.tie_embeddings:
-            self.fused_decode_off_reason = (
-                "fused decode reads the tied embedding in place; an untied "
-                "LM head serves the unfused path")
-        self.fused_decode = want_fd and self.fused_decode_off_reason is None
         if sanitize:
             raise _not_ported("the runtime sanitizer",
                               "a later slice ports the tools")

@@ -113,7 +113,8 @@ def test_kernel_sources_exist_for_the_build():
     names = set(_build.sources())
     assert names == {"paged_attention", "sampling", "residual_norm",
                      "head_tokens", "residual_layernorm", "bias_gelu",
-                     "fused_lamb", "gated_rmsnorm", "flash_attention"}
+                     "fused_lamb", "gated_rmsnorm", "flash_attention",
+                     "scale_mask_softmax"}
     assert _build.BUILD_DIR == REPO / "build" / "repro_torch"
     for src in _build.sources().values():
         text = src.read_text()
