@@ -27,15 +27,18 @@ Phases, each printing one line (any failure exits non-zero):
      relative); and the mamba mixer's gated RMSNorm at mamba2's width
      (C 4096) on 8, 64 and 1 rows, z read in place from an in_proj row,
      within 1 bf16 ulp of the row's largest |output|; and the flash
-     attention forward at llama3.2-3b's heads with block_kv 1024 (as
-     attention_core passes it) in four cases: the static prefill's q [4,
-     4096, 24, 128] against k/v [4, 4096, 8, 128] causal, a ragged causal
-     Sq = Sk = 1500 (a length the TPU kernel rejects), Sq 256 against Sk
-     4096 non-causal with ragged kv_len and a kv_len = 0 row, and window
-     512 with q_offset 1024, each query row within 2 bf16 ulps of its own
-     largest output of the plain version run in fp32, beside SDPA; each kernel timed by CUDA events and the
-     profiler beside its bound, its plain version and a library
-     yardstick;
+     attention forward with block_kv 1024 (as attention_core passes it) in
+     six cases: at llama3.2-3b's heads the static prefill's q [4, 4096, 24,
+     128] against k/v [4, 4096, 8, 128] causal, a ragged causal Sq = Sk =
+     1500 (a length the TPU kernel rejects), Sq 256 against Sk 4096
+     non-causal with ragged kv_len and a kv_len = 0 row, window 512 with
+     q_offset 1024, and the prefill's shape with q, k and v as column views
+     of one QKV tensor; at bert-large's heads (16 and 16, D 64) [2, 2048]
+     causal with kv_len [2048, 1311]; each query row within 2 bf16 ulps of
+     its own largest output of the plain version run in fp32, beside SDPA;
+     each kernel timed by CUDA events and the profiler beside its bound,
+     its plain version and a library yardstick (SDPA's device time from
+     the profiler too, for the flash and both paged kernels);
   3b. the fused scale + causal mask + softmax (the paper's "Scale, Mask,
      Softmax" phase; no model path calls it, as in the JAX package) at
      bert-large's Phase 2 scores [64, 512, 512] and Phase 1 [512, 128,
@@ -169,8 +172,9 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def _profiled_ms(fn, names, iters: int = 10):
     """Device ms per call of the kernels whose names contain one of
-    ``names``, from torch.profiler over ``iters`` calls (None if the
-    profiler recorded no device time)."""
+    ``names`` (``("",)``: every kernel the call launches, as for a library
+    call), from torch.profiler over ``iters`` calls (None if the profiler
+    recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -251,8 +255,10 @@ def check_decode_attention(arch, rng, dev):
     vd = vp[pt.long()].reshape(b, -1, hkv, d).transpose(1, 2)
     mask = (torch.arange(kd.shape[2], device=dev)[None] <
             sl[:, None].long())[:, None, None, :]
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True), 200)
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True))
+    library_ms = _time_ms(sdpa, 200)
+    library_device_ms = _profiled_ms(sdpa, ("",), iters=50)
     tokens = int(seq_lens.sum())
     nbytes = (tokens * hkv * d * 2 * 2 + 2 * q.numel() * 2 + pt.numel() * 4
               + sl.numel() * 4)
@@ -265,7 +271,8 @@ def check_decode_attention(arch, rng, dev):
             "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms}
 
 
 def check_prefill_attention(arch, rng, dev):
@@ -296,9 +303,10 @@ def check_prefill_attention(arch, rng, dev):
     cols = torch.arange(kd.shape[2], device=dev)[None]
     rows = start + torch.arange(c, device=dev)[:, None]
     mask = ((cols <= rows) & (cols < total))[None, None]
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(0, 1)[None], kd, vd, attn_mask=mask, enable_gqa=True),
-        200)
+    sdpa = (lambda: F.scaled_dot_product_attention(
+        q.transpose(0, 1)[None], kd, vd, attn_mask=mask, enable_gqa=True))
+    library_ms = _time_ms(sdpa, 200)
+    library_device_ms = _profiled_ms(sdpa, ("",), iters=50)
     visible = sum(min(start + r + 1, total) for r in range(valid))
     nbytes = total * hkv * d * 2 * 2 + 2 * valid * hq * d * 2 + max_pages * 4
     flops = 4.0 * visible * hq * d
@@ -310,7 +318,8 @@ def check_prefill_attention(arch, rng, dev):
             "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms}
 
 
 def _valid_pairs(sq, sk, kv_len, causal, q_offset, window) -> int:
@@ -337,32 +346,55 @@ def _sdpa_fn(q, k, v, mask):
 
 
 FLASH_CASES = {
-    # name: (B, Sq, Sk, causal, q_offset, window, kv_len)
-    "static prefill": (4, 4096, 4096, True, 0, 0, None),
-    "ragged causal": (4, 1500, 1500, True, 0, 0, None),
-    "kv_len, non-causal": (4, 256, 4096, False, 0, 0, [4096, 3001, 0, 1777]),
-    "window, q_offset": (4, 1024, 2048, True, 1024, 512, None),
+    # name: (B, Sq, Sk, causal, q_offset, window, kv_len, (Hq, Hkv, D) or
+    # None for llama3.2-3b's, q/k/v as column views of one QKV tensor)
+    "static prefill": (4, 4096, 4096, True, 0, 0, None, None, False),
+    "ragged causal": (4, 1500, 1500, True, 0, 0, None, None, False),
+    "kv_len, non-causal": (4, 256, 4096, False, 0, 0, [4096, 3001, 0, 1777],
+                           None, False),
+    "window, q_offset": (4, 1024, 2048, True, 1024, 512, None, None, False),
+    "D 64 (bert-large heads)": (2, 2048, 2048, True, 0, 0, [2048, 1311],
+                                (16, 16, 64), False),
+    "strided QKV views": (4, 4096, 4096, True, 0, 0, None, None, True),
 }
 
 
+def _flash_inputs(gen, dev, b, sq, sk, hq, hkv, d, strided):
+    """q [B, Sq, Hq, D] and k, v [B, Sk, Hkv, D] bf16; ``strided`` (Sq =
+    Sk): column views of one [B, S, (Hq + 2 Hkv) D] tensor, as
+    ``qkv_project`` gives them (row stride 5120 at llama3.2-3b's heads)."""
+    if strided:
+        qkv = torch.randn((b, sq, (hq + 2 * hkv) * d), generator=gen,
+                          device=dev, dtype=torch.bfloat16)
+        return (qkv[..., :hq * d].unflatten(-1, (hq, d)),
+                qkv[..., hq * d:(hq + hkv) * d].unflatten(-1, (hkv, d)),
+                qkv[..., (hq + hkv) * d:].unflatten(-1, (hkv, d)))
+    q = torch.randn((b, sq, hq, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((b, sk, hkv, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    return q, k, torch.randn_like(k)
+
+
 def check_flash_attention(arch, dev):
-    """The flash kernel at llama3.2-3b's heads (24 query, 8 KV, D 128, bf16)
-    with block_kv 1024 (attn_chunk, as attention_core passes it): the static
-    prefill's shape, then a ragged length, ragged kv_len with an empty row,
-    and a window with a q_offset; each within ATTN_ULPS of the plain version
-    run in fp32 on the same bf16 inputs, timed beside its bound, the plain
-    version and SDPA. Returns the prefill shape's row with the other cases
-    under ``cases``."""
+    """The flash kernel with block_kv 1024 (attn_chunk, as attention_core
+    passes it), at llama3.2-3b's heads (24 query, 8 KV, D 128, bf16): the
+    static prefill's shape, then a ragged length, ragged kv_len with an
+    empty row, and a window with a q_offset; then at bert-large's heads (16
+    and 16, D 64) with a ragged kv_len, and the prefill's shape read from
+    column views of one QKV tensor (the TMA descriptors' strides); each
+    within ATTN_ULPS of the plain version run in fp32 on the same bf16
+    inputs, timed beside its bound, the plain version and SDPA (events and
+    the profiler's device time). Returns the prefill shape's row with the
+    other cases under ``cases``."""
     from repro_torch.kernels.flash_attention import ops, ref
-    hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.resolved_head_dim
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for name, (b, sq, sk, causal, off, win, lens) in FLASH_CASES.items():
-        q = torch.randn((b, sq, hq, d), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        k = torch.randn((b, sk, hkv, d), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        v = torch.randn_like(k)
+    for name, (b, sq, sk, causal, off, win, lens, heads,
+               strided) in FLASH_CASES.items():
+        hq, hkv, d = heads or (arch.num_heads, arch.num_kv_heads,
+                               arch.resolved_head_dim)
+        q, k, v = _flash_inputs(gen, dev, b, sq, sk, hq, hkv, d, strided)
         lens = [sk] * b if lens is None else lens
         kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, q_offset=off, kv_len=kv_len, window=win,
@@ -390,18 +422,22 @@ def check_flash_attention(arch, dev):
                 mask = mask & (cols <= pos)
             if win > 0:
                 mask = mask & (cols > pos - win)
-        library_ms = _time_ms(_sdpa_fn(q, k, v, mask), 10)
+        sdpa = _sdpa_fn(q, k, v, mask)
+        library_ms = _time_ms(sdpa, 10)
+        library_device_ms = _profiled_ms(sdpa, ("",), iters=5)
         pairs = _valid_pairs(sq, sk, lens, causal, off, win)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * b
         bound_ms, bound_by = _bound(nbytes, 4.0 * pairs * hq * d)
         rows.append({"case": name, "shape": {
             "q": [b, sq, hq, d], "kv": [b, sk, hkv, d], "causal": causal,
-            "q_offset": off, "window": win, "kv_len": lens},
+            "q_offset": off, "window": win, "kv_len": lens,
+            "qkv_views": strided},
             "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
             "ms": ms,
             "profiler_device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "valid_pairs": pairs})
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "valid_pairs": pairs})
         del q, k, v, out
         torch.cuda.empty_cache()
     print("[flash] " + "; ".join(
@@ -409,7 +445,8 @@ def check_flash_attention(arch, dev):
         f"({r['max_err_row_ulps']:.3f} row ulps), "
         f"{r['ms']:.4f} ms (device {r['profiler_device_ms']}), bound "
         f"{r['bound_ms']:.4f} ({r['bound_by']}), plain {r['plain_ms']:.3f}, "
-        f"SDPA {r['library_ms']:.4f}" for r in rows))
+        f"SDPA {r['library_ms']:.4f} (device {r['library_device_ms']})"
+        for r in rows))
     main = dict(rows[0])
     main.pop("case")
     return {"name": "flash_attention", "route": "cuda",

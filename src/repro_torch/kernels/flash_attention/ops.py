@@ -8,15 +8,22 @@ other. ``LAUNCHES`` counts the kernel's launches (plain calls do not count).
 
 Layout is the model's, as ``repro.kernels.flash_attention.ops``: q [B, Sq,
 Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]. The kernel reads q, k and v
-in place through their strides (D contiguous), so k/v may be column views of
-the fused QKV projection. ``block_kv`` is the plain version's key tile; the
-kernel streams 64-key tiles, and the online softmax gives the same result
-for any tile (up to fp32 rounding).
+in place by TMA through their strides (D contiguous), so k/v may be column
+views of the fused QKV projection. ``block_kv`` is the plain version's key
+tile; the kernel streams 128-key tiles for 128-query work items, and the
+online softmax gives the same result for any tile (up to fp32 rounding).
+
+The kernel's grid is persistent: one CTA per SM walks the work items
+(query tile, batch, query head) in the order ``work_order`` builds here,
+heaviest first. The order depends only on the shapes and masks, so it is
+built once per distinct call and kept on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -26,6 +33,70 @@ LAUNCHES = {"flash_attention": 0}
 
 _LIB = "flash_attention"
 HEAD_DIMS = (64, 128)
+BQ = 128        # the kernel's query rows per work item
+BK = 128        # and keys per tile
+
+
+def key_tiles(q0: int, sq: int, sk: int, kvl: int, *, causal: bool,
+              q_offset: int = 0, window: int = 0) -> tuple:
+    """The key tiles [begin, end) that the kernel visits for the query tile
+    starting at row ``q0`` with ``kvl`` valid keys (``key_tiles`` in
+    ``csrc/flash_attention.cu``, the same rule): the union of the rows'
+    bands, or every tile when a row's band is empty. The first and last
+    rows decide, since rows with an empty band sit only at the ends."""
+    p0, p1 = q0 + q_offset, min(q0 + BQ, sq) - 1 + q_offset
+
+    def band(pos):
+        hi = min(kvl, pos + 1) if causal else kvl
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        return lo, hi
+    (lo0, hi0), (lo1, hi1) = band(p0), band(p1)
+    if lo0 >= hi0 or lo1 >= hi1:
+        return 0, -(-sk // BK)
+    return lo0 // BK, -(-hi1 // BK)
+
+
+def work_order(b: int, hq: int, sq: int, sk: int, *, causal: bool,
+               q_offset: int = 0, window: int = 0) -> np.ndarray:
+    """The kernel's work items, each ``qtile * (B * Hq) + b * Hq + h``, in
+    the order its persistent CTAs take them: query tiles by the key tiles
+    the kernel visits for them with every key valid, most first (ties: the
+    later tile first), each tile's batch rows in order, and within a row
+    the Hq heads in order, so that the heads of one KV head are neighbours
+    and read its K/V from L2. The valid lengths play no part: they live on
+    the card, and reading them would make the host wait for it."""
+    groups = []
+    for qt in range(-(-sq // BQ)):
+        lo, hi = key_tiles(qt * BQ, sq, sk, sk, causal=causal,
+                           q_offset=q_offset, window=window)
+        groups += [(-(hi - lo), -qt, bi) for bi in range(b)]
+    groups.sort()
+    nbh = b * hq
+    return np.asarray([-nqt * nbh + bi * hq + h for _, nqt, bi in groups
+                       for h in range(hq)], dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _order_on(device: torch.device, b, hq, sq, sk, causal, q_offset, window):
+    return torch.as_tensor(work_order(b, hq, sq, sk, causal=causal,
+                                      q_offset=q_offset, window=window),
+                           device=device)
+
+
+def _launch(q, k, v, kv_len, order, out, *, causal, q_offset, window,
+            lib: str = _LIB) -> None:
+    """One launch of ``flash_attention_fwd`` from the library ``lib`` under
+    ``build/repro_torch/`` on tensors ``_check`` has passed: the one place
+    that spells the kernel's C signature. Counts nothing."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    fn = _build.bind(lib, "flash_attention_fwd", 6, 19, 1)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+             order.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk, d,
+             int(q_offset), int(window), int(bool(causal)), order.numel(),
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, lib)
 
 
 def _check(q, k, v, kv_len):
@@ -53,7 +124,7 @@ def _check(q, k, v, kv_len):
                 or t.data_ptr() % 16:
             raise ValueError(f"{name} needs a contiguous head dim, strides "
                              "that are multiples of 8 elements and a 16-byte "
-                             "aligned base (the kernel reads 16-byte rows)")
+                             "aligned base (the kernel's TMA reads)")
         if max(t.stride()[:3]) >= 2 ** 31:
             raise ValueError(f"{name}'s strides do not fit the kernel's "
                              "32-bit stride arguments")
@@ -71,7 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D] (model layout); kv_len [B]
     valid keys per batch row (None: all Sk) -> [B, Sq, Hq, D] in q's
     dtype. ``block_kv`` sets the plain version's key tile only: the CUDA
-    kernel always streams 64-key tiles."""
+    kernel always streams 128-key tiles."""
     b = q.shape[0]
     if kv_len is None:
         kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
@@ -90,14 +161,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = kv_len.to(torch.int32)
     _check(q, k, v, kv_len)
     _, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk = k.shape[1]
+    if sk == 0:         # no key: the plain version's 0 / max(0, 1e-30)
+        return torch.zeros((b, sq, hq, d), dtype=q.dtype, device=q.device)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
-    fn = _build.bind(_LIB, "flash_attention_fwd", 5, 18, 1)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-             out.data_ptr(), b, hq, hkv, sq, sk, d, int(q_offset),
-             int(window), int(bool(causal)), *q.stride()[:3],
-             *k.stride()[:3], *v.stride()[:3], 1.0 / d ** 0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
+    order = _order_on(q.device, b, hq, sq, sk, bool(causal), int(q_offset),
+                      int(window))
+    _launch(q, k, v, kv_len, order, out, causal=causal, q_offset=q_offset,
+            window=window)
     LAUNCHES["flash_attention"] += 1
     return out

@@ -3,8 +3,9 @@
 inputs, fp32 within 2e-5 and bf16 within 1 bf16 ulp of the largest
 |output|; the wrapper's CPU dispatch; ragged lengths (which the Pallas
 kernel rejects) against the port's own naive attention; the chunked
-attention against JAX's; ``attention_core``'s routing; and, on a card only,
-the CUDA kernel against the plain version."""
+attention against JAX's; ``attention_core``'s routing; the kernel's work
+order (built on the host); and, on a card only, the CUDA kernel against the
+plain version, at D 128 and 64 and on column views of one QKV tensor."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -208,21 +209,100 @@ def test_attention_core_routes_as_jax(monkeypatch, impl, sq, sk, want):
                                rtol=0)
 
 
+def _rows_tiles(q0, sq, sk, kvl, causal, q_offset, window):
+    """The kernel's key-tile range for one query tile, row by row (no
+    shortcut): the union of the rows' bands, or every tile when a row's
+    band is empty."""
+    lo_min, hi_max, empty = sk, 0, False
+    for r in range(q0, min(q0 + ops.BQ, sq)):
+        pos = r + q_offset
+        hi = min(kvl, pos + 1) if causal else kvl
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        if lo >= hi:
+            empty = True
+        else:
+            lo_min, hi_max = min(lo_min, lo), max(hi_max, hi)
+    if empty:
+        return 0, -(-sk // ops.BK)
+    return lo_min // ops.BK, -(-hi_max // ops.BK)
+
+
+# (B, Hq, Sq, Sk, causal, q_offset, window, kv_len): the order is built from
+# the masks alone; the lengths check ``key_tiles``, which the kernel runs
+# with each batch row's own length
+ORDER_CASES = {
+    "causal": (2, 6, 1000, 1000, True, 0, 0, None),
+    "window": (3, 4, 900, 1500, True, 600, 300, None),
+    "kv_len": (4, 3, 256, 4096, False, 0, 0, [4096, 3001, 0, 1777]),
+    "kv_len_causal_offset": (3, 2, 700, 1200, True, -40, 0, [1200, 555, 90]),
+    "kv_len_window": (2, 4, 600, 900, True, 0, 500, [900, 60]),
+}
+
+
+@pytest.mark.parametrize("name", list(ORDER_CASES))
+def test_work_order_covers_every_item_once_heaviest_first(name):
+    """The persistent kernel's work list, as the wrapper builds it: every
+    (query tile, batch, head) exactly once; query tiles in non-increasing
+    order of the key tiles the kernel visits for them with every key
+    valid, counted row by row; the Hq heads of a (tile, batch) group next
+    to each other, in order (neighbours share a KV head); and the closed
+    form of ``key_tiles`` equal to the row-by-row range at Sk and at each
+    batch row's length."""
+    b, hq, sq, sk, causal, off, win, lens = ORDER_CASES[name]
+    order = ops.work_order(b, hq, sq, sk, causal=causal, q_offset=off,
+                           window=win)
+    n_qt = -(-sq // ops.BQ)
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(n_qt * b * hq))
+    weights = []
+    for i in range(0, len(order), hq):
+        group = order[i:i + hq]
+        qt, bi = group[0] // (b * hq), group[0] % (b * hq) // hq
+        assert group.tolist() == [qt * b * hq + bi * hq + h
+                                  for h in range(hq)]
+        for kvl in {sk, *(lens or ())}:
+            kvl = min(max(kvl, 0), sk)
+            assert ops.key_tiles(qt * ops.BQ, sq, sk, kvl, causal=causal,
+                                 q_offset=off, window=win) == \
+                _rows_tiles(qt * ops.BQ, sq, sk, kvl, causal, off, win)
+        lo, hi = _rows_tiles(qt * ops.BQ, sq, sk, sk, causal, off, win)
+        weights.append(hi - lo)
+    assert weights == sorted(weights, reverse=True)
+    assert weights[0] > weights[-1] or not causal
+
+
 # ------------------------------------------------------------- on a card ----
 
+CARD_CASES = [c[:6] + (128,) + c[7:] for c in CASES] + [
+    (True, 0, 0, [300, 171], 4, 4, 64, 300, 300),      # D 64 (bert-large)
+    (True, 0, 0, [260, 199], 6, 2, 128, 260, 260),     # strided views
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES, ids=[
-    "causal", "kvlen_g2", "kvlen0_g4", "window", "offset", "offset_window"])
+@pytest.mark.parametrize("case", CARD_CASES, ids=[
+    "causal", "kvlen_g2", "kvlen0_g4", "window", "offset", "offset_window",
+    "d64", "strided"])
 def test_flash_kernel_matches_plain_on_card(case):
     """bf16 kernel vs the plain version in fp32 on the same bf16 inputs:
     each query row within 2 bf16 ulps of its own largest output (rows that
     average many keys are small; a whole-tensor gate would miss a wrong
-    late tile there); one launch counted."""
+    late tile there); one launch counted. The last case reads q, k and v
+    as column views of one [B, S, (Hq + 2 Hkv) D] tensor, as
+    ``qkv_project`` gives them (the TMA descriptors' strides)."""
     if not torch.cuda.is_available():
         pytest.skip("CUDA kernel test: needs an NVIDIA card (sm_90a)")
-    causal, off, win, kv_len, hq, hkv, _, sq, sk = case
-    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
-               for a in _qkv(9, 2, sq + 3, sk + 5, hq, hkv, 128))
+    causal, off, win, kv_len, hq, hkv, d, sq, sk = case
+    if case is CARD_CASES[-1]:
+        rng = np.random.default_rng(9)
+        qkv = torch.from_numpy(rng.normal(size=(2, sq, (hq + 2 * hkv) * d))
+                               .astype(np.float32)).cuda().to(torch.bfloat16)
+        q = qkv[..., :hq * d].unflatten(-1, (hq, d))
+        k = qkv[..., hq * d:(hq + hkv) * d].unflatten(-1, (hkv, d))
+        v = qkv[..., (hq + hkv) * d:].unflatten(-1, (hkv, d))
+    else:
+        q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+                   for a in _qkv(9, 2, sq + 3, sk + 5, hq, hkv, d))
     lens = None if kv_len is None else torch.tensor(kv_len, device="cuda",
                                                      dtype=torch.int32)
     n = ops.LAUNCHES["flash_attention"]
