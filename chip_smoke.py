@@ -8,8 +8,15 @@ Phases, each printing one line (any failure exits non-zero):
   3. each kernel against its plain PyTorch version at the full-width
      llama3.2-3b shapes of the serving path: attention on valid rows, each
      query row within 2 bf16 ulps of its own largest output of the plain
-     version run in fp32 on the same bf16 inputs, the top-k/top-p filter and the token draw
-     bitwise, the fused add + norm with x + y bitwise and the norm within
+     version run in fp32 on the same bf16 inputs (paged decode over 8 slots
+     of 128-576 tokens and over 2 slots of 4096 and 1500 tokens, 4 rotated
+     pool sets each, rows of length 0 exactly zero, a decode call under
+     torch.cuda.set_sync_debug_mode("error"): no host synchronisation; the
+     paged prefill's 64 rows, padding rows too; each call one device
+     kernel under the profiler; the worst rows printed on a [paged]
+     line), the top-k/top-p
+     filter and the token draw bitwise, the fused add + norm with x + y
+     bitwise and the norm within
      1 bf16 ulp (8 and 64 rows), the fused LM head's tokens and probe
      bitwise on inputs whose GEMM is exact in any order (greedy,
      temperature-only and filtered steps), and its greedy tokens on random
@@ -215,67 +222,127 @@ def _bound(nbytes: float, flops: float, fp32: bool = False):
 
 
 # ---------------------------------------------------------------- phase 3 ---
-def check_decode_attention(arch, rng, dev):
-    from repro_torch.kernels.decode_attention import ops, ref
-    import torch.nn.functional as F
-    b, page = 8, 16
+def _one_kernel_a_call(fn, name):
+    """Fail unless one call of ``fn`` launches exactly one device kernel,
+    named as ``DEVICE_NAMES[name]`` says (torch.profiler; the call is made
+    once before, outside the window). A window with no device record at
+    all, which the profiler delivers now and then in a process's first
+    window, is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = [e.key for e in prof.key_averages() for _ in range(e.count)
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if seen:
+            break
+    if len(seen) != 1 or not any(n in seen[0] for n in DEVICE_NAMES[name]):
+        _fail(f"{name}: one call launched {seen} on the card, not one "
+              f"kernel named {DEVICE_NAMES[name]}")
+
+
+def _paged_decode_case(arch, rng, dev, seq_lens, max_pages):
+    """Decode inputs at llama3.2-3b's heads, page 16: q, 4 rotated K/V pool
+    sets (so K/V come from HBM), the page table and the lengths."""
+    b, page = len(seq_lens), 16
     hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.resolved_head_dim
-    seq_lens = np.asarray(rng.integers(128, 577, b), np.int32)
-    seq_lens[0], seq_lens[1] = 576, 17     # the longest row; a page edge
-    max_pages = 36
     num_pages = b * max_pages + 1
     sets = []
-    for _ in range(4):      # rotate 4 pool sets (76 MB) so K/V come from HBM
+    for _ in range(4):
         kp = torch.randn((num_pages, page, hkv, d), device=dev,
                          dtype=torch.bfloat16)
-        vp = torch.randn_like(kp)
-        sets.append((kp, vp))
+        sets.append((kp, torch.randn_like(kp)))
     ids = rng.permutation(np.arange(1, num_pages))[:b * max_pages]
     pt = torch.as_tensor(ids.reshape(b, max_pages).astype(np.int32),
                          device=dev)
-    sl = torch.as_tensor(seq_lens, device=dev)
+    sl = torch.as_tensor(np.asarray(seq_lens, np.int32), device=dev)
     q = torch.randn((b, hq, d), device=dev, dtype=torch.bfloat16)
+    return q, sets, pt, sl
+
+
+def _time_paged_decode(q, sets, pt, sl, name):
+    """Check one decode case against its plain version and time it: events
+    and device time over the rotated pool sets, the plain version, and
+    SDPA on K/V already gathered to a dense layout (events and device)."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    import torch.nn.functional as F
+    b, hq, d = q.shape
+    hkv = sets[0][0].shape[2]
     kp, vp = sets[0]
     out = ops.paged_decode_attention(q, kp, vp, pt, sl)
     plain = ref.paged_decode_attention(q.float(), kp.float(), vp.float(), pt,
                                        sl)
     torch.cuda.synchronize()
-    err, ulps = _attn_err(out, plain, "paged_decode_attention")
+    live = sl > 0
+    err, ulps = _attn_err(out[live], plain[live], name)
+    if out[~live].any():
+        _fail(f"{name}: rows with seq_len 0 are not exactly zero")
+    torch.cuda.set_sync_debug_mode("error")    # the lengths stay on the card
+    try:
+        ops.paged_decode_attention(q, kp, vp, pt, sl)
+    except RuntimeError as e:
+        _fail(f"{name}: the wrapper waited on the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     state = {"i": 0}
 
     def kernel():
         k, v = sets[state["i"] % 4]
         state["i"] += 1
         ops.paged_decode_attention(q, k, v, pt, sl)
+    _one_kernel_a_call(kernel, "paged_decode_attention")
     ms = _time_ms(kernel, 200)
+    device_ms = _profiled_ms(kernel, DEVICE_NAMES["paged_decode_attention"],
+                             iters=40)
     plain_ms = _time_ms(lambda: ref.paged_decode_attention(q, kp, vp, pt, sl),
                         20)
     # library yardstick: SDPA on the gathered dense K/V with a length mask
     kd = kp[pt.long()].reshape(b, -1, hkv, d).transpose(1, 2)
     vd = vp[pt.long()].reshape(b, -1, hkv, d).transpose(1, 2)
-    mask = (torch.arange(kd.shape[2], device=dev)[None] <
+    mask = (torch.arange(kd.shape[2], device=q.device)[None] <
             sl[:, None].long())[:, None, None, :]
     sdpa = (lambda: F.scaled_dot_product_attention(
         q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True))
     library_ms = _time_ms(sdpa, 200)
     library_device_ms = _profiled_ms(sdpa, ("",), iters=50)
-    tokens = int(seq_lens.sum())
+    tokens = int(sl.sum().item())
     nbytes = (tokens * hkv * d * 2 * 2 + 2 * q.numel() * 2 + pt.numel() * 4
               + sl.numel() * 4)
-    flops = 4.0 * tokens * hq * d
-    bound_ms, bound_by = _bound(nbytes, flops)
+    bound_ms, bound_by = _bound(nbytes, 4.0 * tokens * hq * d)
+    return {"max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "split": ops.decode_plan(b, hkv, pt.shape[1], kp.shape[1])}
+
+
+def check_decode_attention(arch, rng, dev):
+    """The serve's decode shape (8 slots, 128-576 tokens), then a long
+    context: 2 slots of 4096 and 1500 tokens (4 pool sets of 2 x 16.8 MB,
+    beyond L2), where one CTA a (slot, KV head) would leave most SMs idle."""
+    seq_lens = np.asarray(rng.integers(128, 577, 8), np.int32)
+    seq_lens[0], seq_lens[1] = 576, 17     # the longest row; a page edge
+    row = _time_paged_decode(*_paged_decode_case(arch, rng, dev, seq_lens, 36),
+                             "paged_decode_attention")
+    long_row = _time_paged_decode(       # its own rng: later phases draw
+        *_paged_decode_case(arch, np.random.default_rng(SEED + 11), dev,
+                            [4096, 1500], 256),
+        "paged_decode_attention (4096, 1500)")
+    torch.cuda.empty_cache()
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/decode_attention/csrc/"
                       "paged_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:164",
-            "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "library_device_ms": library_device_ms}
+            **row, "long_context": dict(long_row, seq_lens=[4096, 1500])}
 
 
 def check_prefill_attention(arch, rng, dev):
+    """The last chunk of a 498-token prompt: every row of the chunk, the
+    padding rows too (they attend to the valid prefix), held to the plain
+    version."""
     from repro_torch.kernels.decode_attention import ops, ref
     import torch.nn.functional as F
     c, page = 64, 16
@@ -291,11 +358,15 @@ def check_prefill_attention(arch, rng, dev):
     q = torch.randn((c, hq, d), device=dev, dtype=torch.bfloat16)
     out = ops.paged_prefill_attention(q, kp, vp, pr, start, total)
     plain = ref.paged_prefill_attention(q.float(), kp.float(), vp.float(), pr,
-                                        start, total)[:valid]
+                                        start, total)
     torch.cuda.synchronize()
-    err, ulps = _attn_err(out[:valid], plain, "paged_prefill_attention")
-    ms = _time_ms(lambda: ops.paged_prefill_attention(q, kp, vp, pr, start,
-                                                      total), 200)
+    err, ulps = _attn_err(out, plain, "paged_prefill_attention")
+    kernel = (lambda: ops.paged_prefill_attention(q, kp, vp, pr, start,
+                                                  total))
+    _one_kernel_a_call(kernel, "paged_prefill_attention")
+    ms = _time_ms(kernel, 200)
+    device_ms = _profiled_ms(kernel, DEVICE_NAMES["paged_prefill_attention"],
+                             iters=40)
     plain_ms = _time_ms(lambda: ref.paged_prefill_attention(
         q, kp, vp, pr, start, total), 20)
     kd = kp[pr.long()].reshape(1, -1, hkv, d).transpose(1, 2)
@@ -316,10 +387,29 @@ def check_prefill_attention(arch, rng, dev):
                       "paged_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:113",
             "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
-            "library_device_ms": library_device_ms}
+            "library_device_ms": library_device_ms,
+            "split": ops.prefill_plan(c, hq, hkv, start, total, page,
+                                      max_pages)[0]}
+
+
+def print_paged(dec, pre):
+    """The paged kernels' phase-3 line: worst rows, device times beside
+    SDPA's, the long-context case."""
+    lc = dec["long_context"]
+    print(f"[paged] decode: worst row {dec['max_err_row_ulps']:.4f} ulps, "
+          f"device {dec['device_ms']} ms (events {dec['ms']:.5f}; SDPA "
+          f"device {dec['library_device_ms']}; bound {dec['bound_ms']:.5f}; "
+          f"split {dec['split']}); prefill: worst row "
+          f"{pre['max_err_row_ulps']:.4f} ulps, device {pre['device_ms']} ms "
+          f"(events {pre['ms']:.5f}; SDPA device {pre['library_device_ms']}; "
+          f"bound {pre['bound_ms']:.5f}; split {pre['split']}); decode at "
+          f"[4096, 1500]: worst row {lc['max_err_row_ulps']:.4f} ulps, device "
+          f"{lc['device_ms']} ms (events {lc['ms']:.5f}; SDPA device "
+          f"{lc['library_device_ms']}; bound {lc['bound_ms']:.5f}; split "
+          f"{lc['split']}); one kernel a call")
 
 
 def _valid_pairs(sq, sk, kv_len, causal, q_offset, window) -> int:
@@ -2315,6 +2405,7 @@ def main() -> int:
     marks = {"build": time.perf_counter()}
     rows = [check_decode_attention(arch, rng, dev),
             check_prefill_attention(arch, rng, dev)]
+    print_paged(*rows)
     flash_row = check_flash_attention(arch, dev)
     filt, lg_f = check_filter(arch, rng, dev)
     rows += [filt, check_draw(lg_f, dev)]
