@@ -15,15 +15,22 @@ Phases, each printing one line (any failure exits non-zero):
      paged prefill's 64 rows, padding rows too; each call one device
      kernel under the profiler; the worst rows printed on a [paged]
      line), the top-k/top-p
-     filter and the token draw bitwise, the fused add + norm with x + y
-     bitwise and the norm within
+     filter bitwise against the bisection and the sort-based oracle (the
+     serve's 8 rows, their first 4, one row with top-k off, 8 adversarial
+     rows: ties at the k-th value across a tile edge, k = 1, k >= V, all
+     -inf, one finite entry, top_p * Z under T_FLOOR, a nucleus edge in a
+     dense tail, top-k off; and 8 rows at mamba2-1.3b's V 50304), one
+     device kernel a call, and the token draw bitwise, the fused add +
+     norm with x + y bitwise and the norm within
      1 bf16 ulp (8 and 64 rows), the fused LM head's tokens and probe
      bitwise on inputs whose GEMM is exact in any order (greedy,
-     temperature-only and filtered steps), and its greedy tokens on random
-     bf16 inputs wherever the plain top-2 margin exceeds 2 bf16 ulps
-     (8 rows, the serve's, and 16, two groups of the head's GEMV), at
+     temperature-only and filtered steps; 16 rows, one row with top-k
+     off, 8 rows; two device kernels a call), and its greedy tokens on
+     random bf16 inputs wherever the plain top-2 margin exceeds 2 bf16
+     ulps, at
      llama3.2-3b's D 3072 / V 128256 and again at mamba2-1.3b's D 2048 /
-     V 50304 (the mamba2 serve's shape); the filter and draw also under a short torch.profiler window; then the
+     V 50304 (the mamba2 serve's shape); the filter, draw and head also
+     under short torch.profiler windows; then the
      training kernels at full-width bert-large shapes: the fused residual
      add + layernorm at [1024, 1024] and [4096, 1024] (B8 with S128 and
      S512) within 1 bf16 ulp of max(|output|, |output before the bias|),
@@ -222,12 +229,12 @@ def _bound(nbytes: float, flops: float, fp32: bool = False):
 
 
 # ---------------------------------------------------------------- phase 3 ---
-def _one_kernel_a_call(fn, name):
-    """Fail unless one call of ``fn`` launches exactly one device kernel,
-    named as ``DEVICE_NAMES[name]`` says (torch.profiler; the call is made
-    once before, outside the window). A window with no device record at
-    all, which the profiler delivers now and then in a process's first
-    window, is taken again, up to three times."""
+def _kernels_a_call(fn, name):
+    """Fail unless one call of ``fn`` launches exactly the device kernels
+    ``DEVICE_NAMES[name]``, one each (torch.profiler; the call is made once
+    before, outside the window). A window with no device record at all,
+    which the profiler delivers now and then in a process's first window,
+    is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -239,9 +246,11 @@ def _one_kernel_a_call(fn, name):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         if seen:
             break
-    if len(seen) != 1 or not any(n in seen[0] for n in DEVICE_NAMES[name]):
+    want = DEVICE_NAMES[name]
+    if len(seen) != len(want) or not all(any(n in k for k in seen)
+                                         for n in want):
         _fail(f"{name}: one call launched {seen} on the card, not one "
-              f"kernel named {DEVICE_NAMES[name]}")
+              f"kernel each named {want}")
 
 
 def _paged_decode_case(arch, rng, dev, seq_lens, max_pages):
@@ -293,7 +302,7 @@ def _time_paged_decode(q, sets, pt, sl, name):
         k, v = sets[state["i"] % 4]
         state["i"] += 1
         ops.paged_decode_attention(q, k, v, pt, sl)
-    _one_kernel_a_call(kernel, "paged_decode_attention")
+    _kernels_a_call(kernel, "paged_decode_attention")
     ms = _time_ms(kernel, 200)
     device_ms = _profiled_ms(kernel, DEVICE_NAMES["paged_decode_attention"],
                              iters=40)
@@ -363,7 +372,7 @@ def check_prefill_attention(arch, rng, dev):
     err, ulps = _attn_err(out, plain, "paged_prefill_attention")
     kernel = (lambda: ops.paged_prefill_attention(q, kp, vp, pr, start,
                                                   total))
-    _one_kernel_a_call(kernel, "paged_prefill_attention")
+    _kernels_a_call(kernel, "paged_prefill_attention")
     ms = _time_ms(kernel, 200)
     device_ms = _profiled_ms(kernel, DEVICE_NAMES["paged_prefill_attention"],
                              iters=40)
@@ -546,7 +555,44 @@ def check_flash_attention(arch, dev):
             **main, "cases": rows[1:]}
 
 
+FILTER_ADVERSARIAL = ("ties at the k-th value across a tile edge", "k = 1",
+                      "k >= V", "all -inf", "one finite entry",
+                      "T clamped to T_FLOOR", "nucleus edge in a dense tail",
+                      "top-k off, top-p 0.95")
+
+
+def _adversarial_filter_rows(v, dev, rng):
+    """One row [v] a corner of the filter's search (FILTER_ADVERSARIAL), as
+    [8, v] logits with their top_k and top_p."""
+    lg = rng.normal(size=(8, v)).astype(np.float32) * 3.0
+    top_k = np.full(8, 40, np.int32)
+    top_p = np.full(8, 0.95, np.float32)
+    lg[0, 100:160] = lg[0].max() - 1.0     # 60 equal values over tile 0/1
+    top_k[0] = 20
+    top_k[1], top_p[1] = 1, 0.9
+    top_k[2], top_p[2] = v + 3, 0.99
+    lg[3] = -np.inf
+    lg[4] = -np.inf
+    lg[4, v // 3] = 2.5
+    top_k[4] = 0
+    top_k[5], top_p[5] = 0, 1e-40          # top_p * Z below T_FLOOR
+    lg[6] = -4.0 + 1e-6 * rng.normal(size=v).astype(np.float32)
+    lg[6, :8] = [6.0, 5.5, 5.0, 4.5, 4.0, 3.5, 3.0, 2.5]
+    top_k[6], top_p[6] = 0, 0.9
+    top_k[7] = 0
+    return (torch.as_tensor(lg, device=dev), torch.as_tensor(top_k, device=dev),
+            torch.as_tensor(top_p, device=dev))
+
+
 def check_filter(arch, rng, dev):
+    """The top-k / top-p filter bitwise against its plain version (the
+    bisection) and the sort-based oracle: the serve's 8 rows at llama's
+    padded vocab, their first 4, one row (top-k off, top-p 0.95: the
+    search over the whole row), 8 adversarial rows (FILTER_ADVERSARIAL), and
+    8 rows at mamba2-1.3b's padded vocab; one device kernel a call. Timed at
+    [8, V] beside its bound, its plain version and the sort-based filter;
+    device times of every case from the profiler."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.fused_sampling import ops, ref
     from repro_torch.models.layers import pad_vocab
     s, v = 8, pad_vocab(arch.vocab_size)
@@ -557,32 +603,52 @@ def check_filter(arch, rng, dev):
                             device=dev)
     top_p = torch.as_tensor([0.95, 1.0, 0.95, 0.95, 0.5, 0.95, 1.0, 0.99],
                             dtype=torch.float32, device=dev)
+    vm = pad_vocab(get_config("mamba2-1.3b").vocab_size)
+    lm = torch.as_tensor(rng.normal(size=(s, vm)).astype(np.float32) * 3.0,
+                         device=dev)
+    cases = {f"[8, {v}]": (lg, top_k, top_p),
+             f"[4, {v}]": (lg[:4], top_k[:4], top_p[:4]),
+             f"[1, {v}] top-k off, top-p 0.95": (lg[2:3].contiguous(),
+                                                 top_k[2:3], top_p[2:3]),
+             f"[8, {v}] adversarial": _adversarial_filter_rows(v, dev, rng),
+             f"[8, {vm}] (mamba2-1.3b)": (lm, torch.as_tensor(
+                 [40, 40, 0, 40, 1, 40, 0, vm + 5], dtype=torch.int32,
+                 device=dev), top_p)}
+    device, sizes = {}, {}
+    for case, args in cases.items():
+        out = ops.filter_logits(*args)
+        plain = ref.filter_logits_bisect(*args)
+        oracle = ref.filter_logits_ref(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), plain.view(torch.int32)):
+            bad = (out.view(torch.int32) != plain.view(torch.int32)).sum(1)
+            _fail(f"filter_logits {case} differs from its plain version in "
+                  f"{bad.tolist()} entries a row (contract: bitwise equal)")
+        if not torch.equal(out.view(torch.int32), oracle.view(torch.int32)):
+            _fail(f"filter_logits {case} differs from the sort-based oracle")
+        _kernels_a_call(lambda: ops.filter_logits(*args), "filter_logits")
+        device[case] = _profiled_ms(lambda: ops.filter_logits(*args),
+                                    ("filter_kernel",))
+        sizes[case] = ops.cluster_plan(*args[0].shape)
     out = ops.filter_logits(lg, top_k, top_p)
-    plain = ref.filter_logits_bisect(lg, top_k, top_p)
-    oracle = ref.filter_logits_ref(lg, top_k, top_p)
-    torch.cuda.synchronize()
-    if not torch.equal(out.view(torch.int32), plain.view(torch.int32)):
-        bad = (out.view(torch.int32) != plain.view(torch.int32)).sum().item()
-        _fail(f"filter_logits differs from its plain version in {bad} "
-              "entries (contract: bitwise equal)")
-    if not torch.equal(out.view(torch.int32), oracle.view(torch.int32)):
-        _fail("filter_logits differs from the sort-based oracle")
     ms = _time_ms(lambda: ops.filter_logits(lg, top_k, top_p), 20)
     plain_ms = _time_ms(lambda: ref.filter_logits_bisect(lg, top_k, top_p),
                         2, warmup=1)
     library_ms = _time_ms(lambda: ref.filter_logits_ref(lg, top_k, top_p),
                           2, warmup=1)
-    dev_ms = _profiled_ms(lambda: ops.filter_logits(lg, top_k, top_p),
-                          ("filter_kernel",))
     bound_ms, bound_by = _bound(2 * lg.numel() * 4 + s * 8, 0.0, fp32=True)
+    print("[filter] device ms a call by case (CTAs a row): " + "; ".join(
+        f"{c}: {device[c]} ({sizes[c]})" for c in cases) + "; all bitwise "
+        "equal to the bisection and the sort-based oracle, one kernel a call")
     return {"name": "filter_logits", "route": "cuda",
-            "profiler_device_ms_per_call": dev_ms,
+            "profiler_device_ms_per_call": device[f"[8, {v}]"],
             "source": "src/repro_torch/kernels/fused_sampling/csrc/"
                       "sampling.cu",
             "replaces": "src/repro/kernels/fused_sampling/kernel.py:73",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}, out
+            "library_ms": library_ms, "device_ms_by_case": device,
+            "ctas_a_row_by_case": sizes}, out
 
 
 def check_draw(lg_f, dev):
@@ -721,8 +787,11 @@ def check_head_tokens(arch, dev):
     prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     lines = []
-    for s in (16, 8):
-        args = tuple(t[:s] for t in (x, rs, temps, top_k, top_p))
+    # 16 rows: two groups of the GEMV; row 11 alone (top-k off, top-p 0.9:
+    # the nucleus search over the whole row); the serve's 8 rows last
+    for s, sel in ((16, slice(0, 16)), (1, slice(11, 12)), (8, slice(0, 8))):
+        args = tuple(t[sel].contiguous() for t in (x, rs, temps, top_k,
+                                                  top_p))
         args = (args[0], w) + args[1:]
         for sampled, filtered in ((False, False), (True, False),
                                   (True, True)):
@@ -739,8 +808,8 @@ def check_head_tokens(arch, dev):
                       "exact-arithmetic inputs)")
             lines.append(f"S={s} sampled={sampled} filtered={filtered}: "
                          f"{tok.tolist()}")
-        if ok[4] or ok[5] or not ok[[i for i in range(s)
-                                     if i not in (4, 5)]].all():
+        if s > 1 and (ok[4] or ok[5] or not ok[[i for i in range(s)
+                                                if i not in (4, 5)]].all()):
             _fail(f"head_tokens probe {ok.tolist()}: rows 4 and 5 must be "
                   "non-finite, the rest finite")
     s = 8                                  # the serve's rows, timed below
@@ -771,6 +840,15 @@ def check_head_tokens(arch, dev):
                  f"margin > 2 bf16 ulps, all equal; {int(same.sum())} of {s}"
                  " equal in all")
 
+    _kernels_a_call(lambda: ops.head_tokens(*rargs, sampled=True,
+                                            filtered=True), "head_tokens")
+    device = {step: _profiled_ms(lambda: ops.head_tokens(
+        *rargs, sampled=sampled, filtered=filtered), DEVICE_NAMES["head_tokens"])
+        for step, sampled, filtered in (("filtered", True, True),
+                                        ("sampled", True, False),
+                                        ("greedy", False, False))}
+    device["filtered epilogue"] = _profiled_ms(lambda: ops.head_tokens(
+        *rargs, sampled=True, filtered=True), ("head_epilogue_kernel",))
     ms = _time_ms(lambda: ops.head_tokens(*rargs, sampled=True,
                                           filtered=True), 20)
     ms_greedy = _time_ms(lambda: ops.head_tokens(*rargs, sampled=False,
@@ -806,6 +884,8 @@ def check_head_tokens(arch, dev):
             "library_note": "torch.matmul of x [8, D] by the [V, D] weight "
                             "transposed",
             "unfused_head_ms": unfused_ms,
+            "profiler_device_ms_by_step": device,
+            "ctas_a_row": samp_ops.cluster_plan(s, v),
             "random_rows_clear_margin": int(clear.sum())}
 
 
@@ -2363,7 +2443,8 @@ def check_scale_mask_softmax(dev):
             "cases": rows[1:], "paper": paper}
 
 
-DEVICE_NAMES = {"paged_decode_attention": ("decode_kernel",),
+DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
+                "paged_decode_attention": ("decode_kernel",),
                 "paged_prefill_attention": ("prefill_kernel",),
                 "decode_residual_norm": ("resnorm_kernel",),
                 "head_tokens": ("head_gemv_kernel", "head_epilogue_kernel")}
@@ -2493,7 +2574,8 @@ def main() -> int:
             r["mamba2_shape"] = {k: head_mamba[k] for k in (
                 "shape", "max_abs_err", "ms", "ms_greedy", "ms_16_rows",
                 "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "unfused_head_ms", "random_rows_clear_margin")}
+                "unfused_head_ms", "profiler_device_ms_by_step",
+                "ctas_a_row", "random_rows_clear_margin")}
             r["launches_mamba2_serve"] = mamba["launches"]["head_tokens"]
     flash_row.update(
         launches=static["greedy"]["launches_prefill"]

@@ -1,0 +1,363 @@
+"""What the sampler's cluster design buys, on the card.
+
+    python3 sampler_ablations.py
+
+A development script beside ``chip_smoke.py``; no model path and no test
+runs it. Every variant is the sampler's own sources
+(``src/repro_torch/kernels/fused_sampling/csrc/{sampling.cu,
+sampling_device.cuh}`` and ``fused_lm_head/csrc/head_tokens.cu``, which
+includes the header) with one part of the design changed by text
+substitutions, each of which must match its file exactly once (the script
+fails when the sources have moved away from them): 8 or 32 nucleus
+candidates a sweep instead of 16 (a sweep's cost against the number of
+sweeps); folds that load 16 terms ahead instead of 8 (registers against
+latency); no estimate (the first exact sweep around the middle key); a
+second cluster barrier in every exact sweep (what one barrier costs,
+timing only); and phase stamps (timing only): thread 0 of the first CTA of
+the first row records ``clock64()`` at every phase of the filter, read
+back after one call. The variant as built also runs at every
+cluster size the card takes, the plan's (``ops.cluster_plan``) marked, and
+the script prints how many clusters of each size the card runs at once
+(``cudaOccupancyMaxActiveClusters``).
+
+All variants are built at once with ``nvcc`` into ``build/repro_torch/``
+and launched through the wrappers' launch helpers (``ops._launch_filter``,
+``fused_lm_head.ops._launch``). Filter cases: ``chip_smoke.py``'s 8 rows
+at llama3.2-3b's vocab (128256) and their first 4, one row of each kind
+(top-k off with top-p 0.95, which searches the whole row; top-k 40 with
+top-p 0.95; top-k 40 alone; neither), and 8 rows at mamba2's padded vocab
+(50304); each output bitwise against ``ref.filter_logits_bisect``. The
+fused head: llama's x [8, 3072] and W [128256, 3072] and mamba2's [8, 2048]
+and [50304, 2048] on exact-arithmetic inputs (every logit exact in fp32),
+tokens bitwise against ``ref.head_tokens``, greedy, sampled and filtered
+steps. Every time is device time a call from torch.profiler over 40 calls,
+the lesser of two rounds that each run every variant in turn. The card's
+name and power limit come first; the last line is one JSON object of the
+results.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SAMPLING = "fused_sampling/csrc/sampling.cu"
+HEADER = "fused_sampling/csrc/sampling_device.cuh"
+HEAD = "fused_lm_head/csrc/head_tokens.cu"
+
+_SYNC1 = ("      cluster.sync();\n"
+          "      if (rank == 0 && warp == 0) {\n")
+_STAMP_FN = (
+    "namespace cg = cooperative_groups;\n\n"
+    "__device__ long long g_stamp[64];\n"
+    "__device__ int g_nstamp;\n"
+    "__device__ __forceinline__ void stamp() {\n"
+    "  if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
+    "    const int n = g_nstamp;\n"
+    "    if (n < 64) g_stamp[n] = clock64();\n"
+    "    g_nstamp = n + 1;\n"
+    "  }\n"
+    "}\n")
+_STAMP_EXPORT = (
+    'extern "C" int sampler_stamps(void* out) {\n'
+    "  int n = 0;\n"
+    "  cudaMemcpyFromSymbol(out, sampling::g_stamp, sizeof(long long) * 64);\n"
+    "  cudaMemcpyFromSymbol(&n, sampling::g_nstamp, sizeof(int));\n"
+    "  const int zero = 0;\n"
+    "  cudaMemcpyToSymbol(sampling::g_nstamp, &zero, sizeof(int));\n"
+    "  return n;\n"
+    "}\n\n"
+    'extern "C" int draw_tokens(')
+
+# name: text substitutions (file, old, new) of the sources
+VARIANTS = {
+    "as built": [],
+    "8 candidates": [(HEADER, "constexpr int kCand = 16;",
+                      "constexpr int kCand = 8;")],
+    "32 candidates": [(HEADER, "constexpr int kCand = 16;",
+                       "constexpr int kCand = 32;")],
+    "folds loading 16 terms ahead": [
+        (HEADER, "constexpr int kFoldAhead = 8;",
+         "constexpr int kFoldAhead = 16;")],
+    "no estimate (the first sweep around the middle key)": [
+        (HEADER, "    const unsigned ke = estimate_key(t);\n",
+         "    const unsigned ke = kTopKey / 2;\n")],
+    "a second barrier each sweep (timing)": [
+        (HEADER, _SYNC1, "      cluster.sync();\n" + _SYNC1)],
+    "phase stamps (timing)": [
+        (HEADER, "namespace cg = cooperative_groups;\n", _STAMP_FN),
+        (HEADER, "  const float kth = key_to_float(kkey);\n",
+         "  const float kth = key_to_float(kkey);\n  stamp();\n"),
+        (HEADER, "    const float t = fmaxf(__fmul_rn(top_p, z), kTFloor);\n",
+         "    const float t = fmaxf(__fmul_rn(top_p, z), kTFloor);\n"
+         "    stamp();\n"),
+        (HEADER, _SYNC1, "      stamp();\n" + _SYNC1.replace(
+            "      if", "      stamp();\n      if")),
+        (HEADER, "      cluster.sync();\n      lo = sh.dec[0];\n",
+         "      stamp();\n      cluster.sync();\n      lo = sh.dec[0];\n"
+         "      stamp();\n"),
+        (HEADER, "      above = sh.above;\n",
+         "      above = sh.above;\n      stamp();\n"),
+        (SAMPLING, "  crow.load([&](int i) { return x[i]; });\n",
+         "  sampling::stamp();\n  crow.load([&](int i) { return x[i]; });\n"
+         "  sampling::stamp();\n"),
+        (SAMPLING, "  cluster.sync();            // no CTA leaves",
+         "  sampling::stamp();\n  cluster.sync();            // no CTA leaves"),
+        (SAMPLING, 'extern "C" int draw_tokens(', _STAMP_EXPORT)],
+}
+AS_BUILT = "as built"
+TIMING_ONLY = ("a second barrier each sweep (timing)", "phase stamps (timing)")
+SIZES = [4, 8, 12, 16]
+
+
+def variant_sources(root: Path, subs) -> dict:
+    texts = {f: (root / f).read_text() for f in (SAMPLING, HEADER, HEAD)}
+    for f, old, new in subs:
+        if texts[f].count(old) != 1:
+            raise ValueError(f"ablation text not found once in {f}: {old!r}")
+        texts[f] = texts[f].replace(old, new)
+    return texts
+
+
+def build(_build) -> dict:
+    """Every variant's two libraries, all nvcc runs at once: name ->
+    (filter library, head library) under ``build/repro_torch/``."""
+    root = _build.KERNELS_DIR
+    out_dir = _build.BUILD_DIR / "ablations"
+    procs, libs = {}, {}
+    for i, (name, subs) in enumerate(VARIANTS.items()):
+        vdir = out_dir / f"sampler{i}"
+        for f, text in variant_sources(root, subs).items():
+            (vdir / f).parent.mkdir(parents=True, exist_ok=True)
+            (vdir / f).write_text(text)
+        libs[name] = (f"sampler_ablation{i}", f"sampler_head_ablation{i}")
+        for lib, f in zip(libs[name], (SAMPLING, HEAD)):
+            procs[(name, lib)] = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                 str(_build.BUILD_DIR / f"{lib}.so"), str(vdir / f)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for (name, lib), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name!r} ({lib}):\n{log}")
+        regs = [ln.split("info    : ")[-1].strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"[build] {name} ({lib}): {regs}")
+    return libs
+
+
+def device_ms(fn, names, iters: int = 40, tries: int = 3) -> float:
+    """Device ms a call of the kernels whose names contain one of
+    ``names``, from torch.profiler (a window in which the profiler
+    delivered no kernel record, as happens now and then, is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(n in e.key for n in names))
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError(f"the profiler recorded no {names} time: "
+                       f"{[e.key for e in prof.key_averages()]}")
+
+
+def filter_cases(dev, rng):
+    """name -> (logits, top_k, top_p)."""
+    v = 128256
+    lg = torch.as_tensor(rng.normal(size=(8, v)).astype(np.float32) * 3.0,
+                         device=dev)
+    lg[3, :40] = lg[3, 40]                 # ties across the k-th value
+    top_k = [40, 40, 0, 40, 1, 40, 0, v + 5]
+    top_p = [0.95, 1.0, 0.95, 0.95, 0.5, 0.95, 1.0, 0.99]
+
+    def rows(x, ks, ps):
+        return (x.contiguous(),
+                torch.tensor(ks, dtype=torch.int32, device=dev),
+                torch.tensor(ps, dtype=torch.float32, device=dev))
+    cases = {"[8, 128256] chip_smoke rows": rows(lg, top_k, top_p),
+             "[4, 128256]": rows(lg[:4], top_k[:4], top_p[:4])}
+    for name, k, p in (("top-k off, top-p 0.95", 0, 0.95),
+                       ("top-k 40, top-p 0.95", 40, 0.95),
+                       ("top-k 40 alone", 40, 1.0),
+                       ("neither", 0, 1.0)):
+        cases[f"[1, 128256] {name}"] = rows(lg[:1], [k], [p])
+    vm = 50304
+    lm = torch.as_tensor(rng.normal(size=(8, vm)).astype(np.float32) * 3.0,
+                         device=dev)
+    cases["[8, 50304] chip_smoke rows"] = rows(
+        lm, [40, 40, 0, 40, 1, 40, 0, vm + 5], top_p)
+    return cases
+
+
+def head_inputs(dev, d, v):
+    """x [8, d] on k/8 and W [v, d] on k/64, |k| <= 8: every logit exact in
+    fp32; the sampler's per-row settings of chip_smoke.py."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randint(-8, 9, (v, d), generator=gen, device=dev,
+                      dtype=torch.int8).to(torch.bfloat16) / 64
+    x = torch.randint(-8, 9, (8, d), generator=gen, device=dev,
+                      dtype=torch.int8).to(torch.bfloat16) / 8
+    from repro_torch.kernels.fused_lm_head import ref
+    idx = torch.arange(8, device=dev)
+    rs = ref.row_uniforms(idx + 11, idx * 37)
+    temps = torch.tensor([0.0, 1.0, 0.8, 1.0, 0.5, 1.0, 1.3, 0.7],
+                         device=dev)
+    top_k = torch.tensor([0, 3, 40, 0, 0, 40, 1, v + 5], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 0.95, 0.95, 1.0, 1.0, 0.9, 1.0, 0.5],
+                         device=dev)
+    return x, w, rs, temps, top_k, top_p
+
+
+def stamps(lib_name: str, run) -> list:
+    """Cycles between the phase stamps of one call (the stamped variant)."""
+    from repro_torch.kernels import _build
+    fn = getattr(_build.library(lib_name), "sampler_stamps")
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_longlong * 64)()
+    torch.cuda.synchronize()
+    fn(ctypes.addressof(buf))                # resets the count
+    run()
+    torch.cuda.synchronize()
+    n = min(fn(ctypes.addressof(buf)), 64)
+    return [buf[i + 1] - buf[i] for i in range(n - 1)]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("sampler_ablations: no CUDA device; this script runs on the "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_lm_head import ops as head_ops
+    from repro_torch.kernels.fused_lm_head import ref as head_ref
+    from repro_torch.kernels.fused_sampling import ops, ref
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    t0 = time.perf_counter()
+    libs = build(_build)
+    print(f"[build] {len(libs)} variants in {time.perf_counter() - t0:.1f}s")
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    active = _build.bind(libs[AS_BUILT][0], "filter_active_clusters", 0, 2)
+    occupancy = {v: {size: active(v, size, stream) for size in range(1, 17)}
+                 for v in (128256, 50304)}
+    print(f"[occupancy] clusters the card runs at once, by size: {occupancy}")
+    results = {}
+    for case, (lg, top_k, top_p) in filter_cases(
+            dev, np.random.default_rng(0)).items():
+        s, v = lg.shape
+        plain = ref.filter_logits_bisect(lg, top_k, top_p)
+        planned = ops.cluster_plan(s, v)
+        runs = {name: (lib[0], planned) for name, lib in libs.items()}
+        for size in SIZES:
+            if size != planned and ops.cluster_smem_bytes(v, size) \
+                    <= ops.SMEM_BYTES:
+                runs[f"{AS_BUILT}, {size} CTAs a row"] = (libs[AS_BUILT][0],
+                                                          size)
+        for rnd in range(2):
+            for name, (lib, size) in runs.items():
+                out = torch.empty_like(lg)
+
+                def run():
+                    ops._launch_filter(lg, top_k, top_p, out, size, lib=lib)
+                try:
+                    run()
+                except RuntimeError as e:      # e.g. too little shared memory
+                    print(f"[filter] round {rnd} | {name} | {case}: refused "
+                          f"at {size} CTAs a row ({e})")
+                    continue
+                torch.cuda.synchronize()
+                same = torch.equal(out.view(torch.int32),
+                                   plain.view(torch.int32))
+                if not same and name not in TIMING_ONLY:
+                    raise RuntimeError(f"{name} | {case}: not bitwise equal "
+                                       "to the plain filter")
+                ms = device_ms(run, ("filter_kernel",))
+                label = name + (f" ({size} CTAs a row, the plan's)"
+                                if name == AS_BUILT else "")
+                print(f"[filter] round {rnd} | {label} | {case}: device "
+                      f"{ms:.5f} ms, bitwise {same}")
+                best = results.setdefault(name, {}).get(case)
+                if best is None or ms < best["device_ms"]:
+                    results[name][case] = {"device_ms": ms, "size": size,
+                                           "bitwise": same}
+                if name == "phase stamps (timing)" and rnd == 1 \
+                        and case.startswith("[1, 128256] top-k off"):
+                    cyc = stamps(lib, run)
+                    print(f"[stamps] {case}: cycles between phases "
+                          f"(start, load, k-th, Z, four estimate passes, "
+                          f"then per exact sweep: trees, barrier 1, fold, "
+                          f"barrier 2; store): {cyc}")
+                    results[name]["stamps_" + case] = cyc
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    heads = {}
+    for arch, d, v in (("llama3.2-3b", 3072, 128256),
+                       ("mamba2-1.3b", 2048, 50304)):
+        args = head_inputs(dev, d, v)
+        planned = ops.cluster_plan(8, v)
+        for rnd in range(2):
+            for name, (_, lib) in libs.items():
+                for sampled, filtered in ((False, False), (True, False),
+                                          (True, True)):
+                    tok = torch.empty((8,), dtype=torch.int32, device=dev)
+                    ok = torch.empty((8,), dtype=torch.bool, device=dev)
+                    size = planned if sampled else 1
+
+                    def run():
+                        head_ops._launch(*args, tok, ok, sampled, filtered,
+                                         size, lib=lib)
+                    try:
+                        run()
+                    except RuntimeError as e:
+                        print(f"[head] round {rnd} | {name} | {arch}: refused "
+                              f"at {size} CTAs a row ({e})")
+                        continue
+                    torch.cuda.synchronize()
+                    ptok, pok = head_ref.head_tokens(*args, sampled=sampled,
+                                                     filtered=filtered)
+                    same = torch.equal(tok, ptok) and torch.equal(ok, pok)
+                    if not same and name not in TIMING_ONLY:
+                        raise RuntimeError(f"head {name} {arch}: tokens "
+                                           f"{tok.tolist()} differ from "
+                                           f"{ptok.tolist()}")
+                    step = ("filtered" if filtered else
+                            "sampled" if sampled else "greedy")
+                    ms = device_ms(run, ("head_gemv_kernel",
+                                         "head_epilogue_kernel"))
+                    epi = device_ms(run, ("head_epilogue_kernel",))
+                    print(f"[head] round {rnd} | {name} | {arch} {step}: "
+                          f"device {ms:.5f} ms (epilogue {epi:.5f}), "
+                          f"bitwise {same}")
+                    key = f"{arch} {step}"
+                    best = heads.setdefault(name, {}).get(key)
+                    if best is None or ms < best["device_ms"]:
+                        heads[name][key] = {"device_ms": ms,
+                                            "epilogue_ms": epi,
+                                            "bitwise": same}
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": smi, "occupancy": occupancy, "filter": results,
+                      "head_tokens": heads}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

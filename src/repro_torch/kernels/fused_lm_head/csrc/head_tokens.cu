@@ -16,8 +16,8 @@
 // What its design does about it. The TPU kernel keeps the [S, V] logits in
 // VMEM scratch across its sequential grid and runs the epilogue on them.
 // A Hopper CTA cannot hold a row (128256 entries), and recomputing the
-// logits for each of the ~68 sweeps of a filtered draw would read the
-// weight ~68 times (~16 ms). The logits are bf16 values by contract (the
+// logits for each of the sampler's sweeps over a row would read the weight
+// once a sweep. The logits are bf16 values by contract (the
 // product is rounded to the model dtype before the upcast, as unembed does),
 // so a bf16 [S, V] workspace holds them losslessly: 2 MB at S = 8, which
 // stays in the 50 MB L2. The op takes two launches:
@@ -34,17 +34,19 @@
 //      The fp32 sum is rounded once to bf16 and written to the workspace;
 //      each CTA also writes per-row partials (max, first argmax, all
 //      finite) of its 128 vocab rows.
-//   2. head_epilogue_kernel, one thread block cluster of 8 CTAs x 1024
-//      threads per row: the greedy token and the probe from the partials;
-//      for a sampled row each CTA scales its eighth of the workspace row
-//      once (x / t, fp32, 64 KB of shared memory), and every sweep of the
-//      sampler's device code (sampling_device.cuh: the top-k count
-//      bisection, the top-p mass bisection, the draw) reads shared memory;
-//      counts and maxima combine across the cluster through distributed
-//      shared memory, and tile masses are gathered and folded in tile
-//      order. That device code is the code of the unfused filter and draw
-//      kernels, so tokens are bitwise those of the plain epilogue fed the
-//      same logits.
+//   2. head_epilogue_kernel, one thread block cluster a row (size from
+//      fused_sampling/ops.cluster_plan, 1 for a step with no sampled row):
+//      the greedy token and the probe from the partials;
+//      for a sampled row each CTA scales its share of the workspace row
+//      once (x / t, fp32) into shared memory as monotone keys, and the
+//      sampler's cluster code (sampling_device.cuh, the same code as the
+//      unfused filter kernel: a radix select for top-k, the masses written
+//      once, a fixed-point estimate of the nucleus key and exact sweeps of
+//      16 candidates whose folds run in 16 lanes of rank 0) and the draw
+//      read shared memory only; counts and maxima combine across the
+//      cluster through distributed shared memory, and tile masses are
+//      folded in tile order by rank 0. Tokens are bitwise those of the
+//      plain epilogue fed the same logits.
 // Argmax ties go to the smallest index, NaN counts as the largest value (as
 // torch.argmax). The GEMM's summation order is the tensor core's: on inputs
 // whose every partial sum is exact in fp32 the logits, and so the tokens,
@@ -68,7 +70,6 @@ constexpr int kGroupRows = 8;                        // mma N: hidden rows
 constexpr int kChunk = 64;                           // K per chunk: 4 mma
 constexpr int kUnroll = 4;                           // chunks in flight
 constexpr int kXPad = 8;                             // bf16 pad per smem row
-constexpr int kClusterCtas = 8;                      // pass 2 CTAs per row
 
 // Whether candidate (bv, bi) beats (av, ai) for the first argmax: NaN is
 // the largest value, ties go to the smaller index, bi == INT_MAX is empty.
@@ -231,77 +232,6 @@ head_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// Word views of the values a cluster reduction exchanges.
-__device__ __forceinline__ unsigned to_word(int v) {
-  return static_cast<unsigned>(v);
-}
-__device__ __forceinline__ unsigned to_word(unsigned v) { return v; }
-__device__ __forceinline__ unsigned to_word(float v) {
-  return __float_as_uint(v);
-}
-template <class T> __device__ T from_word(unsigned w);
-template <> __device__ __forceinline__ int from_word<int>(unsigned w) {
-  return static_cast<int>(w);
-}
-template <> __device__ __forceinline__ unsigned from_word<unsigned>(unsigned w) {
-  return w;
-}
-template <> __device__ __forceinline__ float from_word<float>(unsigned w) {
-  return __uint_as_float(w);
-}
-
-// A row spread over the kClusterCtas CTAs of a thread block cluster: CTA
-// `rank` owns tiles [t0, t1) and elements [lo, hi). Reductions combine the
-// CTAs' block results through distributed shared memory in rank order (the
-// ops are order-independent); the fold gathers every tile partial into each
-// CTA and folds them in tile order, the canonical order. Exchange buffers
-// alternate by call parity: a buffer is written again two exchanges later,
-// after every CTA has passed the cluster barrier that follows its last read.
-struct ClusterRow {
-  int vocab, n_tiles, lo, hi, t0, t1, rank, per;
-  float* buf[2];
-  unsigned* slot;                            // [2] words
-  sampling::Scratch& sc;
-  int phase;
-
-  __device__ float* parts() { return buf[phase & 1]; }
-  template <class T, class Op> __device__ T reduce(T v, Op op) {
-    cg::cluster_group cluster = cg::this_cluster();
-    const T local = sampling::block_reduce(v, op, sampling::red_of(sc, v));
-    unsigned* s = slot + (phase & 1);
-    if (threadIdx.x == 0) *s = to_word(local);
-    cluster.sync();
-    T r = from_word<T>(*cluster.map_shared_rank(s, 0));
-    for (int k = 1; k < kClusterCtas; ++k)
-      r = op(r, from_word<T>(*cluster.map_shared_rank(s, k)));
-    ++phase;
-    return r;
-  }
-  __device__ float fold(float* before) {
-    cg::cluster_group cluster = cg::this_cluster();
-    float* p = buf[phase & 1];
-    cluster.sync();
-    for (int t = threadIdx.x; t < n_tiles; t += sampling::kThreads) {
-      const int owner = t / per;
-      if (owner != rank) p[t] = *cluster.map_shared_rank(p + t, owner);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float acc = 0.f;
-      for (int t = 0; t < n_tiles; ++t) {
-        if (before != nullptr) before[t] = acc;
-        acc = __fadd_rn(acc, p[t]);
-      }
-      sc.bcast = acc;
-    }
-    __syncthreads();
-    const float r = sc.bcast;
-    __syncthreads();
-    ++phase;
-    return r;
-  }
-};
-
 // The greedy token (first argmax, NaN largest) and the all-finite probe of
 // one row, from pass 1's per-CTA partials. Called by one whole CTA.
 __device__ void greedy_and_probe(const float* pmax, const int* pidx,
@@ -343,15 +273,14 @@ __device__ void greedy_and_probe(const float* pmax, const int* pidx,
   }
 }
 
-// Pass 2. Grid: one cluster of kClusterCtas CTAs of sampling::kThreads per
-// hidden row. Rank 0 takes the greedy token and the probe from the
-// partials; a sampled row (temperature > 0) is then split over the
-// cluster: each CTA scales its slice of the bf16 workspace row once into
-// shared memory as fp32 (x / t, as the plain version divides) and every
-// sweep of the sampler's device code reads it from there. Dynamic shared
-// memory: the slice (per * 128 floats) and three floats per 128-lane tile.
-__global__ void __cluster_dims__(kClusterCtas, 1, 1)
-__launch_bounds__(sampling::kThreads)
+// Pass 2. Grid: one cluster of `size` CTAs of sampling::kThreads per hidden
+// row. Rank 0 takes the greedy token and the probe from the partials; a
+// sampled row (temperature > 0) is then split over the cluster: each CTA
+// scales its tiles of the bf16 workspace row once into shared memory (x / t,
+// as the plain version divides, held as monotone keys), and the filter's
+// thresholds and the draw read them from there. Dynamic shared memory:
+// sampling::cluster_smem_words.
+__global__ void __launch_bounds__(sampling::kThreads, 1)
 head_epilogue_kernel(const __nv_bfloat16* __restrict__ ws,
                      const float* __restrict__ pmax,
                      const int* __restrict__ pidx, const int* __restrict__ pok,
@@ -361,15 +290,16 @@ head_epilogue_kernel(const __nv_bfloat16* __restrict__ ws,
                      const float* __restrict__ top_p, int sampled,
                      int filtered, int* __restrict__ tokens,
                      bool* __restrict__ ok) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ sampling::Scratch sc;
-  __shared__ unsigned slot[2];
+  __shared__ sampling::ClusterShared sh;
   __shared__ float wv[sampling::kWarps];
   __shared__ int wi[sampling::kWarps];
   __shared__ int head[2];                    // greedy token, probe
   cg::cluster_group cluster = cg::this_cluster();
+  const int size = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int row = blockIdx.x / kClusterCtas, tid = threadIdx.x;
+  const int row = blockIdx.x / size, tid = threadIdx.x;
   const float temp = temps[row];
   const bool draw = sampled && temp > 0.f;
   if (rank == 0) {
@@ -382,33 +312,18 @@ head_epilogue_kernel(const __nv_bfloat16* __restrict__ ws,
   }
   if (!draw) return;                         // the same for the whole cluster
 
-  const int n_tiles = (vocab + sampling::kTile - 1) / sampling::kTile;
-  const int per = (n_tiles + kClusterCtas - 1) / kClusterCtas;
-  const int t0 = min(rank * per, n_tiles), t1 = min(t0 + per, n_tiles);
-  const int lo = min(t0 * sampling::kTile, vocab);
-  const int hi = min(t1 * sampling::kTile, vocab);
-  float* vals = smem;
-  float* buf0 = vals + per * sampling::kTile;
-  float* buf1 = buf0 + n_tiles;
-  float* before = buf1 + n_tiles;
+  sampling::ClusterRow crow(vocab, size, rank, smem, sh, sc);
   const __nv_bfloat16* lw = ws + static_cast<size_t>(row) * vocab;
-  for (int i = lo + tid; i < hi; i += sampling::kThreads)
-    vals[i - lo] = __fdiv_rn(__bfloat162float(lw[i]), temp);
-  __syncthreads();
-
-  ClusterRow crow{vocab, n_tiles, lo, hi, t0, t1, rank, per, {buf0, buf1},
-                  slot, sc, 0};
-  auto scaled = [&](int i) { return vals[i - lo]; };
+  crow.load([&](int i) { return __fdiv_rn(__bfloat162float(lw[i]), temp); });
   float kth = -INFINITY, th = -INFINITY;
   if (filtered)
-    sampling::filter_thresholds(scaled, crow, top_k[row], top_p[row], &kth,
-                                &th);
+    sampling::cluster_thresholds(crow, top_k[row], top_p[row], &kth, &th);
+  // keys[] hold the (top-k-masked) scaled logits; top-p masks on the fly
   auto final_logit = [&](int i) {
-    const float s = scaled(i);
-    const float v = s < kth ? -INFINITY : s;
+    const float v = sampling::key_to_float(crow.keys[crow.pos(i)]);
     return v < th ? -INFINITY : v;
   };
-  const int tok = sampling::draw_index(final_logit, crow, rs[row], before);
+  const int tok = sampling::draw_index(final_logit, crow, rs[row], crow.before);
   if (rank == 0 && tid == 0) tokens[row] = tok;
   cluster.sync();            // no CTA leaves while another may read its smem
 }
@@ -418,15 +333,19 @@ head_epilogue_kernel(const __nv_bfloat16* __restrict__ ws,
 // x [s_rows, d] and w [vocab, d] bf16; rs, temps, top_p float32 [s_rows];
 // top_k int32 [s_rows]; ws bf16 [s_rows, vocab] and scratch int32
 // [3, s_rows, ceil(vocab / 128)] are the wrapper's workspace; tokens int32
-// and ok bool [s_rows]. Needs s_rows >= 1, d % 64 == 0, vocab % 16 == 0 and
+// and ok bool [s_rows]; pass 2 runs `size` CTAs a row (ops.cluster_plan, 1
+// to 16; 1 for a step with no sampled row, which needs no row in shared
+// memory). Needs s_rows >= 1, d % 64 == 0, vocab % 16 == 0 and
 // ceil(vocab / 128) <= 65535 (the grid's y extent).
 extern "C" int head_tokens(const void* x, const void* w, const void* rs,
                            const void* temps, const void* top_k,
                            const void* top_p, void* ws, void* scratch,
                            void* tokens, void* ok, int s_rows, int d,
-                           int vocab, int sampled, int filtered,
+                           int vocab, int sampled, int filtered, int size,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (size < 1 || size > sampling::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_blk = (vocab + kRowsPerCta - 1) / kRowsPerCta;
   float* pmax = static_cast<float*>(scratch);
   int* pidx = static_cast<int*>(scratch) + static_cast<size_t>(s_rows) * n_blk;
@@ -447,19 +366,34 @@ extern "C" int head_tokens(const void* x, const void* w, const void* rs,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int n_tiles = (vocab + sampling::kTile - 1) / sampling::kTile;
-  const int per = (n_tiles + kClusterCtas - 1) / kClusterCtas;
-  const size_t smem2 = (static_cast<size_t>(per) * sampling::kTile +
-                        3 * static_cast<size_t>(n_tiles)) * sizeof(float);
+  const size_t smem2 =
+      sampled ? sampling::cluster_smem_words(vocab, size) * 4 : 0;
   err = cudaFuncSetAttribute(head_epilogue_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem2));
   if (err != cudaSuccess) return static_cast<int>(err);
-  head_epilogue_kernel<<<s_rows * kClusterCtas, sampling::kThreads, smem2,
-                         st>>>(
-      static_cast<const __nv_bfloat16*>(ws), pmax, pidx, pok, n_blk, vocab,
+  err = cudaFuncSetAttribute(head_epilogue_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s_rows * size, 1, 1);
+  cfg.blockDim = dim3(sampling::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem2;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, head_epilogue_kernel, static_cast<const __nv_bfloat16*>(ws),
+      static_cast<const float*>(pmax), static_cast<const int*>(pidx),
+      static_cast<const int*>(pok), n_blk, vocab,
       static_cast<const float*>(rs), static_cast<const float*>(temps),
       static_cast<const int*>(top_k), static_cast<const float*>(top_p),
       sampled, filtered, static_cast<int*>(tokens), static_cast<bool*>(ok));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,8 @@ hidden [S, D] and the tied embedding [V, D] -> sampled tokens, with no fp32
 
 CPU tensors take the plain version (``ref.head_tokens``); CUDA tensors
 launch the hand-written sm_90a kernel (two launches: the GEMV into a bf16
-workspace, in groups of 8 hidden rows, then the per-row epilogue) or raise.
+workspace, in groups of 8 hidden rows, then the per-row epilogue, a thread
+block cluster a row of ``fused_sampling.ops.cluster_plan`` CTAs) or raise.
 Any number of rows S is served, so an engine of any slot count can run
 fused decode. ``LAUNCHES`` counts calls
 that launch the kernel.
@@ -16,6 +17,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from ..fused_sampling.ops import cluster_plan
 from . import ref
 
 LAUNCHES = {"head_tokens": 0}
@@ -60,17 +62,28 @@ def head_tokens(x: torch.Tensor, embedding: torch.Tensor, rs: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} [{s}] "
                              f"tensor on {x.device}")
+    tokens = torch.empty((s,), dtype=torch.int32, device=x.device)
+    ok = torch.empty((s,), dtype=torch.bool, device=x.device)
+    _launch(x, embedding, rs, temps, top_k, top_p, tokens, ok, sampled,
+            filtered, cluster_plan(s, v) if sampled else 1)
+    LAUNCHES["head_tokens"] += 1
+    return tokens, ok
+
+
+def _launch(x, embedding, rs, temps, top_k, top_p, tokens, ok, sampled,
+            filtered, size: int, lib: str = _LIB) -> None:
+    """One call of library ``lib``'s two kernels on checked tensors, the
+    epilogue ``size`` CTAs a row (``lib`` other than the package's own only
+    for ``sampler_ablations.py``)."""
+    s, d = x.shape
+    v = embedding.shape[0]
     n_blk = -(-v // ROWS_PER_CTA)
     ws = torch.empty((s, v), dtype=torch.bfloat16, device=x.device)
     scratch = torch.empty((3, s, n_blk), dtype=torch.int32, device=x.device)
-    tokens = torch.empty((s,), dtype=torch.int32, device=x.device)
-    ok = torch.empty((s,), dtype=torch.bool, device=x.device)
-    fn = _build.bind(_LIB, "head_tokens", 10, 5)
+    fn = _build.bind(lib, "head_tokens", 10, 6)
     err = fn(x.data_ptr(), embedding.data_ptr(), rs.data_ptr(),
              temps.data_ptr(), top_k.data_ptr(), top_p.data_ptr(),
              ws.data_ptr(), scratch.data_ptr(), tokens.data_ptr(),
              ok.data_ptr(), s, d, v, int(bool(sampled)), int(bool(filtered)),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             size, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "head_tokens")
-    LAUNCHES["head_tokens"] += 1
-    return tokens, ok

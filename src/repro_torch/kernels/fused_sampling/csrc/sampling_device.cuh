@@ -1,27 +1,27 @@
 // Device code of the port's sampler, shared by the filter and draw kernels
 // (sampling.cu) and the fused LM head's epilogue
 // (../../fused_lm_head/csrc/head_tokens.cu): monotone float keys, block
-// reductions, the canonical tiled mass sum, the top-k / top-p threshold
-// bisections and the inverse-CDF draw. Each takes the row as a functor
-// x(i) -> float, so a caller can feed stored fp32 logits, or bf16 logits
-// scaled on the fly, through the same arithmetic, and a row policy that
-// says which part of the row the calling CTA owns and how it reduces across
-// the row (BlockRow here: one CTA owns it all; the fused LM head spreads a
-// row over a thread block cluster).
+// reductions, the canonical tiled mass sum, the inverse-CDF draw, and the
+// row of a thread block cluster with its top-k radix select and its
+// multi-candidate nucleus search. The draw takes the row as a functor
+// x(i) -> float and a row policy that says which part of the row the
+// calling CTA owns and how it reduces across the row (BlockRow: one CTA owns
+// it all; ClusterRow: a thread block cluster shares it).
 //
 // Float masses follow the port's one canonical order, which
 // repro_torch/kernels/fused_sampling/ref.py and
 // repro_torch/kernels/fused_lm_head/ref.py follow too, so every kernel built
 // on this header is bitwise equal to its plain version: inside each 128-lane
-// tile a halving tree x[:w/2] + x[w/2:] for w = 128 ... 2 (one warp per
-// tile), across tiles a strictly sequential left fold (((0 + p0) + p1) +
-// ...); the draw's in-tile prefix sums are strictly sequential too, and a
-// lane's prefix mass is (fold of the tiles before) + (its in-tile prefix
-// sum). Logits are assumed free of NaN (max and compares follow IEEE for
-// the rest, -inf rows included). Every function here expects a CTA of
-// kThreads threads, and every CTA of a row to make the same calls.
+// tile a halving tree x[:w/2] + x[w/2:] for w = 128 ... 2, across tiles a
+// strictly sequential left fold (((0 + p0) + p1) + ...); the draw's in-tile
+// prefix sums are strictly sequential too, and a lane's prefix mass is (fold
+// of the tiles before) + (its in-tile prefix sum). Logits are assumed free of
+// NaN (max and compares follow IEEE for the rest, -inf rows included). Every
+// function here expects a CTA of kThreads threads, and every CTA of a row to
+// make the same calls.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -29,12 +29,22 @@
 
 namespace sampling {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 128;
-constexpr int kBisectSteps = 32;
 constexpr unsigned kTopKey = 0xFFFFFFFEu;
 constexpr float kTFloor = 1.1754943508222875e-38f;   // smallest normal fp32
+constexpr int kCand = 16;            // nucleus candidates a sweep (ref.CANDIDATES)
+constexpr int kTilesAWarp = 32 / kCand;   // tiles a warp's lanes take at once
+constexpr int kMaxCluster = 16;      // CTAs a row, at most
+constexpr int kBins = 256;           // radix digits of 8 bits
+constexpr int kStride = kTile + 4;   // words a tile takes in a CTA's copy
+constexpr int kMaxSweeps = 64;       // a search that has not ended by then traps
+constexpr int kFoldAhead = 8;        // terms a fold loads ahead
+constexpr float kFixedOne = 4294967296.f;   // 2^32: estimate masses' fixed
+                                            // point (ref.FIXED_ONE)
 
 // Shared scratch of the block reductions.
 struct Scratch {
@@ -54,9 +64,6 @@ __device__ __forceinline__ float key_to_float(unsigned k) {
   return __uint_as_float(b);
 }
 
-struct SumOp {
-  template <class T> __device__ T operator()(T a, T b) const { return a + b; }
-};
 struct MinOp {
   template <class T> __device__ T operator()(T a, T b) const {
     return a < b ? a : b;
@@ -66,7 +73,7 @@ struct MaxOp {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };
 
-// Block-wide reduction of an order-independent op (integer sums, min, max).
+// Block-wide reduction of an order-independent op (min, max).
 template <class T, class Op>
 __device__ T block_reduce(T v, Op op, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -94,9 +101,9 @@ __device__ __forceinline__ float* red_of(Scratch& s, float) { return s.fred; }
 // A row owned by one CTA: elements [0, vocab), every 128-lane tile. The
 // functions below take a row policy: the element range [lo, hi) and the
 // tile range [t0, t1) the CTA owns, reduce(v, op) over the whole row (op
-// order-independent), parts() where the CTA writes its tiles' partials,
-// and fold(before), the canonical left fold of all partials (before[t], if
-// given, gets the fold of the tiles before t).
+// order-independent), parts() where the CTA writes its tiles' partials
+// (indexed by tile), and fold(before), the canonical left fold of all
+// partials (before[t], if given, gets the fold of the tiles before t).
 struct BlockRow {
   int vocab, n_tiles, lo, hi, t0, t1;
   float* parts_;
@@ -152,68 +159,6 @@ __device__ float tiled_sum(F f, Row& row) {
   return row.fold(nullptr);
 }
 
-// The top-k / nucleus top-p thresholds of one row x(i), i in [0, vocab):
-// entries below *kth are dropped by top-k, then entries below *th by top-p
-// (-inf when top_p >= 1). top_k <= 0 or >= vocab disables top-k; its count
-// bisection is then replaced by its exact result, the minimum key, and a
-// row with top_p >= 1 skips the mass bisection. Neither shortcut changes a
-// bit of the result. x is read only on the row's own range.
-template <class Row, class X>
-__device__ void filter_thresholds(X x, Row& row, int top_k, float top_p,
-                                  float* kth_out, float* th_out) {
-  const int vocab = row.vocab;
-  const int tid = threadIdx.x;
-
-  // ---- top-k: largest key with count(keys >= key) >= k ----
-  const int k = top_k <= 0 ? vocab : min(top_k, vocab);
-  unsigned lo = 0u, hi = kTopKey;
-  if (k >= vocab) {
-    unsigned mn = 0xFFFFFFFFu;
-    for (int i = row.lo + tid; i < row.hi; i += kThreads)
-      mn = min(mn, float_to_key(x(i)));
-    lo = min(row.reduce(mn, MinOp()), kTopKey);
-  } else {
-    for (int step = 0; step < kBisectSteps; ++step) {
-      const unsigned mid = lo + ((hi - lo + 1u) >> 1);
-      int cnt = 0;
-      for (int i = row.lo + tid; i < row.hi; i += kThreads)
-        cnt += float_to_key(x(i)) >= mid ? 1 : 0;
-      const bool ok = row.reduce(cnt, SumOp()) >= k;
-      lo = ok ? mid : lo;
-      hi = ok ? hi : mid - 1u;
-    }
-  }
-  const float kth = key_to_float(lo);
-  auto lgk = [&](int i) { const float v = x(i); return v < kth ? -INFINITY : v; };
-
-  // ---- top-p: smallest key whose strictly-greater mass stays under T ----
-  float th = -INFINITY;
-  if (top_p < 1.0f) {
-    float mx = -INFINITY;
-    for (int i = row.lo + tid; i < row.hi; i += kThreads) mx = fmaxf(mx, lgk(i));
-    const float m = row.reduce(mx, MaxOp());
-    const float safe_m = isfinite(m) ? m : 0.f;
-    auto mass = [&](int i) {
-      return i < vocab ? expf(__fsub_rn(lgk(i), safe_m)) : 0.f;
-    };
-    const float z = tiled_sum(mass, row);
-    const float t = fmaxf(__fmul_rn(top_p, z), kTFloor);
-    unsigned plo = 0u, phi = kTopKey;
-    for (int step = 0; step < kBisectSteps; ++step) {
-      const unsigned mid = plo + ((phi - plo) >> 1);
-      auto above = [&](int i) {
-        return (i < vocab && float_to_key(lgk(i)) > mid) ? mass(i) : 0.f;
-      };
-      const bool ok = tiled_sum(above, row) < t;
-      plo = ok ? plo : mid + 1u;
-      phi = ok ? mid : phi;
-    }
-    th = key_to_float(phi);
-  }
-  *kth_out = kth;
-  *th_out = th;
-}
-
 // Inverse-CDF draw of one row x(i), i in [0, vocab): the first index whose
 // prefix mass exceeds r * Z (Z the canonical row mass of exp(x - max)); 0
 // when none does. before holds one float per 128-lane tile.
@@ -246,6 +191,514 @@ __device__ int draw_index(X x, Row& row, float r, float* before) {
   }
   first = row.reduce(first, MinOp());
   return first == INT_MAX ? 0 : first;
+}
+
+// ---------------------------------------------------------------------------
+// A row spread over a thread block cluster.
+//
+// CTA `rank` of `size` owns tiles [t0, t1), `per` = ceil(n_tiles / size) a
+// rank, and keeps them in shared memory: keys[] (the monotone keys of its
+// logits, after top-k those of the top-k-masked logits) and u[] (the masses
+// exp(lgk - max), written once), kStride words a tile. Element j of a tile
+// sits at word tile_pos(j): float4 q holds elements q, q + 32, q + 64 and
+// q + 96, the four leaves the halving tree joins first ((x_q + x_{q+64}) +
+// (x_{q+32} + x_{q+96})), so a tree reads whole float4s; the 4 spare words
+// a tile shift the next tile by 16 bytes, so the lane groups of a warp
+// reading neighbouring tiles hit different banks.
+//
+// Every rank writes its tiles' partials into rank 0's stage (distributed
+// shared memory); after a cluster barrier rank 0 folds them in tile order,
+// the canonical order, and writes the result to every rank; a second
+// barrier publishes it. Buffers reused across exchanges follow a parity:
+// one is written again only after every rank has passed the barrier that
+// follows its last read.
+__device__ __forceinline__ int tile_pos(int j) {
+  return (j & 31) * 4 + (j >> 5);
+}
+
+// The left fold acc = ((0 + p[0]) + p[s]) + ... of n terms, before[i] (if
+// given) the fold of the terms before i. The next kFoldAhead terms are
+// loaded while the current ones are added, so no add waits on a load.
+__device__ __forceinline__ float fold_run(const float* p, int n, int s,
+                                          float* before) {
+  float acc = 0.f, cur[kFoldAhead], nxt[kFoldAhead];
+  const int full = n - n % kFoldAhead;
+  if (full > 0) {
+#pragma unroll
+    for (int j = 0; j < kFoldAhead; ++j) nxt[j] = p[j * s];
+  }
+  for (int i = 0; i < full; i += kFoldAhead) {
+#pragma unroll
+    for (int j = 0; j < kFoldAhead; ++j) cur[j] = nxt[j];
+    if (i + kFoldAhead < full) {
+#pragma unroll
+      for (int j = 0; j < kFoldAhead; ++j)
+        nxt[j] = p[(i + kFoldAhead + j) * s];
+    }
+#pragma unroll
+    for (int j = 0; j < kFoldAhead; ++j) {
+      if (before != nullptr) before[i + j] = acc;
+      acc = __fadd_rn(acc, cur[j]);
+    }
+  }
+  for (int i = full; i < n; ++i) {
+    if (before != nullptr) before[i] = acc;
+    acc = __fadd_rn(acc, p[i * s]);
+  }
+  return acc;
+}
+
+struct ClusterShared {
+  unsigned hist[2][kBins];     // radix counts, by pass parity
+  unsigned tot[kBins];         // the cluster's counts of one pass
+  unsigned cand[kCand];        // the sweep's candidate keys
+  unsigned slot[2];            // reduce() words, by parity
+  unsigned red;                // reduce()'s result
+  unsigned radix[2];           // the digits found so far, the rank still wanted
+  unsigned dec[2];             // rank 0's decision: plo, phi
+  float zres;                  // rank 0's fold
+  unsigned mhist[2][2 * kBins];         // estimate_key's masses, by pass
+  unsigned long long mtot[kBins];       // the cluster's masses of one pass
+  unsigned long long above;             // the mass above the prefix found
+};
+
+__device__ __forceinline__ unsigned to_word(int v) {
+  return static_cast<unsigned>(v);
+}
+__device__ __forceinline__ unsigned to_word(unsigned v) { return v; }
+__device__ __forceinline__ unsigned to_word(float v) {
+  return __float_as_uint(v);
+}
+template <class T> __device__ T from_word(unsigned w);
+template <> __device__ __forceinline__ int from_word<int>(unsigned w) {
+  return static_cast<int>(w);
+}
+template <> __device__ __forceinline__ unsigned from_word<unsigned>(unsigned w) {
+  return w;
+}
+template <> __device__ __forceinline__ float from_word<float>(unsigned w) {
+  return __uint_as_float(w);
+}
+
+// Dynamic shared memory of a cluster row, in 4-byte words: keys and u of
+// `per` tiles, rank 0's stage of kCand partials a tile, before[] a tile.
+__host__ __device__ inline int cluster_tiles_per_rank(int vocab, int size) {
+  const int n_tiles = (vocab + kTile - 1) / kTile;
+  return (n_tiles + size - 1) / size;
+}
+__host__ __device__ inline size_t cluster_smem_words(int vocab, int size) {
+  const size_t n_tiles = (vocab + kTile - 1) / kTile;
+  return 2 * static_cast<size_t>(cluster_tiles_per_rank(vocab, size)) *
+             kStride + n_tiles * kCand + n_tiles;
+}
+
+// One tile's mass strictly above candidate c: the halving tree of
+// u[j] * (key[j] > c). Subtree (a, s) joins float4s a, a + s, a + 2 s, ...
+// as the tree does (T(a, s) = T(a, 2 s) + T(a + s, 2 s)); a float4 is the
+// tree's first two levels over its four leaves.
+template <int A, int S>
+__device__ __forceinline__ float cand_tree(const uint4* k4, const float4* u4,
+                                           unsigned c) {
+  if constexpr (S == 32) {
+    const uint4 k = k4[A];
+    const float4 w = u4[A];
+    const float x0 = k.x > c ? w.x : 0.f, x1 = k.y > c ? w.y : 0.f;
+    const float x2 = k.z > c ? w.z : 0.f, x3 = k.w > c ? w.w : 0.f;
+    return __fadd_rn(__fadd_rn(x0, x2), __fadd_rn(x1, x3));
+  } else {
+    return __fadd_rn(cand_tree<A, 2 * S>(k4, u4, c),
+                     cand_tree<A + S, 2 * S>(k4, u4, c));
+  }
+}
+
+__device__ __forceinline__ float cand_tile_sum(const unsigned* kt,
+                                               const float* ut, unsigned c) {
+  return cand_tree<0, 1>(reinterpret_cast<const uint4*>(kt),
+                         reinterpret_cast<const float4*>(ut), c);
+}
+
+struct ClusterRow {
+  int vocab, n_tiles, per, size, rank, t0, t1, lo, hi, n_own;
+  unsigned* keys;
+  float* u;
+  float* stage;      // this CTA's (rank 0's is the one used)
+  float* stage0;     // rank 0's, through distributed shared memory
+  float* before;
+  ClusterShared& sh;
+  Scratch& sc;
+  int phase;
+
+  __device__ ClusterRow(int v, int sz, int rk, unsigned char* smem,
+                        ClusterShared& s, Scratch& scr)
+      : vocab(v), n_tiles((v + kTile - 1) / kTile),
+        per(cluster_tiles_per_rank(v, sz)), size(sz), rank(rk), sh(s),
+        sc(scr), phase(0) {
+    t0 = min(rank * per, n_tiles);
+    t1 = min(t0 + per, n_tiles);
+    lo = min(t0 * kTile, vocab);
+    hi = min(t1 * kTile, vocab);
+    n_own = t1 - t0;
+    keys = reinterpret_cast<unsigned*>(smem);
+    u = reinterpret_cast<float*>(keys + per * kStride);
+    stage = u + per * kStride;
+    before = stage + n_tiles * kCand;
+    stage0 = cg::this_cluster().map_shared_rank(stage, 0);
+  }
+
+  // word of element i (i in [lo, hi) plus the last tile's padding)
+  __device__ int pos(int i) const {
+    return (i / kTile - t0) * kStride + tile_pos(i % kTile);
+  }
+  __device__ float* parts() { return stage0; }
+
+  // Fill keys[] with float_to_key(x(i)) and u[] with 0; padding past vocab
+  // holds key 0 and mass 0. Thread (tile, q) reads x(i) for i = tile + q +
+  // 32 r, r = 0..3, and stores one float4 of each.
+  template <class X> __device__ void load(X x) {
+    for (int it = threadIdx.x; it < n_own * 32; it += kThreads) {
+      const int lt = it >> 5, q = it & 31, base = (t0 + lt) * kTile + q;
+      uint4 k;
+      k.x = base < vocab ? float_to_key(x(base)) : 0u;
+      k.y = base + 32 < vocab ? float_to_key(x(base + 32)) : 0u;
+      k.z = base + 64 < vocab ? float_to_key(x(base + 64)) : 0u;
+      k.w = base + 96 < vocab ? float_to_key(x(base + 96)) : 0u;
+      reinterpret_cast<uint4*>(keys + lt * kStride)[q] = k;
+      reinterpret_cast<float4*>(u + lt * kStride)[q] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+  }
+
+  // Calls f(i, word) for every own element i < vocab.
+  template <class F> __device__ void for_each(F f) const {
+    for (int it = threadIdx.x; it < n_own * kTile; it += kThreads) {
+      const int lt = it >> 7, j = it & (kTile - 1);
+      const int i = (t0 + lt) * kTile + j;
+      if (i < vocab) f(i, lt * kStride + tile_pos(j));
+    }
+  }
+
+  // Reduction over the row by an idempotent op (min, max): the CTA's result
+  // into slot[parity], a cluster barrier, then warp 0 combines every rank's
+  // (lanes past the cluster's size read rank 0's again).
+  template <class T, class Op> __device__ T reduce(T v, Op op) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const T local = block_reduce(v, op, red_of(sc, v));
+    unsigned* s = sh.slot + (phase & 1);
+    if (threadIdx.x == 0) *s = to_word(local);
+    cluster.sync();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      T r = from_word<T>(*cluster.map_shared_rank(s, lane < size ? lane : 0));
+      for (int o = 16; o > 0; o >>= 1) r = op(r, __shfl_xor_sync(0xffffffffu, r, o));
+      if (lane == 0) sh.red = to_word(r);
+    }
+    __syncthreads();
+    const T r = from_word<T>(sh.red);
+    __syncthreads();
+    ++phase;
+    return r;
+  }
+
+  // The canonical left fold of parts() (one float a tile, in rank 0's
+  // stage): rank 0 folds, then every rank reads the prefixes of its own
+  // tiles from rank 0's before[] (the row's one draw reads them).
+  __device__ float fold(float* before_out) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (rank == 0 && threadIdx.x == 0) {
+      const float acc = fold_run(stage, n_tiles, 1, before_out);
+      for (int k = 0; k < size; ++k) *cluster.map_shared_rank(&sh.zres, k) = acc;
+    }
+    cluster.sync();
+    if (before_out != nullptr && rank != 0) {
+      for (int i = threadIdx.x; i < n_own; i += kThreads)
+        before_out[t0 + i] = *cluster.map_shared_rank(before_out + t0 + i, 0);
+      __syncthreads();
+    }
+    return sh.zres;
+  }
+
+  // The k-th largest key of the row, 1 <= k <= vocab: four passes of 8-bit
+  // digits from the top, each a 256-bin count of the keys that match the
+  // digits found so far, summed over the cluster. Exact (integer counts).
+  __device__ unsigned radix_kth(unsigned k) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    unsigned prefix = 0u, want = k;
+    for (int pass = 0; pass < 4; ++pass) {
+      const int shift = 24 - 8 * pass;
+      unsigned* h = sh.hist[pass & 1];
+      for (int b = tid; b < kBins; b += kThreads) h[b] = 0u;
+      __syncthreads();
+      for (int it = tid; it < n_own * 32; it += kThreads) {
+        const int lt = it >> 5, q = it & 31, base = (t0 + lt) * kTile + q;
+        const uint4 kk = reinterpret_cast<const uint4*>(keys + lt * kStride)[q];
+        const unsigned kv[4] = {kk.x, kk.y, kk.z, kk.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (base + 32 * r < vocab && (((kv[r] ^ prefix) >> shift) >> 8) == 0u)
+            atomicAdd(&h[(kv[r] >> shift) & (kBins - 1)], 1u);
+        }
+      }
+      cluster.sync();
+      for (int b = tid; b < kBins; b += kThreads) {
+        unsigned s[kMaxCluster];
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r)
+          s[r] = r < size ? *cluster.map_shared_rank(h + b, r) : 0u;
+        unsigned tot = 0u;
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) tot += s[r];
+        sh.tot[b] = tot;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // lane l holds digits 8 l .. 8 l + 7; S = keys at digit >= 8 l
+        unsigned c8[8], own = 0u;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          c8[b] = sh.tot[8 * lane + b];
+          own += c8[b];
+        }
+        unsigned s_ge = own;
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned up = __shfl_down_sync(0xffffffffu, s_ge, o);
+          if (lane + o < 32) s_ge += up;
+        }
+        const unsigned hit = __ballot_sync(0xffffffffu, s_ge >= want);
+        if (lane == 31 - __clz(hit)) {
+          unsigned acc = s_ge - own;         // keys at digits above the lane's
+          int d = 8 * lane;
+          for (int b = 7; b >= 0; --b) {
+            if (acc + c8[b] >= want) {
+              d = 8 * lane + b;
+              break;
+            }
+            acc += c8[b];
+          }
+          sh.radix[0] = prefix | (static_cast<unsigned>(d) << shift);
+          sh.radix[1] = want - acc;
+        }
+      }
+      __syncthreads();
+      prefix = sh.radix[0];
+      want = sh.radix[1];
+      __syncthreads();
+    }
+    return prefix < kTopKey ? prefix : kTopKey;
+  }
+
+  // An estimate of the nucleus key (ref.estimate_key, bit for bit): the
+  // smallest key whose strictly-greater mass stays under t, masses in fixed
+  // point (u 2^32 rounded) summed as integers, exact in any order. Four
+  // 8-bit passes from the top as in radix_kth: a 256-bin histogram
+  // (shared-memory integer atomics) of the masses of the keys that match the
+  // digits found so far, summed over the cluster, then the smallest digit
+  // whose mass above is at most t 2^32 rounded.
+  __device__ unsigned estimate_key(float t) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned long long tt = __float2ull_rn(t * kFixedOne);
+    unsigned prefix = 0u;
+    unsigned long long above = 0ull;
+    for (int pass = 0; pass < 4; ++pass) {
+      const int shift = 24 - 8 * pass;
+      unsigned* h = sh.mhist[pass & 1];        // hi halves, then lo halves
+      for (int b = tid; b < 2 * kBins; b += kThreads) h[b] = 0u;
+      __syncthreads();
+      for (int it = tid; it < n_own * 32; it += kThreads) {
+        const int lt = it >> 5, q = it & 31;
+        const uint4 kk = reinterpret_cast<const uint4*>(keys + lt * kStride)[q];
+        const float4 ww = reinterpret_cast<const float4*>(u + lt * kStride)[q];
+        const unsigned kv[4] = {kk.x, kk.y, kk.z, kk.w};
+        const float wv[4] = {ww.x, ww.y, ww.z, ww.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          // floor(u 2^32) as two 16-bit halves, each summed in its own
+          // 32-bit counter (no sum of a CTA's masses can carry out of it):
+          // integer atomics on one address combine, float ones serialize
+          const unsigned long long m = __float2ull_rn(wv[r] * kFixedOne);
+          if (m != 0ull && (((kv[r] ^ prefix) >> shift) >> 8) == 0u) {
+            const unsigned d = (kv[r] >> shift) & (kBins - 1);
+            const unsigned hi = static_cast<unsigned>(m >> 16);
+            const unsigned lo = static_cast<unsigned>(m & 0xFFFFull);
+            if (hi != 0u) atomicAdd(&h[d], hi);
+            if (lo != 0u) atomicAdd(&h[kBins + d], lo);
+          }
+        }
+      }
+      cluster.sync();
+      for (int b = tid; b < kBins; b += kThreads) {
+        unsigned hi[kMaxCluster], lo[kMaxCluster];
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) {
+          hi[r] = r < size ? *cluster.map_shared_rank(h + b, r) : 0u;
+          lo[r] = r < size ? *cluster.map_shared_rank(h + kBins + b, r) : 0u;
+        }
+        unsigned long long sum = 0ull;
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r)
+          sum += (static_cast<unsigned long long>(hi[r]) << 16) + lo[r];
+        sh.mtot[b] = sum;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // lane l holds digits 8 l .. 8 l + 7; sg(d) = above + the mass of
+        // the digits over d, decreasing in d; sg(255) = above <= tt
+        unsigned long long m8[8], own = 0ull;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          m8[b] = sh.mtot[8 * lane + b];
+          own += m8[b];
+        }
+        unsigned long long incl = own;         // mass of lanes >= this one
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned long long x = __shfl_down_sync(0xffffffffu, incl, o);
+          if (lane + o < 32) incl += x;
+        }
+        const unsigned long long next = __shfl_down_sync(0xffffffffu, incl, 1);
+        unsigned long long sg = above + (lane == 31 ? 0ull : next);
+        const unsigned hit = __ballot_sync(0xffffffffu, sg <= tt);
+        if (lane == __ffs(hit) - 1) {          // the digit: 8 lane + b
+          int b = 7;
+          while (b > 0 && sg + m8[b] <= tt) sg += m8[b--];
+          sh.radix[0] = prefix | (static_cast<unsigned>(8 * lane + b) << shift);
+          sh.above = sg;
+        }
+      }
+      __syncthreads();
+      prefix = sh.radix[0];
+      above = sh.above;
+      __syncthreads();
+    }
+    return prefix < kTopKey ? prefix : kTopKey;
+  }
+
+  // A search step from the candidates sh.cand (ascending) and ok (bit c:
+  // SG at candidate c is under the target), on [lo, hi]: the smallest ok
+  // candidate, one past the largest that is not.
+  __device__ void step(unsigned ok, unsigned& lo, unsigned& hi) const {
+    if (ok != 0u) {                          // ok lanes: a suffix
+      const int f = __ffs(ok) - 1;
+      hi = min(hi, sh.cand[f]);
+      if (f > 0) lo = max(lo, sh.cand[f - 1] + 1u);
+    } else {
+      lo = max(lo, sh.cand[kCand - 1] + 1u);
+    }
+  }
+
+  // The smallest key K in [0, kTopKey] whose strictly-greater mass SG(K)
+  // (canonical order over u, keys) stays under t (ref.nucleus_key_search,
+  // step for step): estimate_key, then exact sweeps, each candidate's SG by
+  // its own halving trees (lane c of each kCand lanes of a warp takes
+  // candidate c, the warp kTilesAWarp tiles) and its own left fold (lane c
+  // of rank 0's first warp). The first sweep takes the estimate's key and
+  // keys at 4^i from it (ref.first_candidates), each later one the first
+  // key with mass left and keys spread over the rest (ref.retry_candidates).
+  // A wrong estimate only costs sweeps: SG is monotone in K, so the search
+  // ends on the mass bisection's result.
+  __device__ unsigned nucleus(float t) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned ke = estimate_key(t);
+    if (tid < kCand) {
+      const int i = tid < kCand / 2 ? kCand / 2 - 1 - tid : tid - kCand / 2;
+      const unsigned off = 1u << (2 * i);
+      sh.cand[tid] = tid < kCand / 2 ? (ke > off ? ke - off : 0u)
+                     : (ke < kTopKey - (off - 1u) ? ke + (off - 1u) : kTopKey);
+    }
+    unsigned lo = 0u, hi = kTopKey;
+    for (int sweep = 1;; ++sweep) {
+      if (sweep == kMaxSweeps) __trap();
+      __syncthreads();
+      const int c = lane % kCand;
+      const unsigned cv = sh.cand[c];
+      for (int pr = warp; kTilesAWarp * pr < n_own; pr += kWarps) {
+        const int lt = kTilesAWarp * pr + lane / kCand;
+        if (lt < n_own)
+          stage0[(t0 + lt) * kCand + c] =
+              cand_tile_sum(keys + lt * kStride, u + lt * kStride, cv);
+      }
+      cluster.sync();
+      if (rank == 0 && warp == 0) {
+        const float sg =
+            lane < kCand ? fold_run(stage + lane, n_tiles, kCand, nullptr) : 0.f;
+        const unsigned ok = __ballot_sync(0xffffffffu, lane < kCand && sg < t);
+        unsigned nlo = lo, nhi = hi;
+        step(ok, nlo, nhi);
+        if (lane < size) {
+          unsigned* d = cluster.map_shared_rank(sh.dec, lane);
+          d[0] = nlo;
+          d[1] = nhi;
+        }
+      }
+      cluster.sync();
+      lo = sh.dec[0];
+      hi = sh.dec[1];
+      if (lo >= hi) break;
+      // the estimate missed: the threshold is a key with mass in [lo, hi],
+      // most often the first, kappa (ref.retry_candidates)
+      unsigned mn = 0xFFFFFFFFu;
+      for_each([&](int, int p) {
+        const unsigned k = keys[p];
+        if (u[p] > 0.f && k >= lo && k <= hi) mn = min(mn, k);
+      });
+      const unsigned kappa = min(reduce(mn, MinOp()), hi);
+      const unsigned lo2 = min(kappa + 1u, hi);
+      if (tid < kCand)
+        sh.cand[tid] =
+            tid == 0 ? (kappa > 0u ? kappa - 1u : 0u)
+            : tid == 1 ? kappa
+            : lo2 + static_cast<unsigned>(
+                  static_cast<unsigned long long>(hi - lo2) * (tid - 1) /
+                  (kCand - 1));
+    }
+    return hi;
+  }
+};
+
+// The top-k / nucleus top-p thresholds of a cluster row whose keys[] hold
+// the row (ClusterRow::load): entries below *kth are dropped by top-k, then
+// entries below *th by top-p (-inf when top_p >= 1). top_k <= 0 or >= vocab
+// disables top-k: its k-th key is then the minimum key. Leaves keys[] as
+// the keys of the top-k-masked row and, when top_p < 1, u[] as its masses.
+__device__ void cluster_thresholds(ClusterRow& row, int top_k, float top_p,
+                                   float* kth_out, float* th_out) {
+  const int vocab = row.vocab;
+  const int k = top_k <= 0 ? vocab : min(top_k, vocab);
+  unsigned kkey;
+  if (k >= vocab) {
+    unsigned mn = 0xFFFFFFFFu;
+    row.for_each([&](int, int p) { mn = min(mn, row.keys[p]); });
+    kkey = min(row.reduce(mn, MinOp()), kTopKey);
+  } else {
+    kkey = row.radix_kth(static_cast<unsigned>(k));
+  }
+  const float kth = key_to_float(kkey);
+  float mx = -INFINITY;
+  row.for_each([&](int, int p) {
+    const float v = key_to_float(row.keys[p]);
+    const float lgk = v < kth ? -INFINITY : v;
+    row.keys[p] = float_to_key(lgk);
+    mx = fmaxf(mx, lgk);
+  });
+  float th = -INFINITY;
+  if (top_p < 1.0f) {
+    const float m = row.reduce(mx, MaxOp());   // syncs: keys[] are written
+    const float safe_m = isfinite(m) ? m : 0.f;
+    row.for_each([&](int, int p) {
+      row.u[p] = expf(__fsub_rn(key_to_float(row.keys[p]), safe_m));
+    });
+    __syncthreads();
+    const float z = tiled_sum(
+        [&](int i) { return i < vocab ? row.u[row.pos(i)] : 0.f; }, row);
+    const float t = fmaxf(__fmul_rn(top_p, z), kTFloor);
+    th = key_to_float(row.nucleus(t));
+  }
+  __syncthreads();
+  *kth_out = kth;
+  *th_out = th;
 }
 
 }  // namespace sampling

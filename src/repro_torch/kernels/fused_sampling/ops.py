@@ -4,8 +4,14 @@ top-p filter and the inverse-CDF token draw.
 CPU tensors take the plain versions (``ref.filter_logits_bisect``,
 ``fused_lm_head.ref.draw_tokens``); CUDA tensors launch the hand-written
 sm_90a kernels or raise. ``LAUNCHES`` counts kernel launches.
+
+The filter (and the fused LM head's epilogue) spreads a row over a thread
+block cluster whose CTAs keep the row in shared memory; ``cluster_plan``
+chooses its size from the shapes alone.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,6 +22,52 @@ from . import ref
 LAUNCHES = {"filter_logits": 0, "draw_tokens": 0}
 
 _LIB = "sampling"
+
+TILE = ref.RED_TILE          # lanes of a mass tile
+STRIDE = TILE + 4            # words a tile takes in a CTA's shared copy
+MAX_CLUSTER = 16             # CTAs a cluster (16 is past the portable 8)
+SMEM_BYTES = 232448 - 8192   # dynamic shared memory a CTA may take (its
+                             # static scratch aside)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cluster_smem_bytes(v: int, size: int) -> int:
+    """Dynamic shared memory of one CTA of a ``size``-CTA row of ``v``
+    entries (``sampling_device.cuh`` ``cluster_smem_words``): keys and
+    masses of its tiles, rank 0's stage of ``ref.CANDIDATES`` partials a
+    tile, and one prefix a tile."""
+    n_tiles = _cdiv(v, TILE)
+    per = _cdiv(n_tiles, size)
+    return 4 * (2 * per * STRIDE + n_tiles * ref.CANDIDATES + n_tiles)
+
+
+# Clusters of a size an H100 SXM runs at once at one CTA an SM (its GPCs
+# hold 7 clusters of 10-16 CTAs, 9 of 9, 15 of 7 or 8;
+# cudaOccupancyMaxActiveClusters, printed by sampler_ablations.py).
+ACTIVE_CLUSTERS = {16: 7, 9: 9, 8: 15}
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(s: int, v: int) -> int:
+    """CTAs a row for ``s`` rows of ``v`` entries: the largest size of
+    ``ACTIVE_CLUSTERS`` whose clusters all run at once (a row that waits
+    for a free cluster doubles the call), else 8 (several waves; small
+    clusters pack best); never more than the row's 128-entry tiles, and
+    larger where fewer CTAs cannot hold the row in shared memory. Raises
+    when 16 cannot (a row past about 225k entries)."""
+    fits = [z for z in sorted(ACTIVE_CLUSTERS, reverse=True)
+            if ACTIVE_CLUSTERS[z] >= s
+            and cluster_smem_bytes(v, z) <= SMEM_BYTES]
+    size = fits[0] if fits else 8
+    while size < MAX_CLUSTER and cluster_smem_bytes(v, size) > SMEM_BYTES:
+        size += 1
+    if cluster_smem_bytes(v, size) > SMEM_BYTES:
+        raise ValueError(f"a row of {v} entries does not fit the shared "
+                         f"memory of {MAX_CLUSTER} CTAs")
+    return max(1, min(size, _cdiv(v, TILE)))
 
 
 def _check_logits(lg: torch.Tensor) -> None:
@@ -42,7 +94,8 @@ def filter_logits(lg: torch.Tensor, top_k: torch.Tensor,
                   top_p: torch.Tensor) -> torch.Tensor:
     """Mask ``lg`` [S, V] float32 to its top-k / nucleus top-p support
     (dropped entries at -inf); ``top_k`` int32 [S] (<= 0 disables),
-    ``top_p`` float32 [S] (>= 1 disables)."""
+    ``top_p`` float32 [S] (>= 1 disables). On the card V is bounded by
+    ``cluster_plan``."""
     if lg.device.type == "cpu":
         return ref.filter_logits_bisect(lg, top_k, top_p)
     _check_logits(lg)
@@ -52,12 +105,20 @@ def filter_logits(lg: torch.Tensor, top_k: torch.Tensor,
     if s == 0:
         return lg.clone()
     out = torch.empty_like(lg)
-    fn = _build.bind(_LIB, "filter_logits", 4, 2)
-    err = fn(lg.data_ptr(), top_k.data_ptr(), top_p.data_ptr(),
-             out.data_ptr(), s, v, _stream(lg))
-    _build.check(err, "filter_logits")
+    _launch_filter(lg, top_k, top_p, out, cluster_plan(s, v))
     LAUNCHES["filter_logits"] += 1
     return out
+
+
+def _launch_filter(lg, top_k, top_p, out, size: int, lib: str = _LIB) -> None:
+    """One launch of library ``lib``'s filter kernel, ``size`` CTAs a row
+    (checked tensors; ``lib`` other than the package's own only for
+    ``sampler_ablations.py``)."""
+    s, v = lg.shape
+    fn = _build.bind(lib, "filter_logits", 4, 3)
+    err = fn(lg.data_ptr(), top_k.data_ptr(), top_p.data_ptr(),
+             out.data_ptr(), s, v, size, _stream(lg))
+    _build.check(err, "filter_logits")
 
 
 def draw_tokens(lg_f: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:

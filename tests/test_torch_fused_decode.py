@@ -483,10 +483,12 @@ def test_residual_norm_kernel_matches_plain_on_card(rows, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [8, 16])
-@pytest.mark.parametrize("v", [128256, 640])
+@pytest.mark.parametrize("s", [1, 8, 16])
+@pytest.mark.parametrize("v", [128256, 50304, 640])
 def test_head_tokens_kernel_bitwise_matches_plain_on_card(v, s):
-    """16 rows run the GEMV in two groups of 8 (the mma's N)."""
+    """16 rows run the GEMV in two groups of 8 (the mma's N); one row is
+    row 7 alone (top-k off, top-p 0.9: the nucleus search over the whole
+    row)."""
     if not torch.cuda.is_available():
         pytest.skip("CUDA kernel test: needs an NVIDIA card (sm_90a)")
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -496,8 +498,8 @@ def test_head_tokens_kernel_bitwise_matches_plain_on_card(v, s):
                       dtype=torch.int8).to(torch.bfloat16) / 64
     x = torch.randint(-8, 9, (s, d), generator=g, device="cuda",
                       dtype=torch.int8).to(torch.bfloat16) / 8
-    idx = torch.arange(s, device="cuda")
-    reps = s // 8
+    idx = torch.arange(max(s, 8), device="cuda")
+    reps = max(s // 8, 1)
     row = (head_ref.row_uniforms(idx + 3, idx * 11),
            torch.tensor([0.0, 1.0, 0.8, 1.0, 0.0, 1.3, 0.7, 1.0] * reps,
                         device="cuda"),
@@ -505,6 +507,8 @@ def test_head_tokens_kernel_bitwise_matches_plain_on_card(v, s):
                         dtype=torch.int32, device="cuda"),
            torch.tensor([1.0, 0.95, 0.95, 1.0, 1.0, 1.0, 0.5, 0.9] * reps,
                         device="cuda"))
+    if s == 1:
+        x, row = x[:1], tuple(t[7:8].contiguous() for t in row)
     for sampled, filtered in ((False, False), (True, False), (True, True)):
         n = head_ops.LAUNCHES["head_tokens"]
         tok, ok = head_ops.head_tokens(x, w, *row, sampled=sampled,

@@ -1,17 +1,28 @@
 """Sampling: the port's threefry ``row_uniforms`` bitwise against JAX, the
 top-k/top-p filter's plain versions against the JAX Pallas kernel
-(interpret mode) and the JAX sort-based oracle, the inverse-CDF draw and
-``sample_tokens`` against JAX, the wrappers' CPU dispatch, and on a card the
-CUDA filter and draw kernels bitwise against their plain versions."""
+(interpret mode) and the JAX sort-based oracle, the CPU model of the CUDA
+filter's search (radix top-k, estimate, multi-candidate nucleus sweeps)
+bitwise against the bisection, the cluster-size plan, the inverse-CDF draw
+and ``sample_tokens`` against JAX, the wrappers' CPU dispatch, and on a
+card the CUDA filter and draw kernels bitwise against their plain
+versions."""
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-from repro.kernels.fused_lm_head import ref as jhead
-from repro.kernels.fused_sampling import kernel as jkernel
-from repro.kernels.fused_sampling import ref as jsref
-from repro.serving.sampling import sample_tokens as jax_sample_tokens
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:  # optional dev dependency (requirements-dev.txt)
+    given = settings = st = None
+
+try:
+    import jax.numpy as jnp
+    from repro.kernels.fused_lm_head import ref as jhead
+    from repro.kernels.fused_sampling import kernel as jkernel
+    from repro.kernels.fused_sampling import ref as jsref
+    from repro.serving.sampling import sample_tokens as jax_sample_tokens
+except ImportError:         # the card's machine: only the gpu tests run
+    jnp = None
 from repro_torch.kernels.fused_lm_head import ref as head
 from repro_torch.kernels.fused_sampling import ops, ref as sref
 from repro_torch.serving.sampling import SamplingParams, sample_tokens
@@ -207,18 +218,165 @@ def test_draw_wrapper_takes_plain_path_on_cpu():
     assert ops.LAUNCHES["draw_tokens"] == 0
 
 
+# ------------------------------------- the CUDA filter's search on the CPU ---
+ADVERSARIAL = ("ties at the k-th value across a tile edge", "k = 1",
+               "k >= V", "all -inf", "one finite entry",
+               "T clamped to T_FLOOR", "nucleus edge in a dense tail",
+               "top-k off, top-p 0.95")
+
+
+def adversarial_row(kind: str, v: int, seed: int = 0):
+    """One row [1, v] of logits and its (top_k, top_p), each a corner the
+    kernel's search has to get bit for bit."""
+    rng = np.random.default_rng(seed)
+    lg = (rng.normal(size=(1, v)) * 3.0).astype(np.float32)
+    k, p = 40, 0.95
+    if kind.startswith("ties"):
+        lg[0, 100:160] = lg[0].max() - 1.0     # 60 equal values over tile 0/1
+        k = 20
+    elif kind == "k = 1":
+        k, p = 1, 0.9
+    elif kind == "k >= V":
+        k, p = v + 3, 0.99
+    elif kind == "all -inf":
+        lg[:] = -np.inf
+    elif kind == "one finite entry":
+        lg[:] = -np.inf
+        lg[0, v // 3] = 2.5
+        k = 0
+    elif kind == "T clamped to T_FLOOR":
+        k, p = 0, 1e-40                        # top_p * Z below T_FLOOR
+    elif kind == "nucleus edge in a dense tail":
+        lg[0] = -4.0 + 1e-6 * rng.normal(size=v).astype(np.float32)
+        lg[0, :8] = [6.0, 5.5, 5.0, 4.5, 4.0, 3.5, 3.0, 2.5]
+        k, p = 0, 0.9
+    elif kind == "top-k off, top-p 0.95":
+        k = 0
+    return lg, np.array([k], np.int32), np.array([p], np.float32)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("v", [50304, 128256])
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+def test_search_model_bitwise_matches_bisect(kind, v):
+    args = [torch.from_numpy(a) for a in adversarial_row(kind, v)]
+    want = sref.filter_logits_bisect(*args)
+    np.testing.assert_array_equal(_bits(sref.filter_logits_search(*args)),
+                                  _bits(want))
+    if kind == "T clamped to T_FLOOR":          # only the max survives
+        assert int(torch.isfinite(want).sum()) == 1
+
+
+@pytest.mark.parametrize("scale", [0.0, 0.5, 0.999, 1.001, 2.0])
+def test_search_model_exact_however_wrong_the_estimate(scale):
+    """Estimates off by a little (the kernel's usual miss) or a lot only
+    cost exact sweeps: the threshold stays the bisection's."""
+    lg, top_k, top_p = _rows(12, 8, 2000)
+    args = (torch.from_numpy(lg), torch.from_numpy(top_k),
+            torch.from_numpy(top_p))
+    want = _bits(sref.filter_logits_bisect(*args))
+    for cands in (2, 3, 16):
+        got = sref.filter_logits_search(*args, cands=cands,
+                                        estimate_scale=scale)
+        np.testing.assert_array_equal(_bits(got), want)
+
+
+if st is not None:
+    @settings(max_examples=40, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), s=st.integers(1, 3),
+           v=st.integers(1, 700), ties=st.booleans(), masked=st.booleans(),
+           cands=st.sampled_from([2, 3, 8, 16]),
+           scale=st.sampled_from([1.0, 0.5, 2.0]))
+    def test_search_model_property_sweep(seed, s, v, ties, masked, cands,
+                                         scale):
+        rng = np.random.default_rng(seed)
+        lg = (rng.normal(size=(s, v)) * rng.choice([0.5, 3.0, 20.0])
+              ).astype(np.float32)
+        if ties:
+            lg = np.round(lg)                  # ties everywhere, k-th too
+        if masked:
+            lg[rng.random(size=lg.shape) < 0.4] = -np.inf
+        top_k = rng.integers(-1, v + 3, size=s).astype(np.int32)
+        top_p = rng.choice([1e-40, 0.3, 0.9, 0.99, 1.0],
+                           size=s).astype(np.float32)
+        args = (torch.from_numpy(lg), torch.from_numpy(top_k),
+                torch.from_numpy(top_p))
+        np.testing.assert_array_equal(
+            _bits(sref.filter_logits_search(*args, cands=cands,
+                                            estimate_scale=scale)),
+            _bits(sref.filter_logits_bisect(*args)))
+else:
+    def test_search_model_property_sweep():
+        pytest.importorskip("hypothesis")
+
+
+def test_kth_key_radix_is_the_kth_largest_key():
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, size=(6, 3000))
+                            .astype(np.int64))
+    keys[1] = keys[1] % 7 + 0x80000000        # heavy ties
+    keys[2, :2000] = 0xFFFFFFFF                # above TOP_KEY: clamped
+    k = torch.tensor([1, 5, 40, 2999, 3000, 1234])
+    got = sref.kth_key_radix(keys, k)
+    desc = keys.sort(dim=1, descending=True).values
+    want = desc.gather(1, (k - 1)[:, None])[:, 0].clamp_max(sref.TOP_KEY)
+    assert torch.equal(got, want)
+
+
+def test_first_candidates_ascend_around_the_estimate():
+    key = torch.tensor([0, 5, 2 ** 31, sref.TOP_KEY - 2])
+    c = sref.first_candidates(key, 16)
+    assert c.shape == (4, 16)
+    assert bool((c[:, 1:] >= c[:, :-1]).all())
+    assert bool((c >= 0).all()) and bool((c <= sref.TOP_KEY).all())
+    assert torch.equal(c[:, 7], (key - 1).clamp_min(0))   # key - 1, then key
+    assert torch.equal(c[:, 8], key)
+    assert int(c[2, 0]) == 2 ** 31 - 4 ** 7 and int(c[2, 15]) == 2 ** 31 \
+        + 4 ** 7 - 1
+
+
+@pytest.mark.parametrize("s,v,want", [
+    (1, 128256, 16), (7, 128256, 16), (8, 128256, 9), (9, 128256, 9),
+    (10, 128256, 8), (64, 128256, 8), (8, 50304, 9), (1, 1000, 8),
+    (1, 512, 4), (16, 200000, 15)])
+def test_cluster_plan_fits_the_card_and_shared_memory(s, v, want):
+    size = ops.cluster_plan(s, v)
+    assert size == want
+    assert ops.cluster_smem_bytes(v, size) <= ops.SMEM_BYTES
+    assert size <= -(-v // sref.RED_TILE)       # no CTA without a tile
+
+
+def test_cluster_plan_refuses_a_row_past_shared_memory():
+    with pytest.raises(ValueError):
+        ops.cluster_plan(8, 256000)
+    # keys and masses of ceil(1002 / 16) tiles of 132 words, a stage of
+    # 16 partials and one prefix a tile
+    assert ops.cluster_smem_bytes(128256, 16) == 4 * (2 * 63 * 132
+                                                      + 1002 * 16 + 1002)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("v", [128256, 1000])
+@pytest.mark.parametrize("v", [128256, 50304, 1000])
 def test_filter_kernel_bitwise_matches_plain_on_card(v):
     if not torch.cuda.is_available():
         pytest.skip("CUDA kernel test: needs an NVIDIA card (sm_90a)")
     lg, top_k, top_p = _rows(6, 8, v)
-    args = [torch.from_numpy(a).cuda() for a in (lg, top_k, top_p)]
-    n = ops.LAUNCHES["filter_logits"]
-    out = ops.filter_logits(*args)
-    assert ops.LAUNCHES["filter_logits"] == n + 1
-    plain = sref.filter_logits_bisect(*args)
-    assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+    cases = [(lg, top_k, top_p), (lg[:4], top_k[:4], top_p[:4]),
+             (lg[2:3], top_k[2:3], top_p[2:3])]
+    rows = [adversarial_row(kind, v, seed) for seed, kind
+            in enumerate(ADVERSARIAL)]
+    cases.append(tuple(np.concatenate(c) for c in zip(*rows)))
+    for case in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in case]
+        n = ops.LAUNCHES["filter_logits"]
+        out = ops.filter_logits(*args)
+        assert ops.LAUNCHES["filter_logits"] == n + 1
+        plain = sref.filter_logits_bisect(*args)
+        assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
 
 
 @pytest.mark.gpu
