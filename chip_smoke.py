@@ -22,7 +22,11 @@ Phases, each printing one line (any failure exits non-zero):
      dense tail, top-k off; and 8 rows at mamba2-1.3b's V 50304), one
      device kernel a call, and the token draw bitwise, the fused add +
      norm with x + y bitwise and the norm within
-     1 bf16 ulp (8 and 64 rows), the fused LM head's tokens and probe
+     1 bf16 ulp (8, 64 and 300 rows at D 3072, rmsnorm and layernorm +
+     bias; D 12288; D 3070 and 40000 through the wide variant; one device
+     kernel a call; device time from the profiler at 8 and 64 rows beside
+     one torch.add over the same rows, a one-pass yardstick that is not the
+     same function), the fused LM head's tokens and probe
      bitwise on inputs whose GEMM is exact in any order (greedy,
      temperature-only and filtered steps; 16 rows, one row with top-k
      off, 8 rows; two device kernels a call), and its greedy tokens on
@@ -39,8 +43,12 @@ Phases, each printing one line (any failure exits non-zero):
      and both LAMB stages on the wqkv, embedding and bias shapes and a
      ragged 4099 (m', v' within 2 fp32 ulps, the trust ratio within 1e-5
      relative); and the mamba mixer's gated RMSNorm at mamba2's width
-     (C 4096) on 8, 64 and 1 rows, z read in place from an in_proj row,
-     within 1 bf16 ulp of the row's largest |output|; and the flash
+     (C 4096) on 8, 64, 1 and 300 rows and at jamba's C 8192 on 8 and 300,
+     z read in place from an in_proj row, within 1 bf16 ulp of the row's
+     largest |output|, one device kernel a call (device time and the
+     one-pass yardstick as for the add + norm), then C 32768 and the
+     wrapper's largest C through the wide variant, and one C past it
+     refused; and the flash
      attention forward with block_kv 1024 (as attention_core passes it) in
      six cases: at llama3.2-3b's heads the static prefill's q [4, 4096, 24,
      128] against k/v [4, 4096, 8, 128] causal, a ragged causal Sq = Sk =
@@ -129,7 +137,9 @@ Phases, each printing one line (any failure exits non-zero):
      GeLUs and 296 launches of each LAMB stage a step), one more fused step
      under torch.cuda.set_sync_debug_mode counting the calls that made the
      host wait for the card, one under torch.profiler (device time by kind,
-     host time by part of the step), then 6 unfused steps from the same
+     host time by part of the step, and each LAMB stage's device time
+     summed over its 296 launches beside its byte bound summed over the
+     leaves), then 6 unfused steps from the same
      weights and batches; every loss finite, the last below the first on
      both paths, the step-1 losses within 1 bf16 ulp of each other;
   9. one JSON line of per-kernel numbers (times from CUDA events) and of
@@ -188,18 +198,22 @@ def _profiled_ms(fn, names, iters: int = 10):
     """Device ms per call of the kernels whose names contain one of
     ``names`` (``("",)``: every kernel the call launches, as for a library
     call), from torch.profiler over ``iters`` calls (None if the profiler
-    recorded no device time)."""
+    recorded no device time). A window with no record of them, which the
+    profiler delivers now and then, is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(n in e.key for n in names))
-    return us / 1e3 / iters if us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(n in e.key for n in names))
+        if us > 0:
+            return us / 1e3 / iters
+    return None
 
 
 def _attn_err(out: torch.Tensor, plain: torch.Tensor, name: str):
@@ -689,44 +703,82 @@ def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def _norm_times(name, cases):
+    """Device ms a call from the profiler, over 50 calls, of the norm
+    kernel ``name`` (its DEVICE_NAMES) and of a one-pass yardstick (every
+    kernel it launches), for each row count of ``cases`` {rows: (norm,
+    one_pass)}; the decode shape's yardstick is ``one_pass_ms``."""
+    out = {}
+    for r, (f, o) in cases.items():
+        out[f"device_ms_{r}_rows"] = _profiled_ms(f, DEVICE_NAMES[name], 50)
+        key = "one_pass_ms" if r == 8 else f"one_pass_ms_{r}_rows"
+        out[key] = _profiled_ms(o, ("",), 50)
+    return out
+
+
+ONE_PASS_NOTE = ("device time of one torch.add over the same rows: one "
+                 "launch and one memory round trip, not the same function")
+
+
 def check_residual_norm(arch, dev):
-    """The fused add + norm at the decode shape [8, D] and a prefill chunk
-    [64, D] (rmsnorm, as llama3.2-3b), and layernorm + bias at [8, D]:
-    x + y bitwise, the norm within 1 bf16 ulp of the plain version."""
+    """The fused add + norm (rmsnorm, as llama3.2-3b, and layernorm + bias)
+    at the decode shape [8, D], a prefill chunk [64, D], a ragged 300 rows,
+    mistral-large's D 12288, and D 3070 and 40000 (the wide variant, the
+    second past 48 KB of shared memory): x + y bitwise, the norm within 1
+    bf16 ulp of the plain version; one device kernel a call. Device time
+    from the profiler at [8, D] and [64, D] beside one torch.add's."""
     from repro_torch.kernels.fused_layernorm import ops, ref
     d = arch.d_model
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    err, out = 0.0, {}
-    for rows, kind in ((8, arch.norm), (64, arch.norm), (8, "layernorm")):
-        x = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
-        y = (torch.randn((rows, d), generator=gen, device=dev)
+    err, out, plans = 0.0, {}, {}
+    cases = [(8, d, arch.norm), (64, d, arch.norm), (8, d, "layernorm"),
+             (300, d, arch.norm), (300, d, "layernorm"),
+             (8, 12288, "rmsnorm"), (8, 12288, "layernorm"),
+             (300, 12288, "rmsnorm"), (8, d - 2, "rmsnorm"),
+             (8, d - 2, "layernorm"), (2, 40000, "rmsnorm")]
+    for rows, dd, kind in cases:
+        x = torch.randn((rows, dd), generator=gen, device=dev).bfloat16()
+        y = (torch.randn((rows, dd), generator=gen, device=dev)
              * 0.5).bfloat16()
-        scale = (1.0 + 0.1 * torch.randn((d,), generator=gen,
+        scale = (1.0 + 0.1 * torch.randn((dd,), generator=gen,
                                          device=dev)).bfloat16()
-        bias = (0.1 * torch.randn((d,), generator=gen, device=dev)).bfloat16() \
+        bias = (0.1 * torch.randn((dd,), generator=gen,
+                                  device=dev)).bfloat16() \
             if kind == "layernorm" else None
         h, x2 = ops.decode_residual_norm(y, x, scale, bias, kind=kind)
         ph, px2 = ref.decode_residual_norm(y, x, scale, bias, kind=kind)
         torch.cuda.synchronize()
         if not torch.equal(x2.view(torch.int16), px2.view(torch.int16)):
-            _fail(f"decode_residual_norm [{rows}, {d}] {kind}: x + y is not "
+            _fail(f"decode_residual_norm [{rows}, {dd}] {kind}: x + y is not "
                   "bitwise equal to the plain version")
         diff = (h.float() - ph.float()).abs()
         if not bool((diff <= _bf16_ulp(ph)).all()):
-            _fail(f"decode_residual_norm [{rows}, {d}] {kind}: norm differs "
+            _fail(f"decode_residual_norm [{rows}, {dd}] {kind}: norm differs "
                   f"by more than 1 bf16 ulp (max abs {diff.max().item()})")
         err = max(err, diff.max().item())
-        if kind == arch.norm:
+        plans[f"[{rows}, {dd}]"] = ops.norm_plan(rows, dd)
+        if kind == arch.norm and dd == d:
             out[rows] = (y, x, scale)
-    times = {}
-    for rows, (y, x, scale) in out.items():
-        times[rows] = _time_ms(lambda: ops.decode_residual_norm(
-            y, x, scale, kind=arch.norm), 200)
+    for rows in (8, 300):
+        y, x, scale = out[rows]
+        _kernels_a_call(lambda: ops.decode_residual_norm(
+            y, x, scale, kind=arch.norm), "decode_residual_norm")
+    print(f"[residual_norm] {len(cases)} cases within 1 bf16 ulp, x + y "
+          f"bitwise, one kernel a call; plans (threads, vectors a thread, "
+          f"CTAs a row; 0 vectors: the wide variant): {plans}")
+    times = {rows: _time_ms(lambda: ops.decode_residual_norm(
+        y, x, scale, kind=arch.norm), 200)
+        for rows, (y, x, scale) in out.items() if rows in (8, 64)}
+    device = _norm_times("decode_residual_norm", {
+        rows: ((lambda y=y, x=x, s=s: ops.decode_residual_norm(
+            y, x, s, kind=arch.norm)), (lambda y=y, x=x: torch.add(x, y)))
+        for rows, (y, x, s) in out.items() if rows in (8, 64)})
     y, x, scale = out[8]
     plain_ms = _time_ms(lambda: ref.decode_residual_norm(
         y, x, scale, kind=arch.norm), 200)
     bound_ms, bound_by = _bound(4 * 8 * d * 2 + d * 2, 4.0 * 8 * d,
                                 fp32=True)
+    bound_64, _ = _bound(4 * 64 * d * 2 + d * 2, 4.0 * 64 * d, fp32=True)
     return {"name": "decode_residual_norm", "route": "cuda",
             "source": "src/repro_torch/kernels/fused_layernorm/csrc/"
                       "residual_norm.cu",
@@ -734,8 +786,10 @@ def check_residual_norm(arch, dev):
             "max_abs_err": err, "tol": "1 bf16 ulp of each output; x + y "
                                       "bitwise",
             "ms": times[8], "ms_64_rows": times[64], "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "library_note": "no single PyTorch call adds and normalizes"}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_64_rows": bound_64, "library_ms": None,
+            "library_note": "no single PyTorch call adds and normalizes",
+            **device, "one_pass_note": ONE_PASS_NOTE, "plans": plans}
 
 
 def _exact_head_inputs(arch, dev, gen):
@@ -891,40 +945,49 @@ def check_head_tokens(arch, dev):
 
 def check_gated_rmsnorm(arch, dev):
     """The mamba mixer's gated RMSNorm at mamba2's width C = inner: the
-    decode shape [8, C], a prefill chunk [64, C] and one ragged row, z read
-    in place as columns [0, C) of an in_proj output row as the layer gives
-    it. Every output within 1 bf16 ulp of the row's largest |output| of the
-    plain version (the kernel's statistics sum in another order). Then two
-    wide rows that need the shared-memory opt-in: C 32768 (64 KB) and the
-    wrapper's largest C; one C past it must be refused."""
+    decode shape [8, C], a prefill chunk [64, C], one row and a ragged 300
+    rows, then jamba's C 8192 at 8 and 300 rows, z read in place as columns
+    [0, C) of an in_proj output row as the layer gives it. Every output
+    within 1 bf16 ulp of the row's largest |output| of the plain version
+    (the kernel's statistics sum in another order); one device kernel a
+    call. Then two wide rows that need the shared-memory opt-in: C 32768
+    (64 KB) and the wrapper's largest C; one C past it must be refused.
+    Device time from the profiler at [8, C] and [64, C] beside one
+    torch.add's."""
     from repro_torch.kernels.fused_layernorm import ops, ref
     from repro_torch.models import ssm
     import torch.nn.functional as F
     c = ssm.inner_dim(arch)
-    proj = 2 * c + 2 * arch.ssm.ngroups * arch.ssm.state_dim \
-        + ssm.num_ssm_heads(arch)
+    extra = 2 * arch.ssm.ngroups * arch.ssm.state_dim + ssm.num_ssm_heads(arch)
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    scale = (1.0 + 0.1 * torch.randn((c,), generator=gen,
-                                     device=dev)).bfloat16()
-    err, same, total, keep = 0.0, 0, 0, {}
-    for rows in (8, 64, 1):
-        zx = (2.0 * torch.randn((rows, proj), generator=gen,
+    err, same, total, keep, plans = 0.0, 0, 0, {}, {}
+    for rows, cc in ((8, c), (64, c), (1, c), (300, c), (8, 8192),
+                     (300, 8192)):
+        sc = (1.0 + 0.1 * torch.randn((cc,), generator=gen,
+                                      device=dev)).bfloat16()
+        zx = (2.0 * torch.randn((rows, 2 * cc + extra), generator=gen,
                                 device=dev)).bfloat16()
-        y = torch.randn((rows, c), generator=gen, device=dev).bfloat16()
-        z = zx[:, :c]
-        out = ops.gated_rmsnorm(y, z, scale)
-        plain = ref.gated_rmsnorm(y, z, scale)
+        y = torch.randn((rows, cc), generator=gen, device=dev).bfloat16()
+        z = zx[:, :cc]
+        out = ops.gated_rmsnorm(y, z, sc)
+        plain = ref.gated_rmsnorm(y, z, sc)
         torch.cuda.synchronize()
         diff = (out.float() - plain.float()).abs()
         tol = _bf16_ulp(plain.float().abs().amax(dim=-1, keepdim=True))
         if not bool((diff <= tol).all()):
-            _fail(f"gated_rmsnorm [{rows}, {c}]: differs from its plain "
+            _fail(f"gated_rmsnorm [{rows}, {cc}]: differs from its plain "
                   f"version by more than 1 bf16 ulp of the row's largest "
                   f"|output| (max abs {diff.max().item()})")
         err = max(err, diff.max().item())
         same += int((out.view(torch.int16) == plain.view(torch.int16)).sum())
         total += out.numel()
-        keep[rows] = (y, z)
+        plans[f"[{rows}, {cc}]"] = ops.norm_plan(rows, cc, True)
+        if cc == c:
+            keep[rows] = (y, z, sc)
+    for rows in (8, 300):
+        y, z, sc = keep[rows]
+        _kernels_a_call(lambda: ops.gated_rmsnorm(y, z, sc), "gated_rmsnorm")
+    scale = keep[8][2]
     for wide in (32768, ops._GATED_MAX_C):
         y, z = torch.randn((2, 2, wide), generator=gen, device=dev).bfloat16()
         sc = scale.repeat(wide // c + 1)[:wide].contiguous()
@@ -936,6 +999,7 @@ def check_gated_rmsnorm(arch, dev):
             _fail(f"gated_rmsnorm [2, {wide}]: differs from its plain "
                   f"version by more than 1 bf16 ulp of the row's largest "
                   f"|output| (max abs {diff.max().item()})")
+        plans[f"[2, {wide}]"] = ops.norm_plan(2, wide, True)
     try:
         big = torch.zeros((1, ops._GATED_MAX_C + 8), dtype=torch.bfloat16,
                           device=dev)
@@ -944,17 +1008,24 @@ def check_gated_rmsnorm(arch, dev):
               "shared row")
     except ValueError:
         pass
-    times = {rows: _time_ms(lambda: ops.gated_rmsnorm(y, z, scale), 200)
-             for rows, (y, z) in keep.items()}
-    y, z = keep[8]
+    print(f"[gated_rmsnorm] 8 cases within 1 bf16 ulp of the row's largest "
+          f"|output|, one kernel a call, C {ops._GATED_MAX_C + 8} refused; "
+          f"plans (threads, vectors a thread, CTAs a row; 0 vectors: the "
+          f"wide variant): {plans}")
+    times = {rows: _time_ms(lambda: ops.gated_rmsnorm(y, z, sc), 200)
+             for rows, (y, z, sc) in keep.items() if rows != 300}
+    device = _norm_times("gated_rmsnorm", {
+        rows: ((lambda y=y, z=z, s=s: ops.gated_rmsnorm(y, z, s)),
+               (lambda y=y, z=z: torch.add(y, z)))
+        for rows, (y, z, s) in keep.items() if rows in (8, 64)})
+    y, z, scale = keep[8]
     plain_ms = _time_ms(lambda: ref.gated_rmsnorm(y, z, scale), 200)
     gated = y * (z * torch.sigmoid(z))
     library_ms = _time_ms(lambda: F.rms_norm(gated, (c,), scale, 1e-5), 200)
-    dev_ms = _profiled_ms(lambda: ops.gated_rmsnorm(y, z, scale),
-                          ("gated_rmsnorm_kernel",))
     # per element: exp, add, divide, 3 products, square-add, 2 products
     bound_ms, bound_by = _bound(3 * 8 * c * 2 + c * 2, 9.0 * 8 * c,
                                 fp32=True)
+    bound_64, _ = _bound(3 * 64 * c * 2 + c * 2, 9.0 * 64 * c, fp32=True)
     return {"name": "gated_rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/fused_layernorm/csrc/"
                       "gated_rmsnorm.cu",
@@ -963,11 +1034,14 @@ def check_gated_rmsnorm(arch, dev):
             "tol": "1 bf16 ulp of the row's largest |output|",
             "bitwise_equal_share": same / total,
             "ms": times[8], "ms_64_rows": times[64], "ms_1_row": times[1],
-            "profiler_device_ms_per_call": dev_ms, "plain_ms": plain_ms,
+            "profiler_device_ms_per_call": device["device_ms_8_rows"],
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_64_rows": bound_64,
             "library_ms": library_ms,
             "library_note": "F.rms_norm of a precomputed bf16 gated product: "
-                            "the norm only, not the gate"}
+                            "the norm only, not the gate",
+            **device, "one_pass_note": ONE_PASS_NOTE, "plans": plans}
 
 
 # ---------------------------------------------------------------- phase 4 ---
@@ -2128,9 +2202,22 @@ def count_step_syncs(res) -> int:
     return len(syncs)
 
 
-def profile_train_step(res):
+def lamb_bounds(leaf_sizes):
+    """The byte bounds of one fused step's LAMB stages summed over its
+    leaves, with check_lamb's bytes an element (stage 1 reads w, g in
+    bf16, m, v and writes m, v, u; stage 2 reads w, u and writes w)."""
+    b1 = sum(_bound(n * (4 + 2 + 4 + 4) + n * 12, 20.0 * n, fp32=True)[0]
+             for n in leaf_sizes)
+    b2 = sum(_bound(n * 8 + n * 4, 3.0 * n, fp32=True)[0]
+             for n in leaf_sizes)
+    return {"lamb_stage1": b1, "lamb_stage2": b2}
+
+
+def profile_train_step(res, leaf_sizes):
     """One more fused step under torch.profiler: device time of GEMMs, the
-    norm, GeLU, LAMB and everything else, launches, idle share."""
+    norm, GeLU, LAMB and everything else, launches, idle share; and each
+    LAMB stage's device time summed over its launches beside its byte
+    bound summed over the leaves (``lamb_bounds``): launches x gap."""
     from torch.profiler import ProfilerActivity, profile
     bundle, state = res["bundle"], res["state"]
     batch = res["data"].batch(TRAIN_STEPS + 1)
@@ -2180,6 +2267,19 @@ def profile_train_step(res):
             kinds["gemm"] += ms
         else:
             kinds["other"] += ms
+    bounds = lamb_bounds(leaf_sizes)
+    lamb = {}
+    for name, tag in (("lamb_stage1", "stage1_kernel"),
+                      ("lamb_stage2", "stage2_kernel")):
+        hits = [(ms, c) for n, ms, c in kernels if tag in n]
+        ms = sum(h[0] for h in hits)
+        lamb[name] = {"device_ms": ms, "launches": sum(h[1] for h in hits),
+                      "bound_ms": bounds[name],
+                      "gap_ms": ms - bounds[name]}
+    print("[profile train] LAMB in one fused step: " + "; ".join(
+        f"{k} {v['launches']} launches, device {v['device_ms']:.4f} ms "
+        f"against a summed byte bound of {v['bound_ms']:.4f} ms (launches "
+        f"x gap {v['gap_ms']:.4f} ms)" for k, v in lamb.items()))
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     print(f"[profile train] one fused step under torch.profiler: wall "
           f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
@@ -2189,7 +2289,8 @@ def profile_train_step(res):
           + "; top kernels " + "; ".join(
               f"{n[:48]} {ms:.2f} ms x{c}" for n, ms, c in top))
     return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds,
-            "launches": sum(k[2] for k in kernels), "host_ms": host}
+            "launches": sum(k[2] for k in kernels), "host_ms": host,
+            "lamb": lamb}
 
 
 def check_training(dev):
@@ -2204,8 +2305,8 @@ def check_training(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params0 = init_params(arch, gen, dev, torch.float32)
-    n_leaves = len(tree.leaves(params0))
-    n_params = sum(p.numel() for p in tree.leaves(params0))
+    leaf_sizes = [p.numel() for p in tree.leaves(params0)]
+    n_leaves, n_params = len(leaf_sizes), sum(leaf_sizes)
     torch.cuda.synchronize()
     print(f"[init] bert-large full width, {arch.num_layers} layers, "
           f"{n_leaves} leaves, {n_params} parameters (fp32 master) on the "
@@ -2213,7 +2314,7 @@ def check_training(dev):
     want = expected_train_launches(arch, n_leaves)
     fused = train(arch, params0, True)
     syncs = count_step_syncs(fused)
-    prof = profile_train_step(fused)
+    prof = profile_train_step(fused, leaf_sizes)
     del fused["bundle"], fused["state"]
     torch.cuda.empty_cache()
     plain = train(arch, params0, False)
@@ -2447,6 +2548,7 @@ DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
                 "paged_decode_attention": ("decode_kernel",),
                 "paged_prefill_attention": ("prefill_kernel",),
                 "decode_residual_norm": ("resnorm_kernel",),
+                "gated_rmsnorm": ("gated_rmsnorm_kernel",),
                 "head_tokens": ("head_gemv_kernel", "head_epilogue_kernel")}
 
 

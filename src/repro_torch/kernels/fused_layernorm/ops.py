@@ -5,6 +5,9 @@ norm (``csrc/residual_norm.cu``), the training block's post-norm site
 
 CPU tensors take the plain versions in ``ref.py``; CUDA tensors launch the
 hand-written sm_90a kernels or raise. ``LAUNCHES`` counts kernel launches.
+``norm_plan`` splits a row of the two decode-shaped kernels
+(``decode_residual_norm``, ``gated_rmsnorm``) over threads, registers and
+CTAs, from the shape alone.
 ``fused_residual_layernorm`` has a gradient: its backward is the plain
 version's (``_grad.PlainBackward``), as JAX differentiates its reference.
 """
@@ -25,11 +28,70 @@ LAUNCHES = {"decode_residual_norm": 0, "fused_residual_layernorm": 0,
 _LIB = "residual_norm"
 _TRAIN_LIB = "residual_layernorm"
 _GATED_LIB = "gated_rmsnorm"
-# the gated bf16 row is kept in shared memory beside the kernel's 36 bytes
-# of static shared memory (its reduction scratch), within Hopper's 227 KB
-_GATED_MAX_C = (227 * 1024 - 36) // 2 // 8 * 8
+_SMEM = 227 * 1024               # Hopper's shared memory a block can use
+# the wide variants keep the row in shared memory: decode_residual_norm's
+# in fp32 beside 64 bytes of static shared memory (its two sums' warp
+# partials); gated_rmsnorm's in bf16 beside 32, whose limit stays at the
+# v1 kernel's (36 bytes of scratch then)
+_RESNORM_MAX_D = (_SMEM - 64) // 4
+_GATED_MAX_C = (_SMEM - 36) // 2 // 8 * 8
+# the register path (norm_plan): vectors of 8 bf16 values a thread (the
+# kernels' template instantiations), CTAs of 32-512 threads, 1-8 CTAs a row
+# (a thread block cluster); NORM_WIDE, 0 vectors: the wide variant
+NORM_VECTORS = (1, 2, 3, 4)
+NORM_MAX_THREADS = 512
+NORM_THREADS = 256
+NORM_CTAS = (1, 2, 4, 8)
+NORM_GATED_CTAS = (8, 4, 1, 2)  # the gated norm's order of preference
+NORM_SMS = 132                  # an H100's SMs: one wave of CTAs
+NORM_WIDE = (256, 0, 1)
 _TRAIN_DIMS = (256, 512, 768, 1024, 1536, 2048, 3072, 4096)
 _KINDS = {"rmsnorm": 0, "layernorm": 1}
+
+
+def _fits(vecs: int, ctas: int, v: int) -> int:
+    """Threads a CTA when ``ctas`` CTAs of ``v`` vectors a thread cover
+    ``vecs`` vectors exactly in whole warps, else 0."""
+    t, rem = divmod(vecs, ctas * v)
+    return t if not rem and t % 32 == 0 and 32 <= t <= NORM_MAX_THREADS \
+        else 0
+
+
+@functools.lru_cache(maxsize=None)
+def norm_plan(rows: int, d: int, gated: bool = False) -> Tuple[int, int, int]:
+    """``(threads, vectors_a_thread, ctas_a_row)`` for ``rows`` rows of
+    ``d`` bf16 values: ``ctas_a_row`` CTAs of ``threads`` threads, each
+    thread holding ``vectors_a_thread`` 16-byte vectors, cover the row
+    exactly (``threads * vectors * ctas * 8 == d``). A pure function of its
+    arguments: it reads no tensor and nothing back from the card. The rules
+    follow ``norm_ablations.py``'s device times (``PERF.md`` §6):
+
+    - the add + norm (``gated=False``) costs a launch and a trip to memory:
+      one CTA a row with at most ``NORM_THREADS`` threads of at most 2
+      vectors; a wider row spreads over the fewest CTAs (a cluster) that
+      allow it while the rows' clusters fill at most ``NORM_SMS`` SMs;
+      else one CTA of the fewest threads;
+    - the gated norm (``gated=True``) adds a chain of IEEE expf and
+      division a thread: the fewest vectors a thread, then a row over 8
+      CTAs where 8 a row fill at most ``NORM_SMS`` SMs, else 4, else 1
+      (``NORM_GATED_CTAS``; 2 was slower than 1 at [64, 4096]).
+
+    ``NORM_WIDE`` where no plan covers the row (``d`` not a multiple of 8,
+    or too wide): one CTA of 256 threads, the row in shared memory."""
+    if d % 8:
+        return NORM_WIDE
+    vecs = d // 8
+    fits = [(t, v, c) for c in NORM_CTAS for v in NORM_VECTORS
+            if (t := _fits(vecs, c, v))
+            and (c == 1 or rows * c <= NORM_SMS)]
+    if gated:
+        return min(fits, key=lambda f: (f[1], NORM_GATED_CTAS.index(f[2])),
+                   default=NORM_WIDE)
+    small = [f for f in fits if f[0] <= NORM_THREADS and f[1] <= 2]
+    if small:
+        return min(small, key=lambda f: (f[2], f[1]))
+    ones = [f for f in fits if f[2] == 1]
+    return min(ones) if ones else NORM_WIDE
 
 
 def decode_residual_norm(y: torch.Tensor, x: torch.Tensor,
@@ -39,7 +101,10 @@ def decode_residual_norm(y: torch.Tensor, x: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused ``x += y; h = norm(x)`` -> ``(h, x + y)``, any leading shape
     with D last (reshaped to ``[R, D]`` for the kernel); ``scale`` and
-    ``bias`` are ``[D]`` in the activations' dtype (bfloat16 on the card)."""
+    ``bias`` are ``[D]`` in the activations' dtype (bfloat16 on the card).
+    On the card any D up to ``_RESNORM_MAX_D``: the register path where
+    ``norm_plan`` finds one and every base is 16-byte aligned, else the
+    wide variant."""
     if x.device.type == "cpu":
         return ref.decode_residual_norm(y, x, scale, bias, kind=kind, eps=eps)
     if x.device.type != "cuda":
@@ -58,7 +123,7 @@ def decode_residual_norm(y: torch.Tensor, x: torch.Tensor,
                 or v.device != x.device or not v.is_contiguous():
             raise ValueError(f"scale/bias must be contiguous {x.dtype} [{d}] "
                              f"on {x.device}")
-    if d * 4 > 227 * 1024:
+    if d > _RESNORM_MAX_D:
         raise ValueError(f"D = {d} does not fit the kernel's shared row")
     x2d = x.reshape(-1, d).contiguous()
     y2d = y.reshape(-1, d).contiguous()
@@ -66,14 +131,27 @@ def decode_residual_norm(y: torch.Tensor, x: torch.Tensor,
     xo = torch.empty_like(x2d)
     rows = x2d.shape[0]
     if rows:
-        fn = _build.bind(_LIB, "decode_residual_norm", 6, 3, 1)
-        err = fn(y2d.data_ptr(), x2d.data_ptr(), scale.data_ptr(),
-                 None if bias is None else bias.data_ptr(), h.data_ptr(),
-                 xo.data_ptr(), rows, d, _KINDS[kind],
-                 float(eps), torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(err, "decode_residual_norm")
+        _launch_resnorm(y2d, x2d, scale, bias, h, xo, kind, eps,
+                        norm_plan(rows, d))
         LAUNCHES["decode_residual_norm"] += 1
     return h.reshape(shape), xo.reshape(shape)
+
+
+def _launch_resnorm(y2d, x2d, scale, bias, h, xo, kind: str, eps: float,
+                    plan: Tuple[int, int, int], lib: str = _LIB) -> None:
+    """One launch of library ``lib``'s add + norm on checked [R, D]
+    tensors with ``plan`` (``norm_ablations.py`` passes other plans and
+    libraries). A base that is not 16-byte aligned takes the wide
+    variant, whose loads are scalar."""
+    ptrs = (y2d.data_ptr(), x2d.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), h.data_ptr(),
+            xo.data_ptr())
+    if any(p % 16 for p in ptrs if p):
+        plan = NORM_WIDE
+    fn = _build.bind(lib, "decode_residual_norm", 6, 6, 1)
+    _build.check(fn(*ptrs, x2d.shape[0], x2d.shape[1], _KINDS[kind], *plan,
+                    float(eps), torch.cuda.current_stream(
+                        x2d.device).cuda_stream), "decode_residual_norm")
 
 
 def _residual_layernorm_kernel(x: torch.Tensor, residual: torch.Tensor,
@@ -180,10 +258,19 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
     rows = y2d.shape[0]
     if rows:
-        fn = _build.bind(_GATED_LIB, "gated_rmsnorm", 4, 4, 1)
-        err = fn(y2d.data_ptr(), z2d.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), rows, c, y2d.stride(0), z2d.stride(0),
-                 float(eps), torch.cuda.current_stream(y.device).cuda_stream)
-        _build.check(err, "gated_rmsnorm")
+        _launch_gated(y2d, z2d, scale, out, eps, norm_plan(rows, c, True))
         LAUNCHES["gated_rmsnorm"] += 1
     return out
+
+
+def _launch_gated(y2d, z2d, scale, out, eps: float,
+                  plan: Tuple[int, int, int], lib: str = _GATED_LIB) -> None:
+    """One launch of library ``lib``'s gated RMSNorm on checked [R, C]
+    views with ``plan`` (``norm_ablations.py`` passes other plans and
+    libraries)."""
+    fn = _build.bind(lib, "gated_rmsnorm", 4, 7, 1)
+    _build.check(fn(y2d.data_ptr(), z2d.data_ptr(), scale.data_ptr(),
+                    out.data_ptr(), y2d.shape[0], y2d.shape[1],
+                    y2d.stride(0), z2d.stride(0), *plan, float(eps),
+                    torch.cuda.current_stream(y2d.device).cuda_stream),
+                 "gated_rmsnorm")

@@ -461,13 +461,17 @@ def test_serve_cli_fused_decode_flag(capsys):
 # ------------------------------------------------------------- on a card ----
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [3072, 12288, 3070])
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
-@pytest.mark.parametrize("rows", [8, 64])
-def test_residual_norm_kernel_matches_plain_on_card(rows, kind):
+@pytest.mark.parametrize("rows", [8, 64, 300])
+def test_residual_norm_kernel_matches_plain_on_card(rows, kind, d):
+    """llama3.2-3b's D 3072 and mistral-large's 12288 (the register path),
+    and D 3070 (the wide variant), at decode, prefill-chunk and ragged row
+    counts."""
     if not torch.cuda.is_available():
         pytest.skip("CUDA kernel test: needs an NVIDIA card (sm_90a)")
     g = torch.Generator(device="cuda").manual_seed(rows)
-    d, dtype = 3072, torch.bfloat16
+    dtype = torch.bfloat16
     y = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
     x = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
     scale = (1 + 0.1 * torch.randn((d,), generator=g, device="cuda")).to(dtype)

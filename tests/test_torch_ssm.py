@@ -336,16 +336,17 @@ def test_gated_rmsnorm_wrapper_reads_a_strided_z():
 # ------------------------------------------------------------- on a card ----
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 8, 64])
-def test_gated_rmsnorm_kernel_matches_plain_on_card(rows):
-    """The kernel at the mamba2 width C = 4096, z read in place from a
-    [rows, 8512] in_proj row: within 1 bf16 ulp of the row's largest
-    output of the plain version."""
+@pytest.mark.parametrize("c", [4096, 8192])
+@pytest.mark.parametrize("rows", [1, 8, 64, 300])
+def test_gated_rmsnorm_kernel_matches_plain_on_card(rows, c):
+    """The kernel at the mamba2 width C = 4096 and jamba's 8192, z read in
+    place from a [rows, 2 C + 320] in_proj row: within 1 bf16 ulp of the
+    row's largest output of the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("CUDA kernel test: needs an NVIDIA card (sm_90a)")
     g = torch.Generator(device="cuda").manual_seed(rows)
-    c = 4096
-    proj = torch.randn((rows, 8512), generator=g, device="cuda").bfloat16()
+    proj = torch.randn((rows, 2 * c + 320), generator=g,
+                       device="cuda").bfloat16()
     y = torch.randn((rows, c), generator=g, device="cuda").bfloat16()
     scale = (1 + 0.1 * torch.randn((c,), generator=g, device="cuda")
              ).bfloat16()
