@@ -20,7 +20,15 @@ Phases, each printing one line (any failure exits non-zero):
      rows: ties at the k-th value across a tile edge, k = 1, k >= V, all
      -inf, one finite entry, top_p * Z under T_FLOOR, a nucleus edge in a
      dense tail, top-k off; and 8 rows at mamba2-1.3b's V 50304), one
-     device kernel a call, and the token draw bitwise, the fused add +
+     device kernel a call; the draw kernels' device uniforms (threefry2x32
+     from seeds and positions) bitwise against ref.row_uniforms over
+     65,536 (seed, position) pairs, 0 and 2^32 - 1 among both, int64 and
+     int32 positions; the token draw bitwise against the plain draw of
+     those uniforms (the filter's 8 rows and the same rows unfiltered, 8
+     adversarial rows filtered, one row of a single finite entry, [1, V],
+     8 filtered rows at mamba2's V; rows at uniforms 0 and 1 - 2^-23), one
+     device kernel a call, its device time beside the parent's in PERF.md;
+     the fused add +
      norm with x + y bitwise and the norm within
      1 bf16 ulp (8, 64 and 300 rows at D 3072, rmsnorm and layernorm +
      bias; D 12288; D 3070 and 40000 through the wide variant; one device
@@ -67,12 +75,14 @@ Phases, each printing one line (any failure exits non-zero):
      128] in fp32, Phase 2 in bf16, a ragged causal Sq 1500, the last
      256-row chunk of a 4096-token prompt (q_offset 3840), q_offset -1 (row
      0 fully masked: uniform), Sk 12288 (a 48 KB row) and Sk 32768, the
-     kernel's largest; every launch counter set to 0 just before the
+     kernel's largest, each with the plan ops.softmax_plan gave it (a warp
+     or a CTA a row); every launch counter set to 0 just before the
      phase's run (one launch a case) and read just after; fp32 within
      2^-21 of each row's largest output with rows summing to 1 within
      1e-5, bf16 within 1 bf16 ulp of each plain output, masked entries
      exactly 0; each case timed beside its byte bound (valid entries read,
-     every output written), its plain version and torch.softmax of the
+     every output written) and its share of it, its plain version and
+     torch.softmax of the
      scores already scaled and masked in s's dtype; then the analytical
      model's attn_scale_mask_softmax for bert-large at B4, n 512, fp32 on
      the H100 (four kernels a layer, dropout included) beside 24 measured
@@ -92,10 +102,15 @@ Phases, each printing one line (any failure exits non-zero):
      chunks; the unfused run compares the decoded rows' top-2 logit
      margins with the logit error of phase 4, the fused run checks the
      head's finite probe on live rows, and the two runs' streams are
-     compared (they may fork on near-tied logits);
+     compared (they may fork on near-tied logits); the plain (eager)
+     ref.row_uniforms is counted on card tensors through every serve that
+     follows, and must never run;
   6. the fused trace (the default path) under torch.profiler, recording
      the card's activity only: device time
-     by kernel and kind, kernel launches, and the device's idle share;
+     by kernel and kind, kernel launches, and the device's idle share, the
+     launch total printed beside the parent's in PERF.md and the fall the
+     eager threefry accounts for (its launches, counted by the profiler,
+     times the sampled head calls);
      then the static engine (launch/serve.py run_static) on the same
      llama3.2-3b weights with attn_impl="flash": 4 prompts of 4096 tokens,
      32 new tokens, greedy and then at T 0.8 / top-k 40 / top-p 0.95, every
@@ -124,7 +139,10 @@ Phases, each printing one line (any failure exits non-zero):
      within rel L2 0.05 of the plain full-sequence forward (and against
      its fp32 run within 1.25 x the plain bf16 forward's distance),
      exactly 48 gated_rmsnorm launches in the prefill and 48 a decode
-     step;
+     step; before the mamba2 phase, one call each of the eager
+     row_uniforms, the unfused sampler and the fused head at the serve's
+     8 rows under the profiler: each selection must launch fewer kernels
+     than the eager threefry alone, and no serve may have called it;
   7. one full-width bert-large post-norm block, fused (kernel forward,
      plain backward) against unfused in bf16 and both against fp32: the
      output and the gradient of the input and of every block parameter
@@ -662,38 +680,127 @@ def check_filter(arch, rng, dev):
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "device_ms_by_case": device,
-            "ctas_a_row_by_case": sizes}, out
+            "ctas_a_row_by_case": sizes}, out, lg
 
 
-def check_draw(lg_f, dev):
-    """The inverse-CDF draw on the filter's output rows (filtered and
-    unfiltered), bitwise against its plain version."""
+# (seed, position) pairs whose uniform is 0 (the first token with mass) and
+# 1 - 2^-23, the largest (found by a search over positions at seed 7)
+U_ZERO, U_TOP = (7, 20069659), (7, 353642)
+DRAW_PARENT_MS = (0.08533, 0.08543)   # PERF.md's draw row before the
+                                      # cluster draw: device ms at [8,
+                                      # 128256] filtered, two runs
+
+
+def _draw_keys(s, dev, pos_dtype=torch.int32):
+    """Seeds idx + 11 and positions idx * 37, rows 0 and 1 at U_ZERO and
+    U_TOP: int64 seeds and ``pos_dtype`` positions, as the engines pass."""
+    idx = torch.arange(s, device=dev)
+    seeds, pos = idx + 11, (idx * 37).to(pos_dtype)
+    for r, (sd, p) in enumerate((U_ZERO, U_TOP)[:s]):
+        seeds[r], pos[r] = sd, p
+    return seeds, pos
+
+
+def check_uniforms(dev):
+    """The draw kernels' device uniforms (sampling_device.cuh row_uniform)
+    bitwise against ``ref.row_uniforms`` over 65,536 (seed, position)
+    pairs, 0 and 2^32 - 1 among both, positions int64 and int32."""
     from repro_torch.kernels.fused_lm_head import ref as head_ref
     from repro_torch.kernels.fused_sampling import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    seeds = torch.randint(0, 2 ** 32, (65536,), generator=gen, device=dev)
+    pos = torch.randint(0, 2 ** 32, (65536,), generator=gen, device=dev)
+    seeds[:4] = torch.tensor([0, 2 ** 32 - 1, 0, 2 ** 32 - 1])
+    pos[:4] = torch.tensor([0, 0, 2 ** 32 - 1, 2 ** 32 - 1])
+    seeds[4:6] = torch.tensor([U_ZERO[0], U_TOP[0]])
+    pos[4:6] = torch.tensor([U_ZERO[1], U_TOP[1]])
+    for p in (pos, pos.to(torch.int32)):      # int32: the low 32 bits
+        got = ops.device_row_uniforms(seeds, p)
+        want = head_ref.row_uniforms(seeds, p)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            _fail(f"device uniforms ({p.dtype} positions) differ from "
+                  f"ref.row_uniforms in {bad} of 65536 pairs (contract: "
+                  "bitwise)")
+    if not (float(want[4]) == 0.0 and float(want[5]) == 1 - 2 ** -23):
+        _fail(f"U_ZERO / U_TOP give {want[4:6].tolist()}")
+    print("[uniforms] device threefry2x32 uniforms bitwise equal to "
+          "ref.row_uniforms over 65536 (seed, position) pairs, positions "
+          "int64 and int32, 0 and 2^32 - 1 in both")
+
+
+def check_draw(lg_f, lg, dev):
+    """The inverse-CDF draw bitwise against its plain version (the plain
+    draw of ref.row_uniforms of the same seeds and positions): the filter's
+    output rows and the same rows unfiltered at [8, V], 8 adversarial rows
+    filtered (FILTER_ADVERSARIAL: an all -inf row, one finite entry among
+    them), one row of a single finite entry, [1, V], and 8 filtered rows at
+    mamba2-1.3b's V; rows 0 and 1 at uniforms 0 and 1 - 2^-23. One device
+    kernel a call; device time of every case from the profiler, beside the
+    parent's in PERF.md."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_lm_head import ref as head_ref
+    from repro_torch.kernels.fused_sampling import ops
+    from repro_torch.models.layers import pad_vocab
     s, v = lg_f.shape
-    idx = torch.arange(s, device=dev)
-    rs = head_ref.row_uniforms(idx + 11, idx * 37)
-    rs[0] = 0.0                            # the first token with mass
-    out = ops.draw_tokens(lg_f, rs)
-    plain = head_ref.draw_tokens(lg_f, rs)
-    torch.cuda.synchronize()
-    if not torch.equal(out, plain):
-        _fail(f"draw_tokens {out.tolist()} differs from its plain version "
-              f"{plain.tolist()} (contract: equal tokens)")
-    if not torch.isfinite(lg_f.gather(1, out.long()[:, None])).all():
-        _fail("draw_tokens drew a masked-out token")
-    ms = _time_ms(lambda: ops.draw_tokens(lg_f, rs), 200)
-    plain_ms = _time_ms(lambda: head_ref.draw_tokens(lg_f, rs), 5, warmup=1)
-    dev_ms = _profiled_ms(lambda: ops.draw_tokens(lg_f, rs), ("draw_kernel",))
-    bound_ms, bound_by = _bound(lg_f.numel() * 4 + 2 * s * 4,
+    rng = np.random.default_rng(SEED + 21)
+    adv = ops.filter_logits(*_adversarial_filter_rows(v, dev, rng))
+    one = torch.full((1, v), -float("inf"), device=dev)
+    one[0, v // 3 + 5] = 0.25
+    vm = pad_vocab(get_config("mamba2-1.3b").vocab_size)
+    lm = torch.as_tensor(rng.normal(size=(s, vm)).astype(np.float32) * 3.0,
+                         device=dev)
+    lm = ops.filter_logits(lm, torch.full((s,), 40, dtype=torch.int32,
+                                          device=dev),
+                           torch.full((s,), 0.95, device=dev))
+    cases = {f"[8, {v}] filtered": lg_f, f"[8, {v}] unfiltered": lg,
+             f"[8, {v}] adversarial, filtered": adv,
+             f"[1, {v}] one finite entry": one,
+             f"[1, {v}] filtered": lg_f[2:3].contiguous(),
+             f"[8, {vm}] filtered (mamba2-1.3b)": lm}
+    device, sizes, toks = {}, {}, {}
+    for case, x in cases.items():
+        seeds, pos = _draw_keys(x.shape[0], dev)
+        out = ops.draw_tokens(x, seeds, pos)
+        plain = head_ref.draw_tokens(x, head_ref.row_uniforms(seeds, pos))
+        torch.cuda.synchronize()
+        if not torch.equal(out, plain):
+            _fail(f"draw_tokens {case}: {out.tolist()} differs from its "
+                  f"plain version {plain.tolist()} (contract: equal tokens)")
+        finite = torch.isfinite(x.gather(1, out.long()[:, None]))[:, 0]
+        if not bool((finite | ~torch.isfinite(x).any(1)).all()):
+            _fail(f"draw_tokens {case} drew a masked-out token")
+        _kernels_a_call(lambda: ops.draw_tokens(x, seeds, pos), "draw_tokens")
+        device[case] = _profiled_ms(lambda: ops.draw_tokens(x, seeds, pos),
+                                    ("draw_kernel",))
+        sizes[case] = ops.cluster_plan(*x.shape)
+        toks[case] = out.tolist()
+    if toks[f"[1, {v}] one finite entry"] != [v // 3 + 5]:
+        _fail(f"the one finite entry was not drawn: {toks}")
+    seeds, pos = _draw_keys(s, dev)
+    ms = _time_ms(lambda: ops.draw_tokens(lg_f, seeds, pos), 200)
+    plain_ms = _time_ms(lambda: head_ref.draw_tokens(
+        lg_f, head_ref.row_uniforms(seeds, pos)), 5, warmup=1)
+    # the row read once, seeds (8 bytes) and positions (4) read and tokens
+    # written; about four operations an entry (max, subtract, exp, add)
+    bound_ms, bound_by = _bound(lg_f.numel() * 4 + s * (8 + 4 + 4),
                                 4.0 * lg_f.numel(), fp32=True)
+    main_case = f"[8, {v}] filtered"
+    print("[draw] device ms a call by case (CTAs a row): " + "; ".join(
+        f"{c}: {device[c]} ({sizes[c]})" for c in cases)
+        + f"; bound {bound_ms:.5f} ({bound_by}) at [8, {v}], parent "
+        f"(PERF.md, the one-CTA draw) {DRAW_PARENT_MS[0]} / "
+        f"{DRAW_PARENT_MS[1]}; all bitwise equal to the plain draw of the "
+        "plain uniforms, one kernel a call")
     return {"name": "draw_tokens", "route": "cuda",
-            "profiler_device_ms_per_call": dev_ms,
+            "profiler_device_ms_per_call": device[main_case],
             "source": "src/repro_torch/kernels/fused_sampling/csrc/"
                       "sampling.cu",
             "replaces": "src/repro/kernels/fused_lm_head/ref.py:90",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms_by_case": device, "ctas_a_row_by_case": sizes}
 
 
 def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
@@ -828,8 +935,7 @@ def check_head_tokens(arch, dev):
     x, w, top = _exact_head_inputs(arch, dev, gen)
     d, v = x.shape[1], w.shape[0]
     idx = torch.arange(16, device=dev)
-    rs = ref.row_uniforms(idx + 11, idx * 37)
-    rs[1] = 0.5
+    seeds, pos = _draw_keys(16, dev)
     temps = torch.tensor([0.0, 1.0, 0.8, 1.0, 0.0, 1.0, 1.3, 0.7,
                           1.0, 0.0, 0.9, 1.0, 0.6, 1.0, 0.0, 1.2], device=dev)
     top_k = torch.tensor([0, 3, 40, 0, 0, 40, 1, v + 5,
@@ -844,14 +950,14 @@ def check_head_tokens(arch, dev):
     # 16 rows: two groups of the GEMV; row 11 alone (top-k off, top-p 0.9:
     # the nucleus search over the whole row); the serve's 8 rows last
     for s, sel in ((16, slice(0, 16)), (1, slice(11, 12)), (8, slice(0, 8))):
-        args = tuple(t[sel].contiguous() for t in (x, rs, temps, top_k,
-                                                  top_p))
-        args = (args[0], w) + args[1:]
+        xs, sd, ps, tm, tk, tp = (t[sel].contiguous() for t in (
+            x, seeds, pos, temps, top_k, top_p))
         for sampled, filtered in ((False, False), (True, False),
                                   (True, True)):
-            tok, ok = ops.head_tokens(*args, sampled=sampled,
-                                      filtered=filtered)
-            ptok, pok = ref.head_tokens(*args, sampled=sampled,
+            tok, ok = ops.head_tokens(xs, w, sd, ps, tm, tk, tp,
+                                      sampled=sampled, filtered=filtered)
+            ptok, pok = ref.head_tokens(xs, w, ref.row_uniforms(sd, ps), tm,
+                                        tk, tp, sampled=sampled,
                                         filtered=filtered)
             torch.cuda.synchronize()
             if not (torch.equal(tok, ptok) and torch.equal(ok, pok)):
@@ -876,10 +982,10 @@ def check_head_tokens(arch, dev):
     # random full-width bf16 inputs (the weight buffer is reused)
     w.normal_(0.0, 0.02, generator=gen)
     xr = torch.randn((16, d), generator=gen, device=dev).bfloat16()
-    rargs16 = (xr, w, rs, temps, top_k, top_p)
-    xr, rs, temps, top_k, top_p = (t[:s] for t in (xr, rs, temps, top_k,
-                                                  top_p))
-    rargs = (xr, w, rs, temps, top_k, top_p)
+    rargs16 = (xr, w, seeds, pos, temps, top_k, top_p)
+    xr, seeds, pos, temps, top_k, top_p = (t[:s] for t in (
+        xr, seeds, pos, temps, top_k, top_p))
+    rargs = (xr, w, seeds, pos, temps, top_k, top_p)
     tok, _ = ops.head_tokens(*rargs, sampled=False, filtered=False)
     logits = unembed({}, xr, w)
     top2 = torch.topk(logits, 2, dim=-1).values
@@ -909,8 +1015,9 @@ def check_head_tokens(arch, dev):
                                                  filtered=False), 20)
     ms_16 = _time_ms(lambda: ops.head_tokens(*rargs16, sampled=True,
                                              filtered=True), 20)
-    plain_ms = _time_ms(lambda: ref.head_tokens(*rargs, sampled=True,
-                                                filtered=True), 3, warmup=1)
+    plain_ms = _time_ms(lambda: ref.head_tokens(
+        xr, w, ref.row_uniforms(seeds, pos), temps, top_k, top_p,
+        sampled=True, filtered=True), 3, warmup=1)
     library_ms = _time_ms(lambda: torch.matmul(xr, w.T), 20)
     safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
 
@@ -919,12 +1026,14 @@ def check_head_tokens(arch, dev):
         torch.argmax(lg, dim=-1)
         torch.isfinite(lg).all(dim=-1)
         samp_ops.draw_tokens(samp_ops.filter_logits(lg / safe_t[:, None],
-                                                    top_k, top_p), rs)
+                                                    top_k, top_p), seeds, pos)
     unfused_ms = _time_ms(unfused_head, 20)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
     print(f"[head_tokens] {arch.name} x [{s}, {d}], W [{v}, {d}]: "
           + "; ".join(lines))
-    nbytes = v * d * 2 + s * d * 2 + 4 * s * 4 + s * 4 + s
+    # W and x read once; seeds (8 bytes), positions, temps, top_k, top_p
+    # (4 each) read; tokens and the probe written
+    nbytes = v * d * 2 + s * d * 2 + s * 24 + s * 4 + s
     bound_ms, bound_by = _bound(nbytes, 2.0 * s * v * d)
     return {"name": "head_tokens", "route": "cuda",
             "source": "src/repro_torch/kernels/fused_lm_head/csrc/"
@@ -1181,6 +1290,90 @@ def _counted(into: dict, fn):
             into[k] += v - before[k]
         return out
     return run
+
+
+EAGER_UNIFORMS = {"calls": 0}   # plain row_uniforms calls on card tensors
+PROFILE_PARENT_LAUNCHES = (206151, 206591)   # PERF.md §5: the fused llama
+                                             # profile with the eager
+                                             # threefry, two runs
+
+
+def _count_eager_uniforms():
+    """Replace ``fused_lm_head.ref.row_uniforms`` with a wrapper that
+    counts its calls on card tensors in EAGER_UNIFORMS (each one the
+    threefry in eager int64 tensor ops, some 350 launches); returns the
+    plain function, to be put back."""
+    from repro_torch.kernels.fused_lm_head import ref
+    plain = ref.row_uniforms
+
+    def counted(seeds, positions):
+        if seeds.device.type == "cuda":
+            EAGER_UNIFORMS["calls"] += 1
+        return plain(seeds, positions)
+    ref.row_uniforms = counted
+    return plain
+
+
+def _device_launches(fn, calls: int = 4) -> float:
+    """Device kernel records a call of ``fn``, over ``calls`` calls under
+    torch.profiler (made once before, outside the window); a window with
+    none, as the profiler delivers now and then, is taken again, up to
+    five times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n / calls
+    return 0.0
+
+
+def check_sampled_step_launches(model):
+    """What a sampled step's token selection launches on the card, by the
+    profiler at the serve's 8 rows: the plain (eager) row_uniforms alone,
+    the unfused sampler (sample_tokens, filtered) and the fused head
+    (head_tokens, filtered). Fails unless each selection launches fewer
+    kernels than the eager threefry alone, and unless no serve so far
+    called the eager threefry on the card (EAGER_UNIFORMS)."""
+    from repro_torch.kernels.fused_lm_head import ops as head_ops
+    from repro_torch.kernels.fused_lm_head import ref as head_ref
+    from repro_torch.serving.sampling import sample_tokens
+    dev, emb = model.device, model.params["embed"]["embedding"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    seeds, pos = _draw_keys(8, dev)
+    logits = 3 * torch.randn((8, emb.shape[0]), generator=gen, device=dev)
+    x = torch.randn((8, emb.shape[1]), generator=gen, device=dev).bfloat16()
+    temps = torch.full((8,), 0.8, device=dev)
+    tk = torch.full((8,), 40, dtype=torch.int32, device=dev)
+    tp = torch.full((8,), 0.95, device=dev)
+    calls = EAGER_UNIFORMS["calls"]
+    counts = {
+        "eager row_uniforms": _device_launches(
+            lambda: head_ref.row_uniforms(seeds, pos)),
+        "unfused sampler": _device_launches(lambda: sample_tokens(
+            logits, seeds, pos, temps, tk, tp, filtered=True)),
+        "fused head": _device_launches(lambda: head_ops.head_tokens(
+            x, emb, seeds, pos, temps, tk, tp, sampled=True,
+            filtered=True))}
+    EAGER_UNIFORMS["calls"] = calls          # the probe's own calls above
+    eager = counts["eager row_uniforms"]
+    if not all(0 < counts[k] < eager for k in ("unfused sampler",
+                                               "fused head")):
+        _fail(f"a sampled selection launches no kernel, or as many as the "
+              f"eager threefry: {counts}")
+    if EAGER_UNIFORMS["calls"]:
+        _fail(f"the serves called the eager row_uniforms on the card "
+              f"{EAGER_UNIFORMS['calls']} times")
+    print(f"[eager uniforms] device launches of one call at 8 rows: "
+          f"{counts}; the serves' calls of the eager row_uniforms on the "
+          f"card: {EAGER_UNIFORMS['calls']}")
+    return counts
 
 
 PATH_KERNELS = {False: ("paged_decode_attention", "paged_prefill_attention",
@@ -2413,6 +2606,18 @@ def _softmax_check(name, out, plain, causal, off):
     return diff.max().item(), worst
 
 
+SOFTMAX_KERNELS = ("softmax_warp_kernel", "softmax_cta_kernel")
+
+
+def _plan_text(plan: dict) -> str:
+    """A softmax plan as "warp a row, 16 a lane, loads of 4" say."""
+    if plan["cta"]:
+        return (f"CTA of {plan['threads']} a row, {plan['per']} a thread, "
+                f"loads of {plan['vec']}")
+    return (f"warp a row ({plan['threads'] // 32} a CTA), {plan['per']} a "
+            f"lane, loads of {plan['vec']}")
+
+
 def check_scale_mask_softmax(dev):
     """The fused scale + mask + softmax against its plain version at the
     bert-large attention shapes the paper profiles and at serving-like
@@ -2457,7 +2662,7 @@ def check_scale_mask_softmax(dev):
         del plain
         ms = _time_ms(lambda: ops.scale_mask_softmax(s, **kw), 20)
         dev_ms = _profiled_ms(lambda: ops.scale_mask_softmax(s, **kw),
-                              ("softmax_row_kernel",))
+                              SOFTMAX_KERNELS)
         plain_ms = _time_ms(lambda: ref.scale_mask_softmax(s, **kw), 5)
         x = s.float() * SOFTMAX_SCALE
         if causal:
@@ -2473,9 +2678,13 @@ def check_scale_mask_softmax(dev):
         valid = n * _softmax_valid(sq, sk, causal, off)
         bound_ms, bound_by = _bound((valid + s.numel()) * s.element_size(),
                                     6.0 * valid, fp32=True)
+        plan = ops.softmax_plan(n * sq, sk, dt)
         rows.append({"case": name, "shape": [n, sq, sk],
                      "dtype": str(dt).replace("torch.", ""),
                      "causal": causal, "q_offset": off,
+                     "plan": plan._asdict(),
+                     "share_of_bound": (bound_ms / dev_ms if dev_ms
+                                        else None),
                      "valid_fraction": valid / s.numel(),
                      "max_abs_err": err, "max_err_over_tol": worst,
                      "ms": ms, "profiler_device_ms": dev_ms,
@@ -2483,11 +2692,13 @@ def check_scale_mask_softmax(dev):
                      "bound_by": bound_by, "library_ms": library_ms})
         torch.cuda.empty_cache()
     print("[softmax] " + "; ".join(
-        f"{r['case']}: err {r['max_abs_err']:.3e} "
-        f"({r['max_err_over_tol']:.3f} of tol), {r['ms']:.5f} ms (device "
-        f"{r['profiler_device_ms']}), bound {r['bound_ms']:.5f} "
-        f"({r['bound_by']}), plain {r['plain_ms']:.4f}, torch.softmax "
-        f"{r['library_ms']:.5f}" for r in rows)
+        f"{r['case']}: plan {_plan_text(r['plan'])}, err "
+        f"{r['max_abs_err']:.3e} ({r['max_err_over_tol']:.3f} of tol), "
+        f"{r['ms']:.5f} ms (device {r['profiler_device_ms']}), bound "
+        f"{r['bound_ms']:.5f} ({r['bound_by']}; share "
+        f"{r['share_of_bound'] or 0:.3f} of device time), plain "
+        f"{r['plain_ms']:.4f}, torch.softmax {r['library_ms']:.5f}"
+        for r in rows)
         + f"; {launches} launches in the phase's run (one a case)")
 
     # the paper's claim: four separate kernels a layer, against one fused
@@ -2545,6 +2756,7 @@ def check_scale_mask_softmax(dev):
 
 
 DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
+                "draw_tokens": ("draw_kernel",),
                 "paged_decode_attention": ("decode_kernel",),
                 "paged_prefill_attention": ("prefill_kernel",),
                 "decode_residual_norm": ("resnorm_kernel",),
@@ -2562,6 +2774,7 @@ def main() -> int:
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
+        from repro_torch.kernels.fused_lm_head import ref as head_ref
         from repro_torch.models.model import Model
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing: {e}",
@@ -2590,9 +2803,10 @@ def main() -> int:
             check_prefill_attention(arch, rng, dev)]
     print_paged(*rows)
     flash_row = check_flash_attention(arch, dev)
-    filt, lg_f = check_filter(arch, rng, dev)
-    rows += [filt, check_draw(lg_f, dev)]
-    del lg_f
+    filt, lg_f, lg = check_filter(arch, rng, dev)
+    check_uniforms(dev)
+    rows += [filt, check_draw(lg_f, lg, dev)]
+    del lg_f, lg
     rows += [check_residual_norm(arch, dev), check_head_tokens(arch, dev)]
     head_mamba = check_head_tokens(get_config("mamba2-1.3b"), dev)
     mamba_rows = [check_gated_rmsnorm(get_config("mamba2-1.3b"), dev)]
@@ -2618,6 +2832,7 @@ def main() -> int:
           f"weights on the card in {time.perf_counter() - t0:.1f}s")
     logit_err = check_model_logits(model, rng, dev)
     marks["model checks"] = time.perf_counter()
+    plain_uniforms = _count_eager_uniforms()
     runs = {fused: serve(model, logit_err, fused) for fused in (False, True)}
     marks["serves"] = time.perf_counter()
     same = sum(runs[False]["results"][i]["tokens"]
@@ -2630,10 +2845,33 @@ def main() -> int:
     marks["profile"] = time.perf_counter()
     static = static_phase(model)
     marks["static llama"] = time.perf_counter()
+    eager = check_sampled_step_launches(model)
+    run = runs[True]
+    n_sampled = sum(r.sampling.temperature > 0 for r in trace(arch, SEED))
+    heads = {"sampled": run["flagged"]["sampled"] + n_sampled,
+             "greedy": run["steps"] - run["flagged"]["sampled"]
+             + run["prefills"] - n_sampled}
+    prof_launches = sum(c for _, c in prof.values())
+    fall = eager["eager row_uniforms"] * heads["sampled"] + heads["greedy"]
+    print(f"[launches] the profiled fused llama serve: {prof_launches} "
+          f"kernel launches; with the eager threefry (PERF.md §5, two runs) "
+          f"{PROFILE_PARENT_LAUNCHES[0]} / {PROFILE_PARENT_LAUNCHES[1]}; the "
+          f"fall the eager threefry accounts for: "
+          f"{eager['eager row_uniforms']} x {heads['sampled']} sampled head "
+          f"calls + {heads['greedy']} greedy ones (a zeros_like each) = "
+          f"{fall}")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     mamba = mamba_phase(dev, rng, marks)
+    if EAGER_UNIFORMS["calls"]:
+        _fail(f"the mamba2 serves called the eager row_uniforms on the card "
+              f"{EAGER_UNIFORMS['calls']} times")
+    head_ref.row_uniforms = plain_uniforms
+    mamba_launches = sum(c for _, c in mamba["profile"].values())
+    print(f"[launches] the profiled mamba2 window: {mamba_launches} kernel "
+          f"launches (parent: not recorded in PERF.md); no eager "
+          f"row_uniforms call in any serve")
     check_block_gradients(get_config("bert-large"), dev)
     marks["block grads"] = time.perf_counter()
     training = check_training(dev)
@@ -2738,7 +2976,13 @@ def main() -> int:
             "static llama3.2-3b flash": {
                 k: v for k, v in static.items() if k != "profile"},
             "static mamba2-1.3b": mamba["static"]},
-        "identical_streams": same, "card": smi}))
+        "identical_streams": same,
+        "sampled_step_launches": eager,
+        "profiled_launches": {
+            "llama3.2-3b fused": prof_launches,
+            "eager threefry fall": fall, "head calls": heads,
+            "mamba2-1.3b window": mamba_launches},
+        "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """What the sampler's cluster design buys, on the card.
 
-    python3 sampler_ablations.py
+    python3 sampler_ablations.py [--parent ROOT]
 
 A development script beside ``chip_smoke.py``; no model path and no test
 runs it. Every variant is the sampler's own sources
@@ -10,8 +10,9 @@ includes the header) with one part of the design changed by text
 substitutions, each of which must match its file exactly once (the script
 fails when the sources have moved away from them): 8 or 32 nucleus
 candidates a sweep instead of 16 (a sweep's cost against the number of
-sweeps); folds that load 16 terms ahead instead of 8 (registers against
-latency); no estimate (the first exact sweep around the middle key); a
+sweeps); the draw's in-tile prefix sums loading one word at a time
+instead of 16 (a chain of loads against a chain of adds); folds that load
+16 terms ahead instead of 8 (registers against latency); no estimate (the first exact sweep around the middle key); a
 second cluster barrier in every exact sweep (what one barrier costs,
 timing only); and phase stamps (timing only): thread 0 of the first CTA of
 the first row records ``clock64()`` at every phase of the filter, read
@@ -19,6 +20,19 @@ back after one call. The variant as built also runs at every
 cluster size the card takes, the plan's (``ops.cluster_plan``) marked, and
 the script prints how many clusters of each size the card runs at once
 (``cudaOccupancyMaxActiveClusters``).
+
+The draw section times the inverse-CDF draw (``draw_kernel``: a cluster a
+row, its uniform computed on the card) at chip_smoke's 8 rows at llama's
+vocab filtered and unfiltered, their first row, 16 rows, and 8 filtered
+rows at mamba2's vocab, at the plan's cluster size and at every size in
+``SIZES`` the shared memory takes, each output bitwise against the plain
+draw of ``ref.row_uniforms``; with ``--parent ROOT`` (an unpacked ``git
+archive`` of a tree whose draw is one CTA of 1024 threads a row reading
+the row from device memory three times, fed the uniforms) that tree's
+``sampling.cu`` is built too and its draw timed on the same rows beside
+it; the prefix-sum variant at the plan's size; and the stamped variant's
+cycles between the draw's phases (load, max, tile masses, fold with
+prefix sums and uniform, search, least hit).
 
 All variants are built at once with ``nvcc`` into ``build/repro_torch/``
 and launched through the wrappers' launch helpers (``ops._launch_filter``,
@@ -77,6 +91,36 @@ _STAMP_EXPORT = (
     "}\n\n"
     'extern "C" int draw_tokens(')
 
+_DRAW_LOAD = ("  const float mx = crow.load_floats(logits + "
+              "static_cast<size_t>(row) * vocab);\n")
+_DRAW_MAX = "    if (lane == 0) sh.dmax = v;\n  }\n  cluster.sync();\n"
+_DRAW_PARTS = ("    if (lane == 0) row.stage0[row.t0 + lt] = z;\n  }\n"
+               "  cluster.sync();\n")
+_DRAW_FOLD = ("            ut[4 * (h + q) + r] = c;\n          }\n        }\n"
+              "      }\n    }\n  }\n  cluster.sync();\n")
+_DRAW_HIT = ("  __syncthreads();\n"
+             "  if (tid == 0 && sh.dlocal != 0xFFFFFFFFu)\n")
+_DRAW_END = "  cluster.sync();\n  return sh.dmin"
+
+_PREFIX_QUADS = """      float4 b;
+      b.x = acc;
+      acc = __fadd_rn(acc, cur[j].x);
+      b.y = acc;
+      acc = __fadd_rn(acc, cur[j].y);
+      b.z = acc;
+      acc = __fadd_rn(acc, cur[j].z);
+      b.w = acc;
+      acc = __fadd_rn(acc, cur[j].w);
+      b4[q + j] = b;
+"""
+_PREFIX_SCALARS = """      const float t[4] = {cur[j].x, cur[j].y, cur[j].z, cur[j].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        before[4 * (q + j) + e] = acc;
+        acc = __fadd_rn(acc, t[e]);
+      }
+"""
+
 # name: text substitutions (file, old, new) of the sources
 VARIANTS = {
     "as built": [],
@@ -84,6 +128,22 @@ VARIANTS = {
                       "constexpr int kCand = 8;")],
     "32 candidates": [(HEADER, "constexpr int kCand = 16;",
                        "constexpr int kCand = 32;")],
+    "in-tile prefix sums loading one word at a time": [
+        (HEADER, "constexpr int kScanAhead = 16;",
+         "constexpr int kScanAhead = 1;")],
+    "the draw's fold alone, no prefix sums beside it (timing)": [
+        (HEADER, "  } else if (tid >= 32 && tid < kThreads - 32) {\n",
+         "  } else if (false) {\n")],
+    "the draw's fold storing each prefix alone": [
+        (HEADER, _PREFIX_QUADS, _PREFIX_SCALARS)],
+    "the draw's fold loading 32 terms ahead": [
+        (HEADER, "constexpr int kPrefixAhead = 4;",
+         "constexpr int kPrefixAhead = 8;")],
+    "the draw's fold as the filter's (fold_run, 8 terms ahead)": [
+        (HEADER, "    const float z = fold_prefix(row.stage, row.n_tiles, "
+         "row.before);\n",
+         "    const float z = fold_run(row.stage, row.n_tiles, 1, "
+         "row.before);\n")],
     "folds loading 16 terms ahead": [
         (HEADER, "constexpr int kFoldAhead = 8;",
          "constexpr int kFoldAhead = 16;")],
@@ -111,10 +171,24 @@ VARIANTS = {
          "  sampling::stamp();\n"),
         (SAMPLING, "  cluster.sync();            // no CTA leaves",
          "  sampling::stamp();\n  cluster.sync();            // no CTA leaves"),
-        (SAMPLING, 'extern "C" int draw_tokens(', _STAMP_EXPORT)],
+        (SAMPLING, 'extern "C" int draw_tokens(', _STAMP_EXPORT),
+        (SAMPLING, _DRAW_LOAD, "  sampling::stamp();\n" + _DRAW_LOAD
+         + "  sampling::stamp();\n"),
+        (HEADER, _DRAW_MAX, _DRAW_MAX + "  stamp();\n"),
+        (HEADER, _DRAW_PARTS, _DRAW_PARTS + "  stamp();\n"),
+        (HEADER, _DRAW_FOLD, _DRAW_FOLD + "  stamp();\n"),
+        (HEADER, _DRAW_HIT, _DRAW_HIT + "  stamp();\n"),
+        (HEADER, _DRAW_END, _DRAW_END.replace("  return", "  stamp();\n"
+                                              "  return"))],
 }
 AS_BUILT = "as built"
-TIMING_ONLY = ("a second barrier each sweep (timing)", "phase stamps (timing)")
+DRAW_VARIANTS = ("in-tile prefix sums loading one word at a time",
+                 "the draw's fold alone, no prefix sums beside it (timing)",
+                 "the draw's fold storing each prefix alone",
+                 "the draw's fold loading 32 terms ahead",
+                 "the draw's fold as the filter's (fold_run, 8 terms ahead)")
+TIMING_ONLY = ("a second barrier each sweep (timing)", "phase stamps (timing)",
+               "the draw's fold alone, no prefix sums beside it (timing)")
 SIZES = [4, 8, 12, 16]
 
 
@@ -154,10 +228,11 @@ def build(_build) -> dict:
     return libs
 
 
-def device_ms(fn, names, iters: int = 40, tries: int = 3) -> float:
+def device_ms(fn, names, iters: int = 40, tries: int = 5) -> float:
     """Device ms a call of the kernels whose names contain one of
     ``names``, from torch.profiler (a window in which the profiler
-    delivered no kernel record, as happens now and then, is taken again)."""
+    delivered no kernel record, as happens now and then, is taken again:
+    three tries were once not enough after some 500 windows)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -205,22 +280,22 @@ def filter_cases(dev, rng):
 
 def head_inputs(dev, d, v):
     """x [8, d] on k/8 and W [v, d] on k/64, |k| <= 8: every logit exact in
-    fp32; the sampler's per-row settings of chip_smoke.py."""
+    fp32; the sampler's per-row settings of chip_smoke.py: (x, w, seeds,
+    positions, temps, top_k, top_p)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     w = torch.randint(-8, 9, (v, d), generator=gen, device=dev,
                       dtype=torch.int8).to(torch.bfloat16) / 64
     x = torch.randint(-8, 9, (8, d), generator=gen, device=dev,
                       dtype=torch.int8).to(torch.bfloat16) / 8
-    from repro_torch.kernels.fused_lm_head import ref
     idx = torch.arange(8, device=dev)
-    rs = ref.row_uniforms(idx + 11, idx * 37)
+    seeds, pos = idx + 11, (idx * 37).int()
     temps = torch.tensor([0.0, 1.0, 0.8, 1.0, 0.5, 1.0, 1.3, 0.7],
                          device=dev)
     top_k = torch.tensor([0, 3, 40, 0, 0, 40, 1, v + 5], dtype=torch.int32,
                          device=dev)
     top_p = torch.tensor([1.0, 0.95, 0.95, 1.0, 1.0, 0.9, 1.0, 0.5],
                          device=dev)
-    return x, w, rs, temps, top_k, top_p
+    return x, w, seeds, pos, temps, top_k, top_p
 
 
 def stamps(lib_name: str, run) -> list:
@@ -236,6 +311,93 @@ def stamps(lib_name: str, run) -> list:
     torch.cuda.synchronize()
     n = min(fn(ctypes.addressof(buf)), 64)
     return [buf[i + 1] - buf[i] for i in range(n - 1)]
+
+
+def draw_rows(dev, rng) -> dict:
+    """name -> [S, V] float32 rows for the draw."""
+    from repro_torch.kernels.fused_sampling import ops
+    cases = filter_cases(dev, rng)
+    lg, tk, tp = cases["[8, 128256] chip_smoke rows"]
+    lg_f = ops.filter_logits(lg, tk, tp)
+    lm, tkm, tpm = cases["[8, 50304] chip_smoke rows"]
+    return {"[8, 128256] filtered": lg_f, "[8, 128256] unfiltered": lg,
+            "[1, 128256] filtered": lg_f[:1].contiguous(),
+            "[16, 128256] filtered": torch.cat([lg_f, lg_f]),
+            "[8, 50304] filtered": ops.filter_logits(lm, tkm, tpm)}
+
+
+def build_parent(_build, root: str) -> str:
+    """``root``'s sampling.cu built as library "sampler_parent"."""
+    src = (Path(root).resolve() / "src/repro_torch/kernels/fused_sampling/"
+           "csrc/sampling.cu")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(_build.BUILD_DIR / "sampler_parent.so"),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return "sampler_parent"
+
+
+def ablate_draw(libs, parent, dev) -> dict:
+    """The draw section (module docstring)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_lm_head import ref as head_ref
+    from repro_torch.kernels.fused_sampling import ops
+    out = {}
+    for case, lg in draw_rows(dev, np.random.default_rng(1)).items():
+        s, v = lg.shape
+        idx = torch.arange(s, device=dev)
+        seeds, pos = idx + 11, (idx * 37).int()
+        rs = head_ref.row_uniforms(seeds, pos)
+        plain = head_ref.draw_tokens(lg, rs)
+        planned = ops.cluster_plan(s, v)
+        runs = {f"{AS_BUILT} ({planned} CTAs a row, the plan's)":
+                (libs[AS_BUILT][0], planned)}
+        for size in SIZES:
+            if size != planned and ops.cluster_smem_bytes(v, size) \
+                    <= ops.SMEM_BYTES:
+                runs[f"{AS_BUILT}, {size} CTAs a row"] = (libs[AS_BUILT][0],
+                                                          size)
+        for name in DRAW_VARIANTS:
+            runs[name] = (libs[name][0], planned)
+        stamped = "phase stamps (timing)"
+        runs[stamped] = (libs[stamped][0], planned)
+        if parent:
+            runs["parent (one CTA a row)"] = (parent, None)
+        best = out.setdefault(case, {})
+        for rnd in range(2):
+            for name, (lib, size) in runs.items():
+                tok = torch.empty((s,), dtype=torch.int32, device=dev)
+                if size is None:
+                    fn = _build.bind(lib, "draw_tokens", 3, 2)
+
+                    def run():
+                        fn(lg.data_ptr(), rs.data_ptr(), tok.data_ptr(), s,
+                           v, torch.cuda.current_stream().cuda_stream)
+                else:
+                    def run():
+                        ops._launch_draw(lg, seeds, pos, tok, 0, size,
+                                         lib=lib)
+                run()
+                torch.cuda.synchronize()
+                same = torch.equal(tok, plain)
+                if not same and name not in TIMING_ONLY:
+                    raise RuntimeError(f"draw {name} | {case}: tokens "
+                                       f"{tok.tolist()} differ from the "
+                                       f"plain draw's {plain.tolist()}")
+                ms = device_ms(run, ("draw_kernel",))
+                print(f"[draw] round {rnd} | {name} | {case}: device "
+                      f"{ms:.5f} ms, bitwise {same}")
+                if ms < best.get(name, {}).get("device_ms", float("inf")):
+                    best[name] = {"device_ms": ms, "size": size}
+                if name == stamped and rnd == 1:
+                    cyc = stamps(lib, run)
+                    print(f"[stamps] draw {case}: cycles between phases "
+                          f"(load, max, tile masses, fold + prefix sums + "
+                          f"uniform, search, least hit): {cyc}")
+                    best["stamps"] = cyc
+    return out
 
 
 def main() -> int:
@@ -313,6 +475,9 @@ def main() -> int:
     for arch, d, v in (("llama3.2-3b", 3072, 128256),
                        ("mamba2-1.3b", 2048, 50304)):
         args = head_inputs(dev, d, v)
+        x, w, seeds, pos, temps, top_k, top_p = args
+        plain_args = (x, w, head_ref.row_uniforms(seeds, pos), temps, top_k,
+                      top_p)
         planned = ops.cluster_plan(8, v)
         for rnd in range(2):
             for name, (_, lib) in libs.items():
@@ -323,7 +488,8 @@ def main() -> int:
                     size = planned if sampled else 1
 
                     def run():
-                        head_ops._launch(*args, tok, ok, sampled, filtered,
+                        head_ops._launch(x, w, seeds, pos, 0, temps, top_k,
+                                         top_p, tok, ok, sampled, filtered,
                                          size, lib=lib)
                     try:
                         run()
@@ -332,7 +498,8 @@ def main() -> int:
                               f"at {size} CTAs a row ({e})")
                         continue
                     torch.cuda.synchronize()
-                    ptok, pok = head_ref.head_tokens(*args, sampled=sampled,
+                    ptok, pok = head_ref.head_tokens(*plain_args,
+                                                     sampled=sampled,
                                                      filtered=filtered)
                     same = torch.equal(tok, ptok) and torch.equal(ok, pok)
                     if not same and name not in TIMING_ONLY:
@@ -354,8 +521,12 @@ def main() -> int:
                                             "epilogue_ms": epi,
                                             "bitwise": same}
         torch.cuda.empty_cache()
+    parent = None
+    if "--parent" in sys.argv:
+        parent = build_parent(_build, sys.argv[sys.argv.index("--parent") + 1])
+    draws = ablate_draw(libs, parent, dev)
     print(json.dumps({"card": smi, "occupancy": occupancy, "filter": results,
-                      "head_tokens": heads}))
+                      "head_tokens": heads, "draw": draws}))
     return 0
 
 

@@ -45,8 +45,11 @@
 //      16 candidates whose folds run in 16 lanes of rank 0) and the draw
 //      read shared memory only; counts and maxima combine across the
 //      cluster through distributed shared memory, and tile masses are
-//      folded in tile order by rank 0. Tokens are bitwise those of the
-//      plain epilogue fed the same logits.
+//      folded in tile order by rank 0. Each sampled row's draw uniform is
+//      computed in the kernel from its request seed and stream position
+//      (threefry2x32, sampling_device.cuh row_uniform), beside the fold.
+//      Tokens are bitwise those of the plain epilogue fed the same logits
+//      and ref.row_uniforms of the same seeds and positions.
 // Argmax ties go to the smallest index, NaN counts as the largest value (as
 // torch.argmax). The GEMM's summation order is the tensor core's: on inputs
 // whose every partial sum is exact in fp32 the logits, and so the tokens,
@@ -284,7 +287,9 @@ __global__ void __launch_bounds__(sampling::kThreads, 1)
 head_epilogue_kernel(const __nv_bfloat16* __restrict__ ws,
                      const float* __restrict__ pmax,
                      const int* __restrict__ pidx, const int* __restrict__ pok,
-                     int n_blk, int vocab, const float* __restrict__ rs,
+                     int n_blk, int vocab,
+                     const long long* __restrict__ seeds,
+                     const void* __restrict__ positions, int pos64,
                      const float* __restrict__ temps,
                      const int* __restrict__ top_k,
                      const float* __restrict__ top_p, int sampled,
@@ -319,30 +324,42 @@ head_epilogue_kernel(const __nv_bfloat16* __restrict__ ws,
   if (filtered)
     sampling::cluster_thresholds(crow, top_k[row], top_p[row], &kth, &th);
   // keys[] hold the (top-k-masked) scaled logits; top-p masks on the fly
-  auto final_logit = [&](int i) {
-    const float v = sampling::key_to_float(crow.keys[crow.pos(i)]);
-    return v < th ? -INFINITY : v;
+  auto final_logits = [&](int lt, int q) {
+    const uint4 k =
+        reinterpret_cast<const uint4*>(crow.keys + lt * sampling::kStride)[q];
+    const float v[4] = {sampling::key_to_float(k.x),
+                        sampling::key_to_float(k.y),
+                        sampling::key_to_float(k.z),
+                        sampling::key_to_float(k.w)};
+    return make_float4(v[0] < th ? -INFINITY : v[0],
+                       v[1] < th ? -INFINITY : v[1],
+                       v[2] < th ? -INFINITY : v[2],
+                       v[3] < th ? -INFINITY : v[3]);
   };
-  const int tok = sampling::draw_index(final_logit, crow, rs[row], crow.before);
+  const int tok = sampling::draw_index(
+      final_logits, crow, sampling::own_max(final_logits, crow),
+      static_cast<unsigned>(seeds[row]),
+      sampling::position_word(positions, pos64, row));
   if (rank == 0 && tid == 0) tokens[row] = tok;
-  cluster.sync();            // no CTA leaves while another may read its smem
 }
 
 }  // namespace
 
-// x [s_rows, d] and w [vocab, d] bf16; rs, temps, top_p float32 [s_rows];
-// top_k int32 [s_rows]; ws bf16 [s_rows, vocab] and scratch int32
-// [3, s_rows, ceil(vocab / 128)] are the wrapper's workspace; tokens int32
-// and ok bool [s_rows]; pass 2 runs `size` CTAs a row (ops.cluster_plan, 1
-// to 16; 1 for a step with no sampled row, which needs no row in shared
-// memory). Needs s_rows >= 1, d % 64 == 0, vocab % 16 == 0 and
-// ceil(vocab / 128) <= 65535 (the grid's y extent).
-extern "C" int head_tokens(const void* x, const void* w, const void* rs,
-                           const void* temps, const void* top_k,
+// x [s_rows, d] and w [vocab, d] bf16; seeds int64 [s_rows] (uint32
+// values), positions [s_rows] int32 (pos64 = 0) or int64 (pos64 = 1); temps,
+// top_p float32 [s_rows]; top_k int32 [s_rows]; ws bf16 [s_rows, vocab] and
+// scratch int32 [3, s_rows, ceil(vocab / 128)] are the wrapper's workspace;
+// tokens int32 and ok bool [s_rows]; pass 2 runs `size` CTAs a row
+// (ops.cluster_plan, 1 to 16; 1 for a step with no sampled row, which needs
+// no row in shared memory). Needs s_rows >= 1, d % 64 == 0, vocab % 16 == 0
+// and ceil(vocab / 128) <= 65535 (the grid's y extent).
+extern "C" int head_tokens(const void* x, const void* w, const void* seeds,
+                           const void* positions, const void* temps,
+                           const void* top_k,
                            const void* top_p, void* ws, void* scratch,
                            void* tokens, void* ok, int s_rows, int d,
-                           int vocab, int sampled, int filtered, int size,
-                           void* stream) {
+                           int vocab, int pos64, int sampled, int filtered,
+                           int size, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (size < 1 || size > sampling::kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -391,7 +408,8 @@ extern "C" int head_tokens(const void* x, const void* w, const void* rs,
       &cfg, head_epilogue_kernel, static_cast<const __nv_bfloat16*>(ws),
       static_cast<const float*>(pmax), static_cast<const int*>(pidx),
       static_cast<const int*>(pok), n_blk, vocab,
-      static_cast<const float*>(rs), static_cast<const float*>(temps),
+      static_cast<const long long*>(seeds), positions, pos64,
+      static_cast<const float*>(temps),
       static_cast<const int*>(top_k), static_cast<const float*>(top_p),
       sampled, filtered, static_cast<int*>(tokens), static_cast<bool*>(ok));
   if (err != cudaSuccess) return static_cast<int>(err);

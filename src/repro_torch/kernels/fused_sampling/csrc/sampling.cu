@@ -37,11 +37,17 @@
 // minimum key for the k-th; a row with top_p >= 1 skips the search, whose
 // threshold it never uses. Both shortcuts leave every bit unchanged.
 //
-// The draw (not redesigned): one CTA of 1024 threads per row reads the row
-// three times (max, tile masses, in-tile prefix sums). One thread folds the
-// ~1000 tile masses in order in shared memory; then each thread walks one
-// tile's prefix sums and the CTA takes the smallest index that crosses the
-// target, so no thread waits on another tile's result.
+// What the draw's design does about it. It takes its rows' uniforms from
+// the request seeds and stream positions (threefry2x32 on the card,
+// sampling_device.cuh row_uniform), so a sampled step launches no eager
+// threefry; a row goes to a thread block cluster of ops.cluster_plan CTAs,
+// the filter's and the fused head's, which reads it from HBM once into
+// shared memory (each thread's 16 loads in flight before any store); the
+// row's max, tile masses, the tile fold and the search then read shared
+// memory only (sampling_device.cuh draw_index, which the fused head's
+// epilogue runs too). The fold of the ~1000 tile masses is a chain of adds
+// in one thread; the in-tile prefix sums and the uniform run beside it, so
+// the search after it is one compare an element.
 //
 // Float masses follow the port's one canonical order (sampling_device.cuh,
 // shared with the fused LM head's epilogue), so both kernels are bitwise
@@ -91,38 +97,64 @@ filter_kernel(const float* __restrict__ logits, const int* __restrict__ top_k,
   cluster.sync();            // no CTA leaves while another may read its smem
 }
 
-// Inverse-CDF draw of one row: the first index whose prefix mass exceeds
-// rs * Z (Z the canonical row mass of exp(x - max)); 0 when none does.
-__global__ void __launch_bounds__(kThreads)
-draw_kernel(const float* __restrict__ logits, const float* __restrict__ rs,
+// Inverse-CDF draw, one thread block cluster a row: the first index whose
+// prefix mass exceeds r * Z (r the row's uniform from seeds[row] and
+// positions[row], Z the canonical row mass of exp(x - max)); 0 when none
+// does. Dynamic shared memory: sampling::cluster_smem_words.
+__global__ void __launch_bounds__(kThreads, 1)
+draw_kernel(const float* __restrict__ logits,
+            const long long* __restrict__ seeds,
+            const void* __restrict__ positions, int pos64,
             int* __restrict__ tokens, int vocab) {
-  extern __shared__ float smem[];
-  const int n_tiles = (vocab + kTile - 1) / kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ sampling::Scratch sc;
-  const float* x = logits + static_cast<size_t>(blockIdx.x) * vocab;
-  sampling::BlockRow row(vocab, smem, sc);
-  const int tok = sampling::draw_index([&](int i) { return x[i]; }, row,
-                                       rs[blockIdx.x], smem + n_tiles);
-  if (threadIdx.x == 0) tokens[blockIdx.x] = tok;
+  __shared__ sampling::ClusterShared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int size = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / size;
+  sampling::ClusterRow crow(vocab, size, rank, smem_raw, sh, sc);
+  const float mx = crow.load_floats(logits + static_cast<size_t>(row) * vocab);
+  const int tok = sampling::draw_index(
+      [&](int lt, int q) {
+        return reinterpret_cast<const float4*>(crow.keys +
+                                               lt * sampling::kStride)[q];
+      },
+      crow, mx, static_cast<unsigned>(seeds[row]),
+      sampling::position_word(positions, pos64, row));
+  if (rank == 0 && threadIdx.x == 0) tokens[row] = tok;
 }
 
-// The filter kernel's shared memory at (vocab, size) CTAs a row, set as its
+// The uniforms alone, one thread a row (for holding them against the plain
+// version; no sampling path launches it).
+__global__ void uniforms_kernel(const long long* __restrict__ seeds,
+                                const void* __restrict__ positions, int pos64,
+                                float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    out[i] = sampling::row_uniform(
+        static_cast<unsigned>(seeds[i]),
+        sampling::position_word(positions, pos64, i));
+}
+
+// A cluster kernel's shared memory at (vocab, size) CTAs a row, set as its
 // launch limit; 0 when the attributes are refused.
-size_t filter_smem(int vocab, int size) {
+template <class Kernel>
+size_t cluster_smem(Kernel kernel, int vocab, int size) {
   const size_t smem = sampling::cluster_smem_words(vocab, size) * 4;
-  if (cudaFuncSetAttribute(filter_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess ||
-      cudaFuncSetAttribute(filter_kernel,
+      cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeNonPortableClusterSizeAllowed,
                            1) != cudaSuccess)
     return 0;
   return smem;
 }
 
-// A launch of `rows` clusters of `size` CTAs; attr is the cluster attribute.
-cudaLaunchConfig_t filter_config(int rows, int size, size_t smem, void* stream,
-                                 cudaLaunchAttribute* attr) {
+// A launch of `rows` clusters of `size` CTAs of kThreads (the filter's and
+// the draw's); attr is the cluster attribute.
+cudaLaunchConfig_t cluster_config(int rows, int size, size_t smem,
+                                  void* stream, cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = size;
   attr->val.clusterDim.y = 1;
@@ -146,10 +178,11 @@ extern "C" int filter_logits(const void* logits, const void* top_k,
                              int size, void* stream) {
   if (size < 1 || size > sampling::kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = filter_smem(vocab, size);
+  const size_t smem = cluster_smem(filter_kernel, vocab, size);
   if (smem == 0) return static_cast<int>(cudaGetLastError());
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = filter_config(rows, size, smem, stream, &attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(rows, size, smem, stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, filter_kernel, static_cast<const float*>(logits),
       static_cast<const int*>(top_k), static_cast<const float*>(top_p),
@@ -162,9 +195,9 @@ extern "C" int filter_logits(const void* logits, const void* top_k,
 // card runs at once (cudaOccupancyMaxActiveClusters), or -1 when it cannot
 // run one; a refusal's error is cleared, so no later launch reports it.
 extern "C" int filter_active_clusters(int vocab, int size, void* stream) {
-  const size_t smem = filter_smem(vocab, size);
+  const size_t smem = cluster_smem(filter_kernel, vocab, size);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = filter_config(64, size, smem, stream, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(64, size, smem, stream, &attr);
   int n = 0;
   if (smem == 0 ||
       cudaOccupancyMaxActiveClusters(&n, filter_kernel, &cfg) != cudaSuccess) {
@@ -174,16 +207,35 @@ extern "C" int filter_active_clusters(int vocab, int size, void* stream) {
   return n;
 }
 
-extern "C" int draw_tokens(const void* logits, const void* rs, void* tokens,
-                           int rows, int vocab, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>((vocab + kTile - 1) / kTile) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      draw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  draw_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<const float*>(rs),
+// logits [rows, vocab] float32; seeds int64 [rows] (uint32 values);
+// positions [rows] int32 (pos64 = 0) or int64 (pos64 = 1); tokens int32
+// [rows]; `size` CTAs a row (ops.cluster_plan), 1 to 16.
+extern "C" int draw_tokens(const void* logits, const void* seeds,
+                           const void* positions, void* tokens, int rows,
+                           int vocab, int pos64, int size, void* stream) {
+  if (size < 1 || size > sampling::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = cluster_smem(draw_kernel, vocab, size);
+  if (smem == 0) return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(rows, size, smem, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, draw_kernel, static_cast<const float*>(logits),
+      static_cast<const long long*>(seeds), positions, pos64,
       static_cast<int*>(tokens), vocab);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out float32 [n]: row_uniform(seeds[i], positions[i]), as draw_tokens and
+// the fused head take them.
+extern "C" int row_uniforms(const void* seeds, const void* positions,
+                            void* out, int n, int pos64, void* stream) {
+  const int threads = 256;
+  uniforms_kernel<<<(n + threads - 1) / threads, threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(seeds), positions, pos64,
+      static_cast<float*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

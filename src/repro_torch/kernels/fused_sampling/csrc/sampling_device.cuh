@@ -1,12 +1,11 @@
 // Device code of the port's sampler, shared by the filter and draw kernels
 // (sampling.cu) and the fused LM head's epilogue
 // (../../fused_lm_head/csrc/head_tokens.cu): monotone float keys, block
-// reductions, the canonical tiled mass sum, the inverse-CDF draw, and the
-// row of a thread block cluster with its top-k radix select and its
-// multi-candidate nucleus search. The draw takes the row as a functor
-// x(i) -> float and a row policy that says which part of the row the
-// calling CTA owns and how it reduces across the row (BlockRow: one CTA owns
-// it all; ClusterRow: a thread block cluster shares it).
+// reductions, the canonical tiled mass sum, the row of a thread block
+// cluster with its top-k radix select and its multi-candidate nucleus
+// search, the draw uniform (threefry2x32, bit for bit jax.random's) and the
+// inverse-CDF draw on a cluster row. The draw takes the row as a functor
+// x(i) -> float.
 //
 // Float masses follow the port's one canonical order, which
 // repro_torch/kernels/fused_sampling/ref.py and
@@ -43,6 +42,11 @@ constexpr int kBins = 256;           // radix digits of 8 bits
 constexpr int kStride = kTile + 4;   // words a tile takes in a CTA's copy
 constexpr int kMaxSweeps = 64;       // a search that has not ended by then traps
 constexpr int kFoldAhead = 8;        // terms a fold loads ahead
+constexpr int kPrefixAhead = 4;      // float4s the draw's fold loads ahead
+constexpr int kLoadAhead = 4;        // (tile, q) items a thread loads at once
+constexpr int kScanAhead = 16;       // words the in-tile prefix sums load
+                                     // ahead
+constexpr int kSearchAhead = 4;      // tiles a warp's search reads at once
 constexpr float kFixedOne = 4294967296.f;   // 2^32: estimate masses' fixed
                                             // point (ref.FIXED_ONE)
 
@@ -51,7 +55,6 @@ struct Scratch {
   int ired[kWarps];
   unsigned ured[kWarps];
   float fred[kWarps];
-  float bcast;
 };
 
 __device__ __forceinline__ unsigned float_to_key(float f) {
@@ -98,40 +101,6 @@ __device__ __forceinline__ unsigned* red_of(Scratch& s, unsigned) {
 }
 __device__ __forceinline__ float* red_of(Scratch& s, float) { return s.fred; }
 
-// A row owned by one CTA: elements [0, vocab), every 128-lane tile. The
-// functions below take a row policy: the element range [lo, hi) and the
-// tile range [t0, t1) the CTA owns, reduce(v, op) over the whole row (op
-// order-independent), parts() where the CTA writes its tiles' partials
-// (indexed by tile), and fold(before), the canonical left fold of all
-// partials (before[t], if given, gets the fold of the tiles before t).
-struct BlockRow {
-  int vocab, n_tiles, lo, hi, t0, t1;
-  float* parts_;
-  Scratch& sc;
-
-  __device__ BlockRow(int v, float* parts, Scratch& s)
-      : vocab(v), n_tiles((v + kTile - 1) / kTile), lo(0), hi(v), t0(0),
-        t1((v + kTile - 1) / kTile), parts_(parts), sc(s) {}
-  __device__ float* parts() { return parts_; }
-  template <class T, class Op> __device__ T reduce(T v, Op op) {
-    return block_reduce(v, op, red_of(sc, v));
-  }
-  __device__ float fold(float* before) {
-    if (threadIdx.x == 0) {
-      float acc = 0.f;
-      for (int t = 0; t < n_tiles; ++t) {
-        if (before != nullptr) before[t] = acc;
-        acc = __fadd_rn(acc, parts_[t]);
-      }
-      sc.bcast = acc;
-    }
-    __syncthreads();
-    const float r = sc.bcast;
-    __syncthreads();
-    return r;
-  }
-};
-
 // Per-tile masses parts[t] of f(i) for the row's own tiles: one halving
 // tree per tile, one warp per tile.
 template <class Row, class F>
@@ -156,41 +125,7 @@ __device__ void tile_partials(F f, Row& row) {
 template <class Row, class F>
 __device__ float tiled_sum(F f, Row& row) {
   tile_partials(f, row);
-  return row.fold(nullptr);
-}
-
-// Inverse-CDF draw of one row x(i), i in [0, vocab): the first index whose
-// prefix mass exceeds r * Z (Z the canonical row mass of exp(x - max)); 0
-// when none does. before holds one float per 128-lane tile.
-template <class Row, class X>
-__device__ int draw_index(X x, Row& row, float r, float* before) {
-  const int vocab = row.vocab;
-  const int tid = threadIdx.x;
-  float mx = -INFINITY;
-  for (int i = row.lo + tid; i < row.hi; i += kThreads) mx = fmaxf(mx, x(i));
-  const float m = row.reduce(mx, MaxOp());
-  const float safe_m = isfinite(m) ? m : 0.f;
-  auto mass = [&](int i) {
-    return i < vocab ? expf(__fsub_rn(x(i), safe_m)) : 0.f;
-  };
-  tile_partials(mass, row);
-  const float target = __fmul_rn(r, row.fold(before));
-
-  // each thread's tiles in increasing order: its first hit is its smallest
-  int first = INT_MAX;
-  for (int t = row.t0 + tid; t < row.t1 && first == INT_MAX; t += kThreads) {
-    const float acc = before[t];
-    float c = 0.f;
-    for (int j = 0; j < kTile; ++j) {
-      c = __fadd_rn(c, mass(t * kTile + j));
-      if (__fadd_rn(acc, c) > target) {
-        first = t * kTile + j;
-        break;
-      }
-    }
-  }
-  first = row.reduce(first, MinOp());
-  return first == INT_MAX ? 0 : first;
+  return row.fold();
 }
 
 // ---------------------------------------------------------------------------
@@ -257,6 +192,9 @@ struct ClusterShared {
   unsigned radix[2];           // the digits found so far, the rank still wanted
   unsigned dec[2];             // rank 0's decision: plo, phi
   float zres;                  // rank 0's fold
+  float uni;                   // the draw's uniform
+  float dmax;                  // the draw's CTA max
+  unsigned dlocal, dmin;       // the draw's least hit: the CTA's, rank 0's
   unsigned mhist[2][2 * kBins];         // estimate_key's masses, by pass
   unsigned long long mtot[kBins];       // the cluster's masses of one pass
   unsigned long long above;             // the mass above the prefix found
@@ -369,6 +307,39 @@ struct ClusterRow {
     __syncthreads();
   }
 
+  // Fill keys[] with the bits of the float x[i] itself (the draw reads
+  // floats, not keys); padding past vocab holds 0. As load(), with every
+  // thread's loads of up to kLoadAhead (tile, q) items issued before any
+  // store, so a thread keeps 16 loads in flight. Returns the max of the
+  // thread's own loads (draw_index's local max).
+  __device__ float load_floats(const float* __restrict__ x) {
+    const int n = n_own * 32;
+    float mx = -INFINITY;
+    for (int it0 = threadIdx.x; it0 < n; it0 += kLoadAhead * kThreads) {
+      float v[kLoadAhead][4];
+#pragma unroll
+      for (int a = 0; a < kLoadAhead; ++a) {
+        const int it = it0 + a * kThreads;
+        const int base = (t0 + (it >> 5)) * kTile + (it & 31);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          v[a][r] = it < n && base + 32 * r < vocab ? __ldg(x + base + 32 * r)
+                                                    : -INFINITY;
+      }
+#pragma unroll
+      for (int a = 0; a < kLoadAhead; ++a) {
+        const int it = it0 + a * kThreads;
+        if (it < n)
+          reinterpret_cast<float4*>(keys + (it >> 5) * kStride)[it & 31] =
+              make_float4(v[a][0], v[a][1], v[a][2], v[a][3]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) mx = fmaxf(mx, v[a][r]);
+      }
+    }
+    __syncthreads();
+    return mx;
+  }
+
   // Calls f(i, word) for every own element i < vocab.
   template <class F> __device__ void for_each(F f) const {
     for (int it = threadIdx.x; it < n_own * kTile; it += kThreads) {
@@ -401,21 +372,15 @@ struct ClusterRow {
   }
 
   // The canonical left fold of parts() (one float a tile, in rank 0's
-  // stage): rank 0 folds, then every rank reads the prefixes of its own
-  // tiles from rank 0's before[] (the row's one draw reads them).
-  __device__ float fold(float* before_out) {
+  // stage): rank 0 folds and writes the sum to every rank.
+  __device__ float fold() {
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
     if (rank == 0 && threadIdx.x == 0) {
-      const float acc = fold_run(stage, n_tiles, 1, before_out);
+      const float acc = fold_run(stage, n_tiles, 1, nullptr);
       for (int k = 0; k < size; ++k) *cluster.map_shared_rank(&sh.zres, k) = acc;
     }
     cluster.sync();
-    if (before_out != nullptr && rank != 0) {
-      for (int i = threadIdx.x; i < n_own; i += kThreads)
-        before_out[t0 + i] = *cluster.map_shared_rank(before_out + t0 + i, 0);
-      __syncthreads();
-    }
     return sh.zres;
   }
 
@@ -699,6 +664,258 @@ __device__ void cluster_thresholds(ClusterRow& row, int top_k, float top_p,
   __syncthreads();
   *kth_out = kth;
   *th_out = th;
+}
+
+// ---------------------------------------------------------------------------
+// The draw.
+//
+// The uniform of stream position p of a request with seed s
+// (ref.row_uniforms, bit for bit jax.random.uniform(fold_in(key(s), p))):
+// threefry2x32 with 20 rounds, key (0, s) and counter (0, p) give the folded
+// key; the folded key and counter (0, 0) give two words whose xor's top 23
+// bits are the mantissa of a float in [1, 2); minus 1, clamped at 0.
+__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1,
+                                             unsigned& x0, unsigned& x1) {
+  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = __funnelshift_l(x1, x1, kRot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<unsigned>(i + 1);
+  }
+}
+
+__device__ __forceinline__ float row_uniform(unsigned seed,
+                                             unsigned position) {
+  unsigned k0 = 0u, k1 = position;
+  threefry2x32(0u, seed, k0, k1);
+  unsigned b0 = 0u, b1 = 0u;
+  threefry2x32(k0, k1, b0, b1);
+  const unsigned bits = ((b0 ^ b1) >> 9) | 0x3F800000u;
+  return fmaxf(__fsub_rn(__uint_as_float(bits), 1.f), 0.f);
+}
+
+// The low 32 bits of positions[row]: int32 or int64 (pos64) values, as
+// ref.row_uniforms masks them.
+__device__ __forceinline__ unsigned position_word(const void* positions,
+                                                  int pos64, int row) {
+  if (pos64) {
+    const long long* p = static_cast<const long long*>(positions);
+    return static_cast<unsigned>(p[row]);
+  }
+  return static_cast<unsigned>(static_cast<const int*>(positions)[row]);
+}
+
+// The left fold ((0 + p[0]) + p[1]) + ... of n terms, before[i] the fold of
+// the terms before i: fold_run's order and bits, with p and before 16-byte
+// aligned, read and written a float4 at a time and kPrefixAhead float4s
+// loaded ahead, so the chain of adds (the fold's only cost) never waits on a
+// load.
+__device__ __forceinline__ float fold_prefix(const float* p, int n,
+                                             float* before) {
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+  float4* b4 = reinterpret_cast<float4*>(before);
+  const int nq = n / 4, full = nq - nq % kPrefixAhead;
+  float acc = 0.f;
+  float4 cur[kPrefixAhead], nxt[kPrefixAhead];
+  if (full > 0) {
+#pragma unroll
+    for (int j = 0; j < kPrefixAhead; ++j) nxt[j] = p4[j];
+  }
+  for (int q = 0; q < full; q += kPrefixAhead) {
+#pragma unroll
+    for (int j = 0; j < kPrefixAhead; ++j) cur[j] = nxt[j];
+    if (q + kPrefixAhead < full) {
+#pragma unroll
+      for (int j = 0; j < kPrefixAhead; ++j) nxt[j] = p4[q + kPrefixAhead + j];
+    }
+#pragma unroll
+    for (int j = 0; j < kPrefixAhead; ++j) {
+      float4 b;
+      b.x = acc;
+      acc = __fadd_rn(acc, cur[j].x);
+      b.y = acc;
+      acc = __fadd_rn(acc, cur[j].y);
+      b.z = acc;
+      acc = __fadd_rn(acc, cur[j].z);
+      b.w = acc;
+      acc = __fadd_rn(acc, cur[j].w);
+      b4[q + j] = b;
+    }
+  }
+  for (int i = 4 * full; i < n; ++i) {
+    before[i] = acc;
+    acc = __fadd_rn(acc, p[i]);
+  }
+  return acc;
+}
+
+// The draw reads a cluster row's own elements four at a time: x4(lt, q)
+// -> float4 holds the row at elements (t0 + lt) kTile + q + 32 r, r = 0..3,
+// word q of own tile lt's float4s (any value past vocab). A lane's float4
+// read is one 16-byte word, so a warp reading a tile meets no bank
+// conflict.
+
+// The max of the calling thread's share of the row's own elements (the
+// draw's local_max where no load has taken it).
+template <class X4>
+__device__ float own_max(X4 x4, const ClusterRow& row) {
+  float mx = -INFINITY;
+  for (int it = threadIdx.x; it < row.n_own * 32; it += kThreads) {
+    const int lt = it >> 5, q = it & 31;
+    const int base = (row.t0 + lt) * kTile + q;
+    const float4 v = x4(lt, q);
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (base + 32 * r < row.vocab) mx = fmaxf(mx, vv[r]);
+  }
+  return mx;
+}
+
+// Inverse-CDF draw of a cluster row (ref.draw_tokens, bit for bit): the
+// first index whose prefix mass exceeds r Z, r = row_uniform(seed,
+// position) and Z the canonical row mass of exp(x - max); 0 when none does.
+// local_max: the max of the calling thread's share of the CTA's own
+// elements (together the CTA's threads cover them all). The result is rank
+// 0's; overwrites u[]. Every remote access of shared memory precedes the
+// last cluster barrier, so a CTA may leave once it returns.
+//
+// 1. The row max: a barrier in the CTA, each CTA's max in its dmax, a
+//    cluster barrier (which also makes sure that every CTA of the cluster
+//    has started before any remote access), and every warp reads the
+//    ranks' words.
+// 2. Warp a tile: the tile's masses into u[] and its halving tree into rank
+//    0's stage.
+// 3. After a cluster barrier, three things at once: thread 0 of rank 0
+//    folds the partials in tile order (fold_prefix: before[t] and Z, which
+//    it writes to every rank); warps 1-30 of every rank turn u[] into the
+//    in-tile prefix sums c_j = ((u_0 + u_1) + ...) + u_j of its tiles, a
+//    thread a tile, kScanAhead words loaded before their adds; warp 31
+//    computes r. Only the fold is a long chain.
+// 4. After a second barrier, warp a tile again: lane l tests elements l +
+//    32 k (one float4 of c), before[t] + c_j > r Z, before[t] read from rank
+//    0 for kSearchAhead tiles at once; a warp's tiles in increasing order,
+//    so its first hit is its least.
+// 5. The least hit: into the CTA's dlocal (shared atomics), a barrier, then
+//    into rank 0's dmin (one atomic through distributed shared memory), a
+//    cluster barrier.
+template <class X4>
+__device__ int draw_index(X4 x4, ClusterRow& row, float local_max,
+                          unsigned seed, unsigned position) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int vocab = row.vocab, tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid >> 5;
+  ClusterShared& sh = row.sh;
+  float v = local_max;
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) row.sc.fred[warp] = v;
+  if (tid == 0) sh.dmin = 0xFFFFFFFFu;
+  if (tid == 32) sh.dlocal = 0xFFFFFFFFu;
+  __syncthreads();
+  if (warp == 0) {
+    v = row.sc.fred[lane];                   // kWarps == 32
+    for (int o = 16; o > 0; o >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) sh.dmax = v;
+  }
+  cluster.sync();
+  v = *cluster.map_shared_rank(&sh.dmax, lane < row.size ? lane : 0);
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const float safe_m = isfinite(v) ? v : 0.f;
+
+  for (int lt = warp; lt < row.n_own; lt += kWarps) {
+    const int base = (row.t0 + lt) * kTile + lane;
+    const float4 xv = x4(lt, lane);
+    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+    float w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      w[r] = base + 32 * r < vocab ? expf(__fsub_rn(xs[r], safe_m)) : 0.f;
+    reinterpret_cast<float4*>(row.u + lt * kStride)[lane] =
+        make_float4(w[0], w[1], w[2], w[3]);
+    // w = 128: lanes l and l + 32 of x[:64] + x[64:]; w = 64: their sum
+    float z = __fadd_rn(__fadd_rn(w[0], w[2]), __fadd_rn(w[1], w[3]));
+    for (int o = 16; o > 0; o >>= 1)          // w = 32 ... 2
+      z = __fadd_rn(z, __shfl_down_sync(0xffffffffu, z, o));
+    if (lane == 0) row.stage0[row.t0 + lt] = z;
+  }
+  cluster.sync();
+
+  if (row.rank == 0 && tid == 0) {
+    const float z = fold_prefix(row.stage, row.n_tiles, row.before);
+    for (int k = 0; k < row.size; ++k)
+      *cluster.map_shared_rank(&sh.zres, k) = z;
+  } else if (tid == kThreads - 32) {
+    sh.uni = row_uniform(seed, position);
+  } else if (tid >= 32 && tid < kThreads - 32) {
+    for (int lt = tid - 32; lt < row.n_own; lt += kThreads - 64) {
+      float* ut = row.u + lt * kStride;
+      float c = 0.f;
+      // element j = 32 r + q sits at word 4 q + r (tile_pos)
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int h = 0; h < 32; h += kScanAhead) {
+          float a[kScanAhead];
+#pragma unroll
+          for (int q = 0; q < kScanAhead; ++q) a[q] = ut[4 * (h + q) + r];
+#pragma unroll
+          for (int q = 0; q < kScanAhead; ++q) {
+            c = __fadd_rn(c, a[q]);
+            ut[4 * (h + q) + r] = c;
+          }
+        }
+      }
+    }
+  }
+  cluster.sync();
+
+  const float target = __fmul_rn(sh.uni, sh.zres);
+  const float* before0 = cluster.map_shared_rank(row.before, 0);
+  for (int lt0 = warp; lt0 < row.n_own; lt0 += kSearchAhead * kWarps) {
+    float bt[kSearchAhead];
+    float4 cv[kSearchAhead];
+#pragma unroll
+    for (int k = 0; k < kSearchAhead; ++k) {
+      const int lt = lt0 + k * kWarps;
+      if (lt < row.n_own) {
+        bt[k] = before0[row.t0 + lt];
+        cv[k] = reinterpret_cast<const float4*>(row.u + lt * kStride)[lane];
+      }
+    }
+    unsigned hit = 0xFFFFFFFFu;
+#pragma unroll
+    for (int k = kSearchAhead - 1; k >= 0; --k) {
+      const int t = row.t0 + lt0 + k * kWarps;
+      const float cs[4] = {cv[k].x, cv[k].y, cv[k].z, cv[k].w};
+#pragma unroll
+      for (int r = 3; r >= 0; --r) {
+        const int i = t * kTile + lane + 32 * r;
+        if (lt0 + k * kWarps < row.n_own && i < vocab &&
+            __fadd_rn(bt[k], cs[r]) > target)
+          hit = i;
+      }
+    }
+    hit = __reduce_min_sync(0xffffffffu, hit);
+    if (hit != 0xFFFFFFFFu) {
+      if (lane == 0) atomicMin(&sh.dlocal, hit);
+      break;
+    }
+  }
+  __syncthreads();
+  if (tid == 0 && sh.dlocal != 0xFFFFFFFFu)
+    atomicMin(cluster.map_shared_rank(&sh.dmin, 0), sh.dlocal);
+  cluster.sync();
+  return sh.dmin == 0xFFFFFFFFu ? 0 : static_cast<int>(sh.dmin);
 }
 
 }  // namespace sampling

@@ -1,13 +1,15 @@
 """Wrappers for the sampler's kernels (``csrc/sampling.cu``): the top-k /
-top-p filter and the inverse-CDF token draw.
+top-p filter and the inverse-CDF token draw, which computes each row's
+uniform from its request seed and stream position on the card.
 
 CPU tensors take the plain versions (``ref.filter_logits_bisect``,
-``fused_lm_head.ref.draw_tokens``); CUDA tensors launch the hand-written
-sm_90a kernels or raise. ``LAUNCHES`` counts kernel launches.
+``fused_lm_head.ref.draw_tokens`` of ``fused_lm_head.ref.row_uniforms``);
+CUDA tensors launch the hand-written sm_90a kernels or raise. ``LAUNCHES``
+counts kernel launches.
 
-The filter (and the fused LM head's epilogue) spreads a row over a thread
-block cluster whose CTAs keep the row in shared memory; ``cluster_plan``
-chooses its size from the shapes alone.
+The filter, the draw and the fused LM head's epilogue spread a row over a
+thread block cluster whose CTAs keep the row in shared memory;
+``cluster_plan`` chooses its size from the shapes alone.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from .. import _build
 from ..fused_lm_head import ref as head_ref
 from . import ref
 
-LAUNCHES = {"filter_logits": 0, "draw_tokens": 0}
+LAUNCHES = {"filter_logits": 0, "draw_tokens": 0, "row_uniforms": 0}
 
 _LIB = "sampling"
 
@@ -86,6 +88,26 @@ def _check_row(name: str, t: torch.Tensor, dtype, lg: torch.Tensor) -> None:
                          f"on {lg.device}")
 
 
+def check_draw_keys(seeds: torch.Tensor, positions: torch.Tensor, s: int,
+                    device: torch.device) -> int:
+    """Raise unless ``seeds`` is a contiguous int64 [s] tensor (uint32
+    values) and ``positions`` a contiguous int32 or int64 [s] tensor, both
+    on ``device``; returns 1 for int64 positions, else 0 (the kernels'
+    ``pos64``)."""
+    if seeds.dtype != torch.int64 or tuple(seeds.shape) != (s,) \
+            or seeds.device != device or not seeds.is_contiguous():
+        raise ValueError(f"seeds must be a contiguous int64 [{s}] tensor on "
+                         f"{device}, got {seeds.dtype} {tuple(seeds.shape)} "
+                         f"on {seeds.device}")
+    if positions.dtype not in (torch.int32, torch.int64) \
+            or tuple(positions.shape) != (s,) \
+            or positions.device != device or not positions.is_contiguous():
+        raise ValueError(f"positions must be a contiguous int32 or int64 "
+                         f"[{s}] tensor on {device}, got {positions.dtype} "
+                         f"{tuple(positions.shape)} on {positions.device}")
+    return int(positions.dtype == torch.int64)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -121,20 +143,58 @@ def _launch_filter(lg, top_k, top_p, out, size: int, lib: str = _LIB) -> None:
     _build.check(err, "filter_logits")
 
 
-def draw_tokens(lg_f: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
-    """Inverse-CDF draw: filtered scaled logits ``lg_f`` [S, V] float32 and
-    uniforms ``rs`` float32 [S] -> int32 tokens [S]."""
+def draw_tokens(lg_f: torch.Tensor, seeds: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draw: filtered scaled logits ``lg_f`` [S, V] float32 ->
+    int32 tokens [S], row i drawn with the uniform of request seed
+    ``seeds[i]`` (int64 holding a uint32) at stream position
+    ``positions[i]`` (int32 or int64), ``fused_lm_head.ref.row_uniforms``
+    bit for bit. On the card V is bounded by ``cluster_plan``."""
+    if lg_f.dim() != 2:
+        raise ValueError(f"logits must be [S, V], got {tuple(lg_f.shape)}")
+    pos64 = check_draw_keys(seeds, positions, lg_f.shape[0], lg_f.device)
     if lg_f.device.type == "cpu":
-        return head_ref.draw_tokens(lg_f, rs)
+        return head_ref.draw_tokens(lg_f,
+                                    head_ref.row_uniforms(seeds, positions))
     _check_logits(lg_f)
-    _check_row("rs", rs, torch.float32, lg_f)
     s, v = lg_f.shape
     out = torch.empty((s,), dtype=torch.int32, device=lg_f.device)
     if s == 0:
         return out
-    fn = _build.bind(_LIB, "draw_tokens", 3, 2)
-    err = fn(lg_f.data_ptr(), rs.data_ptr(), out.data_ptr(), s, v,
-             _stream(lg_f))
-    _build.check(err, "draw_tokens")
+    _launch_draw(lg_f, seeds, positions, out, pos64, cluster_plan(s, v))
     LAUNCHES["draw_tokens"] += 1
+    return out
+
+
+def _launch_draw(lg_f, seeds, positions, out, pos64: int, size: int,
+                 lib: str = _LIB) -> None:
+    """One launch of library ``lib``'s draw kernel, ``size`` CTAs a row
+    (checked tensors; ``lib`` other than the package's own only for
+    ``sampler_ablations.py``)."""
+    s, v = lg_f.shape
+    fn = _build.bind(lib, "draw_tokens", 4, 4)
+    err = fn(lg_f.data_ptr(), seeds.data_ptr(), positions.data_ptr(),
+             out.data_ptr(), s, v, pos64, size, _stream(lg_f))
+    _build.check(err, "draw_tokens")
+
+
+def device_row_uniforms(seeds: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """The draw kernels' uniforms alone, from the device function they run
+    (CUDA tensors only): float32 [S]. For holding them against
+    ``fused_lm_head.ref.row_uniforms`` on the card; no sampling path calls
+    it."""
+    if seeds.device.type != "cuda":
+        raise ValueError(f"unsupported device {seeds.device}: the device "
+                         "uniforms run on the card")
+    n = seeds.shape[0] if seeds.dim() == 1 else -1
+    pos64 = check_draw_keys(seeds, positions, n, seeds.device)
+    out = torch.empty((n,), dtype=torch.float32, device=seeds.device)
+    if n == 0:
+        return out
+    fn = _build.bind(_LIB, "row_uniforms", 3, 2)
+    err = fn(seeds.data_ptr(), positions.data_ptr(), out.data_ptr(), n, pos64,
+             _stream(seeds))
+    _build.check(err, "row_uniforms")
+    LAUNCHES["row_uniforms"] += 1
     return out

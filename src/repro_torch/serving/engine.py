@@ -38,7 +38,9 @@ sampler (filter kernel for filtered requests, then the draw kernel). On the CPU 
 identical streams; on the card they may fork on near-tied logits. A
 post-norm stack, an MLM-transform head and an untied LM head serve
 unfused, with ``fused_decode_off_reason`` saying why (JAX's strings for
-the first two). Encoder-only (bidirectional) archs are refused.
+the first two). Encoder-only (bidirectional) archs are refused, and so
+are attention archs whose positions or window the paged path cannot apply
+(learned positions, a sliding window), with JAX's messages.
 
 PyTorch runs eagerly, so there is no compile cache: variants are plain
 Python branches on the ``sampled`` / ``filtered`` flags.
@@ -57,7 +59,6 @@ import numpy as np
 import torch
 
 from ..kernels.fused_lm_head import ops as head_ops
-from ..kernels.fused_lm_head import ref as head_ref
 from ..models import transformer as tf
 from ..models.layers import apply_norm
 from ..models.model import Model
@@ -100,6 +101,13 @@ class ContinuousEngine:
         kinds = tf.layer_kinds(arch)
         self.has_attn = "attn" in kinds
         self.has_ssm = "mamba" in kinds
+        if self.has_attn:
+            if arch.pos_emb not in ("rope", "mrope", "none"):
+                raise ValueError("paged decode re-derives positions from "
+                                 "seq_lens (rope/mrope/none only)")
+            if arch.window != 0:
+                raise ValueError("paged decode-attention has no "
+                                 "sliding-window masking yet")
         if tp != 1:
             raise _not_ported(f"tensor parallelism (tp={tp})",
                               "a later slice ports TP serving")
@@ -190,15 +198,14 @@ class ContinuousEngine:
                     sampled: bool, filtered: bool):
         """Final norm + the fused LM head: final hidden ``x`` [S, 1, D] ->
         ``(tokens int32 [S], ok bool [S])`` (``ok``: the raw logits of the
-        row are all finite). The draw uniforms come from the determinism
-        contract's key, outside the kernel, as in the JAX engine."""
+        row are all finite). The kernel derives each row's draw uniform
+        from the determinism contract's key, its seed and position, on the
+        card."""
         params = self.model.params
         hidden = apply_norm(self.arch.norm, params["final_norm"], x)[:, 0]
-        rs = head_ref.row_uniforms(seeds, positions) if sampled \
-            else torch.zeros_like(temps)
         return head_ops.head_tokens(
-            hidden, params["embed"]["embedding"], rs, temps, top_ks, top_ps,
-            sampled=sampled, filtered=filtered)
+            hidden, params["embed"]["embedding"], seeds, positions, temps,
+            top_ks, top_ps, sampled=sampled, filtered=filtered)
 
     # ----------------------------------------------------------------- steps --
     @torch.inference_mode()

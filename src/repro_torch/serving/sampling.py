@@ -16,7 +16,6 @@ import os
 
 import torch
 
-from ..kernels.fused_lm_head import ref as head_ref
 from ..kernels.fused_sampling import ops as fused_ops
 from ..kernels.fused_sampling import ref as fused_ref
 
@@ -66,7 +65,9 @@ def sample_tokens(logits: torch.Tensor, seeds: torch.Tensor,
     ``filtered=False`` skips the top-k/top-p epilogue (exact when every row
     has both disabled); ``fused`` picks the filter: the kernel wrapper
     (plain bisection on the CPU) or the sort-based oracle. The draw goes
-    through the draw kernel's wrapper (its plain version on the CPU)."""
+    through the draw kernel's wrapper, which derives each row's uniform
+    from its seed and position on the card (its plain version on the
+    CPU)."""
     greedy = torch.argmax(logits, dim=-1).int()
     temps = temperatures.float()
     safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
@@ -74,8 +75,7 @@ def sample_tokens(logits: torch.Tensor, seeds: torch.Tensor,
     if filtered:
         fn = fused_ops.filter_logits if fused else fused_ref.filter_logits_ref
         lg = fn(lg.contiguous(), top_k.int(), top_p.float())
-    rs = head_ref.row_uniforms(seeds, positions)
-    drawn = fused_ops.draw_tokens(lg.contiguous(), rs)
+    drawn = fused_ops.draw_tokens(lg.contiguous(), seeds, positions)
     return torch.where(temps > 0, drawn, greedy)
 
 

@@ -141,12 +141,40 @@ def _jit_jax_heads(x, w_dv, rs, temps, tk, tp, *, sampled, filtered):
             for f in (pallas, stream)]
 
 
-def _port_head(x, w_vd, rs, temps, tk, tp, *, sampled, filtered,
+def _draw_keys(rng, s):
+    """Seeds (uint32 values as int64) and int32 stream positions for ``s``
+    rows, with JAX's uniforms of them (what the port's head derives)."""
+    seeds = rng.integers(0, 2 ** 32, s, dtype=np.int64)
+    pos = rng.integers(0, 4096, s).astype(np.int32)
+    rs = jhead_ref.row_uniforms(jnp.asarray(seeds.astype(np.uint32)),
+                                jnp.asarray(pos))
+    return seeds, pos, np.asarray(rs)
+
+
+# (seed, position) pairs whose uniforms are about 0.01, 0.5, 0.99, 0.33
+# and 0.66 (found by a search over positions at seed 7)
+PINNED_KEYS = [(7, 2426), (7, 19686), (7, 7622), (7, 2576), (7, 18206)]
+PINNED_US = [0.01, 0.5, 0.99, 0.33, 0.66]
+
+
+def _pinned_keys():
+    """``PINNED_KEYS`` as the engines pass them, with JAX's uniforms of
+    them, each within 1e-4 of its ``PINNED_US``."""
+    seeds = np.array([k[0] for k in PINNED_KEYS], np.int64)
+    pos = np.array([k[1] for k in PINNED_KEYS], np.int32)
+    rs = np.asarray(jhead_ref.row_uniforms(
+        jnp.asarray(seeds.astype(np.uint32)), jnp.asarray(pos)))
+    np.testing.assert_allclose(rs, PINNED_US, rtol=0, atol=1e-4)
+    return seeds, pos, rs
+
+
+def _port_head(x, w_vd, seeds, pos, temps, tk, tp, *, sampled, filtered,
                dtype=torch.float32):
     tok, ok = head_ops.head_tokens(
         torch.from_numpy(x).to(dtype), torch.from_numpy(w_vd).to(dtype),
-        torch.from_numpy(rs), torch.from_numpy(temps), torch.from_numpy(tk),
-        torch.from_numpy(tp), sampled=sampled, filtered=filtered)
+        torch.from_numpy(seeds), torch.from_numpy(pos),
+        torch.from_numpy(temps), torch.from_numpy(tk), torch.from_numpy(tp),
+        sampled=sampled, filtered=filtered)
     return tok.numpy(), ok.numpy()
 
 
@@ -160,11 +188,11 @@ def test_head_tokens_kth_ties_across_tile_edge_match_jax():
     base[:, 126:131] = 3.0
     base[:, 255:258] = 2.5
     w = np.eye(v, dtype=np.float32)
-    rs = rng.random(6).astype(np.float32)
+    seeds, pos, rs = _draw_keys(rng, 6)
     temps = np.array([1.0, 0.8, 1.0, 0.0, 1.2, 1.0], np.float32)
     tk = np.array([3, 2, 6, 4, 1, 7], np.int32)
     tp = np.array([1.0, 0.95, 0.9, 1.0, 1.0, 0.8], np.float32)
-    tok, ok = _port_head(base, w, rs, temps, tk, tp, sampled=True,
+    tok, ok = _port_head(base, w, seeds, pos, temps, tk, tp, sampled=True,
                          filtered=True)
     for jtok, jok in _jit_jax_heads(base, w, rs, temps, tk, tp, sampled=True,
                                     filtered=True):
@@ -177,17 +205,18 @@ def test_head_tokens_kth_ties_across_tile_edge_match_jax():
                                               (True, False)])
 def test_head_tokens_pinned_corners_match_jax(sampled, filtered):
     """Greedy rows mixed with sampled ones, top_p exactly 1, top_k >= V,
-    top_k 1, bf16 hidden and weight on dyadic grids (every partial sum of
-    a logit exact, so the GEMM's order cannot move a bit)."""
+    top_k 1, uniforms pinned near 0.01, 0.5, 0.99, 0.33 and 0.66, bf16
+    hidden and weight on dyadic grids (every partial sum of a logit exact,
+    so the GEMM's order cannot move a bit)."""
     s, d, v = 5, 64, 384
     rng = np.random.default_rng(0)
     x = (rng.integers(-8, 9, (s, d)) / 8).astype(np.float32)
     w = (rng.integers(-8, 9, (v, d)) / 64).astype(np.float32)
-    rs = np.array([0.01, 0.5, 0.99, 0.33, 0.66], np.float32)
+    seeds, pos, rs = _pinned_keys()
     temps = np.array([0.0, 1.0, 0.7, 1.5, 1.0], np.float32)
     tk = np.array([0, v + 3, 1, 8, 0], np.int32)
     tp = np.array([1.0, 1.0, 0.9, 0.5, 1.0], np.float32)
-    tok, ok = _port_head(x, w, rs, temps, tk, tp, sampled=sampled,
+    tok, ok = _port_head(x, w, seeds, pos, temps, tk, tp, sampled=sampled,
                          filtered=filtered, dtype=torch.bfloat16)
     jx = np.asarray(jnp.asarray(x, jnp.bfloat16))
     jw = np.asarray(jnp.asarray(w.T, jnp.bfloat16))
@@ -268,9 +297,8 @@ def test_head_tokens_plain_equals_unfused_sampler(filtered, fused):
     tp = torch.tensor([1, 0.9, 1, 0.7, 1, 1, 0.95, 0.5])
     want = sample_tokens(unembed({}, x, emb), seeds, pos, temps, tk, tp,
                          filtered=filtered, fused=fused)
-    tok, ok = head_ops.head_tokens(x, emb, head_ref.row_uniforms(seeds, pos),
-                                   temps, tk, tp, sampled=True,
-                                   filtered=filtered)
+    tok, ok = head_ops.head_tokens(x, emb, seeds, pos, temps, tk, tp,
+                                   sampled=True, filtered=filtered)
     assert torch.equal(tok, want) and ok.all()
 
 
@@ -284,16 +312,57 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
                     ln_ref.decode_residual_norm(y, x, scale)):
         assert torch.equal(a, b)
     emb = torch.randn(256, 64, generator=g)
-    row = (torch.rand(4, generator=g), torch.tensor([0.0, 1.0, 0.5, 2.0]),
+    seeds = torch.tensor([3, 2 ** 32 - 1, 0, 17])
+    pos = torch.tensor([0, 9, 2 ** 31 - 1, 40], dtype=torch.int32)
+    row = (torch.tensor([0.0, 1.0, 0.5, 2.0]),
            torch.tensor([0, 5, 0, 9], dtype=torch.int32),
            torch.tensor([1.0, 0.9, 1.0, 0.5]))
-    for a, b in zip(head_ops.head_tokens(x, emb, *row, sampled=True,
-                                         filtered=True),
-                    head_ref.head_tokens(x, emb, *row, sampled=True,
-                                         filtered=True)):
+    for a, b in zip(head_ops.head_tokens(x, emb, seeds, pos, *row,
+                                         sampled=True, filtered=True),
+                    head_ref.head_tokens(x, emb,
+                                         head_ref.row_uniforms(seeds, pos),
+                                         *row, sampled=True, filtered=True)):
         assert torch.equal(a, b)
     assert ln_ops.LAUNCHES["decode_residual_norm"] == 0
     assert head_ops.LAUNCHES["head_tokens"] == 0
+
+
+@pytest.mark.parametrize("sampled,filtered", [(False, False), (True, False),
+                                              (True, True)])
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+def test_head_tokens_seeds_and_positions_equal_the_uniforms_call(
+        sampled, filtered, pos_dtype):
+    """The wrapper on the CPU: seeds and positions in, token for token the
+    plain head fed ``ref.row_uniforms`` of them (the head's old call)."""
+    g = torch.Generator().manual_seed(6)
+    x, emb = torch.randn(6, 32, generator=g), torch.randn(384, 32, generator=g)
+    seeds = torch.tensor([0, 1, 2 ** 31, 2 ** 32 - 1, 77, 5])
+    pos = torch.tensor([0, 3, 4095, 2 ** 31 - 1, 12, 12], dtype=pos_dtype)
+    row = (torch.tensor([0.0, 0.7, 1.0, 1.3, 0.9, 2.0]),
+           torch.tensor([0, 40, 0, 3, 1, 384 + 5], dtype=torch.int32),
+           torch.tensor([1.0, 0.9, 0.95, 1.0, 1.0, 0.5]))
+    got = head_ops.head_tokens(x, emb, seeds, pos, *row, sampled=sampled,
+                               filtered=filtered)
+    want = head_ref.head_tokens(x, emb, head_ref.row_uniforms(seeds, pos),
+                                *row, sampled=sampled, filtered=filtered)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["seeds int32", "seeds float", "seeds [S+1]",
+                                 "positions float", "positions int16",
+                                 "positions [S, 1]"])
+def test_head_tokens_raises_on_wrong_seeds_or_positions(bad):
+    x, emb = torch.zeros(4, 32), torch.zeros(256, 32)
+    keys = {"seeds": torch.arange(4), "positions": torch.arange(4).int()}
+    name, what = bad.split(" ", 1)
+    t = keys[name]
+    keys[name] = {"int32": t.int(), "float": t.float(), "int16": t.short(),
+                  "[S+1]": torch.arange(5), "[S, 1]": t[:, None]}[what]
+    row = (torch.ones(4), torch.zeros(4, dtype=torch.int32), torch.ones(4))
+    with pytest.raises(ValueError, match=name):
+        head_ops.head_tokens(x, emb, keys["seeds"], keys["positions"], *row,
+                             sampled=True, filtered=False)
 
 
 # ---------------------------------------------------------------- engine ----
@@ -504,8 +573,8 @@ def test_head_tokens_kernel_bitwise_matches_plain_on_card(v, s):
                       dtype=torch.int8).to(torch.bfloat16) / 8
     idx = torch.arange(max(s, 8), device="cuda")
     reps = max(s // 8, 1)
-    row = (head_ref.row_uniforms(idx + 3, idx * 11),
-           torch.tensor([0.0, 1.0, 0.8, 1.0, 0.0, 1.3, 0.7, 1.0] * reps,
+    keys = (idx + 3, (idx * 11).int())
+    row = (torch.tensor([0.0, 1.0, 0.8, 1.0, 0.0, 1.3, 0.7, 1.0] * reps,
                         device="cuda"),
            torch.tensor([0, 3, 40, 0, 0, 1, v + 5, 0] * reps,
                         dtype=torch.int32, device="cuda"),
@@ -513,11 +582,13 @@ def test_head_tokens_kernel_bitwise_matches_plain_on_card(v, s):
                         device="cuda"))
     if s == 1:
         x, row = x[:1], tuple(t[7:8].contiguous() for t in row)
+        keys = tuple(t[7:8].contiguous() for t in keys)
+    rs = head_ref.row_uniforms(*keys)
     for sampled, filtered in ((False, False), (True, False), (True, True)):
         n = head_ops.LAUNCHES["head_tokens"]
-        tok, ok = head_ops.head_tokens(x, w, *row, sampled=sampled,
+        tok, ok = head_ops.head_tokens(x, w, *keys, *row, sampled=sampled,
                                        filtered=filtered)
         assert head_ops.LAUNCHES["head_tokens"] == n + 1
-        ptok, pok = head_ref.head_tokens(x, w, *row, sampled=sampled,
+        ptok, pok = head_ref.head_tokens(x, w, rs, *row, sampled=sampled,
                                          filtered=filtered)
         assert torch.equal(tok, ptok) and torch.equal(ok, pok)

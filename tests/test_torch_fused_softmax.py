@@ -3,25 +3,33 @@ the JAX reference and against the Pallas kernel in interpret mode (as
 ``tests/test_kernels.py`` runs it) on the same numpy inputs, fp32 within
 1e-6 (rows summing to 1 within 1e-5) and bf16 within 1 bf16 ulp of each
 JAX output; ragged Sq, which the Pallas kernel rejects, against the JAX
-reference; the wrapper's contract and CPU dispatch; bf16 outputs held to a
-float64 softmax; and, on a card only, the CUDA kernel against the plain
-version."""
-import jax.numpy as jnp
+reference; the wrapper's contract and CPU dispatch; the kernel's plan (a
+pure function of the shapes) at ``chip_smoke.py``'s cases and at the
+variants' boundaries; bf16 outputs held to a float64 softmax; and, on a
+card only, the CUDA kernel against the plain version at every variant of
+the plan."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.fused_softmax import kernel as jkernel
-from repro.kernels.fused_softmax import ops as jops
-from repro.kernels.fused_softmax import ref as jref
+try:
+    import jax.numpy as jnp
+    from repro.kernels.fused_softmax import kernel as jkernel
+    from repro.kernels.fused_softmax import ops as jops
+    from repro.kernels.fused_softmax import ref as jref
+except ImportError:         # the card's machine: only the gpu tests run
+    jnp = None
 from repro_torch.kernels.fused_softmax import ops, ref
 
 torch.set_num_threads(2)
 
 ATOL = 1e-6
 SCALE = 0.125
-DTYPES = {"fp32": (torch.float32, jnp.float32),
-          "bf16": (torch.bfloat16, jnp.bfloat16)}
+DTYPES = {"fp32": (torch.float32, jnp and jnp.float32),
+          "bf16": (torch.bfloat16, jnp and jnp.bfloat16)}
 
 # name: (shape, causal, q_offset); Sq a multiple of min(128, Sq), as the
 # Pallas kernel needs; q_offset -1 leaves row 0 with no valid column
@@ -179,6 +187,94 @@ def test_bf16_outputs_are_rounded_from_the_float64_softmax(causal, off):
         assert (np.abs(got - truth) <= tol).all()
 
 
+def _chip_smoke_cases():
+    """``chip_smoke.py``'s SOFTMAX_CASES (the module is imported from its
+    path; importing it runs nothing)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SOFTMAX_CASES
+
+
+# chip_smoke's cases by name: the plan each takes
+CASE_PLANS = {
+    "bert-large Phase 2, B4 x 16 heads": ops.SoftmaxPlan(False, 4, 16, 128),
+    "bert-large Phase 1, B32 x 16 heads": ops.SoftmaxPlan(False, 4, 4, 128),
+    "Phase 2 in bf16": ops.SoftmaxPlan(False, 8, 16, 128),
+    "ragged Sq 1500, causal": ops.SoftmaxPlan(True, 4, 16, 96),
+    "last chunk of a long prompt, q_offset 3840": ops.SoftmaxPlan(
+        True, 8, 16, 256),
+    "q_offset -1, row 0 fully masked": ops.SoftmaxPlan(False, 4, 4, 128),
+    "Sk 12288, a 48 KB row": ops.SoftmaxPlan(True, 8, 16, 768),
+    "Sk 32768, the kernel's largest": ops.SoftmaxPlan(True, 8, 32, 1024),
+}
+
+
+def test_softmax_plan_covers_every_chip_smoke_case():
+    cases = _chip_smoke_cases()
+    assert set(cases) == set(CASE_PLANS)
+    for name, (n, sq, sk, dt, _, _) in cases.items():
+        assert ops.softmax_plan(n * sq, sk, dt) == CASE_PLANS[name], name
+
+
+@pytest.mark.parametrize("sk,dt,cta,vec,per", [
+    (512, torch.float32, False, 4, 16), (513, torch.float32, True, 1, 16),
+    (512, torch.bfloat16, False, 8, 16), (513, torch.bfloat16, True, 1, 16),
+    (1024, torch.float32, True, 4, 16), (1025, torch.float32, True, 1, 16),
+    (2048, torch.bfloat16, True, 8, 16), (2049, torch.bfloat16, True, 1, 16),
+    (2044, torch.bfloat16, True, 4, 16), (128, torch.float32, False, 4, 4),
+    (128, torch.bfloat16, False, 8, 8), (130, torch.bfloat16, False, 1, 8),
+    (1, torch.float32, False, 1, 4), (32768, torch.float32, True, 4, 32),
+    (16384, torch.bfloat16, True, 8, 16), (16385, torch.bfloat16, True, 1,
+                                           32)])
+def test_softmax_plan_variant_boundaries(sk, dt, cta, vec, per):
+    """A warp a row while a lane holds at most 16 elements (Sk 512), a CTA
+    above, 16 a thread to 16384 columns and 32 past them; the widest load
+    that divides Sk; the row always fits the variant's registers, whole
+    vectors, threads in whole warps (1024 fp32 and 2048 bf16 columns, which
+    a warp's registers could hold, go to a CTA too)."""
+    plan = ops.softmax_plan(4096, sk, dt)        # rows enough to fill the card
+    assert (plan.cta, plan.vec, plan.per) == (cta, vec, per)
+    assert sk % plan.vec == 0 and plan.per % plan.vec == 0
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    if plan.cta:
+        assert plan.per in ops.CTA_PER
+        assert plan.threads * plan.per >= sk
+        assert (plan.threads - 32) * plan.per < sk     # the fewest warps
+    else:
+        assert plan.per in ops.WARP_PER and plan.threads == ops.WARP_THREADS
+        assert 32 * plan.per >= sk
+        assert all(32 * p < sk or p < plan.vec          # the fewest a lane
+                   for p in ops.WARP_PER if p < plan.per)
+
+
+@pytest.mark.parametrize("rows,sk", [
+    (16, 32768), (1, 32768), (4, 12288), (66, 8192), (67, 8192), (1, 4096),
+    (1, 4097), (33, 4097), (256, 12288)])
+def test_softmax_plan_gives_long_rows_one_cta_however_few(rows, sk):
+    """A long row is one CTA's however few the rows (a row over a cluster
+    of CTAs saved some 3.7 us at [2, 8, 32768] on an H100, a workload no
+    path has): the plan does not depend on the number of rows, and the
+    CTA holds the row in the fewest whole warps."""
+    plan = ops.softmax_plan(rows, sk, torch.bfloat16)
+    assert plan == ops.softmax_plan(4096, sk, torch.bfloat16)
+    assert plan.cta and plan.threads % 32 == 0 and plan.threads <= 1024
+    assert plan.threads * plan.per >= sk > (plan.threads - 32) * plan.per
+
+
+def test_softmax_plan_is_pure_and_cached():
+    ops.softmax_plan.cache_clear()
+    a = ops.softmax_plan(36000, 1500, torch.bfloat16)
+    b = ops.softmax_plan(36000, 1500, torch.bfloat16)
+    assert a is b and ops.softmax_plan.cache_info().hits == 1
+    assert ops.softmax_plan(7, 1500, torch.bfloat16) == a
+    with pytest.raises(ValueError):
+        ops.softmax_plan(4, ops.MAX_SK + 1, torch.float32)
+    with pytest.raises(TypeError):
+        ops.softmax_plan(4, 128, torch.float16)
+
+
 # ------------------------------------------------------------- on a card ----
 
 @pytest.mark.gpu
@@ -205,3 +301,54 @@ def test_kernel_matches_plain_on_card(shape, causal, off, dt):
     else:
         tol = _bf16_ulp(plain)
     assert (np.abs(out - plain) <= tol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dt,causal,off", [
+    ((3, 17, 128), torch.float32, False, 0),       # warp, 16 B, 4 a lane
+    ((2, 16, 512), torch.float32, True, 300),      # warp, 16 B, 16 a lane
+    ((4, 9, 130), torch.bfloat16, True, 40),       # warp, one element
+    ((2, 7, 96), torch.bfloat16, True, -3),        # warp, empty rows
+    ((3, 40, 1024), torch.float32, True, 600),     # CTA, 16 B
+    ((2, 16, 1022), torch.float32, False, 0),      # CTA, one element
+    ((2, 16, 2048), torch.bfloat16, True, 2000),   # CTA, 16 B
+    ((2, 33, 1500), torch.bfloat16, True, 0),      # CTA, 8 B
+    ((2, 8, 2049), torch.bfloat16, False, 0),      # CTA, one element
+    ((1, 4, 32768), torch.float32, True, 32760),   # CTA, 32 a thread, the
+                                                   # kernel's largest
+    ((200, 1, 20000), torch.float32, False, 0),    # CTA, 32 a thread
+    ((1, 3, 4097), torch.bfloat16, True, 4090),    # CTA, one element a
+                                                   # load, few long rows
+    ((3, 5, 4096), torch.bfloat16, True, -2),      # CTA, every row empty
+])
+def test_kernel_matches_plain_at_every_plan_variant_on_card(shape, dt,
+                                                            causal, off):
+    """Each variant of ``softmax_plan`` against the plain version on the
+    card (fp32 within 2^-21 of each row's largest output, bf16 within 1
+    bf16 ulp), masked entries exactly 0, empty rows exactly 1 / Sk; and the
+    same scores from a base one element off 16-byte alignment (loads of
+    one element)."""
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA kernel test: needs an NVIDIA card (sm_90a)")
+    kw = dict(scale=SCALE, causal=causal, q_offset=off)
+    base = torch.from_numpy(_scores(11, (int(np.prod(shape)) + 1,))).cuda()
+    base = base.to(dt)
+    for s in (base[:-1].view(shape), base[1:].view(shape)):
+        n = ops.LAUNCHES["scale_mask_softmax"]
+        out = ops.scale_mask_softmax(s, **kw)
+        assert ops.LAUNCHES["scale_mask_softmax"] == n + 1
+        plain = ref.scale_mask_softmax(s, **kw)
+        o, p = out.float().cpu().numpy(), plain.float().cpu().numpy()
+        if dt == torch.float32:
+            tol = 2.0 ** -21 * np.abs(p).max(-1, keepdims=True)
+        else:
+            tol = _bf16_ulp(p)
+        assert (np.abs(o - p) <= tol).all()
+        if causal:
+            sq, sk = shape[-2:]
+            cols = np.arange(sk)[None, :]
+            rows = np.arange(sq)[:, None] + off
+            masked = (cols > rows) & (rows >= 0)
+            empty = (rows < 0)[:, 0]
+            assert (o[:, masked] == 0).all()
+            assert (o[:, empty] == p[:, empty]).all()   # 1 / Sk, rounded

@@ -102,7 +102,8 @@ def test_kernel_wrappers_take_plain_path_for_cpu_tensors():
     out = filt_ops.filter_logits(lg, torch.tensor([5, 0], dtype=torch.int32),
                                  torch.tensor([1.0, 0.5]))
     assert torch.isinf(out[0]).sum() == 295
-    tok = filt_ops.draw_tokens(out, torch.tensor([0.5, 0.25]))
+    tok = filt_ops.draw_tokens(out, torch.tensor([3, 4]),
+                               torch.tensor([10, 11], dtype=torch.int32))
     assert tok.dtype == torch.int32 and torch.isfinite(out[0, tok[0]])
     assert set(attn_ops.LAUNCHES.values()) == {0}
     assert set(filt_ops.LAUNCHES.values()) == {0}

@@ -10,9 +10,14 @@ the same converted fp32 smoke weights.
   decode steps) and on the continuous engine with fused decode requested,
   which both engines turn off with the same reason;
 - the continuous engine refuses an encoder-only arch, as JAX's does, and
-  reports JAX's fused-decode off reasons in JAX's order."""
+  reports JAX's fused-decode off reasons in JAX's order;
+- both continuous engines refuse an attention arch whose positions or
+  window the paged decode path cannot apply (a sliding window, learned
+  positions), with JAX's messages, while the static engine serves it and
+  its greedy stream matches JAX's."""
 import argparse
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -132,6 +137,53 @@ def test_continuous_engine_refuses_an_encoder_only_arch():
     with pytest.raises(ValueError, match="encoder-only archs have no decode "
                                          "step"):
         ContinuousEngine(t_model, num_slots=2, num_pages=16, page_size=8)
+
+
+PAGED_GUARDS = {
+    "window": (dict(window=16), "paged decode-attention has no "
+               "sliding-window masking yet"),
+    "learned positions": (dict(pos_emb="learned"), "paged decode "
+                          "re-derives positions from seq_lens "
+                          "(rope/mrope/none only)"),
+}
+
+
+@pytest.mark.parametrize("guard", list(PAGED_GUARDS))
+def test_continuous_engines_refuse_what_paged_decode_cannot_apply(guard):
+    """JAX asserts, the port raises ValueError, with the same message."""
+    over, msg = PAGED_GUARDS[guard]
+    model, params, t_model = _base(LLAMA, **over)
+    assert not t_model.arch.post_norm
+    kw = dict(num_slots=2, num_pages=16, page_size=8, max_seq_len=48)
+    with pytest.raises(AssertionError, match=re.escape(msg)):
+        JaxEngine(model, params, **kw)
+    with pytest.raises(ValueError, match=re.escape(msg)):
+        ContinuousEngine(t_model, **kw)
+
+
+@pytest.mark.parametrize("guard", list(PAGED_GUARDS))
+def test_static_engine_serves_what_the_continuous_engine_refuses(guard):
+    """A 40-token prompt, past the 16-token window: the port's static
+    greedy stream equals JAX's prefill + decode steps."""
+    model, params, t_model = _base(LLAMA, **PAGED_GUARDS[guard][0])
+    args = argparse.Namespace(batch=2, prompt_len=40, gen_len=6,
+                              temperature=0.0, top_k=0, top_p=1.0, seed=4)
+    got = serve.run_static(t_model, args)
+    plen, b = args.prompt_len, args.batch
+    caches = model.init_caches(None, b, plen + args.gen_len)
+    logits, caches = jax.jit(model.prefill)(
+        params, caches, {"tokens": jnp.asarray(got["prompt"])})
+    decode = jax.jit(model.decode_step)
+    tok = jnp.argmax(logits[:, -1], axis=-1)
+    want = [tok]
+    for i in range(args.gen_len - 1):
+        logits, caches = decode(params, caches, {
+            "tokens": tok[:, None],
+            "positions": jnp.full((b,), plen + i, jnp.int32)})
+        tok = jnp.argmax(logits[:, -1], axis=-1)
+        want.append(tok)
+    np.testing.assert_array_equal(got["tokens"],
+                                  np.stack([np.asarray(t) for t in want], 1))
 
 
 @pytest.mark.parametrize("over,reason", [

@@ -212,10 +212,48 @@ def test_filter_wrapper_takes_plain_path_on_cpu():
 def test_draw_wrapper_takes_plain_path_on_cpu():
     ops.LAUNCHES["draw_tokens"] = 0
     lg, _, _ = _rows(8, 4, 256)
-    rs = torch.tensor([0.1, 0.5, 0.9, 0.0])
-    assert torch.equal(ops.draw_tokens(torch.from_numpy(lg), rs),
-                       head.draw_tokens(torch.from_numpy(lg), rs))
+    seeds = torch.tensor([0, 5, 2 ** 32 - 1, 9])
+    pos = torch.tensor([7, 0, 2 ** 31 - 1, 130], dtype=torch.int32)
+    assert torch.equal(ops.draw_tokens(torch.from_numpy(lg), seeds, pos),
+                       head.draw_tokens(torch.from_numpy(lg),
+                                        head.row_uniforms(seeds, pos)))
     assert ops.LAUNCHES["draw_tokens"] == 0
+
+
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+def test_draw_wrapper_equals_the_plain_draw_of_the_plain_uniforms(pos_dtype):
+    """Seeds and positions as the engines pass them (int64 seeds, int32 or
+    int64 positions), against ``draw_tokens(lg, row_uniforms(...))``."""
+    lg, top_k, top_p = _rows(10, 8, 1000)
+    lg_f = sref.filter_logits_bisect(torch.from_numpy(lg),
+                                     torch.from_numpy(top_k),
+                                     torch.from_numpy(top_p))
+    seeds = torch.tensor([0, 1, 2 ** 31, 2 ** 32 - 1, 11, 11, 3, 4])
+    pos = torch.tensor([0, 2 ** 31 - 1, 5, 5, 1, 2, 1000, 64],
+                       dtype=pos_dtype)
+    got = ops.draw_tokens(lg_f, seeds, pos)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, head.draw_tokens(lg_f,
+                                             head.row_uniforms(seeds, pos)))
+
+
+@pytest.mark.parametrize("bad", ["seeds int32", "seeds float", "seeds [S-1]",
+                                 "positions float", "positions uint8",
+                                 "positions [S-1]", "positions [S, 1]"])
+def test_draw_wrapper_raises_on_wrong_seeds_or_positions(bad):
+    lg = torch.zeros(4, 256)
+    keys = {"seeds": torch.arange(4), "positions": torch.arange(4).int()}
+    name, what = bad.split(" ", 1)
+    t = keys[name]
+    keys[name] = {"int32": t.int(), "float": t.float(), "uint8": t.byte(),
+                  "[S-1]": t[:3], "[S, 1]": t[:, None]}[what]
+    with pytest.raises(ValueError, match=name):
+        ops.draw_tokens(lg, keys["seeds"], keys["positions"])
+
+
+def test_device_uniforms_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="card"):
+        ops.device_row_uniforms(torch.arange(4), torch.arange(4))
 
 
 # ------------------------------------- the CUDA filter's search on the CPU ---
@@ -387,9 +425,33 @@ def test_draw_kernel_bitwise_matches_plain_on_card(v):
     lg, top_k, top_p = _rows(9, 8, v)
     args = [torch.from_numpy(a).cuda() for a in (lg, top_k, top_p)]
     lg_f = sref.filter_logits_bisect(*args)
-    rs = torch.from_numpy(np.random.default_rng(9).random(8)
-                          .astype(np.float32)).cuda()
-    n = ops.LAUNCHES["draw_tokens"]
-    out = ops.draw_tokens(lg_f, rs)
-    assert ops.LAUNCHES["draw_tokens"] == n + 1
-    assert torch.equal(out, head.draw_tokens(lg_f, rs))
+    rng = np.random.default_rng(9)
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 32, 8)).cuda()
+    pos = torch.from_numpy(rng.integers(0, 2 ** 31, 8).astype(np.int32)).cuda()
+    for lg_case in (lg_f, torch.from_numpy(lg).cuda()):
+        n = ops.LAUNCHES["draw_tokens"]
+        out = ops.draw_tokens(lg_case, seeds, pos)
+        assert ops.LAUNCHES["draw_tokens"] == n + 1
+        assert torch.equal(out, head.draw_tokens(
+            lg_case, head.row_uniforms(seeds, pos)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+def test_device_uniforms_bitwise_match_plain_on_card(pos_dtype):
+    """The draw kernels' device function against ``row_uniforms`` over
+    65,536 (seed, position) pairs, 0 and 2^32 - 1 among both."""
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA kernel test: needs an NVIDIA card (sm_90a)")
+    rng = np.random.default_rng(12)
+    seeds = rng.integers(0, 2 ** 32, 65536)
+    pos = rng.integers(0, 2 ** 32, 65536)
+    seeds[:2], pos[:4] = [0, 2 ** 32 - 1], [0, 2 ** 32 - 1, 0, 2 ** 32 - 1]
+    seeds[2:4] = [0, 2 ** 32 - 1]
+    pos_t = torch.from_numpy(pos).cuda()
+    if pos_dtype == torch.int32:
+        pos_t = pos_t.to(torch.int32)     # wraps: the low 32 bits
+    seeds_t = torch.from_numpy(seeds).cuda()
+    got = ops.device_row_uniforms(seeds_t, pos_t)
+    want = head.row_uniforms(seeds_t, pos_t)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
