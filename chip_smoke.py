@@ -105,6 +105,26 @@ Phases, each printing one line (any failure exits non-zero):
      compared (they may fork on near-tied logits); the plain (eager)
      ref.row_uniforms is counted on card tensors through every serve that
      follows, and must never run;
+  5b. the multi-step loop (decode_steps=N; serving/graphs.py): the fused
+     llama serve at N in 1, 4 and 16 and the unfused one at N=4, each on
+     an engine that first served a warm-up trace of other prompts (its
+     graphs captured), then phase 5's trace with every launch counter set
+     to 0 just before and read just after: streams bitwise phase 5's N=1
+     streams, exact launches from the engine's steps, chunks and prefills
+     (a replay counts the launches it captured), dispatches fewer than
+     steps, no variant captured twice (trace_stats()["excess"] 0), every
+     dispatch run under torch.cuda.set_sync_debug_mode("warn") with its
+     graph replays under "error", and every dispatch that captured
+     nothing making exactly one synchronising call; one steady dispatch
+     of the warm-up trace (the 4th, or the first after it that captured
+     nothing) under torch.profiler (the host's kernel-launch,
+     graph-launch and copy calls for it: at N > 1 no kernel launch); each
+     fused N then serves a third trace under torch.profiler (wall, device
+     busy, idle share, device kernels, host kernel-launch calls and graph
+     launches a decode step); the fused serve at N=4 with sanitize=True
+     gives the same streams, and a smoke llama (head dim 128) with NaN
+     weights raises SanitizerError at its first final chunk; the mamba2
+     phase adds its serve at N = 1 and 4 the same way, both profiled;
   6. the fused trace (the default path) under torch.profiler, recording
      the card's activity only: device time
      by kernel and kind, kernel launches, and the device's idle share, the
@@ -1557,6 +1577,341 @@ def profile_serve(model, engine=None, reqs=None):
     return {name: (ms, c) for name, ms, c in kernels}
 
 
+# ------------------------------------------------------- multi-step phase ---
+# The continuous engine's decode_steps=N: each dispatch is k replays of a
+# captured loop iteration (serving/graphs.py), one host synchronisation.
+MULTI_STEPS = (1, 4, 16)
+MULTI_PAGES = 640           # room for a warm-up trace's cached prefixes
+
+
+def make_multistep_engine(model, n: int, fused: bool = True, **kw):
+    from repro_torch.serving import ContinuousEngine
+    return ContinuousEngine(model, num_slots=8, num_pages=MULTI_PAGES,
+                            page_size=16, max_seq_len=512 + 32 + 16,
+                            prefill_chunk=64, fused_decode=fused,
+                            decode_steps=n, **kw)
+
+
+def _sync_warnings(caught) -> int:
+    """Calls that made the host wait for the card, among the warnings of
+    torch.cuda.set_sync_debug_mode("warn") (without its one-time notice
+    that the mode is a prototype)."""
+    return sum(1 for w in caught if "synchroniz" in str(w.message)
+               and "prototype" not in str(w.message))
+
+
+def _runtime_calls(prof) -> dict:
+    """CUDA runtime calls the host made in a profiler window (kernel
+    launches, graph launches, copies) and the device kernels and copies
+    that ran."""
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {"host_launch_calls": sum(e.count for e in events
+                                     if "LaunchKernel" in e.key),
+            "graph_launches": sum(e.count for e in events
+                                  if "GraphLaunch" in e.key),
+            "host_copy_calls": sum(e.count for e in events
+                                   if e.device_type != cuda
+                                   and "emcpy" in e.key),
+            "device_kernels": sum(e.count for e in events
+                                  if e.device_type == cuda)}
+
+
+PROFILED_DISPATCH = 3       # from the 4th dispatch of the warm-up trace
+
+
+def instrument_dispatches(engine, profiled: bool = False):
+    """Wrap the decode dispatches of ``engine`` (an instance attribute over
+    the method). By default each runs under set_sync_debug_mode("warn"),
+    its graph replays under "error" (a synchronising call among them
+    raises); one record a dispatch: the synchronising calls it made,
+    whether it captured a graph, its replays, its host seconds. With
+    ``profiled``, the dispatches from the PROFILED_DISPATCH-th on run under
+    torch.profiler until one captures nothing (its runtime calls: what the
+    host issued for a steady dispatch), the others as they are."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    records = []
+    multi = engine.decode_steps > 1
+    loop = engine._loop
+    if multi and not profiled:
+        replay = loop.replay
+
+        def strict_replay(entry, k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                replay(entry, k)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+        loop.replay = strict_replay
+    name = "_decode_multi" if multi else "_decode"
+    dispatch = getattr(engine, name)
+
+    def counted(*args, **kw):
+        before = (loop.captures, loop.replays) if multi else (0, 0)
+        t0 = time.perf_counter()
+        calls = syncs = None
+        if profiled:
+            done = any(r["runtime_calls"] and not r["captured"]
+                       for r in records)
+            if len(records) >= PROFILED_DISPATCH and not done:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = dispatch(*args, **kw)
+                    torch.cuda.synchronize()
+                calls = _runtime_calls(prof)
+            else:
+                out = dispatch(*args, **kw)
+        else:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = dispatch(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = _sync_warnings(caught)
+        records.append({
+            "syncs": syncs, "seconds": time.perf_counter() - t0,
+            "captured": multi and loop.captures > before[0],
+            "replays": loop.replays - before[1] if multi else 0,
+            "runtime_calls": calls})
+        return out
+    setattr(engine, name, counted)
+    return records
+
+
+def profile_window(engine, reqs):
+    """One run of ``reqs`` on ``engine`` under torch.profiler (the card's
+    activity and the CUDA runtime calls): wall, device busy, idle share,
+    device kernels, host kernel-launch calls and graph launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    steps = engine.steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    host_launches = sum(e.count for e in events
+                        if "LaunchKernel" in e.key)
+    graph_launches = sum(e.count for e in events if "GraphLaunch" in e.key)
+    return {"wall_ms": wall_ms, "busy_ms": busy if busy > 0 else None,
+            "idle": 1 - busy / wall_ms if busy > 0 else None,
+            "device_kernels": sum(e.count for e in kernels),
+            "host_launch_calls": host_launches or None,
+            "graph_launches": graph_launches or None,
+            "decode_steps": engine.steps - steps}
+
+
+def serve_multistep(model, n: int, ref, label: str, fused: bool = True,
+                    want: dict = None, profile_reqs=None, **kw):
+    """Serve the llama (or mamba2) trace at decode_steps=``n``: a warm-up
+    trace first (other prompts, the same mix: graphs captured, the first
+    uses made), then the trace itself with every launch counter set to 0
+    just before and read just after, each dispatch instrumented. Fails
+    unless every request finished with its stream bitwise ``ref``'s, every
+    dispatch that captured nothing made exactly one synchronising call,
+    dispatches < steps at n > 1, no variant was captured twice, and the
+    launches of ``want`` (kernel -> expected count from the engine's steps
+    and chunks) are exact; at n > 1 a steady dispatch of the warm-up trace,
+    profiled, must launch no kernel from the host. With ``profile_reqs``,
+    those requests are served once more under the profiler."""
+    arch = model.arch
+    engine = make_multistep_engine(model, n, fused, **kw)
+    warm = instrument_dispatches(engine, profiled=True)
+    t0 = time.perf_counter()
+    engine.run(trace(arch, SEED + 1))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    engine.__dict__.pop("_decode_multi" if n > 1 else "_decode")
+    profiled = next((r for r in warm if r["runtime_calls"]
+                     and not r["captured"]), None)
+    if n > 1 and (profiled is None
+                  or profiled["runtime_calls"]["host_launch_calls"]):
+        _fail(f"{label}: no steady dispatch profiled, or it launched "
+              f"kernels from the host: {profiled}")
+    captures0 = engine._loop.captures if n > 1 else 0
+    replays0 = engine._loop.replays if n > 1 else 0
+    steps0, disp0, chunks0, prefills0 = (
+        engine.steps, engine.decode_dispatches, engine.prefill_chunks,
+        engine.prefills)
+    exits0 = dict(engine.decode_exits)
+    records = instrument_dispatches(engine)
+    reqs = trace(arch, SEED)
+    for d in _counters():
+        for k in d:
+            d[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _snapshot()
+    steps = engine.steps - steps0
+    dispatches = engine.decode_dispatches - disp0
+    chunks = engine.prefill_chunks - chunks0
+    prefills = engine.prefills - prefills0
+    exits = {k: v - exits0[k] for k, v in engine.decode_exits.items()}
+    streams = {i: r["tokens"] for i, r in res.items()}
+    for i, r in ref.items():
+        got = streams.get(i)
+        if got != r:
+            first = next((j for j, (a, b) in enumerate(zip(got or [], r))
+                          if a != b), None)
+            _fail(f"{label}: request {i} diverged from N=1 at token "
+                  f"{first}: {got} vs {r}")
+    if n > 1 and not dispatches < steps:
+        _fail(f"{label}: {dispatches} dispatches for {steps} steps")
+    stats = engine.trace_stats()
+    if stats["excess"]:
+        _fail(f"{label}: variants captured twice: {stats}")
+    steady = [r for r in records if not r["captured"]]
+    if n > 1 and any(r["syncs"] != 1 for r in steady):
+        _fail(f"{label}: dispatches with other than one synchronising "
+              f"call: {[r['syncs'] for r in steady]}")
+    for name, expect in (want or {}).items():
+        n_want = expect(steps, chunks, prefills)
+        if launches[name] != n_want:
+            _fail(f"{label}: {name} launched {launches[name]} times, "
+                  f"expected {n_want}")
+    ntok = sum(len(t) for t in streams.values())
+    out = {"n": n, "wall_s": wall, "tok_per_s": ntok / wall,
+           "warm_up_s": warm_s, "steps": steps, "dispatches": dispatches,
+           "exits": exits, "prefill_chunks": chunks,
+           "syncs_per_dispatch": sorted({r["syncs"] for r in steady}),
+           "capturing_dispatches": [
+               {"syncs": r["syncs"], "seconds": r["seconds"]}
+               for r in records if r["captured"]],
+           "trace_stats": stats,
+           "launches": {k: v for k, v in launches.items() if v},
+           "cached_prefill_tokens": engine.cached_prefill_tokens,
+           "profiled_dispatch": profiled,
+           "identical_to_n1": True}
+    if n > 1:
+        loop = engine._loop
+        out.update(
+            replays=loop.replays - replays0,
+            captures=loop.captures, captures_in_run=loop.captures
+            - captures0, graph_pool_bytes=loop.pool_bytes,
+            captured_launches_per_iteration={
+                str(k): v.launches for k, v in loop.graphs.items()},
+            replays_per_dispatch=(loop.replays - replays0) / dispatches)
+    else:
+        out["syncs_per_step"] = sorted({r["syncs"] for r in steady})
+    if profile_reqs:
+        out["profile"] = profile_window(engine, profile_reqs)
+        p = out["profile"]
+        p["device_kernels_per_decode_step"] = (
+            p["device_kernels"] / p["decode_steps"])
+        if p["host_launch_calls"]:
+            p["host_launch_calls_per_decode_step"] = (
+                p["host_launch_calls"] / p["decode_steps"])
+    prof = out.get("profile", {})
+    print(f"[multi-step] {label} N={n}: {ntok} tokens in {wall:.3f}s "
+          f"({ntok / wall:.1f} tok/s; warm-up trace {warm_s:.3f}s); "
+          f"steps {steps}, dispatches {dispatches}, exits {exits}; "
+          + (f"replays {out['replays']} ({out['replays_per_dispatch']:.2f} "
+             f"a dispatch), graphs {out['captures']} (pool "
+             f"{out['graph_pool_bytes']} bytes), launches captured an "
+             f"iteration {out['captured_launches_per_iteration']}; "
+             f"synchronising calls a dispatch {out['syncs_per_dispatch']} "
+             f"(capturing dispatches {out['capturing_dispatches']}); "
+             if n > 1 else
+             f"synchronising calls a step {out['syncs_per_step']}; ")
+          + f"trace_stats {stats}; streams bitwise N=1's"
+          + (f"; a steady dispatch of the warm-up trace under the "
+             f"profiler ({profiled['replays']} replays): "
+             f"{profiled['runtime_calls']}" if profiled else "")
+          + (f"; profiled window: wall {prof['wall_ms']:.1f} ms, busy "
+             f"{prof['busy_ms']} ms, idle {prof['idle']}, device kernels "
+             f"{prof['device_kernels']} "
+             f"({prof['device_kernels_per_decode_step']:.1f} a decode "
+             f"step), host launch calls {prof['host_launch_calls']}, graph "
+             f"launches {prof['graph_launches']}, decode steps "
+             f"{prof['decode_steps']}" if prof else ""))
+    return out
+
+
+def _fused_llama_launches(arch):
+    """Exact launches of the fused llama serve from its steps, chunks and
+    prefills: every loop iteration of this trace is live (no EOS)."""
+    layers = arch.num_layers
+    return {"paged_decode_attention": lambda s, c, p: layers * s,
+            "paged_prefill_attention": lambda s, c, p: layers * c,
+            "decode_residual_norm": lambda s, c, p: layers * (s + c),
+            "head_tokens": lambda s, c, p: s + p}
+
+
+def check_sanitizer_on_card(model, ref):
+    """The sanitizer on the card: the fused llama serve at N=4 with
+    sanitize=True gives the streams of the run without it; a smoke llama
+    (head dim 128, bf16) with NaN weights raises SanitizerError at its
+    first final chunk."""
+    from repro_torch import tree
+    from repro_torch.analysis.sanitize import SanitizerError
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousEngine, Request
+    engine = make_multistep_engine(model, 4, sanitize=True)
+    t0 = time.perf_counter()
+    res = engine.run(trace(model.arch, SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if {i: r["tokens"] for i, r in res.items()} != ref:
+        _fail("the sanitized N=4 serve's streams differ from the plain one")
+    arch = dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=128)
+    smoke = Model.init(arch, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    nan = Model(arch, tree.map(lambda t: t * float("nan")
+                               if t.is_floating_point() else t,
+                               smoke.params))
+    eng = ContinuousEngine(nan, num_slots=2, num_pages=16, page_size=16,
+                           max_seq_len=64, decode_steps=4, sanitize=True)
+    try:
+        eng.run([Request(uid=0, prompt=list(range(5, 17)),
+                         max_new_tokens=4)])
+    except SanitizerError as e:
+        msg = str(e)
+    else:
+        _fail("NaN weights did not raise SanitizerError")
+    if not msg.startswith("[sanitize:finite]") or "final=True" not in msg:
+        _fail(f"the NaN model raised elsewhere than its first final "
+              f"chunk: {msg}")
+    print(f"[sanitize] fused llama serve at N=4 with sanitize=True: "
+          f"streams equal the plain run's, {wall:.3f}s; NaN smoke weights: "
+          f"{msg}")
+    return {"wall_s": wall, "nan_message": msg}
+
+
+def multistep_phase(model, runs):
+    """Fused llama at N in MULTI_STEPS (each profiled), unfused at N=4 and
+    the sanitizer checks: streams bitwise phase 5's N=1 serves."""
+    ref = {True: {i: r["tokens"] for i, r in runs[True]["results"].items()},
+           False: {i: r["tokens"] for i, r in
+                   runs[False]["results"].items()}}
+    want = _fused_llama_launches(model.arch)
+    fused = {n: serve_multistep(model, n, ref[True], "fused llama3.2-3b",
+                                want=want,
+                                profile_reqs=trace(model.arch, SEED + 2))
+             for n in MULTI_STEPS}
+    layers = model.arch.num_layers
+    unfused = serve_multistep(
+        model, 4, ref[False], "unfused llama3.2-3b", fused=False,
+        want={"paged_decode_attention": lambda s, c, p: layers * s,
+              "paged_prefill_attention": lambda s, c, p: layers * c})
+    if not unfused["launches"].get("filter_logits") or \
+            not unfused["launches"].get("draw_tokens"):
+        _fail("the unfused N=4 serve launched no filter or draw")
+    sanitized = check_sanitizer_on_card(model, ref[True])
+    return {"fused": fused, "unfused_n4": unfused, "sanitizer": sanitized}
+
+
 # ----------------------------------------------------------- static phase ---
 # The static engine: the whole prompt prefilled at once into a dense cache,
 # then lock-step decode (launch/serve.py run_static).
@@ -1991,6 +2346,7 @@ def serve_mamba(model):
     return {"launches": launches, "phase": phase, "steps": engine.steps,
             "prefill_chunks": engine.prefill_chunks,
             "prefills": engine.prefills, "wall": wall,
+            "results": {i: r["tokens"] for i, r in res.items()},
             "tok_per_s": ntok / wall, "mean_ttft_s": ttft,
             "peak_bytes": peak, "ssm_state_bytes": state_bytes,
             "prefill_tokens": engine.prefill_tokens}
@@ -2017,6 +2373,14 @@ def mamba_phase(dev, rng, marks):
     marks["mamba2 checks"] = time.perf_counter()
     run = serve_mamba(model)
     marks["mamba2 serve"] = time.perf_counter()
+    layers = arch.num_layers
+    ref = run.pop("results")
+    run["multistep"] = {n: serve_multistep(
+        model, n, ref, "fused mamba2-1.3b",
+        profile_reqs=trace(arch, SEED + 2)[:3],
+        want={"gated_rmsnorm": lambda s, c, p: layers * (s + c),
+              "head_tokens": lambda s, c, p: s + p}) for n in (1, 4)}
+    marks["mamba2 multi-step"] = time.perf_counter()
     window = [dataclasses.replace(r, max_new_tokens=8)
               for r in trace(arch, SEED)[:2]]
     run["profile"] = profile_serve(model, make_mamba_engine(model), window)
@@ -2843,6 +3207,8 @@ def main() -> int:
           "streams may fork on near-tied logits; not a failure)")
     prof = profile_serve(model)
     marks["profile"] = time.perf_counter()
+    multi = multistep_phase(model, runs)
+    marks["multi-step"] = time.perf_counter()
     static = static_phase(model)
     marks["static llama"] = time.perf_counter()
     eager = check_sampled_step_launches(model)
@@ -2977,6 +3343,7 @@ def main() -> int:
                 k: v for k, v in static.items() if k != "profile"},
             "static mamba2-1.3b": mamba["static"]},
         "identical_streams": same,
+        "multistep": dict(multi, mamba2=mamba["multistep"]),
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

@@ -14,10 +14,19 @@ static      the fixed-batch driver: one dense KV cache (or mamba state) of
             ``attn_impl="flash"``), then ``gen_len - 1`` lock-step decode
             steps (``Model.decode_step``). ``run_static(model, args)`` takes
             a model built by the caller, so any config can be served.
-continuous  ``ContinuousEngine`` with ``--decode-steps 1 --tp 1``: paged KV
-            cache, chunked prefill, prefix cache, fused decode on or off
+continuous  ``ContinuousEngine`` with ``--tp 1``: paged KV cache, chunked
+            prefill, prefix cache, fused decode on or off
             (``--fused-decode`` / ``--no-fused-decode``; unset follows
-            ``REPRO_FUSED_DECODE``, default on).
+            ``REPRO_FUSED_DECODE``, default on). ``--decode-steps N`` runs
+            up to N decode iterations per host dispatch (on the card, CUDA
+            graph replays of one iteration) with the streams of N=1, and
+            prints a ``decode-steps=N`` line: dispatches against decode
+            steps and why the dispatches came back.
+
+``--sampler {fused,ref}`` picks the top-k / top-p filter of the sampler in
+both engines: the kernel (the default) or the sort-based oracle; unset
+follows ``REPRO_FUSED_SAMPLING``. The two give the same tokens. (Fused
+decode filters in the LM head's own epilogue.)
 
 Request i is sampled with seed ``--seed + i`` in both engines, and the draw
 for stream position p uses ``fold_in(key(seed), p)``, so the two engines
@@ -42,7 +51,15 @@ from ..configs import get_config, smoke_config
 from ..models.model import Model
 from ..serving import ContinuousEngine, Request, SamplingParams, pages_needed
 from ..serving.engine import prefix_cache_off_reason
-from ..serving.sampling import sample_tokens
+from ..serving.sampling import fused_sampling_enabled, sample_tokens
+
+
+def _fused(args) -> bool:
+    """``--sampler`` beats the ``REPRO_FUSED_SAMPLING`` default."""
+    sampler = getattr(args, "sampler", None)
+    if sampler is not None:
+        return sampler == "fused"
+    return fused_sampling_enabled()
 
 
 def _request_seed(args, i: int) -> int:
@@ -64,15 +81,18 @@ def _sync(device: torch.device) -> None:
 def run_static(model: Model, args) -> dict:
     """Prefill the batch's prompts at once, then decode ``gen_len - 1``
     steps in lock-step. ``args`` needs ``batch``, ``prompt_len``,
-    ``gen_len``, ``temperature``, ``top_k``, ``top_p`` and ``seed``. Greedy
-    is a plain argmax; sampling folds request i's seed and the stream
-    position into the draw, as the continuous engine does."""
+    ``gen_len``, ``temperature``, ``top_k``, ``top_p`` and ``seed``, and
+    may carry ``sampler`` (``"fused"`` / ``"ref"``: the filter; unset
+    follows ``REPRO_FUSED_SAMPLING``). Greedy is a plain argmax; sampling
+    folds request i's seed and the stream position into the draw, as the
+    continuous engine does."""
     arch, dev = model.arch, model.device
     b, plen, glen = args.batch, args.prompt_len, args.gen_len
     prompt = _prompts(args, arch)
     caches = model.init_caches(b, plen + glen)
     if args.temperature > 0:
         filtered = args.top_k > 0 or args.top_p < 1.0
+        fused = filtered and _fused(args)
         seeds = torch.as_tensor([_request_seed(args, i) for i in range(b)],
                                 dtype=torch.int64, device=dev)
         temps = torch.full((b,), args.temperature, dtype=torch.float32,
@@ -84,7 +104,7 @@ def run_static(model: Model, args) -> dict:
         def pick(logits, pos):
             positions = torch.full((b,), pos, dtype=torch.int32, device=dev)
             return sample_tokens(logits, seeds, positions, temps, top_ks,
-                                 top_ps, filtered=filtered, fused=filtered)
+                                 top_ps, filtered=filtered, fused=fused)
     else:
         def pick(logits, pos):
             return torch.argmax(logits, dim=-1).int()
@@ -120,7 +140,10 @@ def run_static(model: Model, args) -> dict:
 
 
 def run_continuous(model: Model, args) -> dict:
+    """Serve the batch through ``ContinuousEngine``; ``args`` may carry
+    ``decode_steps`` (default 1) and ``sampler``."""
     arch, device = model.arch, model.device
+    decode_steps = getattr(args, "decode_steps", 1)
     b, plen, glen = args.batch, args.prompt_len, args.gen_len
     prompt = _prompts(args, arch)
     max_seq = plen + glen
@@ -131,6 +154,7 @@ def run_continuous(model: Model, args) -> dict:
         page_size=args.page_size, max_seq_len=max_seq + args.page_size,
         prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk or None,
+        fused_sampling=_fused(args), decode_steps=decode_steps,
         fused_decode=args.fused_decode)
     reqs = [Request(uid=i, prompt=[int(t) for t in prompt[i]],
                     max_new_tokens=glen,
@@ -157,7 +181,15 @@ def run_continuous(model: Model, args) -> dict:
     if engine.prefix_cache_off_reason:
         print(f"[serve/continuous] prefix cache off: "
               f"{engine.prefix_cache_off_reason}")
+    if decode_steps > 1:
+        print(f"[serve/continuous] decode-steps={decode_steps}: "
+              f"{engine.decode_dispatches} host dispatches for "
+              f"{engine.steps} decode steps "
+              f"(exits: {dict(engine.decode_exits)})")
     return {"tokens": out, "wall": wall, "steps": engine.steps,
+            "decode_dispatches": engine.decode_dispatches,
+            "decode_exits": dict(engine.decode_exits),
+            "fused_sampling": engine.fused_sampling,
             "fused_decode": engine.fused_decode,
             "fused_decode_off_reason": engine.fused_decode_off_reason,
             "prefix_cache_off_reason": engine.prefix_cache_off_reason,
@@ -193,6 +225,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sampler", choices=("fused", "ref"), default=None,
+                    help="top-k / top-p filter: the kernel (default) or the "
+                         "sort-based oracle; the same tokens either way "
+                         "(default from REPRO_FUSED_SAMPLING, unset = "
+                         "fused)")
     ap.add_argument("--slots", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0)
@@ -201,6 +238,11 @@ def main(argv=None) -> dict:
                     help="prefix caching (default on; refused for SSM-"
                          "bearing archs, whose engine gates it off)")
     ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--decode-steps", type=int, default=1,
+                    help="decode iterations per host dispatch: N > 1 runs "
+                         "them as CUDA graph replays on the card with one "
+                         "host synchronisation, the streams of N=1 "
+                         "(continuous engine only)")
     ap.add_argument("--fused-decode", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="fused decode: the ln2 add + norm and the LM head "
@@ -215,6 +257,11 @@ def main(argv=None) -> dict:
         ap.error(str(e))
     if sp.greedy and sp.filtered:
         ap.error("--top-k/--top-p have no effect at --temperature 0")
+    if args.decode_steps < 1:
+        ap.error("--decode-steps must be >= 1")
+    if args.decode_steps > 1 and args.engine != "continuous":
+        ap.error("--decode-steps requires --engine continuous (the static "
+                 "engine decodes in lock-step, one token per dispatch)")
     if args.fused_decode is not None and args.engine != "continuous":
         ap.error("--fused-decode requires --engine continuous (the static "
                  "driver always materializes full logits)")

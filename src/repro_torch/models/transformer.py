@@ -233,6 +233,88 @@ def paged_decode_stack(arch: ArchConfig, blocks: List[Params],
     return x
 
 
+# ---- multi-step decode ------------------------------------------------------
+# Per-slot exit-reason bits of the multi-step loop (JAX's values). A dispatch
+# that ran the full horizon with no bit set exited on the horizon alone.
+EXIT_EOS = 1        # slot emitted its request's eos token
+EXIT_BUDGET = 2     # slot emitted its last allowed token (max-new / context)
+EXIT_PAGES = 4      # slot's next K/V write would fall past its allocated pages
+
+
+def paged_decode_loop_step(arch: ArchConfig, blocks: List[Params],
+                           caches: List[Params], carry: Params, *,
+                           horizon: int, embed, unembed=None, select=None,
+                           fused_head=None, probe: bool = False) -> None:
+    """One iteration of the multi-step decode loop, the counterpart of the
+    body and condition of ``repro.models.transformer.paged_decode_loop``'s
+    ``lax.while_loop``, in place over the tensors of ``carry``:
+
+    - inputs: ``page_table`` [S, P], ``active`` [S] (0 or 1), ``budget``,
+      ``page_limit`` and ``eos_ids`` [S], all int32 (the host's per-slot loop
+      predicates: decode-eligible mask, remaining token allowance,
+      allocated pages x page size, eos id or -1);
+    - carry: ``i`` [] (iterations run), ``tokens`` and ``lens`` [S] (the
+      input token and tokens cached, per slot), ``buf`` [horizon, S]
+      (emitted tokens), ``reasons`` [S] (EOS and budget bits), ``ok`` []
+      (the finite probe, 1 or 0; updated only with ``probe``);
+    - output: ``exits`` [S], ``reasons`` with ``EXIT_PAGES`` where an
+      active slot's next write falls past its pages, as JAX computes it
+      after its loop.
+
+    JAX's condition becomes the 0-d flag ``live`` computed here on the
+    device: ``i < horizon``, no exit bit set, no active slot at its page
+    limit. Where it is false the iteration changes nothing the host reads
+    or the next step uses: a dead slot (``active & live`` false) is masked
+    as the host masks a mid-prefill slot, its page-table row to the null
+    page and its ``seq_len`` to 0, so attention writes only the null page
+    and a mamba layer keeps the slot's state row; the carry is updated
+    only where ``live``. So the host may run more iterations than the loop
+    needs (it runs the number it can predict, and only an EOS ends the
+    loop earlier), with no host read between them.
+
+    The live iteration is the single step: embed, ``paged_decode_stack``,
+    then ``fused_head(x, positions) -> (tokens, ok rows)`` or
+    ``select(unembed(x), positions)``, at stream positions ``lens + 1``,
+    so every draw's (seed, position) key, and so every token, is the one
+    ``decode_steps=1`` draws. Nothing here reads a value on the host."""
+    i, tok, lens = carry["i"], carry["tokens"], carry["lens"]
+    active = carry["active"] != 0
+    reasons, page_limit = carry["reasons"], carry["page_limit"]
+    blocked = (active & (lens >= page_limit)).any()
+    live = (i < horizon) & (reasons == 0).all() & ~blocked
+    live_s = active & live
+    zero = torch.zeros((), dtype=lens.dtype, device=lens.device)
+    page_table = torch.where(live_s[:, None], carry["page_table"], zero)
+    seq_lens = torch.where(live_s, lens, zero)
+    x = embed(tok[:, None])
+    x = paged_decode_stack(arch, blocks, caches, x, page_table, seq_lens,
+                           fused=fused_head is not None)
+    if fused_head is not None:
+        new, ok_rows = fused_head(x, seq_lens + 1)
+        rows_ok = ok_rows | ~active
+    else:
+        logits = unembed(x)
+        new = select(logits, seq_lens + 1)
+        # inactive slots read the null page and may produce junk: probe
+        # only the live rows
+        rows_ok = (torch.isfinite(logits) | ~active[:, None]).all(dim=-1)
+    if probe:
+        carry["ok"].mul_((rows_ok.all() | ~live).to(carry["ok"].dtype))
+    buf = carry["buf"]
+    row = i.clamp(max=horizon - 1).long().view(1)
+    buf.index_copy_(0, row, torch.where(live, new, buf.index_select(0, row)[0])
+                    [None])
+    reasons.bitwise_or_(
+        torch.where(live_s & (new == carry["eos_ids"]), EXIT_EOS, zero)
+        | torch.where(live_s & (i + 1 >= carry["budget"]), EXIT_BUDGET,
+                      zero))
+    tok.copy_(torch.where(live_s, new, tok))
+    lens.add_(live_s.to(lens.dtype))
+    i.add_(live.to(i.dtype))
+    carry["exits"].copy_(reasons | torch.where(active & (lens >= page_limit),
+                                               EXIT_PAGES, zero))
+
+
 def paged_prefill_period(arch: ArchConfig, blk: Params, cache: Params,
                          x: torch.Tensor, page_row: torch.Tensor, start: int,
                          total_len: int, slot: int = 0, kind: str = "attn",

@@ -42,28 +42,51 @@ the first two). Encoder-only (bidirectional) archs are refused, and so
 are attention archs whose positions or window the paged path cannot apply
 (learned positions, a sliding window), with JAX's messages.
 
-PyTorch runs eagerly, so there is no compile cache: variants are plain
-Python branches on the ``sampled`` / ``filtered`` flags.
+Options, as in JAX: ``sanitize`` (None = ``REPRO_SANITIZE``) runs the
+runtime sanitizer (``analysis.sanitize``): the host invariants after every
+request completion, and finite probes computed on the device beside every
+decode step's and prefill chunk's tokens, read back in the same copy as
+those tokens (a non-final chunk's probe rides the next copy), so the
+sanitizer adds no synchronisation. ``fused_sampling`` (None =
+``REPRO_FUSED_SAMPLING``) picks the filter kernel or the sort-based oracle;
+both give the same tokens. ``decode_steps=N > 1`` runs up to N decode
+iterations per host dispatch (``models.transformer.paged_decode_loop_step``
+over the static buffers of ``serving.graphs.DecodeLoop``: on the card the
+iteration is a CUDA graph, replayed as many times as the host can predict,
+with the loop's exit bits and an EOS computed on the card) and makes one
+host synchronisation per dispatch; streams equal N=1's. ``decode_dispatches``
+and ``decode_exits`` count the dispatches and why they came back, as JAX's.
+At N=1 the decode step is the eager single step.
 
-Not ported yet (each raises ``NotImplementedError``): ``tp > 1``,
-``decode_steps > 1``, ``sanitize=True``, fused decode with a logit softcap
-and families other than dense and ssm (hybrid, moe, ...).
+PyTorch runs eagerly, so there is no compile cache: variants are plain
+Python branches on the ``sampled`` / ``filtered`` flags, keyed as JAX keys
+its jit cache; ``trace_stats()`` counts the variants the traffic exercised
+and their traces (a graph capture on the card, a first use otherwise).
+
+Not ported yet (each raises ``NotImplementedError``): ``tp > 1``, fused
+decode with a logit softcap and families other than dense and ssm (hybrid,
+moe, ...).
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
-from typing import Deque, Dict, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..analysis.sanitize import (check_engine, check_finite_probe,
+                                 sanitize_enabled)
 from ..kernels.fused_lm_head import ops as head_ops
 from ..models import transformer as tf
 from ..models.layers import apply_norm
 from ..models.model import Model
+from .graphs import DecodeLoop
 from .kv_cache import pages_needed
-from .sampling import fused_decode_enabled, sample_tokens
+from .sampling import (fused_decode_enabled, fused_sampling_enabled,
+                       sample_tokens)
 from .scheduler import Request, Scheduler, SequenceState
 
 SERVABLE_FAMILIES = ("dense", "ssm")
@@ -89,7 +112,8 @@ class ContinuousEngine:
                  num_pages: int = 256, page_size: int = 16,
                  max_seq_len: int = 512, prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None, tp: int = 1,
-                 sanitize: bool = False, fused_sampling: bool = True,
+                 sanitize: Optional[bool] = None,
+                 fused_sampling: Optional[bool] = None,
                  decode_steps: int = 1,
                  fused_decode: Optional[bool] = None):
         arch = model.arch
@@ -111,10 +135,8 @@ class ContinuousEngine:
         if tp != 1:
             raise _not_ported(f"tensor parallelism (tp={tp})",
                               "a later slice ports TP serving")
-        if decode_steps != 1:
-            raise _not_ported(f"multi-step decode (decode_steps="
-                              f"{decode_steps})",
-                              "a later slice ports the on-device loop")
+        if decode_steps < 1:
+            raise ValueError(f"decode_steps must be >= 1: {decode_steps}")
         want_fd = fused_decode_enabled() if fused_decode is None \
             else bool(fused_decode)
         self.fused_decode_off_reason: Optional[str] = None
@@ -133,9 +155,6 @@ class ContinuousEngine:
         if self.fused_decode and arch.logit_softcap > 0:
             raise _not_ported("fused decode with a logit softcap",
                               "a later slice adds it to head_tokens")
-        if sanitize:
-            raise _not_ported("the runtime sanitizer",
-                              "a later slice ports the tools")
         self.model = model
         self.arch = arch
         self.device = model.device
@@ -147,7 +166,13 @@ class ContinuousEngine:
         if prefill_chunk <= 0 or prefill_chunk % page_size:
             raise ValueError("prefill chunk must be a positive page multiple")
         self.prefill_chunk = prefill_chunk
-        self.fused_sampling = bool(fused_sampling)
+        # the runtime sanitizer and the filter implementation: environment
+        # defaults as in JAX, fixed per engine
+        self.sanitize = sanitize_enabled() if sanitize is None \
+            else bool(sanitize)
+        self.fused_sampling = fused_sampling_enabled() \
+            if fused_sampling is None else bool(fused_sampling)
+        self.decode_steps = int(decode_steps)
         # the reason lands on the engine and in every request's result
         self.prefix_cache_off_reason = (prefix_cache_off_reason(arch)
                                         if prefix_cache else None)
@@ -160,19 +185,33 @@ class ContinuousEngine:
                                            num_slots, model.dtype,
                                            self.device)
         self.steps = 0                  # decode steps executed
+        self.decode_dispatches = 0      # host round trips those steps cost
+        # why multi-step dispatches came back to the host (per active slot
+        # bit for eos / budgets; one count per full-horizon dispatch)
+        self.decode_exits = {"eos": 0, "token_budget": 0, "page_budget": 0,
+                             "horizon": 0}
         self.prefills = 0               # prefill completions
         self.prefill_chunks = 0         # prefill chunks executed
         self.prefill_tokens = 0         # prompt tokens actually computed
         self.cached_prefill_tokens = 0  # prompt tokens served from the cache
         self.cow_copies = 0             # divergent tail pages duplicated
         self._prefilling: Deque[SequenceState] = deque()
-        self._null_sampling = self._sampling_tensors(
-            np.zeros((num_slots,), np.int64), np.zeros((num_slots,),
-                                                       np.float32),
-            np.zeros((num_slots,), np.int32), np.ones((num_slots,),
-                                                      np.float32))
+        # step variant key (JAX's jit-cache key) -> traces behind it
+        self._traces: Dict[Tuple, int] = {}
+        # finite probes still on the device, read with the next tokens
+        self._pending: List[Tuple[torch.Tensor, str]] = []
+        # per-slot sampling arrays on the host, and on the device for N=1
+        self._null_host = (np.zeros((num_slots,), np.int64),
+                           np.zeros((num_slots,), np.float32),
+                           np.zeros((num_slots,), np.int32),
+                           np.ones((num_slots,), np.float32))
+        self._null_sampling = self._sampling_tensors(*self._null_host)
         self._sampling_key: Optional[Tuple] = None
+        self._sampling_host = self._null_host
         self._sampling_args = self._null_sampling
+        self._loop = DecodeLoop(num_slots, self.max_pages_per_seq,
+                                self.decode_steps, self.device) \
+            if self.decode_steps > 1 else None
 
     # -------------------------------------------------------------- helpers --
     def _sampling_tensors(self, seeds, temps, top_ks, top_ps):
@@ -185,6 +224,32 @@ class ContinuousEngine:
     def _ints(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                device=self.device)
+
+    def _note_trace(self, key: Tuple) -> None:
+        """Record a first use of the step variant ``key``."""
+        self._traces.setdefault(key, 1)
+
+    def _read(self, values: Sequence[torch.Tensor],
+              probes: Sequence[Tuple[torch.Tensor, str]] = ()
+              ) -> List[np.ndarray]:
+        """Copy ``values`` (int32 tensors) to the host in one copy, together
+        with every finite probe still pending and ``probes`` ((flag,
+        where) pairs); check the probes in order, then return the values.
+        Without probes a single value is copied alone."""
+        probes = self._pending + list(probes)
+        self._pending = []
+        if not probes and len(values) == 1:
+            return [values[0].cpu().numpy().copy()]
+        flat = [v.reshape(-1).int() for v in values] \
+            + [p.reshape(1).int() for p, _ in probes]
+        words = torch.cat(flat).cpu().numpy()
+        out, off = [], 0
+        for v in values:
+            out.append(words[off:off + v.numel()].reshape(v.shape))
+            off += v.numel()
+        for j, (_, where) in enumerate(probes):
+            check_finite_probe(bool(words[off + j]), where)
+        return out
 
     def _select(self, logits, seeds, positions, temps, top_ks, top_ps, *,
                 sampled: bool, filtered: bool) -> torch.Tensor:
@@ -213,45 +278,118 @@ class ContinuousEngine:
                 tokens: np.ndarray, sampling_args, *, sampled: bool,
                 filtered: bool) -> np.ndarray:
         """tokens [S] -> next tokens [S] (host). The emitted token's stream
-        position is seq_lens + 1, derived on the device."""
+        position is seq_lens + 1, derived on the device. With the sanitizer
+        the live rows' finite probe comes back with the tokens."""
+        self._note_trace(("decode", sampled, filtered,
+                          self.fused_sampling and filtered,
+                          self.fused_decode))
         pt, sl = self._ints(page_table), self._ints(seq_lens)
         x = self.model._embed(self._ints(tokens)[:, None])
         x = tf.paged_decode_stack(self.arch, self.model.params["blocks"],
                                   self.pools, x, pt, sl,
                                   fused=self.fused_decode)
+        where, probes = f"decode step {self.steps}", []
         if self.fused_decode:
-            tok, _ = self._fused_head(x, sl + 1, *sampling_args,
-                                      sampled=sampled, filtered=filtered)
-            return tok.cpu().numpy()
-        logits = self.model._logits(x)[:, 0]
-        tok = self._select(logits, sampling_args[0], sl + 1,
-                           *sampling_args[1:], sampled=sampled,
-                           filtered=filtered)
-        return tok.cpu().numpy()
+            tok, ok = self._fused_head(x, sl + 1, *sampling_args,
+                                       sampled=sampled, filtered=filtered)
+            if self.sanitize:
+                probes.append(((ok | (sl == 0)).all(), where))
+        else:
+            logits = self.model._logits(x)[:, 0]
+            tok = self._select(logits, sampling_args[0], sl + 1,
+                               *sampling_args[1:], sampled=sampled,
+                               filtered=filtered)
+            if self.sanitize:
+                # inactive slots read the null page and may produce junk:
+                # probe only rows with a token resident
+                live = torch.isfinite(logits) | (sl[:, None] == 0)
+                probes.append((live.all(), where))
+        return self._read([tok], probes)[0]
+
+    @torch.inference_mode()
+    def _decode_multi(self, page_table: np.ndarray, seq_lens: np.ndarray,
+                      tokens: np.ndarray, active: np.ndarray,
+                      budget: np.ndarray, page_limit: np.ndarray,
+                      eos_ids: np.ndarray, sampling_host, k: int, *,
+                      sampled: bool, filtered: bool
+                      ) -> Tuple[int, np.ndarray, np.ndarray]:
+        """One multi-step dispatch: stage the inputs, run ``k`` loop
+        iterations (graph replays on the card), then one copy back ->
+        (iterations run, exit bits [S], emitted tokens [N, S]). ``active``,
+        ``budget``, ``page_limit`` and ``eos_ids`` are the host's per-slot
+        loop predicates, as JAX's."""
+        horizon, loop = self.decode_steps, self._loop
+        fused = self.fused_sampling and filtered
+        key = ("decode", sampled, filtered, fused, self.fused_decode,
+               horizon)
+        seeds_h, temps_h, top_ks_h, top_ps_h = sampling_host
+        loop.stage(page_table=page_table, seq_lens=seq_lens, tokens=tokens,
+                   active=active, budget=budget, page_limit=page_limit,
+                   eos_ids=eos_ids, seeds=seeds_h, temps=temps_h,
+                   top_ks=top_ks_h, top_ps=top_ps_h)
+        c = loop.carry
+        samp = (c["seeds"], c["temps"], c["top_k"], c["top_p"])
+        flags = {"sampled": sampled, "filtered": filtered}
+        step = functools.partial(
+            tf.paged_decode_loop_step, self.arch,
+            self.model.params["blocks"], self.pools, c, horizon=horizon,
+            embed=self.model._embed, probe=self.sanitize)
+        if self.fused_decode:
+            step = functools.partial(step, fused_head=lambda x, pos:
+                                     self._fused_head(x, pos, *samp, **flags))
+        else:
+            step = functools.partial(
+                step, unembed=lambda x: self.model._logits(x)[:, 0],
+                select=lambda lg, pos: self._select(
+                    lg, samp[0], pos, *samp[1:], **flags))
+        pools = tuple(t.data_ptr() for p in self.pools for t in p.values())
+        if loop.run(key, k, step, pools):
+            self._traces[key] = self._traces.get(key, 0) + 1
+        self._note_trace(key)
+        steps, ok, exits, buf = loop.unpack(self._read([loop.read()])[0])
+        if self.sanitize:
+            check_finite_probe(ok, f"multi-step decode dispatch "
+                                   f"{self.decode_dispatches} (horizon "
+                                   f"{horizon})")
+        return max(1, steps), exits, buf
 
     @torch.inference_mode()
     def _prefill(self, chunk: np.ndarray, page_row: np.ndarray, slot: int,
-                 start: int, end: int, sp, *, final: bool) -> int:
+                 start: int, end: int, sp, *, final: bool):
         """One prompt chunk of one sequence (in ``slot``, whose mamba state
-        rows it advances); on the final chunk the token after position
-        ``end - 1`` (stream position ``end``), else 0."""
+        rows it advances) -> ``(token, probe)``: on the final chunk the
+        token after position ``end - 1`` (stream position ``end``) as an
+        int32 [1] device tensor, else None; with the sanitizer the chunk's
+        finite probe (a 0-d device flag: the valid positions' activations,
+        or the final chunk's logits), else None."""
+        sampled = final and not sp.greedy
+        filtered = sampled and sp.filtered
+        self._note_trace(("prefill", final, sampled, filtered,
+                          self.fused_sampling and filtered,
+                          self.fused_decode))
         x = self.model._embed(self._ints(chunk))
         x = tf.paged_prefill_stack(self.arch, self.model.params["blocks"],
                                    self.pools, x, self._ints(page_row), start,
                                    end, slot, fused=self.fused_decode)
         if not final:
-            return 0
+            if not self.sanitize:
+                return None, None
+            # pad rows past the chunk's valid tokens may be junk
+            pad = torch.arange(x.shape[1], device=x.device) >= end - start
+            return None, (torch.isfinite(x) | pad[None, :, None]).all()
         xl = tf.chunk_final_hidden(x, start, end)
         args = self._sampling_tensors([sp.seed], [sp.temperature],
                                       [sp.top_k], [sp.top_p])
-        flags = {"sampled": not sp.greedy,
-                 "filtered": not sp.greedy and sp.filtered}
+        flags = {"sampled": sampled, "filtered": filtered}
         if self.fused_decode:
-            tok, _ = self._fused_head(xl, self._ints([end]), *args, **flags)
+            tok, ok = self._fused_head(xl, self._ints([end]), *args, **flags)
+            probe = ok[0]
         else:
-            tok = self._select(self.model._logits(xl)[:, 0], args[0],
-                               self._ints([end]), *args[1:], **flags)
-        return int(tok[0])
+            logits = self.model._logits(xl)[:, 0]
+            tok = self._select(logits, args[0], self._ints([end]), *args[1:],
+                               **flags)
+            probe = torch.isfinite(logits).all()
+        return tok, (probe if self.sanitize else None)
 
     @torch.inference_mode()
     def _copy_page(self, src: int, dst: int) -> None:
@@ -289,9 +427,17 @@ class ContinuousEngine:
             chunk = np.zeros((1, self.prefill_chunk), np.int32)
             chunk[0, :end - start] = ctx[start:end]
             final = end == seq.prefill_target
-            tok = self._prefill(chunk, sched.cache.page_table[seq.slot],
-                                seq.slot, start, end, seq.request.sampling,
-                                final=final)
+            tok, probe = self._prefill(
+                chunk, sched.cache.page_table[seq.slot], seq.slot, start,
+                end, seq.request.sampling, final=final)
+            if probe is not None:
+                # read with the next tokens the host copies back
+                self._pending.append((probe, (
+                    f"prefill chunk [{start}:{end}) of request "
+                    f"{seq.request.uid} (final={final})")))
+            if final:
+                # the one read of a final chunk: its token (and probes)
+                tok = int(self._read([tok])[0][0])
             seq.prefilled = end
             self.prefill_chunks += 1
             self.prefill_tokens += end - start
@@ -339,6 +485,10 @@ class ContinuousEngine:
             if self.prefix_cache_off_reason is not None:
                 results[seq.request.uid]["prefix_cache"] = \
                     f"off: {self.prefix_cache_off_reason}"
+            if self.sanitize:
+                # the host invariants at every request boundary: a leak or
+                # a desync raises naming the request that exposed it
+                check_engine(self)
 
         while pending or sched.has_work:
             while pending and pending[0].arrival <= now():
@@ -394,6 +544,30 @@ class ContinuousEngine:
             if not slots:
                 continue
             cache = sched.cache
+            horizon = self.decode_steps
+            if horizon > 1:
+                # the multi-step loop's per-slot predicates, built BEFORE
+                # the page table is snapshotted: extend_capacity appends
+                # the pages the loop may write. budget is the remaining
+                # max-new / context allowance (>= 1: done sequences were
+                # finished above)
+                h_active = np.zeros((self.num_slots,), np.int32)
+                h_budget = np.ones((self.num_slots,), np.int32)
+                h_pages = np.zeros((self.num_slots,), np.int32)
+                h_eos = np.full((self.num_slots,), -1, np.int32)
+                for slot in slots:
+                    seq = sched.running[slot]
+                    req = seq.request
+                    h_active[slot] = 1
+                    left = min(
+                        req.max_new_tokens - len(seq.generated),
+                        seq.max_context - len(req.prompt)
+                        - len(seq.generated))
+                    h_budget[slot] = left
+                    h_pages[slot] = sched.extend_capacity(
+                        slot, min(horizon, left))
+                    if req.eos_id is not None:
+                        h_eos[slot] = req.eos_id
             page_table, seq_lens = cache.page_table, cache.seq_lens
             if len(slots) != len(sched.running):
                 page_table = page_table.copy()
@@ -422,25 +596,70 @@ class ContinuousEngine:
                         temps[slot] = sp.temperature
                         top_ks[slot] = sp.top_k
                         top_ps[slot] = sp.top_p
-                    self._sampling_args = self._sampling_tensors(
-                        seeds, temps, top_ks, top_ps)
+                    self._sampling_host = (seeds, temps, top_ks, top_ps)
+                    if horizon == 1:
+                        self._sampling_args = self._sampling_tensors(
+                            seeds, temps, top_ks, top_ps)
                     self._sampling_key = comp
+                sampling_host = self._sampling_host
                 sampling_args = self._sampling_args
             else:
+                sampling_host = self._null_host
                 sampling_args = self._null_sampling
-            next_np = self._decode(page_table, seq_lens, tokens,
-                                   sampling_args, sampled=sampled,
-                                   filtered=filtered)
-            self.steps += 1
+            if horizon == 1:
+                next_np = self._decode(page_table, seq_lens, tokens,
+                                       sampling_args, sampled=sampled,
+                                       filtered=filtered)
+                self.steps += 1
+                self.decode_dispatches += 1
+                t_tok = now()
+                for slot in slots:
+                    seq = sched.running[slot]
+                    cache.seq_lens[slot] += 1    # input token now cached
+                    seq.generated.append(int(next_np[slot]))
+                    seq.token_times.append(t_tok)
+                    if seq.done:
+                        finish(seq)
+                continue
+
+            # multi-step dispatch: up to `horizon` iterations, one host
+            # synchronisation, then the loop's effects replayed through
+            # the ordinary finish path
+            k, reasons, buf = self._decode_multi(
+                page_table, seq_lens, tokens, h_active, h_budget, h_pages,
+                h_eos, sampling_host,
+                self._loop_iterations(slots, seq_lens, h_budget, h_pages),
+                sampled=sampled, filtered=filtered)
+            self.steps += k
+            self.decode_dispatches += 1
+            for name, bit in (("eos", tf.EXIT_EOS),
+                              ("token_budget", tf.EXIT_BUDGET),
+                              ("page_budget", tf.EXIT_PAGES)):
+                self.decode_exits[name] += \
+                    int(((reasons[slots] & bit) != 0).sum())
+            if k == horizon and not reasons[slots].any():
+                self.decode_exits["horizon"] += 1
             t_tok = now()
             for slot in slots:
                 seq = sched.running[slot]
-                cache.seq_lens[slot] += 1    # input token now cached
-                seq.generated.append(int(next_np[slot]))
-                seq.token_times.append(t_tok)
+                cache.seq_lens[slot] += k        # k input tokens now cached
+                seq.generated.extend(int(t) for t in buf[:k, slot])
+                seq.token_times.extend([t_tok] * k)
                 if seq.done:
                     finish(seq)
+        if self._pending:
+            self._read([])
         return results
+
+    def _loop_iterations(self, slots: Sequence[int], seq_lens: np.ndarray,
+                         budget: np.ndarray, page_limit: np.ndarray) -> int:
+        """The iterations a dispatch runs: all the loop can run unless an
+        EOS ends it sooner (the host can predict every other exit: the
+        budget bit ends it after min(budget) iterations, the page check
+        before a slot's length reaches its page limit). Iterations past
+        an EOS are no-ops on the card."""
+        return int(min(self.decode_steps, budget[slots].min(),
+                       (page_limit[slots] - seq_lens[slots]).min()))
 
     # ----------------------------------------------------------------- stats --
     @property
@@ -450,3 +669,12 @@ class ContinuousEngine:
     @property
     def pages_in_use(self) -> int:
         return self.scheduler.allocator.used_count
+
+    def trace_stats(self) -> Dict[str, int]:
+        """Variant accounting, JAX's keys: ``variants`` is the number of
+        step variants the traffic exercised, ``traces`` the traces behind
+        them (a graph capture on the card, a first use otherwise) and
+        ``excess`` their difference: a recapture, which must stay 0."""
+        traces = sum(self._traces.values())
+        return {"variants": len(self._traces), "traces": traces,
+                "excess": traces - len(self._traces)}

@@ -79,6 +79,15 @@ def sample_tokens(logits: torch.Tensor, seeds: torch.Tensor,
     return torch.where(temps > 0, drawn, greedy)
 
 
+def fused_sampling_enabled() -> bool:
+    """Environment default of the engines' ``fused_sampling`` flag (the
+    top-k / top-p filter kernel against the sort-based oracle): on unless
+    ``REPRO_FUSED_SAMPLING`` is set to ``0`` or the empty string (the JAX
+    package's rule). The two filters give the same tokens, so the flag
+    changes step latency only."""
+    return os.environ.get("REPRO_FUSED_SAMPLING", "1") not in ("", "0")
+
+
 def fused_decode_enabled() -> bool:
     """Environment default of the engine's ``fused_decode`` flag: on unless
     ``REPRO_FUSED_DECODE`` is set to ``0`` or the empty string (the JAX

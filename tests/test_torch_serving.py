@@ -166,9 +166,12 @@ def test_overlong_request_error_and_eos_match_jax(pair):
     assert t_eng.live_kv_tokens == 0
 
 
-@pytest.mark.parametrize("kw", [{"tp": 2}, {"decode_steps": 4},
-                                {"sanitize": True}])
+@pytest.mark.parametrize("kw", [{"tp": 2}, {"tp": 2, "decode_steps": 4},
+                                {"tp": 2, "sanitize": True}])
 def test_unported_engine_options_raise(pair, kw):
+    """Tensor parallelism is not ported, whatever the other options (the
+    multi-step loop and the sanitizer are: test_torch_multistep.py and
+    test_torch_sanitize.py)."""
     with pytest.raises(NotImplementedError, match="not ported"):
         ContinuousEngine(pair[2], num_slots=2, num_pages=8, page_size=4, **kw)
 
