@@ -163,6 +163,35 @@ Phases, each printing one line (any failure exits non-zero):
      row_uniforms, the unfused sampler and the fused head at the serve's
      8 rows under the profiler: each selection must launch fewer kernels
      than the eager threefry alone, and no serve may have called it;
+  6b. the moe and hybrid families: in phase 3 (beside the other kernel
+     checks), the fused head with an untied head [D,
+     V] (its own CUDA-core GEMV) bitwise against its plain version on
+     exact-arithmetic inputs (16, 1 and 8 rows; greedy, temperature-only,
+     filtered) at deepseek-moe-16b's D 2048 / V 102400, internlm2-1.8b's V
+     92544 and jamba's D 4096 / V 65536, timed beside its bound and
+     torch.matmul (the GEMV only); paged decode and prefill at G 1
+     (deepseek, 16 / 16 heads), 2 (internlm2) and 4 (jamba) held as in
+     phase 3; the add + norm at D 2048; the filter and draw bitwise at V
+     102400, 92544 and 65536. Here, deepseek-moe-16b at full width and depth
+     (28 layers, 64 routed experts of 1408, top-6, 2 shared; 16.9 B
+     parameters, bf16, seeded): its logits through the paged path (110
+     tokens in 64-token chunks, four decode steps, unfused and fused)
+     against the plain full-sequence forward at a capacity factor raised
+     so nothing drops (rel L2 0.05), with the count of (layer, token) pairs
+     whose top-6 expert set differs between the two; one MoE layer bitwise
+     repeatable at [8, 1] and [1, 64]; phase 5's trace served unfused and
+     fused at the config's capacity factor 1.25 (exact launches as for
+     llama), the fused serve at decode_steps=4 as in phase 5b (streams
+     bitwise, one synchronising call a dispatch, no host kernel launch in
+     a steady dispatch), the fused trace profiled (device time split into
+     GEMMs, the MoE's routing ops by kernel name, and the rest), and the
+     static engine on 4 prompts of 512 tokens with 16 new, greedy, its
+     last logits against the plain forward (rel L2 0.05). Then jamba at
+     full width, one period of its 32 layers (8: 1 attention, 7 mamba, 4
+     MoE of 16 experts of 14336; the whole model does not fit one card):
+     the logits check at a raised capacity factor, and 4 requests of the
+     trace (16 new tokens, greedy) served unfused then fused with exact
+     launches from the steps and chunks, the streams compared;
   7. one full-width bert-large post-norm block, fused (kernel forward,
      plain backward) against unfused in bf16 and both against fp32: the
      output and the gradient of the input and of every block parameter
@@ -180,9 +209,10 @@ Phases, each printing one line (any failure exits non-zero):
      leaves), then 6 unfused steps from the same
      weights and batches; every loss finite, the last below the first on
      both paths, the step-1 losses within 1 bf16 ulp of each other;
-  9. one JSON line of per-kernel numbers (times from CUDA events) and of
-     the serves (llama unfused and fused, mamba2 fused, static llama with
-     flash and static mamba2).
+  9. one JSON line of per-kernel numbers (times from CUDA events; the
+     untied head its own entry) and of the serves (llama unfused and
+     fused, mamba2 fused, static llama with flash and static mamba2, and
+     under "moe" the deepseek and jamba phases).
 TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
 fp32. Every bound reads the card's peaks from repro_torch.core.roofline
 (H100, H100_FP32).
@@ -192,6 +222,7 @@ the card from a seeded torch.Generator; nothing is downloaded.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -938,7 +969,7 @@ def _exact_head_inputs(arch, dev, gen):
     return x, w, top
 
 
-def check_head_tokens(arch, dev):
+def check_head_tokens(arch, dev, untied: bool = False):
     """The fused LM head at ``arch``'s width and padded vocab against its
     plain version (cuBLAS bf16 GEMM with fp32 reduction, then the plain
     epilogue) on exact-arithmetic inputs: tokens and probe bitwise for
@@ -947,13 +978,25 @@ def check_head_tokens(arch, dev):
     greedy tokens equal on every row whose plain top-2 margin exceeds 2
     bf16 ulps of the largest |logit|. Run for llama3.2-3b (D 3072, V
     128256) and for mamba2-1.3b (D 2048, V 50304), whose cluster epilogue
-    splits a row into narrower slices."""
+    splits a row into narrower slices; with ``untied``, the same inputs
+    with the weight laid out as an untied head [D, V] (its own GEMV), for
+    deepseek-moe-16b (D 2048, V 102400), internlm2-1.8b (V 92544) and
+    jamba-v0.1-52b (D 4096, V 65536)."""
     from repro_torch.kernels.fused_lm_head import ops, ref
     from repro_torch.kernels.fused_sampling import ops as samp_ops
     from repro_torch.models.layers import unembed
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     x, w, top = _exact_head_inputs(arch, dev, gen)
     d, v = x.shape[1], w.shape[0]
+    kname = "head_tokens_untied" if untied else "head_tokens"
+
+    def layout(w):
+        """The weight as the call under test takes it."""
+        return w.T.contiguous() if untied else w
+
+    def plain_logits(x, wk):
+        return unembed({"head": wk}, x, None) if untied else unembed({}, x, wk)
+    wk = layout(w)
     idx = torch.arange(16, device=dev)
     seeds, pos = _draw_keys(16, dev)
     temps = torch.tensor([0.0, 1.0, 0.8, 1.0, 0.0, 1.0, 1.3, 0.7,
@@ -974,11 +1017,12 @@ def check_head_tokens(arch, dev):
             x, seeds, pos, temps, top_k, top_p))
         for sampled, filtered in ((False, False), (True, False),
                                   (True, True)):
-            tok, ok = ops.head_tokens(xs, w, sd, ps, tm, tk, tp,
-                                      sampled=sampled, filtered=filtered)
-            ptok, pok = ref.head_tokens(xs, w, ref.row_uniforms(sd, ps), tm,
+            tok, ok = ops.head_tokens(xs, wk, sd, ps, tm, tk, tp,
+                                      sampled=sampled, filtered=filtered,
+                                      untied=untied)
+            ptok, pok = ref.head_tokens(xs, wk, ref.row_uniforms(sd, ps), tm,
                                         tk, tp, sampled=sampled,
-                                        filtered=filtered)
+                                        filtered=filtered, untied=untied)
             torch.cuda.synchronize()
             if not (torch.equal(tok, ptok) and torch.equal(ok, pok)):
                 _fail(f"head_tokens {arch.name} S={s} (sampled={sampled}, filtered="
@@ -1001,13 +1045,18 @@ def check_head_tokens(arch, dev):
 
     # random full-width bf16 inputs (the weight buffer is reused)
     w.normal_(0.0, 0.02, generator=gen)
+    del wk
+    wk = layout(w)
+    if untied:
+        del w
     xr = torch.randn((16, d), generator=gen, device=dev).bfloat16()
-    rargs16 = (xr, w, seeds, pos, temps, top_k, top_p)
+    rargs16 = (xr, wk, seeds, pos, temps, top_k, top_p)
     xr, seeds, pos, temps, top_k, top_p = (t[:s] for t in (
         xr, seeds, pos, temps, top_k, top_p))
-    rargs = (xr, w, seeds, pos, temps, top_k, top_p)
-    tok, _ = ops.head_tokens(*rargs, sampled=False, filtered=False)
-    logits = unembed({}, xr, w)
+    rargs = (xr, wk, seeds, pos, temps, top_k, top_p)
+    tok, _ = ops.head_tokens(*rargs, sampled=False, filtered=False,
+                             untied=untied)
+    logits = plain_logits(xr, wk)
     top2 = torch.topk(logits, 2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * _bf16_ulp(
         logits.abs().max(dim=-1).values)
@@ -1020,52 +1069,61 @@ def check_head_tokens(arch, dev):
                  f"margin > 2 bf16 ulps, all equal; {int(same.sum())} of {s}"
                  " equal in all")
 
-    _kernels_a_call(lambda: ops.head_tokens(*rargs, sampled=True,
-                                            filtered=True), "head_tokens")
-    device = {step: _profiled_ms(lambda: ops.head_tokens(
-        *rargs, sampled=sampled, filtered=filtered), DEVICE_NAMES["head_tokens"])
+    head = functools.partial(ops.head_tokens, untied=untied)
+    _kernels_a_call(lambda: head(*rargs, sampled=True, filtered=True), kname)
+    device = {step: _profiled_ms(lambda: head(
+        *rargs, sampled=sampled, filtered=filtered), DEVICE_NAMES[kname])
         for step, sampled, filtered in (("filtered", True, True),
                                         ("sampled", True, False),
                                         ("greedy", False, False))}
-    device["filtered epilogue"] = _profiled_ms(lambda: ops.head_tokens(
+    device["filtered epilogue"] = _profiled_ms(lambda: head(
         *rargs, sampled=True, filtered=True), ("head_epilogue_kernel",))
-    ms = _time_ms(lambda: ops.head_tokens(*rargs, sampled=True,
-                                          filtered=True), 20)
-    ms_greedy = _time_ms(lambda: ops.head_tokens(*rargs, sampled=False,
-                                                 filtered=False), 20)
-    ms_16 = _time_ms(lambda: ops.head_tokens(*rargs16, sampled=True,
-                                             filtered=True), 20)
+    if untied:
+        device["greedy GEMV"] = _profiled_ms(lambda: head(
+            *rargs, sampled=False, filtered=False), ("head_gemv_t_kernel",))
+    ms = _time_ms(lambda: head(*rargs, sampled=True, filtered=True), 20)
+    ms_greedy = _time_ms(lambda: head(*rargs, sampled=False,
+                                      filtered=False), 20)
+    ms_16 = _time_ms(lambda: head(*rargs16, sampled=True, filtered=True), 20)
     plain_ms = _time_ms(lambda: ref.head_tokens(
-        xr, w, ref.row_uniforms(seeds, pos), temps, top_k, top_p,
-        sampled=True, filtered=True), 3, warmup=1)
-    library_ms = _time_ms(lambda: torch.matmul(xr, w.T), 20)
+        xr, wk, ref.row_uniforms(seeds, pos), temps, top_k, top_p,
+        sampled=True, filtered=True, untied=untied), 3, warmup=1)
+    library = (lambda: torch.matmul(xr, wk)) if untied else \
+        (lambda: torch.matmul(xr, wk.T))
+    library_ms = _time_ms(library, 20)
+    library_device_ms = _profiled_ms(library, ("",), 20)
     safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
 
     def unfused_head():
-        lg = unembed({}, xr, w)
+        lg = plain_logits(xr, wk)
         torch.argmax(lg, dim=-1)
         torch.isfinite(lg).all(dim=-1)
         samp_ops.draw_tokens(samp_ops.filter_logits(lg / safe_t[:, None],
                                                     top_k, top_p), seeds, pos)
     unfused_ms = _time_ms(unfused_head, 20)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
-    print(f"[head_tokens] {arch.name} x [{s}, {d}], W [{v}, {d}]: "
+    wshape = f"[{d}, {v}] (untied head)" if untied else f"[{v}, {d}]"
+    print(f"[head_tokens] {arch.name} x [{s}, {d}], W {wshape}: "
           + "; ".join(lines))
     # W and x read once; seeds (8 bytes), positions, temps, top_k, top_p
     # (4 each) read; tokens and the probe written
     nbytes = v * d * 2 + s * d * 2 + s * 24 + s * 4 + s
     bound_ms, bound_by = _bound(nbytes, 2.0 * s * v * d)
-    return {"name": "head_tokens", "route": "cuda",
+    return {"name": "head_tokens (untied head)" if untied else "head_tokens",
+            "route": "cuda",
             "source": "src/repro_torch/kernels/fused_lm_head/csrc/"
                       "head_tokens.cu",
             "replaces": "src/repro/kernels/fused_lm_head/kernel.py:64",
-            "shape": f"x [{s}, {d}], W [{v}, {d}] bf16 ({arch.name})",
+            "shape": f"x [{s}, {d}], W {wshape} bf16 ({arch.name})",
             "max_abs_err": 0.0, "ms": ms, "ms_greedy": ms_greedy,
             "ms_16_rows": ms_16,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
-            "library_note": "torch.matmul of x [8, D] by the [V, D] weight "
-                            "transposed",
+            "library_device_ms": library_device_ms,
+            "library_note": ("torch.matmul of x [8, D] by the [D, V] head "
+                             "(the GEMV only)" if untied else
+                             "torch.matmul of x [8, D] by the [V, D] weight "
+                             "transposed"),
             "unfused_head_ms": unfused_ms,
             "profiler_device_ms_by_step": device,
             "ctas_a_row": samp_ops.cluster_plan(s, v),
@@ -1499,7 +1557,7 @@ def serve(model, logit_err: float, fused: bool):
                 _fail(f"the fused path launched {name}")
     ntok = sum(len(r["tokens"]) for r in res.values())
     ttft = float(np.mean([res[i]["token_times"][0] for i in range(n_req)]))
-    print(f"[serve] {'fused' if fused else 'unfused'} decode, llama3.2-3b "
+    print(f"[serve] {'fused' if fused else 'unfused'} decode, {arch.name} "
           f"{arch.num_layers}L d{arch.d_model} bf16: "
           f"{n_req} requests x {gen} tokens in {wall:.3f}s "
           f"({ntok / wall:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms); "
@@ -1548,15 +1606,20 @@ def profile_serve(model, engine=None, reqs=None):
     kinds = {"paged attention": 0.0, "residual norm": 0.0,
              "gated rmsnorm": 0.0, "fused head": 0.0, "gemm": 0.0,
              "other": 0.0}
+    if model.arch.moe is not None:
+        kinds["moe routing"] = 0.0
     for name, ms, _ in kernels:
         low = name.lower()
-        if "decode_kernel" in low or "prefill_kernel" in low:
+        if "moe routing" in kinds and any(w in low for w in MOE_ROUTING):
+            kinds["moe routing"] += ms
+        elif "decode_kernel" in low or "prefill_kernel" in low:
             kinds["paged attention"] += ms
         elif "resnorm_kernel" in low:
             kinds["residual norm"] += ms
         elif "gated_rmsnorm_kernel" in low:
             kinds["gated rmsnorm"] += ms
-        elif "head_gemv_kernel" in low or "head_epilogue_kernel" in low:
+        elif any(w in low for w in ("head_gemv_kernel", "head_gemv_t_kernel",
+                                      "head_epilogue_kernel")):
             kinds["fused head"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
                                       "cutlass")):
@@ -1565,6 +1628,9 @@ def profile_serve(model, engine=None, reqs=None):
             kinds["other"] += ms
     n_launch = sum(k[2] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
+    PROFILE_KINDS[model.arch.name] = {"wall_ms": wall_ms, "busy_ms": busy,
+                                      "idle": 1 - busy / wall_ms,
+                                      "launches": n_launch, **kinds}
     print(f"[profile] {model.arch.name} fused trace ({len(reqs)} requests) "
           f"under torch.profiler: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
@@ -1575,6 +1641,15 @@ def profile_serve(model, engine=None, reqs=None):
           + "; top kernels " + "; ".join(
               f"{n[:48]} {ms:.1f} ms x{c}" for n, ms, c in top))
     return {name: (ms, c) for name, ms, c in kernels}
+
+
+# the device kernels of the MoE's routing, dispatch and combine, by name
+# (cub radix sorts, torch's sort and top-k, searchsorted, the gathers and
+# scatters, the router's softmax): no other op of the serving paths
+# launches them
+MOE_ROUTING = ("sort", "radix", "topk", "searchsorted", "scatter_gather",
+               "softmax")
+PROFILE_KINDS = {}          # arch -> the profiled window's device split
 
 
 # ------------------------------------------------------- multi-step phase ---
@@ -2394,6 +2469,555 @@ def mamba_phase(dev, rng, marks):
     return run
 
 
+# -------------------------------------------------------------- MoE phase ---
+# The moe family (deepseek-moe-16b at full width and depth) and the hybrid
+# family (jamba-v0.1-52b, one period of its layers at full width) through
+# both engines, with the head kernel reading their untied heads.
+JAMBA_LAYERS = 8            # one period of jamba's 32: 1 attention, 7 mamba
+                            # layers, 4 of them MoE
+
+
+def check_paged_heads(arch, rng, dev):
+    """Paged decode (8 slots of 128-576 tokens) and prefill (the last chunk
+    of a 498-token prompt, every row of it) at ``arch``'s heads against
+    their plain versions, each query row within ATTN_TOL as in phase 3
+    (llama's G 3): deepseek-moe-16b's G 1 (16 / 16 heads), internlm2-1.8b's
+    G 2 and jamba's G 4. Timed by CUDA events beside the bound (phase 3
+    counts the kernels a call and takes the profiler's device time)."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    seq_lens = np.asarray(rng.integers(128, 577, 8), np.int32)
+    seq_lens[0], seq_lens[1] = 576, 17
+    q, sets, pt, sl = _paged_decode_case(arch, rng, dev, seq_lens, 36)
+    kp, vp = sets[0]
+    out = ops.paged_decode_attention(q, kp, vp, pt, sl)
+    plain = ref.paged_decode_attention(q.float(), kp.float(), vp.float(), pt,
+                                       sl)
+    torch.cuda.synchronize()
+    live = sl > 0
+    _, dec_ulps = _attn_err(out[live], plain[live],
+                            f"paged_decode_attention ({arch.name})")
+    dec_ms = _time_ms(lambda: ops.paged_decode_attention(q, kp, vp, pt, sl),
+                      100)
+    hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.resolved_head_dim
+    tokens = int(sl.sum().item())
+    dec_bound, _ = _bound(tokens * hkv * d * 2 * 2 + 2 * q.numel() * 2,
+                          4.0 * tokens * hq * d)
+    del sets, kp, vp
+    c, page, max_pages, num_pages = 64, 16, 35, 64
+    start, valid = 448, 50
+    total = start + valid
+    kp = torch.randn((num_pages, page, hkv, d), device=dev,
+                     dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    pr = torch.as_tensor(rng.permutation(np.arange(1, num_pages))[
+        :max_pages].astype(np.int32), device=dev)
+    qp = torch.randn((c, hq, d), device=dev, dtype=torch.bfloat16)
+    out = ops.paged_prefill_attention(qp, kp, vp, pr, start, total)
+    plain = ref.paged_prefill_attention(qp.float(), kp.float(), vp.float(),
+                                        pr, start, total)
+    torch.cuda.synchronize()
+    _, pre_ulps = _attn_err(out, plain,
+                            f"paged_prefill_attention ({arch.name})")
+    pre_ms = _time_ms(lambda: ops.paged_prefill_attention(
+        qp, kp, vp, pr, start, total), 100)
+    visible = sum(min(start + r + 1, total) for r in range(valid))
+    pre_bound, _ = _bound(total * hkv * d * 2 * 2 + 2 * valid * hq * d * 2,
+                          4.0 * visible * hq * d)
+    torch.cuda.empty_cache()
+    g = hq // hkv
+    res = {"G": g, "decode": {"max_err_row_ulps": dec_ulps, "ms": dec_ms,
+                              "bound_ms": dec_bound,
+                              "split": ops.decode_plan(8, hkv, 36, page)},
+           "prefill": {"max_err_row_ulps": pre_ulps, "ms": pre_ms,
+                       "bound_ms": pre_bound,
+                       "split": ops.prefill_plan(c, hq, hkv, start, total,
+                                                 page, max_pages)[0]}}
+    print(f"[paged] {arch.name} (G {g}: {hq} / {hkv} heads): decode worst "
+          f"row {dec_ulps:.4f} ulps, {dec_ms:.5f} ms (bound "
+          f"{dec_bound:.5f}); prefill worst row {pre_ulps:.4f} ulps, "
+          f"{pre_ms:.5f} ms (bound {pre_bound:.5f}) (tol {ATTN_TOL})")
+    return res
+
+
+def check_residual_norm_width(d, dev):
+    """The fused add + norm (rmsnorm) at [8, d] and [64, d]: x + y bitwise,
+    the norm within 1 bf16 ulp of the plain version; device time a call."""
+    from repro_torch.kernels.fused_layernorm import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    out = {}
+    for rows in (8, 64):
+        x = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        y = (torch.randn((rows, d), generator=gen, device=dev)
+             * 0.5).bfloat16()
+        scale = (1.0 + 0.1 * torch.randn((d,), generator=gen,
+                                         device=dev)).bfloat16()
+        h, x2 = ops.decode_residual_norm(y, x, scale, kind="rmsnorm")
+        ph, px2 = ref.decode_residual_norm(y, x, scale, kind="rmsnorm")
+        torch.cuda.synchronize()
+        diff = (h.float() - ph.float()).abs()
+        if not torch.equal(x2.view(torch.int16), px2.view(torch.int16)) or \
+                not bool((diff <= _bf16_ulp(ph)).all()):
+            _fail(f"decode_residual_norm [{rows}, {d}]: x + y not bitwise or "
+                  f"the norm off by more than 1 bf16 ulp "
+                  f"({diff.max().item()})")
+        out[f"device_ms_{rows}_rows"] = _profiled_ms(
+            lambda: ops.decode_residual_norm(y, x, scale, kind="rmsnorm"),
+            DEVICE_NAMES["decode_residual_norm"], 50)
+        out[f"plan_{rows}_rows"] = ops.norm_plan(rows, d)
+    print(f"[residual_norm] D {d} (deepseek-moe-16b, internlm2-1.8b): [8, "
+          f"{d}] and [64, {d}] within 1 bf16 ulp, x + y bitwise; {out}")
+    return out
+
+
+def check_sampler_vocab(v, dev, rng):
+    """The filter and the draw at [8, v] bitwise against their plain
+    versions (the bisection; the plain draw of ref.row_uniforms)."""
+    from repro_torch.kernels.fused_lm_head import ref as head_ref
+    from repro_torch.kernels.fused_sampling import ops, ref
+    s = 8
+    lg = torch.as_tensor(rng.normal(size=(s, v)).astype(np.float32) * 3.0,
+                         device=dev)
+    top_k = torch.as_tensor([40, 40, 0, 40, 1, 40, 0, v + 5],
+                            dtype=torch.int32, device=dev)
+    top_p = torch.as_tensor([0.95, 1.0, 0.95, 0.95, 0.5, 0.95, 1.0, 0.99],
+                            dtype=torch.float32, device=dev)
+    out = ops.filter_logits(lg, top_k, top_p)
+    plain = ref.filter_logits_bisect(lg, top_k, top_p)
+    seeds, pos = _draw_keys(s, dev)
+    tok = ops.draw_tokens(out, seeds, pos)
+    ptok = head_ref.draw_tokens(out, head_ref.row_uniforms(seeds, pos))
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), plain.view(torch.int32)) or \
+            not torch.equal(tok, ptok):
+        _fail(f"filter or draw at [8, {v}] differ from the plain versions")
+    return {"ctas_a_row": ops.cluster_plan(s, v),
+            "filter_device_ms": _profiled_ms(lambda: ops.filter_logits(
+                lg, top_k, top_p), DEVICE_NAMES["filter_logits"]),
+            "draw_device_ms": _profiled_ms(lambda: ops.draw_tokens(
+                out, seeds, pos), DEVICE_NAMES["draw_tokens"])}
+
+
+def moe_kernel_checks(dev, rng):
+    """The kernels at the shapes the moe and hybrid paths give them: the
+    untied head at deepseek's, internlm2's and jamba's (D, V); paged
+    attention at G 1, 2 and 4; the add + norm at D 2048; the filter and
+    draw at V 102400, 92544 and 65536 (jamba's gated norm at C 8192 is in
+    phase 3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import pad_vocab
+    archs = [get_config(n) for n in ("deepseek-moe-16b", "internlm2-1.8b",
+                                     "jamba-v0.1-52b")]
+    heads = [check_head_tokens(a, dev, untied=True) for a in archs]
+    torch.cuda.empty_cache()
+    paged = {a.name: check_paged_heads(a, rng, dev) for a in archs}
+    norm = check_residual_norm_width(archs[0].d_model, dev)
+    sampler = {f"[8, {pad_vocab(a.vocab_size)}]": check_sampler_vocab(
+        pad_vocab(a.vocab_size), dev, rng) for a in archs}
+    print(f"[sampler] filter and draw bitwise at the new vocabularies "
+          f"(CTAs a row, device ms): {sampler}")
+    row = dict(heads[0])
+    row["other_shapes"] = {h["shape"]: {k: h[k] for k in (
+        "ms", "ms_greedy", "plain_ms", "bound_ms", "library_ms",
+        "library_device_ms", "profiler_device_ms_by_step", "ctas_a_row")}
+        for h in heads[1:]}
+    return {"row": row, "paged": paged, "residual_norm_d2048": norm,
+            "sampler": sampler}
+
+
+def moe_reference_logits(model, tokens, fp32: bool = False):
+    """The plain full-sequence forward (``transformer.apply_block`` layer
+    by layer: naive causal attention, each MoE layer at
+    ``capacity_per_row(S)`` of the model's arch, mamba layers over one SSD
+    chunk with the gated norm's plain version): fp32 logits [S, Vp] of
+    every position. With ``fp32`` the activations are fp32 and each
+    layer's weights are upcast as the layer runs (a whole fp32 copy of
+    deepseek-moe-16b, 67.5 GB, would not fit beside the bf16 one)."""
+    from repro_torch import tree
+    from repro_torch.kernels.fused_layernorm import ref as ln_ref
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf
+    arch = model.arch
+    if arch.ssm is not None:
+        arch = dataclasses.replace(arch, ssm=dataclasses.replace(
+            arch.ssm, chunk=tokens.shape[1]))
+    if fp32:
+        arch = dataclasses.replace(arch, dtype="float32")
+    kernel = ssm._gated_rmsnorm
+    ssm._gated_rmsnorm = ln_ref.gated_rmsnorm
+    try:
+        x = model_lib.embed(arch, model.params, tokens)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        for blk, kind in zip(model.params["blocks"], tf._stack_kinds(arch)):
+            if fp32:
+                blk = tree.map(lambda t: t.float(), blk)
+            x = tf.apply_block(arch, blk, x, pos, causal=True, fused=False,
+                               mixer=kind)
+        return model_lib.logits(arch, model.params, x)[0]
+    finally:
+        ssm._gated_rmsnorm = kernel
+
+
+def _rel_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rel L2 of each row of ``a`` against the same row of ``b``."""
+    return (a.float() - b.float()).norm(dim=-1) / b.float().norm(dim=-1)
+
+
+def _stats(r: torch.Tensor) -> str:
+    q = torch.quantile(r, torch.tensor([0.5, 0.9], device=r.device))
+    return (f"median {q[0].item():.3e}, p90 {q[1].item():.3e}, max "
+            f"{r.max().item():.3e}")
+
+
+MOE_LOGIT_RATIO = 1.25      # the paged path's RMS distance from the fp32
+                            # forward, at most this times the plain bf16
+                            # forward's (as the mamba2 check holds its own)
+
+
+def check_moe_logits(model, rng, dev):
+    """The logits of every position of a 114-token sequence through the
+    paged path (110 prompt tokens in 64-token chunks, every valid row of
+    each chunk, then four decode steps beside an idle slot; unfused and
+    fused layer bodies) against the plain full-sequence forward in bf16
+    and in fp32. The arch's capacity factor is raised to ceil(E / top_k),
+    so no capacity drops a token on either path and chunking cannot change
+    the drops (JAX's consistency test does the same). With random weights
+    the router's top-k boundary is close for many tokens, so two bf16
+    evaluations of the same prefix route many (layer, token) pairs to
+    different experts, and their logits differ by 4-11% (rel L2, the
+    prompt decides; the plain bf16 forward is as far from the fp32 one):
+    no fixed bound against another bf16 evaluation separates a fault from
+    that. The gate is therefore on the fp32 forward: the paged path's RMS
+    rel L2 from it over all positions within MOE_LOGIT_RATIO x the plain
+    bf16 forward's, so what separates the two bf16 paths is rounding and
+    the routes it flips, not the paged path. Prints the distances and, per
+    MoE layer, the tokens whose top-k expert set differs between the
+    unfused paged path and the plain bf16 forward. Returns the largest max
+    abs logit error against the plain bf16 forward, and the numbers."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    cf = float(math.ceil(model.arch.moe.num_experts / model.arch.moe.top_k))
+    arch = dataclasses.replace(model.arch, moe=dataclasses.replace(
+        model.arch.moe, capacity_factor=cf))
+    m = Model(arch, model.params)
+    blocks = m.params["blocks"]
+    n_moe = sum("moe" in b for b in blocks)
+    n_pre, n_dec, page = 110, 4, 16
+    toks = torch.as_tensor(rng.integers(5, arch.vocab_size,
+                                        (1, n_pre + n_dec)), device=dev)
+    route, seen = moe_lib._route, []
+
+    def recording(*args, **kw):
+        r = route(*args, **kw)
+        seen.append(torch.sort(r["ids"], dim=-1).values)
+        return r
+    try:
+        with torch.inference_mode():
+            moe_lib._route = recording
+            ref = moe_reference_logits(m, toks)
+            moe_lib._route = route
+            plain_ids = [t[0] for t in seen]
+            seen.clear()
+            ref32 = moe_reference_logits(m, toks, fp32=True)
+            got = {}
+            for fused in (False, True):
+                moe_lib._route = route if fused else recording
+                pools = tf.init_serving_state(arch, 9, page, 2, m.dtype, dev)
+                row = torch.arange(1, 9, dtype=torch.int32, device=dev)
+                chunk = torch.zeros((1, 64), dtype=torch.long, device=dev)
+                rows = []
+                for start in (0, 64):
+                    end = min(start + 64, n_pre)
+                    chunk.zero_()
+                    chunk[0, :end - start] = toks[0, start:end]
+                    x = tf.paged_prefill_stack(arch, blocks, pools,
+                                               m._embed(chunk), row, start,
+                                               end, fused=fused)
+                    rows.append(m._logits(x[:, :end - start])[0])
+                table = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+                table[0] = row
+                for pos in range(n_pre, n_pre + n_dec):
+                    tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
+                    tok[0, 0] = toks[0, pos]
+                    sl = torch.tensor([pos, 0], dtype=torch.int32,
+                                      device=dev)
+                    x = tf.paged_decode_stack(arch, blocks, pools,
+                                              m._embed(tok), table, sl,
+                                              fused=fused)
+                    rows.append(m._logits(x)[0])
+                got[fused] = torch.cat(rows)
+    finally:
+        moe_lib._route = route
+    parts = [seen[j * n_moe:(j + 1) * n_moe] for j in range(2 + n_dec)]
+    changed = []
+    for i in range(n_moe):
+        paged = torch.cat([parts[0][i][0], parts[1][i][0][:n_pre - 64]]
+                          + [parts[2 + j][i][0] for j in range(n_dec)])
+        changed.append(int((paged != plain_ids[i]).any(dim=-1).sum()))
+    if not (torch.isfinite(ref).all() and torch.isfinite(ref32).all()):
+        _fail(f"non-finite logits in the {arch.name} plain forward")
+    plain32 = _rel_rows(ref, ref32)
+    rms_plain = plain32.square().mean().sqrt().item()
+    worst, lines, bad = 0.0, [], []
+    out = {"plain_bf16_vs_fp32": _stats(plain32),
+           "expert_sets_changed": changed}
+    for fused, g in got.items():
+        if not torch.isfinite(g).all():
+            _fail(f"non-finite logits in the {arch.name} paged path")
+        d_plain, d32 = _rel_rows(g, ref), _rel_rows(g, ref32)
+        rms = d32.square().mean().sqrt().item()
+        worst = max(worst, (g - ref).abs().max().item())
+        name = "fused" if fused else "unfused"
+        agree = int((g.argmax(-1) == ref32.argmax(-1)).sum())
+        lines.append(f"{name}: vs plain bf16 {_stats(d_plain)} ("
+                     f"{int((d_plain > 0.05).sum())} positions above "
+                     f"0.05); vs fp32 {_stats(d32)}, RMS {rms:.3e} against "
+                     f"the plain bf16 forward's {rms_plain:.3e} (ratio "
+                     f"{rms / rms_plain:.3f}); argmax equal to fp32's at "
+                     f"{agree} of {g.shape[0]}")
+        out[name] = {"vs_plain_bf16": _stats(d_plain), "vs_fp32":
+                     _stats(d32), "rms_vs_fp32": rms,
+                     "rms_plain_bf16_vs_fp32": rms_plain,
+                     "last_prefill_vs_plain_bf16": d_plain[n_pre - 1].item(),
+                     "decode_vs_plain_bf16": d_plain[n_pre:].tolist()}
+        if not rms <= MOE_LOGIT_RATIO * rms_plain:
+            bad.append(f"{name}: RMS rel L2 from the fp32 forward {rms}, "
+                       f"above {MOE_LOGIT_RATIO} x the plain bf16 "
+                       f"forward's {rms_plain}")
+    print(f"[model] {arch.name} {arch.num_layers}L logits of all "
+          f"{n_pre + n_dec} positions via the paged kernels (prompt chunks "
+          f"of 64, then 4 decode steps) vs the plain full-sequence forward "
+          f"(capacity factor raised to {cf:g}: nothing drops; gate: RMS rel "
+          f"L2 from the fp32 forward within {MOE_LOGIT_RATIO} x the plain "
+          f"bf16 forward's): plain bf16 vs "
+          f"fp32 {_stats(plain32)}; " + "; ".join(lines)
+          + f"; tokens whose top-{arch.moe.top_k} expert set differs "
+          f"between the paged path and the plain bf16 forward, by MoE layer "
+          f"(of {n_pre + n_dec}): {changed}")
+    if bad:
+        _fail(f"{arch.name} logits: {bad}")
+    return worst, out
+
+
+def check_moe_layer(model, dev):
+    """One MoE layer of the model called twice on the same input, at the
+    decode shape [8, 1, D] and a prefill chunk's [1, 64, D]: bitwise equal
+    outputs (gathers, no float atomics). Device ms a call beside the bytes
+    of its experts' weights read once."""
+    from repro_torch.models import moe as moe_lib
+    arch = model.arch
+    p = next(b["moe"] for b in model.params["blocks"] if "moe" in b)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    nbytes = sum(t.numel() * t.element_size() for t in p["experts"].values())
+    bound_ms, _ = _bound(nbytes, 0.0)
+    out = {"expert_bytes": nbytes, "bound_ms": bound_ms}
+    with torch.inference_mode():
+        for b, s in ((8, 1), (1, 64)):
+            x = torch.randn((b, s, arch.d_model), generator=gen,
+                            device=dev).bfloat16()
+            y1 = moe_lib.apply_moe(arch, p, x, aux_loss=False)[0]
+            y2 = moe_lib.apply_moe(arch, p, x, aux_loss=False)[0]
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y1).all() and torch.equal(y1, y2)):
+                _fail(f"{arch.name}: one MoE layer at [{b}, {s}] is not "
+                      "bitwise repeatable (or not finite)")
+            out[f"device_ms_[{b}, {s}]"] = _profiled_ms(
+                lambda: moe_lib.apply_moe(arch, p, x, aux_loss=False),
+                ("",), 5)
+    print(f"[moe] {arch.name} one MoE layer ({arch.moe.num_experts} experts "
+          f"of {arch.moe.expert_ff}, top-{arch.moe.top_k}, "
+          f"{arch.moe.num_shared_experts} shared) bitwise repeatable at [8, "
+          f"1] and [1, 64]; device ms a call and the bound of its experts' "
+          f"bytes: {out}")
+    return out
+
+
+def static_moe(model):
+    """deepseek-moe-16b through the static engine at its own capacity
+    factor: 4 prompts of 512 tokens, 16 new, greedy (no kernel on this
+    path); the prefill's last logits against the plain full-sequence
+    forward of each prompt (each batch row routes on its own in both)."""
+    gen = 16
+    run = run_static_counted(model, static_args(4, 512, gen))
+    _expect_launches(run, {}, f"static {model.arch.name}")
+    tokens = torch.as_tensor(run["prompt"], device=model.device)
+    with torch.inference_mode():
+        ref = torch.stack([moe_reference_logits(model, tokens[i:i + 1])[-1]
+                           for i in range(tokens.shape[0])])
+    lines = _compare_logits(run["logits"], ref, f"static {model.arch.name} "
+                            "prefill vs plain forward")
+    print(f"[static] {model.arch.name} {model.arch.num_layers}L: 4 prompts "
+          f"x 512 tokens + {gen} new, greedy: prefill "
+          f"{run['t_prefill'] * 1e3:.1f} ms, decode "
+          f"{run['decode_ms_per_token']:.2f} ms/token, wall "
+          f"{run['wall']:.3f} s ({run['tok_per_s']:.1f} tok/s), peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB; last logits vs the plain forward "
+          "(bf16, tol rel L2 0.05): " + "; ".join(lines))
+    return {k: run[k] for k in ("t_prefill", "decode_ms_per_token", "wall",
+                                "tok_per_s", "peak")} | {
+        "logits_vs_plain": lines}
+
+
+def deepseek_phase(dev, rng, marks):
+    """deepseek-moe-16b at full width and depth (28 layers, 64 experts of
+    1408, top-6, 2 shared; 16.9 B parameters, bf16, seeded): the logits
+    check, one MoE layer's repeatability, the llama serving trace unfused
+    then fused at the config's capacity factor 1.25, the fused serve at
+    decode_steps=4 (streams bitwise N=1's, no host kernel launch in a
+    steady dispatch), the fused trace profiled, and the static engine."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    arch = get_config("deepseek-moe-16b")
+    t0 = time.perf_counter()
+    model = Model.init(arch, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(model.params))
+    if n_params != arch.param_count() + arch.d_model:
+        _fail(f"{arch.name}: {n_params} parameters, param_count says "
+              f"{arch.param_count()} and the final norm {arch.d_model}")
+    print(f"[init] {arch.name} full width, {arch.num_layers} layers, "
+          f"{n_params} parameters ({n_params * 2 / 1e9:.1f} GB), bf16 "
+          f"weights on the card in {time.perf_counter() - t0:.1f}s")
+    logit_err, logits = check_moe_logits(model, rng, dev)
+    layer = check_moe_layer(model, dev)
+    marks["deepseek checks"] = time.perf_counter()
+    runs = {fused: serve(model, logit_err, fused) for fused in (False, True)}
+    same = sum(runs[False]["results"][i]["tokens"]
+               == runs[True]["results"][i]["tokens"]
+               for i in runs[False]["results"])
+    print(f"[streams] {arch.name} fused vs unfused serve: {same} of "
+          f"{len(runs[False]['results'])} request streams identical (bf16 "
+          "streams may fork on near-tied logits; not a failure)")
+    marks["deepseek serves"] = time.perf_counter()
+    ref = {i: r["tokens"] for i, r in runs[True]["results"].items()}
+    multi = serve_multistep(model, 4, ref, f"fused {arch.name}",
+                            want=_fused_llama_launches(arch))
+    marks["deepseek multi-step"] = time.perf_counter()
+    prof = profile_serve(model)
+    marks["deepseek profile"] = time.perf_counter()
+    static = static_moe(model)
+    marks["static deepseek"] = time.perf_counter()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    serves = {("fused" if f else "unfused"): {
+        "wall_s": r["wall"], "decode_steps": r["steps"],
+        "prefill_chunks": r["prefill_chunks"], "prefills": r["prefills"],
+        "launches": _nonzero(r["launches"])} for f, r in runs.items()}
+    return {"n_params": n_params, "logit_err": logit_err,
+            "logits": logits, "layer": layer,
+            "serves": serves, "identical_streams": same,
+            "head_launches": runs[True]["launches"]["head_tokens"],
+            "multistep_n4": multi, "profile": PROFILE_KINDS.get(arch.name),
+            "profile_launches": sum(c for _, c in prof.values()),
+            "static": static}
+
+
+def jamba_phase(dev, rng):
+    """jamba-v0.1-52b at full width, one period of its layers (8 of 32: 1
+    attention, 7 mamba, 4 MoE of 16 experts of 14336; about 25.5 GB in
+    bf16; the whole model's 51.46 B parameters, 103 GB, exceed one H100's
+    80 GB): the logits check at a raised capacity factor, then 4 requests
+    of the trace (16 new tokens, greedy) served unfused and fused, every
+    launch counter set to 0 just before each run and read just after, with
+    exact launches from the steps and chunks."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousEngine, SamplingParams
+    full = get_config("jamba-v0.1-52b")
+    arch = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    t0 = time.perf_counter()
+    model = Model.init(arch, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(model.params))
+    print(f"[init] {full.name} at full width, {JAMBA_LAYERS} of its "
+          f"{full.num_layers} layers (one period: 1 attention, 7 mamba, 4 "
+          f"MoE): {n_params} parameters ({n_params * 2 / 1e9:.1f} GB), bf16 "
+          f"weights on the card in {time.perf_counter() - t0:.1f}s; reduced "
+          f"because the whole model's {full.param_count()} parameters "
+          f"({full.param_count() * 2 / 1e9:.1f} GB in bf16) exceed one "
+          f"H100's 80 GB")
+    logit_err, logits = check_moe_logits(model, rng, dev)
+    reqs = [dataclasses.replace(r, max_new_tokens=16,
+                                sampling=SamplingParams())
+            for r in trace(arch, SEED)[:4]]
+    n_attn = sum(arch.is_attention_layer(i) for i in range(arch.num_layers))
+    n_mamba = arch.num_layers - n_attn
+    out, streams = {}, {}
+    for fused in (False, True):
+        engine = ContinuousEngine(model, num_slots=8, num_pages=320,
+                                  page_size=16, max_seq_len=512 + 32 + 16,
+                                  prefill_chunk=64, fused_decode=fused)
+        for d in _counters():
+            for k in d:
+                d[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _snapshot()
+        st, ch, pf = engine.steps, engine.prefill_chunks, engine.prefills
+        want = {"paged_decode_attention": n_attn * st,
+                "paged_prefill_attention": n_attn * ch,
+                "gated_rmsnorm": n_mamba * (st + ch)}
+        if fused:
+            want.update(decode_residual_norm=arch.num_layers * (st + ch),
+                        head_tokens=st + pf)
+        for name, n in launches.items():
+            if n != want.get(name, 0):
+                _fail(f"{arch.name} {'fused' if fused else 'unfused'} serve:"
+                      f" {name} launched {n} times, expected "
+                      f"{want.get(name, 0)}")
+        for i, r in enumerate(reqs):
+            if len(res[i]["tokens"]) != r.max_new_tokens:
+                _fail(f"{arch.name} request {i} did not finish: {res[i]}")
+        streams[fused] = {i: res[i]["tokens"] for i in res}
+        ntok = sum(len(t) for t in streams[fused].values())
+        out["fused" if fused else "unfused"] = {
+            "wall_s": wall, "tok_per_s": ntok / wall, "steps": st,
+            "prefill_chunks": ch, "peak": torch.cuda.max_memory_allocated(),
+            "launches": _nonzero(launches)}
+        print(f"[serve] {arch.name} ({JAMBA_LAYERS} layers) "
+              f"{'fused' if fused else 'unfused'}, greedy: {len(reqs)} "
+              f"requests x 16 tokens in {wall:.3f}s ({ntok / wall:.1f} "
+              f"tok/s); steps {st}, prefill chunks {ch}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {_nonzero(launches)} (exact)")
+    same = sum(streams[True][i] == streams[False][i] for i in streams[True])
+    print(f"[streams] {arch.name} fused vs unfused serve: {same} of "
+          f"{len(reqs)} greedy streams identical (bf16 streams may fork on "
+          "near-tied logits; not a failure)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": JAMBA_LAYERS, "n_params": n_params,
+            "logit_err": logit_err, "logits": logits,
+            "serves": out, "identical_streams": same,
+            "head_launches": out["fused"]["launches"].get("head_tokens", 0)}
+
+
+def moe_phase(dev, rng, marks, kernels):
+    """deepseek-moe-16b, then jamba; ``kernels``: moe_kernel_checks' result
+    (run in phase 3, beside the other kernel checks)."""
+    deepseek = deepseek_phase(dev, rng, marks)
+    jamba = jamba_phase(dev, rng)
+    marks["jamba"] = time.perf_counter()
+    row = kernels.pop("row")
+    row.update(launches=deepseek["head_launches"],
+               launches_path="deepseek-moe-16b fused serve (the engine's "
+                             "default)",
+               launches_jamba_fused_serve=jamba["head_launches"])
+    return {"row": row, "kernels": kernels, "deepseek": deepseek,
+            "jamba": jamba}
+
+
 # ---------------------------------------------------------------- phase 7 ---
 # The training slice: bert-large MLM, B8 / S128 (the paper's Phase 1).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 6
@@ -3125,7 +3749,9 @@ DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
                 "paged_prefill_attention": ("prefill_kernel",),
                 "decode_residual_norm": ("resnorm_kernel",),
                 "gated_rmsnorm": ("gated_rmsnorm_kernel",),
-                "head_tokens": ("head_gemv_kernel", "head_epilogue_kernel")}
+                "head_tokens": ("head_gemv_kernel", "head_epilogue_kernel"),
+                "head_tokens_untied": ("head_gemv_t_kernel",
+                                       "head_epilogue_kernel")}
 
 
 def main() -> int:
@@ -3173,6 +3799,8 @@ def main() -> int:
     del lg_f, lg
     rows += [check_residual_norm(arch, dev), check_head_tokens(arch, dev)]
     head_mamba = check_head_tokens(get_config("mamba2-1.3b"), dev)
+    # its own rng: the later phases draw from ``rng``
+    moe_kernels = moe_kernel_checks(dev, np.random.default_rng(SEED + 30))
     mamba_rows = [check_gated_rmsnorm(get_config("mamba2-1.3b"), dev)]
     train_rows = [check_residual_layernorm(dev), check_bias_gelu(dev)]
     train_rows += check_lamb(dev)
@@ -3230,9 +3858,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mamba = mamba_phase(dev, rng, marks)
+    moe = moe_phase(dev, rng, marks, moe_kernels)
     if EAGER_UNIFORMS["calls"]:
-        _fail(f"the mamba2 serves called the eager row_uniforms on the card "
-              f"{EAGER_UNIFORMS['calls']} times")
+        _fail(f"the mamba2, deepseek and jamba serves called the eager "
+              f"row_uniforms on the card {EAGER_UNIFORMS['calls']} times")
     head_ref.row_uniforms = plain_uniforms
     mamba_launches = sum(c for _, c in mamba["profile"].values())
     print(f"[launches] the profiled mamba2 window: {mamba_launches} kernel "
@@ -3321,7 +3950,7 @@ def main() -> int:
         for k in ("losses", "step_s", "wall", "peak", "peak_above_start")}
         for f in (True, False)}
     print(json.dumps({"kernels": rows + [flash_row] + mamba_rows + train_rows
-                      + [softmax_row],
+                      + [softmax_row, moe["row"]],
                       "training": dict(
         trained, profile=training["profile"],
         syncs_in_a_step=training["syncs_in_a_step"],
@@ -3344,6 +3973,8 @@ def main() -> int:
             "static mamba2-1.3b": mamba["static"]},
         "identical_streams": same,
         "multistep": dict(multi, mamba2=mamba["multistep"]),
+        "moe": {"deepseek-moe-16b": moe["deepseek"],
+                "jamba-v0.1-52b": moe["jamba"], **moe["kernels"]},
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

@@ -4,12 +4,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from . import bert_large, llama3p2_3b, mamba2_1p3b
-from .base import ArchConfig, RunConfig, ShapeConfig, SSMConfig, torch_dtype
+from . import (bert_large, deepseek_moe_16b, internlm2_1p8b,
+               jamba_v0p1_52b, llama3p2_3b, mamba2_1p3b)
+from .base import (ArchConfig, MoEConfig, RunConfig, ShapeConfig, SSMConfig,
+                   torch_dtype)
 
 REGISTRY: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG
                                    for m in (llama3p2_3b, bert_large,
-                                             mamba2_1p3b)}
+                                             mamba2_1p3b, internlm2_1p8b,
+                                             deepseek_moe_16b,
+                                             jamba_v0p1_52b)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -22,12 +26,15 @@ def get_config(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     """A reduced same-family config with the reductions of
-    ``repro.configs.smoke_config``: an attention-free arch keeps 0 heads
-    and no MLP, and its SSD shrinks to state 16, head 16, chunk 16."""
+    ``repro.configs.smoke_config``: a hybrid keeps one whole period of
+    layers, an attention-free arch keeps 0 heads and no MLP, a MoE shrinks
+    to 4 experts of 256, top-2 at most, and an SSD to state 16, head 16,
+    chunk 16."""
     full = get_config(name)
     kw = dict(
         name=full.name + "-smoke",
-        num_layers=2,
+        num_layers=max(2, full.hybrid_period) if full.family == "hybrid"
+        else 2,
         d_model=128,
         d_ff=0 if full.family == "ssm" else 256,
         vocab_size=512,
@@ -40,11 +47,15 @@ def smoke_config(name: str) -> ArchConfig:
     else:
         kw["num_heads"] = 0
         kw["num_kv_heads"] = 0
+    if full.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            full.moe, num_experts=4, top_k=min(2, full.moe.top_k),
+            expert_ff=256 if full.moe.expert_ff else 0)
     if full.ssm is not None:
         kw["ssm"] = dataclasses.replace(full.ssm, state_dim=16, head_dim=16,
                                         chunk=16)
     return dataclasses.replace(full, **kw)
 
 
-__all__ = ["ArchConfig", "REGISTRY", "RunConfig", "SSMConfig", "ShapeConfig",
+__all__ = ["ArchConfig", "MoEConfig", "REGISTRY", "RunConfig", "SSMConfig", "ShapeConfig",
            "get_config", "smoke_config", "torch_dtype"]

@@ -1,8 +1,9 @@
 """Architecture and run configs: the fields of
-``repro.configs.base.{SSMConfig, ArchConfig, ShapeConfig, RunConfig}`` that
-the dense and SSM serving paths (continuous and static), the training
-path and the analytical model (``param_count``) read, as the port's own
-frozen dataclasses (values copied, nothing imported)."""
+``repro.configs.base.{MoEConfig, SSMConfig, ArchConfig, ShapeConfig,
+RunConfig}`` that the serving paths (continuous and static; the dense,
+moe, ssm and hybrid families), the training path and the analytical model
+(``param_count``) read, as the port's own frozen dataclasses (values
+copied, nothing imported)."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +25,21 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice MoE sub-config."""
+
+    num_experts: int
+    top_k: int
+    num_shared_experts: int = 0
+    expert_ff: int = 0              # per-expert intermediate (0 -> d_ff)
+    capacity_factor: float = 1.25
+    every: int = 1                  # one MoE layer every `every` layers
+    first: int = 0                  # index of the first MoE layer
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     """Mamba-2 (SSD, arXiv:2405.21060) sub-config."""
 
@@ -38,8 +54,8 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | ssm | hybrid (the port serves
-                                    # dense and ssm, trains dense)
+    family: str                     # dense | moe | ssm | hybrid (the port
+                                    # serves these four, trains dense)
     num_layers: int
     d_model: int
     num_heads: int
@@ -67,6 +83,7 @@ class ArchConfig:
     max_position: int = 512         # learned-position table size
     remat: bool = True              # recompute each block in backward
     logit_softcap: float = 0.0
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid: period and which index within the period is attention
     hybrid_period: int = 0
@@ -95,16 +112,23 @@ class ArchConfig:
         assert self.hybrid_period > 0
         return layer_idx % self.hybrid_period == self.hybrid_attn_index
 
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        """Does layer ``layer_idx`` hold a MoE in place of its MLP?"""
+        if self.moe is None:
+            return False
+        m = self.moe
+        return layer_idx >= m.first and (layer_idx - m.first) % m.every == 0
+
     def param_count(self, active_only: bool = False) -> int:
         """Closed-form parameter count (embedding included once), as
-        ``repro.configs.base.ArchConfig.param_count`` for the families this
-        config expresses: dense, ssm and hybrid without MoE, where
-        ``active_only`` changes nothing."""
-        if self.family not in ("dense", "ssm", "hybrid"):
+        ``repro.configs.base.ArchConfig.param_count``; ``active_only``
+        counts a MoE layer's top-k routed experts instead of all of them.
+        The encoder of an encdec arch has no fields here yet (ROADMAP.md
+        queue 1 item 4)."""
+        if self.family == "encdec":
             raise NotImplementedError(
-                f"param_count of the {self.family!r} family: the port's "
-                "config has no MoE or encoder fields yet (ROADMAP.md queue 1 "
-                "item 4)")
+                "param_count of the 'encdec' family: the port's config has "
+                "no encoder fields yet (ROADMAP.md queue 1 item 4)")
         d, ff, v = self.d_model, self.d_ff, self.vocab_size
         total = v * d                                     # embedding
         if not self.tie_embeddings:
@@ -123,6 +147,14 @@ class ArchConfig:
                 return 3 * d * inner + bias * (2 * inner + d)
             return 2 * d * inner + bias * (inner + d)
 
+        def moe_params(active: bool) -> int:
+            m = self.moe
+            eff = m.expert_ff or ff
+            router = d * m.num_experts
+            shared = m.num_shared_experts * mlp_params(eff)
+            routed = (m.top_k if active else m.num_experts) * mlp_params(eff)
+            return router + shared + routed
+
         def ssm_params() -> int:
             s = self.ssm
             inner = s.expand * d
@@ -139,7 +171,9 @@ class ArchConfig:
                 total += attn_params()
             else:
                 total += ssm_params()
-            if self.family != "ssm":        # mamba blocks have no MLP
+            if self.is_moe_layer(layer):
+                total += moe_params(active_only)
+            elif self.family != "ssm":      # mamba2 blocks have no MLP
                 total += mlp_params(ff)
         return total
 

@@ -9,8 +9,9 @@ norm) with their FLOPs, bytes and arithmetic intensity (Fig. 7/8). The
 attention phase is what ``kernels/fused_softmax`` fuses into one kernel;
 the inventory counts it as the paper profiled it, four kernels a layer.
 
-The families of the port's config are covered (dense, ssm, hybrid); the
-moe and encdec branches raise until those families are ported.
+The families of the port's config are covered (dense, moe, ssm, hybrid,
+its MoE rows at padded capacity tokens, as the dispatch computes them);
+the encdec branch raises until that family is ported.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from .roofline import H100, DeviceSpec
 @dataclasses.dataclass
 class Gemm:
     name: str
-    layer: str                  # attn_linear | attn_bgemm | fc | ssm | head
+    layer: str                  # attn_linear | attn_bgemm | fc | moe | ssm
+                                # | head
     m: int
     n: int
     k: int
@@ -67,7 +69,7 @@ class EwOp:
 
 
 def _check_family(arch: ArchConfig) -> None:
-    if arch.family in ("moe", "encdec"):
+    if arch.family == "encdec":
         raise NotImplementedError(
             f"the analytical model of the {arch.family!r} family is not "
             "ported (ROADMAP.md queue 1 item 4)")
@@ -86,7 +88,8 @@ def transformer_gemms(arch: ArchConfig, batch: int, seq: int,
     out: List[Gemm] = []
     n_attn = sum(1 for i in range(arch.num_layers)
                  if arch.is_attention_layer(i))
-    n_dense_mlp = 0 if arch.family == "ssm" else arch.num_layers
+    n_moe = sum(1 for i in range(arch.num_layers) if arch.is_moe_layer(i))
+    n_dense_mlp = 0 if arch.family == "ssm" else arch.num_layers - n_moe
 
     def gemm(name, layer, m, n, k, b=1, count=1):
         if phase == "fwd":
@@ -110,6 +113,18 @@ def transformer_gemms(arch: ArchConfig, batch: int, seq: int,
         gemm("fc1", "fc", arch.d_ff, t, d,
              count=n_dense_mlp * (2 if arch.mlp == "swiglu" else 1))
         gemm("fc2", "fc", d, t, arch.d_ff, count=n_dense_mlp)
+    if n_moe:
+        moe = arch.moe
+        eff = moe.expert_ff or arch.d_ff
+        cap_tokens = int(t * moe.top_k * moe.capacity_factor)
+        gemm("moe_up", "moe", eff, cap_tokens, d,
+             count=n_moe * (2 if arch.mlp == "swiglu" else 1))
+        gemm("moe_down", "moe", d, cap_tokens, eff, count=n_moe)
+        gemm("router", "moe", moe.num_experts, t, d, count=n_moe)
+        if moe.num_shared_experts:
+            sf = eff * moe.num_shared_experts
+            gemm("moe_shared_up", "moe", sf, t, d, count=n_moe * 2)
+            gemm("moe_shared_down", "moe", d, t, sf, count=n_moe)
     if arch.ssm is not None:
         inner = ssm_lib.inner_dim(arch)
         h = ssm_lib.num_ssm_heads(arch)

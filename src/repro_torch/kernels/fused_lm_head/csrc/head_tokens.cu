@@ -1,5 +1,7 @@
 // The fused LM head for Hopper (sm_90a): final hidden x [S, D] and the tied
-// embedding W [V, D] -> (tokens int32 [S], ok bool [S]): the unembed GEMM,
+// embedding W [V, D] (head_tokens) or an untied head W [D, V]
+// (head_tokens_untied), read in place -> (tokens int32 [S], ok bool [S]):
+// the unembed GEMM,
 // the greedy argmax, the all-finite probe, temperature scaling, the top-k /
 // top-p filter and the inverse-CDF draw, with no fp32 [S, V] logits tensor.
 //
@@ -34,6 +36,18 @@
 //      The fp32 sum is rounded once to bf16 and written to the workspace;
 //      each CTA also writes per-row partials (max, first argmax, all
 //      finite) of its 128 vocab rows.
+//      An untied head [D, V] has the vocab contiguous, so its pass 1 is
+//      head_gemv_t_kernel, a CUDA-core GEMV that reads W in place (a
+//      transposed copy would be a second 0.42 GB at deepseek-moe-16b's
+//      2048 x 102400): each CTA takes 128 vocab columns and one group of up
+//      to 8 hidden rows; a thread owns 8 contiguous columns (one 16-byte
+//      load a K row) of one of 16 interleaved K slices, and keeps 8 x 8
+//      fp32 sums (FMA, K ascending); the slices are summed in a fixed order
+//      (the two halves of a warp by one shuffle, then the 8 warps through
+//      shared memory in warp order), so the bits are the same every call.
+//      Its 2 S D V operations (3.4 GFLOP at S = 8 and that shape) take
+//      0.05 ms at the CUDA cores' fp32 peak, under the 0.125 ms the bytes
+//      take. It writes the same workspace and partials as the tied pass.
 //   2. head_epilogue_kernel, one thread block cluster a row (size from
 //      fused_sampling/ops.cluster_plan, 1 for a step with no sampled row):
 //      the greedy token and the probe from the partials;
@@ -235,6 +249,147 @@ head_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+constexpr int kTCols = 8;                            // vocab columns a thread
+constexpr int kTLanes = kRowsPerCta / kTCols;        // 16 threads a K row
+constexpr int kTSlices = kGemvThreads / kTLanes;     // 16 K slices
+constexpr int kTUnroll = 4;                          // K rows in flight
+
+__device__ __forceinline__ void bf16x8(const uint4& v, float (&f)[8]) {
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// Pass 1 of an untied head W [d, vocab]. Grid: (hidden row group of
+// kGroupRows, 128 vocab columns). Dynamic shared memory: x transposed as d
+// rows of kGroupRows bf16 (rows past s_rows zero), reused after the K loop
+// for the 8 warps' sums, [warp][hidden row][128 columns] fp32.
+__global__ void __launch_bounds__(kGemvThreads, 2)
+head_gemv_t_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ w, int s_rows, int d,
+                   int vocab, int n_blk, __nv_bfloat16* __restrict__ ws,
+                   float* __restrict__ pmax, int* __restrict__ pidx,
+                   int* __restrict__ pok) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw);
+  const int s0 = blockIdx.x * kGroupRows, blk = blockIdx.y;
+  const int s_here = min(kGroupRows, s_rows - s0);
+  const int tid = threadIdx.x, vec_per_row = d / 8;
+  for (int i = tid; i < kGroupRows * vec_per_row; i += kGemvThreads) {
+    const int r = i / vec_per_row, c = (i % vec_per_row) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < s_here)
+      v = *reinterpret_cast<const uint4*>(
+          x + static_cast<size_t>(s0 + r) * d + c);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) xs[(c + j) * kGroupRows + r] = e[j];
+  }
+  __syncthreads();
+
+  const int lane = tid % kTLanes, slice = tid / kTLanes;
+  const int col = blk * kRowsPerCta + lane * kTCols;
+  const bool active = col < vocab;           // vocab % 8 == 0
+  float acc[kGroupRows][kTCols];
+#pragma unroll
+  for (int r = 0; r < kGroupRows; ++r)
+#pragma unroll
+    for (int c = 0; c < kTCols; ++c) acc[r][c] = 0.f;
+  if (active) {
+    const __nv_bfloat16* wp = w + static_cast<size_t>(slice) * vocab + col;
+    const size_t step = static_cast<size_t>(kTSlices) * vocab;
+    const uint4* x4 = reinterpret_cast<const uint4*>(xs);
+    for (int k0 = slice; k0 < d; k0 += kTSlices * kTUnroll) {
+      uint4 wv[kTUnroll];
+#pragma unroll
+      for (int u = 0; u < kTUnroll; ++u)
+        wv[u] = __ldg(reinterpret_cast<const uint4*>(wp + u * step));
+      wp += kTUnroll * step;
+#pragma unroll
+      for (int u = 0; u < kTUnroll; ++u) {
+        float wf[8], xf[8];
+        bf16x8(wv[u], wf);
+        bf16x8(x4[k0 + u * kTSlices], xf);
+#pragma unroll
+        for (int r = 0; r < kGroupRows; ++r)
+#pragma unroll
+          for (int c = 0; c < kTCols; ++c)
+            acc[r][c] = fmaf(xf[r], wf[c], acc[r][c]);
+      }
+    }
+  }
+  // the two K slices of a warp, then the warps in order
+#pragma unroll
+  for (int r = 0; r < kGroupRows; ++r)
+#pragma unroll
+    for (int c = 0; c < kTCols; ++c)
+      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 16);
+  __syncthreads();                           // xs is dead: reuse as red
+  const int warp = tid >> 5;
+  if ((tid & 31) < kTLanes) {
+#pragma unroll
+    for (int r = 0; r < kGroupRows; ++r) {
+      float4* dst = reinterpret_cast<float4*>(
+          red + (warp * kGroupRows + r) * kRowsPerCta + lane * kTCols);
+      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+  }
+  __syncthreads();
+  // warp r finishes hidden row r: 4 columns a lane
+  const int r = warp, q = (tid & 31) * 4, v = blk * kRowsPerCta + q;
+  float4 sum = reinterpret_cast<const float4*>(red + r * kRowsPerCta + q)[0];
+  for (int k = 1; k < kGemvWarps; ++k) {
+    const float4 o = reinterpret_cast<const float4*>(
+        red + (k * kGroupRows + r) * kRowsPerCta + q)[0];
+    sum.x += o.x;
+    sum.y += o.y;
+    sum.z += o.z;
+    sum.w += o.w;
+  }
+  const float sums[4] = {sum.x, sum.y, sum.z, sum.w};
+  float bv = 0.f;
+  int bi = INT_MAX, fin = 1;
+  if (v < vocab) {
+    __nv_bfloat16 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j] = __float2bfloat16_rn(sums[j]);
+      const float f = __bfloat162float(b[j]);
+      if (beats(bv, bi, f, v + j)) {
+        bv = f;
+        bi = v + j;
+      }
+      fin &= isfinite(f) ? 1 : 0;
+    }
+    if (r < s_here) {
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+          ws + static_cast<size_t>(s0 + r) * vocab + v);
+      dst[0] = __halves2bfloat162(b[0], b[1]);
+      dst[1] = __halves2bfloat162(b[2], b[3]);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    fin &= __shfl_xor_sync(0xffffffffu, fin, o);
+    if (beats(bv, bi, ov, oi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  if ((tid & 31) == 0 && r < s_here) {
+    const size_t o = static_cast<size_t>(s0 + r) * n_blk + blk;
+    pmax[o] = bv;
+    pidx[o] = bi;
+    pok[o] = fin;
+  }
+}
+
 // The greedy token (first argmax, NaN largest) and the all-finite probe of
 // one row, from pass 1's per-CTA partials. Called by one whole CTA.
 __device__ void greedy_and_probe(const float* pmax, const int* pidx,
@@ -345,21 +500,13 @@ head_epilogue_kernel(const __nv_bfloat16* __restrict__ ws,
 
 }  // namespace
 
-// x [s_rows, d] and w [vocab, d] bf16; seeds int64 [s_rows] (uint32
-// values), positions [s_rows] int32 (pos64 = 0) or int64 (pos64 = 1); temps,
-// top_p float32 [s_rows]; top_k int32 [s_rows]; ws bf16 [s_rows, vocab] and
-// scratch int32 [3, s_rows, ceil(vocab / 128)] are the wrapper's workspace;
-// tokens int32 and ok bool [s_rows]; pass 2 runs `size` CTAs a row
-// (ops.cluster_plan, 1 to 16; 1 for a step with no sampled row, which needs
-// no row in shared memory). Needs s_rows >= 1, d % 64 == 0, vocab % 16 == 0
-// and ceil(vocab / 128) <= 65535 (the grid's y extent).
-extern "C" int head_tokens(const void* x, const void* w, const void* seeds,
-                           const void* positions, const void* temps,
-                           const void* top_k,
-                           const void* top_p, void* ws, void* scratch,
-                           void* tokens, void* ok, int s_rows, int d,
-                           int vocab, int pos64, int sampled, int filtered,
-                           int size, void* stream) {
+static int launch_head(bool untied, const void* x, const void* w,
+                       const void* seeds, const void* positions,
+                       const void* temps, const void* top_k,
+                       const void* top_p, void* ws, void* scratch,
+                       void* tokens, void* ok, int s_rows, int d, int vocab,
+                       int pos64, int sampled, int filtered, int size,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (size < 1 || size > sampling::kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -370,13 +517,20 @@ extern "C" int head_tokens(const void* x, const void* w, const void* seeds,
 
   const int n_grp = (s_rows + kGroupRows - 1) / kGroupRows;
   if (n_blk > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem1 = static_cast<size_t>(kGroupRows) * (d + kXPad) *
-                       sizeof(__nv_bfloat16);
+  const size_t x_t = static_cast<size_t>(d) * kGroupRows *
+                     sizeof(__nv_bfloat16);
+  const size_t sums = static_cast<size_t>(kGemvWarps) * kGroupRows *
+                      kRowsPerCta * sizeof(float);
+  const size_t smem1 =
+      untied ? (x_t > sums ? x_t : sums)
+             : static_cast<size_t>(kGroupRows) * (d + kXPad) *
+                   sizeof(__nv_bfloat16);
+  const auto gemv = untied ? head_gemv_t_kernel : head_gemv_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      head_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemv, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
-  head_gemv_kernel<<<dim3(n_grp, n_blk), kGemvThreads, smem1, st>>>(
+  gemv<<<dim3(n_grp, n_blk), kGemvThreads, smem1, st>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), s_rows, d, vocab, n_blk,
       static_cast<__nv_bfloat16*>(ws), pmax, pidx, pok);
@@ -414,4 +568,37 @@ extern "C" int head_tokens(const void* x, const void* w, const void* seeds,
       sampled, filtered, static_cast<int*>(tokens), static_cast<bool*>(ok));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x [s_rows, d] bf16; w bf16, [vocab, d] (head_tokens: the tied embedding)
+// or [d, vocab] (head_tokens_untied: an untied head); seeds int64 [s_rows]
+// (uint32 values), positions [s_rows] int32 (pos64 = 0) or int64 (pos64 =
+// 1); temps, top_p float32 [s_rows]; top_k int32 [s_rows]; ws bf16
+// [s_rows, vocab] and scratch int32 [3, s_rows, ceil(vocab / 128)] are the
+// wrapper's workspace; tokens int32 and ok bool [s_rows]; pass 2 runs
+// `size` CTAs a row (ops.cluster_plan, 1 to 16; 1 for a step with no
+// sampled row, which needs no row in shared memory). Needs s_rows >= 1,
+// d % 64 == 0, vocab % 16 == 0 and ceil(vocab / 128) <= 65535 (the grid's
+// y extent).
+extern "C" int head_tokens(const void* x, const void* w, const void* seeds,
+                           const void* positions, const void* temps,
+                           const void* top_k, const void* top_p, void* ws,
+                           void* scratch, void* tokens, void* ok, int s_rows,
+                           int d, int vocab, int pos64, int sampled,
+                           int filtered, int size, void* stream) {
+  return launch_head(false, x, w, seeds, positions, temps, top_k, top_p, ws,
+                     scratch, tokens, ok, s_rows, d, vocab, pos64, sampled,
+                     filtered, size, stream);
+}
+
+extern "C" int head_tokens_untied(const void* x, const void* w,
+                                  const void* seeds, const void* positions,
+                                  const void* temps, const void* top_k,
+                                  const void* top_p, void* ws, void* scratch,
+                                  void* tokens, void* ok, int s_rows, int d,
+                                  int vocab, int pos64, int sampled,
+                                  int filtered, int size, void* stream) {
+  return launch_head(true, x, w, seeds, positions, temps, top_k, top_p, ws,
+                     scratch, tokens, ok, s_rows, d, vocab, pos64, sampled,
+                     filtered, size, stream);
 }

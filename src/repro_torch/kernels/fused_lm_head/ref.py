@@ -114,13 +114,15 @@ def head_epilogue(logits: torch.Tensor, rs: torch.Tensor,
     return torch.where(temps > 0, drawn, greedy), ok
 
 
-def head_tokens(x: torch.Tensor, embedding: torch.Tensor, rs: torch.Tensor,
+def head_tokens(x: torch.Tensor, w: torch.Tensor, rs: torch.Tensor,
                 temps: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
-                *, sampled: bool, filtered: bool
+                *, sampled: bool, filtered: bool, untied: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain fused head: final hidden ``x`` [S, D] and the tied embedding
-    [V, D] -> ``head_epilogue`` of the logits exactly as
-    ``models.layers.unembed`` computes them."""
-    logits = unembed({}, x, embedding)
+    ``w`` [V, D], or with ``untied`` the head ``w`` [D, V] -> ``head_epilogue``
+    of the logits exactly as ``models.layers.unembed`` computes them (its
+    ``p["head"]`` branch for an untied head)."""
+    logits = unembed({"head": w}, x, None) if untied \
+        else unembed({}, x, w)
     return head_epilogue(logits, rs, temps, top_k, top_p, sampled=sampled,
                          filtered=filtered)

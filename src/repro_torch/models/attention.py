@@ -272,8 +272,11 @@ def paged_prefill_attention_layer(arch: ArchConfig, p: Params,
     offs = pos % page_size
     cache["k"].index_put_((pids, offs), k[0])
     cache["v"].index_put_((pids, offs), v[0])
-    o = pd_ops.paged_prefill_attention(q[0], cache["k"], cache["v"], page_row,
-                                       start, total_len)
+    # the kernel takes a contiguous q; without RoPE (jamba's pos_emb
+    # "none") q is still a column view of the fused QKV projection
+    o = pd_ops.paged_prefill_attention(q[0].contiguous(), cache["k"],
+                                       cache["v"], page_row, start,
+                                       total_len)
     return dense(o.reshape(1, c, -1), p["wo"], p.get("bo"))
 
 
@@ -296,6 +299,6 @@ def paged_decode_attention_layer(arch: ArchConfig, p: Params,
     offs = lens % page_size
     cache["k"].index_put_((pids, offs), k[:, 0])
     cache["v"].index_put_((pids, offs), v[:, 0])
-    o = pd_ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"],
-                                      page_table, seq_lens + 1)
+    o = pd_ops.paged_decode_attention(q[:, 0].contiguous(), cache["k"],
+                                      cache["v"], page_table, seq_lens + 1)
     return dense(o.reshape(b, 1, -1), p["wo"], p.get("bo"))

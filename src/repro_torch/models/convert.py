@@ -5,9 +5,11 @@ The JAX stack keeps its layers as stacked periods: either one dict whose
 leaves carry a leading ``[num_periods]`` axis (``blocks.layer_<i>.*``, the
 scanned layout) or ``blocks.period_<z>.layer_<i>.*`` dicts. Both become the
 port's list of per-layer dicts, periods flattened in order (period z's
-layer i is layer ``z * period + i``). The fused ``wqkv`` projection is kept
-fused; a mamba block keeps its ``mamba`` leaves (``in_proj``, ``conv``,
-``A_log``, ``D``, ``dt_bias``, ``norm_scale``, ``out_proj``) by name.
+layer i is layer ``z * period + i``: jamba's 32 layers are 4 periods of
+8). The fused ``wqkv`` projection is kept fused; a mamba block keeps its
+``mamba`` leaves (``in_proj``, ``conv``, ``A_log``, ``D``, ``dt_bias``,
+``norm_scale``, ``out_proj``) and a MoE block its ``moe`` leaves
+(``router``, ``experts.{w1, w3, w2}``, ``shared.{w1, w3, w2}``) by name.
 Nothing here imports JAX: callers hand in ``np.asarray`` leaves.
 ``to_jax_layout`` goes back, for any tree in the port's layout (params,
 or the optimizer's ``m``, ``v`` and ``master``), so tests can hold the two
@@ -54,14 +56,15 @@ def _unstack(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
 
 def from_jax_params(arch: ArchConfig, params: Dict[str, Any],
                     device="cuda") -> Params:
-    """Convert a dense- or ssm-family JAX param tree (numpy leaves) to the
-    port's weights on ``device``, floats cast to the config's dtype (as the
-    JAX serve casts its params, mamba's fp32 ``A_log``, ``D`` and
-    ``dt_bias`` included). Every leaf keeps its JAX name, biases, ``pos``
-    and BERT's ``mlm`` head included."""
+    """Convert a dense-, moe-, ssm- or hybrid-family JAX param tree (numpy
+    leaves) to the port's weights on ``device``, floats cast to the
+    config's dtype (as the JAX serve casts its params, mamba's fp32
+    ``A_log``, ``D`` and ``dt_bias`` and the MoE's fp32 router included).
+    Every leaf keeps its JAX name, biases, ``pos`` and BERT's ``mlm`` head
+    included."""
     device = resolve_device(device)
     dtype = torch_dtype(arch.dtype)
-    if arch.family not in ("dense", "ssm"):
+    if arch.family in ("encdec", "vlm"):
         raise NotImplementedError(f"family {arch.family!r} is not ported")
     out: Params = {
         k: _tensors(v, device, dtype) for k, v in params.items()
@@ -100,17 +103,25 @@ def _numpy(tree: Any) -> Any:
     return tree.detach().float().cpu().numpy()
 
 
-def to_jax_layout(params: Params) -> Dict[str, Any]:
-    """The port's tree -> the JAX package's, as float32 numpy: the per-layer
-    ``blocks`` list becomes ``blocks.layer_0`` with a leading ``[L]`` axis
-    on every leaf (the scanned layout of ``repro.models.transformer`` for
-    a period of one layer: the dense and ssm families)."""
+def to_jax_layout(params: Params, period: int = 1) -> Dict[str, Any]:
+    """The port's tree -> the JAX package's, as float32 numpy, for a stack
+    whose period is ``period`` layers (``transformer.period_length``):
+    ``blocks.layer_<i>`` with a leading ``[L / period]`` axis on every
+    leaf (the scanned layout of ``repro.models.transformer``), or, for a
+    stack of one period of several layers (which JAX does not scan),
+    ``blocks.period_0.layer_<i>``."""
     out = {k: _numpy(v) for k, v in params.items() if k != "blocks"}
     layers = [_numpy(b) for b in params["blocks"]]
+    nper = len(layers) // period
 
     def stack(*trees):
         if isinstance(trees[0], dict):
             return {k: stack(*(t[k] for t in trees)) for k in trees[0]}
         return np.stack(trees)
-    out["blocks"] = {"layer_0": stack(*layers)}
+    if nper == 1 and period > 1:
+        out["blocks"] = {"period_0": {f"layer_{i}": layers[i]
+                                      for i in range(period)}}
+    else:
+        out["blocks"] = {f"layer_{i}": stack(*layers[i::period])
+                         for i in range(period)}
     return out

@@ -1,4 +1,5 @@
-"""The model facade of the port (dense and ssm): architecture + weights,
+"""The model facade of the port (dense, moe, ssm and hybrid): architecture
++ weights,
 the weight init, the token embedding, the LM head, the static engine's
 ``init_caches`` / ``prefill`` / ``decode_step``, and the training forward
 and loss. Counterpart of ``repro.models.model.Model`` (``init``,
@@ -20,6 +21,10 @@ except that the stacked ``blocks`` become a list with one dict per layer:
                mlp.w3 [D, F] (swiglu)
     blocks[l] of an ssm (mamba2) model: ln1 and mamba.{in_proj, conv,
                A_log, D, dt_bias, norm_scale, out_proj} (``models.ssm``)
+    blocks[l] of a MoE layer: moe.router [D, E], moe.experts.{w1, w3}
+               [E, D, F], moe.experts.w2 [E, F, D], moe.shared.{w1, w3}
+               [D, Fs], moe.shared.w2 [Fs, D] (``models.moe``) in place of
+               mlp; a hybrid layer's mixer is attn or mamba by its index
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig, torch_dtype
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from . import transformer as tf
 from .layers import (Params, apply_norm, dense, dense_init, embed_tokens,
@@ -51,11 +57,13 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
     """Random weights with the JAX package's distributions (not its bits:
     a parity test converts the JAX weights instead, see ``convert``).
     Biases start at zero, as in JAX."""
-    if arch.family not in ("dense", "ssm") \
-            or arch.mlp not in ("swiglu", "gelu"):
+    if arch.family in ("encdec", "vlm"):
         raise NotImplementedError(
-            f"{arch.name}: the port initializes dense swiglu/gelu models and "
-            "attention-free ssm (mamba2) models only")
+            f"{arch.name}: the {arch.family!r} family is not ported to "
+            "repro_torch yet (a later slice)")
+    if arch.mlp not in ("swiglu", "gelu"):
+        raise NotImplementedError(
+            f"{arch.name}: the port initializes swiglu/gelu MLPs only")
     d, f, hd = arch.d_model, arch.d_ff, arch.resolved_head_dim
     qkv = arch.q_dim + 2 * arch.kv_dim
     p: Params = {"embed": {"embedding": _normal(
@@ -64,29 +72,26 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
         p["pos"] = {"pos_embedding": _normal(gen, (arch.max_position, d),
                                              device, dtype)}
     blocks = []
-    for _ in range(arch.num_layers):
-        if arch.family == "ssm":        # mamba2 blocks: no ln2, no MLP
-            blocks.append({"ln1": init_norm(arch.norm, d, dtype, device),
-                           "mamba": ssm_lib.init_mamba(gen, arch, device,
-                                                       dtype)})
+    kinds = tf.layer_kinds(arch)
+    for layer in range(arch.num_layers):
+        i = layer % len(kinds)          # the index within its period
+        if kinds[i] == "mamba":
+            blk = {"ln1": init_norm(arch.norm, d, dtype, device),
+                   "mamba": ssm_lib.init_mamba(gen, arch, device, dtype)}
+            if arch.family != "ssm":    # mamba2 blocks: no ln2, no MLP
+                blk["ln2"] = init_norm(arch.norm, d, dtype, device)
+                blk.update(_init_ffn(gen, arch, i, device, dtype))
+            blocks.append(blk)
             continue
         attn = {"wqkv": dense_init(gen, d, qkv, device, dtype),
                 "wo": dense_init(gen, arch.num_heads * hd, d, device, dtype)}
-        mlp = {"w1": dense_init(gen, d, f, device, dtype),
-               "w2": dense_init(gen, f, d, device, dtype)}
-        if arch.mlp == "swiglu":
-            mlp["w3"] = dense_init(gen, d, f, device, dtype)
         if arch.use_bias:
             attn["bqkv"] = _zeros(qkv, device, dtype)
             attn["bo"] = _zeros(d, device, dtype)
-            mlp["b1"] = _zeros(f, device, dtype)
-            mlp["b2"] = _zeros(d, device, dtype)
-            if arch.mlp == "swiglu":
-                mlp["b3"] = _zeros(f, device, dtype)
         blocks.append({"ln1": init_norm(arch.norm, d, dtype, device),
                        "attn": attn,
                        "ln2": init_norm(arch.norm, d, dtype, device),
-                       "mlp": mlp})
+                       **_init_ffn(gen, arch, i, device, dtype)})
     p["blocks"] = blocks
     p["final_norm"] = init_norm(arch.norm, d, dtype, device)
     if not arch.tie_embeddings:
@@ -97,6 +102,25 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
                     "bias": _zeros(d, device, dtype),
                     "ln": init_norm(arch.norm, d, dtype, device)}
     return p
+
+
+def _init_ffn(gen: torch.Generator, arch: ArchConfig, i: int, device,
+              dtype: torch.dtype) -> Params:
+    """``{"moe": ...}`` where layer ``i`` of its period holds a MoE, else
+    ``{"mlp": ...}``."""
+    if arch.is_moe_layer(i):
+        return {"moe": moe_lib.init_moe(gen, arch, device, dtype)}
+    d, f = arch.d_model, arch.d_ff
+    mlp = {"w1": dense_init(gen, d, f, device, dtype),
+           "w2": dense_init(gen, f, d, device, dtype)}
+    if arch.mlp == "swiglu":
+        mlp["w3"] = dense_init(gen, d, f, device, dtype)
+    if arch.use_bias:
+        mlp["b1"] = _zeros(f, device, dtype)
+        mlp["b2"] = _zeros(d, device, dtype)
+        if arch.mlp == "swiglu":
+            mlp["b3"] = _zeros(f, device, dtype)
+    return {"mlp": mlp}
 
 
 def embed(arch: ArchConfig, params: Params,
@@ -125,7 +149,8 @@ def logits(arch: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 def forward(arch: ArchConfig, params: Params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The training forward -> fp32 logits [B, S, Vp]. (JAX also returns
-    an auxiliary loss, which is 0 for the dense family.)"""
+    an auxiliary loss: 0 for the dense family; a MoE's Switch loss is left
+    out, so ``loss`` refuses a MoE.)"""
     tokens = batch["tokens"]
     x = embed(arch, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
@@ -154,6 +179,9 @@ def cross_entropy(lg: torch.Tensor, targets: torch.Tensor,
 def loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (loss, metrics {loss, accuracy}): the masked cross entropy."""
+    if arch.moe is not None:
+        raise NotImplementedError(
+            f"{arch.name}: training a MoE (its Switch loss) is not ported")
     ce, acc = cross_entropy(forward(arch, params, batch), batch["targets"],
                             batch.get("loss_mask"))
     return ce, {"loss": ce.detach(), "accuracy": acc}

@@ -4,13 +4,19 @@ continuous engine's paged serving path. Counterpart of
 ``repro.models.transformer``: the JAX ``lax.scan`` over stacked periods
 becomes a Python loop over the per-layer parameter dicts in
 ``params["blocks"]``, the periods flattened (layer ``l`` has the mixer kind
-``layer_kinds(arch)[l % period_length(arch)]``; dense and ssm have a period
-of one layer). Caches, page pools and mamba slot state are updated in place
-(see ``models.attention`` and ``models.ssm``), so the stacks return only
+``layer_kinds(arch)[l % period_length(arch)]``; dense, moe and ssm have a
+period of one layer, jamba one of 8). A block holds ``moe`` in place of
+``mlp`` where ``arch.is_moe_layer(l)``; its tail is ``models.moe.apply_moe``
+with each batch row routed on its own (a decode step's slots are rows of
+one token, as in JAX), the Switch loss left out on the serving paths.
+Caches, page pools and mamba slot state are updated in place (see
+``models.attention`` and ``models.ssm``), so the stacks return only
 activations.
 
 Training blocks (``apply_block``, ``apply_stack``): pre-norm, or BERT's
-post-norm. ``fused`` (None = ``REPRO_FUSED_BLOCKS``, default off) routes the
+post-norm; attention or mamba mixers, MLP or MoE tails (the port trains
+the dense family; the others run the forward only). ``fused`` (None =
+``REPRO_FUSED_BLOCKS``, default off) routes the
 post-norm residual add + norm sites through ``fused_residual_layernorm`` and
 the gelu MLP's bias + activation through ``bias_gelu``: a tolerance contract
 with the unfused block (an fp32 add where the unfused one adds in the model
@@ -38,6 +44,7 @@ import torch.utils.checkpoint
 from ..configs.base import ArchConfig
 from ..kernels.fused_layernorm import ops as ln_ops
 from . import attention as attn_lib
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import Params, apply_mlp, apply_norm
 
@@ -48,19 +55,35 @@ def fused_blocks_enabled() -> bool:
     return os.environ.get("REPRO_FUSED_BLOCKS", "0") == "1"
 
 
+def _ffn(arch: ArchConfig, p: Params, h: torch.Tensor, *,
+         fused: bool = False, moe_cap: Optional[int] = None) -> torch.Tensor:
+    """A block's MLP, or its MoE where it holds one (the Switch loss left
+    out; ``moe_cap`` tightens the MoE's capacity)."""
+    if "moe" in p:
+        return moe_lib.apply_moe(arch, p["moe"], h, moe_cap,
+                                 aux_loss=False)[0]
+    return apply_mlp(arch.mlp, p["mlp"], h, fused=fused)
+
+
 def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, causal: bool,
-                fused: Optional[bool] = None) -> torch.Tensor:
-    """One pre-norm (or BERT post-norm) attention block over x [B, S, D].
-    The dense family has no auxiliary loss (JAX's is 0 for it), so only the
-    activations are returned."""
+                fused: Optional[bool] = None,
+                mixer: str = "attn") -> torch.Tensor:
+    """One pre-norm (or BERT post-norm) block over x [B, S, D], its mixer
+    attention or mamba, its tail an MLP or a MoE (none for mamba2). Only
+    the activations are returned: the dense family has no auxiliary loss
+    (JAX's is 0 for it), and the port does not train a MoE (its Switch
+    loss is left out)."""
     if fused is None:
         fused = fused_blocks_enabled()
-    if arch.family != "dense":
+    if arch.family in ("encdec", "vlm"):
         raise NotImplementedError(
-            f"family {arch.family!r}: the port trains the dense family only")
+            f"family {arch.family!r} is not ported to repro_torch yet (a "
+            "later slice)")
 
     def mix(h):
+        if mixer == "mamba":
+            return ssm_lib.apply_mamba(arch, p["mamba"], h)
         return attn_lib.apply_attention(arch, p["attn"], h, positions,
                                         causal=causal)
 
@@ -73,15 +96,15 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
 
     if arch.post_norm:
         x = add_norm(p["ln1"], mix(x), x)
-        return add_norm(p["ln2"], apply_mlp(arch.mlp, p["mlp"], x,
-                                            fused=fused), x)
+        return add_norm(p["ln2"], _ffn(arch, p, x, fused=fused), x)
     if fused:
         raise NotImplementedError(
             "the fused pre-norm training block (decode_residual_norm with a "
             "gradient) is not ported")
     x = x + mix(apply_norm(arch.norm, p["ln1"], x))
-    return x + apply_mlp(arch.mlp, p["mlp"],
-                         apply_norm(arch.norm, p["ln2"], x))
+    if "ln2" not in p:                  # mamba2 blocks have no MLP
+        return x
+    return x + _ffn(arch, p, apply_norm(arch.norm, p["ln2"], x))
 
 
 def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
@@ -91,9 +114,9 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
     the backward pass, so only its [B, S, D] input stays alive."""
     if fused is None:
         fused = fused_blocks_enabled()
-    blk = functools.partial(apply_block, arch, positions=positions,
-                            causal=causal, fused=fused)
-    for p in blocks:
+    for p, kind in zip(blocks, _stack_kinds(arch)):
+        blk = functools.partial(apply_block, arch, positions=positions,
+                                causal=causal, fused=fused, mixer=kind)
         if arch.remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(blk, p, x,
                                                   use_reentrant=False)
@@ -103,9 +126,13 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
 
 
 def period_length(arch: ArchConfig) -> int:
-    """Layers in the smallest repeating group of the stack (a hybrid
-    stack's period; 1 for dense and ssm, the families the port serves)."""
-    return arch.hybrid_period if arch.family == "hybrid" else 1
+    """Layers in the smallest repeating group of the stack: a hybrid
+    stack's period, a MoE's ``every`` where it skips layers, else 1."""
+    if arch.family == "hybrid":
+        return arch.hybrid_period
+    if arch.moe is not None and arch.moe.every > 1:
+        return arch.moe.every
+    return 1
 
 
 def layer_kinds(arch: ArchConfig) -> Tuple[str, ...]:
@@ -155,14 +182,17 @@ def _decode_block_mix(arch: ArchConfig, blk: Params, x: torch.Tensor,
         else x + y
 
 
-def _decode_block_ffn(arch: ArchConfig, blk: Params,
-                      x: torch.Tensor) -> torch.Tensor:
-    """Pre- or post-norm MLP tail of a block with its residual add (none for
-    a block without ln2: mamba2's have no MLP)."""
+def _decode_block_ffn(arch: ArchConfig, blk: Params, x: torch.Tensor,
+                      moe_cap: Optional[int] = None) -> torch.Tensor:
+    """Pre- or post-norm MLP or MoE tail of a block with its residual add
+    (none for a block without ln2: mamba2's have no MLP). ``moe_cap`` (a
+    prefill chunk's): the full prompt's capacity, so the drops match the
+    static engine's full-prompt dispatch rather than a bucket inflated by
+    the chunk's padded shape."""
     if "ln2" not in blk:
         return x
     h = x if arch.post_norm else apply_norm(arch.norm, blk["ln2"], x)
-    y = apply_mlp(arch.mlp, blk["mlp"], h)
+    y = _ffn(arch, blk, h, moe_cap=moe_cap)
     return apply_norm(arch.norm, blk["ln2"], x + y) if arch.post_norm \
         else x + y
 
@@ -176,16 +206,16 @@ def _fused_residual_norm(arch: ArchConfig, ln: Params, d: torch.Tensor,
                                        kind=arch.norm)
 
 
-def _fused_block_delta(arch: ArchConfig, blk: Params,
-                       h: torch.Tensor) -> torch.Tensor:
-    """MLP tail of a fused block: the residual *delta*, whose add is
+def _fused_block_delta(arch: ArchConfig, blk: Params, h: torch.Tensor,
+                       moe_cap: Optional[int] = None) -> torch.Tensor:
+    """MLP or MoE tail of a fused block: the residual *delta*, whose add is
     deferred to the layer's end."""
-    return apply_mlp(arch.mlp, blk["mlp"], h)
+    return _ffn(arch, blk, h, moe_cap=moe_cap)
 
 
 def _period(arch: ArchConfig, blk: Params, x: torch.Tensor,
             mix: Callable[[torch.Tensor], torch.Tensor],
-            fused: bool) -> torch.Tensor:
+            fused: bool, moe_cap: Optional[int] = None) -> torch.Tensor:
     """One layer around the mixer ``mix``: unfused, or the fused body (ln1
     norm, mixer, fused add + ln2 norm, MLP delta, boundary add). A mamba2
     block has no ln2 and no MLP: its fused body's pending delta is the
@@ -197,10 +227,10 @@ def _period(arch: ArchConfig, blk: Params, x: torch.Tensor,
         assert not arch.post_norm, (arch.name, "fused decode is pre-norm only")
     if not fused or "ln2" not in blk:
         x = _decode_block_mix(arch, blk, x, mix)
-        return _decode_block_ffn(arch, blk, x)
+        return _decode_block_ffn(arch, blk, x, moe_cap)
     h = apply_norm(arch.norm, blk["ln1"], x)
     h2, x = _fused_residual_norm(arch, blk["ln2"], mix(h), x)
-    return x + _fused_block_delta(arch, blk, h2)
+    return x + _fused_block_delta(arch, blk, h2, moe_cap)
 
 
 def paged_decode_period(arch: ArchConfig, blk: Params, cache: Params,
@@ -318,10 +348,12 @@ def paged_decode_loop_step(arch: ArchConfig, blocks: List[Params],
 def paged_prefill_period(arch: ArchConfig, blk: Params, cache: Params,
                          x: torch.Tensor, page_row: torch.Tensor, start: int,
                          total_len: int, slot: int = 0, kind: str = "attn",
-                         fused: bool = False) -> torch.Tensor:
+                         fused: bool = False,
+                         moe_cap: Optional[int] = None) -> torch.Tensor:
     """One layer of one prompt chunk, dispatched on its mixer ``kind``:
     attention writes K/V into the sequence's pages, mamba advances the
-    state in the sequence's ``slot`` row."""
+    state in the sequence's ``slot`` row; a MoE tail drops at ``moe_cap``
+    (the full prompt's capacity) where it is given."""
     def mix(h):
         if kind == "attn":
             return attn_lib.paged_prefill_attention_layer(
@@ -329,20 +361,24 @@ def paged_prefill_period(arch: ArchConfig, blk: Params, cache: Params,
         return ssm_lib.paged_prefill_mamba_layer(arch, blk["mamba"], h,
                                                  cache, slot, start,
                                                  total_len)
-    return _period(arch, blk, x, mix, fused)
+    return _period(arch, blk, x, mix, fused, moe_cap)
 
 
 def paged_prefill_stack(arch: ArchConfig, blocks: List[Params],
                         caches: List[Params], x: torch.Tensor,
                         page_row: torch.Tensor, start: int,
                         total_len: int, slot: int = 0,
-                        fused: bool = False) -> torch.Tensor:
+                        fused: bool = False,
+                        moe_cap: Optional[int] = None) -> torch.Tensor:
     """Chunked prefill: one prompt chunk x [1, C, D] of one sequence through
-    every layer, its K/V written straight into the sequence's pages and
-    its mamba state into its slot's rows."""
+    every layer, its K/V written straight into the sequence's pages, its
+    mamba state into its slot's rows, its MoE layers dropping at the full
+    context's capacity ``moe_cap`` (host-computed by the engine; the
+    chunk's own bucket where None). The chunk's trailing padding routes
+    too, but the stable expert sort keeps it behind every real token."""
     for blk, cache, kind in zip(blocks, caches, _stack_kinds(arch)):
         x = paged_prefill_period(arch, blk, cache, x, page_row, start,
-                                 total_len, slot, kind, fused)
+                                 total_len, slot, kind, fused, moe_cap)
     return x
 
 

@@ -8,9 +8,9 @@ streams for the same weights and requests.
 
 The stack is driven through the per-layer decode-state protocol
 (``models.transformer.init_serving_state``): attention layers keep paged
-KV pools, mamba layers a pooled, constant-size state per slot. The dense
-family and the attention-free ssm family (mamba2) are served. Slot
-recycling resets a mamba row at the next sequence's first chunk, and
+KV pools, mamba layers a pooled, constant-size state per slot. The dense,
+moe, attention-free ssm (mamba2) and hybrid (jamba) families are served.
+Slot recycling resets a mamba row at the next sequence's first chunk, and
 preemption stays forced replay: re-prefilling the victim's context
 recomputes the state. Prefix caching shares pages, which recurrent state is
 not decomposable into, so an SSM-bearing arch gates it off with a reason on
@@ -26,19 +26,23 @@ paged prefill attention kernel; only a final chunk pays the LM head. A
 mamba2 layer is [RMSNorm -> in_proj -> causal conv + SiLU -> SSD step
 (decode) or chunked SSD scan (prefill) -> gated RMSNorm kernel ->
 out_proj -> residual add]; an idle slot's state row is left as it was.
+A MoE layer's tail (``models.moe``) routes each slot's token on its own
+(one capacity slot an expert at decode), and each prefill chunk drops at
+the full prompt's capacity, computed on the host as JAX's engine does.
 
 Fused decode (``fused_decode``, on by default as in the JAX engine; the
 environment rule is ``serving.sampling.fused_decode_enabled``) folds each
 layer's ln2 residual add + norm into one ``decode_residual_norm`` kernel
-(dense only: a mamba2 block has no ln2 site) and runs the final norm, the
+(not mamba2's blocks, which have no ln2 site) and runs the final norm, the
 LM head and the selection as one ``head_tokens`` kernel that reads the
-tied embedding in place and returns tokens, never logits. Unfused, the
+tied embedding [V, D], or an untied head [D, V], in place and returns
+tokens, never logits. Unfused, the
 head materializes fp32 logits and selects with a greedy argmax or the
 sampler (filter kernel for filtered requests, then the draw kernel). On the CPU the two paths emit bitwise
 identical streams; on the card they may fork on near-tied logits. A
-post-norm stack, an MLM-transform head and an untied LM head serve
-unfused, with ``fused_decode_off_reason`` saying why (JAX's strings for
-the first two). Encoder-only (bidirectional) archs are refused, and so
+post-norm stack and an MLM-transform head serve unfused, with
+``fused_decode_off_reason`` saying why (JAX's strings). Encoder-only
+(bidirectional) archs are refused, and so
 are attention archs whose positions or window the paged path cannot apply
 (learned positions, a sliding window), with JAX's messages.
 
@@ -64,8 +68,7 @@ its jit cache; ``trace_stats()`` counts the variants the traffic exercised
 and their traces (a graph capture on the card, a first use otherwise).
 
 Not ported yet (each raises ``NotImplementedError``): ``tp > 1``, fused
-decode with a logit softcap and families other than dense and ssm (hybrid,
-moe, ...).
+decode with a logit softcap and the vlm and encdec families.
 """
 from __future__ import annotations
 
@@ -83,13 +86,14 @@ from ..kernels.fused_lm_head import ops as head_ops
 from ..models import transformer as tf
 from ..models.layers import apply_norm
 from ..models.model import Model
+from ..models.moe import capacity_per_row
 from .graphs import DecodeLoop
 from .kv_cache import pages_needed
 from .sampling import (fused_decode_enabled, fused_sampling_enabled,
                        sample_tokens)
 from .scheduler import Request, Scheduler, SequenceState
 
-SERVABLE_FAMILIES = ("dense", "ssm")
+SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def prefix_cache_off_reason(arch) -> Optional[str]:
@@ -119,7 +123,7 @@ class ContinuousEngine:
         arch = model.arch
         if arch.family not in SERVABLE_FAMILIES:
             raise _not_ported(f"serving the {arch.family!r} family",
-                              "a later slice ports the other families")
+                              "a later slice ports vlm and encdec")
         if arch.bidirectional:
             raise ValueError("encoder-only archs have no decode step")
         kinds = tf.layer_kinds(arch)
@@ -147,10 +151,6 @@ class ContinuousEngine:
             elif arch.mlm_transform:
                 self.fused_decode_off_reason = \
                     "fused decode does not support MLM-transform heads"
-            elif not arch.tie_embeddings:
-                self.fused_decode_off_reason = (
-                    "fused decode reads the tied embedding in place; an "
-                    "untied LM head serves the unfused path")
         self.fused_decode = want_fd and self.fused_decode_off_reason is None
         if self.fused_decode and arch.logit_softcap > 0:
             raise _not_ported("fused decode with a logit softcap",
@@ -263,14 +263,17 @@ class ContinuousEngine:
                     sampled: bool, filtered: bool):
         """Final norm + the fused LM head: final hidden ``x`` [S, 1, D] ->
         ``(tokens int32 [S], ok bool [S])`` (``ok``: the raw logits of the
-        row are all finite). The kernel derives each row's draw uniform
-        from the determinism contract's key, its seed and position, on the
-        card."""
+        row are all finite). The kernel reads the tied embedding [V, D] or
+        the untied head ``out.head`` [D, V] in place, and derives each
+        row's draw uniform from the determinism contract's key, its seed
+        and position, on the card."""
         params = self.model.params
         hidden = apply_norm(self.arch.norm, params["final_norm"], x)[:, 0]
+        untied = not self.arch.tie_embeddings
+        w = params["out"]["head"] if untied else params["embed"]["embedding"]
         return head_ops.head_tokens(
-            hidden, params["embed"]["embedding"], seeds, positions, temps,
-            top_ks, top_ps, sampled=sampled, filtered=filtered)
+            hidden, w, seeds, positions, temps, top_ks, top_ps,
+            sampled=sampled, filtered=filtered, untied=untied)
 
     # ----------------------------------------------------------------- steps --
     @torch.inference_mode()
@@ -355,9 +358,11 @@ class ContinuousEngine:
 
     @torch.inference_mode()
     def _prefill(self, chunk: np.ndarray, page_row: np.ndarray, slot: int,
-                 start: int, end: int, sp, *, final: bool):
+                 start: int, end: int, sp, *, final: bool,
+                 moe_cap: Optional[int] = None):
         """One prompt chunk of one sequence (in ``slot``, whose mamba state
-        rows it advances) -> ``(token, probe)``: on the final chunk the
+        rows it advances; its MoE layers drop at ``moe_cap``, the full
+        prompt's capacity) -> ``(token, probe)``: on the final chunk the
         token after position ``end - 1`` (stream position ``end``) as an
         int32 [1] device tensor, else None; with the sanitizer the chunk's
         finite probe (a 0-d device flag: the valid positions' activations,
@@ -370,7 +375,8 @@ class ContinuousEngine:
         x = self.model._embed(self._ints(chunk))
         x = tf.paged_prefill_stack(self.arch, self.model.params["blocks"],
                                    self.pools, x, self._ints(page_row), start,
-                                   end, slot, fused=self.fused_decode)
+                                   end, slot, fused=self.fused_decode,
+                                   moe_cap=moe_cap)
         if not final:
             if not self.sanitize:
                 return None, None
@@ -427,9 +433,13 @@ class ContinuousEngine:
             chunk = np.zeros((1, self.prefill_chunk), np.int32)
             chunk[0, :end - start] = ctx[start:end]
             final = end == seq.prefill_target
+            # the full context's MoE capacity, computed on the host with the
+            # math of the static engine's dispatch (capacity_per_row)
+            moe_cap = capacity_per_row(seq.prefill_target, self.arch.moe) \
+                if self.arch.moe is not None else None
             tok, probe = self._prefill(
                 chunk, sched.cache.page_table[seq.slot], seq.slot, start,
-                end, seq.request.sampling, final=final)
+                end, seq.request.sampling, final=final, moe_cap=moe_cap)
             if probe is not None:
                 # read with the next tokens the host copies back
                 self._pending.append((probe, (

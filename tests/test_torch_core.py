@@ -130,12 +130,25 @@ def test_model_flops_and_roofline_terms_match_jax(name, smoke):
 
 
 def test_other_families_raise():
-    arch = dataclasses.replace(smoke_config("llama3.2-3b"), family="moe")
+    """The moe family counts now, as ``repro`` counts it (deepseek, jamba
+    and internlm2 are held under ``==`` in ``test_torch_moe.py``); encdec
+    still raises."""
+    jarch, arch = (dataclasses.replace(get("deepseek-moe-16b"),
+                                       num_layers=3)
+                   for get in (jax_smoke_config, smoke_config))
+    for active in (False, True):
+        assert arch.param_count(active) == jarch.param_count(active)
+    assert arch.param_count(active_only=True) < arch.param_count()
+    assert [dataclasses.astuple(g) for g in
+            analytical.transformer_gemms(arch, 2, 16)] == \
+        [dataclasses.astuple(g) for g in
+         janalytical.transformer_gemms(jarch, 2, 16)]
+    encdec = dataclasses.replace(arch, family="encdec", moe=None)
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        arch.param_count()
+        encdec.param_count()
     for fn in (analytical.transformer_gemms, analytical.nongemm_ops):
         with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            fn(dataclasses.replace(arch, family="encdec"), 2, 16)
+            fn(encdec, 2, 16)
 
 
 def test_h100_is_the_default_and_v5e_is_not_ported():

@@ -510,9 +510,18 @@ def test_fused_decode_softcap_raises_and_untied_head_falls_back():
     untied = Model.init(dataclasses.replace(arch, tie_embeddings=False), g,
                         device="cpu")
     eng = ContinuousEngine(untied, fused_decode=True, **kw)
-    assert not eng.fused_decode and "untied" in eng.fused_decode_off_reason
-    res = eng.run([Request(uid=0, prompt=[5, 6, 7], max_new_tokens=3)])
+    # an untied head now serves fused (the head kernel reads out.head
+    # [D, V] in place), with the unfused engine's stream
+    assert eng.fused_decode and eng.fused_decode_off_reason is None
+    reqs = [Request(uid=0, prompt=[5, 6, 7], max_new_tokens=3),
+            Request(uid=1, prompt=[8, 9, 10, 11], max_new_tokens=4,
+                    sampling=SamplingParams(temperature=0.9, top_k=30,
+                                            seed=3))]
+    res = eng.run(reqs)
+    ref = ContinuousEngine(untied, fused_decode=False, **kw).run(reqs)
     assert len(res[0]["tokens"]) == 3
+    for r in reqs:
+        assert res[r.uid]["tokens"] == ref[r.uid]["tokens"]
 
 
 def test_serve_cli_fused_decode_flag(capsys):

@@ -193,14 +193,12 @@ def test_static_engine_serves_what_the_continuous_engine_refuses(guard):
      "fused decode does not support MLM-transform heads"),
     (dict(mlm_transform=True, tie_embeddings=False),
      "fused decode does not support MLM-transform heads"),
-    (dict(tie_embeddings=False),
-     "fused decode reads the tied embedding in place; an untied LM head "
-     "serves the unfused path"),
+    (dict(tie_embeddings=False), None),
     (dict(), None),
 ])
 def test_fused_decode_off_reasons_follow_jax_order(over, reason):
-    """JAX's two reasons first, in JAX's order, then the port's own
-    untied-head reason; the arch only, no weights are served."""
+    """JAX's two reasons, in JAX's order, and no other: an untied head
+    serves fused, as in JAX; the arch only, no weights are served."""
     arch = dataclasses.replace(smoke_config(LLAMA), **over)
     model = Model.init(arch, torch.Generator().manual_seed(0), device="cpu")
     eng = ContinuousEngine(model, num_slots=1, num_pages=8, page_size=8,

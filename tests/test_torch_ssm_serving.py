@@ -9,7 +9,7 @@ is tolerated only where the JAX top-2 logit margin at that step is below
 
 Also: the prefix-cache gate (engine reason and per-request stat equal to
 JAX's), ``launch.serve`` refusing an explicit ``--prefix-cache`` for
-mamba2, a hybrid engine still refused as not ported, the weight bridge's
+mamba2, a vlm engine still refused as not ported, the weight bridge's
 round trip, and the layer protocol (state kinds, launches on the CPU)."""
 import dataclasses
 
@@ -209,13 +209,20 @@ def test_prefix_cache_off_reason_is_one_rule(pair, family):
 
 
 def test_hybrid_engine_is_still_not_ported(pair):
+    """The hybrid family serves now (``tests/test_torch_moe_serving.py``);
+    the vlm family (qwen2-vl's M-RoPE and vision stub) is still refused,
+    naming a later slice, by the engine, the model's init and the CLI."""
     t_model = pair[2]
-    hybrid = dataclasses.replace(t_model.arch, name="jamba-v0.1-52b-smoke",
-                                 family="hybrid", hybrid_period=2,
-                                 hybrid_attn_index=1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousEngine(Model(hybrid, t_model.params), num_slots=2,
+    vlm = dataclasses.replace(t_model.arch, name="qwen2-vl-2b-smoke",
+                              family="vlm")
+    with pytest.raises(NotImplementedError, match="not ported.*later slice"):
+        ContinuousEngine(Model(vlm, t_model.params), num_slots=2,
                          num_pages=8, page_size=4)
+    with pytest.raises(NotImplementedError, match="not ported.*later slice"):
+        Model.init(vlm, torch.Generator().manual_seed(0), device="cpu")
+    for name in ("qwen2-vl-2b", "whisper-base"):
+        with pytest.raises(SystemExit):
+            serve.main(["--arch", name, "--smoke", "--device", "cpu"])
 
 
 def test_weight_bridge_round_trip_for_mamba2(pair):
