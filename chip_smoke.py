@@ -164,12 +164,15 @@ Phases, each printing one line (any failure exits non-zero):
      8 rows under the profiler: each selection must launch fewer kernels
      than the eager threefry alone, and no serve may have called it;
   6b. the moe and hybrid families: in phase 3 (beside the other kernel
-     checks), the fused head with an untied head [D,
-     V] (its own CUDA-core GEMV) bitwise against its plain version on
-     exact-arithmetic inputs (16, 1 and 8 rows; greedy, temperature-only,
-     filtered) at deepseek-moe-16b's D 2048 / V 102400, internlm2-1.8b's V
-     92544 and jamba's D 4096 / V 65536, timed beside its bound and
-     torch.matmul (the GEMV only); paged decode and prefill at G 1
+     checks), the fused head with an untied head [D, V] (its own GEMV,
+     head_gemv_wgmma_kernel: a TMA ring into wgmma on ops.untied_plan)
+     bitwise against its plain version on exact-arithmetic inputs (16, 1,
+     8 and 24 rows; greedy, temperature-only, filtered) at
+     deepseek-moe-16b's D 2048 / V 102400 (and V 102384, a ragged last
+     tile), internlm2-1.8b's V 92544 and jamba's D 4096 / V 65536, the
+     random-input workspace and partials bitwise across two calls, its
+     plan printed and timed beside its bound and torch.matmul (the GEMV
+     only, also at 16 rows); paged decode and prefill at G 1
      (deepseek, 16 / 16 heads), 2 (internlm2) and 4 (jamba) held as in
      phase 3; the add + norm at D 2048; the filter and draw bitwise at V
      102400, 92544 and 65536. Here, deepseek-moe-16b at full width and depth
@@ -263,26 +266,40 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _profiled_ms(fn, names, iters: int = 10):
+def _profiled_ms(fn, names, iters: int = 10, floor_ms: float | None = None):
     """Device ms per call of the kernels whose names contain one of
     ``names`` (``("",)``: every kernel the call launches, as for a library
-    call), from torch.profiler over ``iters`` calls (None if the profiler
-    recorded no device time). A window with no record of them, which the
-    profiler delivers now and then, is taken again, up to three times."""
+    call), from torch.profiler over ``iters`` calls. The profiler now and
+    then drops records, so a window is kept only if it holds ``iters``
+    times the records of a one-call window taken just before it (which is
+    also the warm-up) and, with ``floor_ms`` (the call's least time on the
+    card), reads no less than that; a window that fails is taken again, up
+    to three times, and then the result is None."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
+
+    def window(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(n in e.key for n in names))
-        if us > 0:
-            return us / 1e3 / iters
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(k in e.key for k in names)]
+        return (sum(e.count for e in ev),
+                sum(e.self_device_time_total for e in ev) / 1e3 / n)
+
+    for _ in range(3):
+        per_call, _ = window(1)
+        count, ms = window(iters)
+        if per_call and count == per_call * iters and \
+                (floor_ms is None or ms >= floor_ms):
+            return ms
     return None
+
+
+def _ms(t) -> str:
+    """A device time for a line of output (None: the profiler failed)."""
+    return "null" if t is None else f"{t:.5f}"
 
 
 def _attn_err(out: torch.Tensor, plain: torch.Tensor, name: str):
@@ -979,9 +996,13 @@ def check_head_tokens(arch, dev, untied: bool = False):
     bf16 ulps of the largest |logit|. Run for llama3.2-3b (D 3072, V
     128256) and for mamba2-1.3b (D 2048, V 50304), whose cluster epilogue
     splits a row into narrower slices; with ``untied``, the same inputs
-    with the weight laid out as an untied head [D, V] (its own GEMV), for
+    with the weight laid out as an untied head [D, V] (its own GEMV,
+    ``head_gemv_wgmma_kernel`` on ``ops.untied_plan``), for
     deepseek-moe-16b (D 2048, V 102400), internlm2-1.8b (V 92544) and
-    jamba-v0.1-52b (D 4096, V 65536)."""
+    jamba-v0.1-52b (D 4096, V 65536), also at 24 rows (a group of 16 and a
+    ragged one of 8) and, for deepseek, at V 102384 (a ragged last tile),
+    greedy and filtered; then the random-input bf16 workspace and partials
+    of two calls bitwise equal (no atomics, a fixed summation order)."""
     from repro_torch.kernels.fused_lm_head import ops, ref
     from repro_torch.kernels.fused_sampling import ops as samp_ops
     from repro_torch.models.layers import unembed
@@ -1010,32 +1031,50 @@ def check_head_tokens(arch, dev, untied: bool = False):
     prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     lines = []
-    # 16 rows: two groups of the GEMV; row 11 alone (top-k off, top-p 0.9:
-    # the nucleus search over the whole row); the serve's 8 rows last
-    for s, sel in ((16, slice(0, 16)), (1, slice(11, 12)), (8, slice(0, 8))):
+
+    def exact_case(s, sel, wk, sampled, filtered, label=""):
+        """Tokens and probe of rows ``sel`` bitwise the plain version's."""
         xs, sd, ps, tm, tk, tp = (t[sel].contiguous() for t in (
             x, seeds, pos, temps, top_k, top_p))
+        tok, ok = ops.head_tokens(xs, wk, sd, ps, tm, tk, tp,
+                                  sampled=sampled, filtered=filtered,
+                                  untied=untied)
+        ptok, pok = ref.head_tokens(xs, wk, ref.row_uniforms(sd, ps), tm,
+                                    tk, tp, sampled=sampled,
+                                    filtered=filtered, untied=untied)
+        torch.cuda.synchronize()
+        if not (torch.equal(tok, ptok) and torch.equal(ok, pok)):
+            _fail(f"head_tokens {arch.name} S={s}{label} (sampled={sampled}, "
+                  f"filtered={filtered}) tokens {tok.tolist()} ok "
+                  f"{ok.tolist()} differ from the plain version's "
+                  f"{ptok.tolist()} {pok.tolist()} (contract: bitwise on "
+                  "exact-arithmetic inputs)")
+        lines.append(f"S={s}{label} sampled={sampled} filtered={filtered}: "
+                     f"{tok.tolist()}")
+        return tok, ok
+    # 16 rows: two groups of the tied GEMV, one of the untied; row 11 alone
+    # (top-k off, top-p 0.9: the nucleus search over the whole row); the
+    # serve's 8 rows last
+    for s, sel in ((16, slice(0, 16)), (1, slice(11, 12)), (8, slice(0, 8))):
         for sampled, filtered in ((False, False), (True, False),
                                   (True, True)):
-            tok, ok = ops.head_tokens(xs, wk, sd, ps, tm, tk, tp,
-                                      sampled=sampled, filtered=filtered,
-                                      untied=untied)
-            ptok, pok = ref.head_tokens(xs, wk, ref.row_uniforms(sd, ps), tm,
-                                        tk, tp, sampled=sampled,
-                                        filtered=filtered, untied=untied)
-            torch.cuda.synchronize()
-            if not (torch.equal(tok, ptok) and torch.equal(ok, pok)):
-                _fail(f"head_tokens {arch.name} S={s} (sampled={sampled}, filtered="
-                      f"{filtered}) tokens {tok.tolist()} ok {ok.tolist()} "
-                      f"differ from the plain version's {ptok.tolist()} "
-                      f"{pok.tolist()} (contract: bitwise on "
-                      "exact-arithmetic inputs)")
-            lines.append(f"S={s} sampled={sampled} filtered={filtered}: "
-                         f"{tok.tolist()}")
+            tok, ok = exact_case(s, sel, wk, sampled, filtered)
         if s > 1 and (ok[4] or ok[5] or not ok[[i for i in range(s)
                                                 if i not in (4, 5)]].all()):
             _fail(f"head_tokens probe {ok.tolist()}: rows 4 and 5 must be "
                   "non-finite, the rest finite")
+    if untied:
+        # 24 rows: a group of 16 and a ragged one of 8 (W read twice); for
+        # deepseek also V 102384, whose last 64-column tile is ragged
+        rows24 = list(range(16)) + [0, 1, 2, 3, 6, 7, 8, 9]
+        for sampled, filtered in ((False, False), (True, True)):
+            exact_case(24, rows24, wk, sampled, filtered)
+        if v == 102400:
+            w_r = wk[:, :102384].contiguous()
+            for s, sel in ((8, slice(0, 8)), (24, rows24)):
+                for sampled, filtered in ((False, False), (True, True)):
+                    exact_case(s, sel, w_r, sampled, filtered, " V=102384")
+            del w_r
     s = 8                                  # the serve's rows, timed below
     if tok[4] != 0 or tok[5] != 0 or int(tok[1]) not in (top, 126, 127, 128,
                                                          129, 130):
@@ -1070,6 +1109,29 @@ def check_head_tokens(arch, dev, untied: bool = False):
                  " equal in all")
 
     head = functools.partial(ops.head_tokens, untied=untied)
+    plan = None
+    if untied:
+        # the bf16 workspace and the partials of two calls bitwise equal
+        plan = ops.untied_plan(s, d, v, ops.sm_count(dev.index or 0))
+        outs = []
+        for _ in range(2):
+            tk_ = torch.empty((s,), dtype=torch.int32, device=dev)
+            ok_ = torch.empty((s,), dtype=torch.bool, device=dev)
+            outs.append(ops._launch(xr, wk, seeds, pos, 0, temps, top_k,
+                                    top_p, tk_, ok_, True, True,
+                                    samp_ops.cluster_plan(s, v),
+                                    untied=True))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int16) if a.dtype ==
+                               torch.bfloat16 else a,
+                               b.view(torch.int16) if b.dtype ==
+                               torch.bfloat16 else b)
+                   for a, b in zip(*outs)):
+            _fail(f"head_tokens {arch.name}: the untied GEMV's workspace or "
+                  "partials differ between two calls on the same inputs")
+        lines.append("random bf16 workspace and partials bitwise equal "
+                     "across two calls")
+        del outs
     _kernels_a_call(lambda: head(*rargs, sampled=True, filtered=True), kname)
     device = {step: _profiled_ms(lambda: head(
         *rargs, sampled=sampled, filtered=filtered), DEVICE_NAMES[kname])
@@ -1078,9 +1140,15 @@ def check_head_tokens(arch, dev, untied: bool = False):
                                         ("greedy", False, False))}
     device["filtered epilogue"] = _profiled_ms(lambda: head(
         *rargs, sampled=True, filtered=True), ("head_epilogue_kernel",))
+    # no call reads W [V, D] in less than its bytes take
+    w_ms = _bound(v * d * 2, 0.0)[0]
     if untied:
         device["greedy GEMV"] = _profiled_ms(lambda: head(
-            *rargs, sampled=False, filtered=False), ("head_gemv_t_kernel",))
+            *rargs, sampled=False, filtered=False), (UNTIED_GEMV,),
+            floor_ms=w_ms)
+        device["greedy GEMV 16 rows"] = _profiled_ms(lambda: head(
+            *rargs16, sampled=False, filtered=False), (UNTIED_GEMV,),
+            floor_ms=w_ms)
     ms = _time_ms(lambda: head(*rargs, sampled=True, filtered=True), 20)
     ms_greedy = _time_ms(lambda: head(*rargs, sampled=False,
                                       filtered=False), 20)
@@ -1091,7 +1159,7 @@ def check_head_tokens(arch, dev, untied: bool = False):
     library = (lambda: torch.matmul(xr, wk)) if untied else \
         (lambda: torch.matmul(xr, wk.T))
     library_ms = _time_ms(library, 20)
-    library_device_ms = _profiled_ms(library, ("",), 20)
+    library_device_ms = _profiled_ms(library, ("",), 20, floor_ms=w_ms)
     safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
 
     def unfused_head():
@@ -1105,6 +1173,18 @@ def check_head_tokens(arch, dev, untied: bool = False):
     wshape = f"[{d}, {v}] (untied head)" if untied else f"[{v}, {d}]"
     print(f"[head_tokens] {arch.name} x [{s}, {d}], W {wshape}: "
           + "; ".join(lines))
+    if untied:
+        sizes = [b - a for a, b in plan.ranges]
+        print(f"[head_tokens] {arch.name} untied GEMV plan at S={s}: "
+              f"{plan.ctas} CTAs of {min(sizes)}-{max(sizes)} tiles of 64 "
+              f"(busiest {max(sizes) / (sum(sizes) / len(sizes)):.4f}x the "
+              f"mean), panel {plan.panel} x {ops.UNTIED_BK} K rows, "
+              f"{plan.rows} rows a group ({len(plan.groups)} group), "
+              f"{plan.stages} stages, {plan.smem_bytes} B shared; device ms: "
+              f"GEMV {_ms(device['greedy GEMV'])} (16 rows "
+              f"{_ms(device['greedy GEMV 16 rows'])}), greedy "
+              f"{_ms(device['greedy'])}, filtered {_ms(device['filtered'])}; "
+              f"torch.matmul {_ms(library_device_ms)}")
     # W and x read once; seeds (8 bytes), positions, temps, top_k, top_p
     # (4 each) read; tokens and the probe written
     nbytes = v * d * 2 + s * d * 2 + s * 24 + s * 4 + s
@@ -1127,6 +1207,12 @@ def check_head_tokens(arch, dev, untied: bool = False):
             "unfused_head_ms": unfused_ms,
             "profiler_device_ms_by_step": device,
             "ctas_a_row": samp_ops.cluster_plan(s, v),
+            **({"plan": {k: getattr(plan, k) for k in (
+                "tile", "panel", "rows", "ctas", "stages",
+                "smem_bytes")} | {"bk": ops.UNTIED_BK, "tiles_a_cta": [
+                    min(b - a for a, b in plan.ranges),
+                    max(b - a for a, b in plan.ranges)]}}
+               if untied else {}),
             "random_rows_clear_margin": int(clear.sum())}
 
 
@@ -1618,7 +1704,7 @@ def profile_serve(model, engine=None, reqs=None):
             kinds["residual norm"] += ms
         elif "gated_rmsnorm_kernel" in low:
             kinds["gated rmsnorm"] += ms
-        elif any(w in low for w in ("head_gemv_kernel", "head_gemv_t_kernel",
+        elif any(w in low for w in ("head_gemv_kernel", UNTIED_GEMV,
                                       "head_epilogue_kernel")):
             kinds["fused head"] += ms
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
@@ -2618,8 +2704,8 @@ def moe_kernel_checks(dev, rng):
     row = dict(heads[0])
     row["other_shapes"] = {h["shape"]: {k: h[k] for k in (
         "ms", "ms_greedy", "plain_ms", "bound_ms", "library_ms",
-        "library_device_ms", "profiler_device_ms_by_step", "ctas_a_row")}
-        for h in heads[1:]}
+        "library_device_ms", "profiler_device_ms_by_step", "ctas_a_row",
+        "plan")} for h in heads[1:]}
     return {"row": row, "paged": paged, "residual_norm_d2048": norm,
             "sampler": sampler}
 
@@ -3743,6 +3829,8 @@ def check_scale_mask_softmax(dev):
             "cases": rows[1:], "paper": paper}
 
 
+UNTIED_GEMV = "head_gemv_wgmma_kernel"   # pass 1 of an untied head
+
 DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
                 "draw_tokens": ("draw_kernel",),
                 "paged_decode_attention": ("decode_kernel",),
@@ -3750,8 +3838,7 @@ DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
                 "decode_residual_norm": ("resnorm_kernel",),
                 "gated_rmsnorm": ("gated_rmsnorm_kernel",),
                 "head_tokens": ("head_gemv_kernel", "head_epilogue_kernel"),
-                "head_tokens_untied": ("head_gemv_t_kernel",
-                                       "head_epilogue_kernel")}
+                "head_tokens_untied": (UNTIED_GEMV, "head_epilogue_kernel")}
 
 
 def main() -> int:

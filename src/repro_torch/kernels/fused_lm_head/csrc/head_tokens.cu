@@ -37,17 +37,34 @@
 //      each CTA also writes per-row partials (max, first argmax, all
 //      finite) of its 128 vocab rows.
 //      An untied head [D, V] has the vocab contiguous, so its pass 1 is
-//      head_gemv_t_kernel, a CUDA-core GEMV that reads W in place (a
-//      transposed copy would be a second 0.42 GB at deepseek-moe-16b's
-//      2048 x 102400): each CTA takes 128 vocab columns and one group of up
-//      to 8 hidden rows; a thread owns 8 contiguous columns (one 16-byte
-//      load a K row) of one of 16 interleaved K slices, and keeps 8 x 8
-//      fp32 sums (FMA, K ascending); the slices are summed in a fixed order
-//      (the two halves of a warp by one shuffle, then the 8 warps through
-//      shared memory in warp order), so the bits are the same every call.
-//      Its 2 S D V operations (3.4 GFLOP at S = 8 and that shape) take
-//      0.05 ms at the CUDA cores' fp32 peak, under the 0.125 ms the bytes
-//      take. It writes the same workspace and partials as the tied pass.
+//      head_gemv_wgmma_kernel, which reads W in place (a transposed copy
+//      would be a second 0.42 GB at deepseek-moe-16b's 2048 x 102400). It
+//      too is bound by bytes: those 0.42 GB take 0.125 ms at 3.35 TB/s,
+//      the 2 S D V operations (3.4 GFLOP at S = 8) 0.003 ms on the tensor
+//      cores. Four parts of its design keep the memory system busy:
+//      (a) bytes in flight do not depend on registers: one producer thread
+//          streams W by TMA (cp.async.bulk.tensor.2d; the tensor map is
+//          built on the host each call) into a ring of 4-10 stages with
+//          full and empty mbarriers, 128-160 KB a CTA in flight at the
+//          served shapes (ops.untied_plan);
+//      (b) the products run on the tensor cores: wgmma m64nNk16 with a W
+//          tile as A (64 vocab columns, vocab-contiguous, through the
+//          transpose bit) and x as B (N = 8 or 16 hidden rows, K-major,
+//          loaded whole into shared memory once a row group), fp32
+//          accumulation, K ascending;
+//      (c) a balanced persistent grid with no wave tail: one CTA an SM,
+//          each walking a contiguous range of 64-column tiles (T tiles over
+//          G CTAs, CTA c from c T / G), at most 1.08x the mean at the
+//          served shapes. A ring stage holds the same 16 K rows of a panel
+//          of 4, 8 or 16 tiles, the whole range at the served shapes, so
+//          the CTAs together read whole K rows of W at a time and DRAM
+//          pages are used while open (a stage of one tile reads 128
+//          scattered bytes a K row, which streams W more slowly);
+//      (d) W is read from HBM once for any S <= 16 (N = 16 holds rows
+//          9-16); more rows loop over groups of 16 inside the CTA.
+//      Each column's sum is one CTA's, in a fixed order, with no atomics,
+//      so the bits are the same every call. It writes the same workspace
+//      and partials as the tied pass, a partial block a 64-column tile.
 //   2. head_epilogue_kernel, one thread block cluster a row (size from
 //      fused_sampling/ops.cluster_plan, 1 for a step with no sampled row):
 //      the greedy token and the probe from the partials;
@@ -70,8 +87,10 @@
 // are bitwise those of any other GEMM.
 
 #include <cooperative_groups.h>
+#include <cuda.h>              // CUtensorMap and its enums (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "../../fused_sampling/csrc/sampling_device.cuh"
 
@@ -249,145 +268,443 @@ head_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-constexpr int kTCols = 8;                            // vocab columns a thread
-constexpr int kTLanes = kRowsPerCta / kTCols;        // 16 threads a K row
-constexpr int kTSlices = kGemvThreads / kTLanes;     // 16 K slices
-constexpr int kTUnroll = 4;                          // K rows in flight
+// ---- pass 1 of an untied head W [d, vocab]: a TMA ring into wgmma ----
 
-__device__ __forceinline__ void bf16x8(const uint4& v, float (&f)[8]) {
-  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+constexpr int kTile = 64;             // vocab columns a tile: the wgmma's M
+constexpr int kBK = 16;               // K rows of a tile a stage: its K
+constexpr int kTRowBytes = 128;       // one K row of a tile (64 bf16)
+constexpr int kBox = kBK * kTRowBytes;  // one tile's TMA box
+constexpr int kTThreads = 160;        // a consumer warpgroup, a producer warp
+constexpr int kMaxStages = 64;
+constexpr int kSmemLimit = 232448;    // dynamic shared memory a block
+
+// a ring stage: the same kBK K rows of `panel` tiles (4, 8 or 16)
+__host__ __device__ constexpr int stage_bytes(int panel) {
+  return panel * kBox;
+}
+
+// Dynamic shared memory of the untied GEMV, as ops.untied_plan counts it:
+// 1024 bytes of alignment slack, x [d / 64 chunks][rows][128 bytes], the
+// ring, a full and an empty barrier a stage and two for x, and the four
+// warps' partial keys (4 bytes) and finite flags (1 byte) of each (tile,
+// row) of a panel.
+inline size_t untied_smem(int d, int rows, int panel, int stages) {
+  return 1024 + static_cast<size_t>(d) * rows * 2 +
+         static_cast<size_t>(stages) * stage_bytes(panel) +
+         8 * (2 * stages + 2) + static_cast<size_t>(panel) * rows * 4 * 5;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+// until the phase of parity ``parity`` has completed; a wait that outlasts
+// 2^28 polls (seconds) traps, so a phase error fails the launch instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+// one box of a 2-D tensor map into shared memory, completing on ``bar``
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// the consumer warpgroup's own barrier (the producer warp has left)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of a wgmma accumulator across
+// the asynchronous product
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+// d += A (smem, MN-major: W's 64 vocab columns contiguous, read through the
+// transpose bit) * B (smem, K-major: x's rows): m64nNk16, bf16 in, fp32 d
+__device__ __forceinline__ void wgmma_t(float (&d)[4], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_t(float (&d)[8], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+struct UntiedArgs {
+  __nv_bfloat16* ws;
+  float* pmax;
+  int* pidx;
+  int* pok;
+  int s_rows, d, vocab, n_tiles, stages;
+};
+
+// Pass 1 of an untied head W [d, vocab]. A persistent grid of at most one
+// CTA an SM; CTA c takes the contiguous vocab tiles [c T / G, (c + 1) T /
+// G) of the T tiles of 64 columns (G CTAs; ops.untied_plan's ranges), in
+// panels of P neighbouring tiles. N hidden rows a group (8 or 16); groups
+// run one after another. Warps 0-3 consume, warp 4's first thread produces:
+// - x's group [N, d] is loaded whole by TMA (64-column boxes, 128-byte
+//   swizzle, rows past s_rows zero) into K-major wgmma layout;
+// - a panel's W streams through a ring of `stages` stages, each the same
+//   kBK = 16 K rows of the P tiles (one TMA box a tile, 128-byte
+//   swizzle, columns past vocab zero), with a full barrier (transaction
+//   bytes) and an empty barrier (the 4 consumer warps) a stage. All G CTAs
+//   walk K together, so at a served shape (a range of at most P tiles)
+//   they read whole K rows of W at a time;
+// - a tile's K rows of a stage are one wgmma m64nNk16 (A: the tile,
+//   vocab-contiguous, through the transpose bit; B: x's 16 K columns), K
+//   ascending into one fp32 accumulator a tile; a stage's products are
+//   waited for before it is released (the ring, not the products, keeps
+//   the loads ahead);
+// - the panel's epilogue writes each sum, rounded once to bf16, to the
+//   workspace and reduces every (tile, row)'s partial (max, first argmax,
+//   all finite) at once, as unsigned maxima of packed keys: in registers,
+//   across lanes by shuffles, across the warps through shared memory, one
+//   barrier a panel (the last panel of every CTA ends the kernel, so its
+//   epilogue is paid in full; a tile at a time it was the kernel's tail).
+// A panel that runs past the CTA's range computes its missing tiles on
+// stale shared memory and stores nothing of them, so no product sits under
+// a branch. Each column's sum is one CTA's in a fixed order: no atomics.
+template <int N, int P>
+__global__ void __launch_bounds__(kTThreads, 1)
+head_gemv_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
+                       const __grid_constant__ CUtensorMap tx,
+                       const UntiedArgs a) {
+  constexpr int kStageBytes = stage_bytes(P);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t x_smem = base;
+  const uint32_t ring = base + static_cast<uint32_t>(a.d) * N * 2;
+  const uint32_t full = ring + a.stages * kStageBytes;   // + 8 * stage
+  const uint32_t empty = full + 8 * a.stages;
+  const uint32_t x_full = empty + 8 * a.stages, x_empty = x_full + 8;
+  // the warps' partial keys and finite flags, [P][N][4 warps] each
+  unsigned* red_best =
+      reinterpret_cast<unsigned*>(smem_raw + (x_empty + 8 - raw));
+  unsigned char* red_fin =
+      reinterpret_cast<unsigned char*>(red_best + P * N * 4);
+  const int tid = threadIdx.x;
+  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.x) *
+                                  a.n_tiles / gridDim.x);
+  const int t1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) *
+                                  a.n_tiles / gridDim.x);
+  const int n_grp = (a.s_rows + N - 1) / N, n_kb = a.d / kBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);             // the consumer warps
+    }
+    mbar_init(x_full, 1);
+    mbar_init(x_empty, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ---- producer: one thread issues every TMA load ----
+    if (tid == 128) {
+      int stage = 0, phase = 0;
+      for (int grp = 0; grp < n_grp; ++grp) {
+        mbar_wait(x_empty, (grp & 1) ^ 1);     // the last group's x read
+        mbar_expect_tx(x_full, a.d * N * 2);
+        for (int ch = 0; ch < a.d / 64; ++ch)
+          tma_load_2d(x_smem + ch * N * kTRowBytes, &tx, x_full, ch * 64,
+                      grp * N);
+        for (int pt = t0; pt < t1; pt += P) {
+          const int np = min(P, t1 - pt);
+          for (int kb = 0; kb < n_kb; ++kb) {
+            mbar_wait(empty + 8 * stage, phase ^ 1);
+            mbar_expect_tx(full + 8 * stage, np * kBox);
+            for (int p = 0; p < np; ++p)
+              tma_load_2d(ring + stage * kStageBytes + p * kBox, &tw,
+                          full + 8 * stage, (pt + p) * kTile, kb * kBK);
+            if (++stage == a.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup ----
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  int stage = 0, phase = 0;
+  for (int grp = 0; grp < n_grp; ++grp) {
+    const int row0 = grp * N, s_here = min(N, a.s_rows - row0);
+    mbar_wait(x_full, grp & 1);
+    for (int pt = t0; pt < t1; pt += P) {
+      const int np = min(P, t1 - pt);
+      float acc[P][N / 2];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[p][i] = 0.f;
+      for (int kb = 0; kb < n_kb; ++kb) {
+        mbar_wait(full + 8 * stage, phase);
+#pragma unroll
+        for (int p = 0; p < P; ++p) pin(acc[p]);
+        wgmma_fence();
+        const int k = kb * kBK;
+        const uint64_t db = smem_desc(
+            x_smem + (k >> 6) * N * kTRowBytes + (k & 63) * 2, 16,
+            8 * kTRowBytes);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          wgmma_t(acc[p],
+                  smem_desc(ring + stage * kStageBytes + p * kBox, kBox,
+                            8 * kTRowBytes),
+                  db);
+        wgmma_commit();
+        // the stage's products done before the stage is released and
+        // before anything reads the accumulators (with a group left in
+        // flight across stages, ptxas moved the epilogue's reads of the
+        // last group's accumulators above its wait)
+        wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < P; ++p) pin(acc[p]);
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+        if (++stage == a.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // The panel's sums, each rounded once to bf16 into the workspace.
+      // acc[p][4 j + 2 h + e] is vocab column 16 warp + g + 8 h of tile
+      // pt + p, hidden row row0 + 8 j + 2 q + e. Each (tile, row)'s partial
+      // (max, first argmax with NaN largest, all finite) is reduced without
+      // branches: a value becomes its monotone key (-0 as +0, every NaN
+      // above +inf) beside its column inverted, so one unsigned max keeps
+      // the largest value and, among equal ones, the first column (what
+      // beats() keeps); a thread's two columns, then the 8 lanes of a
+      // quad's column by shuffles, then the 4 warps through shared memory,
+      // every tile and row at once.
+      unsigned best[P][N / 4];
+      unsigned finite[(P * N / 4 + 31) / 32];
+#pragma unroll
+      for (int f = 0; f < (P * N / 4 + 31) / 32; ++f) finite[f] = ~0u;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int r = 0; r < N / 4; ++r) {
+          const int n = 8 * (r >> 1) + 2 * q + (r & 1), idx = p * (N / 4) + r;
+          best[p][r] = 0u;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = 16 * warp + g + 8 * h, v = (pt + p) * kTile + m;
+            const __nv_bfloat16 bf =
+                __float2bfloat16_rn(acc[p][4 * (r >> 1) + 2 * h + (r & 1)]);
+            unsigned b = __bfloat16_as_ushort(bf);
+            if (p < np && v < a.vocab) {
+              if (n < s_here)
+                a.ws[static_cast<size_t>(row0 + n) * a.vocab + v] = bf;
+              if ((b & 0x7f80u) == 0x7f80u)
+                finite[idx >> 5] &= ~(1u << (idx & 31));
+              b = b == 0x8000u ? 0u : b;
+              unsigned key = (b & 0x8000u) ? (~b & 0xffffu) : (b | 0x8000u);
+              key = (b & 0x7fffu) > 0x7f80u ? 0xffffu : key;
+              best[p][r] = max(best[p][r], (key << 16) | (63u - m));
+            }
+          }
+        }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {       // across g (lane bits 2..4)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int r = 0; r < N / 4; ++r)
+            best[p][r] = max(best[p][r],
+                             __shfl_xor_sync(0xffffffffu, best[p][r], o));
+#pragma unroll
+        for (int f = 0; f < (P * N / 4 + 31) / 32; ++f)
+          finite[f] &= __shfl_xor_sync(0xffffffffu, finite[f], o);
+      }
+      if (g == 0) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int r = 0; r < N / 4; ++r) {
+            const int n = 8 * (r >> 1) + 2 * q + (r & 1), idx = p * (N / 4) + r;
+            red_best[(p * N + n) * 4 + warp] = best[p][r];
+            red_fin[(p * N + n) * 4 + warp] = (finite[idx >> 5] >> (idx & 31)) & 1u;
+          }
+      }
+      consumer_sync();
+      for (int k = tid; k < np * s_here; k += 128) {   // the warps
+        const int p = k / s_here, n = k % s_here;
+        unsigned bk = 0u, fk = 1u;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          bk = max(bk, red_best[(p * N + n) * 4 + w]);
+          fk &= red_fin[(p * N + n) * 4 + w];
+        }
+        const unsigned key = bk >> 16;
+        const unsigned bits = key == 0xffffu ? 0x7fc0u
+                              : (key & 0x8000u) ? (key & 0x7fffu)
+                                                : (~key & 0xffffu);
+        const size_t o =
+            static_cast<size_t>(row0 + n) * a.n_tiles + pt + p;
+        a.pmax[o] = __uint_as_float(bits << 16);
+        a.pidx[o] = (pt + p) * kTile + 63 - static_cast<int>(bk & 0xffffu);
+        a.pok[o] = static_cast<int>(fk);
+      }
+      consumer_sync();                         // the partials are free
+    }
+    if (lane == 0) mbar_arrive(x_empty);       // every product of x issued
+  }                                            // and waited for
+}
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so that
+// nothing links libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] bf16 matrix read in boxes of 64 columns x
+// ``box_rows`` rows, 128-byte swizzled, zeros past the edges
+int encode_2d(CUtensorMap* map, const void* ptr, int cols, int rows,
+              int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
+}
+
+template <int N, int P>
+cudaError_t run_untied(const CUtensorMap& tw, const CUtensorMap& tx,
+                       const UntiedArgs& a, int ctas, size_t smem,
+                       cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      head_gemv_wgmma_kernel<N, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  head_gemv_wgmma_kernel<N, P><<<ctas, kTThreads, smem, st>>>(tw, tx, a);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t run_panel(const CUtensorMap& tw, const CUtensorMap& tx,
+                      const UntiedArgs& a, int panel, int ctas, size_t smem,
+                      cudaStream_t st) {
+  switch (panel) {
+    case 4: return run_untied<N, 4>(tw, tx, a, ctas, smem, st);
+    case 8: return run_untied<N, 8>(tw, tx, a, ctas, smem, st);
+    case 16: return run_untied<N, 16>(tw, tx, a, ctas, smem, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// Pass 1 of an untied head W [d, vocab]. Grid: (hidden row group of
-// kGroupRows, 128 vocab columns). Dynamic shared memory: x transposed as d
-// rows of kGroupRows bf16 (rows past s_rows zero), reused after the K loop
-// for the 8 warps' sums, [warp][hidden row][128 columns] fp32.
-__global__ void __launch_bounds__(kGemvThreads, 2)
-head_gemv_t_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w, int s_rows, int d,
-                   int vocab, int n_blk, __nv_bfloat16* __restrict__ ws,
-                   float* __restrict__ pmax, int* __restrict__ pidx,
-                   int* __restrict__ pok) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* red = reinterpret_cast<float*>(smem_raw);
-  const int s0 = blockIdx.x * kGroupRows, blk = blockIdx.y;
-  const int s_here = min(kGroupRows, s_rows - s0);
-  const int tid = threadIdx.x, vec_per_row = d / 8;
-  for (int i = tid; i < kGroupRows * vec_per_row; i += kGemvThreads) {
-    const int r = i / vec_per_row, c = (i % vec_per_row) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < s_here)
-      v = *reinterpret_cast<const uint4*>(
-          x + static_cast<size_t>(s0 + r) * d + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) xs[(c + j) * kGroupRows + r] = e[j];
-  }
-  __syncthreads();
-
-  const int lane = tid % kTLanes, slice = tid / kTLanes;
-  const int col = blk * kRowsPerCta + lane * kTCols;
-  const bool active = col < vocab;           // vocab % 8 == 0
-  float acc[kGroupRows][kTCols];
-#pragma unroll
-  for (int r = 0; r < kGroupRows; ++r)
-#pragma unroll
-    for (int c = 0; c < kTCols; ++c) acc[r][c] = 0.f;
-  if (active) {
-    const __nv_bfloat16* wp = w + static_cast<size_t>(slice) * vocab + col;
-    const size_t step = static_cast<size_t>(kTSlices) * vocab;
-    const uint4* x4 = reinterpret_cast<const uint4*>(xs);
-    for (int k0 = slice; k0 < d; k0 += kTSlices * kTUnroll) {
-      uint4 wv[kTUnroll];
-#pragma unroll
-      for (int u = 0; u < kTUnroll; ++u)
-        wv[u] = __ldg(reinterpret_cast<const uint4*>(wp + u * step));
-      wp += kTUnroll * step;
-#pragma unroll
-      for (int u = 0; u < kTUnroll; ++u) {
-        float wf[8], xf[8];
-        bf16x8(wv[u], wf);
-        bf16x8(x4[k0 + u * kTSlices], xf);
-#pragma unroll
-        for (int r = 0; r < kGroupRows; ++r)
-#pragma unroll
-          for (int c = 0; c < kTCols; ++c)
-            acc[r][c] = fmaf(xf[r], wf[c], acc[r][c]);
-      }
-    }
-  }
-  // the two K slices of a warp, then the warps in order
-#pragma unroll
-  for (int r = 0; r < kGroupRows; ++r)
-#pragma unroll
-    for (int c = 0; c < kTCols; ++c)
-      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 16);
-  __syncthreads();                           // xs is dead: reuse as red
-  const int warp = tid >> 5;
-  if ((tid & 31) < kTLanes) {
-#pragma unroll
-    for (int r = 0; r < kGroupRows; ++r) {
-      float4* dst = reinterpret_cast<float4*>(
-          red + (warp * kGroupRows + r) * kRowsPerCta + lane * kTCols);
-      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-    }
-  }
-  __syncthreads();
-  // warp r finishes hidden row r: 4 columns a lane
-  const int r = warp, q = (tid & 31) * 4, v = blk * kRowsPerCta + q;
-  float4 sum = reinterpret_cast<const float4*>(red + r * kRowsPerCta + q)[0];
-  for (int k = 1; k < kGemvWarps; ++k) {
-    const float4 o = reinterpret_cast<const float4*>(
-        red + (k * kGroupRows + r) * kRowsPerCta + q)[0];
-    sum.x += o.x;
-    sum.y += o.y;
-    sum.z += o.z;
-    sum.w += o.w;
-  }
-  const float sums[4] = {sum.x, sum.y, sum.z, sum.w};
-  float bv = 0.f;
-  int bi = INT_MAX, fin = 1;
-  if (v < vocab) {
-    __nv_bfloat16 b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j] = __float2bfloat16_rn(sums[j]);
-      const float f = __bfloat162float(b[j]);
-      if (beats(bv, bi, f, v + j)) {
-        bv = f;
-        bi = v + j;
-      }
-      fin &= isfinite(f) ? 1 : 0;
-    }
-    if (r < s_here) {
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-          ws + static_cast<size_t>(s0 + r) * vocab + v);
-      dst[0] = __halves2bfloat162(b[0], b[1]);
-      dst[1] = __halves2bfloat162(b[2], b[3]);
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-    fin &= __shfl_xor_sync(0xffffffffu, fin, o);
-    if (beats(bv, bi, ov, oi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  if ((tid & 31) == 0 && r < s_here) {
-    const size_t o = static_cast<size_t>(s0 + r) * n_blk + blk;
-    pmax[o] = bv;
-    pidx[o] = bi;
-    pok[o] = fin;
-  }
+// The untied GEMV at ops.untied_plan's (rows, panel, ctas, a.stages).
+int launch_untied(const void* x, const void* w, const UntiedArgs& a,
+                  int rows, int panel, int ctas, cudaStream_t st) {
+  if ((rows != 8 && rows != 16) || (panel != 4 && panel != 8 &&
+      panel != 16) || ctas < 1 || ctas > a.n_tiles ||
+      a.stages < 1 || a.stages > kMaxStages || a.d % 64 || a.s_rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = untied_smem(a.d, rows, panel, a.stages);
+  if (smem > static_cast<size_t>(kSmemLimit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tw, tx;
+  int err = encode_2d(&tw, w, a.vocab, a.d, kBK);
+  if (err == 0) err = encode_2d(&tx, x, a.d, a.s_rows, rows);
+  if (err != 0) return err;
+  return static_cast<int>(rows == 8 ? run_panel<8>(tw, tx, a, panel, ctas,
+                                                    smem, st)
+                                     : run_panel<16>(tw, tx, a, panel, ctas,
+                                                     smem, st));
 }
 
 // The greedy token (first argmax, NaN largest) and the all-finite probe of
@@ -506,36 +823,40 @@ static int launch_head(bool untied, const void* x, const void* w,
                        const void* top_p, void* ws, void* scratch,
                        void* tokens, void* ok, int s_rows, int d, int vocab,
                        int pos64, int sampled, int filtered, int size,
-                       void* stream) {
+                       const int* plan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (size < 1 || size > sampling::kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_blk = (vocab + kRowsPerCta - 1) / kRowsPerCta;
+  // partials: one block a CTA's 128 vocab rows (tied), a 64-column tile
+  // (untied)
+  const int blk = untied ? kTile : kRowsPerCta;
+  const int n_blk = (vocab + blk - 1) / blk;
   float* pmax = static_cast<float*>(scratch);
   int* pidx = static_cast<int*>(scratch) + static_cast<size_t>(s_rows) * n_blk;
   int* pok = pidx + static_cast<size_t>(s_rows) * n_blk;
 
-  const int n_grp = (s_rows + kGroupRows - 1) / kGroupRows;
-  if (n_blk > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t x_t = static_cast<size_t>(d) * kGroupRows *
-                     sizeof(__nv_bfloat16);
-  const size_t sums = static_cast<size_t>(kGemvWarps) * kGroupRows *
-                      kRowsPerCta * sizeof(float);
-  const size_t smem1 =
-      untied ? (x_t > sums ? x_t : sums)
-             : static_cast<size_t>(kGroupRows) * (d + kXPad) *
-                   sizeof(__nv_bfloat16);
-  const auto gemv = untied ? head_gemv_t_kernel : head_gemv_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem1));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gemv<<<dim3(n_grp, n_blk), kGemvThreads, smem1, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), s_rows, d, vocab, n_blk,
-      static_cast<__nv_bfloat16*>(ws), pmax, pidx, pok);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
+  if (untied) {
+    const UntiedArgs a{static_cast<__nv_bfloat16*>(ws), pmax, pidx, pok,
+                       s_rows, d, vocab, n_blk, plan[3]};
+    const int e = launch_untied(x, w, a, plan[0], plan[1], plan[2], st);
+    if (e != 0) return e;
+  } else {
+    const int n_grp = (s_rows + kGroupRows - 1) / kGroupRows;
+    if (n_blk > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const size_t smem1 = static_cast<size_t>(kGroupRows) * (d + kXPad) *
+                         sizeof(__nv_bfloat16);
+    err = cudaFuncSetAttribute(head_gemv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem1));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    head_gemv_kernel<<<dim3(n_grp, n_blk), kGemvThreads, smem1, st>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w), s_rows, d, vocab, n_blk,
+        static_cast<__nv_bfloat16*>(ws), pmax, pidx, pok);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   const size_t smem2 =
       sampled ? sampling::cluster_smem_words(vocab, size) * 4 : 0;
@@ -574,12 +895,13 @@ static int launch_head(bool untied, const void* x, const void* w,
 // or [d, vocab] (head_tokens_untied: an untied head); seeds int64 [s_rows]
 // (uint32 values), positions [s_rows] int32 (pos64 = 0) or int64 (pos64 =
 // 1); temps, top_p float32 [s_rows]; top_k int32 [s_rows]; ws bf16
-// [s_rows, vocab] and scratch int32 [3, s_rows, ceil(vocab / 128)] are the
-// wrapper's workspace; tokens int32 and ok bool [s_rows]; pass 2 runs
-// `size` CTAs a row (ops.cluster_plan, 1 to 16; 1 for a step with no
-// sampled row, which needs no row in shared memory). Needs s_rows >= 1,
-// d % 64 == 0, vocab % 16 == 0 and ceil(vocab / 128) <= 65535 (the grid's
-// y extent).
+// [s_rows, vocab] and scratch int32 [3, s_rows, n_blk] are the wrapper's
+// workspace (n_blk = ceil(vocab / 128) tied, ceil(vocab / 64) untied);
+// tokens int32 and ok bool [s_rows]; pass 2 runs `size` CTAs a row
+// (ops.cluster_plan, 1 to 16; 1 for a step with no sampled row, which
+// needs no row in shared memory). Needs s_rows >= 1, d % 64 == 0, vocab %
+// 16 == 0, 16-byte aligned x and w, and (tied) ceil(vocab / 128) <= 65535
+// (the grid's y extent).
 extern "C" int head_tokens(const void* x, const void* w, const void* seeds,
                            const void* positions, const void* temps,
                            const void* top_k, const void* top_p, void* ws,
@@ -588,17 +910,23 @@ extern "C" int head_tokens(const void* x, const void* w, const void* seeds,
                            int filtered, int size, void* stream) {
   return launch_head(false, x, w, seeds, positions, temps, top_k, top_p, ws,
                      scratch, tokens, ok, s_rows, d, vocab, pos64, sampled,
-                     filtered, size, stream);
+                     filtered, size, nullptr, stream);
 }
 
+// The same for an untied head, its GEMV at ops.untied_plan's hidden rows a
+// group (8 or 16), tiles a panel (4, 8 or 16), CTAs and ring stages. x's
+// group is held whole in shared memory beside at least 4 stages, so d is
+// at most 12352 (untied_plan raises above it).
 extern "C" int head_tokens_untied(const void* x, const void* w,
                                   const void* seeds, const void* positions,
                                   const void* temps, const void* top_k,
                                   const void* top_p, void* ws, void* scratch,
                                   void* tokens, void* ok, int s_rows, int d,
                                   int vocab, int pos64, int sampled,
-                                  int filtered, int size, void* stream) {
+                                  int filtered, int size, int rows, int panel,
+                                  int ctas, int stages, void* stream) {
+  const int plan[4] = {rows, panel, ctas, stages};
   return launch_head(true, x, w, seeds, positions, temps, top_k, top_p, ws,
                      scratch, tokens, ok, s_rows, d, vocab, pos64, sampled,
-                     filtered, size, stream);
+                     filtered, size, plan, stream);
 }

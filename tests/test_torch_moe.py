@@ -235,8 +235,8 @@ def _exact_inputs(s, d, v, gen):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,v", [(2048, 102400), (2048, 92544),
-                                 (4096, 65536), (128, 512)])
-@pytest.mark.parametrize("s", [1, 8, 16])
+                                 (4096, 65536), (128, 512), (2048, 102384)])
+@pytest.mark.parametrize("s", [1, 8, 16, 24])
 @pytest.mark.parametrize("sampled,filtered", [(False, False), (True, True)])
 def test_untied_head_kernel_matches_plain_on_card(s, d, v, sampled, filtered):
     if not torch.cuda.is_available():
