@@ -195,6 +195,35 @@ Phases, each printing one line (any failure exits non-zero):
      the logits check at a raised capacity factor, and 4 requests of the
      trace (16 new tokens, greedy) served unfused then fused with exact
      launches from the steps and chunks, the streams compared;
+  6c. the vlm and encdec families: in phase 3 (after the other kernel
+     checks), the tied fused head at qwen2-vl-2b's D 1536 / V 151936 held
+     as at llama's shape (bitwise on exact inputs at 16, 1 and 8 rows),
+     paged decode and prefill at its G 6 (12 / 2 heads) within 2 bf16
+     ulps, the add + norm at D 1536, the filter and draw bitwise at V
+     151936 and whisper-base's 51968, and flash without a causal mask at
+     whisper's heads (8 / 8, D 64) over 1500 keys (the encoder's
+     self-attention [4, 1500] on column views of one QKV tensor, the
+     prefill's cross-attention of [4, 64] queries) and causal at
+     qwen2-vl's static prefill [4, 2048] (G 6, D 128), each query row
+     within 2 bf16 ulps, beside its bound and SDPA. Here, qwen2-vl-2b at
+     full width and depth (28 layers, d_model 1536, 12 / 2 heads of 128,
+     vocab 151936 tied, M-RoPE with text-only positions; 1.54 B
+     parameters, bf16, seeded, every bias perturbed by 0.1 N(0, 1)): the
+     logits check of phase 4, phase 5's trace unfused then fused (exact
+     launches as for llama) and fused at decode_steps=4 (streams bitwise
+     N=1's, one synchronising call a dispatch, no host kernel launch in a
+     steady dispatch), tok/s, TTFT, peak memory and launches a decode
+     step; the static engine on 4 prompts of 2048 tokens, 32 new, greedy,
+     with attn_impl="flash" (exactly 28 flash launches in the prefill,
+     none in decode) and "chunked", last logits compared (rel L2 0.05).
+     Then whisper-base at full width (6 encoder + 6 decoder layers,
+     d_model 512, biases perturbed) through the static engine: 4 prompts
+     of 64 tokens with 1500 frames of the stub frontend, 32 new, greedy
+     then sampled, with "flash" (exactly 6 flash launches in the encoder
+     and 6 in the decoder prefill's cross-attention, none in decode) and
+     "chunked"; prefill ms split into encoder, cross K/V fill and
+     decoder; last logits compared (rel L2 0.05); greedy streams equal or
+     each first divergence printed with its top-2 margin;
   7. one full-width bert-large post-norm block, fused (kernel forward,
      plain backward) against unfused in bf16 and both against fp32: the
      output and the gradient of the input and of every block parameter
@@ -213,9 +242,13 @@ Phases, each printing one line (any failure exits non-zero):
      weights and batches; every loss finite, the last below the first on
      both paths, the step-1 losses within 1 bf16 ulp of each other;
   9. one JSON line of per-kernel numbers (times from CUDA events; the
-     untied head its own entry) and of the serves (llama unfused and
-     fused, mamba2 fused, static llama with flash and static mamba2, and
-     under "moe" the deepseek and jamba phases).
+     untied head its own entry; each kernel of phase 6c's paths with its
+     numbers at the new shapes under "vlm_encdec_shapes" or, for flash,
+     "vlm_encdec_cases"; the training kernels' library yardsticks also as
+     profiler device time) and of the serves (llama unfused and fused,
+     mamba2 fused, static llama with flash and static mamba2, under "moe"
+     the deepseek and jamba phases and under "vlm_encdec" the qwen2-vl
+     and whisper phases).
 TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
 fp32. Every bound reads the card's peaks from repro_torch.core.roofline
 (H100, H100_FP32).
@@ -575,6 +608,72 @@ def _flash_inputs(gen, dev, b, sq, sk, hq, hkv, d, strided):
     return q, k, torch.randn_like(k)
 
 
+def _flash_case(gen, dev, name, spec, heads, block_kv):
+    """One flash case ``spec`` (a FLASH_CASES value; its heads, or
+    ``heads``): within ATTN_ULPS of the plain version run in fp32 on the
+    same bf16 inputs, timed beside its bound, the plain version and SDPA
+    (events and the profiler's device time)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, sq, sk, causal, off, win, lens, case_heads, strided = spec
+    hq, hkv, d = case_heads or heads
+    q, k, v = _flash_inputs(gen, dev, b, sq, sk, hq, hkv, d, strided)
+    lens = [sk] * b if lens is None else lens
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, q_offset=off, kv_len=kv_len, window=win,
+              block_kv=block_kv)
+    out = ops.flash_attention(q, k, v, **kw)
+    plain = ref.flash_attention_fwd(
+        *(t.float().transpose(1, 2) for t in (q, k, v)), kv_len,
+        causal=causal, q_offset=off, window=win,
+        block_kv=block_kv).transpose(1, 2)
+    torch.cuda.synchronize()
+    err, ulps = _attn_err(out, plain, f"flash_attention ({name})")
+    del plain
+    ms = _time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
+    dev_ms = _profiled_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                          ("flash_fwd_kernel",), iters=5)
+    plain_ms = _time_ms(lambda: ref.flash_attention_fwd(
+        *(t.transpose(1, 2) for t in (q, k, v)), kv_len, causal=causal,
+        q_offset=off, window=win, block_kv=block_kv), 3, warmup=1)
+    mask = None
+    if not (causal and off == 0 and win == 0 and min(lens) == sk):
+        pos = torch.arange(sq, device=dev)[:, None] + off
+        cols = torch.arange(sk, device=dev)[None]
+        mask = (cols[None] < kv_len.long()[:, None, None])[:, None]
+        if causal:
+            mask = mask & (cols <= pos)
+        if win > 0:
+            mask = mask & (cols > pos - win)
+    sdpa = _sdpa_fn(q, k, v, mask)
+    library_ms = _time_ms(sdpa, 10)
+    library_device_ms = _profiled_ms(sdpa, ("",), iters=5)
+    pairs = _valid_pairs(sq, sk, lens, causal, off, win)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * b
+    bound_ms, bound_by = _bound(nbytes, 4.0 * pairs * hq * d)
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return {"case": name, "shape": {
+        "q": [b, sq, hq, d], "kv": [b, sk, hkv, d], "causal": causal,
+        "q_offset": off, "window": win, "kv_len": lens,
+        "qkv_views": strided},
+        "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
+        "ms": ms,
+        "profiler_device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_device_ms": library_device_ms, "valid_pairs": pairs}
+
+
+def _print_flash(rows):
+    print("[flash] " + "; ".join(
+        f"{r['case']}: err {r['max_abs_err']:.3e} "
+        f"({r['max_err_row_ulps']:.3f} row ulps), "
+        f"{r['ms']:.4f} ms (device {r['profiler_device_ms']}), bound "
+        f"{r['bound_ms']:.4f} ({r['bound_by']}), plain {r['plain_ms']:.3f}, "
+        f"SDPA {r['library_ms']:.4f} (device {r['library_device_ms']})"
+        for r in rows))
+
+
 def check_flash_attention(arch, dev):
     """The flash kernel with block_kv 1024 (attn_chunk, as attention_core
     passes it), at llama3.2-3b's heads (24 query, 8 KV, D 128, bf16): the
@@ -586,66 +685,11 @@ def check_flash_attention(arch, dev):
     inputs, timed beside its bound, the plain version and SDPA (events and
     the profiler's device time). Returns the prefill shape's row with the
     other cases under ``cases``."""
-    from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = []
-    for name, (b, sq, sk, causal, off, win, lens, heads,
-               strided) in FLASH_CASES.items():
-        hq, hkv, d = heads or (arch.num_heads, arch.num_kv_heads,
-                               arch.resolved_head_dim)
-        q, k, v = _flash_inputs(gen, dev, b, sq, sk, hq, hkv, d, strided)
-        lens = [sk] * b if lens is None else lens
-        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-        kw = dict(causal=causal, q_offset=off, kv_len=kv_len, window=win,
-                  block_kv=arch.attn_chunk)
-        out = ops.flash_attention(q, k, v, **kw)
-        plain = ref.flash_attention_fwd(
-            *(t.float().transpose(1, 2) for t in (q, k, v)), kv_len,
-            causal=causal, q_offset=off, window=win,
-            block_kv=arch.attn_chunk).transpose(1, 2)
-        torch.cuda.synchronize()
-        err, ulps = _attn_err(out, plain, f"flash_attention ({name})")
-        del plain
-        ms = _time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
-        dev_ms = _profiled_ms(lambda: ops.flash_attention(q, k, v, **kw),
-                              ("flash_fwd_kernel",), iters=5)
-        plain_ms = _time_ms(lambda: ref.flash_attention_fwd(
-            *(t.transpose(1, 2) for t in (q, k, v)), kv_len, causal=causal,
-            q_offset=off, window=win, block_kv=arch.attn_chunk), 3, warmup=1)
-        mask = None
-        if not (causal and off == 0 and win == 0 and min(lens) == sk):
-            pos = torch.arange(sq, device=dev)[:, None] + off
-            cols = torch.arange(sk, device=dev)[None]
-            mask = (cols[None] < kv_len.long()[:, None, None])[:, None]
-            if causal:
-                mask = mask & (cols <= pos)
-            if win > 0:
-                mask = mask & (cols > pos - win)
-        sdpa = _sdpa_fn(q, k, v, mask)
-        library_ms = _time_ms(sdpa, 10)
-        library_device_ms = _profiled_ms(sdpa, ("",), iters=5)
-        pairs = _valid_pairs(sq, sk, lens, causal, off, win)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * b
-        bound_ms, bound_by = _bound(nbytes, 4.0 * pairs * hq * d)
-        rows.append({"case": name, "shape": {
-            "q": [b, sq, hq, d], "kv": [b, sk, hkv, d], "causal": causal,
-            "q_offset": off, "window": win, "kv_len": lens,
-            "qkv_views": strided},
-            "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
-            "ms": ms,
-            "profiler_device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "library_device_ms": library_device_ms, "valid_pairs": pairs})
-        del q, k, v, out
-        torch.cuda.empty_cache()
-    print("[flash] " + "; ".join(
-        f"{r['case']}: err {r['max_abs_err']:.3e} "
-        f"({r['max_err_row_ulps']:.3f} row ulps), "
-        f"{r['ms']:.4f} ms (device {r['profiler_device_ms']}), bound "
-        f"{r['bound_ms']:.4f} ({r['bound_by']}), plain {r['plain_ms']:.3f}, "
-        f"SDPA {r['library_ms']:.4f} (device {r['library_device_ms']})"
-        for r in rows))
+    heads = (arch.num_heads, arch.num_kv_heads, arch.resolved_head_dim)
+    rows = [_flash_case(gen, dev, name, spec, heads, arch.attn_chunk)
+            for name, spec in FLASH_CASES.items()]
+    _print_flash(rows)
     main = dict(rows[0])
     main.pop("case")
     return {"name": "flash_attention", "route": "cuda",
@@ -1330,7 +1374,8 @@ def dense_reference_logits(model, tokens):
         q, k, v = attn.qkv_project(arch, blk["attn"], h)
         q, k = attn.position_encode(arch, q, k, pos)
         o = attn.naive_attention(q, k, v, causal=True)
-        x = x + dense(o.reshape(*x.shape[:2], -1), blk["attn"]["wo"])
+        x = x + dense(o.reshape(*x.shape[:2], -1), blk["attn"]["wo"],
+                      blk["attn"].get("bo"))
         x = x + apply_mlp(arch.mlp, blk["mlp"],
                           apply_norm(arch.norm, blk["ln2"], x))
     return model._logits(x[:, -1:])[0, 0]
@@ -1394,7 +1439,7 @@ def check_model_logits(model, rng, dev) -> float:
             if not rel <= 0.05:
                 _fail(f"model logits rel L2 error {rel} > 0.05 at position "
                       f"{n_pre - 1 + i} (bf16, 28 layers, fused={fused})")
-    print(f"[model] llama3.2-3b {arch.num_layers}L logits via the paged "
+    print(f"[model] {arch.name} {arch.num_layers}L logits via the paged "
           f"kernels vs dense plain forward (bf16, tol rel L2 0.05): "
           + "; ".join(lines))
     return worst
@@ -1663,7 +1708,9 @@ def serve(model, logit_err: float, fused: bool):
               f"{logit_err:.3e}: {int((m < logit_err).sum())}")
     return {"launches": launches, "phase": phase, "flagged": flagged,
             "steps": engine.steps, "prefill_chunks": engine.prefill_chunks,
-            "prefills": engine.prefills, "results": res, "wall": wall}
+            "prefills": engine.prefills, "results": res, "wall": wall,
+            "tok_per_s": ntok / wall, "mean_ttft_s": ttft,
+            "peak": torch.cuda.max_memory_allocated()}
 
 
 def profile_serve(model, engine=None, reqs=None):
@@ -2089,11 +2136,13 @@ def static_args(batch, prompt_len, gen_len, **kw):
 
 def run_static_counted(model, args):
     """``run_static`` with every launch counter set to 0 just before the run
-    and read just after, launches split between the prefill and the decode
-    steps; keeps the prefill's last-position logits [B, Vp]."""
+    and read just after, launches split between the prefill, the decode
+    steps and, for an encdec arch, the encoder with the cross K/V fill
+    ("encode"); keeps the prefill's last-position logits [B, Vp]."""
     from repro_torch.launch.serve import run_static
     phase = {"prefill": dict.fromkeys(_snapshot(), 0),
-             "decode": dict.fromkeys(_snapshot(), 0)}
+             "decode": dict.fromkeys(_snapshot(), 0),
+             "encode": dict.fromkeys(_snapshot(), 0)}
     got = {}
     prefill_fn, decode_fn = model.prefill, model.decode_step
 
@@ -2103,6 +2152,8 @@ def run_static_counted(model, args):
         return logits, caches
     model.prefill = prefill
     model.decode_step = _counted(phase["decode"], decode_fn)
+    model.encode = _counted(phase["encode"], model.encode)
+    model.fill_cross_kv = _counted(phase["encode"], model.fill_cross_kv)
     for d in _counters():
         for k in d:
             d[k] = 0
@@ -2113,8 +2164,8 @@ def run_static_counted(model, args):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _snapshot()
-    for name in ("prefill", "decode_step"):     # no model -> fn -> model cycle
-        model.__dict__.pop(name, None)
+    for name in ("prefill", "decode_step", "encode", "fill_cross_kv"):
+        model.__dict__.pop(name, None)      # no model -> fn -> model cycle
     b, glen = args.batch, args.gen_len
     if res["tokens"].shape != (b, glen):
         _fail(f"static serve returned tokens {res['tokens'].shape}")
@@ -2625,9 +2676,11 @@ def check_paged_heads(arch, rng, dev):
     return res
 
 
-def check_residual_norm_width(d, dev):
+def check_residual_norm_width(d, dev,
+                              label="deepseek-moe-16b, internlm2-1.8b"):
     """The fused add + norm (rmsnorm) at [8, d] and [64, d]: x + y bitwise,
-    the norm within 1 bf16 ulp of the plain version; device time a call."""
+    the norm within 1 bf16 ulp of the plain version; device time a call.
+    ``label``: the archs of this width, for the printed line."""
     from repro_torch.kernels.fused_layernorm import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     out = {}
@@ -2650,7 +2703,7 @@ def check_residual_norm_width(d, dev):
             lambda: ops.decode_residual_norm(y, x, scale, kind="rmsnorm"),
             DEVICE_NAMES["decode_residual_norm"], 50)
         out[f"plan_{rows}_rows"] = ops.norm_plan(rows, d)
-    print(f"[residual_norm] D {d} (deepseek-moe-16b, internlm2-1.8b): [8, "
+    print(f"[residual_norm] D {d} ({label}): [8, "
           f"{d}] and [64, {d}] within 1 bf16 ulp, x + y bitwise; {out}")
     return out
 
@@ -3104,6 +3157,298 @@ def moe_phase(dev, rng, marks, kernels):
             "jamba": jamba}
 
 
+# --------------------------------------------------------- phase 6c ---
+# The vlm and encdec families: qwen2-vl-2b (M-RoPE, biases on every
+# projection) on both engines and whisper-base (encoder, cross-attention
+# cache) on the static engine, at full width.
+FLASH_NEW_CASES = {
+    # whisper-base's heads (8 / 8, D 64), no causal mask, 1500 frames: the
+    # encoder's self-attention on column views of its QKV projection, and
+    # the decoder prefill's cross-attention of 64 queries; qwen2-vl-2b's
+    # static prefill (12 / 2 heads, D 128: 6 query heads a KV head)
+    "whisper encoder self-attention": (4, 1500, 1500, False, 0, 0, None,
+                                       (8, 8, 64), True),
+    "whisper prefill cross-attention": (4, 64, 1500, False, 0, 0, None,
+                                        (8, 8, 64), False),
+    "qwen2-vl static prefill": (4, 2048, 2048, True, 0, 0, None,
+                                (12, 2, 128), False),
+}
+QWEN_STATIC = (4, 2048, 32)     # batch, prompt, new tokens
+WHISPER_STATIC = (4, 64, 32)
+BIAS_NAMES = ("bias", "bqkv", "bq", "bk", "bv", "bo", "b1", "b2", "b3")
+BIAS_SCALE = 0.1
+
+
+def vlm_encdec_kernel_checks(dev, rng):
+    """The kernels at the shapes the vlm and encdec paths give them, held
+    as in phase 3: the tied head at qwen2-vl's D 1536 / V 151936 (bitwise
+    on exact inputs at 8 and 16 rows), paged decode and prefill at its G 6
+    (12 / 2 heads), the add + norm at D 1536, the filter and draw at V
+    151936 and whisper's 51968, and flash without a causal mask at
+    whisper's heads (D 64) over 1500 keys (self- and cross-attention) and
+    causal at qwen2-vl's (G 6, D 128)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import pad_vocab
+    qwen, whisper = get_config("qwen2-vl-2b"), get_config("whisper-base")
+    head = check_head_tokens(qwen, dev)
+    torch.cuda.empty_cache()
+    paged = check_paged_heads(qwen, rng, dev)
+    norm = check_residual_norm_width(qwen.d_model, dev, qwen.name)
+    sampler = {f"[8, {v}]": check_sampler_vocab(v, dev, rng)
+               for v in (pad_vocab(qwen.vocab_size),
+                         pad_vocab(whisper.vocab_size))}
+    print(f"[sampler] filter and draw bitwise at qwen2-vl-2b's and "
+          f"whisper-base's vocabularies (CTAs a row, device ms): {sampler}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    flash = [_flash_case(gen, dev, name, spec, None, 1024)
+             for name, spec in FLASH_NEW_CASES.items()]
+    _print_flash(flash)
+    return {"head": head, "paged": paged, "residual_norm": norm,
+            "sampler": sampler, "flash": flash}
+
+
+def _perturb_biases(params, gen) -> int:
+    """Add BIAS_SCALE N(0, 1) to every bias leaf in place (the init makes
+    them 0, which would hide a dropped bias from every check); returns
+    the number of leaves."""
+    n = 0
+
+    def walk(tree):
+        nonlocal n
+        for k, v in (tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif k in BIAS_NAMES:
+                v.add_((BIAS_SCALE * torch.randn(
+                    v.shape, generator=gen, device=v.device)).to(v.dtype))
+                n += 1
+    walk(params)
+    return n
+
+
+def _init_biased(name, dev):
+    """A full-width arch's seeded random bf16 weights on the card, biases
+    perturbed; prints its parameters and init time."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    arch = get_config(name)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Model.init(arch, gen, device=dev)
+    biases = _perturb_biases(model.params, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(model.params))
+    print(f"[init] {arch.name} full width, {arch.num_layers} layers"
+          + (f" + {arch.enc_layers} encoder layers" if arch.enc_layers
+             else "")
+          + f", {n_params} parameters ({n_params * 2 / 1e9:.2f} GB), bf16 "
+          f"weights on the card in {time.perf_counter() - t0:.1f}s; "
+          f"{biases} bias leaves set to {BIAS_SCALE} N(0, 1)")
+    return model, n_params
+
+
+def _divergence(ref_model, run, want, got, frames=None):
+    """The first position where two greedy static streams part, for each
+    row that differs, with ``ref_model``'s top-2 logit margin there (its
+    prefill over the prompt and the tokens before it)."""
+    out = []
+    for r in range(want.shape[0]):
+        a, b = want[r].tolist(), got[r].tolist()
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        toks = torch.as_tensor([list(run["prompt"][r]) + a[:j]],
+                               device=ref_model.device)
+        caches = ref_model.init_caches(1, toks.shape[1])
+        lg, _ = ref_model.prefill(caches, toks, None if frames is None
+                                  else frames[r:r + 1])
+        top2 = torch.topk(lg[0, 0].float(), 2).values
+        out.append({"row": r, "token": j, "top2_margin":
+                    (top2[0] - top2[1]).item()})
+    return out
+
+
+def static_qwen(model):
+    """qwen2-vl-2b through the static engine, 4 prompts of 2048 tokens (two
+    attn_chunk blocks), 32 new, greedy: with attn_impl="flash" (exactly 28
+    flash launches in the prefill, none in decode) and "chunked" (plain
+    PyTorch, no kernel); the flash prefill's last logits against the
+    chunked one's (rel L2 0.05), the streams compared."""
+    from repro_torch.models.model import Model
+    arch = model.arch
+    b, plen, glen = QWEN_STATIC
+    runs = {}
+    for impl in ("flash", "chunked"):
+        m = Model(dataclasses.replace(arch, attn_impl=impl), model.params)
+        run = run_static_counted(m, static_args(b, plen, glen))
+        _expect_launches(run, {"flash_attention": (arch.num_layers, 0, 0)}
+                         if impl == "flash" else {},
+                         f"static {arch.name} ({impl})")
+        runs[impl] = run
+        print(f"[static] {arch.name} {arch.num_layers}L {impl}, greedy: {b} "
+              f"prompts x {plen} tokens + {glen} new: prefill "
+              f"{run['t_prefill'] * 1e3:.1f} ms, decode "
+              f"{run['decode_ms_per_token']:.2f} ms/token, wall "
+              f"{run['wall']:.3f} s ({run['tok_per_s']:.1f} tok/s), peak "
+              f"memory {run['peak'] / 2**30:.2f} GiB; launches in prefill "
+              f"{_nonzero(run['phase']['prefill'])}, in decode "
+              f"{_nonzero(run['phase']['decode'])}")
+    lines = _compare_logits(runs["flash"]["logits"], runs["chunked"]["logits"],
+                            f"static {arch.name} flash vs chunked prefill")
+    same = int(sum((runs["flash"]["tokens"][i] == runs["chunked"]["tokens"][i])
+                   .all() for i in range(b)))
+    print(f"[static] {arch.name} flash vs chunked (plain) prefill, last-"
+          f"position logits (bf16, tol rel L2 0.05): " + "; ".join(lines)
+          + f"; greedy streams identical: {same} of {b} (bf16 streams may "
+          "fork on near-tied logits; not a failure)")
+    return {impl: {k: run[k] for k in ("t_prefill", "decode_ms_per_token",
+                                       "wall", "tok_per_s", "peak")}
+            | {"launches_prefill": run["phase"]["prefill"]["flash_attention"],
+               "launches_decode": run["phase"]["decode"]["flash_attention"]}
+            for impl, run in runs.items()} | {
+        "logits_flash_vs_chunked": lines, "identical_streams": same}
+
+
+def qwen_phase(dev, rng, marks):
+    """qwen2-vl-2b at full width and depth (28 layers, d_model 1536, 12 / 2
+    heads, vocab 151936 tied, M-RoPE with text-only positions, biases on
+    every projection perturbed; bf16, seeded): the paged path's logits
+    against the dense plain forward, the llama trace unfused, fused and
+    fused at decode_steps=4 (streams bitwise N=1's), then the static
+    engine with flash and chunked prefill."""
+    model, n_params = _init_biased("qwen2-vl-2b", dev)
+    arch = model.arch
+    if n_params != arch.param_count() + arch.d_model:
+        _fail(f"{arch.name}: {n_params} parameters, param_count says "
+              f"{arch.param_count()} and the final norm {arch.d_model}")
+    logit_err = check_model_logits(model, rng, dev)
+    marks["qwen2-vl checks"] = time.perf_counter()
+    runs = {fused: serve(model, logit_err, fused) for fused in (False, True)}
+    same = sum(runs[False]["results"][i]["tokens"]
+               == runs[True]["results"][i]["tokens"]
+               for i in runs[False]["results"])
+    print(f"[streams] {arch.name} fused vs unfused serve: {same} of "
+          f"{len(runs[False]['results'])} request streams identical (bf16 "
+          "streams may fork on near-tied logits; not a failure)")
+    ref = {i: r["tokens"] for i, r in runs[True]["results"].items()}
+    multi = serve_multistep(model, 4, ref, f"fused {arch.name}",
+                            want=_fused_llama_launches(arch))
+    marks["qwen2-vl serves"] = time.perf_counter()
+    static = static_qwen(model)
+    marks["static qwen2-vl"] = time.perf_counter()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    serves = {}
+    for fused, r in runs.items():
+        serves["fused" if fused else "unfused"] = {
+            "wall_s": r["wall"], "tok_per_s": r["tok_per_s"],
+            "mean_ttft_s": r["mean_ttft_s"], "peak": r["peak"],
+            "decode_steps": r["steps"], "prefill_chunks": r["prefill_chunks"],
+            "launches": _nonzero(r["launches"]),
+            "launches_a_decode_step": {
+                k: v / r["steps"] for k, v in r["phase"]["decode"].items()
+                if v}}
+    print(f"[qwen2-vl] {arch.name}: tok/s unfused "
+          f"{serves['unfused']['tok_per_s']:.1f}, fused "
+          f"{serves['fused']['tok_per_s']:.1f}, fused N=4 "
+          f"{multi['tok_per_s']:.1f}; mean TTFT unfused "
+          f"{serves['unfused']['mean_ttft_s'] * 1e3:.1f} ms, fused "
+          f"{serves['fused']['mean_ttft_s'] * 1e3:.1f} ms; peak memory "
+          f"{max(s['peak'] for s in serves.values()) / 2**30:.2f} GiB; "
+          f"kernel launches a decode step: unfused "
+          f"{serves['unfused']['launches_a_decode_step']}, fused "
+          f"{serves['fused']['launches_a_decode_step']}")
+    return {"n_params": n_params, "logit_err": logit_err, "serves": serves,
+            "identical_streams": same, "multistep_n4": multi,
+            "static": static,
+            "launches": {("fused" if f else "unfused"): r["launches"]
+                         for f, r in runs.items()}}
+
+
+def whisper_phase(dev):
+    """whisper-base at full width (6 encoder + 6 decoder layers, d_model
+    512, 8 / 8 heads of 64, vocab 51865 padded to 51968, tied; layernorm,
+    GeLU, biases perturbed; bf16, seeded) through the static engine: 4
+    prompts of 64 tokens and 1500 frames of the stub frontend, 32 new
+    tokens, greedy then at T 0.8 / top-k 40 / top-p 0.95, with
+    attn_impl="flash" (exactly 6 flash launches in the encoder, 6 in the
+    decoder prefill's cross-attention, none in decode) and "chunked" (no
+    kernel but the sampler's); the flash prefill's last logits against the
+    chunked one's (rel L2 0.05); greedy streams equal, or each first
+    divergence printed with the chunked path's top-2 margin there."""
+    from repro_torch.models.model import Model
+    model, n_params = _init_biased("whisper-base", dev)
+    arch = model.arch
+    b, plen, glen = WHISPER_STATIC
+    n = arch.num_layers
+    runs = {}
+    for impl in ("flash", "chunked"):
+        m = Model(dataclasses.replace(arch, attn_impl=impl), model.params)
+        for mode, kw in (("greedy", {}), ("sampled", STATIC_SAMPLED)):
+            run = run_static_counted(m, static_args(b, plen, glen, **kw))
+            flash = {k: run["phase"][k]["flash_attention"]
+                     for k in ("encode", "prefill", "decode")}
+            if flash != ({"encode": arch.enc_layers, "prefill": n,
+                          "decode": 0} if impl == "flash" else
+                         {"encode": 0, "prefill": 0, "decode": 0}) or \
+                    run["launches"]["flash_attention"] != sum(flash.values()):
+                _fail(f"static {arch.name} ({impl}, {mode}): flash launches "
+                      f"{flash} (all {run['launches']['flash_attention']}), "
+                      f"expected {arch.enc_layers} in the encoder, {n} in "
+                      "the prefill and none in decode (flash only)")
+            want = {"filter_logits": glen, "draw_tokens": glen} if kw else {}
+            for k, v in run["launches"].items():
+                if k != "flash_attention" and v != want.get(k, 0):
+                    _fail(f"static {arch.name} ({impl}, {mode}): {k} "
+                          f"launched {v} times, expected {want.get(k, 0)}")
+            runs[(impl, mode)] = run
+            print(f"[static] {arch.name} {impl}, {mode}: {b} prompts x "
+                  f"{plen} tokens and {arch.enc_seq_len} frames + {glen} new:"
+                  f" prefill {run['t_prefill'] * 1e3:.2f} ms (encoder "
+                  f"{run['t_encode'] * 1e3:.2f}, cross K/V fill "
+                  f"{run['t_cross_fill'] * 1e3:.2f}, decoder "
+                  f"{run['t_decoder_prefill'] * 1e3:.2f}), decode "
+                  f"{run['decode_ms_per_token']:.2f} ms/token, wall "
+                  f"{run['wall']:.3f} s ({run['tok_per_s']:.1f} tok/s), peak "
+                  f"memory {run['peak'] / 2**30:.3f} GiB; flash launches "
+                  f"{flash}, all launches {_nonzero(run['launches'])}")
+    fl, ch = runs[("flash", "greedy")], runs[("chunked", "greedy")]
+    lines = _compare_logits(fl["logits"], ch["logits"],
+                            f"static {arch.name} flash vs chunked prefill")
+    chunked = Model(dataclasses.replace(arch, attn_impl="chunked"),
+                    model.params)
+    forks = _divergence(chunked, ch, ch["tokens"], fl["tokens"],
+                        ch["frames"])
+    sampled_same = int(sum(
+        (runs[("flash", "sampled")]["tokens"][i]
+         == runs[("chunked", "sampled")]["tokens"][i]).all()
+        for i in range(b)))
+    print(f"[static] {arch.name} flash vs chunked (plain) prefill, last-"
+          f"position logits (bf16, tol rel L2 0.05): " + "; ".join(lines)
+          + f"; greedy streams identical: {b - len(forks)} of {b}"
+          + (f", first divergences (chunked top-2 margin there): {forks}"
+             if forks else "")
+          + f"; sampled streams identical: {sampled_same} of {b}")
+    del model, chunked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"n_params": n_params,
+            "runs": {f"{impl} {mode}": {
+                k: run[k] for k in ("t_prefill", "t_encode", "t_cross_fill",
+                                    "t_decoder_prefill",
+                                    "decode_ms_per_token", "wall",
+                                    "tok_per_s", "peak")}
+                | {"flash_launches": {k: run["phase"][k]["flash_attention"]
+                                      for k in ("encode", "prefill",
+                                                "decode")}}
+                for (impl, mode), run in runs.items()},
+            "logits_flash_vs_chunked": lines, "greedy_forks": forks,
+            "sampled_identical": sampled_same}
+
+
 # ---------------------------------------------------------------- phase 7 ---
 # The training slice: bert-large MLM, B8 / S128 (the paper's Phase 1).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 6
@@ -3154,6 +3499,8 @@ def check_residual_layernorm(dev):
     plain_ms = _time_ms(lambda: ref.fused_residual_layernorm(x, r, s, b), 50)
     h = x + r
     library_ms = _time_ms(lambda: F.layer_norm(h, (d,), s, b), 200)
+    library_device_ms = _profiled_ms(lambda: F.layer_norm(h, (d,), s, b),
+                                     ("",))
     dev_ms = _profiled_ms(lambda: ops.fused_residual_layernorm(x, r, s, b),
                           ("resln_kernel",))
     bound_ms, bound_by = _bound(3 * 1024 * d * 2 + 2 * d * 2,
@@ -3168,6 +3515,7 @@ def check_residual_layernorm(dev):
             "profiler_device_ms_per_call": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "library_note": "F.layer_norm of a precomputed bf16 x + "
                             "residual: the norm only, not the add"}
 
@@ -3202,6 +3550,8 @@ def check_bias_gelu(dev):
     plain_ms = _time_ms(lambda: ref.bias_gelu(x, b), 50)
     hb = x + b
     library_ms = _time_ms(lambda: F.gelu(hb, approximate="tanh"), 200)
+    library_device_ms = _profiled_ms(
+        lambda: F.gelu(hb, approximate="tanh"), ("",))
     dev_ms = _profiled_ms(lambda: ops.bias_gelu(x, b), ("bias_gelu_kernel",))
     bound_ms, bound_by = _bound(2 * 1024 * f * 2 + f * 2, 16.0 * 1024 * f,
                                 fp32=True)
@@ -3214,6 +3564,7 @@ def check_bias_gelu(dev):
             "profiler_device_ms_per_call": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "library_note": "F.gelu(approximate='tanh') of a precomputed "
                             "bf16 x + bias: the activation only"}
 
@@ -3901,6 +4252,10 @@ def main() -> int:
         + mamba_rows + train_rows))
 
     marks["kernel checks"] = time.perf_counter()
+    # its own rng, as the MoE checks
+    new_kernels = vlm_encdec_kernel_checks(dev,
+                                           np.random.default_rng(SEED + 40))
+    marks["vlm/encdec kernel checks"] = time.perf_counter()
     softmax_row = check_scale_mask_softmax(dev)
     marks["softmax"] = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3946,9 +4301,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     mamba = mamba_phase(dev, rng, marks)
     moe = moe_phase(dev, rng, marks, moe_kernels)
+    qwen = qwen_phase(dev, rng, marks)
+    whisper = whisper_phase(dev)
+    marks["whisper"] = time.perf_counter()
     if EAGER_UNIFORMS["calls"]:
-        _fail(f"the mamba2, deepseek and jamba serves called the eager "
-              f"row_uniforms on the card {EAGER_UNIFORMS['calls']} times")
+        _fail(f"the mamba2, deepseek, jamba, qwen2-vl and whisper serves "
+              f"called the eager row_uniforms on the card "
+              f"{EAGER_UNIFORMS['calls']} times")
     head_ref.row_uniforms = plain_uniforms
     mamba_launches = sum(c for _, c in mamba["profile"].values())
     print(f"[launches] the profiled mamba2 window: {mamba_launches} kernel "
@@ -3963,8 +4322,11 @@ def main() -> int:
     for name, t in marks.items():
         spans.append(f"{name} {t - prev:.1f}")
         prev = t
+    new_phase = (marks["vlm/encdec kernel checks"] - marks["kernel checks"]
+                 + marks["whisper"] - marks["jamba"])
     print(f"[time] seconds by phase: {', '.join(spans)}; total "
-          f"{prev - t_start:.1f}")
+          f"{prev - t_start:.1f}; the vlm and encdec phase (its kernel "
+          f"checks, qwen2-vl-2b, whisper-base) {new_phase:.1f}")
     for r in rows:
         name = r["name"]
         path = name in PATH_KERNELS[True]   # the fused serve is the default
@@ -4032,6 +4394,41 @@ def main() -> int:
                               f"fused_optimizer_kernel=True)")
         r["launches_per_step"] = training["per_step"][name]
         r["launches_unfused_training"] = training["unfused"]["launches"][name]
+    # the kernels at the vlm and encdec paths' shapes, and their launches
+    nk = new_kernels
+    qwen_fused = qwen["launches"]["fused"]
+    new_shapes = {
+        "paged_decode_attention": dict(
+            nk["paged"]["decode"], G=nk["paged"]["G"],
+            launches_qwen2_vl_fused_serve=qwen_fused[
+                "paged_decode_attention"]),
+        "paged_prefill_attention": dict(
+            nk["paged"]["prefill"], G=nk["paged"]["G"],
+            launches_qwen2_vl_fused_serve=qwen_fused[
+                "paged_prefill_attention"]),
+        "filter_logits": {k: {"ctas_a_row": v["ctas_a_row"], "device_ms":
+                              v["filter_device_ms"]}
+                          for k, v in nk["sampler"].items()},
+        "draw_tokens": {k: {"ctas_a_row": v["ctas_a_row"], "device_ms":
+                            v["draw_device_ms"]}
+                        for k, v in nk["sampler"].items()},
+        "decode_residual_norm": dict(
+            nk["residual_norm"], launches_qwen2_vl_fused_serve=qwen_fused[
+                "decode_residual_norm"]),
+        "head_tokens": {k: nk["head"][k] for k in (
+            "shape", "max_abs_err", "ms", "ms_greedy", "ms_16_rows",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "profiler_device_ms_by_step",
+            "ctas_a_row", "random_rows_clear_margin")}
+        | {"launches_qwen2_vl_fused_serve": qwen_fused["head_tokens"]}}
+    for r in rows:
+        r["vlm_encdec_shapes"] = new_shapes[r["name"]]
+    flash_row["vlm_encdec_cases"] = nk["flash"]
+    flash_row["launches_whisper_static"] = {
+        k: v["flash_launches"] for k, v in whisper["runs"].items()}
+    flash_row["launches_qwen2_vl_static_flash"] = {
+        k: qwen["static"]["flash"][k]
+        for k in ("launches_prefill", "launches_decode")}
     trained = {("fused" if f else "unfused"): {
         k: training["fused" if f else "unfused"][k]
         for k in ("losses", "step_s", "wall", "peak", "peak_above_start")}
@@ -4062,6 +4459,8 @@ def main() -> int:
         "multistep": dict(multi, mamba2=mamba["multistep"]),
         "moe": {"deepseek-moe-16b": moe["deepseek"],
                 "jamba-v0.1-52b": moe["jamba"], **moe["kernels"]},
+        "vlm_encdec": {"qwen2-vl-2b": qwen, "whisper-base": whisper,
+                       "phase_s": new_phase},
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

@@ -5,7 +5,8 @@ import dataclasses
 from typing import Dict
 
 from . import (bert_large, deepseek_moe_16b, internlm2_1p8b,
-               jamba_v0p1_52b, llama3p2_3b, mamba2_1p3b)
+               jamba_v0p1_52b, llama3p2_3b, mamba2_1p3b, qwen2_vl_2b,
+               whisper_base)
 from .base import (ArchConfig, MoEConfig, RunConfig, ShapeConfig, SSMConfig,
                    torch_dtype)
 
@@ -13,7 +14,8 @@ REGISTRY: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG
                                    for m in (llama3p2_3b, bert_large,
                                              mamba2_1p3b, internlm2_1p8b,
                                              deepseek_moe_16b,
-                                             jamba_v0p1_52b)}
+                                             jamba_v0p1_52b, qwen2_vl_2b,
+                                             whisper_base)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -28,8 +30,8 @@ def smoke_config(name: str) -> ArchConfig:
     """A reduced same-family config with the reductions of
     ``repro.configs.smoke_config``: a hybrid keeps one whole period of
     layers, an attention-free arch keeps 0 heads and no MLP, a MoE shrinks
-    to 4 experts of 256, top-2 at most, and an SSD to state 16, head 16,
-    chunk 16."""
+    to 4 experts of 256, top-2 at most, an SSD to state 16, head 16,
+    chunk 16, and an encoder to 2 layers over 16 frames."""
     full = get_config(name)
     kw = dict(
         name=full.name + "-smoke",
@@ -54,6 +56,9 @@ def smoke_config(name: str) -> ArchConfig:
     if full.ssm is not None:
         kw["ssm"] = dataclasses.replace(full.ssm, state_dim=16, head_dim=16,
                                         chunk=16)
+    if full.family == "encdec":
+        kw["enc_layers"] = 2
+        kw["enc_seq_len"] = 16
     return dataclasses.replace(full, **kw)
 
 

@@ -1,9 +1,9 @@
 """Architecture and run configs: the fields of
 ``repro.configs.base.{MoEConfig, SSMConfig, ArchConfig, ShapeConfig,
-RunConfig}`` that the serving paths (continuous and static; the dense,
-moe, ssm and hybrid families), the training path and the analytical model
-(``param_count``) read, as the port's own frozen dataclasses (values
-copied, nothing imported)."""
+RunConfig}`` that the serving paths (continuous: the dense, moe, vlm, ssm
+and hybrid families; static: those and encdec), the training path and the
+analytical model (``param_count``) read, as the port's own frozen
+dataclasses (values copied, nothing imported)."""
 from __future__ import annotations
 
 import dataclasses
@@ -54,8 +54,10 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid (the port
-                                    # serves these four, trains dense)
+    family: str                     # dense | moe | ssm | hybrid | encdec |
+                                    # vlm (the port serves all six: encdec
+                                    # on the static engine only; it trains
+                                    # dense)
     num_layers: int
     d_model: int
     num_heads: int
@@ -65,7 +67,8 @@ class ArchConfig:
     head_dim: int = 0               # 0 -> d_model // num_heads
     mlp: str = "swiglu"
     norm: str = "rmsnorm"
-    pos_emb: str = "rope"           # rope | learned | none
+    pos_emb: str = "rope"           # rope | mrope | learned | sinusoidal
+                                    # | none
     rope_theta: float = 10_000.0
     use_bias: bool = False
     tie_embeddings: bool = False
@@ -88,6 +91,11 @@ class ArchConfig:
     # hybrid: period and which index within the period is attention
     hybrid_period: int = 0
     hybrid_attn_index: int = 0
+    # encoder (encdec only)
+    enc_layers: int = 0
+    enc_seq_len: int = 0            # encoder frames per example (1500)
+    # frontends are stubs: inputs arrive as precomputed embeddings
+    frontend: str = "none"          # none | audio_stub | vision_stub
 
     @property
     def resolved_head_dim(self) -> int:
@@ -122,13 +130,9 @@ class ArchConfig:
     def param_count(self, active_only: bool = False) -> int:
         """Closed-form parameter count (embedding included once), as
         ``repro.configs.base.ArchConfig.param_count``; ``active_only``
-        counts a MoE layer's top-k routed experts instead of all of them.
-        The encoder of an encdec arch has no fields here yet (ROADMAP.md
-        queue 1 item 4)."""
-        if self.family == "encdec":
-            raise NotImplementedError(
-                "param_count of the 'encdec' family: the port's config has "
-                "no encoder fields yet (ROADMAP.md queue 1 item 4)")
+        counts a MoE layer's top-k routed experts instead of all of them;
+        an encdec arch adds its encoder layers and each decoder layer's
+        cross-attention with its norm."""
         d, ff, v = self.d_model, self.d_ff, self.vocab_size
         total = v * d                                     # embedding
         if not self.tie_embeddings:
@@ -175,6 +179,10 @@ class ArchConfig:
                 total += moe_params(active_only)
             elif self.family != "ssm":      # mamba2 blocks have no MLP
                 total += mlp_params(ff)
+        if self.family == "encdec":
+            for _ in range(self.enc_layers):
+                total += attn_params() + mlp_params(ff) + 2 * d
+            total += self.num_layers * (attn_params() + d)
         return total
 
 

@@ -9,9 +9,10 @@ norm) with their FLOPs, bytes and arithmetic intensity (Fig. 7/8). The
 attention phase is what ``kernels/fused_softmax`` fuses into one kernel;
 the inventory counts it as the paper profiled it, four kernels a layer.
 
-The families of the port's config are covered (dense, moe, ssm, hybrid,
-its MoE rows at padded capacity tokens, as the dispatch computes them);
-the encdec branch raises until that family is ported.
+Every family of the port's config is covered (dense, moe, vlm, ssm,
+hybrid, the MoE rows at padded capacity tokens, as the dispatch computes
+them; encdec counts its encoder's self-attention and MLP and each decoder
+layer's cross-attention as further attention layers, as JAX's does).
 """
 from __future__ import annotations
 
@@ -68,20 +69,12 @@ class EwOp:
         return self.total_flops / max(self.total_bytes, 1.0)
 
 
-def _check_family(arch: ArchConfig) -> None:
-    if arch.family == "encdec":
-        raise NotImplementedError(
-            f"the analytical model of the {arch.family!r} family is not "
-            "ported (ROADMAP.md queue 1 item 4)")
-
-
 def transformer_gemms(arch: ArchConfig, batch: int, seq: int,
                       phase: str = "fwd") -> List[Gemm]:
     """The paper's Table 3 rows for one pass over the whole model.
 
     phase: fwd | bwd_act | bwd_w (BWD rows transpose dims as Table 3).
     """
-    _check_family(arch)
     t = batch * seq                       # n*B, the token count
     d = arch.d_model
     hd = arch.resolved_head_dim
@@ -90,6 +83,9 @@ def transformer_gemms(arch: ArchConfig, batch: int, seq: int,
                  if arch.is_attention_layer(i))
     n_moe = sum(1 for i in range(arch.num_layers) if arch.is_moe_layer(i))
     n_dense_mlp = 0 if arch.family == "ssm" else arch.num_layers - n_moe
+    if arch.family == "encdec":
+        n_attn += arch.enc_layers + arch.num_layers     # enc self + dec cross
+        n_dense_mlp += arch.enc_layers
 
     def gemm(name, layer, m, n, k, b=1, count=1):
         if phase == "fwd":
@@ -156,7 +152,6 @@ def nongemm_ops(arch: ArchConfig, batch: int, seq: int,
                 dtype_bytes: int = 2) -> List[EwOp]:
     """Paper section 3.2.3: the memory-bound phases with their flops and
     bytes."""
-    _check_family(arch)
     t = batch * seq
     d = arch.d_model
     params = arch.param_count()

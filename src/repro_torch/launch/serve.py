@@ -4,6 +4,8 @@
     python -m repro_torch.launch.serve --engine continuous --device cuda
     python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --device cuda
+    python -m repro_torch.launch.serve --arch qwen2-vl-2b --engine continuous
+    python -m repro_torch.launch.serve --arch whisper-base --device cuda
 
 Counterpart of ``repro.launch.serve`` with ``--engine {static,continuous}``
 (static by default, as in JAX):
@@ -13,8 +15,13 @@ static      the fixed-batch driver: one dense KV cache (or mamba state) of
             prefilled at once (``Model.prefill``; above ``attn_chunk`` the
             chunked attention, or the flash kernel for a config with
             ``attn_impl="flash"``), then ``gen_len - 1`` lock-step decode
-            steps (``Model.decode_step``). ``run_static(model, args)`` takes
-            a model built by the caller, so any config can be served.
+            steps (``Model.decode_step``). For an encdec arch (whisper) the
+            stub frontend's frame embeddings [B, enc_seq_len, D] are drawn
+            on the device from ``--seed``, encoded and projected into the
+            cross K/V once before the decoder's prefill; the timing line
+            splits the prefill into encoder, cross K/V fill and decoder.
+            ``run_static(model, args)`` takes a model built by the
+            caller, so any config can be served.
 continuous  ``ContinuousEngine`` with ``--tp 1``: paged KV cache, chunked
             prefill, prefix cache, fused decode on or off
             (``--fused-decode`` / ``--no-fused-decode``; unset follows
@@ -35,9 +42,11 @@ emit the same tokens at any sampling setting. Weights are random, made on
 the device from ``--seed`` with a ``torch.Generator``; prompts are drawn
 with numpy from the same seed. Runs on the card unless ``--device cpu`` is
 given. Every registered arch is served: dense (llama3.2-3b, internlm2-1.8b),
-moe (deepseek-moe-16b), ssm (mamba2-1.3b) and hybrid (jamba-v0.1-52b, whose
-52 B parameters need more than one H100: ``--smoke`` on the CPU); the vlm
-and encdec archs of the JAX package are refused as not ported yet. An
+moe (deepseek-moe-16b), vlm (qwen2-vl-2b, text-only M-RoPE positions), ssm
+(mamba2-1.3b) and hybrid (jamba-v0.1-52b, whose 52 B parameters need more
+than one H100: ``--smoke`` on the CPU) on both engines, and encdec
+(whisper-base) on the static engine only: ``--engine continuous`` is
+refused for it with JAX's message. An
 explicit ``--prefix-cache`` is refused for an SSM-bearing arch on
 the continuous engine (its recurrent state is not page-decomposable);
 without the flag the engine gates the cache off itself and the reason is
@@ -55,11 +64,8 @@ from .. import resolve_device
 from ..configs import get_config, smoke_config
 from ..models.model import Model
 from ..serving import ContinuousEngine, Request, SamplingParams, pages_needed
-from ..serving.engine import prefix_cache_off_reason
+from ..serving.engine import SERVABLE_FAMILIES, prefix_cache_off_reason
 from ..serving.sampling import fused_sampling_enabled, sample_tokens
-
-# archs of the JAX package whose families the port does not serve yet
-NOT_PORTED = {"qwen2-vl-2b": "vlm", "whisper-base": "encdec"}
 
 
 def _fused(args) -> bool:
@@ -93,11 +99,17 @@ def run_static(model: Model, args) -> dict:
     may carry ``sampler`` (``"fused"`` / ``"ref"``: the filter; unset
     follows ``REPRO_FUSED_SAMPLING``). Greedy is a plain argmax; sampling
     folds request i's seed and the stream position into the draw, as the
-    continuous engine does."""
+    continuous engine does. An encdec arch's frame embeddings come from a
+    ``torch.Generator`` seeded with ``seed`` on the model's device."""
     arch, dev = model.arch, model.device
     b, plen, glen = args.batch, args.prompt_len, args.gen_len
     prompt = _prompts(args, arch)
     caches = model.init_caches(b, plen + glen)
+    frames = None
+    if arch.family == "encdec":
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        frames = torch.randn((b, arch.enc_seq_len, arch.d_model),
+                             generator=gen, device=dev).to(model.dtype)
     if args.temperature > 0:
         filtered = args.top_k > 0 or args.top_p < 1.0
         fused = filtered and _fused(args)
@@ -119,9 +131,20 @@ def run_static(model: Model, args) -> dict:
 
     _sync(dev)
     t0 = time.perf_counter()
+    t_encode = t_cross = 0.0
+    if frames is not None:
+        enc = model.encode(frames)
+        _sync(dev)
+        t_encode = time.perf_counter() - t0
+        model.fill_cross_kv(caches, enc)
+        _sync(dev)
+        t_cross = time.perf_counter() - t0 - t_encode
+        del enc
+    t1 = time.perf_counter()
     logits, caches = model.prefill(caches, torch.as_tensor(prompt,
                                                            device=dev))
     _sync(dev)
+    t_decoder = time.perf_counter() - t1
     t_prefill = time.perf_counter() - t0
     # the prompt's next token sits at stream position plen; decode step i
     # then emits position plen + 1 + i
@@ -137,13 +160,18 @@ def run_static(model: Model, args) -> dict:
     _sync(dev)
     t_decode = time.perf_counter() - t0
     out = torch.stack(generated, dim=1).cpu().numpy()
+    split = (f" (encoder {arch.enc_seq_len} frames {t_encode * 1e3:.1f}ms, "
+             f"cross K/V fill {t_cross * 1e3:.1f}ms, decoder "
+             f"{t_decoder * 1e3:.1f}ms)" if frames is not None else "")
     print(f"[serve/static] {arch.name} on {dev}: prefill {plen} tok x{b} "
-          f"in {t_prefill * 1e3:.1f}ms | {glen} decode steps in "
+          f"in {t_prefill * 1e3:.1f}ms{split} | {glen} decode steps in "
           f"{t_decode * 1e3:.1f}ms "
           f"({t_decode / max(glen - 1, 1) * 1e3:.1f} ms/tok)")
     print(f"[serve/static] sample generations (first 8 ids/row): "
           f"{out[:2, :8].tolist()}")
-    return {"tokens": out, "prompt": prompt, "t_prefill": t_prefill,
+    return {"tokens": out, "prompt": prompt, "frames": frames,
+            "t_prefill": t_prefill, "t_encode": t_encode,
+            "t_cross_fill": t_cross, "t_decoder_prefill": t_decoder,
             "t_decode": t_decode}
 
 
@@ -273,15 +301,17 @@ def main(argv=None) -> dict:
     if args.fused_decode is not None and args.engine != "continuous":
         ap.error("--fused-decode requires --engine continuous (the static "
                  "driver always materializes full logits)")
-    if args.arch in NOT_PORTED:
-        ap.error(f"{args.arch}: the {NOT_PORTED[args.arch]!r} family is not "
-                 "ported to repro_torch yet (a later slice)")
     try:
-        arch = get_config(args.arch)
+        arch = smoke_config(args.arch) if args.smoke \
+            else get_config(args.arch)
     except KeyError as e:
         ap.error(str(e))
     if arch.bidirectional:
         ap.error(f"{arch.name} is encoder-only: it has no decode step")
+    if args.engine == "continuous" and arch.family not in SERVABLE_FAMILIES:
+        ap.error(f"--engine continuous serves families "
+                 f"{SERVABLE_FAMILIES}; {arch.name} is {arch.family!r} "
+                 "(use --engine static)")
     # an explicit --prefix-cache on an SSM-bearing arch fails here with the
     # reason (the static engine has no prefix cache); unset stays True so
     # the engine gates it and records why

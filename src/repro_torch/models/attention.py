@@ -1,9 +1,13 @@
-"""GQA attention: fused QKV projection, RoPE, the reference full-matrix
-attention, the chunked online-softmax attention and the flash kernel's
-dispatch (``attention_core``), the full-sequence layer of the training
-path, the static engine's dense-cache layer (``extend_attention``) and the
-paged prefill / decode layers of the continuous engine. Counterpart of
-``repro.models.attention``.
+"""GQA attention: fused QKV projection, RoPE and M-RoPE, the reference
+full-matrix attention, the chunked online-softmax attention and the flash
+kernel's dispatch (``attention_core``), the full-sequence layer of the
+training path, whisper's cross-attention (``apply_cross_attention`` over
+the encoder's K/V from ``project_enc_kv``), the static engine's
+dense-cache layer (``extend_attention``) and the paged prefill / decode
+layers of the continuous engine. Counterpart of ``repro.models.attention``.
+Every layer that encodes positions takes ``mrope_positions`` [3, B, S]
+(qwen2-vl's t / h / w ids); without them an M-RoPE arch rotates by the
+text-only broadcast of its positions, as JAX's does. The engines pass none.
 
 The JAX layers return new caches and page pools; here K/V rows are written
 into them in place with ``index_put_`` (the caches and pools are the
@@ -16,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
-from .layers import Params, apply_rope, dense
+from .layers import Params, apply_mrope, apply_rope, dense
 
 NEG_INF = -1e30
 
@@ -39,15 +43,21 @@ def qkv_project(arch: ArchConfig, p: Params, x: torch.Tensor
 
 
 def position_encode(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
-                    positions: torch.Tensor
+                    positions: torch.Tensor,
+                    mrope_positions: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     if arch.pos_emb == "rope":
         return (apply_rope(q, positions, arch.rope_theta),
                 apply_rope(k, positions, arch.rope_theta))
-    if arch.pos_emb in ("learned", "none"):
-        return q, k         # learned positions are added at the embedding
-    raise NotImplementedError(
-        f"pos_emb {arch.pos_emb!r}: the port supports rope, learned and none")
+    if arch.pos_emb == "mrope":
+        if mrope_positions is None:
+            # text-only: t == h == w == position
+            mrope_positions = positions[None].expand((3,) + positions.shape)
+        return (apply_mrope(q, mrope_positions, arch.rope_theta),
+                apply_mrope(k, mrope_positions, arch.rope_theta))
+    if arch.pos_emb in ("learned", "sinusoidal", "none"):
+        return q, k         # added at the embedding (or not at all)
+    raise ValueError(f"unknown pos_emb {arch.pos_emb!r}")
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -178,14 +188,42 @@ def attention_core(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def apply_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
-                    positions: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Training self-attention over the full sequence x [B, S, D]."""
+                    positions: torch.Tensor, *, causal: bool = True,
+                    mrope_positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Self-attention over the full sequence x [B, S, D] (training, and
+    whisper's bidirectional encoder)."""
     b, s, _ = x.shape
     q, k, v = qkv_project(arch, p, x)
-    q, k = position_encode(arch, q, k, positions)
+    q, k = position_encode(arch, q, k, positions, mrope_positions)
     o = attention_core(arch, q, k, v, causal=causal)
     return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
+
+
+def apply_cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
+                          enc_kv: Tuple[torch.Tensor, torch.Tensor]
+                          ) -> torch.Tensor:
+    """Whisper's cross-attention: queries from x [B, S, D] against the
+    encoder's K/V [B, Senc, Hkv, Dh], no mask (above ``attn_chunk`` keys the
+    chunked path or the flash kernel, as ``attention_core`` picks)."""
+    b, s, _ = x.shape
+    hd = arch.resolved_head_dim
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, arch.num_heads, hd)
+    k, v = enc_kv
+    o = attention_core(arch, q, k, v, causal=False)
+    return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
+
+
+def project_enc_kv(arch: ArchConfig, p: Params, enc_out: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output [B, Senc, D] -> cross K, V [B, Senc, Hkv, Dh]."""
+    b, s, _ = enc_out.shape
+    hd = arch.resolved_head_dim
+    k = dense(enc_out, p["wk"], p.get("bk")).reshape(b, s, arch.num_kv_heads,
+                                                     hd)
+    v = dense(enc_out, p["wv"], p.get("bv")).reshape(b, s, arch.num_kv_heads,
+                                                     hd)
+    return k, v
 
 
 def init_kv_cache(arch: ArchConfig, batch: int, max_len: int,
@@ -211,7 +249,9 @@ def _update_cache_row(cache: torch.Tensor, new_rows: torch.Tensor,
 
 
 def extend_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
-                     cache: Params, positions: torch.Tensor) -> torch.Tensor:
+                     cache: Params, positions: torch.Tensor,
+                     mrope_positions: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Attend S new tokens x [B, S, D] against (and into) the dense cache;
     ``positions`` [B] is the first cache row of the new tokens. The new K/V
     rows are written into ``cache`` in place. S > 1 is prefill (positions
@@ -222,7 +262,7 @@ def extend_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
     q, k, v = qkv_project(arch, p, x)                         # [B,S,H*,D]
     qpos = positions.to(x.device).long()[:, None] \
         + torch.arange(s, device=x.device)[None]
-    q, k = position_encode(arch, q, k, qpos)
+    q, k = position_encode(arch, q, k, qpos, mrope_positions)
     _update_cache_row(cache["k"], k, positions)
     _update_cache_row(cache["v"], v, positions)
     if s > 1:
@@ -234,10 +274,12 @@ def extend_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
 
 
 def decode_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
-                     cache: Params, positions: torch.Tensor) -> torch.Tensor:
+                     cache: Params, positions: torch.Tensor,
+                     mrope_positions: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """One-token decode. x [B, 1, D]; positions [B] (the new token's cache
     row)."""
-    return extend_attention(arch, p, x, cache, positions)
+    return extend_attention(arch, p, x, cache, positions, mrope_positions)
 
 
 def init_paged_kv_cache(arch: ArchConfig, num_pages: int, page_size: int,
@@ -253,7 +295,9 @@ def init_paged_kv_cache(arch: ArchConfig, num_pages: int, page_size: int,
 def paged_prefill_attention_layer(arch: ArchConfig, p: Params,
                                   x: torch.Tensor, cache: Params,
                                   page_row: torch.Tensor, start: int,
-                                  total_len: int) -> torch.Tensor:
+                                  total_len: int,
+                                  mrope_positions: Optional[torch.Tensor]
+                                  = None) -> torch.Tensor:
     """One prompt chunk x [1, C, D] of a single sequence (row i at position
     ``start + i``; rows at or past ``total_len`` are padding). Its K/V rows
     are written into ``cache`` in place (padding rows and rows past the
@@ -264,7 +308,7 @@ def paged_prefill_attention_layer(arch: ArchConfig, p: Params,
     max_pages = page_row.shape[0]
     q, k, v = qkv_project(arch, p, x)                          # [1,C,H*,D]
     pos = start + torch.arange(c, dtype=torch.int64, device=x.device)
-    q, k = position_encode(arch, q, k, pos[None])
+    q, k = position_encode(arch, q, k, pos[None], mrope_positions)
     logical = pos // page_size
     valid = (pos < total_len) & (logical < max_pages)
     pids = torch.where(valid, page_row.long()[logical.clamp(0, max_pages - 1)],
@@ -283,7 +327,9 @@ def paged_prefill_attention_layer(arch: ArchConfig, p: Params,
 def paged_decode_attention_layer(arch: ArchConfig, p: Params,
                                  x: torch.Tensor, cache: Params,
                                  page_table: torch.Tensor,
-                                 seq_lens: torch.Tensor) -> torch.Tensor:
+                                 seq_lens: torch.Tensor,
+                                 mrope_positions: Optional[torch.Tensor]
+                                 = None) -> torch.Tensor:
     """One-token decode x [B, 1, D] against the paged cache. ``seq_lens``
     [B] = tokens already cached (the new token's position); inactive slots
     carry 0, write to the null page and produce output the engine never
@@ -293,7 +339,7 @@ def paged_decode_attention_layer(arch: ArchConfig, p: Params,
     page_size = cache["k"].shape[1]
     q, k, v = qkv_project(arch, p, x)                          # [B,1,H*,D]
     lens = seq_lens.long()
-    q, k = position_encode(arch, q, k, lens[:, None])
+    q, k = position_encode(arch, q, k, lens[:, None], mrope_positions)
     pids = page_table.long()[torch.arange(b, device=x.device),
                              lens // page_size]
     offs = lens % page_size

@@ -10,11 +10,15 @@ layer i is layer ``z * period + i``: jamba's 32 layers are 4 periods of
 ``mamba`` leaves (``in_proj``, ``conv``, ``A_log``, ``D``, ``dt_bias``,
 ``norm_scale``, ``out_proj``) and a MoE block its ``moe`` leaves
 (``router``, ``experts.{w1, w3, w2}``, ``shared.{w1, w3, w2}``) by name.
-Nothing here imports JAX: callers hand in ``np.asarray`` leaves.
+Whisper's encoder stack ``enc_blocks`` is stacked the same way and becomes
+a list too; a decoder block keeps ``ln_x`` and ``xattn`` (separate ``wq``,
+``wk``, ``wv``, ``wo`` and their biases) by name. Nothing here imports
+JAX: callers hand in ``np.asarray`` leaves.
 ``to_jax_layout`` goes back, for any tree in the port's layout (params,
 or the optimizer's ``m``, ``v`` and ``master``), so tests can hold the two
 trainers' states side by side; ``caches_from_jax`` unstacks the JAX static
-engine's caches the same way, so tests compare cache contents.
+engine's caches the same way (whisper's ``cross_k`` / ``cross_v`` with a
+layer's ``k`` / ``v``), so tests compare cache contents.
 """
 from __future__ import annotations
 
@@ -56,24 +60,26 @@ def _unstack(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
 
 def from_jax_params(arch: ArchConfig, params: Dict[str, Any],
                     device="cuda") -> Params:
-    """Convert a dense-, moe-, ssm- or hybrid-family JAX param tree (numpy
-    leaves) to the port's weights on ``device``, floats cast to the
-    config's dtype (as the JAX serve casts its params, mamba's fp32
-    ``A_log``, ``D`` and ``dt_bias`` and the MoE's fp32 router included).
-    Every leaf keeps its JAX name, biases, ``pos`` and BERT's ``mlm`` head
+    """Convert a JAX param tree of any family (numpy leaves) to the port's
+    weights on ``device``, floats cast to the config's dtype (as the JAX
+    serve casts its params, mamba's fp32 ``A_log``, ``D`` and ``dt_bias``
+    and the MoE's fp32 router included). Every leaf keeps its JAX name,
+    biases, ``pos``, BERT's ``mlm`` head and whisper's ``enc_final_norm``
     included."""
     device = resolve_device(device)
     dtype = torch_dtype(arch.dtype)
-    if arch.family in ("encdec", "vlm"):
-        raise NotImplementedError(f"family {arch.family!r} is not ported")
+    stacks = {"blocks": arch.num_layers, "enc_blocks": arch.enc_layers}
     out: Params = {
         k: _tensors(v, device, dtype) for k, v in params.items()
-        if k != "blocks"}
-    out["blocks"] = [_tensors(b, device, dtype)
-                     for b in _unstack(params["blocks"])]
-    if len(out["blocks"]) != arch.num_layers:
-        raise ValueError(f"{len(out['blocks'])} layers in the tree, "
-                         f"{arch.num_layers} in {arch.name}")
+        if k not in stacks}
+    for name, n in stacks.items():
+        if name not in params:
+            continue
+        out[name] = [_tensors(b, device, dtype)
+                     for b in _unstack(params[name])]
+        if len(out[name]) != n:
+            raise ValueError(f"{len(out[name])} layers in the tree's "
+                             f"{name}, {n} in {arch.name}")
     return out
 
 
@@ -109,19 +115,23 @@ def to_jax_layout(params: Params, period: int = 1) -> Dict[str, Any]:
     ``blocks.layer_<i>`` with a leading ``[L / period]`` axis on every
     leaf (the scanned layout of ``repro.models.transformer``), or, for a
     stack of one period of several layers (which JAX does not scan),
-    ``blocks.period_0.layer_<i>``."""
-    out = {k: _numpy(v) for k, v in params.items() if k != "blocks"}
-    layers = [_numpy(b) for b in params["blocks"]]
-    nper = len(layers) // period
+    ``blocks.period_0.layer_<i>``. Whisper's ``enc_blocks`` (period 1)
+    go back the same way."""
+    stacks = {"blocks": period, "enc_blocks": 1}
+    out = {k: _numpy(v) for k, v in params.items() if k not in stacks}
 
     def stack(*trees):
         if isinstance(trees[0], dict):
             return {k: stack(*(t[k] for t in trees)) for k in trees[0]}
         return np.stack(trees)
-    if nper == 1 and period > 1:
-        out["blocks"] = {"period_0": {f"layer_{i}": layers[i]
-                                      for i in range(period)}}
-    else:
-        out["blocks"] = {f"layer_{i}": stack(*layers[i::period])
-                         for i in range(period)}
+    for name, per in stacks.items():
+        if name not in params:
+            continue
+        layers = [_numpy(b) for b in params[name]]
+        if len(layers) == per > 1:
+            out[name] = {"period_0": {f"layer_{i}": layers[i]
+                                      for i in range(per)}}
+        else:
+            out[name] = {f"layer_{i}": stack(*layers[i::per])
+                         for i in range(per)}
     return out

@@ -1,12 +1,14 @@
 """Primitive layers as plain functions on tensors: dense, norms, activations,
-embeddings, rotary embeddings, the MLP. Counterpart of
+embeddings, sinusoidal positions, rotary embeddings (RoPE and M-RoPE), the
+MLP. Counterpart of
 ``repro.models.layers``; parameter names follow the same contract
 (``embedding [V, D]``, ``w1/w3 [D, F]``, ``w2 [F, D]``, ``b1 [F]``,
 ``b2 [D]``, ``scale/bias [D]``)."""
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -98,6 +100,18 @@ def unembed(p: Params, x: torch.Tensor,
     return logits
 
 
+def sinusoidal_positions(seq: int, dim: int, dtype: torch.dtype, device,
+                         offset: int = 0) -> torch.Tensor:
+    """[seq, dim] rows ``[sin(p / 10000^(2i/dim)), cos(...)]`` for
+    positions ``offset ..``, computed in fp32 and cast to ``dtype``."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    base = torch.full((), 10_000.0, dtype=torch.float32, device=device)
+    angle = pos / torch.pow(base, 2.0 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
     """1 / theta^(2i / D) in fp32, evaluated as theta^(-2i / D): the form
@@ -118,6 +132,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_frequencies(d, theta, x.device)               # [D/2]
     ang = positions.float()[..., None] * freqs                 # [..., S, D/2]
     ang = ang[..., None, :]                                    # [..., S, 1, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(half: int, n_t: int, n_h: int,
+                   device: torch.device) -> torch.Tensor:
+    """[D/2] int64: which position stream (0 t, 1 h, 2 w) each frequency
+    dim reads. Made once a device, so a captured decode step reads it."""
+    sec = torch.full((half,), 2, dtype=torch.int64)
+    sec[:n_t], sec[n_t:n_t + n_h] = 0, 1
+    return sec.to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor, theta: float,
+                sections: Tuple[float, float, float] = (0.5, 0.25, 0.25)
+                ) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE. x: [B, S, H, D]; positions_thw: [3, B,
+    S] (temporal, height, width ids; B may be 1 and broadcast). The D/2
+    frequency dims split into contiguous (t, h, w) sections, each rotated
+    by its own stream, so with t == h == w this is ``apply_rope`` bit for
+    bit. Computed in fp32, returned in ``x``'s dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    n_t = int(half * sections[0])
+    n_h = int(half * sections[1])
+    freqs = rope_frequencies(d, theta, x.device)            # [D/2]
+    sec = _mrope_streams(half, n_t, n_h, x.device)
+    pos = positions_thw.float().index_select(0, sec)        # [D/2, B, S]
+    ang = pos.movedim(0, -1) * freqs                        # [B, S, D/2]
+    ang = ang[..., None, :]                                 # [B, S, 1, D/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,8 +1,10 @@
-"""The model facade of the port (dense, moe, ssm and hybrid): architecture
-+ weights,
-the weight init, the token embedding, the LM head, the static engine's
-``init_caches`` / ``prefill`` / ``decode_step``, and the training forward
-and loss. Counterpart of ``repro.models.model.Model`` (``init``,
+"""The model facade of the port (dense, moe, vlm, ssm, hybrid and encdec):
+architecture + weights, the weight init, the token embedding, the LM head,
+whisper's encoder (``encode``: sinusoidal rows added to the stub frontend's
+frame embeddings, the bidirectional stack, the final norm), the static
+engine's ``init_caches`` / ``encode`` / ``fill_cross_kv`` / ``prefill`` /
+``decode_step``, and the training forward and loss. Counterpart of
+``repro.models.model.Model`` (``init``, ``_encode``, ``_fill_cross_kv``,
 ``_embed``, ``_logits``, the static serving methods) and of its training
 forward and loss, as module functions (``embed``, ``logits``,
 ``forward``, ``loss``, ``cross_entropy``) on an explicit weight dict, the
@@ -25,20 +27,25 @@ except that the stacked ``blocks`` become a list with one dict per layer:
                [E, D, F], moe.experts.w2 [E, F, D], moe.shared.{w1, w3}
                [D, Fs], moe.shared.w2 [Fs, D] (``models.moe``) in place of
                mlp; a hybrid layer's mixer is attn or mamba by its index
+    encdec: enc_blocks[l] (attention blocks as above), enc_final_norm, and
+               decoder blocks[l] with ln_x and xattn.{wq [D, q], wk, wv
+               [D, kv], wo [q, D]} (+ bq, bk, bv, bo) besides their own
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig, torch_dtype
+from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from . import transformer as tf
 from .layers import (Params, apply_norm, dense, dense_init, embed_tokens,
-                     gelu, init_norm, pad_vocab, unembed)
+                     gelu, init_norm, pad_vocab, sinusoidal_positions,
+                     unembed)
 
 
 def _normal(gen: torch.Generator, shape, device, dtype) -> torch.Tensor:
@@ -57,42 +64,24 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
     """Random weights with the JAX package's distributions (not its bits:
     a parity test converts the JAX weights instead, see ``convert``).
     Biases start at zero, as in JAX."""
-    if arch.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"{arch.name}: the {arch.family!r} family is not ported to "
-            "repro_torch yet (a later slice)")
     if arch.mlp not in ("swiglu", "gelu"):
         raise NotImplementedError(
             f"{arch.name}: the port initializes swiglu/gelu MLPs only")
-    d, f, hd = arch.d_model, arch.d_ff, arch.resolved_head_dim
-    qkv = arch.q_dim + 2 * arch.kv_dim
+    d = arch.d_model
     p: Params = {"embed": {"embedding": _normal(
         gen, (pad_vocab(arch.vocab_size), d), device, dtype)}}
     if arch.pos_emb == "learned":
         p["pos"] = {"pos_embedding": _normal(gen, (arch.max_position, d),
                                              device, dtype)}
-    blocks = []
-    kinds = tf.layer_kinds(arch)
-    for layer in range(arch.num_layers):
-        i = layer % len(kinds)          # the index within its period
-        if kinds[i] == "mamba":
-            blk = {"ln1": init_norm(arch.norm, d, dtype, device),
-                   "mamba": ssm_lib.init_mamba(gen, arch, device, dtype)}
-            if arch.family != "ssm":    # mamba2 blocks: no ln2, no MLP
-                blk["ln2"] = init_norm(arch.norm, d, dtype, device)
-                blk.update(_init_ffn(gen, arch, i, device, dtype))
-            blocks.append(blk)
-            continue
-        attn = {"wqkv": dense_init(gen, d, qkv, device, dtype),
-                "wo": dense_init(gen, arch.num_heads * hd, d, device, dtype)}
-        if arch.use_bias:
-            attn["bqkv"] = _zeros(qkv, device, dtype)
-            attn["bo"] = _zeros(d, device, dtype)
-        blocks.append({"ln1": init_norm(arch.norm, d, dtype, device),
-                       "attn": attn,
-                       "ln2": init_norm(arch.norm, d, dtype, device),
-                       **_init_ffn(gen, arch, i, device, dtype)})
-    p["blocks"] = blocks
+    encdec = arch.family == "encdec"
+    if encdec:
+        p["enc_blocks"] = [_init_block(gen, arch, 0, device, dtype)
+                           for _ in range(arch.enc_layers)]
+        p["enc_final_norm"] = init_norm(arch.norm, d, dtype, device)
+    period = len(tf.layer_kinds(arch))
+    p["blocks"] = [_init_block(gen, arch, layer % period, device, dtype,
+                               cross=encdec)
+                   for layer in range(arch.num_layers)]
     p["final_norm"] = init_norm(arch.norm, d, dtype, device)
     if not arch.tie_embeddings:
         p["out"] = {"head": dense_init(gen, d, pad_vocab(arch.vocab_size),
@@ -102,6 +91,46 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
                     "bias": _zeros(d, device, dtype),
                     "ln": init_norm(arch.norm, d, dtype, device)}
     return p
+
+
+def _init_attn(gen: torch.Generator, arch: ArchConfig, device,
+               dtype: torch.dtype, cross: bool = False) -> Params:
+    """A self-attention's fused ``wqkv`` (+ ``bqkv``), or a cross-
+    attention's separate ``wq``, ``wk``, ``wv`` (+ biases); then ``wo``."""
+    d, qd, kvd = arch.d_model, arch.q_dim, arch.kv_dim
+    names = (("wq", "bq", qd), ("wk", "bk", kvd), ("wv", "bv", kvd)) \
+        if cross else (("wqkv", "bqkv", qd + 2 * kvd),)
+    attn: Params = {}
+    for w, b, n in names:
+        attn[w] = dense_init(gen, d, n, device, dtype)
+        if arch.use_bias:
+            attn[b] = _zeros(n, device, dtype)
+    attn["wo"] = dense_init(gen, qd, d, device, dtype)
+    if arch.use_bias:
+        attn["bo"] = _zeros(d, device, dtype)
+    return attn
+
+
+def _init_block(gen: torch.Generator, arch: ArchConfig, i: int, device,
+                dtype: torch.dtype, cross: bool = False) -> Params:
+    """Layer ``i`` of its period: its mixer (attention or mamba), a
+    cross-attention with its norm where ``cross`` (whisper's decoder), and
+    its MLP or MoE tail (none for mamba2)."""
+    d = arch.d_model
+    if tf.layer_kinds(arch)[i] == "mamba":
+        blk = {"ln1": init_norm(arch.norm, d, dtype, device),
+               "mamba": ssm_lib.init_mamba(gen, arch, device, dtype)}
+        if arch.family == "ssm":        # mamba2 blocks: no ln2, no MLP
+            return blk
+    else:
+        blk = {"ln1": init_norm(arch.norm, d, dtype, device),
+               "attn": _init_attn(gen, arch, device, dtype)}
+    if cross:
+        blk["ln_x"] = init_norm(arch.norm, d, dtype, device)
+        blk["xattn"] = _init_attn(gen, arch, device, dtype, cross=True)
+    blk["ln2"] = init_norm(arch.norm, d, dtype, device)
+    blk.update(_init_ffn(gen, arch, i, device, dtype))
+    return blk
 
 
 def _init_ffn(gen: torch.Generator, arch: ArchConfig, i: int, device,
@@ -134,6 +163,22 @@ def embed(arch: ArchConfig, params: Params,
     return x
 
 
+def encode(arch: ArchConfig, params: Params,
+           frontend_embeddings: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over the stub frontend's frame embeddings [B,
+    Senc, D]: sinusoidal rows added in the compute dtype, the
+    bidirectional stack (its attention above ``attn_chunk`` frames chunked
+    or flash, as ``attn_impl`` says), the final norm -> [B, Senc, D]."""
+    dtype = torch_dtype(arch.dtype)
+    x = frontend_embeddings.to(dtype)
+    s = x.shape[1]
+    x = x + sinusoidal_positions(s, arch.d_model, dtype, x.device)
+    positions = torch.arange(s, device=x.device)[None]
+    x = tf.apply_stack(arch, params["enc_blocks"], x, positions,
+                       causal=False)
+    return apply_norm(arch.norm, params["enc_final_norm"], x)
+
+
 def logits(arch: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Final norm (+ BERT's MLM transform) + LM head: [B, S, D] -> fp32
     logits [B, S, Vp]."""
@@ -148,14 +193,20 @@ def logits(arch: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def forward(arch: ArchConfig, params: Params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The training forward -> fp32 logits [B, S, Vp]. (JAX also returns
-    an auxiliary loss: 0 for the dense family; a MoE's Switch loss is left
-    out, so ``loss`` refuses a MoE.)"""
+    """The training forward -> fp32 logits [B, S, Vp]. ``batch`` may carry
+    ``mrope_positions`` [3, B, S] (qwen2-vl) and must carry
+    ``frontend_embeddings`` [B, Senc, D] for an encdec arch. (JAX also
+    returns an auxiliary loss: 0 for the dense family; a MoE's Switch loss
+    is left out, so ``loss`` refuses a MoE.)"""
     tokens = batch["tokens"]
     x = embed(arch, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    enc_out = encode(arch, params, batch["frontend_embeddings"]) \
+        if arch.family == "encdec" else None
     x = tf.apply_stack(arch, params["blocks"], x, positions,
-                       causal=not arch.bidirectional)
+                       causal=not arch.bidirectional,
+                       mrope_positions=batch.get("mrope_positions"),
+                       enc_out=enc_out)
     return logits(arch, params, x)
 
 
@@ -221,20 +272,47 @@ class Model:
                               self.device)
 
     @torch.inference_mode()
-    def prefill(self, caches: List[Params], tokens: torch.Tensor
+    def encode(self, frontend_embeddings: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder (module ``encode``): frames [B, Senc, D] ->
+        [B, Senc, D]."""
+        return encode(self.arch, self.params, frontend_embeddings)
+
+    @torch.inference_mode()
+    def fill_cross_kv(self, caches: List[Params],
+                      enc_out: torch.Tensor) -> List[Params]:
+        """Project the encoder output once into every decoder layer's
+        ``cross_k`` / ``cross_v`` (in place), as JAX's ``_fill_cross_kv``."""
+        for blk, cache in zip(self.params["blocks"], caches):
+            if "xattn" in blk:
+                k, v = attn_lib.project_enc_kv(self.arch, blk["xattn"],
+                                               enc_out)
+                cache["cross_k"].copy_(k)
+                cache["cross_v"].copy_(v)
+        return caches
+
+    @torch.inference_mode()
+    def prefill(self, caches: List[Params], tokens: torch.Tensor,
+                frontend_embeddings: Optional[torch.Tensor] = None,
+                mrope_positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Params]]:
         """Fill ``caches`` (in place) from a [B, S] prompt -> (fp32 logits
-        of the last position [B, 1, Vp], the same caches)."""
+        of the last position [B, 1, Vp], the same caches). An encdec arch
+        given ``frontend_embeddings`` [B, Senc, D] first encodes them and
+        fills the cross K/V (``encode``, ``fill_cross_kv``); without them
+        the decoder reads the cross K/V already in ``caches``."""
+        if self.arch.family == "encdec" and frontend_embeddings is not None:
+            self.fill_cross_kv(caches, self.encode(frontend_embeddings))
         x = self._embed(tokens)
         positions = torch.zeros((tokens.shape[0],), dtype=torch.int64,
                                 device=tokens.device)
         x = tf.decode_stack(self.arch, self.params["blocks"], caches, x,
-                            positions)
+                            positions, mrope_positions)
         return self._logits(x[:, -1:]), caches
 
     @torch.inference_mode()
     def decode_step(self, caches: List[Params], tokens: torch.Tensor,
-                    positions: torch.Tensor
+                    positions: torch.Tensor,
+                    mrope_positions: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, List[Params]]:
         """One token for every sequence: tokens [B, 1] at cache rows
         ``positions`` [B] -> (fp32 logits [B, 1, Vp], the same caches,
@@ -248,5 +326,5 @@ class Model:
         else:
             x = self._embed(tokens)
         x = tf.decode_stack(arch, self.params["blocks"], caches, x,
-                            positions)
+                            positions, mrope_positions)
         return self._logits(x), caches

@@ -15,7 +15,12 @@ activations.
 
 Training blocks (``apply_block``, ``apply_stack``): pre-norm, or BERT's
 post-norm; attention or mamba mixers, MLP or MoE tails (the port trains
-the dense family; the others run the forward only). ``fused`` (None =
+the dense family; the others run the forward only); qwen2-vl's M-RoPE
+positions (``mrope_positions``) and, in a whisper decoder block, a
+cross-attention sublayer (``ln_x``, ``xattn``) over the encoder output
+``enc_out`` between the mixer and the MLP. The static engine's decoder
+blocks read the encoder's K/V from the layer cache (``cross_k``,
+``cross_v``), filled once a prefill. ``fused`` (None =
 ``REPRO_FUSED_BLOCKS``, default off) routes the
 post-norm residual add + norm sites through ``fused_residual_layernorm`` and
 the gelu MLP's bias + activation through ``bias_gelu``: a tolerance contract
@@ -68,24 +73,24 @@ def _ffn(arch: ArchConfig, p: Params, h: torch.Tensor, *,
 def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, causal: bool,
                 fused: Optional[bool] = None,
-                mixer: str = "attn") -> torch.Tensor:
+                mixer: str = "attn",
+                mrope_positions: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One pre-norm (or BERT post-norm) block over x [B, S, D], its mixer
-    attention or mamba, its tail an MLP or a MoE (none for mamba2). Only
-    the activations are returned: the dense family has no auxiliary loss
-    (JAX's is 0 for it), and the port does not train a MoE (its Switch
-    loss is left out)."""
+    attention or mamba, its tail an MLP or a MoE (none for mamba2); a
+    block with ``xattn`` given ``enc_out`` [B, Senc, D] attends to it
+    after the mixer. Only the activations are returned: the dense family
+    has no auxiliary loss (JAX's is 0 for it), and the port does not train
+    a MoE (its Switch loss is left out)."""
     if fused is None:
         fused = fused_blocks_enabled()
-    if arch.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"family {arch.family!r} is not ported to repro_torch yet (a "
-            "later slice)")
 
     def mix(h):
         if mixer == "mamba":
             return ssm_lib.apply_mamba(arch, p["mamba"], h)
         return attn_lib.apply_attention(arch, p["attn"], h, positions,
-                                        causal=causal)
+                                        causal=causal,
+                                        mrope_positions=mrope_positions)
 
     def add_norm(ln: Params, y: torch.Tensor, res: torch.Tensor):
         if fused:
@@ -94,29 +99,47 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
                 rms=arch.norm == "rmsnorm")
         return apply_norm(arch.norm, ln, res + y)
 
+    def cross(x):
+        if enc_out is None or "xattn" not in p:
+            return x
+        return x + _cross(arch, p, x, attn_lib.project_enc_kv(
+            arch, p["xattn"], enc_out))
+
     if arch.post_norm:
-        x = add_norm(p["ln1"], mix(x), x)
+        x = cross(add_norm(p["ln1"], mix(x), x))
         return add_norm(p["ln2"], _ffn(arch, p, x, fused=fused), x)
     if fused:
         raise NotImplementedError(
             "the fused pre-norm training block (decode_residual_norm with a "
             "gradient) is not ported")
-    x = x + mix(apply_norm(arch.norm, p["ln1"], x))
+    x = cross(x + mix(apply_norm(arch.norm, p["ln1"], x)))
     if "ln2" not in p:                  # mamba2 blocks have no MLP
         return x
     return x + _ffn(arch, p, apply_norm(arch.norm, p["ln2"], x))
 
 
+def _cross(arch: ArchConfig, p: Params, x: torch.Tensor,
+           enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """A decoder block's cross-attention delta: ``ln_x`` then attention
+    to the encoder's K/V."""
+    return attn_lib.apply_cross_attention(
+        arch, p["xattn"], apply_norm(arch.norm, p["ln_x"], x), enc_kv)
+
+
 def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
                 positions: torch.Tensor, causal: bool,
-                fused: Optional[bool] = None) -> torch.Tensor:
+                fused: Optional[bool] = None,
+                mrope_positions: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every block in turn; with ``arch.remat`` each block is recomputed in
     the backward pass, so only its [B, S, D] input stays alive."""
     if fused is None:
         fused = fused_blocks_enabled()
-    for p, kind in zip(blocks, _stack_kinds(arch)):
+    for p, kind in zip(blocks, _stack_kinds(arch, len(blocks))):
         blk = functools.partial(apply_block, arch, positions=positions,
-                                causal=causal, fused=fused, mixer=kind)
+                                causal=causal, fused=fused, mixer=kind,
+                                mrope_positions=mrope_positions,
+                                enc_out=enc_out)
         if arch.remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(blk, p, x,
                                                   use_reentrant=False)
@@ -143,9 +166,13 @@ def layer_kinds(arch: ArchConfig) -> Tuple[str, ...]:
                  for i in range(period_length(arch)))
 
 
-def _stack_kinds(arch: ArchConfig) -> List[str]:
+def _stack_kinds(arch: ArchConfig, num_layers: Optional[int] = None
+                 ) -> List[str]:
+    """The mixer kind of each layer of a stack of ``num_layers`` (default
+    the arch's decoder stack; whisper's encoder has ``enc_layers``)."""
     kinds = layer_kinds(arch)
-    return [kinds[i % len(kinds)] for i in range(arch.num_layers)]
+    n = arch.num_layers if num_layers is None else num_layers
+    return [kinds[i % len(kinds)] for i in range(n)]
 
 
 def init_serving_state(arch: ArchConfig, num_pages: int, page_size: int,
@@ -386,45 +413,57 @@ def init_caches(arch: ArchConfig, batch: int, max_len: int,
                 dtype: torch.dtype, device) -> List[Params]:
     """The static engine's decode caches, one entry per layer of the
     flattened stack: ``attn`` layers a dense ``{k, v}: [B, max_len, Hkv,
-    Dh]`` cache, ``mamba`` layers ``{conv: [B, W-1, C], state: [B, H, N,
-    P]}``. Both are updated in place."""
-    if arch.family == "encdec":
-        raise NotImplementedError(
-            "whisper's cross-attention KV cache is not ported to "
-            "repro_torch yet")
-
+    Dh]`` cache (an encdec decoder layer also ``{cross_k, cross_v}: [B,
+    enc_seq_len, Hkv, Dh]``, the encoder's K/V), ``mamba`` layers
+    ``{conv: [B, W-1, C], state: [B, H, N, P]}``. All are updated in
+    place."""
     def layer_cache(kind):
         if kind == "attn":
-            return attn_lib.init_kv_cache(arch, batch, max_len, dtype, device)
+            c = attn_lib.init_kv_cache(arch, batch, max_len, dtype, device)
+            if arch.family == "encdec":
+                shape = (batch, arch.enc_seq_len, arch.num_kv_heads,
+                         arch.resolved_head_dim)
+                for name in ("cross_k", "cross_v"):
+                    c[name] = torch.zeros(shape, dtype=dtype, device=device)
+            return c
         return ssm_lib.init_mamba_cache(arch, batch, dtype, device)
     return [layer_cache(k) for k in _stack_kinds(arch)]
 
 
 def decode_period(arch: ArchConfig, blk: Params, cache: Params,
                   x: torch.Tensor, positions: torch.Tensor,
-                  kind: str = "attn") -> torch.Tensor:
+                  kind: str = "attn",
+                  mrope_positions: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """One layer of the static engine over S new tokens x [B, S, D] (S > 1
     prefill, S == 1 decode) at cache rows ``positions`` [B], dispatched on
-    its mixer ``kind``; the layer's cache is updated in place."""
+    its mixer ``kind``; the layer's cache is updated in place. A whisper
+    decoder layer attends to the encoder's K/V in its cache after the
+    mixer."""
     def mix(h):
         if kind == "attn":
             return attn_lib.extend_attention(arch, blk["attn"], h, cache,
-                                             positions)
+                                             positions, mrope_positions)
         y, new = ssm_lib.extend_mamba(arch, blk["mamba"], h, cache)
         cache["conv"].copy_(new["conv"])
         cache["state"].copy_(new["state"])
         return y
     x = _decode_block_mix(arch, blk, x, mix)
+    if "xattn" in blk:
+        x = x + _cross(arch, blk, x, (cache["cross_k"], cache["cross_v"]))
     return _decode_block_ffn(arch, blk, x)
 
 
 def decode_stack(arch: ArchConfig, blocks: List[Params],
                  caches: List[Params], x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor,
+                 mrope_positions: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Every layer of the static engine in turn (prefill or one decode
     step); returns the activations, the caches are updated in place."""
     for blk, cache, kind in zip(blocks, caches, _stack_kinds(arch)):
-        x = decode_period(arch, blk, cache, x, positions, kind)
+        x = decode_period(arch, blk, cache, x, positions, kind,
+                          mrope_positions)
     return x
 
 

@@ -29,10 +29,11 @@ def clip_by_global_norm(grads, max_norm: float):
 def accumulate_microbatches(loss_fn: Callable, params, batch: Batch,
                             num_micro: int) -> Tuple[object, Dict]:
     """Gradients of ``loss_fn(params, batch) -> (loss, metrics)`` with
-    respect to every leaf of ``params``. With ``num_micro > 1`` the leading
-    batch dim is split, one micro-batch's forward and backward run at a time
-    (a Python loop in place of JAX's ``lax.scan``), the gradients are
-    averaged in fp32 and the metrics averaged."""
+    respect to every leaf of ``params``. With ``num_micro > 1`` the batch
+    dim is split (the leading one; axis 1 of ``mrope_positions`` [3, B,
+    S], so its three streams stay together), one micro-batch's forward and
+    backward run at a time (a Python loop in place of JAX's ``lax.scan``),
+    the gradients are averaged in fp32 and the metrics averaged."""
     leaves = tree.leaves(params)
 
     def grads_of(mb):
@@ -42,7 +43,10 @@ def accumulate_microbatches(loss_fn: Callable, params, batch: Batch,
     if num_micro == 1:
         grads, metrics = grads_of(batch)
         return tree.unflatten(params, list(grads)), metrics
-    b = next(iter(batch.values())).shape[0]
+    def batch_dim(k):
+        return 1 if k == "mrope_positions" else 0
+
+    b = next(v.shape[batch_dim(k)] for k, v in batch.items())
     if b % num_micro:
         raise ValueError(f"batch {b} is not divisible into {num_micro} "
                          "micro-batches")
@@ -50,7 +54,8 @@ def accumulate_microbatches(loss_fn: Callable, params, batch: Batch,
            for p in leaves]
     seen = []
     for i in range(num_micro):
-        mb = {k: v.chunk(num_micro, dim=0)[i] for k, v in batch.items()}
+        mb = {k: v.chunk(num_micro, dim=batch_dim(k))[i]
+              for k, v in batch.items()}
         grads, metrics = grads_of(mb)
         for a, g in zip(acc, grads):
             a.add_(g.float() / num_micro)

@@ -9,7 +9,10 @@ streams for the same weights and requests.
 The stack is driven through the per-layer decode-state protocol
 (``models.transformer.init_serving_state``): attention layers keep paged
 KV pools, mamba layers a pooled, constant-size state per slot. The dense,
-moe, attention-free ssm (mamba2) and hybrid (jamba) families are served.
+moe, vlm (qwen2-vl: M-RoPE with the text-only positions, as JAX's engine
+passes no ``mrope_positions``), attention-free ssm (mamba2) and hybrid
+(jamba) families are served; encdec (whisper) is static-engine only and
+refused with JAX's message.
 Slot recycling resets a mamba row at the next sequence's first chunk, and
 preemption stays forced replay: re-prefilling the victim's context
 recomputes the state. Prefix caching shares pages, which recurrent state is
@@ -67,8 +70,8 @@ Python branches on the ``sampled`` / ``filtered`` flags, keyed as JAX keys
 its jit cache; ``trace_stats()`` counts the variants the traffic exercised
 and their traces (a graph capture on the card, a first use otherwise).
 
-Not ported yet (each raises ``NotImplementedError``): ``tp > 1``, fused
-decode with a logit softcap and the vlm and encdec families.
+Not ported yet (each raises ``NotImplementedError``): ``tp > 1`` and fused
+decode with a logit softcap.
 """
 from __future__ import annotations
 
@@ -93,7 +96,7 @@ from .sampling import (fused_decode_enabled, fused_sampling_enabled,
                        sample_tokens)
 from .scheduler import Request, Scheduler, SequenceState
 
-SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SERVABLE_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def prefix_cache_off_reason(arch) -> Optional[str]:
@@ -122,8 +125,9 @@ class ContinuousEngine:
                  fused_decode: Optional[bool] = None):
         arch = model.arch
         if arch.family not in SERVABLE_FAMILIES:
-            raise _not_ported(f"serving the {arch.family!r} family",
-                              "a later slice ports vlm and encdec")
+            raise ValueError(f"continuous engine serves families "
+                             f"{SERVABLE_FAMILIES}; {arch.name} is "
+                             f"{arch.family!r}")
         if arch.bidirectional:
             raise ValueError("encoder-only archs have no decode step")
         kinds = tf.layer_kinds(arch)

@@ -130,9 +130,11 @@ def test_model_flops_and_roofline_terms_match_jax(name, smoke):
 
 
 def test_other_families_raise():
-    """The moe family counts now, as ``repro`` counts it (deepseek, jamba
-    and internlm2 are held under ``==`` in ``test_torch_moe.py``); encdec
-    still raises."""
+    """(Name kept from when encdec still raised.) The moe family counts as
+    ``repro`` counts it (deepseek, jamba and internlm2 are held under
+    ``==`` in ``test_torch_moe.py``), and so does encdec now: whisper's
+    encoder and cross-attention in ``param_count``, ``transformer_gemms``
+    and ``nongemm_ops``, under ``==``."""
     jarch, arch = (dataclasses.replace(get("deepseek-moe-16b"),
                                        num_layers=3)
                    for get in (jax_smoke_config, smoke_config))
@@ -143,12 +145,16 @@ def test_other_families_raise():
             analytical.transformer_gemms(arch, 2, 16)] == \
         [dataclasses.astuple(g) for g in
          janalytical.transformer_gemms(jarch, 2, 16)]
-    encdec = dataclasses.replace(arch, family="encdec", moe=None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        encdec.param_count()
-    for fn in (analytical.transformer_gemms, analytical.nongemm_ops):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            fn(encdec, 2, 16)
+    jenc, enc = (dataclasses.replace(a, family="encdec", moe=None,
+                                     enc_layers=3, enc_seq_len=16)
+                 for a in (jarch, arch))
+    assert enc.param_count() == jenc.param_count() > \
+        dataclasses.replace(enc, enc_layers=0).param_count()
+    for fn, jfn in ((analytical.transformer_gemms,
+                     janalytical.transformer_gemms),
+                    (analytical.nongemm_ops, janalytical.nongemm_ops)):
+        assert [dataclasses.astuple(r) for r in fn(enc, 2, 16)] == \
+            [dataclasses.astuple(r) for r in jfn(jenc, 2, 16)]
 
 
 def test_h100_is_the_default_and_v5e_is_not_ported():

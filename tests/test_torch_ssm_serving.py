@@ -209,20 +209,30 @@ def test_prefix_cache_off_reason_is_one_rule(pair, family):
 
 
 def test_hybrid_engine_is_still_not_ported(pair):
-    """The hybrid family serves now (``tests/test_torch_moe_serving.py``);
-    the vlm family (qwen2-vl's M-RoPE and vision stub) is still refused,
-    naming a later slice, by the engine, the model's init and the CLI."""
-    t_model = pair[2]
-    vlm = dataclasses.replace(t_model.arch, name="qwen2-vl-2b-smoke",
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="not ported.*later slice"):
-        ContinuousEngine(Model(vlm, t_model.params), num_slots=2,
-                         num_pages=8, page_size=4)
-    with pytest.raises(NotImplementedError, match="not ported.*later slice"):
-        Model.init(vlm, torch.Generator().manual_seed(0), device="cpu")
-    for name in ("qwen2-vl-2b", "whisper-base"):
-        with pytest.raises(SystemExit):
-            serve.main(["--arch", name, "--smoke", "--device", "cpu"])
+    """(Name kept from when it pinned the vlm refusal.) The vlm family now
+    serves: ``Model.init`` builds qwen2-vl's smoke weights and the
+    continuous engine serves them, as the launcher does on both engines;
+    the encdec family stays static-only, as in JAX: the continuous engine
+    refuses whisper with JAX's ``ValueError`` and the launcher refuses
+    ``--engine continuous`` for it."""
+    vlm = Model.init(smoke_config("qwen2-vl-2b"),
+                     torch.Generator().manual_seed(0), device="cpu")
+    res = ContinuousEngine(vlm, num_slots=2, num_pages=8, page_size=4).run(
+        [Request(uid=0, prompt=list(range(5, 14)), max_new_tokens=3)])
+    assert len(res[0]["tokens"]) == 3
+    whisper = Model.init(smoke_config("whisper-base"),
+                         torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="continuous engine serves "
+                                         "families.*is 'encdec'"):
+        ContinuousEngine(whisper, num_slots=2, num_pages=8, page_size=4)
+    for engine in ("static", "continuous"):
+        out = serve.main(["--arch", "qwen2-vl-2b", "--smoke", "--device",
+                          "cpu", "--engine", engine, "--batch", "1",
+                          "--prompt-len", "8", "--gen-len", "2"])
+        assert out["tokens"].shape == (1, 2)
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu",
+                    "--engine", "continuous"])
 
 
 def test_weight_bridge_round_trip_for_mamba2(pair):
