@@ -46,8 +46,10 @@ Phases, each printing one line (any failure exits non-zero):
      training kernels at full-width bert-large shapes: the fused residual
      add + layernorm at [1024, 1024] and [4096, 1024] (B8 with S128 and
      S512) within 1 bf16 ulp of max(|output|, |output before the bias|),
-     bias + GeLU at [1024, 4096] and [4096, 4096] within 1 bf16 ulp +
-     |h| 2^-22 of its plain version run in fp32 on the same bf16 inputs,
+     bias + GeLU at [1024, 4096] and [4096, 4096] and on a tail-heavy
+     [1024, 4096] (h over [-12, 12]) within 1 bf16 ulp + |h| 2^-22 of its
+     plain version run in fp32 on the same bf16 inputs, its device time
+     at both sizes beside F.gelu's and the byte bound,
      and both LAMB stages on the wqkv, embedding and bias shapes and a
      ragged 4099 (m', v' within 2 fp32 ulps, the trust ratio within 1e-5
      relative); and the mamba mixer's gated RMSNorm at mamba2's width
@@ -231,16 +233,24 @@ Phases, each printing one line (any failure exits non-zero):
   8. training: full-width bert-large (24 layers, d_model 1024, vocab
      30522, bf16 compute, fp32 master weights, seeded random weights), B8
      S128, LAMB at 1e-3, 6 steps through build_train_step and train_loop
-     with REPRO_FUSED_BLOCKS=1 and fused_optimizer_kernel=True (launch
-     counters set to 0 just before, read just after: exactly 96 norms, 48
-     GeLUs and 296 launches of each LAMB stage a step), one more fused step
-     under torch.cuda.set_sync_debug_mode counting the calls that made the
-     host wait for the card, one under torch.profiler (device time by kind,
-     host time by part of the step, and each LAMB stage's device time
-     summed over its 296 launches beside its byte bound summed over the
-     leaves), then 6 unfused steps from the same
-     weights and batches; every loss finite, the last below the first on
-     both paths, the step-1 losses within 1 bf16 ulp of each other;
+     with REPRO_FUSED_BLOCKS=1 and fused_optimizer_kernel=True through
+     bundle.fn (step 1 eager on a side stream, step 2 captured as a CUDA
+     graph and replayed, then one replay a step), then 6 through
+     bundle.eager from the same weights and batches: losses, grad norms
+     and the final master weights, m, v and parameters bitwise equal;
+     launch counters set to 0 just before each run, read just after:
+     exactly 96 norms, 48 GeLUs and 296 launches of each LAMB stage a step
+     on both (a replay adds the launches its capture counted); one more
+     replayed step under torch.cuda.set_sync_debug_mode counting the calls
+     that made the host wait for the card (none allowed), one replayed and
+     one eager step under torch.profiler (device time by kind, "other"
+     split into its largest kernels by name, host time by part of the
+     step, and each LAMB stage's device time summed over its 296 launches
+     beside its byte bound summed over the leaves), 5 more steps of each
+     back to back, the graph pool and peak memory; then 6 unfused steps
+     (graphed) from the same weights and batches; every loss finite, the
+     last below the first on every run, the fused and unfused step-1
+     losses within 1 bf16 ulp of each other;
   9. one JSON line of per-kernel numbers (times from CUDA events; the
      untied head its own entry; each kernel of phase 6c's paths with its
      numbers at the new shapes under "vlm_encdec_shapes" or, for flash,
@@ -3521,16 +3531,26 @@ def check_residual_layernorm(dev):
 
 
 def check_bias_gelu(dev):
-    """bias + tanh-GeLU at [B*S, 4096] for B8 with S128 and S512, against
-    the plain version run in fp32 on the same bf16 inputs (the kernel's
-    arithmetic; the plain version itself adds in bf16, as JAX's)."""
+    """bias + tanh-GeLU at [B*S, 4096] for B8 with S128 and S512, and a
+    tail-heavy [1024, 4096] (h = x + b spread over [-12, 12]), against the
+    plain version run in fp32 on the same bf16 inputs (the kernel's
+    arithmetic; the plain version itself adds in bf16, as JAX's). Device
+    time at both sizes beside F.gelu's on a precomputed sum and the byte
+    bound."""
     from repro_torch.kernels.bias_gelu import ops, ref
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    f, err, err_bf16, times, keep = 4096, 0.0, 0.0, {}, None
-    for rows in (1024, 4096):
-        x = (2 * torch.randn((rows, f), generator=gen, device=dev)).bfloat16()
+    f, err, err_bf16, keep = 4096, 0.0, 0.0, None
+    times, dev_ms, lib_ms, bounds = {}, {}, {}, {}
+    for rows in (1024, 4096, "tail"):
+        n = 1024 if rows == "tail" else rows
         b = (0.5 * torch.randn((f,), generator=gen, device=dev)).bfloat16()
+        if rows == "tail":
+            x = (24 * torch.rand((n, f), generator=gen, device=dev) - 12
+                 - b.float()).bfloat16()
+        else:
+            x = (2 * torch.randn((n, f), generator=gen,
+                                 device=dev)).bfloat16()
         y = ops.bias_gelu(x, b).float()
         h = x.float() + b.float()
         p32 = ref.bias_gelu(x.float(), b.float()).bfloat16().float()
@@ -3538,35 +3558,72 @@ def check_bias_gelu(dev):
         torch.cuda.synchronize()
         diff = (y - p32).abs()
         if not bool((diff <= _bf16_ulp(p32) + h.abs() * GELU_TAIL).all()):
-            _fail(f"bias_gelu [{rows}, {f}]: differs from its plain version "
-                  f"in fp32 beyond 1 bf16 ulp + |h| 2^-22 (max abs "
+            _fail(f"bias_gelu [{n}, {f}] ({rows}): differs from its plain "
+                  f"version in fp32 beyond 1 bf16 ulp + |h| 2^-22 (max abs "
                   f"{diff.max().item()})")
+        if rows == "tail":
+            tail = {"max_abs_err": diff.max().item(),
+                    "h_range": [h.min().item(), h.max().item()],
+                    "worst_of_gate": (diff / (_bf16_ulp(p32) + h.abs()
+                                              * GELU_TAIL)).max().item()}
+            continue
         err = max(err, diff.max().item())
         err_bf16 = max(err_bf16, (y - pbf).abs().max().item())
         times[rows] = _time_ms(lambda: ops.bias_gelu(x, b), 200)
+        hb = x + b
+        dev_ms[rows] = _profiled_ms(lambda: ops.bias_gelu(x, b),
+                                    ("bias_gelu_kernel",))
+        lib_ms[rows] = _profiled_ms(lambda: F.gelu(hb, approximate="tanh"),
+                                    ("",))
+        # x read and y written once, the bias once; about 9 fp32
+        # operations an element (the add, h * h, an FMA, a multiply, ex2,
+        # an add, a reciprocal, a multiply)
+        bounds[rows] = _bound(2 * rows * f * 2 + f * 2, 9.0 * rows * f,
+                              fp32=True)
         if rows == 1024:
-            keep = (x, b)
-    x, b = keep
+            keep = (x, b, hb)
+    x, b, hb = keep
     plain_ms = _time_ms(lambda: ref.bias_gelu(x, b), 50)
-    hb = x + b
     library_ms = _time_ms(lambda: F.gelu(hb, approximate="tanh"), 200)
-    library_device_ms = _profiled_ms(
-        lambda: F.gelu(hb, approximate="tanh"), ("",))
-    dev_ms = _profiled_ms(lambda: ops.bias_gelu(x, b), ("bias_gelu_kernel",))
-    bound_ms, bound_by = _bound(2 * 1024 * f * 2 + f * 2, 16.0 * 1024 * f,
-                                fp32=True)
+    share = {r: (bounds[r][0] / dev_ms[r] if dev_ms[r] else None)
+             for r in dev_ms}
+    lib_share = {r: (bounds[r][0] / lib_ms[r] if lib_ms[r] else None)
+                 for r in lib_ms}
+    print("[bias_gelu] " + "; ".join(
+        f"[{r}, {f}]: device {_ms(dev_ms[r])} ms against F.gelu "
+        f"{_ms(lib_ms[r])} (x{(dev_ms[r] or 0) / (lib_ms[r] or 1):.3f}), "
+        f"bound {bounds[r][0]:.6f} ({bounds[r][1]}); share of the bound "
+        f"{share[r] or 0:.3f} (F.gelu {lib_share[r] or 0:.3f}); events "
+        f"{times[r]:.5f}" for r in dev_ms)
+        + f"; tail-heavy h in [{tail['h_range'][0]:.2f}, "
+        f"{tail['h_range'][1]:.2f}]: {tail['worst_of_gate']:.3f} of the "
+        f"gate; plan {tuple(ops.gelu_plan(1024, f, _sms(dev)))}")
     return {"name": "bias_gelu", "route": "cuda",
             "source": "src/repro_torch/kernels/bias_gelu/csrc/bias_gelu.cu",
             "replaces": "src/repro/kernels/bias_gelu/kernel.py:28",
             "max_abs_err": err, "max_abs_err_vs_bf16_plain": err_bf16,
+            "tail_heavy": tail,
             "tol": "1 bf16 ulp + |h| 2^-22 of the plain version in fp32",
             "ms": times[1024], "ms_4096_rows": times[4096],
-            "profiler_device_ms_per_call": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "profiler_device_ms_per_call": dev_ms[1024],
+            "profiler_device_ms_4096_rows": dev_ms[4096],
+            "plain_ms": plain_ms,
+            "bound_ms": bounds[1024][0], "bound_by": bounds[1024][1],
+            "bound_ms_4096_rows": bounds[4096][0],
+            "share_of_bound": share[1024],
+            "share_of_bound_4096_rows": share[4096],
             "library_ms": library_ms,
-            "library_device_ms": library_device_ms,
+            "library_device_ms": lib_ms[1024],
+            "library_device_ms_4096_rows": lib_ms[4096],
+            "library_share_of_bound": lib_share[1024],
+            "library_share_of_bound_4096_rows": lib_share[4096],
+            "plan": ops.gelu_plan(1024, f, _sms(dev))._asdict(),
             "library_note": "F.gelu(approximate='tanh') of a precomputed "
                             "bf16 x + bias: the activation only"}
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def check_lamb(dev):
@@ -3735,23 +3792,27 @@ def expected_train_launches(arch, n_leaves: int):
             "lamb_stage1": n_leaves, "lamb_stage2": n_leaves}
 
 
-def train(arch, params0, fused: bool):
+def train(arch, params0, fused: bool, graphed: bool = True):
     """TRAIN_STEPS steps of bert-large through build_train_step and
     train_loop, LAMB at 1e-3 with fp32 master weights, from ``params0``,
-    on the synthetic MLM batches of SEED. ``fused`` turns on both switches:
-    REPRO_FUSED_BLOCKS and RunConfig.fused_optimizer_kernel. Every launch
-    counter is set to 0 just before the loop and read just after."""
+    on the synthetic MLM batches of SEED: through ``bundle.fn`` (step 1 the
+    warm-up, step 2 the capture, then one CUDA-graph replay a step), or
+    with ``graphed=False`` through ``bundle.eager``. ``fused`` turns on
+    both switches: REPRO_FUSED_BLOCKS and RunConfig.fused_optimizer_kernel.
+    Every launch counter is set to 0 just before the loop and read just
+    after."""
     from repro_torch.configs import RunConfig, ShapeConfig
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.train.loop import LoopConfig, train_loop
     from repro_torch.train.steps import build_train_step
     os.environ["REPRO_FUSED_BLOCKS"] = "1" if fused else "0"
-    tag = "fused" if fused else "unfused"
+    tag = ("fused" if fused else "unfused") + ("" if graphed else " eager")
     run = RunConfig(arch=arch, shape=ShapeConfig(
         "chip", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
         optimizer="lamb", learning_rate=1e-3, zero1=False,
         fused_optimizer_kernel=fused, master_weights=True)
     bundle = build_train_step(run, "cuda")
+    step_fn = bundle.fn if graphed else bundle.eager
     state = bundle.init(params=params0)
     data = SyntheticPipeline(DataConfig(
         vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
@@ -3763,7 +3824,7 @@ def train(arch, params0, fused: bool):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    out = train_loop(bundle.fn, state, data,
+    out = train_loop(step_fn, state, data,
                      LoopConfig(max_steps=TRAIN_STEPS, log_every=1),
                      log=lambda s: print(f"[train {tag}] {s}"))
     torch.cuda.synchronize()
@@ -3778,25 +3839,60 @@ def train(arch, params0, fused: bool):
     if not losses[-1] < losses[0]:
         _fail(f"{tag} training: loss did not fall over {TRAIN_STEPS} steps: "
               f"{losses}")
-    step_s = float(np.median([h["dt"] for h in hist[1:]]))
+    # after the warm-up (step 1) and the capture (step 2)
+    step_s = float(np.median([h["dt"] for h in hist[2:]]))
+    graph = ({"captures": bundle.fn.captures, "replays": bundle.fn.replays,
+              "pool_bytes": bundle.fn.pool_bytes,
+              "capture_step_s": hist[1]["dt"]} if graphed else None)
     print(f"[train {tag}] bert-large {arch.num_layers}L d{arch.d_model} "
           f"B{TRAIN_BATCH} S{TRAIN_SEQ} LAMB, fp32 master, bf16 compute: "
           f"losses {[round(x, 4) for x in losses]}; step time (median of "
-          f"steps 2-{TRAIN_STEPS}) {step_s * 1e3:.2f} ms, "
+          f"steps 3-{TRAIN_STEPS}) {step_s * 1e3:.2f} ms, "
           f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; wall "
           f"{wall:.2f} s; peak memory {peak / 2**30:.2f} GiB ("
           f"{(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
-          f"held when the loop started); launches {launches}")
+          f"held when the loop started); launches {launches}"
+          + (f"; graph: {graph['captures']} captured, {graph['replays']} "
+             f"replays, pool {graph['pool_bytes'] / 2**30:.3f} GiB, the "
+             f"capture step {graph['capture_step_s'] * 1e3:.1f} ms"
+             if graph else ""))
     return {"losses": losses, "step_s": step_s, "wall": wall, "peak": peak,
-            "peak_above_start": peak - base,
+            "peak_above_start": peak - base, "graph": graph,
             "launches": launches, "serve_launches": serve_launches,
-            "bundle": bundle, "state": state, "data": data,
-            "grad_norms": [h.get("grad_norm") for h in hist]}
+            "bundle": bundle, "step_fn": step_fn, "state": state,
+            "data": data, "grad_norms": [h.get("grad_norm") for h in hist]}
+
+
+def compare_runs(graphed, eager):
+    """The graphed run against the eager one from the same weights and
+    batches: losses and grad norms as floats, the final master weights,
+    m, v and the bf16 parameters, all bitwise. Fails on any difference."""
+    from repro_torch import tree
+    bad = [k for k in ("losses", "grad_norms") if graphed[k] != eager[k]]
+    sg, se = graphed["state"], eager["state"]
+    leaves = 0
+    for part, a, b in (("master", sg["opt"]["master"], se["opt"]["master"]),
+                       ("m", sg["opt"]["m"], se["opt"]["m"]),
+                       ("v", sg["opt"]["v"], se["opt"]["v"]),
+                       ("params", sg["params"], se["params"])):
+        la, lb = tree.leaves(a), tree.leaves(b)
+        leaves += len(la)
+        diff = sum(not torch.equal(x, y) for x, y in zip(la, lb))
+        if diff:
+            bad.append(f"{part} ({diff} of {len(la)} leaves)")
+    if bad:
+        _fail(f"the graphed fused run differs from the eager fused run in "
+              f"{bad}: losses {graphed['losses']} vs {eager['losses']}, "
+              f"grad norms {graphed['grad_norms']} vs {eager['grad_norms']}")
+    print(f"[graph] {TRAIN_STEPS} graphed fused steps bitwise the eager "
+          f"ones: losses, grad norms and {leaves} leaves of master, m, v "
+          f"and params")
+    return leaves
 
 
 def count_step_syncs(res) -> int:
-    """One more fused step under torch.cuda.set_sync_debug_mode("warn"):
-    the number of calls in it that made the host wait for the card. A step
+    """One more step under torch.cuda.set_sync_debug_mode("warn"): the
+    number of calls in it that made the host wait for the card. A step
     makes none (train_loop reads its metrics a step later); any fails."""
     import warnings
     batch = res["data"].batch(TRAIN_STEPS)
@@ -3805,7 +3901,7 @@ def count_step_syncs(res) -> int:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            res["bundle"].fn(res["state"], batch)
+            res["step_fn"](res["state"], batch)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     # PyTorch warns "called a synchronizing CUDA operation" at each one,
@@ -3813,11 +3909,23 @@ def count_step_syncs(res) -> int:
     syncs = [str(w.message).splitlines()[0] for w in caught
              if "synchroniz" in str(w.message)
              and "prototype" not in str(w.message)]
-    print(f"[syncs] one fused training step: {len(syncs)} synchronizing "
-          f"calls" + (f"; first: {sorted(set(syncs))[:3]}" if syncs else ""))
+    print(f"[syncs] one replayed fused training step: {len(syncs)} "
+          f"synchronizing calls"
+          + (f"; first: {sorted(set(syncs))[:3]}" if syncs else ""))
     if syncs:
         _fail(f"a training step made {len(syncs)} synchronizing calls")
     return len(syncs)
+
+
+def steady_step_ms(res, steps: int = 5) -> float:
+    """Host ms a step over ``steps`` more steps queued back to back and
+    ended by a synchronize (no metric read in between)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        res["step_fn"](res["state"], res["data"].batch(TRAIN_STEPS + 2 + i))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
 
 
 def lamb_bounds(leaf_sizes):
@@ -3831,19 +3939,19 @@ def lamb_bounds(leaf_sizes):
     return {"lamb_stage1": b1, "lamb_stage2": b2}
 
 
-def profile_train_step(res, leaf_sizes):
+def profile_train_step(res, leaf_sizes, tag: str):
     """One more fused step under torch.profiler: device time of GEMMs, the
-    norm, GeLU, LAMB and everything else, launches, idle share; and each
-    LAMB stage's device time summed over its launches beside its byte
-    bound summed over the leaves (``lamb_bounds``): launches x gap."""
+    norm, GeLU, LAMB and everything else ("other", also split into its
+    largest kernels by name), launches, idle share; and each LAMB stage's
+    device time summed over its launches beside its byte bound summed over
+    the leaves (``lamb_bounds``): launches x gap."""
     from torch.profiler import ProfilerActivity, profile
-    bundle, state = res["bundle"], res["state"]
     batch = res["data"].batch(TRAIN_STEPS + 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, met = bundle.fn(state, batch)
+        _, met = res["step_fn"](res["state"], batch)
         float(met["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -3861,18 +3969,19 @@ def profile_train_step(res, leaf_sizes):
     busy = sum(k[1] for k in kernels)
     cpu_top = sorted((e for e in events if e.self_cpu_time_total > 0),
                      key=lambda e: -e.self_cpu_time_total)[:8]
-    print(f"[profile train] host time by part of the step (ms, profiled): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+    print(f"[profile train {tag}] host time by part of the step (ms, "
+          f"profiled): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
           + "; top host ops by self time: " + "; ".join(
               f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
               for e in cpu_top))
     if busy <= 0:
-        print("[profile train] device time: not measured (the profiler "
-              "recorded no CUDA kernel time)")
-        return {"host_ms": host}
+        print(f"[profile train {tag}] device time: not measured (the "
+              f"profiler recorded no CUDA kernel time)")
+        return {"wall_ms": wall_ms, "host_ms": host}
     kinds = {"gemm": 0.0, "norm": 0.0, "gelu": 0.0, "lamb": 0.0,
              "other": 0.0}
-    for name, ms, _ in kernels:
+    other = []
+    for name, ms, count in kernels:
         low = name.lower()
         if "resln_kernel" in low:
             kinds["norm"] += ms
@@ -3885,37 +3994,64 @@ def profile_train_step(res, leaf_sizes):
             kinds["gemm"] += ms
         else:
             kinds["other"] += ms
+            other.append((name, ms, count))
     bounds = lamb_bounds(leaf_sizes)
     lamb = {}
-    for name, tag in (("lamb_stage1", "stage1_kernel"),
+    for name, key in (("lamb_stage1", "stage1_kernel"),
                       ("lamb_stage2", "stage2_kernel")):
-        hits = [(ms, c) for n, ms, c in kernels if tag in n]
+        hits = [(ms, c) for n, ms, c in kernels if key in n]
         ms = sum(h[0] for h in hits)
         lamb[name] = {"device_ms": ms, "launches": sum(h[1] for h in hits),
                       "bound_ms": bounds[name],
                       "gap_ms": ms - bounds[name]}
-    print("[profile train] LAMB in one fused step: " + "; ".join(
+    print(f"[profile train {tag}] LAMB in one fused step: " + "; ".join(
         f"{k} {v['launches']} launches, device {v['device_ms']:.4f} ms "
         f"against a summed byte bound of {v['bound_ms']:.4f} ms (launches "
         f"x gap {v['gap_ms']:.4f} ms)" for k, v in lamb.items()))
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    print(f"[profile train] one fused step under torch.profiler: wall "
-          f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+    other_top = [{"kernel": n, "device_ms": ms, "launches": c}
+                 for n, ms, c in sorted(other, key=lambda k: -k[1])[:12]]
+    # the host ops that launched the device time, by self device time (an
+    # eager step; a replay's kernels all belong to its graph launch)
+    by_op = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.self_device_time_total > 0),
+                   key=lambda k: -k[1])[:16]
+    print(f"[profile train {tag}] one fused step under torch.profiler: "
+          f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
           f"{1 - busy / wall_ms:.3f}; kernel launches "
           f"{sum(k[2] for k in kernels)}; by kind (ms) "
           + ", ".join(f"{k} {v:.2f}" for k, v in kinds.items())
           + "; top kernels " + "; ".join(
               f"{n[:48]} {ms:.2f} ms x{c}" for n, ms, c in top))
+    print(f"[profile train {tag}] \"other\" by kernel: " + "; ".join(
+        f"{_short_kernel(o['kernel'])} {o['device_ms']:.3f} ms "
+        f"x{o['launches']}" for o in other_top))
+    print(f"[profile train {tag}] device time by launching op: " + "; ".join(
+        f"{n} {ms:.3f} ms x{c}" for n, ms, c in by_op))
     return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds,
             "launches": sum(k[2] for k in kernels), "host_ms": host,
-            "lamb": lamb}
+            "lamb": lamb, "other_top": other_top,
+            "by_op": [{"op": n, "device_ms": ms, "calls": c}
+                      for n, ms, c in by_op]}
+
+
+def _short_kernel(name: str) -> str:
+    """An at::native kernel's name cut to its functor: the op it runs."""
+    name = name.replace("void ", "").replace("at::native::", "")
+    for cut in ("(anonymous namespace)::", "gpu_kernel_impl_nocast<",
+                "gpu_kernel_impl<"):
+        name = name.replace(cut, "")
+    return name[:110]
 
 
 def check_training(dev):
-    """The training slice end to end: fused, then unfused from the same
-    weights and batches; exact launch counts; step-1 losses within 1 bf16
-    ulp of the loss's magnitude (the forward of the two paths differs by
-    bf16 rounding only)."""
+    """The training slice end to end: fused through the graphed step, then
+    through the eager step from the same weights and batches (bitwise
+    equal), then unfused (graphed); exact launch counts a step; step-1
+    losses of fused and unfused within 1 bf16 ulp of the loss's magnitude
+    (the forward of the two paths differs by bf16 rounding only)."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
@@ -3931,17 +4067,43 @@ def check_training(dev):
           f"card in {time.perf_counter() - t0:.1f}s")
     want = expected_train_launches(arch, n_leaves)
     fused = train(arch, params0, True)
+    eager = train(arch, params0, True, graphed=False)
+    for run in (fused, eager):
+        for name, per_step in want.items():
+            if run["launches"][name] != per_step * TRAIN_STEPS:
+                _fail(f"{name}: {run['launches'][name]} launches in "
+                      f"{TRAIN_STEPS} fused steps "
+                      f"({'graphed' if run is fused else 'eager'}), "
+                      f"expected {per_step * TRAIN_STEPS} ({per_step} a "
+                      f"step)")
+    # step 1 is the warm-up; step 2 captures and replays; then one a step
+    if fused["graph"]["captures"] != 1 or \
+            fused["graph"]["replays"] != TRAIN_STEPS - 1:
+        _fail(f"the graphed run captured {fused['graph']['captures']} "
+              f"graphs and replayed {fused['graph']['replays']}, expected 1 "
+              f"and {TRAIN_STEPS - 1}")
+    leaves = compare_runs(fused, eager)
     syncs = count_step_syncs(fused)
-    prof = profile_train_step(fused, leaf_sizes)
-    del fused["bundle"], fused["state"]
+    prof = {"graphed": profile_train_step(fused, leaf_sizes, "graphed"),
+            "eager": profile_train_step(eager, leaf_sizes, "eager")}
+    steady = {"graphed": steady_step_ms(fused),
+              "eager": steady_step_ms(eager)}
+    print(f"[train] fused step, {TRAIN_STEPS} steps through train_loop "
+          f"(median of steps 3-{TRAIN_STEPS}): graphed "
+          f"{fused['step_s'] * 1e3:.2f} ms vs eager "
+          f"{eager['step_s'] * 1e3:.2f} ms; 5 more steps back to back: "
+          f"graphed {steady['graphed']:.2f} ms vs eager "
+          f"{steady['eager']:.2f} ms a step; graph pool "
+          f"{fused['graph']['pool_bytes'] / 2**30:.3f} GiB, peak memory "
+          f"graphed {fused['peak'] / 2**30:.2f} GiB, eager "
+          f"{eager['peak'] / 2**30:.2f} GiB")
+    for run in (fused, eager):
+        del run["bundle"], run["state"], run["step_fn"]
+    gc.collect()
     torch.cuda.empty_cache()
     plain = train(arch, params0, False)
-    del plain["bundle"], plain["state"]
+    del plain["bundle"], plain["state"], plain["step_fn"]
     for name, per_step in want.items():
-        if fused["launches"][name] != per_step * TRAIN_STEPS:
-            _fail(f"{name}: {fused['launches'][name]} launches in "
-                  f"{TRAIN_STEPS} fused steps, expected "
-                  f"{per_step * TRAIN_STEPS} ({per_step} a step)")
         if plain["launches"][name]:
             _fail(f"the unfused training path launched {name}")
     served = {k: v for k, v in fused["serve_launches"].items()
@@ -3956,9 +4118,10 @@ def check_training(dev):
     print(f"[train] step-1 loss fused {l_f:.6f} vs unfused {l_u:.6f} "
           f"(|diff| {abs(l_f - l_u):.3e}, tol {tol}); fused step "
           f"{fused['step_s'] * 1e3:.2f} ms vs unfused "
-          f"{plain['step_s'] * 1e3:.2f} ms")
-    return {"fused": fused, "unfused": plain, "profile": prof,
-            "syncs_in_a_step": syncs,
+          f"{plain['step_s'] * 1e3:.2f} ms (both graphed)")
+    return {"fused": fused, "fused_eager": eager, "unfused": plain,
+            "profile": prof, "steady_step_ms": steady,
+            "bitwise_leaves": leaves, "syncs_in_a_step": syncs,
             "per_step": want, "n_leaves": n_leaves, "n_params": n_params}
 
 
@@ -4429,14 +4592,15 @@ def main() -> int:
     flash_row["launches_qwen2_vl_static_flash"] = {
         k: qwen["static"]["flash"][k]
         for k in ("launches_prefill", "launches_decode")}
-    trained = {("fused" if f else "unfused"): {
-        k: training["fused" if f else "unfused"][k]
-        for k in ("losses", "step_s", "wall", "peak", "peak_above_start")}
-        for f in (True, False)}
+    trained = {run: {k: training[run][k] for k in (
+        "losses", "grad_norms", "step_s", "wall", "peak", "peak_above_start",
+        "graph")} for run in ("fused", "fused_eager", "unfused")}
     print(json.dumps({"kernels": rows + [flash_row] + mamba_rows + train_rows
                       + [softmax_row, moe["row"]],
                       "training": dict(
         trained, profile=training["profile"],
+        steady_step_ms=training["steady_step_ms"],
+        bitwise_leaves=training["bitwise_leaves"],
         syncs_in_a_step=training["syncs_in_a_step"],
         n_leaves=training["n_leaves"],
         n_params=training["n_params"], batch=TRAIN_BATCH, seq=TRAIN_SEQ),

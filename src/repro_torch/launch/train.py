@@ -5,10 +5,16 @@ LAMB at 1e-3; fp32 master weights), on one device. Synthetic MLM data from
 ``--seed``. ``REPRO_FUSED_BLOCKS=1`` routes the blocks through the fused
 norm and GeLU kernels (off by default, as in JAX); the fused LAMB kernels
 are ``RunConfig.fused_optimizer_kernel``, off here as in JAX's trainer.
+On the card each step after the second is one replay of the step captured
+as a CUDA graph (``train.steps.StepGraph``), as JAX's trainer always runs
+its jitted step; the last line gives the median step time after the
+capture.
 """
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 from .. import resolve_device
 from ..configs import RunConfig, ShapeConfig, get_config, smoke_config
@@ -57,9 +63,13 @@ def main(argv=None) -> dict:
     out = train_loop(bundle.fn, state, data, loop_cfg)
     losses = [h["loss"] for h in out["history"]]
     if losses:
+        # steps 1 and 2 are the warm-up and the capture on the card
+        steady = [h["dt"] for h in out["history"][2:]]
         print(f"[train] {arch.name} on {device}: loss {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f} over {len(losses)} steps (stragglers: "
-              f"{out['monitor'].stragglers})")
+              f"{losses[-1]:.4f} over {len(losses)} steps"
+              + (f", median step {np.median(steady) * 1e3:.2f} ms from step "
+                 f"3" if steady else "")
+              + f" (stragglers: {out['monitor'].stragglers})")
     return out
 
 

@@ -141,8 +141,11 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
                                 mrope_positions=mrope_positions,
                                 enc_out=enc_out)
         if arch.remat and torch.is_grad_enabled():
+            # no RNG state saved: no block draws random numbers, and saving
+            # it would read the generator inside a captured training step
             x = torch.utils.checkpoint.checkpoint(blk, p, x,
-                                                  use_reentrant=False)
+                                                  use_reentrant=False,
+                                                  preserve_rng_state=False)
         else:
             x = blk(p, x)
     return x

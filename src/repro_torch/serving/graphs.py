@@ -29,52 +29,20 @@ and of the page pools (the paged kernels' TMA descriptors are encoded at
 capture from the pools' base addresses), so a dispatch whose pools have
 moved recaptures, and the engine's ``trace_stats()["excess"]`` counts it.
 
-Python's cyclic garbage collector is run before a capture and held off
-during it: a collection in the middle of one could free an unreachable
-object holding another graph, pinned host memory or an event, and a CUDA
-call that frees one invalidates the capture.
-
-The kernel wrappers count a launch in Python, which runs at capture and not
-at replay: a capture's counts are taken back, and each replay adds the
-launches captured, so ``LAUNCHES`` stays exact. ``replays`` counts graph
-replays. On the CPU there is no graph: ``run`` calls the iteration ``k``
-times eagerly, on the same buffers.
+The capture and the launch accounting are ``repro_torch.graphs``'s:
+a replay adds the launches its capture counted, so ``LAUNCHES`` stays
+exact. ``replays`` counts graph replays. On the CPU there is no graph:
+``run`` calls the iteration ``k`` times eagerly, on the same buffers.
 """
 from __future__ import annotations
 
-import dataclasses
-import gc
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
-
-def launch_counters() -> List[Dict[str, int]]:
-    """Every kernel wrapper's ``LAUNCHES`` dict."""
-    from ..kernels.bias_gelu import ops as gelu_ops
-    from ..kernels.decode_attention import ops as attn_ops
-    from ..kernels.flash_attention import ops as flash_ops
-    from ..kernels.fused_lamb import ops as lamb_ops
-    from ..kernels.fused_layernorm import ops as ln_ops
-    from ..kernels.fused_lm_head import ops as head_ops
-    from ..kernels.fused_sampling import ops as samp_ops
-    from ..kernels.fused_softmax import ops as softmax_ops
-    return [m.LAUNCHES for m in (attn_ops, flash_ops, ln_ops, head_ops,
-                                 samp_ops, gelu_ops, lamb_ops, softmax_ops)]
-
-
-def _snapshot() -> List[Dict[str, int]]:
-    return [dict(d) for d in launch_counters()]
-
-
-@dataclasses.dataclass
-class Captured:
-    """One variant's graph, the launches one replay makes (kernel name ->
-    count) and the pool addresses it was captured against."""
-    graph: "torch.cuda.CUDAGraph"
-    launches: Dict[str, int]
-    pools: Tuple[int, ...]
+from .. import graphs
+from ..graphs import Captured
 
 
 class DecodeLoop:
@@ -161,11 +129,7 @@ class DecodeLoop:
         entry = self.graphs.get(key)
         captured = entry is None or entry.pools != pools
         if captured:
-            side = self._side_stream()
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                step()                  # iteration 0, eagerly: the warm-up
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            graphs.warm_up(step, self._side_stream())   # iteration 0
             k -= 1
             entry = self.graphs[key] = self._capture(step, pools)
         self.replay(entry, k)
@@ -174,13 +138,8 @@ class DecodeLoop:
     def replay(self, entry: Captured, k: int) -> None:
         """``k`` replays of a captured iteration, each counted as the
         launches it captured."""
-        for _ in range(k):
-            entry.graph.replay()
+        graphs.replay(entry, k)
         self.replays += k
-        if k:
-            for d in launch_counters():
-                for name in d:
-                    d[name] += k * entry.launches.get(name, 0)
 
     def read(self) -> torch.Tensor:
         """The read-back span (i, ok, exits, buf) as one tensor on the
@@ -206,27 +165,9 @@ class DecodeLoop:
                  pools: Tuple[int, ...]) -> Captured:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        torch.cuda.synchronize(self.device)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        before = _snapshot()
-        graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._side_stream()):
-                step()
-        finally:
-            if collecting:
-                gc.enable()
-        launches: Dict[str, int] = {}
-        for d, was in zip(launch_counters(), before):
-            for name, n in d.items():
-                if n != was[name]:
-                    launches[name] = n - was[name]
-                d[name] = was[name]     # a capture launches nothing
+        entry, added = graphs.capture(step, pool=self._pool,
+                                      stream=self._side_stream(),
+                                      device=self.device, pools=pools)
         self.captures += 1
-        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
-        return Captured(graph, launches, pools)
+        self.pool_bytes += added
+        return entry
