@@ -246,11 +246,21 @@ Phases, each printing one line (any failure exits non-zero):
      one eager step under torch.profiler (device time by kind, "other"
      split into its largest kernels by name, host time by part of the
      step, and each LAMB stage's device time summed over its 296 launches
-     beside its byte bound summed over the leaves), 5 more steps of each
+     beside its byte bound summed over the leaves; the eager step also
+     under an optrace recorder with its op ranges), 5 more steps of each
      back to back, the graph pool and peak memory; then 6 unfused steps
      (graphed) from the same weights and batches; every loss finite, the
      last below the first on every run, the fused and unfused step-1
-     losses within 1 bf16 ulp of each other;
+     losses within 1 bf16 ulp of each other; then the characterization
+     (repro_torch.core.characterize): one eager fused step on a copy of
+     the eager run's state priced op by op (FLOPs and bytes by category
+     and by bucket, the H100 roofline terms, kernel ops equal to the
+     launches a step, GEMM FLOPs within GEMM_TOL of the analytical model
+     plus the recomputed block forwards), and the profiled eager step's
+     device time given to the op that launched each kernel (within 1% of
+     the busy time) by bucket, category, pass and paper phase beside the
+     trace's roofline and analytical.phase_times (H100, MI100), Fig. 4
+     and Fig. 5 shares, the unscoped share;
   9. one JSON line of per-kernel numbers (times from CUDA events; the
      untied head its own entry; each kernel of phase 6c's paths with its
      numbers at the new shapes under "vlm_encdec_shapes" or, for flash,
@@ -267,6 +277,7 @@ the card from a seeded torch.Generator; nothing is downloaded.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -1729,6 +1740,8 @@ def profile_serve(model, engine=None, reqs=None):
     kernel, by kind, kernel launches, and the device's idle share of the
     wall time. Returns {kernel name: (device ms, launches)}."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import optrace
     engine = engine or make_engine(model, True)
     reqs = reqs or trace(model.arch, SEED)
     torch.cuda.synchronize()
@@ -1751,6 +1764,7 @@ def profile_serve(model, engine=None, reqs=None):
              "other": 0.0}
     if model.arch.moe is not None:
         kinds["moe routing"] = 0.0
+    other_by = {}               # "other" by the launching op's class
     for name, ms, _ in kernels:
         low = name.lower()
         if "moe routing" in kinds and any(w in low for w in MOE_ROUTING):
@@ -1769,11 +1783,14 @@ def profile_serve(model, engine=None, reqs=None):
             kinds["gemm"] += ms
         else:
             kinds["other"] += ms
+            cat = optrace.kernel_category(name)
+            other_by[cat] = other_by.get(cat, 0.0) + ms
     n_launch = sum(k[2] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     PROFILE_KINDS[model.arch.name] = {"wall_ms": wall_ms, "busy_ms": busy,
                                       "idle": 1 - busy / wall_ms,
-                                      "launches": n_launch, **kinds}
+                                      "launches": n_launch, **kinds,
+                                      "other_by_category": other_by}
     print(f"[profile] {model.arch.name} fused trace ({len(reqs)} requests) "
           f"under torch.profiler: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
@@ -1783,6 +1800,10 @@ def profile_serve(model, engine=None, reqs=None):
           + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
           + "; top kernels " + "; ".join(
               f"{n[:48]} {ms:.1f} ms x{c}" for n, ms, c in top))
+    print(f"[profile] {model.arch.name} \"other\" by the class of the op "
+          f"each kernel's name shows (ms): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(other_by.items(),
+                                                key=lambda kv: -kv[1])))
     return {name: (ms, c) for name, ms, c in kernels}
 
 
@@ -2227,6 +2248,8 @@ def profile_prefill(model, tokens, max_len):
     """One static prefill under torch.profiler, the card's activity only:
     device ms of the flash kernel, GEMMs and the rest."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import optrace
     caches = model.init_caches(tokens.shape[0], max_len)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2235,6 +2258,7 @@ def profile_prefill(model, tokens, max_len):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = {"flash attention": 0.0, "gemm": 0.0, "other": 0.0}
+    other_by = {}               # "other" by the launching op's class
     n = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -2248,6 +2272,8 @@ def profile_prefill(model, tokens, max_len):
             kinds["gemm"] += ms
         else:
             kinds["other"] += ms
+            cat = optrace.kernel_category(e.key)
+            other_by[cat] = other_by.get(cat, 0.0) + ms
     busy = sum(kinds.values())
     if busy <= 0:
         print("[profile] static prefill: device time: not measured")
@@ -2256,8 +2282,12 @@ def profile_prefill(model, tokens, max_len):
           f"torch.profiler: wall {wall_ms:.1f} ms, device busy {busy:.1f} "
           f"ms, idle share {1 - busy / wall_ms:.3f}, {n} kernel launches; "
           "by kind (ms) " + ", ".join(f"{k} {v:.1f}"
-                                      for k, v in kinds.items()))
-    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": n, **kinds}
+                                      for k, v in kinds.items())
+          + "; \"other\" by the class of the op each kernel's name shows "
+          "(ms) " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+              other_by.items(), key=lambda kv: -kv[1])))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": n, **kinds,
+            "other_by_category": other_by}
 
 
 def static_phase(model):
@@ -3939,20 +3969,29 @@ def lamb_bounds(leaf_sizes):
     return {"lamb_stage1": b1, "lamb_stage2": b2}
 
 
-def profile_train_step(res, leaf_sizes, tag: str):
+def profile_train_step(res, leaf_sizes, tag: str, attribute: bool = False):
     """One more fused step under torch.profiler: device time of GEMMs, the
     norm, GeLU, LAMB and everything else ("other", also split into its
     largest kernels by name), launches, idle share; and each LAMB stage's
     device time summed over its launches beside its byte bound summed over
-    the leaves (``lamb_bounds``): launches x gap."""
+    the leaves (``lamb_bounds``): launches x gap. With ``attribute`` (an
+    eager step) the step also runs under an ``optrace`` recorder with its
+    op ranges, so each kernel's device time goes to the op that launched
+    it (``optrace.device_times``; the recorder's host work lengthens the
+    wall, not the device time): the trace and the attribution return
+    under "_trace" and "attribution" for ``characterize_phase``."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import optrace
     batch = res["data"].batch(TRAIN_STEPS + 1)
+    rec = optrace.Recorder(profile=True) if attribute else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, met = res["step_fn"](res["state"], batch)
-        float(met["loss"])
+        with rec if rec is not None else contextlib.nullcontext():
+            _, met = res["step_fn"](res["state"], batch)
+            float(met["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -3965,9 +4004,10 @@ def profile_train_step(res, leaf_sizes, tag: str):
                for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0
-               and not e.key.startswith("train_step/")]
+               and not e.key.startswith(("train_step/", "optrace#"))]
     busy = sum(k[1] for k in kernels)
-    cpu_top = sorted((e for e in events if e.self_cpu_time_total > 0),
+    cpu_top = sorted((e for e in events if e.self_cpu_time_total > 0
+                      and not e.key.startswith("optrace#")),
                      key=lambda e: -e.self_cpu_time_total)[:8]
     print(f"[profile train {tag}] host time by part of the step (ms, "
           f"profiled): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
@@ -4016,7 +4056,8 @@ def profile_train_step(res, leaf_sizes, tag: str):
     by_op = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                     for e in events
                     if e.device_type == torch.autograd.DeviceType.CPU
-                    and e.self_device_time_total > 0),
+                    and e.self_device_time_total > 0
+                    and not e.key.startswith("optrace#")),
                    key=lambda k: -k[1])[:16]
     print(f"[profile train {tag}] one fused step under torch.profiler: "
           f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
@@ -4030,11 +4071,19 @@ def profile_train_step(res, leaf_sizes, tag: str):
         f"x{o['launches']}" for o in other_top))
     print(f"[profile train {tag}] device time by launching op: " + "; ".join(
         f"{n} {ms:.3f} ms x{c}" for n, ms, c in by_op))
-    return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds,
-            "launches": sum(k[2] for k in kernels), "host_ms": host,
-            "lamb": lamb, "other_top": other_top,
-            "by_op": [{"op": n, "device_ms": ms, "calls": c}
-                      for n, ms, c in by_op]}
+    out = {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds,
+           "launches": sum(k[2] for k in kernels), "host_ms": host,
+           "lamb": lamb, "other_top": other_top,
+           "by_op": [{"op": n, "device_ms": ms, "calls": c}
+                     for n, ms, c in by_op]}
+    if rec is not None:
+        att = optrace.device_times(prof)
+        out["_trace"] = rec.ops
+        out["attribution"] = {k: att[k] for k in ("busy_ms",
+                                                  "unattributed_ms",
+                                                  "kernels")}
+        out["attribution"]["per_op"] = att["per_op"]
+    return out
 
 
 def _short_kernel(name: str) -> str:
@@ -4085,7 +4134,8 @@ def check_training(dev):
     leaves = compare_runs(fused, eager)
     syncs = count_step_syncs(fused)
     prof = {"graphed": profile_train_step(fused, leaf_sizes, "graphed"),
-            "eager": profile_train_step(eager, leaf_sizes, "eager")}
+            "eager": profile_train_step(eager, leaf_sizes, "eager",
+                                        attribute=True)}
     steady = {"graphed": steady_step_ms(fused),
               "eager": steady_step_ms(eager)}
     print(f"[train] fused step, {TRAIN_STEPS} steps through train_loop "
@@ -4097,8 +4147,8 @@ def check_training(dev):
           f"{fused['graph']['pool_bytes'] / 2**30:.3f} GiB, peak memory "
           f"graphed {fused['peak'] / 2**30:.2f} GiB, eager "
           f"{eager['peak'] / 2**30:.2f} GiB")
-    for run in (fused, eager):
-        del run["bundle"], run["state"], run["step_fn"]
+    # the eager run's state stays for characterize_phase
+    del fused["bundle"], fused["state"], fused["step_fn"]
     gc.collect()
     torch.cuda.empty_cache()
     plain = train(arch, params0, False)
@@ -4120,9 +4170,187 @@ def check_training(dev):
           f"{fused['step_s'] * 1e3:.2f} ms vs unfused "
           f"{plain['step_s'] * 1e3:.2f} ms (both graphed)")
     return {"fused": fused, "fused_eager": eager, "unfused": plain,
+            "fused_eager_state": {k: eager.pop(k) for k in (
+                "bundle", "state", "step_fn", "data")},
             "profile": prof, "steady_step_ms": steady,
             "bitwise_leaves": leaves, "syncs_in_a_step": syncs,
             "per_step": want, "n_leaves": n_leaves, "n_params": n_params}
+
+
+# --------------------------------------------------------- characterize ---
+# The paper's method (repro.core.characterize, ported as
+# repro_torch.core.{optrace,characterize}) over the fused bert-large step.
+# The trace's GEMMs against the analytical model's Table 3 rows (fwd +
+# both gradients) plus the recomputed block forwards: Table 3 has no row
+# for BERT's MLM transform, a D x D dense priced 3 x 2 t D^2 (6.4 GFLOP,
+# 0.24% of the step at B8 S128); nothing else differs (the CPU tests hold
+# the smoke step's GEMMs by bucket to the inventory plus that dense
+# exactly). So the trace may exceed the model by at most 0.3%.
+GEMM_TOL = 0.003
+ATTRIBUTED_TOL = 0.01       # attributed device time against the busy time
+FIG5 = ("attn_linear", "attn_bgemm", "fc", "attn_softmax", "activation",
+        "drn")
+
+
+def _fmt(d: dict, scale: float = 1.0, digits: int = 3) -> str:
+    return ", ".join(f"{k} {v * scale:.{digits}f}"
+                     for k, v in sorted(d.items(), key=lambda kv: -kv[1]))
+
+
+def _fig4(phases: dict) -> dict:
+    """Fig. 4's split of a phase -> time dict: GEMMs outside LAMB, LAMB,
+    the rest, as shares."""
+    gemm_phases = ("attn_linear", "attn_bgemm", "fc", "head", "moe", "ssm")
+    total = sum(phases.values()) or 1.0
+    lamb = phases.get("lamb", 0.0)
+    gemm = sum(phases.get(p, 0.0) for p in gemm_phases)
+    return {"gemm": gemm / total, "lamb": lamb / total,
+            "non_gemm": (total - gemm - lamb) / total}
+
+
+def characterize_phase(training):
+    """``characterize.analyze`` over one eager fused bert-large B8 S128 step
+    on a copy of the eager run's state: FLOPs and bytes by category and by
+    bucket, the H100 roofline terms, the kernel ops (each must equal the
+    launches a step); the trace's GEMM FLOPs against the analytical model
+    (``GEMM_TOL``). Then the eager step that ``profile_train_step``
+    profiled with its op ranges: device ms by bucket, category, pass and
+    paper phase beside the trace's per-op roofline ms and
+    ``analytical.phase_times`` on the H100 and the MI100, with Fig. 4's
+    shares; the attributed device time must be within ``ATTRIBUTED_TOL``
+    of the profiled busy time."""
+    from repro_torch import tree
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import analytical, characterize, roofline
+    arch = get_config("bert-large")
+    eager = training.pop("fused_eager_state")
+    os.environ["REPRO_FUSED_BLOCKS"] = "1"
+    state = tree.map(lambda t: t.detach().clone().requires_grad_(
+        t.requires_grad), eager["state"])
+    batch = eager["data"].batch(TRAIN_STEPS + 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cost = characterize.analyze(eager["bundle"].eager, state, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del state, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = cost.kernels()
+    if kernels != training["per_step"]:
+        _fail(f"characterize: kernel ops {kernels} in one traced step, "
+              f"launches a step {training['per_step']}")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    passes = ("fwd", "bwd_act", "bwd_w")
+    model = sum(g.flops for ph in passes
+                for g in analytical.transformer_gemms(arch, b, s, ph))
+    remat = sum(g.flops for g in analytical.transformer_gemms(arch, b, s)
+                if g.layer != "head")
+    gemm = cost.by_category["gemm"]
+    gap = (gemm - model - remat) / (model + remat)
+    if not 0 <= gap <= GEMM_TOL:
+        _fail(f"characterize: the trace's GEMM FLOPs {gemm:.6e} against "
+              f"the analytical model's {model:.6e} + recomputed block "
+              f"forwards {remat:.6e}: {gap:+.4%} (tolerance 0 to "
+              f"{GEMM_TOL:.1%})")
+    terms = roofline.compute_terms(
+        flops_per_device=cost.flops, bytes_per_device=cost.bytes,
+        colls=cost.summary().collectives(), n_devices=1, arch=arch,
+        shape=ShapeConfig("chip", seq_len=s, global_batch=b, kind="train"),
+        dev=roofline.H100)
+    f_bucket = characterize.bucket_scopes(cost.by_scope)
+    b_bucket = characterize.bucket_scopes(cost.by_scope_bytes)
+    print(f"[characterize] one eager fused bert-large B{b} S{s} step traced "
+          f"on the card in {secs:.2f} s: {len(cost.ops)} ops, "
+          f"{cost.flops:.6e} FLOPs, {cost.bytes:.6e} bytes; GEMM FLOPs "
+          f"{gemm:.6e} against the analytical model's {model:.6e} + "
+          f"recomputed block forwards {remat:.6e} ({gap:+.4%}, tolerance "
+          f"{GEMM_TOL:.1%}); kernel ops {kernels} (= launches a step)")
+    print(f"[characterize] GFLOP by category: "
+          f"{_fmt(cost.by_category, 1e-9)}; GB by category: "
+          f"{_fmt(cost.by_category_bytes, 1e-9)}")
+    print(f"[characterize] GFLOP by bucket: {_fmt(f_bucket, 1e-9)}; GB by "
+          f"bucket: {_fmt(b_bucket, 1e-9)}")
+    print(f"[characterize] H100 roofline (roofline.compute_terms): "
+          f"compute_s {terms.compute_s:.6e}, memory_s {terms.memory_s:.6e}, "
+          f"dominant {terms.dominant}, useful ratio "
+          f"{terms.useful_ratio:.4f}")
+    # the profiled eager step, its device time given to the ops of its trace
+    prof = training["profile"]["eager"]
+    trace, att = prof.pop("_trace"), prof["attribution"]
+    per_op = att.pop("per_op")
+    attributed = sum(per_op.values())
+    busy = prof.get("busy_ms", 0.0)
+    if not busy or abs(attributed - busy) > ATTRIBUTED_TOL * busy:
+        _fail(f"characterize: {attributed:.3f} ms of device time attributed "
+              f"to the trace's ops against {busy:.3f} ms busy in the "
+              f"profiled eager step (tolerance {ATTRIBUTED_TOL:.0%})")
+    measured = characterize.split(trace, per_op)
+    roof = characterize.split(trace, characterize.roofline_ms(trace))
+    unscoped = sum(per_op.get(op.index, 0.0) for op in trace if not op.scope)
+    model_s = {dev.name: analytical.phase_times(arch, b, s, dev=dev)
+               for dev in (roofline.H100, roofline.MI100)}
+    print(f"[characterize] the profiled eager step: busy {busy:.3f} ms, "
+          f"attributed to its ops {attributed:.3f} ms "
+          f"({attributed / busy:.4f}; the profiler's own count "
+          f"{att['busy_ms']:.3f} ms over {att['kernels']} device "
+          f"activities, {att['unattributed_ms']:.3f} ms to no op); unscoped "
+          f"{unscoped:.3f} ms ({unscoped / busy:.3f} of busy)")
+    for key in ("bucket", "category", "pass"):
+        print(f"[characterize] device ms by {key}: "
+              f"{_fmt(measured[key])}; the trace's roofline ms (H100, each "
+              f"op max(FLOPs / 989e12, bytes / 3.35e12)): "
+              f"{_fmt(roof[key])}")
+    top = sorted(measured["cell"].items(), key=lambda kv: -kv[1])[:14]
+    print("[characterize] device ms by bucket/category, largest first "
+          "(roofline ms): " + "; ".join(
+              f"{k} {v:.3f} ({roof['cell'].get(k, 0.0):.3f})"
+              for k, v in top))
+    print("[characterize] paper phases, device ms / roofline ms / "
+          "analytical H100 ms / analytical MI100 ms: " + "; ".join(
+              f"{p} {measured['paper'].get(p, 0.0):.3f} / "
+              f"{roof['paper'].get(p, 0.0):.3f} / "
+              f"{model_s['h100-sxm'].get(p, 0.0) * 1e3:.3f} / "
+              f"{model_s['mi100'].get(p, 0.0) * 1e3:.3f}"
+              for p in sorted(set(measured["paper"]) | set(model_s["mi100"]),
+                              key=lambda p: -measured["paper"].get(p, 0.0))))
+    def shares(d):
+        total = sum(d.values()) or 1.0
+        return {k: d.get(k, 0.0) / total for k in ("gemm", "lamb",
+                                                   "non_gemm")}
+    # measured and roofline by the ops' category; the model by its phases
+    fig4 = {"measured": shares(measured["fig4"]),
+            "roofline": shares(roof["fig4"]),
+            **{k: _fig4(v) for k, v in model_s.items()}}
+    fig5_total = {k: sum(v.get(p, 0.0) for p in FIG5) for k, v in (
+        ("measured", measured["paper"]), ("roofline", roof["paper"]),
+        *model_s.items())}
+    fig5 = {k: {p: v.get(p, 0.0) / (fig5_total[k] or 1.0) for p in FIG5}
+            for k, v in (("measured", measured["paper"]),
+                         ("roofline", roof["paper"]), *model_s.items())}
+    print("[characterize] Fig. 4 shares (GEMM / LAMB / non-GEMM): " + "; ".join(
+        f"{k} {v['gemm']:.3f} / {v['lamb']:.3f} / {v['non_gemm']:.3f}"
+        for k, v in fig4.items()))
+    print("[characterize] Fig. 5 shares of the block phases ("
+          + ", ".join(FIG5) + "): " + "; ".join(
+              f"{k} " + " / ".join(f"{v[p]:.3f}" for p in FIG5)
+              for k, v in fig5.items()))
+    return {"seconds": secs, "ops": len(cost.ops), "flops": cost.flops,
+            "bytes": cost.bytes, "gemm_flops": gemm,
+            "analytical_gemm_flops": model, "remat_gemm_flops": remat,
+            "gemm_gap": gap, "kernel_ops": kernels,
+            "flops_by_category": dict(cost.by_category),
+            "bytes_by_category": dict(cost.by_category_bytes),
+            "flops_by_bucket": f_bucket, "bytes_by_bucket": b_bucket,
+            "roofline": {"compute_s": terms.compute_s,
+                         "memory_s": terms.memory_s,
+                         "dominant": terms.dominant},
+            "busy_ms": busy, "attributed_ms": attributed,
+            "unscoped_ms": unscoped, "device_ms": measured,
+            "roofline_ms": roof,
+            "analytical_ms": {k: {p: t * 1e3 for p, t in v.items()}
+                              for k, v in model_s.items()},
+            "fig4": fig4, "fig5": fig5}
 
 
 # ------------------------------------------------------------- phase 3b ---
@@ -4480,6 +4708,8 @@ def main() -> int:
     marks["block grads"] = time.perf_counter()
     training = check_training(dev)
     marks["training"] = time.perf_counter()
+    training["characterize"] = characterize_phase(training)
+    marks["characterize"] = time.perf_counter()
     prev = t_start
     spans = []
     for name, t in marks.items():
@@ -4603,7 +4833,8 @@ def main() -> int:
         bitwise_leaves=training["bitwise_leaves"],
         syncs_in_a_step=training["syncs_in_a_step"],
         n_leaves=training["n_leaves"],
-        n_params=training["n_params"], batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+        n_params=training["n_params"], batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        characterize=training["characterize"]),
         "serves": {
         ("fused" if f else "unfused"): {
             "wall_s": run["wall"], "decode_steps": run["steps"],

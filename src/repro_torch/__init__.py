@@ -14,6 +14,12 @@ is its own copy. What it carries today:
   or the flash kernel for a config with ``attn_impl="flash"``), then
   lock-step decode (``Model.decode_step``), dense and mamba2;
 - bert-large MLM training on one device (``launch.train``);
+- the paper's analytical model and its operator-level characterization
+  (``core``): ``core.characterize.analyze(fn, *args)`` runs ``fn`` once
+  and prices every op it ran, bucketed by the paper's taxonomy and by
+  JAX's named scopes (on the CPU, e.g. a ``build_train_step(run,
+  device="cpu")`` bundle's ``eager`` step; ``chip_smoke.py`` prints the
+  fused bert-large step's on the card);
 
 with twelve hand-written sm_90a kernels:
 

@@ -8,8 +8,10 @@
 plus ``collective_wire_s``, which applies ring-algorithm wire factors per
 collective and routes pod-crossing groups over ``dcn_bw``. The JAX package
 reads its byte counts from XLA's cost analysis and its collectives from the
-compiled HLO (``hlotext``, not ported); here the caller passes them in, the
-collectives as a ``Collectives`` record.
+compiled HLO (``hlotext``); here the caller passes them in, the
+collectives as a ``Collectives`` record: ``characterize.analyze`` of a
+step gives the FLOPs and bytes, and its ``summary().collectives()`` the
+record (``optrace``, ``hlotext``'s counterpart).
 
 The port's default device is the H100 (``H100``, ``H100_FP32``); the
 paper's profiling GPU (``MI100``, ``MI100_FP32``) stays for the Fig. 4/5

@@ -2,7 +2,8 @@
 
 CPU tensors take the plain version (``ref.bias_gelu``); CUDA tensors launch
 the hand-written sm_90a kernel or raise. ``LAUNCHES`` counts kernel
-launches. The backward is the plain version's gradient
+launches; under an ``optrace`` recorder a call is one op whose FLOPs
+``bias_gelu_flops`` states. The backward is the plain version's gradient
 (``_grad.PlainBackward``): the JAX package has no backward kernel either.
 The launch grid is ``gelu_plan``, a pure function of the shape and the
 card's SM count.
@@ -14,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...core import optrace
 from .. import _build
 from .._grad import PlainBackward
 from . import ref
@@ -82,6 +84,15 @@ def _kernel(x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     return y
 
 
+def bias_gelu_flops(x: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> float:
+    """FLOPs of one call, as its plain version's ops count them
+    (``core/characterize.py``): the add (with a bias) and the GeLU, one an
+    element each."""
+    return (2.0 if bias is not None else 1.0) * x.numel()
+
+
+@optrace.kernel_op("bias_gelu", bias_gelu_flops)
 def bias_gelu(x: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tanh-GeLU(x + bias), any leading shape with F last. On the card x is

@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from ...core import optrace
 from .. import _build
 from . import ref
 
@@ -150,6 +151,34 @@ def _launch_prefill(q, k_pages, v_pages, page_row, start: int, total: int,
                  "paged_prefill_attention")
 
 
+def _naive_flops(b: int, hq: int, sq: int, sk: int, d: int, causal: bool
+                 ) -> float:
+    """FLOPs of ``models.attention.naive_attention`` over K/V gathered to
+    ``sk`` keys, with a ``kv_len`` mask, as ``core/characterize.py`` counts
+    them: the scale, the two products, the masks and the softmax."""
+    n = b * hq * sq * sk
+    flops = 1.0 + 4.0 * n * d + sq + 7.0 * n + b * sk
+    if causal:
+        flops += n + sq * sk
+    return flops
+
+
+def paged_decode_attention_flops(q, k_pages, v_pages, page_table,
+                                 seq_lens) -> float:
+    """The plain version's FLOPs: every key of the table's pages."""
+    b, hq, d = q.shape
+    return _naive_flops(b, hq, 1, page_table.shape[1] * k_pages.shape[1], d,
+                        causal=False)
+
+
+def paged_prefill_attention_flops(q, k_pages, v_pages, page_row, start,
+                                  total_len) -> float:
+    c, hq, d = q.shape
+    return _naive_flops(1, hq, c, page_row.shape[0] * k_pages.shape[1], d,
+                        causal=True)
+
+
+@optrace.kernel_op("paged_decode_attention", paged_decode_attention_flops)
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens):
     """Single-query GQA attention over paged K/V -> [B, Hq, D]. Rows with
     seq_len 0 come back as zeros from the kernel."""
@@ -170,6 +199,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens):
     return out
 
 
+@optrace.kernel_op("paged_prefill_attention", paged_prefill_attention_flops)
 def paged_prefill_attention(q, k_pages, v_pages, page_row, start: int,
                             total_len: int):
     """One prefill chunk of one sequence against its paged cache ->

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core import optrace
 from .. import _build
 from . import ref
 
@@ -135,6 +136,29 @@ def _check(q, k, v, kv_len):
                          f"{tuple(kv_len.shape)} on {kv_len.device}")
 
 
+def flash_attention_flops(q, k, v, *, causal: bool, q_offset: int = 0,
+                          kv_len=None, window: int = 0,
+                          block_kv: int = 512) -> float:
+    """FLOPs of one call, as the plain version's ops count them
+    (``core/characterize.py``), tile by tile of ``block_kv`` keys: the two
+    products, the masks, the online softmax's updates; every masked entry
+    is counted, as the plain version computes it."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    rows = b * hq * sq
+    total = 2.0 * rows * d + sq + rows
+    for j0 in range(0, sk, block_kv):
+        n = min(block_kv, sk - j0)
+        total += 4.0 * rows * d * n + n + b * n + 5.0 * rows * n \
+            + 5.0 * rows + 2.0 * rows * d
+        if causal:
+            total += sq * n + b * sq * n
+        if window > 0:
+            total += sq + sq * n + b * sq * n
+    return total
+
+
+@optrace.kernel_op("flash_attention", flash_attention_flops)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: int = 0,
                     kv_len: Optional[torch.Tensor] = None, window: int = 0,

@@ -1,9 +1,12 @@
 """Wrapper of the fused LAMB kernels (``csrc/fused_lamb.cu``): one leaf's
 Fig. 3 update, in place.
 
-CPU tensors take the plain version (``ref.lamb_stage12``) and copy its
-results into ``w``, ``m`` and ``v``; CUDA tensors launch the two
-hand-written sm_90a kernels or raise. ``LAUNCHES`` counts kernel launches.
+CPU tensors take the plain version (``ref.lamb_stage1``, then
+``ref.trust_ratio`` and ``ref.lamb_stage2``) and copy its results into
+``w``, ``m`` and ``v``; CUDA tensors launch the two hand-written sm_90a
+kernels or raise. ``LAUNCHES`` counts kernel launches. ``stage1`` and
+``stage2`` are one op each of an ``optrace`` trace, with the FLOPs
+``stage1_flops`` and ``stage2_flops`` state.
 Nothing here reads a device value on the host: ``ginv``, ``c1`` and ``c2``
 arrive as a 3-float device tensor, and stage 2 reduces stage 1's per-block
 partial norms itself, so a step of many leaves never waits on the card.
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core import optrace
 from .. import _build
 from . import ref
 
@@ -37,14 +41,12 @@ def lamb_update_(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     dtype); ``scalars`` = [ginv, c1, c2] float32. Returns the leaf's trust
     ratio as a 1-element float32 tensor on the leaf's device."""
     if w.device.type == "cpu":
-        w_new, m_new, v_new, r = ref.lamb_stage12(
-            w, g, m, v, ginv=scalars[0], c1=scalars[1], c2=scalars[2],
-            beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay,
-            lr=lr)
-        w.copy_(w_new)
-        m.copy_(m_new)
-        v.copy_(v_new)
-        return r.reshape(1)
+        u = torch.empty_like(w)
+        r = torch.empty(1, dtype=torch.float32)
+        stage1(w, g, m, v, scalars, u, None, beta1=beta1, beta2=beta2,
+               eps=eps, weight_decay=weight_decay)
+        stage2(w, u, None, r, lr=lr)
+        return r
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
     for name, t in (("w", w), ("m", m), ("v", v)):
@@ -79,10 +81,32 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def stage1_flops(w, *args, **kwargs) -> float:
+    """FLOPs of one stage-1 call, as its plain version's ops count them
+    (``core/characterize.py``): 15 elementwise ops an element."""
+    return 15.0 * w.numel()
+
+
+def stage2_flops(w, *args, **kwargs) -> float:
+    """FLOPs of one stage-2 call: the two squared norms (4 an element),
+    the update (2 an element) and 9 scalar ops for the ratio."""
+    return 6.0 * w.numel() + 9.0
+
+
+@optrace.kernel_op("lamb_stage1", stage1_flops)
 def stage1(w, g, m, v, scalars, u, partials, *, beta1: float, beta2: float,
            eps: float, weight_decay: float) -> None:
-    """Launch stage 1 on checked CUDA tensors (``lamb_update_`` checks):
-    m, v in place, u and ``partials`` [2 * grid_blocks(n)] written."""
+    """Stage 1 on checked tensors (``lamb_update_`` checks): m, v in place,
+    u written; on the card also ``partials`` [2 * grid_blocks(n)], on the
+    CPU (the plain version) ``partials`` is None."""
+    if w.device.type == "cpu":
+        m_new, v_new, u_new = ref.lamb_stage1(
+            w, g, m, v, ginv=scalars[0], c1=scalars[1], c2=scalars[2],
+            beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+        m.copy_(m_new)
+        v.copy_(v_new)
+        u.copy_(u_new)
+        return
     n = w.numel()
     fn = _build.bind(_LIB, "lamb_stage1", 7, 3, 6)
     err = fn(w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
@@ -93,9 +117,15 @@ def stage1(w, g, m, v, scalars, u, partials, *, beta1: float, beta2: float,
     LAUNCHES["lamb_stage1"] += 1
 
 
+@optrace.kernel_op("lamb_stage2", stage2_flops)
 def stage2(w, u, partials, r, *, lr: float) -> None:
-    """Launch stage 2: the leaf's trust ratio from stage 1's partials into
-    ``r`` [1], and w -= lr * r * u in place."""
+    """Stage 2: the leaf's trust ratio into ``r`` [1] (on the card from
+    stage 1's partials), and w -= lr * r * u in place."""
+    if w.device.type == "cpu":
+        ratio = ref.trust_ratio(w, u)
+        w.copy_(ref.lamb_stage2(w, u, lr=lr, r=ratio))
+        r.copy_(ratio.reshape(1))
+        return
     n = w.numel()
     fn = _build.bind(_LIB, "lamb_stage2", 4, 2, 1)
     err = fn(w.data_ptr(), u.data_ptr(), partials.data_ptr(), r.data_ptr(),

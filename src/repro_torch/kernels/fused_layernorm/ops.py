@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...core import optrace
 from .. import _build
 from .._grad import PlainBackward
 from . import ref
@@ -94,6 +95,38 @@ def norm_plan(rows: int, d: int, gated: bool = False) -> Tuple[int, int, int]:
     return min(ones) if ones else NORM_WIDE
 
 
+def _norm_flops(x: torch.Tensor, rms: bool, bias) -> float:
+    """FLOPs of the add + norm's plain version over ``x``'s rows, as
+    ``core/characterize.py`` counts them: the add, then for an RMSNorm
+    square, mean, normalize and scale (4 an element), for a LayerNorm mean,
+    centre, square, mean, centre, normalize and scale (7), one more an
+    element with a bias, and eps and rsqrt once a row."""
+    n = x.numel()
+    rows = n // max(x.shape[-1], 1)
+    return (5.0 if rms else 8.0) * n + 2.0 * rows \
+        + (n if bias is not None else 0)
+
+
+def decode_residual_norm_flops(y, x, scale, bias=None, *,
+                               kind: str = "rmsnorm", eps: float = 1e-5
+                               ) -> float:
+    return _norm_flops(x, kind == "rmsnorm", bias)
+
+
+def fused_residual_layernorm_flops(x, residual, scale, bias=None, *,
+                                   eps: float = 1e-5,
+                                   rms: bool = False) -> float:
+    return _norm_flops(x, rms, bias)
+
+
+def gated_rmsnorm_flops(y, z, scale, *, eps: float = 1e-5) -> float:
+    """The gate (sigmoid and two products) and the RMSNorm (square, mean,
+    normalize, scale): 7 an element, eps and rsqrt once a row."""
+    n = y.numel()
+    return 7.0 * n + 2.0 * (n // max(y.shape[-1], 1))
+
+
+@optrace.kernel_op("decode_residual_norm", decode_residual_norm_flops)
 def decode_residual_norm(y: torch.Tensor, x: torch.Tensor,
                          scale: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, *,
@@ -173,6 +206,8 @@ def _residual_layernorm_kernel(x: torch.Tensor, residual: torch.Tensor,
     return y.reshape(x.shape)
 
 
+@optrace.kernel_op("fused_residual_layernorm",
+                   fused_residual_layernorm_flops)
 def fused_residual_layernorm(x: torch.Tensor, residual: torch.Tensor,
                              scale: torch.Tensor,
                              bias: Optional[torch.Tensor] = None, *,
@@ -229,6 +264,7 @@ def _rows(t: torch.Tensor, name: str, c: int) -> torch.Tensor:
     return t2
 
 
+@optrace.kernel_op("gated_rmsnorm", gated_rmsnorm_flops)
 def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
                   eps: float = 1e-5) -> torch.Tensor:
     """SiLU-gated RMSNorm (the mamba mixer epilogue): ``rmsnorm(y *

@@ -25,7 +25,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ...core import optrace
 from .. import _build
+from ..fused_sampling import ops as sampling_ops
 from ..fused_sampling.ops import check_draw_keys, cluster_plan
 from . import ref
 
@@ -132,6 +134,24 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def head_tokens_flops(x, embedding, seeds, positions, temps, top_k, top_p,
+                      *, sampled: bool, filtered: bool,
+                      untied: bool = False) -> float:
+    """FLOPs of one call, as the plain version's ops count them
+    (``core/characterize.py``): the logits' product, the finite probe and
+    greedy argmax (6 an element), each row's uniform; sampled, the
+    temperature, the draw and 4 a row; filtered, the filter."""
+    s, d = x.shape
+    v = embedding.shape[int(untied)]
+    flops = 2.0 * s * d * v + 6.0 * s * v + sampling_ops.UNIFORM_FLOPS * s
+    if sampled:
+        flops += s * v + 4.0 * s + sampling_ops.draw_flops(s, v)
+        if filtered:
+            flops += sampling_ops.filter_flops(s, v)
+    return flops
+
+
+@optrace.kernel_op("head_tokens", head_tokens_flops)
 def head_tokens(x: torch.Tensor, embedding: torch.Tensor,
                 seeds: torch.Tensor, positions: torch.Tensor,
                 temps: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,

@@ -5,7 +5,9 @@ uniform from its request seed and stream position on the card.
 CPU tensors take the plain versions (``ref.filter_logits_bisect``,
 ``fused_lm_head.ref.draw_tokens`` of ``fused_lm_head.ref.row_uniforms``);
 CUDA tensors launch the hand-written sm_90a kernels or raise. ``LAUNCHES``
-counts kernel launches.
+counts kernel launches; under an ``optrace`` recorder the filter and the
+draw are one op each, of the FLOPs ``filter_logits_flops`` and
+``draw_tokens_flops`` state.
 
 The filter, the draw and the fused LM head's epilogue spread a row over a
 thread block cluster whose CTAs keep the row in shared memory;
@@ -17,6 +19,7 @@ import functools
 
 import torch
 
+from ...core import optrace
 from .. import _build
 from ..fused_lm_head import ref as head_ref
 from . import ref
@@ -112,6 +115,36 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# FLOPs of the plain versions, as ``core/characterize.py`` counts their ops
+# (elementwise ops an element of their result, reductions an element of
+# their input); a row of V logits spans T = ceil(V / 128) mass tiles.
+UNIFORM_FLOPS = 349          # a row's threefry2x32 pair and float assembly
+
+
+def filter_flops(s: int, v: int) -> float:
+    """The bisection filter: 149 ops an element over its two 32-step
+    bisections, 510 a row, and 33 canonical tile sums (127 adds a tile)."""
+    return 149.0 * s * v + 510.0 * s + 33.0 * 127.0 * s * _cdiv(v, TILE)
+
+
+def draw_flops(s: int, v: int) -> float:
+    """The draw on given uniforms: max, shift and exp (3 an element), 7 a
+    row, and a tile's halving tree, 256 prefix adds and the hit search
+    (767 a tile)."""
+    return 3.0 * s * v + 7.0 * s + 767.0 * s * _cdiv(v, TILE)
+
+
+def filter_logits_flops(lg, top_k, top_p) -> float:
+    return filter_flops(*lg.shape)
+
+
+def draw_tokens_flops(lg_f, seeds, positions) -> float:
+    """The draw with each row's uniform computed in the call."""
+    s, v = lg_f.shape
+    return draw_flops(s, v) + UNIFORM_FLOPS * s
+
+
+@optrace.kernel_op("filter_logits", filter_logits_flops)
 def filter_logits(lg: torch.Tensor, top_k: torch.Tensor,
                   top_p: torch.Tensor) -> torch.Tensor:
     """Mask ``lg`` [S, V] float32 to its top-k / nucleus top-p support
@@ -143,6 +176,7 @@ def _launch_filter(lg, top_k, top_p, out, size: int, lib: str = _LIB) -> None:
     _build.check(err, "filter_logits")
 
 
+@optrace.kernel_op("draw_tokens", draw_tokens_flops)
 def draw_tokens(lg_f: torch.Tensor, seeds: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF draw: filtered scaled logits ``lg_f`` [S, V] float32 ->

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...core import optrace
 from .. import _build
 from . import ref
 
@@ -81,6 +82,20 @@ def _check(s: torch.Tensor) -> None:
             "either)")
 
 
+def scale_mask_softmax_flops(s: torch.Tensor, *, scale: float, causal: bool,
+                             q_offset: int = 0) -> float:
+    """FLOPs of one call, as its plain version's ops count them
+    (``core/characterize.py``): scale, row max, subtract, exp, row sum and
+    divide (6 an element); causal, the mask's [Sq, Sk] compare, the row
+    positions and the select."""
+    n = s.numel()
+    if not causal:
+        return 6.0 * n
+    sq, sk = s.shape[-2], s.shape[-1]
+    return 7.0 * n + sq + sq * sk
+
+
+@optrace.kernel_op("scale_mask_softmax", scale_mask_softmax_flops)
 def scale_mask_softmax(s: torch.Tensor, *, scale: float, causal: bool,
                        q_offset: int = 0) -> torch.Tensor:
     """s [..., Sq, Sk] raw scores -> softmax(scale * s + causal mask) over

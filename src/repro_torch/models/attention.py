@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.optrace import scope
 from .layers import Params, apply_mrope, apply_rope, dense
 
 NEG_INF = -1e30
@@ -194,10 +195,13 @@ def apply_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
     """Self-attention over the full sequence x [B, S, D] (training, and
     whisper's bidirectional encoder)."""
     b, s, _ = x.shape
-    q, k, v = qkv_project(arch, p, x)
-    q, k = position_encode(arch, q, k, positions, mrope_positions)
-    o = attention_core(arch, q, k, v, causal=causal)
-    return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
+    with scope("attn_qkv"):
+        q, k, v = qkv_project(arch, p, x)
+        q, k = position_encode(arch, q, k, positions, mrope_positions)
+    with scope("attn_core"):
+        o = attention_core(arch, q, k, v, causal=causal)
+    with scope("attn_out"):
+        return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
 
 
 def apply_cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,

@@ -12,6 +12,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core.optrace import scope
+
 Params = Dict[str, object]
 
 VOCAB_PAD = 128  # vocab padded to a multiple of this (Megatron-style)
@@ -49,6 +51,12 @@ def init_norm(kind: str, dim: int, dtype: torch.dtype, device) -> Params:
 def apply_norm(kind: str, p: Params, x: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm / LayerNorm with fp32 statistics, result in ``x``'s dtype."""
+    with scope("norm"):
+        return _apply_norm(kind, p, x, eps)
+
+
+def _apply_norm(kind: str, p: Params, x: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     if kind == "rmsnorm":
         var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
@@ -177,6 +185,12 @@ def apply_mlp(kind: str, p: Params, x: torch.Tensor, *,
     ``fused`` routes a gelu MLP's bias + activation through
     ``kernels.bias_gelu`` (the dense without its bias, then one kernel);
     swiglu has no such epilogue and ignores it."""
+    with scope("mlp"):
+        return _apply_mlp(kind, p, x, fused=fused)
+
+
+def _apply_mlp(kind: str, p: Params, x: torch.Tensor, *,
+               fused: bool = False) -> torch.Tensor:
     if kind == "swiglu":
         h = silu(dense(x, p["w1"], p.get("b1"))) * dense(x, p["w3"],
                                                          p.get("b3"))

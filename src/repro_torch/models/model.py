@@ -39,6 +39,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig, torch_dtype
+from ..core.optrace import scope
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -157,10 +158,12 @@ def embed(arch: ArchConfig, params: Params,
     """tokens [B, S] -> [B, S, D] in the compute dtype, plus the learned
     position rows 0 .. S-1 where the arch has them."""
     dtype = torch_dtype(arch.dtype)
-    x = embed_tokens(params["embed"], tokens.long(), dtype)
-    if arch.pos_emb == "learned":
-        x = x + params["pos"]["pos_embedding"][:tokens.shape[1]].to(dtype)
-    return x
+    with scope("embed"):
+        x = embed_tokens(params["embed"], tokens.long(), dtype)
+        if arch.pos_emb == "learned":
+            x = x + params["pos"]["pos_embedding"][:tokens.shape[1]].to(
+                dtype)
+        return x
 
 
 def encode(arch: ArchConfig, params: Params,
@@ -182,13 +185,14 @@ def encode(arch: ArchConfig, params: Params,
 def logits(arch: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Final norm (+ BERT's MLM transform) + LM head: [B, S, D] -> fp32
     logits [B, S, Vp]."""
-    x = apply_norm(arch.norm, params["final_norm"], x)
-    if arch.mlm_transform:
-        mlm = params["mlm"]
-        x = gelu(dense(x, mlm["dense"], mlm["bias"]))
-        x = apply_norm(arch.norm, mlm["ln"], x)
-    tied = params["embed"]["embedding"] if arch.tie_embeddings else None
-    return unembed(params.get("out", {}), x, tied, arch.logit_softcap)
+    with scope("logits"):
+        x = apply_norm(arch.norm, params["final_norm"], x)
+        if arch.mlm_transform:
+            mlm = params["mlm"]
+            x = gelu(dense(x, mlm["dense"], mlm["bias"]))
+            x = apply_norm(arch.norm, mlm["ln"], x)
+        tied = params["embed"]["embedding"] if arch.tie_embeddings else None
+        return unembed(params.get("out", {}), x, tied, arch.logit_softcap)
 
 
 def forward(arch: ArchConfig, params: Params,
@@ -233,8 +237,9 @@ def loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
     if arch.moe is not None:
         raise NotImplementedError(
             f"{arch.name}: training a MoE (its Switch loss) is not ported")
-    ce, acc = cross_entropy(forward(arch, params, batch), batch["targets"],
-                            batch.get("loss_mask"))
+    lg = forward(arch, params, batch)
+    with scope("loss"):
+        ce, acc = cross_entropy(lg, batch["targets"], batch.get("loss_mask"))
     return ce, {"loss": ce.detach(), "accuracy": acc}
 
 

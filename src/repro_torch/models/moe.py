@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig, MoEConfig
+from ..core.optrace import scope
 from .layers import Params, dense_init, gelu, silu
 
 
@@ -127,6 +128,13 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
     routes on its own with ``capacity_per_row(S)`` slots an expert, so a
     decode step ([slots, 1, D]) gives every slot one slot an expert and
     drops nothing."""
+    with scope("moe"):
+        return _apply_moe(arch, p, x, eff_capacity, aux_loss)
+
+
+def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
+               eff_capacity: Optional[int], aux_loss: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     moe = arch.moe
     b, s, d = x.shape
     e, k = moe.num_experts, moe.top_k

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.optrace import scope
 from ..kernels.fused_layernorm import ops as ln_ops
 from .layers import Params, dense_init, silu, softplus
 
@@ -203,6 +204,12 @@ def _conv_split(arch: ArchConfig, xbc: torch.Tensor):
 
 def apply_mamba(arch: ArchConfig, p: Params, u: torch.Tensor) -> torch.Tensor:
     """Full-sequence mamba2 block. u [B, S, D] -> [B, S, D]."""
+    with scope("mamba"):
+        return _apply_mamba(arch, p, u)
+
+
+def _apply_mamba(arch: ArchConfig, p: Params, u: torch.Tensor
+                 ) -> torch.Tensor:
     s = arch.ssm
     bsz, seq, _ = u.shape
     h, inner = num_ssm_heads(arch), inner_dim(arch)

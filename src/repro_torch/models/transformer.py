@@ -47,6 +47,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
+from ..core import optrace
 from ..kernels.fused_layernorm import ops as ln_ops
 from . import attention as attn_lib
 from . import moe as moe_lib
@@ -142,10 +143,11 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
                                 enc_out=enc_out)
         if arch.remat and torch.is_grad_enabled():
             # no RNG state saved: no block draws random numbers, and saving
-            # it would read the generator inside a captured training step
-            x = torch.utils.checkpoint.checkpoint(blk, p, x,
-                                                  use_reentrant=False,
-                                                  preserve_rng_state=False)
+            # it would read the generator inside a captured training step;
+            # a recorder's recompute runs under the forward's scopes
+            x = torch.utils.checkpoint.checkpoint(
+                blk, p, x, use_reentrant=False, preserve_rng_state=False,
+                context_fn=optrace.checkpoint_contexts)
         else:
             x = blk(p, x)
     return x

@@ -10,6 +10,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import tree
+from ..core.optrace import scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,8 +35,13 @@ def init(cfg: AdamWConfig, params) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
-@torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: Dict, params) -> Tuple:
+    with scope("adamw"):
+        return _update(cfg, grads, state, params)
+
+
+@torch.no_grad()
+def _update(cfg: AdamWConfig, grads, state: Dict, params) -> Tuple:
     state["step"].add_(1)
     t = state["step"].float()
     c1 = 1.0 / (1.0 - torch.pow(cfg.beta1, t))

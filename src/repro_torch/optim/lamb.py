@@ -22,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import tree
+from ..core.optrace import scope
 from ..kernels.fused_lamb import ops as fused
 from ..kernels.fused_lamb import ref as plain
 
@@ -60,9 +61,14 @@ def init(cfg: LambConfig, params) -> Dict:
     return state
 
 
-@torch.no_grad()
 def update(cfg: LambConfig, grads, state: Dict, params) -> Tuple:
     """One LAMB step, in place on ``params`` and ``state``; returns them."""
+    with scope("lamb"):
+        return _update(cfg, grads, state, params)
+
+
+@torch.no_grad()
+def _update(cfg: LambConfig, grads, state: Dict, params) -> Tuple:
     _check(cfg)
     state["step"].add_(1)
     t = state["step"].float()
