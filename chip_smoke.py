@@ -108,7 +108,7 @@ Phases, each printing one line (any failure exits non-zero):
      ref.row_uniforms is counted on card tensors through every serve that
      follows, and must never run;
   5b. the multi-step loop (decode_steps=N; serving/graphs.py): the fused
-     llama serve at N in 1, 4 and 16 and the unfused one at N=4, each on
+     llama serve at N in 1 and 4 and the unfused one at N=4, each on
      an engine that first served a warm-up trace of other prompts (its
      graphs captured), then phase 5's trace with every launch counter set
      to 0 just before and read just after: streams bitwise phase 5's N=1
@@ -120,13 +120,14 @@ Phases, each printing one line (any failure exits non-zero):
      nothing making exactly one synchronising call; one steady dispatch
      of the warm-up trace (the 4th, or the first after it that captured
      nothing) under torch.profiler (the host's kernel-launch,
-     graph-launch and copy calls for it: at N > 1 no kernel launch); each
-     fused N then serves a third trace under torch.profiler (wall, device
+     graph-launch and copy calls for it: at N > 1 no kernel launch); the
+     fused N=4 then serves a third trace under torch.profiler (wall, device
      busy, idle share, device kernels, host kernel-launch calls and graph
-     launches a decode step); the fused serve at N=4 with sanitize=True
-     gives the same streams, and a smoke llama (head dim 128) with NaN
-     weights raises SanitizerError at its first final chunk; the mamba2
-     phase adds its serve at N = 1 and 4 the same way, both profiled;
+     launches a decode step; N=1's profile is phase 6's); the fused serve
+     at N=4 with sanitize=True gives the same streams, and a smoke llama
+     (head dim 128) with NaN weights raises SanitizerError at its first
+     final chunk; the mamba2 phase adds its serve at N = 1 and 4 the same
+     way, N=4 profiled;
   6. the fused trace (the default path) under torch.profiler, recording
      the card's activity only: device time
      by kernel and kind, kernel launches, and the device's idle share, the
@@ -226,6 +227,36 @@ Phases, each printing one line (any failure exits non-zero):
      "chunked"; prefill ms split into encoder, cross K/V fill and
      decoder; last logits compared (rel L2 0.05); greedy streams equal or
      each first divergence printed with its top-2 margin;
+  6d. the registry's last three archs: in phase 3 (after the vlm and
+     encdec kernel checks), the tied fused head at command-r-35b's D 8192
+     / V 256000 held as at llama's shape (bitwise on exact inputs at 16,
+     1 and 8 rows), the filter and draw bitwise at [1, 256000] (top-k
+     off: the whole-row search), [8, 256000] and [16, 256000] (the filter
+     also against the sort-based oracle; one kernel a call; device time
+     of each beside the [8, V] call's bound, plain version and, for the
+     filter, the sort-based filter), the untied head at
+     mistral-large-123b's D 12288 / V 32768 and llama4's D 5120 / V
+     202048 (as at deepseek's), paged decode and prefill at G 8
+     (command-r), 12 (mistral) and 5 (llama4), the add + norm as a
+     LayerNorm with bias at D 8192 and an RMSNorm at D 5120, the filter and
+     draw at llama4's and mistral's vocabularies, and flash causal at the
+     three archs' heads (4 x 2048 at G 8, 1 x 2048 at G 12, 2 x 2048 at G
+     5). Here, after the whisper phase, command-r-35b at full width and
+     depth (40 layers, d_model 8192, 64 / 8 heads, LayerNorm with biases
+     perturbed, tied vocab 256000; 30,284,201,984 parameters on the card,
+     the LayerNorm biases and the final norm included): the logits check
+     of phase 4, phase 5's trace unfused (the filter and draw at [S,
+     256000]) then fused (the head's epilogue at 256,000) and fused at
+     decode_steps=4 (streams bitwise N=1's), a window of the fused serve
+     (4 requests, 16 new) profiled, and the static engine on 4 prompts of
+     2048 tokens, 32 new, flash greedy and sampled (exactly 40 flash
+     launches in the prefill, none in decode) and chunked greedy, last
+     logits compared (rel L2 0.05); then mistral-large-123b (2 of 88
+     layers) and llama4-maverick-400b-a17b (2 of 48: a dense layer, then
+     a MoE of 128 experts, top-1, one shared) at full width: the logits
+     check (llama4's gated on the fp32 forward at a raised capacity
+     factor, as deepseek's), then the trace's first 4 requests, 16 new
+     tokens, half sampled, served unfused and fused, the streams compared;
   7. one full-width bert-large post-norm block, fused (kernel forward,
      plain backward) against unfused in bf16 and both against fp32: the
      output and the gradient of the input and of every block parameter
@@ -265,10 +296,13 @@ Phases, each printing one line (any failure exits non-zero):
      untied head its own entry; each kernel of phase 6c's paths with its
      numbers at the new shapes under "vlm_encdec_shapes" or, for flash,
      "vlm_encdec_cases"; the training kernels' library yardsticks also as
-     profiler device time) and of the serves (llama unfused and fused,
-     mamba2 fused, static llama with flash and static mamba2, under "moe"
-     the deepseek and jamba phases and under "vlm_encdec" the qwen2-vl
-     and whisper phases).
+     profiler device time; the head, filter and draw at command-r-35b's
+     shapes as rows of their own, launches from its serves) and of the
+     serves (llama unfused and fused, mamba2 fused, static llama with
+     flash and static mamba2, under "moe" the deepseek and jamba phases,
+     under "vlm_encdec" the qwen2-vl and whisper phases and under
+     "registry_archs" phase 6d's); a [time] line before it gives the
+     seconds of every phase.
 TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
 fp32. Every bound reads the card's peaks from repro_torch.core.roofline
 (H100, H100_FP32).
@@ -1612,14 +1646,17 @@ PATH_KERNELS = {False: ("paged_decode_attention", "paged_prefill_attention",
                        "decode_residual_norm", "head_tokens")}
 
 
-def serve(model, logit_err: float, fused: bool):
-    """Serve the trace with every launch counter set to 0 just before the
-    run; count launches per decode step and per prefill chunk. Unfused:
-    probe the logits for finiteness and count the decoded rows whose top-2
-    logit margin is below ``logit_err``. Fused: the head returns no logits,
-    so probe its all-finite flag on live rows."""
+def serve(model, logit_err: float, fused: bool, reqs=None):
+    """Serve the trace (or ``reqs``, a shorter one) with every launch
+    counter set to 0 just before the run; count launches per decode step
+    and per prefill chunk. Unfused: probe the logits for finiteness and
+    count the decoded rows whose top-2 logit margin is below
+    ``logit_err``. Fused: the head returns no logits, so probe its
+    all-finite flag on live rows. The whole trace must hit the prefix
+    cache and copy a page on write."""
     arch = model.arch
-    reqs = trace(arch, SEED)
+    whole = reqs is None
+    reqs = trace(arch, SEED) if whole else reqs
     n_req, gen = len(reqs), reqs[0].max_new_tokens
     engine = make_engine(model, fused)
     if engine.fused_decode != fused:
@@ -1689,7 +1726,7 @@ def serve(model, logit_err: float, fused: bool):
             _fail(f"request {i} did not finish: {r}")
     if not all(bool(f) for f in finite):
         _fail("non-finite logits during serving")
-    if engine.cow_copies < 1 or engine.cached_prefill_tokens < 1:
+    if whole and (engine.cow_copies < 1 or engine.cached_prefill_tokens < 1):
         _fail("the shared-prefix trace did not hit the prefix cache / CoW")
     for name in PATH_KERNELS[fused]:
         if launches[name] <= 0:
@@ -1819,7 +1856,8 @@ PROFILE_KINDS = {}          # arch -> the profiled window's device split
 # ------------------------------------------------------- multi-step phase ---
 # The continuous engine's decode_steps=N: each dispatch is k replays of a
 # captured loop iteration (serving/graphs.py), one host synchronisation.
-MULTI_STEPS = (1, 4, 16)
+MULTI_STEPS = (1, 4)        # no N=16: at 1, 4 and 16 the phase took about
+                            # 266 s of the script's 1200 s limit
 MULTI_PAGES = 640           # room for a warm-up trace's cached prefixes
 
 
@@ -2129,15 +2167,17 @@ def check_sanitizer_on_card(model, ref):
 
 
 def multistep_phase(model, runs):
-    """Fused llama at N in MULTI_STEPS (each profiled), unfused at N=4 and
-    the sanitizer checks: streams bitwise phase 5's N=1 serves."""
+    """Fused llama at N in MULTI_STEPS (N > 1 profiled: phase 6 profiles
+    N=1), unfused at N=4 and the sanitizer checks: streams bitwise phase
+    5's N=1 serves."""
     ref = {True: {i: r["tokens"] for i, r in runs[True]["results"].items()},
            False: {i: r["tokens"] for i, r in
                    runs[False]["results"].items()}}
     want = _fused_llama_launches(model.arch)
     fused = {n: serve_multistep(model, n, ref[True], "fused llama3.2-3b",
                                 want=want,
-                                profile_reqs=trace(model.arch, SEED + 2))
+                                profile_reqs=trace(model.arch, SEED + 2)
+                                if n > 1 else None)
              for n in MULTI_STEPS}
     layers = model.arch.num_layers
     unfused = serve_multistep(
@@ -2629,7 +2669,7 @@ def mamba_phase(dev, rng, marks):
     ref = run.pop("results")
     run["multistep"] = {n: serve_multistep(
         model, n, ref, "fused mamba2-1.3b",
-        profile_reqs=trace(arch, SEED + 2)[:3],
+        profile_reqs=trace(arch, SEED + 2)[:3] if n > 1 else None,
         want={"gated_rmsnorm": lambda s, c, p: layers * (s + c),
               "head_tokens": lambda s, c, p: s + p}) for n in (1, 4)}
     marks["mamba2 multi-step"] = time.perf_counter()
@@ -2717,10 +2757,12 @@ def check_paged_heads(arch, rng, dev):
 
 
 def check_residual_norm_width(d, dev,
-                              label="deepseek-moe-16b, internlm2-1.8b"):
-    """The fused add + norm (rmsnorm) at [8, d] and [64, d]: x + y bitwise,
-    the norm within 1 bf16 ulp of the plain version; device time a call.
-    ``label``: the archs of this width, for the printed line."""
+                              label="deepseek-moe-16b, internlm2-1.8b",
+                              kind="rmsnorm"):
+    """The fused add + norm (``kind``: rmsnorm, or layernorm with a bias)
+    at [8, d] and [64, d]: x + y bitwise, the norm within 1 bf16 ulp of
+    the plain version; device time a call. ``label``: the archs of this
+    width, for the printed line."""
     from repro_torch.kernels.fused_layernorm import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     out = {}
@@ -2730,20 +2772,27 @@ def check_residual_norm_width(d, dev,
              * 0.5).bfloat16()
         scale = (1.0 + 0.1 * torch.randn((d,), generator=gen,
                                          device=dev)).bfloat16()
-        h, x2 = ops.decode_residual_norm(y, x, scale, kind="rmsnorm")
-        ph, px2 = ref.decode_residual_norm(y, x, scale, kind="rmsnorm")
+        bias = (0.1 * torch.randn((d,), generator=gen,
+                                  device=dev)).bfloat16() \
+            if kind == "layernorm" else None
+        h, x2 = ops.decode_residual_norm(y, x, scale, bias, kind=kind)
+        ph, px2 = ref.decode_residual_norm(y, x, scale, bias, kind=kind)
         torch.cuda.synchronize()
         diff = (h.float() - ph.float()).abs()
         if not torch.equal(x2.view(torch.int16), px2.view(torch.int16)) or \
                 not bool((diff <= _bf16_ulp(ph)).all()):
-            _fail(f"decode_residual_norm [{rows}, {d}]: x + y not bitwise or "
-                  f"the norm off by more than 1 bf16 ulp "
+            _fail(f"decode_residual_norm [{rows}, {d}] {kind}: x + y not "
+                  f"bitwise or the norm off by more than 1 bf16 ulp "
                   f"({diff.max().item()})")
         out[f"device_ms_{rows}_rows"] = _profiled_ms(
-            lambda: ops.decode_residual_norm(y, x, scale, kind="rmsnorm"),
+            lambda: ops.decode_residual_norm(y, x, scale, bias, kind=kind),
             DEVICE_NAMES["decode_residual_norm"], 50)
+        # x, y read, x + y and the norm written; the scale (and bias) read
+        out[f"bound_ms_{rows}_rows"] = _bound(
+            4 * rows * d * 2 + d * 2 * (1 + (bias is not None)),
+            4.0 * rows * d, fp32=True)[0]
         out[f"plan_{rows}_rows"] = ops.norm_plan(rows, d)
-    print(f"[residual_norm] D {d} ({label}): [8, "
+    print(f"[residual_norm] D {d} {kind} ({label}): [8, "
           f"{d}] and [64, {d}] within 1 bf16 ulp, x + y bitwise; {out}")
     return out
 
@@ -2810,8 +2859,8 @@ def moe_reference_logits(model, tokens, fp32: bool = False):
     chunk with the gated norm's plain version): fp32 logits [S, Vp] of
     every position. With ``fp32`` the activations are fp32 and each
     layer's weights are upcast as the layer runs (a whole fp32 copy of
-    deepseek-moe-16b, 67.5 GB, would not fit beside the bf16 one)."""
-    from repro_torch import tree
+    deepseek-moe-16b, 67.5 GB, would not fit beside the bf16 one; see
+    ``_upcast_block``)."""
     from repro_torch.kernels.fused_layernorm import ref as ln_ref
     from repro_torch.models import model as model_lib
     from repro_torch.models import ssm
@@ -2829,12 +2878,26 @@ def moe_reference_logits(model, tokens, fp32: bool = False):
         pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
         for blk, kind in zip(model.params["blocks"], tf._stack_kinds(arch)):
             if fp32:
-                blk = tree.map(lambda t: t.float(), blk)
+                blk = _upcast_block(blk)
             x = tf.apply_block(arch, blk, x, pos, causal=True, fused=False,
                                mixer=kind)
         return model_lib.logits(arch, model.params, x)[0]
     finally:
         ssm._gated_rmsnorm = kernel
+
+
+def _upcast_block(blk):
+    """A block's weights in fp32, but for a MoE's experts: ``apply_moe``
+    upcasts each expert tensor to the activations' dtype as it runs, so at
+    most one fp32 expert tensor lives at a time (llama4's 128 experts of
+    8192 are 64 GB in fp32, 21 GB a tensor)."""
+    from repro_torch import tree
+    out = {k: v if k == "moe" else tree.map(lambda t: t.float(), v)
+           for k, v in blk.items()}
+    if "moe" in blk:
+        out["moe"] = {k: v if k == "experts" else tree.map(
+            lambda t: t.float(), v) for k, v in blk["moe"].items()}
+    return out
 
 
 def _rel_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -3487,6 +3550,334 @@ def whisper_phase(dev):
                 for (impl, mode), run in runs.items()},
             "logits_flash_vs_chunked": lines, "greedy_forks": forks,
             "sampled_identical": sampled_same}
+
+
+# --------------------------------------------------------- phase 6d ---
+# The registry's last three archs: command-r-35b at full width and depth
+# (its 256,000-entry rows through the sampler's cluster kernels),
+# mistral-large-123b and llama4-maverick-400b-a17b at full width with their
+# depth cut to fit one card.
+COMMAND_R = "command-r-35b"
+CUT_DEPTH = {"mistral-large-123b": 2,            # of 88 layers
+             "llama4-maverick-400b-a17b": 2}     # one period of 48: a dense
+                                                 # layer, then a MoE one
+CUT_GEN = 16                    # new tokens a request in the cut serves
+COMMAND_R_STATIC = (4, 2048, 32)    # batch, prompt, new tokens
+NEW_FLASH_CASES = {
+    # the static prefills at the new archs' heads (D 128): command-r's 64 /
+    # 8 (G 8) at its static shape, mistral's 96 / 8 (G 12), llama4's 40 /
+    # 8 (G 5)
+    "command-r-35b static prefill": (4, 2048, 2048, True, 0, 0, None,
+                                     (64, 8, 128), False),
+    "mistral-large-123b prefill": (1, 2048, 2048, True, 0, 0, None,
+                                   (96, 8, 128), False),
+    "llama4-maverick-400b-a17b prefill": (2, 2048, 2048, True, 0, 0, None,
+                                          (40, 8, 128), False),
+}
+
+
+def check_wide_sampler(v, dev, rng):
+    """The filter and the draw at rows of ``v`` entries (command-r-35b's
+    256,000) bitwise against their plain versions (the bisection, and the
+    sort-based oracle for the filter; the plain draw of ref.row_uniforms)
+    at [1, v] (top-k off, top-p 0.95: the search over the whole row), [8,
+    v] (the serve's rows) and [16, v], each call one device kernel;
+    device times of every case from the profiler, the [8, v] call timed
+    beside its bound, its plain version and (the filter) the sort-based
+    filter. Returns the filter's and the draw's rows."""
+    from repro_torch.kernels.fused_lm_head import ref as head_ref
+    from repro_torch.kernels.fused_sampling import ops, ref
+    lg = torch.as_tensor(rng.normal(size=(16, v)).astype(np.float32) * 3.0,
+                         device=dev)
+    lg[3, :40] = lg[3, 40]                 # ties across the k-th value
+    top_k = torch.as_tensor([40, 40, 0, 40, 1, 40, 0, v + 5] * 2,
+                            dtype=torch.int32, device=dev)
+    top_p = torch.as_tensor([0.95, 1.0, 0.95, 0.95, 0.5, 0.95, 1.0, 0.99]
+                            * 2, dtype=torch.float32, device=dev)
+    cases = {f"[1, {v}] top-k off, top-p 0.95": (lg[2:3].contiguous(),
+                                                 top_k[2:3], top_p[2:3]),
+             f"[8, {v}]": (lg[:8], top_k[:8], top_p[:8]),
+             f"[16, {v}]": (lg, top_k, top_p)}
+    filt, draw, sizes, kept = {}, {}, {}, {}
+    for case, args in cases.items():
+        s = args[0].shape[0]
+        out = ops.filter_logits(*args)
+        plain = ref.filter_logits_bisect(*args)
+        oracle = ref.filter_logits_ref(*args)
+        seeds, pos = _draw_keys(s, dev)
+        tok = ops.draw_tokens(out, seeds, pos)
+        ptok = head_ref.draw_tokens(out, head_ref.row_uniforms(seeds, pos))
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), plain.view(torch.int32)):
+            bad = (out.view(torch.int32) != plain.view(torch.int32)).sum(1)
+            _fail(f"filter_logits {case} differs from its plain version in "
+                  f"{bad.tolist()} entries a row (contract: bitwise equal)")
+        if not torch.equal(out.view(torch.int32), oracle.view(torch.int32)):
+            _fail(f"filter_logits {case} differs from the sort-based oracle")
+        if not torch.equal(tok, ptok):
+            _fail(f"draw_tokens {case}: {tok.tolist()} differs from its "
+                  f"plain version {ptok.tolist()} (contract: equal tokens)")
+        _kernels_a_call(lambda: ops.filter_logits(*args), "filter_logits")
+        _kernels_a_call(lambda: ops.draw_tokens(out, seeds, pos),
+                        "draw_tokens")
+        filt[case] = _profiled_ms(lambda: ops.filter_logits(*args),
+                                  ("filter_kernel",))
+        draw[case] = _profiled_ms(lambda: ops.draw_tokens(out, seeds, pos),
+                                  ("draw_kernel",))
+        sizes[case] = ops.cluster_plan(s, v)
+        kept[case] = (out, seeds, pos)
+    main = f"[8, {v}]"
+    lg8, tk8, tp8 = cases[main]
+    out8, seeds8, pos8 = kept[main]
+    f_ms = _time_ms(lambda: ops.filter_logits(lg8, tk8, tp8), 20)
+    f_plain = _time_ms(lambda: ref.filter_logits_bisect(lg8, tk8, tp8), 2,
+                       warmup=1)
+    f_lib = _time_ms(lambda: ref.filter_logits_ref(lg8, tk8, tp8), 2,
+                     warmup=1)
+    f_bound, f_by = _bound(2 * lg8.numel() * 4 + 8 * 8, 0.0, fp32=True)
+    d_ms = _time_ms(lambda: ops.draw_tokens(out8, seeds8, pos8), 200)
+    d_plain = _time_ms(lambda: head_ref.draw_tokens(
+        out8, head_ref.row_uniforms(seeds8, pos8)), 5, warmup=1)
+    d_bound, d_by = _bound(out8.numel() * 4 + 8 * (8 + 4 + 4),
+                           4.0 * out8.numel(), fp32=True)
+    print(f"[sampler] {COMMAND_R}'s rows: filter and draw bitwise (the "
+          f"filter also against the sort-based oracle), one kernel a call;"
+          f" device ms by case (CTAs a row): " + "; ".join(
+              f"{c}: filter {_ms(filt[c])}, draw {_ms(draw[c])} "
+              f"({sizes[c]})" for c in cases)
+          + f"; at {main}: filter {f_ms:.5f} ms (bound {f_bound:.5f}, "
+          f"plain {f_plain:.3f}, sort-based {f_lib:.3f}), draw "
+          f"{d_ms:.5f} ms (bound {d_bound:.5f}, plain {d_plain:.3f})")
+    common = {"route": "cuda", "source": "src/repro_torch/kernels/"
+              "fused_sampling/csrc/sampling.cu", "max_abs_err": 0.0,
+              "ctas_a_row_by_case": sizes}
+    return (dict(common, name=f"filter_logits ({COMMAND_R}, V {v})",
+                 replaces="src/repro/kernels/fused_sampling/kernel.py:73",
+                 ms=f_ms, plain_ms=f_plain, bound_ms=f_bound, bound_by=f_by,
+                 library_ms=f_lib,
+                 library_note="the sort-based filter (ref.filter_logits_ref)",
+                 profiler_device_ms_per_call=filt[main],
+                 device_ms_by_case=filt),
+            dict(common, name=f"draw_tokens ({COMMAND_R}, V {v})",
+                 replaces="src/repro/kernels/fused_lm_head/ref.py:90",
+                 ms=d_ms, plain_ms=d_plain, bound_ms=d_bound, bound_by=d_by,
+                 library_ms=None, profiler_device_ms_per_call=draw[main],
+                 device_ms_by_case=draw))
+
+
+def new_arch_kernel_checks(dev, rng):
+    """The kernels at the shapes the new archs' paths give them, held as in
+    phase 3: command-r-35b's tied head [256000, 8192] (bitwise on exact
+    inputs at 16, 1 and 8 rows), the filter and draw at its 256,000-entry
+    rows (check_wide_sampler), the untied head at mistral-large's (12288,
+    32768) and llama4's (5120, 202048), paged decode and prefill at G 8
+    (command-r), 12 (mistral) and 5 (llama4), the add + norm as a
+    LayerNorm with bias at D 8192 (command-r) and an RMSNorm at D 5120
+    (llama4; mistral's D 12288 is in phase 3), the filter and draw at
+    llama4's and mistral's vocabularies, and flash at the three archs'
+    heads (NEW_FLASH_CASES)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import pad_vocab
+    cr = get_config(COMMAND_R)
+    ml, l4 = (get_config(n) for n in CUT_DEPTH)
+    head = check_head_tokens(cr, dev)
+    head["name"] = f"head_tokens ({COMMAND_R}, tied W [256000, 8192])"
+    torch.cuda.empty_cache()
+    wide = check_wide_sampler(pad_vocab(cr.vocab_size), dev, rng)
+    untied = {a.name: check_head_tokens(a, dev, untied=True)
+              for a in (ml, l4)}
+    torch.cuda.empty_cache()
+    paged = {a.name: check_paged_heads(a, rng, dev) for a in (cr, ml, l4)}
+    norm = {cr.name: check_residual_norm_width(cr.d_model, dev, cr.name,
+                                               kind="layernorm"),
+            l4.name: check_residual_norm_width(l4.d_model, dev, l4.name)}
+    sampler = {f"[8, {pad_vocab(a.vocab_size)}]": check_sampler_vocab(
+        pad_vocab(a.vocab_size), dev, rng) for a in (l4, ml)}
+    print(f"[sampler] filter and draw bitwise at llama4's and "
+          f"mistral-large's vocabularies (CTAs a row, device ms): {sampler}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    flash = [_flash_case(gen, dev, name, spec, None, 1024)
+             for name, spec in NEW_FLASH_CASES.items()]
+    _print_flash(flash)
+    return {"head": head, "wide": wide, "untied": untied, "paged": paged,
+            "residual_norm": norm, "sampler": sampler, "flash": flash}
+
+
+def static_command_r(model):
+    """command-r-35b through the static engine, 4 prompts of 2048 tokens,
+    32 new: attn_impl="flash" greedy and at T 0.8 / top-k 40 / top-p 0.95
+    (exactly one flash launch a layer in the prefill, none in decode; one
+    filter and one draw a token when sampled), then "chunked" greedy
+    (plain PyTorch); the flash prefill's last logits against the chunked
+    one's (rel L2 0.05), the greedy streams compared."""
+    from repro_torch.models.model import Model
+    arch = model.arch
+    b, plen, glen = COMMAND_R_STATIC
+    runs = {}
+    for impl, mode, kw in (("flash", "greedy", {}),
+                           ("flash", "sampled", STATIC_SAMPLED),
+                           ("chunked", "greedy", {})):
+        m = Model(dataclasses.replace(arch, attn_impl=impl), model.params)
+        run = run_static_counted(m, static_args(b, plen, glen, **kw))
+        want = {"flash_attention": (arch.num_layers, 0, 0)} \
+            if impl == "flash" else {}
+        if kw:
+            want.update(filter_logits=(0, 0, glen), draw_tokens=(0, 0, glen))
+        _expect_launches(run, want, f"static {arch.name} ({impl}, {mode})")
+        runs[(impl, mode)] = run
+        print(f"[static] {arch.name} {arch.num_layers}L {impl}, {mode}: {b} "
+              f"prompts x {plen} tokens + {glen} new: prefill "
+              f"{run['t_prefill'] * 1e3:.1f} ms, decode "
+              f"{run['decode_ms_per_token']:.2f} ms/token, wall "
+              f"{run['wall']:.3f} s ({run['tok_per_s']:.1f} tok/s), peak "
+              f"memory {run['peak'] / 2**30:.2f} GiB; launches in prefill "
+              f"{_nonzero(run['phase']['prefill'])}, in decode "
+              f"{_nonzero(run['phase']['decode'])}, in all "
+              f"{_nonzero(run['launches'])}")
+    flash, chunked = runs[("flash", "greedy")], runs[("chunked", "greedy")]
+    lines = _compare_logits(flash["logits"], chunked["logits"],
+                            f"static {arch.name} flash vs chunked prefill")
+    same = int(sum((flash["tokens"][i] == chunked["tokens"][i]).all()
+                   for i in range(b)))
+    print(f"[static] {arch.name} flash vs chunked (plain) prefill, last-"
+          f"position logits (bf16, tol rel L2 0.05): " + "; ".join(lines)
+          + f"; greedy streams identical: {same} of {b} (bf16 streams may "
+          "fork on near-tied logits; not a failure)")
+    return {f"{impl} {mode}": {k: run[k] for k in (
+        "t_prefill", "decode_ms_per_token", "wall", "tok_per_s", "peak")}
+        | {"launches": _nonzero(run["launches"])}
+        for (impl, mode), run in runs.items()} | {
+        "logits_flash_vs_chunked": lines, "identical_greedy_streams": same}
+
+
+def _serve_summary(runs) -> dict:
+    out = {}
+    for fused, r in runs.items():
+        out["fused" if fused else "unfused"] = {
+            "wall_s": r["wall"], "tok_per_s": r["tok_per_s"],
+            "mean_ttft_s": r["mean_ttft_s"], "peak": r["peak"],
+            "decode_steps": r["steps"], "prefill_chunks": r["prefill_chunks"],
+            "prefills": r["prefills"], "launches": _nonzero(r["launches"]),
+            "launches_a_decode_step": {
+                k: v / r["steps"] for k, v in r["phase"]["decode"].items()
+                if v}}
+    return out
+
+
+def _same_streams(runs, label) -> int:
+    same = sum(runs[False]["results"][i]["tokens"]
+               == runs[True]["results"][i]["tokens"]
+               for i in runs[False]["results"])
+    print(f"[streams] {label} fused vs unfused serve: {same} of "
+          f"{len(runs[False]['results'])} request streams identical (bf16 "
+          "streams may fork on near-tied logits; not a failure)")
+    return same
+
+
+def command_r_phase(dev, rng, marks):
+    """command-r-35b at full width and depth (40 layers, d_model 8192, 64 /
+    8 heads, d_ff 22528, LayerNorm with its bias, vocab 256000 tied; 30.28
+    B parameters, 60.6 GB in bf16, seeded, the LayerNorm biases perturbed):
+    its parameter count on the card, the paged path's logits against the
+    dense plain forward, the llama trace unfused (the filter and the draw
+    at [S, 256000]) then fused (the head's epilogue at 256,000) and fused
+    at decode_steps=4 (streams bitwise N=1's), a window of the fused serve
+    profiled (4 requests, 16 new tokens), then the static engine."""
+    model, n_params = _init_biased(COMMAND_R, dev)
+    arch = model.arch
+    # param_count counts the blocks' norm scales; the card also holds the
+    # final norm's scale and bias and every block norm's bias (LayerNorm)
+    want = arch.param_count() + (2 + 2 * arch.num_layers) * arch.d_model
+    if n_params != want:
+        _fail(f"{arch.name}: {n_params} parameters, expected {want} "
+              f"(param_count {arch.param_count()} + the LayerNorm biases "
+              f"and the final norm)")
+    logit_err = check_model_logits(model, rng, dev)
+    marks["command-r checks"] = time.perf_counter()
+    runs = {fused: serve(model, logit_err, fused) for fused in (False, True)}
+    same = _same_streams(runs, arch.name)
+    ref = {i: r["tokens"] for i, r in runs[True]["results"].items()}
+    multi = serve_multistep(model, 4, ref, f"fused {arch.name}",
+                            want=_fused_llama_launches(arch))
+    marks["command-r serves"] = time.perf_counter()
+    window = [dataclasses.replace(r, max_new_tokens=CUT_GEN)
+              for r in trace(arch, SEED)[:4]]
+    prof = profile_serve(model, make_engine(model, True), window)
+    marks["command-r profile"] = time.perf_counter()
+    static = static_command_r(model)
+    marks["static command-r"] = time.perf_counter()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    serves = _serve_summary(runs)
+    print(f"[command-r] {arch.name}: tok/s unfused "
+          f"{serves['unfused']['tok_per_s']:.1f}, fused "
+          f"{serves['fused']['tok_per_s']:.1f}, fused N=4 "
+          f"{multi['tok_per_s']:.1f}; mean TTFT unfused "
+          f"{serves['unfused']['mean_ttft_s'] * 1e3:.1f} ms, fused "
+          f"{serves['fused']['mean_ttft_s'] * 1e3:.1f} ms; peak memory "
+          f"{max(s['peak'] for s in serves.values()) / 2**30:.2f} GiB")
+    return {"n_params": n_params, "logit_err": logit_err, "serves": serves,
+            "identical_streams": same, "multistep_n4": multi,
+            "profile": PROFILE_KINDS.get(arch.name),
+            "profile_launches": sum(c for _, c in prof.values()),
+            "static": static,
+            "launches": {("fused" if f else "unfused"): r["launches"]
+                         for f, r in runs.items()}}
+
+
+def cut_depth_phase(name, dev, rng):
+    """``name`` at full width with CUT_DEPTH[name] of its layers (the whole
+    model does not fit one H100's 80 GB), seeded bf16 weights: the logits
+    check (the dense one, or for a MoE the fp32-gated one at a raised
+    capacity factor), then the trace's first 4 requests (CUT_GEN new tokens,
+    half sampled at T 0.8 / top-k 40 / top-p 0.95) served unfused and
+    fused with every launch counter set to 0 just before each run and read
+    just after, the streams compared."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.models.model import Model
+    full = get_config(name)
+    arch = dataclasses.replace(full, num_layers=CUT_DEPTH[name])
+    t0 = time.perf_counter()
+    model = Model.init(arch, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(model.params))
+    # the final norm, and the rows padding the vocabulary to a multiple of
+    # 128 in the embedding and the untied head (llama4: 202048 -> 202112)
+    pad = (pad_vocab(arch.vocab_size) - arch.vocab_size) * arch.d_model
+    want = arch.param_count() + arch.d_model + pad * (
+        1 if arch.tie_embeddings else 2)
+    if n_params != want:
+        _fail(f"{arch.name}: {n_params} parameters, expected {want} "
+              f"(param_count {arch.param_count()}, the final norm, "
+              f"{pad} a padded table)")
+    reduced = (f"num_layers {full.num_layers} -> {arch.num_layers}: the "
+               f"whole model's {full.param_count()} parameters "
+               f"({full.param_count() * 2 / 1e9:.1f} GB in bf16) exceed one "
+               f"H100's 80 GB")
+    print(f"[init] {name} at full width, {arch.num_layers} of its "
+          f"{full.num_layers} layers: {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB), bf16 weights on the card in "
+          f"{time.perf_counter() - t0:.1f}s; reduced: {reduced}")
+    logits = None
+    if arch.moe is not None:
+        logit_err, logits = check_moe_logits(model, rng, dev)
+    else:
+        logit_err = check_model_logits(model, rng, dev)
+    reqs = [dataclasses.replace(r, max_new_tokens=CUT_GEN)
+            for r in trace(arch, SEED)[:4]]
+    runs = {fused: serve(model, logit_err, fused, reqs=reqs)
+            for fused in (False, True)}
+    same = _same_streams(runs, f"{name} ({arch.num_layers} layers)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": arch.num_layers, "reduced": reduced,
+            "n_params": n_params, "logit_err": logit_err, "logits": logits,
+            "serves": _serve_summary(runs), "identical_streams": same}
 
 
 # ---------------------------------------------------------------- phase 7 ---
@@ -4647,6 +5038,9 @@ def main() -> int:
     new_kernels = vlm_encdec_kernel_checks(dev,
                                            np.random.default_rng(SEED + 40))
     marks["vlm/encdec kernel checks"] = time.perf_counter()
+    arch_kernels = new_arch_kernel_checks(dev,
+                                          np.random.default_rng(SEED + 50))
+    marks["new-arch kernel checks"] = time.perf_counter()
     softmax_row = check_scale_mask_softmax(dev)
     marks["softmax"] = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -4695,10 +5089,15 @@ def main() -> int:
     qwen = qwen_phase(dev, rng, marks)
     whisper = whisper_phase(dev)
     marks["whisper"] = time.perf_counter()
+    command_r = command_r_phase(dev, rng, marks)
+    cut = {}
+    for name in CUT_DEPTH:
+        cut[name] = cut_depth_phase(name, dev, rng)
+        marks[name] = time.perf_counter()
     if EAGER_UNIFORMS["calls"]:
-        _fail(f"the mamba2, deepseek, jamba, qwen2-vl and whisper serves "
-              f"called the eager row_uniforms on the card "
-              f"{EAGER_UNIFORMS['calls']} times")
+        _fail(f"the mamba2, deepseek, jamba, qwen2-vl, whisper, command-r, "
+              f"mistral-large and llama4 serves called the eager "
+              f"row_uniforms on the card {EAGER_UNIFORMS['calls']} times")
     head_ref.row_uniforms = plain_uniforms
     mamba_launches = sum(c for _, c in mamba["profile"].values())
     print(f"[launches] the profiled mamba2 window: {mamba_launches} kernel "
@@ -4717,9 +5116,15 @@ def main() -> int:
         prev = t
     new_phase = (marks["vlm/encdec kernel checks"] - marks["kernel checks"]
                  + marks["whisper"] - marks["jamba"])
+    arch_phase = (marks["new-arch kernel checks"]
+                  - marks["vlm/encdec kernel checks"]
+                  + marks[list(CUT_DEPTH)[-1]] - marks["whisper"])
     print(f"[time] seconds by phase: {', '.join(spans)}; total "
           f"{prev - t_start:.1f}; the vlm and encdec phase (its kernel "
-          f"checks, qwen2-vl-2b, whisper-base) {new_phase:.1f}")
+          f"checks, qwen2-vl-2b, whisper-base) {new_phase:.1f}; the "
+          f"registry's last archs (their kernel checks, command-r-35b, "
+          f"mistral-large-123b, llama4-maverick-400b-a17b) "
+          f"{arch_phase:.1f}")
     for r in rows:
         name = r["name"]
         path = name in PATH_KERNELS[True]   # the fused serve is the default
@@ -4822,11 +5227,22 @@ def main() -> int:
     flash_row["launches_qwen2_vl_static_flash"] = {
         k: qwen["static"]["flash"][k]
         for k in ("launches_prefill", "launches_decode")}
+    # the kernels at command-r-35b's shapes: launches from its serves (the
+    # head on the fused path, the filter and draw on the unfused one)
+    cr_launches = command_r["launches"]
+    arch_rows = [dict(arch_kernels["head"],
+                      launches=cr_launches["fused"]["head_tokens"],
+                      launches_path=f"{COMMAND_R} fused serve (the engine's "
+                                    "default)")]
+    for r, kname in zip(arch_kernels["wide"], ("filter_logits",
+                                               "draw_tokens")):
+        arch_rows.append(dict(r, launches=cr_launches["unfused"][kname],
+                              launches_path=f"{COMMAND_R} unfused serve"))
     trained = {run: {k: training[run][k] for k in (
         "losses", "grad_norms", "step_s", "wall", "peak", "peak_above_start",
         "graph")} for run in ("fused", "fused_eager", "unfused")}
     print(json.dumps({"kernels": rows + [flash_row] + mamba_rows + train_rows
-                      + [softmax_row, moe["row"]],
+                      + [softmax_row, moe["row"]] + arch_rows,
                       "training": dict(
         trained, profile=training["profile"],
         steady_step_ms=training["steady_step_ms"],
@@ -4856,6 +5272,9 @@ def main() -> int:
                 "jamba-v0.1-52b": moe["jamba"], **moe["kernels"]},
         "vlm_encdec": {"qwen2-vl-2b": qwen, "whisper-base": whisper,
                        "phase_s": new_phase},
+        "registry_archs": {COMMAND_R: command_r, **cut, "kernels": {
+            k: v for k, v in arch_kernels.items()
+            if k not in ("head", "wide")}, "phase_s": arch_phase},
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

@@ -10,7 +10,8 @@ includes the header) with one part of the design changed by text
 substitutions, each of which must match its file exactly once (the script
 fails when the sources have moved away from them): 8 or 32 nucleus
 candidates a sweep instead of 16 (a sweep's cost against the number of
-sweeps); the draw's in-tile prefix sums loading one word at a time
+sweeps); rank 0 receiving one rank's sweep partials a round instead of
+all that fit (what the rounds of a row too wide for one cost); the draw's in-tile prefix sums loading one word at a time
 instead of 16 (a chain of loads against a chain of adds); folds that load
 16 terms ahead instead of 8 (registers against latency); no estimate (the first exact sweep around the middle key); a
 second cluster barrier in every exact sweep (what one barrier costs,
@@ -19,7 +20,8 @@ the first row records ``clock64()`` at every phase of the filter, read
 back after one call. The variant as built also runs at every
 cluster size the card takes, the plan's (``ops.cluster_plan``) marked, and
 the script prints how many clusters of each size the card runs at once
-(``cudaOccupancyMaxActiveClusters``).
+(``cudaOccupancyMaxActiveClusters``) at 128,256, 50,304 and 256,000
+entries.
 
 The draw section times the inverse-CDF draw (``draw_kernel``: a cluster a
 row, its uniform computed on the card) at chip_smoke's 8 rows at llama's
@@ -40,9 +42,14 @@ and launched through the wrappers' launch helpers (``ops._launch_filter``,
 at llama3.2-3b's vocab (128256) and their first 4, one row of each kind
 (top-k off with top-p 0.95, which searches the whole row; top-k 40 with
 top-p 0.95; top-k 40 alone; neither), and 8 rows at mamba2's padded vocab
-(50304); each output bitwise against ``ref.filter_logits_bisect``. The
-fused head: llama's x [8, 3072] and W [128256, 3072] and mamba2's [8, 2048]
-and [50304, 2048] on exact-arithmetic inputs (every logit exact in fp32),
+(50304), and command-r-35b's 256,000-entry rows: 8 of them, 16, and one
+with top-k off and top-p 0.95, at every size from 11 to 16 CTAs (the
+sizes whose shared memory holds such a row); each output bitwise against
+``ref.filter_logits_bisect``. The draw also at [8, 256000], [1, 256000]
+and [16, 256000] filtered. The fused head: llama's x [8, 3072] and W
+[128256, 3072], mamba2's [8, 2048] and [50304, 2048] and command-r's [8,
+8192] and [256000, 8192] on exact-arithmetic inputs (every logit exact in
+fp32),
 tokens bitwise against ``ref.head_tokens``, greedy, sampled and filtered
 steps. Every time is device time a call from torch.profiler over 40 calls,
 the lesser of two rounds that each run every variant in turn. The card's
@@ -67,8 +74,9 @@ SAMPLING = "fused_sampling/csrc/sampling.cu"
 HEADER = "fused_sampling/csrc/sampling_device.cuh"
 HEAD = "fused_lm_head/csrc/head_tokens.cu"
 
-_SYNC1 = ("      cluster.sync();\n"
-          "      if (rank == 0 && warp == 0) {\n")
+_SYNC1 = "      const float sg = sweep_fold();\n"
+_ROUND = ("      cluster.sync();                  // round j's partials in "
+          "rank 0\n")
 _STAMP_FN = (
     "namespace cg = cooperative_groups;\n\n"
     "__device__ long long g_stamp[64];\n"
@@ -144,6 +152,9 @@ VARIANTS = {
          "row.before);\n",
          "    const float z = fold_run(row.stage, row.n_tiles, 1, "
          "row.before);\n")],
+    "receive one segment a round": [
+        (HEADER, "  return fit < 1 ? 1 : fit < size - 1 ? fit : size - 1;",
+         "  return 1;")],
     "folds loading 16 terms ahead": [
         (HEADER, "constexpr int kFoldAhead = 8;",
          "constexpr int kFoldAhead = 16;")],
@@ -159,8 +170,8 @@ VARIANTS = {
         (HEADER, "    const float t = fmaxf(__fmul_rn(top_p, z), kTFloor);\n",
          "    const float t = fmaxf(__fmul_rn(top_p, z), kTFloor);\n"
          "    stamp();\n"),
-        (HEADER, _SYNC1, "      stamp();\n" + _SYNC1.replace(
-            "      if", "      stamp();\n      if")),
+        (HEADER, _SYNC1, "      stamp();\n" + _SYNC1),
+        (HEADER, _ROUND, _ROUND + "      stamp();\n"),
         (HEADER, "      cluster.sync();\n      lo = sh.dec[0];\n",
          "      stamp();\n      cluster.sync();\n      lo = sh.dec[0];\n"
          "      stamp();\n"),
@@ -190,6 +201,8 @@ DRAW_VARIANTS = ("in-tile prefix sums loading one word at a time",
 TIMING_ONLY = ("a second barrier each sweep (timing)", "phase stamps (timing)",
                "the draw's fold alone, no prefix sums beside it (timing)")
 SIZES = [4, 8, 12, 16]
+WIDE = 256000               # command-r-35b's rows: 11-16 CTAs hold one
+WIDE_SIZES = list(range(11, 17))
 
 
 def variant_sources(root: Path, subs) -> dict:
@@ -275,6 +288,13 @@ def filter_cases(dev, rng):
                          device=dev)
     cases["[8, 50304] chip_smoke rows"] = rows(
         lm, [40, 40, 0, 40, 1, 40, 0, vm + 5], top_p)
+    lw = torch.as_tensor(rng.normal(size=(16, WIDE)).astype(np.float32)
+                         * 3.0, device=dev)
+    kw = [40, 40, 0, 40, 1, 40, 0, WIDE + 5]
+    cases[f"[8, {WIDE}] chip_smoke rows"] = rows(lw[:8], kw, top_p)
+    cases[f"[16, {WIDE}] chip_smoke rows twice"] = rows(lw, kw * 2,
+                                                        top_p * 2)
+    cases[f"[1, {WIDE}] top-k off, top-p 0.95"] = rows(lw[:1], [0], [0.95])
     return cases
 
 
@@ -320,10 +340,15 @@ def draw_rows(dev, rng) -> dict:
     lg, tk, tp = cases["[8, 128256] chip_smoke rows"]
     lg_f = ops.filter_logits(lg, tk, tp)
     lm, tkm, tpm = cases["[8, 50304] chip_smoke rows"]
+    lw, tkw, tpw = cases[f"[16, {WIDE}] chip_smoke rows twice"]
+    lw_f = ops.filter_logits(lw, tkw, tpw)
     return {"[8, 128256] filtered": lg_f, "[8, 128256] unfiltered": lg,
             "[1, 128256] filtered": lg_f[:1].contiguous(),
             "[16, 128256] filtered": torch.cat([lg_f, lg_f]),
-            "[8, 50304] filtered": ops.filter_logits(lm, tkm, tpm)}
+            "[8, 50304] filtered": ops.filter_logits(lm, tkm, tpm),
+            f"[8, {WIDE}] filtered": lw_f[:8].contiguous(),
+            f"[1, {WIDE}] filtered": lw_f[:1].contiguous(),
+            f"[16, {WIDE}] filtered": lw_f}
 
 
 def build_parent(_build, root: str) -> str:
@@ -354,7 +379,7 @@ def ablate_draw(libs, parent, dev) -> dict:
         planned = ops.cluster_plan(s, v)
         runs = {f"{AS_BUILT} ({planned} CTAs a row, the plan's)":
                 (libs[AS_BUILT][0], planned)}
-        for size in SIZES:
+        for size in WIDE_SIZES if v == WIDE else SIZES:
             if size != planned and ops.cluster_smem_bytes(v, size) \
                     <= ops.SMEM_BYTES:
                 runs[f"{AS_BUILT}, {size} CTAs a row"] = (libs[AS_BUILT][0],
@@ -421,7 +446,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     active = _build.bind(libs[AS_BUILT][0], "filter_active_clusters", 0, 2)
     occupancy = {v: {size: active(v, size, stream) for size in range(1, 17)}
-                 for v in (128256, 50304)}
+                 for v in (128256, 50304, WIDE)}
     print(f"[occupancy] clusters the card runs at once, by size: {occupancy}")
     results = {}
     for case, (lg, top_k, top_p) in filter_cases(
@@ -430,7 +455,7 @@ def main() -> int:
         plain = ref.filter_logits_bisect(lg, top_k, top_p)
         planned = ops.cluster_plan(s, v)
         runs = {name: (lib[0], planned) for name, lib in libs.items()}
-        for size in SIZES:
+        for size in WIDE_SIZES if v == WIDE else SIZES:
             if size != planned and ops.cluster_smem_bytes(v, size) \
                     <= ops.SMEM_BYTES:
                 runs[f"{AS_BUILT}, {size} CTAs a row"] = (libs[AS_BUILT][0],
@@ -473,7 +498,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     heads = {}
     for arch, d, v in (("llama3.2-3b", 3072, 128256),
-                       ("mamba2-1.3b", 2048, 50304)):
+                       ("mamba2-1.3b", 2048, 50304),
+                       ("command-r-35b", 8192, WIDE)):
         args = head_inputs(dev, d, v)
         x, w, seeds, pos, temps, top_k, top_p = args
         plain_args = (x, w, head_ref.row_uniforms(seeds, pos), temps, top_k,

@@ -2,20 +2,25 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
-from . import (bert_large, deepseek_moe_16b, internlm2_1p8b,
-               jamba_v0p1_52b, llama3p2_3b, mamba2_1p3b, qwen2_vl_2b,
-               whisper_base)
+from . import (bert_large, command_r_35b, deepseek_moe_16b, internlm2_1p8b,
+               jamba_v0p1_52b, llama3p2_3b, llama4_maverick_400b,
+               mamba2_1p3b, mistral_large_123b, qwen2_vl_2b, whisper_base)
 from .base import (ArchConfig, MoEConfig, RunConfig, ShapeConfig, SSMConfig,
                    torch_dtype)
 
-REGISTRY: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG
-                                   for m in (llama3p2_3b, bert_large,
-                                             mamba2_1p3b, internlm2_1p8b,
-                                             deepseek_moe_16b,
-                                             jamba_v0p1_52b, qwen2_vl_2b,
-                                             whisper_base)}
+_MODULES = (
+    mistral_large_123b, command_r_35b, internlm2_1p8b, llama3p2_3b,
+    deepseek_moe_16b, llama4_maverick_400b, whisper_base, mamba2_1p3b,
+    jamba_v0p1_52b, qwen2_vl_2b, bert_large,
+)
+
+REGISTRY: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+
+# the 10 assigned archs, in the JAX registry's order (bert-large, the
+# paper's own model, is listed apart)
+ASSIGNED: List[str] = [m.CONFIG.name for m in _MODULES[:-1]]
 
 
 def get_config(name: str) -> ArchConfig:
@@ -62,5 +67,6 @@ def smoke_config(name: str) -> ArchConfig:
     return dataclasses.replace(full, **kw)
 
 
-__all__ = ["ArchConfig", "MoEConfig", "REGISTRY", "RunConfig", "SSMConfig", "ShapeConfig",
-           "get_config", "smoke_config", "torch_dtype"]
+__all__ = ["ASSIGNED", "ArchConfig", "MoEConfig", "REGISTRY", "RunConfig",
+           "SSMConfig", "ShapeConfig", "get_config", "smoke_config",
+           "torch_dtype"]

@@ -17,7 +17,8 @@
 // row in VMEM; a row here is 513 KB, more than the 227 KB of shared memory
 // one CTA can hold, so a row goes to a thread block cluster (its size from
 // ops.cluster_plan: 16 CTAs, or 9 at 8-9 rows so that every row's cluster
-// runs at once) that reads it from HBM once into its CTAs' shared memory
+// runs at once; 16 for rows of up to 382,976 entries, as command-r-35b's
+// 256,000) that reads it from HBM once into its CTAs' shared memory
 // (sampling_device.cuh ClusterRow) and writes the result once. Top-k is a
 // radix select: four 8-bit passes over the monotone uint32 keys, 256-bin
 // counts merged across the cluster through distributed shared memory,
@@ -27,7 +28,10 @@
 // integer shared-memory atomics combine where float ones serialize), then
 // exact sweeps that each evaluate 16 candidate keys, each candidate with
 // its own per-tile halving trees and its own left fold, the 16 folds in
-// 16 lanes of rank 0 side by side: the first sweep on the estimate and
+// 16 lanes of rank 0 side by side (rank 0 receives the other ranks'
+// partials all at once at every served width, in rounds where its shared
+// memory cannot hold them all: two at 256,000 entries): the first sweep on
+// the estimate and
 // keys 4^i from it, which ends the search when the estimate is right; a
 // miss retries at the first key with mass left. The strictly-greater mass
 // is monotone in the key, so the search ends on the bisection's threshold

@@ -47,6 +47,8 @@ constexpr int kLoadAhead = 4;        // (tile, q) items a thread loads at once
 constexpr int kScanAhead = 16;       // words the in-tile prefix sums load
                                      // ahead
 constexpr int kSearchAhead = 4;      // tiles a warp's search reads at once
+constexpr int kSmemBytes = 232448 - 10240;   // dynamic shared memory a CTA
+                                             // may take (ops.SMEM_BYTES)
 constexpr float kFixedOne = 4294967296.f;   // 2^32: estimate masses' fixed
                                             // point (ref.FIXED_ONE)
 
@@ -141,22 +143,33 @@ __device__ float tiled_sum(F f, Row& row) {
 // a tile shift the next tile by 16 bytes, so the lane groups of a warp
 // reading neighbouring tiles hit different banks.
 //
-// Every rank writes its tiles' partials into rank 0's stage (distributed
-// shared memory); after a cluster barrier rank 0 folds them in tile order,
-// the canonical order, and writes the result to every rank; a second
-// barrier publishes it. Buffers reused across exchanges follow a parity:
-// one is written again only after every rank has passed the barrier that
-// follows its last read.
+// A row's single tile masses (tiled_sum, the draw) go into rank 0's stage
+// (distributed shared memory), one word a tile; after a cluster barrier
+// rank 0 folds them in tile order, the canonical order, and writes the
+// result to every rank; a second barrier publishes it. A nucleus sweep's
+// kCand partials a tile, kCand words side by side, go the same way into
+// rank 0's stage and the recv[] after it (under the draw's before[]), tile
+// t at word t kCand: as many ranks' tiles at once as rank 0's
+// shared memory holds beside the rest (nseg other ranks,
+// cluster_recv_segments). At every served width that is every rank, so
+// each writes its partials straight into rank 0 and one cluster barrier
+// comes before rank 0's fold over the row. A wider row goes in `rounds`:
+// the ranks past the first round write their own stage, and each round's
+// ranks copy it into recv[] once rank 0 has folded the round before
+// (sweep_fold). Either way rank 0 folds in tile order, the canonical
+// order. Buffers reused across exchanges follow a parity: one is written
+// again only after every rank has passed the barrier that follows its last
+// read.
 __device__ __forceinline__ int tile_pos(int j) {
   return (j & 31) * 4 + (j >> 5);
 }
 
-// The left fold acc = ((0 + p[0]) + p[s]) + ... of n terms, before[i] (if
-// given) the fold of the terms before i. The next kFoldAhead terms are
+// The left fold acc = ((acc0 + p[0]) + p[s]) + ... of n terms, before[i]
+// (if given) the fold of the terms before i. The next kFoldAhead terms are
 // loaded while the current ones are added, so no add waits on a load.
 __device__ __forceinline__ float fold_run(const float* p, int n, int s,
-                                          float* before) {
-  float acc = 0.f, cur[kFoldAhead], nxt[kFoldAhead];
+                                          float* before, float acc0 = 0.f) {
+  float acc = acc0, cur[kFoldAhead], nxt[kFoldAhead];
   const int full = n - n % kFoldAhead;
   if (full > 0) {
 #pragma unroll
@@ -219,15 +232,36 @@ template <> __device__ __forceinline__ float from_word<float>(unsigned w) {
 }
 
 // Dynamic shared memory of a cluster row, in 4-byte words: keys and u of
-// `per` tiles, rank 0's stage of kCand partials a tile, before[] a tile.
+// `per` tiles; the stage, kCand partials for each of them; recv[], the
+// partials of nseg ranks' tiles. In rank 0 the stage also holds one mass a
+// tile of the row (running on into recv[] where per kCand < n_tiles, which
+// only kCand < size makes), and before[] (a prefix a tile) starts past
+// both, over recv[] (whose sweeps never meet a draw).
 __host__ __device__ inline int cluster_tiles_per_rank(int vocab, int size) {
   const int n_tiles = (vocab + kTile - 1) / kTile;
   return (n_tiles + size - 1) / size;
 }
+// The other ranks whose sweep partials rank 0 receives at once: as many as
+// its shared memory holds beside the rest, at least one, at most size - 1.
+__host__ __device__ inline int cluster_recv_segments(int vocab, int size) {
+  if (size <= 1) return 0;
+  const int per = cluster_tiles_per_rank(vocab, size);
+  const int base = per * (2 * kStride + kCand);
+  const int fit = (kSmemBytes / 4 - base) / (per * kCand);
+  return fit < 1 ? 1 : fit < size - 1 ? fit : size - 1;
+}
+__host__ __device__ inline int cluster_before_offset(int vocab, int size) {
+  const int parts = ((vocab + kTile - 1) / kTile + 3) / 4 * 4;
+  const int own = cluster_tiles_per_rank(vocab, size) * kCand;
+  return own > parts ? own : parts;
+}
 __host__ __device__ inline size_t cluster_smem_words(int vocab, int size) {
-  const size_t n_tiles = (vocab + kTile - 1) / kTile;
-  return 2 * static_cast<size_t>(cluster_tiles_per_rank(vocab, size)) *
-             kStride + n_tiles * kCand + n_tiles;
+  const int n_tiles = (vocab + kTile - 1) / kTile;
+  const int per = cluster_tiles_per_rank(vocab, size);
+  const int sweep = (1 + cluster_recv_segments(vocab, size)) * per * kCand;
+  const int draw = cluster_before_offset(vocab, size) + n_tiles;
+  return static_cast<size_t>(per) * 2 * kStride +
+         (sweep > draw ? sweep : draw);
 }
 
 // One tile's mass strictly above candidate c: the halving tree of
@@ -257,11 +291,16 @@ __device__ __forceinline__ float cand_tile_sum(const unsigned* kt,
 
 struct ClusterRow {
   int vocab, n_tiles, per, size, rank, t0, t1, lo, hi, n_own;
+  int nseg, rounds;  // other ranks rank 0 receives at once; rounds a sweep
   unsigned* keys;
   float* u;
-  float* stage;      // this CTA's (rank 0's is the one used)
-  float* stage0;     // rank 0's, through distributed shared memory
-  float* before;
+  float* stage;      // this CTA's: its tiles' sweep partials (rank 0's
+                     // run on into its recv[], per kCand words on)
+  float* stage0;     // rank 0's, through distributed shared memory: a
+                     // mass a tile of the row
+  float* recv;       // after the stage: other ranks' sweep partials
+  float* recv0;      // rank 0's, through distributed shared memory
+  float* before;     // the draw's prefix a tile (over recv[])
   ClusterShared& sh;
   Scratch& sc;
   int phase;
@@ -269,8 +308,9 @@ struct ClusterRow {
   __device__ ClusterRow(int v, int sz, int rk, unsigned char* smem,
                         ClusterShared& s, Scratch& scr)
       : vocab(v), n_tiles((v + kTile - 1) / kTile),
-        per(cluster_tiles_per_rank(v, sz)), size(sz), rank(rk), sh(s),
-        sc(scr), phase(0) {
+        per(cluster_tiles_per_rank(v, sz)), size(sz), rank(rk),
+        nseg(cluster_recv_segments(v, sz)), sh(s), sc(scr), phase(0) {
+    rounds = nseg > 0 ? (sz - 1 + nseg - 1) / nseg : 1;
     t0 = min(rank * per, n_tiles);
     t1 = min(t0 + per, n_tiles);
     lo = min(t0 * kTile, vocab);
@@ -279,8 +319,10 @@ struct ClusterRow {
     keys = reinterpret_cast<unsigned*>(smem);
     u = reinterpret_cast<float*>(keys + per * kStride);
     stage = u + per * kStride;
-    before = stage + n_tiles * kCand;
+    recv = stage + per * kCand;
+    before = stage + cluster_before_offset(v, sz);
     stage0 = cg::this_cluster().map_shared_rank(stage, 0);
+    recv0 = cg::this_cluster().map_shared_rank(recv, 0);
   }
 
   // word of element i (i in [lo, hi) plus the last tile's padding)
@@ -382,6 +424,49 @@ struct ClusterRow {
     }
     cluster.sync();
     return sh.zres;
+  }
+
+  // Where this rank's sweep partials go: rank 0's stage (its own tiles and,
+  // through distributed shared memory, those of the first round's ranks,
+  // each tile at its place in the row), else the rank's own stage.
+  __device__ float* sweep_target() const {
+    return rank <= nseg ? stage0 + static_cast<size_t>(t0) * kCand : stage;
+  }
+
+  // The sweep's canonical left folds, after every rank has written its
+  // partials (sweep_target) and before any rank reads the result: `rounds`
+  // rounds, each a cluster barrier after which rank 0 (lane c < kCand of
+  // warp 0, candidate c) folds the round's tiles in order: the first round
+  // its own and the first nseg ranks' (every rank's at a served width), a
+  // later round the next nseg ranks' (cluster_recv_segments), which copy
+  // their stage into recv[] (float4s through distributed shared memory)
+  // once rank 0 has folded the round before (another cluster barrier).
+  // Returns candidate c's strictly-greater mass in lane c of rank 0's warp
+  // 0, else 0. Every thread of every rank calls it.
+  __device__ float sweep_fold() {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, seg = per * kCand;
+    float acc = 0.f;
+    for (int j = 0; j < rounds; ++j) {
+      const int first = j == 0 ? 0 : (1 + j * nseg) * per;
+      if (j > 0) {
+        cluster.sync();                // rank 0 has folded round j - 1
+        const int slot = rank - 1 - j * nseg;
+        if (slot >= 0 && slot < nseg && n_own > 0) {
+          float4* dst = reinterpret_cast<float4*>(
+              recv0 + static_cast<size_t>(slot) * seg);
+          const float4* src = reinterpret_cast<const float4*>(stage);
+          for (int i = tid; i < n_own * kCand / 4; i += kThreads)
+            dst[i] = src[i];
+        }
+      }
+      cluster.sync();                  // round j's partials in rank 0
+      if (rank == 0 && tid < kCand)
+        acc = fold_run((j == 0 ? stage : recv) + tid,
+                       max(0, min(n_tiles, (1 + (j + 1) * nseg) * per) - first),
+                       kCand, nullptr, acc);
+    }
+    return acc;
   }
 
   // The k-th largest key of the row, 1 <= k <= vocab: four passes of 8-bit
@@ -557,8 +642,8 @@ struct ClusterRow {
   // (canonical order over u, keys) stays under t (ref.nucleus_key_search,
   // step for step): estimate_key, then exact sweeps, each candidate's SG by
   // its own halving trees (lane c of each kCand lanes of a warp takes
-  // candidate c, the warp kTilesAWarp tiles) and its own left fold (lane c
-  // of rank 0's first warp). The first sweep takes the estimate's key and
+  // candidate c, the warp kTilesAWarp tiles; sweep_target) and its own left
+  // fold (lane c of rank 0's first warp, sweep_fold). The first sweep takes the estimate's key and
   // keys at 4^i from it (ref.first_candidates), each later one the first
   // key with mass left and keys spread over the rest (ref.retry_candidates).
   // A wrong estimate only costs sweeps: SG is monotone in K, so the search
@@ -579,16 +664,15 @@ struct ClusterRow {
       __syncthreads();
       const int c = lane % kCand;
       const unsigned cv = sh.cand[c];
+      float* part = sweep_target() + c;
       for (int pr = warp; kTilesAWarp * pr < n_own; pr += kWarps) {
         const int lt = kTilesAWarp * pr + lane / kCand;
         if (lt < n_own)
-          stage0[(t0 + lt) * kCand + c] =
+          part[lt * kCand] =
               cand_tile_sum(keys + lt * kStride, u + lt * kStride, cv);
       }
-      cluster.sync();
+      const float sg = sweep_fold();
       if (rank == 0 && warp == 0) {
-        const float sg =
-            lane < kCand ? fold_run(stage + lane, n_tiles, kCand, nullptr) : 0.f;
         const unsigned ok = __ballot_sync(0xffffffffu, lane < kCand && sg < t);
         unsigned nlo = lo, nhi = hi;
         step(ok, nlo, nhi);

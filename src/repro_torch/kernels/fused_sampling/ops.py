@@ -31,28 +31,67 @@ _LIB = "sampling"
 TILE = ref.RED_TILE          # lanes of a mass tile
 STRIDE = TILE + 4            # words a tile takes in a CTA's shared copy
 MAX_CLUSTER = 16             # CTAs a cluster (16 is past the portable 8)
-SMEM_BYTES = 232448 - 8192   # dynamic shared memory a CTA may take (its
-                             # static scratch aside)
+SMEM_BYTES = 232448 - 10240  # dynamic shared memory a CTA may take (its
+                             # static scratch, under 10 KB, aside)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _recv_ranks(v: int, size: int) -> int:
+    """The other ranks whose sweep partials rank 0 receives at once
+    (``sampling_device.cuh`` ``cluster_recv_segments``): as many as its
+    shared memory holds beside the rest, at least one, at most size - 1."""
+    if size <= 1:
+        return 0
+    per = _cdiv(_cdiv(v, TILE), size)
+    fit = (SMEM_BYTES // 4 - per * (2 * STRIDE + ref.CANDIDATES)) // (
+        per * ref.CANDIDATES)
+    return max(1, min(size - 1, fit))
+
+
 def cluster_smem_bytes(v: int, size: int) -> int:
     """Dynamic shared memory of one CTA of a ``size``-CTA row of ``v``
     entries (``sampling_device.cuh`` ``cluster_smem_words``): keys and
-    masses of its tiles, rank 0's stage of ``ref.CANDIDATES`` partials a
-    tile, and one prefix a tile."""
+    masses of its tiles and ``ref.CANDIDATES`` sweep partials for each of
+    them (rank 0's also hold one mass a tile of the row), then rank 0's
+    receive buffer for the partials of the other ranks' tiles, as many
+    ranks as the shared memory holds beside the rest (at every served width
+    all of them; a wider row goes in rounds), which is also the draw's
+    prefix a tile."""
     n_tiles = _cdiv(v, TILE)
     per = _cdiv(n_tiles, size)
-    return 4 * (2 * per * STRIDE + n_tiles * ref.CANDIDATES + n_tiles)
+    own = per * ref.CANDIDATES
+    sweep = (1 + _recv_ranks(v, size)) * own
+    draw = max(own, _cdiv(n_tiles, 4) * 4) + n_tiles
+    return 4 * (per * 2 * STRIDE + max(sweep, draw))
+
+
+def sweep_rounds(v: int, size: int) -> int:
+    """Rounds in which rank 0 receives a nucleus sweep's partials."""
+    k = _recv_ranks(v, size)
+    return _cdiv(size - 1, k) if k else 1
+
+
+def _max_row() -> int:
+    """The widest row the shared memory of ``MAX_CLUSTER`` CTAs holds, in
+    whole 128-entry tiles."""
+    n = 1
+    while cluster_smem_bytes((n + 1) * TILE, MAX_CLUSTER) <= SMEM_BYTES:
+        n += 1
+    return n * TILE
+
+
+MAX_ROW = _max_row()         # 382,976 entries
 
 
 # Clusters of a size an H100 SXM runs at once at one CTA an SM (its GPCs
 # hold 7 clusters of 10-16 CTAs, 9 of 9, 15 of 7 or 8;
-# cudaOccupancyMaxActiveClusters, printed by sampler_ablations.py).
-ACTIVE_CLUSTERS = {16: 7, 9: 9, 8: 15}
+# cudaOccupancyMaxActiveClusters, printed by sampler_ablations.py, the same
+# at 50,304, 128,256 and 256,000 entries wherever the row fits).
+ACTIVE_CLUSTERS = {16: 7, 15: 7, 14: 7, 13: 7, 12: 7, 11: 7, 10: 7, 9: 9,
+                   8: 15}
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,18 +99,27 @@ def cluster_plan(s: int, v: int) -> int:
     """CTAs a row for ``s`` rows of ``v`` entries: the largest size of
     ``ACTIVE_CLUSTERS`` whose clusters all run at once (a row that waits
     for a free cluster doubles the call), else 8 (several waves; small
-    clusters pack best); never more than the row's 128-entry tiles, and
-    larger where fewer CTAs cannot hold the row in shared memory. Raises
-    when 16 cannot (a row past about 225k entries)."""
+    clusters pack best); where 8 CTAs cannot hold the row in shared
+    memory, the size that holds it in the fewest waves, the largest of
+    those (a wave's fixed cost outweighs its share of the tiles: at [8,
+    256000] every size from 11 runs 7 clusters at once, and 16 is the
+    quickest); never more than the row's 128-entry tiles. Raises when 16
+    CTAs cannot hold the row (past ``MAX_ROW`` entries)."""
+    def holds(z):
+        return cluster_smem_bytes(v, z) <= SMEM_BYTES
     fits = [z for z in sorted(ACTIVE_CLUSTERS, reverse=True)
-            if ACTIVE_CLUSTERS[z] >= s
-            and cluster_smem_bytes(v, z) <= SMEM_BYTES]
-    size = fits[0] if fits else 8
-    while size < MAX_CLUSTER and cluster_smem_bytes(v, size) > SMEM_BYTES:
-        size += 1
-    if cluster_smem_bytes(v, size) > SMEM_BYTES:
-        raise ValueError(f"a row of {v} entries does not fit the shared "
-                         f"memory of {MAX_CLUSTER} CTAs")
+            if ACTIVE_CLUSTERS[z] >= s and holds(z)]
+    if fits:
+        size = fits[0]
+    elif holds(8):
+        size = 8
+    else:
+        held = [z for z in ACTIVE_CLUSTERS if holds(z)]
+        if not held:
+            raise ValueError(f"a row of {v} entries does not fit the shared "
+                             f"memory of {MAX_CLUSTER} CTAs (at most "
+                             f"{MAX_ROW})")
+        size = min(held, key=lambda z: (_cdiv(s, ACTIVE_CLUSTERS[z]), -z))
     return max(1, min(size, _cdiv(v, TILE)))
 
 

@@ -37,7 +37,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
     w = torch.empty((in_dim, out_dim), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def init_norm(kind: str, dim: int, dtype: torch.dtype, device) -> Params:

@@ -53,7 +53,7 @@ def _normal(gen: torch.Generator, shape, device, dtype) -> torch.Tensor:
     """N(0, 0.02^2), the embedding tables' init."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     t.normal_(0.0, 1.0, generator=gen)
-    return (t * 0.02).to(dtype)
+    return t.mul_(0.02).to(dtype)
 
 
 def _zeros(n: int, device, dtype) -> torch.Tensor:

@@ -54,7 +54,7 @@ def init_moe(gen: torch.Generator, arch: ArchConfig, device,
         t = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                     generator=gen)
-        return (t * std).to(dtype)
+        return t.mul_(std).to(dtype)
 
     router = torch.empty((d, moe.num_experts), dtype=torch.float32,
                          device=device)

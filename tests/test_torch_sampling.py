@@ -379,7 +379,7 @@ def test_first_candidates_ascend_around_the_estimate():
 @pytest.mark.parametrize("s,v,want", [
     (1, 128256, 16), (7, 128256, 16), (8, 128256, 9), (9, 128256, 9),
     (10, 128256, 8), (64, 128256, 8), (8, 50304, 9), (1, 1000, 8),
-    (1, 512, 4), (16, 200000, 15)])
+    (1, 512, 4), (16, 200000, 9), (1, 256000, 16), (8, 256000, 16)])
 def test_cluster_plan_fits_the_card_and_shared_memory(s, v, want):
     size = ops.cluster_plan(s, v)
     assert size == want
@@ -388,12 +388,61 @@ def test_cluster_plan_fits_the_card_and_shared_memory(s, v, want):
 
 
 def test_cluster_plan_refuses_a_row_past_shared_memory():
-    with pytest.raises(ValueError):
-        ops.cluster_plan(8, 256000)
-    # keys and masses of ceil(1002 / 16) tiles of 132 words, a stage of
-    # 16 partials and one prefix a tile
-    assert ops.cluster_smem_bytes(128256, 16) == 4 * (2 * 63 * 132
-                                                      + 1002 * 16 + 1002)
+    assert ops.MAX_ROW == 382976
+    ops.cluster_plan(1, ops.MAX_ROW)
+    with pytest.raises(ValueError, match="at most 382976"):
+        ops.cluster_plan(8, ops.MAX_ROW + 128)
+    with pytest.raises(ValueError, match="at most 382976"):
+        ops.cluster_plan(1, 400000)
+    # keys and masses of ceil(1002 / 16) tiles of 132 words and 16 sweep
+    # partials a tile, then rank 0's receive buffer for the other 15 ranks'
+    # tiles' partials
+    assert ops.cluster_smem_bytes(128256, 16) == 4 * (63 * (2 * 132 + 16)
+                                                      + 15 * 63 * 16)
+    # 256,000 entries: 10 of the other 15 ranks fit, so two rounds
+    assert ops.cluster_smem_bytes(256000, 16) == 4 * (125 * (2 * 132 + 16)
+                                                      + 10 * 125 * 16)
+    assert ops.sweep_rounds(256000, 16) == 2
+
+
+def test_cluster_layout_constants_match_the_device_header():
+    """The plan's shared-memory formula reads the device header's layout:
+    its constants must be the header's."""
+    from pathlib import Path
+    text = (Path(ops.__file__).parent / "csrc" /
+            "sampling_device.cuh").read_text()
+
+    def const(name):
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith(f"constexpr int {name} = "))
+        return eval(line.split("=", 1)[1].split(";")[0])
+    assert const("kSmemBytes") == ops.SMEM_BYTES
+    assert const("kCand") == sref.CANDIDATES
+    assert const("kTile") == ops.TILE
+    assert const("kMaxCluster") == ops.MAX_CLUSTER
+    assert "kStride = kTile + 4;" in text and ops.STRIDE == ops.TILE + 4
+
+
+@pytest.mark.parametrize("v", [128256, 50304, 151936, 102400, 92544,
+                               65536, 51968, 32768])
+def test_served_rows_take_their_sweep_in_one_round(v):
+    """At every vocabulary the port serves (8 slots), rank 0 receives every
+    other rank's sweep partials at once: one cluster barrier before the
+    fold, as before rows could outgrow it."""
+    for s in range(1, 9):
+        assert ops.sweep_rounds(v, ops.cluster_plan(s, v)) == 1
+
+
+@pytest.mark.parametrize("s", [1, 8, 16, 64])
+def test_cluster_plan_takes_command_r_rows(s):
+    """command-r-35b's 256,000-entry rows fit at every row count up to 64
+    (each rank stages the sweep partials of its own tiles)."""
+    sizes = {ops.cluster_plan(n, 256000) for n in range(1, 65)}
+    assert all(ops.cluster_smem_bytes(256000, z) <= ops.SMEM_BYTES
+               for z in sizes)
+    size = ops.cluster_plan(s, 256000)
+    assert size <= ops.MAX_CLUSTER
+    assert ops.cluster_smem_bytes(256000, size) <= ops.SMEM_BYTES
 
 
 @pytest.mark.gpu
