@@ -189,8 +189,9 @@ Phases, each printing one line (any failure exits non-zero):
      fused at the config's capacity factor 1.25 (exact launches as for
      llama), the fused serve at decode_steps=4 as in phase 5b (streams
      bitwise, one synchronising call a dispatch, no host kernel launch in
-     a steady dispatch), the fused trace profiled (device time split into
-     GEMMs, the MoE's routing ops by kernel name, and the rest), and the
+     a steady dispatch), a window of the fused trace (two requests, 8
+     new tokens each) profiled (device time split into GEMMs, the MoE's
+     routing ops by kernel name, and the rest), and the
      static engine on 4 prompts of 512 tokens with 16 new, greedy, its
      last logits against the plain forward (rel L2 0.05). Then jamba at
      full width, one period of its 32 layers (8: 1 attention, 7 mamba, 4
@@ -292,6 +293,35 @@ Phases, each printing one line (any failure exits non-zero):
      the busy time) by bucket, category, pass and paper phase beside the
      trace's roofline and analytical.phase_times (H100, MI100), Fig. 4
      and Fig. 5 shares, the unscoped share;
+  8b. the training families after bert-large: the add + norm and the gated
+     norm at the training steps' shapes ([1024, 3072], [1024, 4096]) held
+     as in phase 3 beside their byte bounds and F.rms_norm of the
+     precomputed input; llama3.2-3b at full width and depth (28 layers,
+     3,212,749,824 parameters, tied vocab 128256), B8 S128, causal LM,
+     LAMB at 1e-3 with fp32 master weights: one unfused plain step (plain
+     LAMB) against step 1 of the fused path (REPRO_FUSED_BLOCKS=1: each
+     block's mixer add + ln2 through decode_residual_norm; the fused LAMB
+     kernels) from the same seeded weights, the loss, grad norm and
+     updated params compared (bitwise where they are, else the gaps in
+     bf16 ulps), 6 fused steps eager and 6 graphed (step 1 the warm-up,
+     step 2 the capture, then one replay a step), bitwise equal (losses,
+     grad norms, bit digests of every state leaf), exactly 56 add + norm
+     launches (28 a pass, twice with the recompute) and one launch of each
+     LAMB stage a leaf in every step, the loss falling, one replayed step
+     profiled, 5 more back to back, peak memory and the graph pool; then
+     the graph released and 3 eager steps at B1 S4096 through the chunked
+     attention's VJP (168 chunked calls), and one llama layer's attention
+     at that length through the VJP and through autodiff of the same
+     forward loop (the bytes held after the forward: the VJP less than one
+     score tile); mamba2-1.3b at full width and depth (48 layers), 6 steps
+     graphed and 6 eager, every state leaf bitwise equal, exactly 96
+     gated_rmsnorm launches a step, one replayed step profiled; then
+     checkpoint/restart at smoke size (llama3.2-3b-smoke, bf16, B4 S32):
+     4 graphed steps, the same with ckpt_every 2, a restart from step 2
+     into a new bundle (one warm-up, one capture) and into the
+     checkpointing run's own tensors (no new capture), each bitwise the
+     uninterrupted run, and save_async followed at once by the next step:
+     the checkpoint holds the state before it, bitwise;
   9. one JSON line of per-kernel numbers (times from CUDA events; the
      untied head its own entry; each kernel of phase 6c's paths with its
      numbers at the new shapes under "vlm_encdec_shapes" or, for flash,
@@ -301,8 +331,10 @@ Phases, each printing one line (any failure exits non-zero):
      serves (llama unfused and fused, mamba2 fused, static llama with
      flash and static mamba2, under "moe" the deepseek and jamba phases,
      under "vlm_encdec" the qwen2-vl and whisper phases and under
-     "registry_archs" phase 6d's); a [time] line before it gives the
-     seconds of every phase.
+     "registry_archs" phase 6d's, under "training_families" phase 8b's;
+     rows 4, 8, 9 and 11 also carry their launches and numbers on the
+     training families' paths); a [time] line before it gives the seconds
+     of every phase.
 TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
 fp32. Every bound reads the card's peaks from repro_torch.core.roofline
 (H100, H100_FP32).
@@ -315,6 +347,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import math
 import os
@@ -2879,8 +2912,8 @@ def moe_reference_logits(model, tokens, fp32: bool = False):
         for blk, kind in zip(model.params["blocks"], tf._stack_kinds(arch)):
             if fp32:
                 blk = _upcast_block(blk)
-            x = tf.apply_block(arch, blk, x, pos, causal=True, fused=False,
-                               mixer=kind)
+            x, _ = tf.apply_block(arch, blk, x, pos, causal=True,
+                                  fused=False, mixer=kind)
         return model_lib.logits(arch, model.params, x)[0]
     finally:
         ssm._gated_rmsnorm = kernel
@@ -3107,7 +3140,8 @@ def deepseek_phase(dev, rng, marks):
     check, one MoE layer's repeatability, the llama serving trace unfused
     then fused at the config's capacity factor 1.25, the fused serve at
     decode_steps=4 (streams bitwise N=1's, no host kernel launch in a
-    steady dispatch), the fused trace profiled, and the static engine."""
+    steady dispatch), a two-request window of the fused trace profiled,
+    and the static engine."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -3138,7 +3172,11 @@ def deepseek_phase(dev, rng, marks):
     multi = serve_multistep(model, 4, ref, f"fused {arch.name}",
                             want=_fused_llama_launches(arch))
     marks["deepseek multi-step"] = time.perf_counter()
-    prof = profile_serve(model)
+    # a window of the trace (two requests, 8 new tokens each), as mamba2's:
+    # the whole trace under the profiler took 97.3 s (PR 28)
+    window = [dataclasses.replace(r, max_new_tokens=8)
+              for r in trace(arch, SEED)[:2]]
+    prof = profile_serve(model, make_engine(model, True), window)
     marks["deepseek profile"] = time.perf_counter()
     static = static_moe(model)
     marks["static deepseek"] = time.perf_counter()
@@ -4049,18 +4087,23 @@ def _sms(dev) -> int:
 
 def check_lamb(dev):
     """Both LAMB stages on the leaf shapes of bert-large (wqkv, the
-    embedding, a bias) and a ragged length, g in bf16 as under master
-    weights: m', v' within 2 fp32 ulps (they follow the plain version's
-    operation order), the trust ratio within 1e-5 relative (sums in
-    another order), w' within 2^-22 of the leaf's largest |w|. Timed at
-    the embedding, the largest leaf."""
+    embedding, a bias), a ragged length, and the largest leaves the
+    training phase gives them (llama3.2-3b's tied embedding [128256,
+    3072], 394 M elements, the most partial sums and the widest indices,
+    and mamba2-1.3b's [50304, 2048]), g in bf16 as under master weights:
+    m', v' within 2 fp32 ulps (they follow the plain version's operation
+    order), the trust ratio within 1e-5 relative (sums in another order),
+    w' within 2^-22 of the leaf's largest |w|; then one ratio a row of an
+    expert leaf and one over a group of leaves, held the same way. Timed
+    at bert-large's embedding."""
     from repro_torch.kernels.fused_lamb import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
     lr = 1e-3
     sc = torch.tensor([0.7, 10.0, 1000.0], device=dev)   # ginv, c1, c2
     lines, r_err, mv_err, w_err, bitwise = [], 0.0, 0.0, 0.0, True
-    for shape in ((1024, 3072), (30592, 1024), (1024,), (4099,)):
+    for shape in ((1024, 3072), (30592, 1024), (1024,), (4099,),
+                  (128256, 3072), (50304, 2048)):
         w = 0.02 * torch.randn(shape, generator=gen, device=dev)
         g = (1e-3 * torch.randn(shape, generator=gen, device=dev)).bfloat16()
         m = 1e-4 * torch.randn(shape, generator=gen, device=dev)
@@ -4088,6 +4131,59 @@ def check_lamb(dev):
                      f"w' max abs {werr:.3e}")
         if shape == (30592, 1024):
             keep = (w, g, m, v)
+    del w, g, m, v, pw, pm, pv, ulp32
+    torch.cuda.empty_cache()
+
+    def mv_close(a, p):
+        ulp = torch.exp2(torch.floor(torch.log2(p.abs().clamp_min(
+            2.0 ** -126))) - 23)
+        return bool(((a - p).abs() <= 2 * ulp).all())
+
+    # one ratio a row (a MoE expert leaf: deepseek-moe-16b's [64, 2048,
+    # 1408] cut to 8 experts) and one ratio over a group of leaves
+    # (whisper's encoder layers), each against its plain version
+    ew = 0.02 * torch.randn((8, 2048, 1408), generator=gen, device=dev)
+    eg = (1e-3 * torch.randn(ew.shape, generator=gen, device=dev)).bfloat16()
+    em = 1e-4 * torch.randn(ew.shape, generator=gen, device=dev)
+    ev = 1e-7 * torch.rand(ew.shape, generator=gen, device=dev)
+    pw, pm, pv, pr = ref.lamb_stage12(ew, eg, em, ev, ginv=sc[0], c1=sc[1],
+                                      c2=sc[2], lr=lr, rows=8, **hyper)
+    r = ops.lamb_update_(ew, eg, em, ev, sc, lr=lr, rows=8, **hyper)
+    rows_rel = (r / pr - 1).abs().max().item()
+    rows_w = (ew - pw).abs().max().item()
+    if not (mv_close(em, pm) and mv_close(ev, pv) and rows_rel <= 1e-5
+            and rows_w <= 2.0 ** -22 * pw.abs().max()):
+        _fail(f"lamb per-row ratios [8, 2048, 1408]: m'/v' within 2 fp32 "
+              f"ulps {mv_close(em, pm) and mv_close(ev, pv)}, ratio rel err "
+              f"{rows_rel}, w' max abs err {rows_w}")
+    del ew, eg, em, ev, pw, pm, pv
+    group = [[t(shape) for t in (
+        lambda s: 0.02 * torch.randn(s, generator=gen, device=dev),
+        lambda s: (1e-3 * torch.randn(s, generator=gen, device=dev)
+                   ).bfloat16(),
+        lambda s: 1e-4 * torch.randn(s, generator=gen, device=dev),
+        lambda s: 1e-7 * torch.rand(s, generator=gen, device=dev))]
+        for shape in ((512, 1536), (512, 1536), (4099,))]
+    want_w, want_m, want_v, gr = ref.lamb_stage12(
+        *(list(x) for x in zip(*group)), ginv=sc[0], c1=sc[1], c2=sc[2],
+        lr=lr, **hyper)
+    r = ops.lamb_update_(*(list(x) for x in zip(*group)), sc, lr=lr,
+                         **hyper)
+    group_rel = abs(r.item() / gr.item() - 1)
+    group_w = max((lf[0] - w).abs().max().item()
+                  for lf, w in zip(group, want_w))
+    if not (group_rel <= 1e-5 and group_w <= 2.0 ** -22 * max(
+            w.abs().max().item() for w in want_w) and all(
+            mv_close(lf[2], pm_) and mv_close(lf[3], pv_)
+            for lf, pm_, pv_ in zip(group, want_m, want_v))):
+        _fail(f"lamb group update: ratio rel err {group_rel}, w' max abs "
+              f"err {group_w}, or m'/v' beyond 2 fp32 ulps of the plain "
+              f"version's")
+    lines.append(f"per-row ratios [8, 2048, 1408]: r rel {rows_rel:.3e}, w' "
+                 f"max abs {rows_w:.3e}; a group of 3 leaves: r rel "
+                 f"{group_rel:.3e}, w' max abs {group_w:.3e}")
+    r_err = max(r_err, rows_rel, group_rel)
+    del group, want_w, want_m, want_v
     w, g, m, v = keep
     n = w.numel()
     u = torch.empty_like(w)
@@ -4163,7 +4259,7 @@ def check_block_gradients(arch, dev):
     def run(fused, dtype):
         p = tree.map(lambda t: t.to(dtype).requires_grad_(True), blk)
         xx = x.to(dtype).requires_grad_(True)
-        y = tf.apply_block(one, p, xx, pos, causal=False, fused=fused)
+        y, _ = tf.apply_block(one, p, xx, pos, causal=False, fused=fused)
         grads = torch.autograd.grad((y.float() * ct).sum(),
                                     [xx] + tree.leaves(p))
         return [y.detach()] + list(grads)
@@ -4414,7 +4510,8 @@ def profile_train_step(res, leaf_sizes, tag: str, attribute: bool = False):
     other = []
     for name, ms, count in kernels:
         low = name.lower()
-        if "resln_kernel" in low:
+        if any(k in low for k in ("resln_kernel", "resnorm_kernel",
+                                  "gated_rmsnorm_kernel")):
             kinds["norm"] += ms
         elif "bias_gelu_kernel" in low:
             kinds["gelu"] += ms
@@ -4962,6 +5059,618 @@ def check_scale_mask_softmax(dev):
             "cases": rows[1:], "paper": paper}
 
 
+# ------------------------------------------------------- phase 8b ---
+# Training beyond bert-large: llama3.2-3b (the dense pre-norm family, each
+# block's mixer add + ln2 through decode_residual_norm) and mamba2-1.3b
+# (gated_rmsnorm in every block) at full width and depth, B8 S128, llama's
+# long-context step through the chunked attention's VJP, and checkpoint /
+# restart on the card at smoke size.
+FAMILY_STEPS = 6
+LONG_SEQ, LONG_STEPS, LONG_CHUNK = 4096, 3, 1024
+CKPT_BATCH, CKPT_SEQ, CKPT_STEPS = 4, 32, 4
+# step 1 fused (decode_residual_norm, the LAMB kernels) against the unfused
+# plain step from the same weights: each updated bf16 param leaf within 1
+# bf16 ulp of its largest |value| (the fp32 master weights differ in their
+# last bits, so a cast may round the other way), the loss within 1 bf16
+# ulp of itself (as phase 8 holds bert-large's fused step 1)
+STEP1_PARAM_ULPS, STEP1_LOSS_ULPS = 1.0, 1.0
+
+
+def _zero_counters() -> None:
+    from repro_torch.graphs import launch_counters
+    for d in launch_counters():
+        for k in d:
+            d[k] = 0
+
+
+def _all_launches() -> dict:
+    from repro_torch.graphs import launch_counters
+    return {k: v for d in launch_counters() for k, v in d.items() if v}
+
+
+def _family_bundle(arch, fused, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """The train step of ``arch``: LAMB at 1e-3, fp32 master weights, bf16
+    compute; ``fused`` the fused LAMB kernels (and, set by each run,
+    REPRO_FUSED_BLOCKS)."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.train.steps import build_train_step
+    return build_train_step(RunConfig(
+        arch=arch, shape=ShapeConfig("chip", seq_len=seq, global_batch=batch,
+                                     kind="train"),
+        optimizer="lamb", learning_rate=1e-3, zero1=False,
+        fused_optimizer_kernel=fused, master_weights=True), "cuda")
+
+
+def _family_data(arch, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    return SyntheticPipeline(DataConfig(
+        vocab_size=arch.vocab_size, seq_len=seq, global_batch=batch,
+        objective="causal", seed=SEED))
+
+
+def _family_run(name, arch, fused, *, graphed=True, steps=FAMILY_STEPS,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, state=None, bundle=None,
+                start=0, data=None):
+    """``steps`` causal-LM steps of ``arch`` through ``train_loop`` (from
+    ``start``), on ``bundle.fn`` (step 1 the warm-up, step 2 the capture,
+    then one replay a step) or with ``graphed=False`` on ``bundle.eager``;
+    ``fused`` turns on both REPRO_FUSED_BLOCKS and the fused LAMB kernels.
+    A new bundle, a state from the seeded init and the seeded batches
+    unless given. Every launch counter is set to 0 just before the loop
+    and read just after."""
+    from repro_torch.train.loop import LoopConfig, train_loop
+    os.environ["REPRO_FUSED_BLOCKS"] = "1" if fused else "0"
+    bundle = bundle or _family_bundle(arch, fused, batch, seq)
+    state = state if state is not None else bundle.init(SEED)
+    data = data or _family_data(arch, batch, seq)
+    step_fn = bundle.fn if graphed else bundle.eager
+    tag = f"{name} {'fused' if fused else 'unfused'}" + (
+        "" if graphed else " eager")
+    _zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = train_loop(step_fn, state, data, LoopConfig(
+        max_steps=start + steps, log_every=1), start_step=start,
+        log=lambda s: print(f"[train {tag}] {s}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"{tag} training: non-finite loss {losses}")
+    steady = [h["dt"] for h in hist[2:]]
+    return {"losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+            "step_s": float(np.median(steady)) if steady else None,
+            "wall": wall, "peak": torch.cuda.max_memory_allocated(),
+            "base": base, "launches": _all_launches(), "bundle": bundle,
+            "state": state, "step_fn": step_fn, "data": data, "tag": tag}
+
+
+def _state_digest(state) -> list:
+    """Two exact integer sums of every leaf's bits (their sum, and their
+    sum weighted by position mod 65521): equal digests mean bitwise equal
+    states but for a collision."""
+    from repro_torch import tree
+    out = []
+    for t in tree.leaves(state):
+        flat = t.detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2
+                         else torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append((int(bits.sum()), int((bits * w).sum())))
+        del bits, w
+    return out
+
+
+def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| in bf16 ulps of b's largest |value| (a weight
+    near 0 would make an ulp of its own meaningless)."""
+    return ((a.float() - b.float()).abs().max()
+            / _bf16_ulp(b.float().abs().max())).item()
+
+
+def _drop_graph(bundle) -> None:
+    """Release a StepGraph's captured graph and its memory pool."""
+    g = bundle.fn
+    g.entry, g._pool, g.out, g.inputs, g._key = None, None, None, {}, None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _free(*runs) -> None:
+    for r in runs:
+        for k in ("bundle", "state", "step_fn"):
+            r.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _expect(run, want: dict, what: str) -> None:
+    """Exact launches of the run: ``want`` a step for every kernel named,
+    and no other kernel."""
+    n = len(run["losses"])
+    got = run["launches"]
+    exp = {k: v * n for k, v in want.items() if v}
+    if got != exp:
+        _fail(f"{what}: launches {got} in {n} steps, expected {exp}")
+
+
+ROTATE = 8   # input sets a timing at a training shape cycles through
+
+
+def _cycling(fn, sets):
+    """A call of ``fn(*sets[i])``, i cycling over ``sets``: with ROTATE
+    sets of a training shape's inputs (8 x 12.6 MB or more) every call
+    reads inputs that the 50 MB L2 no longer holds, so the time can be
+    held against the HBM byte bound."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def training_norm_shapes(dev):
+    """Rows 4 and 11 at the training steps' shapes: the add + norm at
+    llama's [B8 x S128, 3072] and the gated norm at mamba2's [1024, 4096]
+    (z in place as columns of an in_proj row), held as in phase 3 (x + y
+    bitwise, the norm within 1 bf16 ulp; the gated norm within 1 bf16 ulp
+    of the row's largest |output|); device ms from the profiler beside the
+    byte bound and F.rms_norm of a precomputed sum or gated product (the
+    norm only), each timed over ROTATE sets of inputs (L2-cold reads)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_layernorm import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    out = {}
+    d = 3072
+    sets = [((0.5 * torch.randn((rows, d), generator=gen, device=dev)
+              ).bfloat16(), torch.randn((rows, d), generator=gen,
+                                        device=dev).bfloat16())
+            for _ in range(ROTATE)]
+    y, x = sets[0]
+    sc = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
+    h, x2 = ops.decode_residual_norm(y, x, sc, kind="rmsnorm")
+    ph, px2 = ref.decode_residual_norm(y, x, sc, kind="rmsnorm")
+    if not torch.equal(x2.view(torch.int16), px2.view(torch.int16)) or \
+            not bool(((h.float() - ph.float()).abs() <= _bf16_ulp(ph)).all()):
+        _fail(f"decode_residual_norm [{rows}, {d}]: beyond 1 bf16 ulp")
+    drn = _cycling(lambda a, b: ops.decode_residual_norm(
+        a, b, sc, kind="rmsnorm"), sets)
+    sums = [(b + a,) for a, b in sets]
+    ev_ms = _time_ms(drn, 200)
+    dev_ms = _profiled_ms(drn, DEVICE_NAMES["decode_residual_norm"], 50)
+    lib = _profiled_ms(_cycling(lambda t: F.rms_norm(t, (d,), sc, 1e-5),
+                                sums), ("",), 50)
+    bound, by = _bound(4 * rows * d * 2 + d * 2, 5.0 * rows * d, fp32=True)
+    out["decode_residual_norm"] = {
+        "shape": [rows, d], "device_ms": dev_ms, "ms": ev_ms,
+        "bound_ms": bound,
+        "bound_by": by, "library_ms": lib, "plan": ops.norm_plan(rows, d),
+        "input_sets": ROTATE,
+        "bitwise_h_share": float((h.view(torch.int16) == ph.view(
+            torch.int16)).float().mean()),
+        "h_max_gap_bf16_ulps": ((h.float() - ph.float()).abs()
+                                / _bf16_ulp(ph)).max().item(),
+        "library_note": "F.rms_norm of the precomputed bf16 sum: the norm "
+                        "only"}
+    del sets, sums
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    arch = get_config("mamba2-1.3b")
+    c = ssm.inner_dim(arch)
+    width = 2 * c + 2 * arch.ssm.state_dim + ssm.num_ssm_heads(arch)
+    sets = [(torch.randn((rows, c), generator=gen, device=dev).bfloat16(),
+             (2 * torch.randn((rows, width), generator=gen, device=dev)
+              ).bfloat16()[:, :c]) for _ in range(ROTATE)]
+    yy, z = sets[0]
+    scg = (1 + 0.1 * torch.randn((c,), generator=gen, device=dev)).bfloat16()
+    g = ops.gated_rmsnorm(yy, z, scg)
+    pg = ref.gated_rmsnorm(yy, z, scg)
+    tol = _bf16_ulp(pg.float().abs().amax(dim=-1, keepdim=True))
+    if not bool(((g.float() - pg.float()).abs() <= tol).all()):
+        _fail(f"gated_rmsnorm [{rows}, {c}]: beyond 1 bf16 ulp of the "
+              "row's largest |output|")
+    gnorm = _cycling(lambda a, b: ops.gated_rmsnorm(a, b, scg), sets)
+    gated = [(a * (b * torch.sigmoid(b)),) for a, b in sets]
+    ev_g = _time_ms(gnorm, 200)
+    dev_g = _profiled_ms(gnorm, DEVICE_NAMES["gated_rmsnorm"], 50)
+    lib_g = _profiled_ms(_cycling(lambda t: F.rms_norm(t, (c,), scg, 1e-5),
+                                  gated), ("",), 50)
+    del sets, gated
+    bound_g, by_g = _bound(3 * rows * c * 2 + c * 2, 9.0 * rows * c,
+                           fp32=True)
+    out["gated_rmsnorm"] = {
+        "shape": [rows, c], "device_ms": dev_g, "ms": ev_g,
+        "bound_ms": bound_g,
+        "bound_by": by_g, "library_ms": lib_g,
+        "plan": ops.norm_plan(rows, c, True), "input_sets": ROTATE,
+        "library_note": "F.rms_norm of the precomputed bf16 gated product: "
+                        "the norm only, not the gate"}
+    print(f"[train norms] at the training steps' shapes, each timed over "
+          f"{ROTATE} input sets (device ms; events ms; bound; F.rms_norm of "
+          f"the precomputed input, device ms): "
+          + "; ".join(
+              f"{k} {v['shape']} {_ms(v['device_ms'])} ({v['ms']:.5f}; bound "
+              f"{v['bound_ms']:.5f} by {v['bound_by']}, F.rms_norm "
+              f"{_ms(v['library_ms'])}, plan {v['plan']})"
+              for k, v in out.items()))
+    return out
+
+
+def attention_tiles(dev):
+    """One llama attention layer at B1 S4096 (24 / 8 heads of 128, bf16,
+    causal, chunks of LONG_CHUNK), forward then backward: through the
+    chunked VJP and through autodiff of the same forward loop. The bytes
+    still held after the forward (what each saves for its backward) and
+    the peak above the inputs; a score tile is [1, 24, 4096, 1024] fp32.
+    The VJP must hold less than one tile."""
+    from repro_torch.models import attention as attn_lib
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    q = torch.randn((1, LONG_SEQ, 24, 128), generator=gen, device=dev)
+    k, v = (torch.randn((1, LONG_SEQ, 8, 128), generator=gen, device=dev)
+            for _ in range(2))
+    q, k, v = (t.bfloat16().requires_grad_(True) for t in (q, k, v))
+    ct = torch.randn((1, LONG_SEQ, 24, 128), generator=gen,
+                     device=dev).bfloat16()
+    tile = 24 * LONG_SEQ * LONG_CHUNK * 4
+    out = {"tile_bytes": tile}
+
+    def run(label, fwd):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        o = fwd()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        grads = torch.autograd.grad(o, (q, k, v), ct)
+        torch.cuda.synchronize()
+        out[label] = {"held_after_forward": held,
+                      "peak_above_inputs": torch.cuda.max_memory_allocated()
+                      - base}
+        return o.detach(), grads
+    o1, g1 = run("vjp", lambda: attn_lib.chunked_attention(
+        q, k, v, causal=True, chunk=LONG_CHUNK))
+    o2, g2 = run("autodiff", lambda: attn_lib._chunked_forward(
+        q, k, v, None, True, LONG_CHUNK, 0, 0)[0])
+    out["max_rel_l2_grads"] = max(_rel_l2(a, b) for a, b in zip(g1, g2))
+    out["outputs_bitwise"] = torch.equal(o1, o2)
+    print(f"[chunked vjp] one llama layer's attention, B1 S{LONG_SEQ}, "
+          f"chunks of {LONG_CHUNK} (a score tile {tile / 2**20:.0f} MiB): "
+          f"held after the forward {out['vjp']['held_after_forward'] / 2**20:.1f}"
+          f" MiB through the VJP against "
+          f"{out['autodiff']['held_after_forward'] / 2**20:.1f} MiB through "
+          f"autodiff of the loop; peak above the inputs "
+          f"{out['vjp']['peak_above_inputs'] / 2**20:.1f} against "
+          f"{out['autodiff']['peak_above_inputs'] / 2**20:.1f} MiB; outputs "
+          f"bitwise {out['outputs_bitwise']}, dq/dk/dv rel L2 "
+          f"{out['max_rel_l2_grads']:.2e}")
+    if not out["vjp"]["held_after_forward"] < tile:
+        _fail("the chunked VJP held a score tile or more after its forward")
+    if not out["max_rel_l2_grads"] <= BLOCK_REL_L2:
+        _fail(f"chunked VJP gradients against autodiff of the loop: rel L2 "
+              f"{out['max_rel_l2_grads']} > {BLOCK_REL_L2}")
+    return out
+
+
+def llama_training(dev, norms):
+    """llama3.2-3b at full width and depth, B8 S128: one unfused plain step
+    (eager, plain LAMB), 6 fused steps eager and 6 graphed from the same
+    seeded weights (bitwise equal: losses, grad norms and a digest of every
+    state leaf), exact launches a step, the replayed step profiled; then
+    B1 S4096 through the chunked VJP on the graphed run's state."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_lib
+    arch = get_config("llama3.2-3b")
+    held = torch.cuda.memory_allocated()
+    # 1. the unfused plain step 1
+    t0 = time.perf_counter()
+    plain = _family_run("llama3.2-3b", arch, False, graphed=False, steps=1)
+    init_s = time.perf_counter() - t0 - plain["wall"]
+    n_params = sum(t.numel() for t in tree.leaves(plain["state"]["params"]))
+    print(f"[train llama] {arch.name} {arch.num_layers}L d{arch.d_model}, "
+          f"{n_params} parameters: bf16 params and grads, fp32 master, m and "
+          f"v = 16 B each, {n_params * 16 / 1e9:.1f} GB before the clip's "
+          f"temporaries and the graph pool; held at the phase's start "
+          f"{held / 2**30:.2f} GiB; the seeded init {init_s:.1f} s")
+    params_1 = [p.detach().clone() for p in tree.leaves(
+        plain["state"]["params"])]
+    _free(plain)
+    # 2. fused eager: step 1 (against the plain step), then 5 more
+    eager = _family_run("llama3.2-3b", arch, True, graphed=False, steps=1)
+    fused_1 = tree.leaves(eager["state"]["params"])
+    gap = max(_ulp_gap(a, b) for a, b in zip(fused_1, params_1))
+    same = sum(torch.equal(a, b) for a, b in zip(fused_1, params_1))
+    equal = sum(int((a == b).sum()) for a, b in zip(fused_1, params_1)) \
+        / sum(a.numel() for a in fused_1)
+    del params_1, fused_1
+    step1 = {"loss_fused": eager["losses"][0], "loss_plain":
+             plain["losses"][0], "loss_bitwise": eager["losses"][0]
+             == plain["losses"][0], "grad_norm_fused":
+             eager["grad_norms"][0], "grad_norm_plain":
+             plain["grad_norms"][0], "params_bitwise_leaves": same,
+             "params_max_gap_bf16_ulps": gap, "params_equal_share": equal,
+             "loss_gap_bf16_ulps": abs(eager["losses"][0]
+                                       - plain["losses"][0])
+             / _bf16_ulp(torch.tensor(plain["losses"][0])).item()}
+    print(f"[train llama] step 1 fused (decode_residual_norm, fused LAMB) "
+          f"against the unfused plain step from the same weights: loss "
+          f"{step1['loss_fused']!r} vs {step1['loss_plain']!r} (bitwise "
+          f"{step1['loss_bitwise']}, {step1['loss_gap_bf16_ulps']:.3f} bf16 "
+          f"ulps), grad norm {step1['grad_norm_fused']!r} vs "
+          f"{step1['grad_norm_plain']!r}; updated bf16 params: {same} of "
+          f"{len(tree.leaves(eager['state']['params']))} leaves and "
+          f"{equal:.6f} of the elements bitwise, largest gap {gap:.3f} bf16 "
+          f"ulps of its leaf's largest |value|; the add + norm kernel's h "
+          f"is bitwise the plain norm's in "
+          f"{norms['decode_residual_norm']['bitwise_h_share']:.7f} of its "
+          f"elements at this shape (the rest 1 ulp: its fp32 sums run in "
+          f"another order), and LAMB's kernel and plain versions sum the "
+          f"trust ratio's norms in other orders")
+    if not (gap <= STEP1_PARAM_ULPS
+            and step1["loss_gap_bf16_ulps"] <= STEP1_LOSS_ULPS):
+        _fail(f"llama step 1 fused against the unfused plain step: updated "
+              f"bf16 params {gap} bf16 ulps of a leaf's largest |value| "
+              f"apart (tol {STEP1_PARAM_ULPS}), loss "
+              f"{step1['loss_gap_bf16_ulps']} bf16 ulps of the loss apart "
+              f"(tol {STEP1_LOSS_ULPS})")
+    rest = _family_run("llama3.2-3b", arch, True, graphed=False,
+                       steps=FAMILY_STEPS - 1, start=1,
+                       state=eager["state"], bundle=eager["bundle"],
+                       data=eager["data"])
+    eager_losses = eager["losses"] + rest["losses"]
+    eager_norms = eager["grad_norms"] + rest["grad_norms"]
+    digest = _state_digest(rest["state"])
+    leaf_sizes = [t.numel() for t in tree.leaves(rest["state"]["params"])]
+    n_leaves = len(leaf_sizes)
+    want = {"decode_residual_norm": 2 * arch.num_layers,
+            "lamb_stage1": n_leaves, "lamb_stage2": n_leaves}
+    for r in (eager, rest):
+        _expect(r, want, "llama3.2-3b fused eager")
+    _expect(plain, {}, "llama3.2-3b unfused plain step")
+    _free(eager, rest)
+    # 3. fused graphed
+    run = _family_run("llama3.2-3b", arch, True)
+    _expect(run, want, "llama3.2-3b fused graphed")
+    g = run["bundle"].fn
+    if (g.captures, g.replays) != (1, FAMILY_STEPS - 1):
+        _fail(f"llama graphed run: {g.captures} captures, {g.replays} "
+              f"replays")
+    if run["losses"] != eager_losses or run["grad_norms"] != eager_norms:
+        _fail(f"llama: the graphed steps differ from the eager ones: "
+              f"{run['losses']} vs {eager_losses}")
+    if _state_digest(run["state"]) != digest:
+        _fail("llama: the graphed run's final state differs from the eager "
+              "run's (bit digests)")
+    graph = {"captures": g.captures, "replays": g.replays,
+             "pool_bytes": g.pool_bytes}
+    prof = profile_train_step(run, leaf_sizes, "llama3.2-3b graphed")
+    steady = steady_step_ms(run)
+    print(f"[train llama] {FAMILY_STEPS} graphed fused steps bitwise the "
+          f"eager ones (losses, grad norms, digests of {len(digest)} state "
+          f"leaves); losses {[round(x, 4) for x in run['losses']]}; median "
+          f"step (3-{FAMILY_STEPS}) {run['step_s'] * 1e3:.2f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / run['step_s']:.0f} tokens/s; 5 more "
+          f"back to back {steady:.2f} ms a step; peak "
+          f"{run['peak'] / 2**30:.2f} GiB ({run['base'] / 2**30:.2f} held "
+          f"at the loop's start); graph pool {g.pool_bytes / 2**30:.3f} GiB;"
+          f" launches a step {want}")
+    if not run["losses"][-1] < run["losses"][0]:
+        _fail(f"llama training: loss did not fall: {run['losses']}")
+    # 4. B1 S4096 through the chunked VJP, on the same state
+    _drop_graph(run["bundle"])
+    calls = {"n": 0}
+    real = attn_lib.chunked_attention
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return real(*a, **k)
+    attn_lib.chunked_attention = counted
+    try:
+        long = _family_run(
+            "llama3.2-3b S4096", arch, True, graphed=False,
+            steps=LONG_STEPS, batch=1, seq=LONG_SEQ, state=run["state"],
+            bundle=run["bundle"], start=FAMILY_STEPS,
+            data=_family_data(arch, 1, LONG_SEQ))
+    finally:
+        attn_lib.chunked_attention = real
+    if calls["n"] != 2 * arch.num_layers * LONG_STEPS:
+        _fail(f"llama S{LONG_SEQ}: {calls['n']} chunked attention calls, "
+              f"expected {2 * arch.num_layers * LONG_STEPS}")
+    _expect(long, want, f"llama3.2-3b S{LONG_SEQ}")
+    print(f"[train llama] B1 S{LONG_SEQ} (attn_chunk {arch.attn_chunk}), "
+          f"{LONG_STEPS} eager fused steps through the chunked VJP "
+          f"({calls['n']} calls): losses "
+          f"{[round(x, 4) for x in long['losses']]}, wall {long['wall']:.2f}"
+          f" s, peak {long['peak'] / 2**30:.2f} GiB "
+          f"({(long['peak'] - long['base']) / 2**30:.2f} above the state)")
+    _free(run, long)
+    tiles = attention_tiles(dev)
+    return {"n_params": n_params, "n_leaves": n_leaves, "step1": step1,
+            "losses": run["losses"], "eager_losses": eager_losses,
+            "grad_norms": run["grad_norms"], "step_s": run["step_s"],
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / run["step_s"],
+            "steady_step_ms": steady, "peak": run["peak"],
+            "held_at_start": run["base"], "graph": graph, "profile": prof,
+            "per_step": want, "launches": run["launches"],
+            "long": {"losses": long["losses"], "wall": long["wall"],
+                     "peak": long["peak"], "held_at_start": long["base"],
+                     "chunked_calls": calls["n"], "tiles": tiles},
+            "init_s": init_s}
+
+
+def mamba_training(dev):
+    """mamba2-1.3b at full width and depth, B8 S128: 6 steps graphed and 6
+    eager from the same seeded weights, both states held and compared
+    bitwise; exact launches a step (48 gated norms a pass, twice with the
+    recompute; one LAMB launch of each stage a leaf); the replayed step
+    profiled."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    arch = get_config("mamba2-1.3b")
+    run = _family_run("mamba2-1.3b", arch, True)
+    eager = _family_run("mamba2-1.3b", arch, True, graphed=False)
+    leaf_sizes = [t.numel() for t in tree.leaves(run["state"]["params"])]
+    n_leaves = len(leaf_sizes)
+    want = {"gated_rmsnorm": 2 * arch.num_layers, "lamb_stage1": n_leaves,
+            "lamb_stage2": n_leaves}
+    for r in (run, eager):
+        _expect(r, want, r["tag"])
+    diff = sum(not torch.equal(a, b) for a, b in zip(
+        tree.leaves(run["state"]), tree.leaves(eager["state"])))
+    if diff or run["losses"] != eager["losses"] or \
+            run["grad_norms"] != eager["grad_norms"]:
+        _fail(f"mamba2: graphed and eager runs differ ({diff} state leaves;"
+              f" losses {run['losses']} vs {eager['losses']})")
+    g = run["bundle"].fn
+    if (g.captures, g.replays) != (1, FAMILY_STEPS - 1):
+        _fail(f"mamba2 graphed run: {g.captures} captures, {g.replays} "
+              f"replays")
+    if not run["losses"][-1] < run["losses"][0]:
+        _fail(f"mamba2 training: loss did not fall: {run['losses']}")
+    n_state = sum(t.numel() * t.element_size()
+                  for t in tree.leaves(run["state"]))
+    graph = {"captures": g.captures, "replays": g.replays,
+             "pool_bytes": g.pool_bytes}
+    _free(eager)
+    prof = profile_train_step(run, leaf_sizes, "mamba2-1.3b graphed")
+    steady = steady_step_ms(run)
+    print(f"[train mamba2] {arch.name} {arch.num_layers}L d{arch.d_model}, "
+          f"{sum(leaf_sizes)} parameters in {n_leaves} leaves, state "
+          f"{n_state / 1e9:.1f} GB: {FAMILY_STEPS} graphed fused steps "
+          f"bitwise the eager ones (every state leaf); losses "
+          f"{[round(x, 4) for x in run['losses']]}; median step "
+          f"{run['step_s'] * 1e3:.2f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / run['step_s']:.0f} tokens/s; 5 more "
+          f"back to back {steady:.2f} ms; peak {run['peak'] / 2**30:.2f} "
+          f"GiB; graph pool {g.pool_bytes / 2**30:.3f} GiB; launches a step "
+          f"{want}")
+    out = {"n_params": sum(leaf_sizes), "n_leaves": n_leaves,
+           "state_bytes": n_state, "losses": run["losses"],
+           "grad_norms": run["grad_norms"], "step_s": run["step_s"],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / run["step_s"],
+           "steady_step_ms": steady, "peak": run["peak"],
+           "held_at_start": run["base"], "graph": graph,
+           "profile": prof, "per_step": want, "launches": run["launches"]}
+    _free(run)
+    return out
+
+
+def checkpoint_on_card(dev):
+    """Checkpoint / restart on the card at smoke size (llama3.2-3b-smoke,
+    bf16, fused blocks and LAMB kernels, B4 S32): a run of 4 graphed steps;
+    the same with ckpt_every 2; a restart from step 2 into a new bundle's
+    tensors (as a new process would: its own warm-up and one capture) and
+    into the checkpointing run's own tensors (its captured graph replayed,
+    no new capture), each giving steps 3-4's losses and the final state
+    bitwise the uninterrupted run's; then save_async, the next step at
+    once, and the restored checkpoint bitwise the state before that step
+    (the manager's own host copy: the tree it is given holds the card
+    tensors the step updates). The directory is made under build/ and
+    removed."""
+    import shutil
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.convert import load_state_, state_to_jax
+    from repro_torch.models.transformer import period_length
+    from repro_torch.train.loop import LoopConfig, train_loop
+    arch = smoke_config("llama3.2-3b")
+    shape = dict(batch=CKPT_BATCH, seq=CKPT_SEQ)
+    data = _family_data(arch, **shape)
+    ref_run = _family_run("llama smoke", arch, True, steps=CKPT_STEPS,
+                          data=data, **shape)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=build)
+    try:
+        mgr = CheckpointManager(root)
+        b = _family_bundle(arch, True, **shape)
+        st = b.init(SEED)
+        out = train_loop(b.fn, st, data, LoopConfig(
+            max_steps=CKPT_STEPS, ckpt_every=2), ckpt=mgr,
+            ckpt_tree=lambda x: state_to_jax(x, period_length(arch)),
+            log=lambda s: None)
+        if [h["loss"] for h in out["history"]] != ref_run["losses"]:
+            _fail("checkpointing changed the losses")
+        if mgr.latest_step() != CKPT_STEPS:
+            _fail(f"checkpoints: latest step {mgr.latest_step()}")
+        results = {}
+        fresh = _family_bundle(arch, True, **shape)
+        for label, (bundle, state) in (
+                ("new bundle", (fresh, fresh.init(SEED + 1))),
+                ("same bundle", (b, st))):
+            before = [t.data_ptr() for t in tree.leaves(state)]
+            load_state_(state, mgr.restore(2)["state"])
+            captures = bundle.fn.captures
+            res = _family_run("llama smoke", arch, True, steps=2, start=2,
+                              state=state, bundle=bundle, data=data,
+                              **shape)
+            kept = [t.data_ptr() for t in tree.leaves(state)] == before
+            same = all(torch.equal(x, y) for x, y in zip(
+                tree.leaves(state), tree.leaves(ref_run["state"])))
+            results[label] = {
+                "losses": res["losses"],
+                "bitwise": res["losses"] == ref_run["losses"][2:] and same,
+                "new_captures": bundle.fn.captures - captures,
+                "addresses_kept": kept}
+            if not (kept and results[label]["bitwise"]):
+                _fail(f"restart from step 2 ({label}): losses "
+                      f"{res['losses']} vs {ref_run['losses'][2:]}, state "
+                      f"bitwise {same}, addresses kept {kept}")
+        if results["new bundle"]["new_captures"] != 1 or \
+                results["same bundle"]["new_captures"] != 0:
+            _fail(f"restart captures: {results}")
+        # save_async of card tensors that the next step (a replay) updates
+        # in place, then that step at once
+        live = {"params": {k: st["params"][k] for k in ("embed",
+                                                        "final_norm")},
+                "opt": {"step": st["opt"]["step"]}}
+        snap = [t.detach().cpu() for t in tree.leaves(live)]
+        mgr.save_async(99, live, extra={"data_step": 99})
+        b.fn(st, data.batch(CKPT_STEPS))
+        torch.cuda.synchronize()
+        mgr.wait()
+        back = tree.leaves(mgr.restore(99)["state"])
+        snap_ok = len(back) == len(snap) and all(
+            torch.equal(x, y) for x, y in zip(snap, back))
+        stepped = any(not torch.equal(x, y.cpu()) for x, y in zip(
+            snap, tree.leaves(live)))
+        if not (snap_ok and stepped):
+            _fail(f"save_async: restored bitwise the pre-step state "
+                  f"{snap_ok}, the step changed the state {stepped}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _free(ref_run)
+    print(f"[checkpoint] llama smoke on the card, {CKPT_STEPS} graphed fused"
+          f" steps, ckpt_every 2: restart from step 2 bitwise the "
+          f"uninterrupted run (losses and every state leaf) into a new "
+          f"bundle ({results['new bundle']['new_captures']} capture) and "
+          f"into the same bundle's tensors "
+          f"({results['same bundle']['new_captures']} captures); save_async "
+          f"then the next step at once: restored bitwise the pre-step state")
+    return {"restarts": results, "save_async_snapshot_bitwise": snap_ok}
+
+
+def train_families_phase(dev, marks):
+    """Phase 8b: the training families after bert-large."""
+    t0 = time.perf_counter()
+    norms = training_norm_shapes(dev)
+    marks["train norms"] = time.perf_counter()
+    llama = llama_training(dev, norms)
+    marks["train llama"] = time.perf_counter()
+    mamba = mamba_training(dev)
+    marks["train mamba2"] = time.perf_counter()
+    ckpt = checkpoint_on_card(dev)
+    marks["checkpoint"] = time.perf_counter()
+    secs = time.perf_counter() - t0
+    print(f"[train families] phase {secs:.1f} s")
+    return {"norm_shapes": norms, "llama3.2-3b": llama,
+            "mamba2-1.3b": mamba, "checkpoint": ckpt, "phase_s": secs}
+
+
 UNTIED_GEMV = "head_gemv_wgmma_kernel"   # pass 1 of an untied head
 
 DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
@@ -5109,6 +5818,7 @@ def main() -> int:
     marks["training"] = time.perf_counter()
     training["characterize"] = characterize_phase(training)
     marks["characterize"] = time.perf_counter()
+    families = train_families_phase(dev, marks)
     prev = t_start
     spans = []
     for name, t in marks.items():
@@ -5124,7 +5834,34 @@ def main() -> int:
           f"checks, qwen2-vl-2b, whisper-base) {new_phase:.1f}; the "
           f"registry's last archs (their kernel checks, command-r-35b, "
           f"mistral-large-123b, llama4-maverick-400b-a17b) "
-          f"{arch_phase:.1f}")
+          f"{arch_phase:.1f}; the training families (llama3.2-3b, "
+          f"mamba2-1.3b, checkpoint) {families['phase_s']:.1f}")
+    # the kernels on the training families' paths: their launches there
+    # and their numbers at the training shapes
+    llama_t, mamba_t = families["llama3.2-3b"], families["mamba2-1.3b"]
+    fam_path = (f"{FAMILY_STEPS} graphed fused training steps, B"
+                f"{TRAIN_BATCH} S{TRAIN_SEQ}")
+    for r in rows:
+        if r["name"] == "decode_residual_norm":
+            r["training"] = dict(
+                families["norm_shapes"]["decode_residual_norm"],
+                launches_llama_training=llama_t["launches"][r["name"]],
+                launches_per_step=llama_t["per_step"][r["name"]],
+                launches_path=f"llama3.2-3b, {fam_path}")
+    for r in mamba_rows:
+        r["training"] = dict(
+            families["norm_shapes"]["gated_rmsnorm"],
+            launches_mamba2_training=mamba_t["launches"][r["name"]],
+            launches_per_step=mamba_t["per_step"][r["name"]],
+            launches_path=f"mamba2-1.3b, {fam_path}")
+    for r in train_rows:
+        if r["name"].startswith("lamb_stage"):
+            r["training_families"] = {
+                name: {"launches": t["launches"][r["name"]],
+                       "launches_per_step": t["per_step"][r["name"]],
+                       "step": t["profile"].get("lamb", {}).get(r["name"])}
+                for name, t in (("llama3.2-3b", llama_t),
+                                ("mamba2-1.3b", mamba_t))}
     for r in rows:
         name = r["name"]
         path = name in PATH_KERNELS[True]   # the fused serve is the default
@@ -5275,6 +6012,7 @@ def main() -> int:
         "registry_archs": {COMMAND_R: command_r, **cut, "kernels": {
             k: v for k, v in arch_kernels.items()
             if k not in ("head", "wide")}, "phase_s": arch_phase},
+        "training_families": families,
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

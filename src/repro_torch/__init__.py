@@ -13,7 +13,10 @@ is its own copy. What it carries today:
   at once (``Model.prefill``; above ``attn_chunk`` the chunked attention,
   or the flash kernel for a config with ``attn_impl="flash"``), then
   lock-step decode (``Model.decode_step``), dense and mamba2;
-- bert-large MLM training on one device (``launch.train``);
+- training on one device (``launch.train``): every arch of the registry,
+  MLM where the arch is bidirectional, else causal, each step after the
+  second one replay of a captured CUDA graph on the card, with
+  checkpoint/restart in JAX's file format (``checkpoint``);
 - the paper's analytical model and its operator-level characterization
   (``core``): ``core.characterize.analyze(fn, *args)`` runs ``fn`` once
   and prices every op it ran, bucketed by the paper's taxonomy and by
@@ -32,6 +35,7 @@ with twelve hand-written sm_90a kernels:
 - ``kernels.fused_lm_head``: the LM head with token selection
 - ``kernels.bias_gelu``: the GeLU MLP's bias + activation
 - ``kernels.fused_lamb``: LAMB's two stages, one parameter leaf a call
+  (one trust ratio a layer, a MoE expert leaf one an expert)
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.

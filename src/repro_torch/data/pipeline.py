@@ -16,13 +16,19 @@ Objectives:
   causal  : targets = inputs shifted left (decoder-only LMs)
   mlm     : BERT-style — 15% positions selected; 80% [MASK], 10% random, 10%
             kept; loss_mask marks selected positions (paper's Masked-LM task)
+
+The port adds ``frames`` (JAX's pipeline has none, so JAX's trainer cannot
+feed an encdec arch): ``(Senc, D)`` gives each batch ``frontend_embeddings``
+[B, Senc, D] float32, standard normal from its own (seed, step, host)
+stream, the stub frontend's frame embeddings of whisper's encoder. The
+tokens, targets and masks are unchanged by it.
 """
 from __future__ import annotations
 
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -43,6 +49,7 @@ class DataConfig:
     mask_rate: float = 0.15
     zipf_a: float = 1.2
     markov_p: float = 0.35         # P(next token correlated with current)
+    frames: Optional[Tuple[int, int]] = None   # (Senc, D): frame embeddings
 
     def __post_init__(self):
         # SeedSequence entropy (and default_rng in __init__) require this
@@ -107,9 +114,13 @@ class SyntheticPipeline:
             mask = sel.astype(np.float32)
         else:
             raise ValueError(cfg.objective)
-        return {"tokens": inputs.astype(np.int32),
-                "targets": targets.astype(np.int32),
-                "loss_mask": mask}
+        out = {"tokens": inputs.astype(np.int32),
+               "targets": targets.astype(np.int32),
+               "loss_mask": mask}
+        if cfg.frames is not None:
+            out["frontend_embeddings"] = self._rng(step, 2).standard_normal(
+                (self.local_batch, *cfg.frames), dtype=np.float32)
+        return out
 
     # -------------------------------------------------------------- iterator ---
     def iterator(self, start_step: int = 0,

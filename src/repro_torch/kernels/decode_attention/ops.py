@@ -23,6 +23,7 @@ import torch
 
 from ...core import optrace
 from .. import _build
+from .._grad import refuse_grad
 from . import ref
 
 LAUNCHES = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
@@ -187,6 +188,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens):
                                           seq_lens)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     check_kernel_args(q, k_pages, v_pages)
     b = q.shape[0]
     _, page_size, hkv, _ = k_pages.shape
@@ -209,6 +211,7 @@ def paged_prefill_attention(q, k_pages, v_pages, page_row, start: int,
                                            start, total_len)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("paged_prefill_attention", q, k_pages, v_pages)
     check_kernel_args(q, k_pages, v_pages)
     c, hq, _ = q.shape
     _, page_size, hkv, _ = k_pages.shape

@@ -4,7 +4,8 @@
 Dispatch is on the tensors' device: CPU tensors take the plain PyTorch
 version in ``ref.py``; CUDA tensors launch the hand-written sm_90a kernel or
 raise (bf16 only, head dim 64 or 128). There is no fallback from one to the
-other. ``LAUNCHES`` counts the kernel's launches (plain calls do not count).
+other. There is no backward: a call that autograd would record raises on
+either device. ``LAUNCHES`` counts the kernel's launches (plain calls do not count).
 
 Layout is the model's, as ``repro.kernels.flash_attention.ops``: q [B, Sq,
 Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]. The kernel reads q, k and v
@@ -28,6 +29,7 @@ import torch
 
 from ...core import optrace
 from .. import _build
+from .._grad import refuse_grad
 from . import ref
 
 LAUNCHES = {"flash_attention": 0}
@@ -171,6 +173,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_len is None:
         kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
                             device=q.device)
+    # on both devices, so the CPU refuses what the card refuses
+    refuse_grad("the flash attention kernel (training with "
+                "attn_impl='flash')", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_fwd(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len,
@@ -178,10 +183,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             block_kv=block_kv).transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash attention kernel has no backward in repro_torch yet "
-            "(training with attn_impl='flash' is not ported)")
     kv_len = kv_len.to(torch.int32)
     _check(q, k, v, kv_len)
     _, sq, hq, d = q.shape

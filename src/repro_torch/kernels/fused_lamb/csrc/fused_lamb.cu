@@ -3,7 +3,7 @@
 //            v' = b2 v + (1 - b2) (g*ginv)^2,
 //            u = (m' c1) / (sqrt(v' c2) + eps) + wd w,
 //            and per-CTA partial sums of w^2 and u^2;
-//   stage 2: r = ||w|| / ||u|| over the leaf, w' = w - (lr r) u.
+//   stage 2: r = ||w|| / ||u|| over each row, w' = w - (lr r) u.
 // w, m, v fp32 (updated in place), g fp32 or bf16 (read in its own dtype,
 // upcast in registers), u an fp32 workspace.
 //
@@ -11,8 +11,18 @@
 // lamb_stage1 (pallas_call at :61) and kernel.py:78 lamb_stage2 (pallas_call
 // at :84). The plain version is repro_torch/kernels/fused_lamb/ref.py
 // lamb_stage12. Unlike the Pallas path (fused_lamb/ops.py, which reduces per
-// last-axis row), the trust ratio is one per leaf, as Fig. 3 and
-// repro/optim/lamb.py reduce a layer.
+// last-axis row), the trust ratio is one per layer, as Fig. 3 and
+// repro/optim/lamb.py reduce it (its _layer_axes):
+//   - a leaf is a layer, one row;
+//   - a MoE expert leaf [E, ...] is E rows, a ratio each: blockIdx.y is the
+//     row, each row's CTAs write their own partials;
+//   - leaves that share their ratios (whisper's encoder layers, which JAX
+//     stacks into one leaf) write their partials into one buffer at their
+//     own offsets, and each leaf's stage 2 reduces the whole buffer; a lone
+//     leaf is a group of one.
+// Row r's partials are part[r * nparts + i] (w^2) and part[rows * nparts +
+// r * nparts + i] (u^2), i < nparts, nparts the CTAs a row of every leaf
+// of the group; stage 1 of a leaf gets part at its own offset.
 //
 // What bounds it on this card: bytes. Stage 1 reads w, m, v (fp32) and g
 // (bf16 under master weights) and writes m, v, u: 26 bytes an element;
@@ -24,10 +34,13 @@
 //   - the TPU grid carries its partial norms in order across tiles; CTAs run
 //     in no order here, so stage 1 has a fixed grid (at most 4 CTAs an SM,
 //     grid-stride beyond) and each CTA writes its own pair of partials;
-//   - stage 2 reduces those partials itself, every CTA in the same fixed
-//     order (so every CTA holds the same r), and CTA 0 writes r out: no
-//     launch and no host read stand between the stages, so a step's 296
-//     leaves queue 592 launches without a sync.
+//   - stage 2 reduces those partials itself, every CTA of a row in the same
+//     fixed order (so every CTA holds the same r), and CTA 0 writes r out:
+//     no launch and no host read stand between the stages, so a step's
+//     leaves queue their launches without a sync.
+// Indices: a leaf has fewer than 2^31 elements (the wrapper checks), so
+// every element index fits an int; llama3.2-3b's tied embedding, 394 M
+// elements, is the largest leaf the trainer gives it.
 // Numerics: every operation rounds once (no fused multiply-adds), in the
 // plain version's order, so m', v' and u equal PyTorch's elementwise result;
 // the norms are summed in this kernel's fixed order (each thread in index
@@ -116,9 +129,12 @@ __global__ void __launch_bounds__(kThreads)
 stage1_kernel(const float* __restrict__ w, const TG* __restrict__ g,
               float* __restrict__ m, float* __restrict__ v,
               const float* __restrict__ scal, float* __restrict__ u,
-              float* __restrict__ part, int n, Hyper h) {
+              float* __restrict__ part, int n, int nparts, Hyper h) {
   __shared__ float red[2 * kWarps + 2];
   const float ginv = scal[0], c1 = scal[1], c2 = scal[2];
+  const int base = blockIdx.y * n;       // this row's first element
+  w += base; g += base; m += base; v += base; u += base;
+  part += blockIdx.y * nparts;
   const int n4 = n / 4;
   const int stride = gridDim.x * kThreads;
   float wsq = 0.f, usq = 0.f;
@@ -148,26 +164,28 @@ stage1_kernel(const float* __restrict__ w, const TG* __restrict__ g,
   block_sum2(wsq, usq, red);
   if (threadIdx.x == 0) {
     part[blockIdx.x] = wsq;
-    part[gridDim.x + blockIdx.x] = usq;
+    part[gridDim.y * nparts + blockIdx.x] = usq;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 stage2_kernel(float* __restrict__ w, const float* __restrict__ u,
               const float* __restrict__ part, float* __restrict__ r_out,
-              int n, float lr) {
+              int n, int nparts, float lr) {
   __shared__ float red[2 * kWarps + 2];
-  const int blocks = gridDim.x;      // stage 1 ran on the same grid
+  const int base = blockIdx.y * n;
+  w += base; u += base;
+  part += blockIdx.y * nparts;
   float wsq = 0.f, usq = 0.f;
-  for (int i = threadIdx.x; i < blocks; i += kThreads) {
+  for (int i = threadIdx.x; i < nparts; i += kThreads) {
     wsq = __fadd_rn(wsq, part[i]);
-    usq = __fadd_rn(usq, part[blocks + i]);
+    usq = __fadd_rn(usq, part[gridDim.y * nparts + i]);
   }
   block_sum2(wsq, usq, red);
   const float wn = __fsqrt_rn(wsq), un = __fsqrt_rn(usq);
   const float r = (wn > 0.f && un > 0.f) ? __fdiv_rn(wn, fmaxf(un, 1e-30f))
                                          : 1.0f;
-  if (blockIdx.x == 0 && threadIdx.x == 0) r_out[0] = r;
+  if (blockIdx.x == 0 && threadIdx.x == 0) r_out[blockIdx.y] = r;
   const float step = __fmul_rn(lr, r);
   const int n4 = n / 4;
   const int stride = gridDim.x * kThreads;
@@ -186,15 +204,20 @@ stage2_kernel(float* __restrict__ w, const float* __restrict__ u,
 
 }  // namespace
 
-// w, m, v, u fp32 [n]; g [n] fp32 (g_f32 = 1) or bf16 (g_f32 = 0); scal fp32
-// [3] = (ginv, c1, c2); part fp32 [2 * blocks]. m and v are updated in place.
+// w, m, v, u fp32 [rows * n]; g [rows * n] fp32 (g_f32 = 1) or bf16
+// (g_f32 = 0); scal fp32 [3] = (ginv, c1, c2); part fp32 at this leaf's
+// offset in its group's buffer, row r's CTA b writing part[r * nparts + b]
+// and part[rows * nparts + r * nparts + b]. m and v are updated in place. A
+// row of more than 3 elements starts 16-byte aligned (the wrapper checks
+// n % 4 == 0 where rows > 1).
 extern "C" int lamb_stage1(const void* w, const void* g, void* m, void* v,
                            const void* scal, void* u, void* part, int n,
-                           int blocks, int g_f32, float b1, float omb1,
-                           float b2, float omb2, float eps, float wd,
-                           void* stream) {
+                           int rows, int blocks, int nparts, int g_f32,
+                           float b1, float omb1, float b2, float omb2,
+                           float eps, float wd, void* stream) {
   const Hyper h{b1, omb1, b2, omb2, eps, wd};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks, rows);
   const float* wp = static_cast<const float*>(w);
   float* mp = static_cast<float*>(m);
   float* vp = static_cast<float*>(v);
@@ -202,21 +225,24 @@ extern "C" int lamb_stage1(const void* w, const void* g, void* m, void* v,
   float* up = static_cast<float*>(u);
   float* pp = static_cast<float*>(part);
   if (g_f32)
-    stage1_kernel<float><<<blocks, kThreads, 0, s>>>(
-        wp, static_cast<const float*>(g), mp, vp, sp, up, pp, n, h);
+    stage1_kernel<float><<<grid, kThreads, 0, s>>>(
+        wp, static_cast<const float*>(g), mp, vp, sp, up, pp, n, nparts, h);
   else
-    stage1_kernel<bf16><<<blocks, kThreads, 0, s>>>(
-        wp, static_cast<const bf16*>(g), mp, vp, sp, up, pp, n, h);
+    stage1_kernel<bf16><<<grid, kThreads, 0, s>>>(
+        wp, static_cast<const bf16*>(g), mp, vp, sp, up, pp, n, nparts, h);
   return static_cast<int>(cudaGetLastError());
 }
 
-// w updated in place from u and stage 1's partials (same blocks); r_out
-// fp32 [1] receives the leaf's trust ratio.
+// w updated in place from u and the group's whole buffer of partials: row r
+// reduces part[r * nparts + i] and part[rows * nparts + r * nparts + i],
+// i < nparts; r_out fp32 [rows] receives each row's trust ratio.
 extern "C" int lamb_stage2(void* w, const void* u, const void* part,
-                           void* r_out, int n, int blocks, float lr,
-                           void* stream) {
-  stage2_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                           void* r_out, int n, int rows, int blocks,
+                           int nparts, float lr, void* stream) {
+  stage2_kernel<<<dim3(blocks, rows), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(w), static_cast<const float*>(u),
-      static_cast<const float*>(part), static_cast<float*>(r_out), n, lr);
+      static_cast<const float*>(part), static_cast<float*>(r_out), n,
+      nparts, lr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,23 @@
-"""Wrapper of the fused LAMB kernels (``csrc/fused_lamb.cu``): one leaf's
-Fig. 3 update, in place.
+"""Wrapper of the fused LAMB kernels (``csrc/fused_lamb.cu``): the Fig. 3
+update, in place, of one leaf or of leaves that share their trust ratios
+(whisper's encoder layers, one leaf in JAX's stacked tree), one ratio a
+row (``rows``: a MoE expert leaf's experts; 1, the whole leaf, for every
+other leaf).
 
-CPU tensors take the plain version (``ref.lamb_stage1``, then
-``ref.trust_ratio`` and ``ref.lamb_stage2``) and copy its results into
-``w``, ``m`` and ``v``; CUDA tensors launch the two hand-written sm_90a
-kernels or raise. ``LAUNCHES`` counts kernel launches. ``stage1`` and
-``stage2`` are one op each of an ``optrace`` trace, with the FLOPs
-``stage1_flops`` and ``stage2_flops`` state.
+CPU tensors take the plain version (``ref.lamb_stage1``, the squared norms,
+the trust ratio and ``ref.lamb_stage2``, with the card's layout of partial
+norms at one partial a row) and copy its results into ``w``, ``m`` and
+``v``; CUDA tensors launch the two hand-written sm_90a kernels or raise.
+``LAUNCHES`` counts kernel launches. ``stage1`` and ``stage2`` are one op
+each of an ``optrace`` trace, with the FLOPs ``stage1_flops`` and
+``stage2_flops`` state.
 Nothing here reads a device value on the host: ``ginv``, ``c1`` and ``c2``
 arrive as a 3-float device tensor, and stage 2 reduces stage 1's per-block
 partial norms itself, so a step of many leaves never waits on the card.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -26,29 +32,15 @@ _THREADS = 256
 _MAX_BLOCKS = 4 * 132        # four CTAs on each of the H100's 132 SMs
 
 
-def grid_blocks(n: int) -> int:
-    """CTAs of both stages for an ``n``-element leaf (each thread takes four
-    elements a sweep; grid-stride beyond ``_MAX_BLOCKS``)."""
-    return max(1, min(_MAX_BLOCKS, -(-n // (4 * _THREADS))))
+def grid_blocks(n: int, rows: int = 1) -> int:
+    """CTAs a row of both stages for ``rows`` rows of ``n`` elements (each
+    thread takes four elements a sweep; grid-stride beyond): at most
+    ``_MAX_BLOCKS`` CTAs in all, at least one a row."""
+    cap = max(1, _MAX_BLOCKS // rows)
+    return max(1, min(cap, -(-n // (4 * _THREADS))))
 
 
-def lamb_update_(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-                 v: torch.Tensor, scalars: torch.Tensor, *, beta1: float,
-                 beta2: float, eps: float, weight_decay: float,
-                 lr: float) -> torch.Tensor:
-    """LAMB Stage 1 + 2 on one leaf: ``w``, ``m``, ``v`` (float32) updated
-    in place from the gradient ``g`` (float32 or bfloat16, read in its own
-    dtype); ``scalars`` = [ginv, c1, c2] float32. Returns the leaf's trust
-    ratio as a 1-element float32 tensor on the leaf's device."""
-    if w.device.type == "cpu":
-        u = torch.empty_like(w)
-        r = torch.empty(1, dtype=torch.float32)
-        stage1(w, g, m, v, scalars, u, None, beta1=beta1, beta2=beta2,
-               eps=eps, weight_decay=weight_decay)
-        stage2(w, u, None, r, lr=lr)
-        return r
-    if w.device.type != "cuda":
-        raise ValueError(f"unsupported device {w.device}")
+def _check(w, g, m, v, scalars, rows: int) -> None:
     for name, t in (("w", w), ("m", m), ("v", v)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -67,13 +59,51 @@ def lamb_update_(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     n = w.numel()
     if not 0 < n < 2 ** 31:
         raise ValueError(f"leaf of {n} elements: the kernel takes 1 to 2^31-1")
-    blocks = grid_blocks(n)
-    u = torch.empty(n, dtype=torch.float32, device=w.device)
-    partials = torch.empty(2 * blocks, dtype=torch.float32, device=w.device)
-    r = torch.empty(1, dtype=torch.float32, device=w.device)
-    stage1(w, g, m, v, scalars, u, partials, beta1=beta1, beta2=beta2,
-           eps=eps, weight_decay=weight_decay)
-    stage2(w, u, partials, r, lr=lr)
+    if rows < 1 or n % rows or (rows > 1 and (n // rows) % 4) \
+            or rows > 65535:
+        raise ValueError(f"{rows} rows of a {n}-element leaf: rows must "
+                         "divide it into rows of a multiple of 4 elements "
+                         "(each row starts 16-byte aligned)")
+
+
+def lamb_update_(w, g, m, v, scalars: torch.Tensor, *, beta1: float,
+                 beta2: float, eps: float, weight_decay: float, lr: float,
+                 rows: int = 1) -> torch.Tensor:
+    """LAMB Stage 1 + 2 on one leaf, or on a list of leaves that share
+    their trust ratios (the norms taken over all of them; a lone leaf is a
+    group of one): ``w``, ``m``, ``v`` (float32) updated in place from the
+    gradient ``g`` (float32 or bfloat16, read in its own dtype);
+    ``scalars`` = [ginv, c1, c2] float32. Each leaf is ``rows`` equal rows
+    (its leading dim where ``rows`` > 1), each row with its own ratio.
+    Every leaf's stage 1 writes its partial norms into one buffer at its
+    own offset (one partial a row on the CPU, ``grid_blocks`` on the
+    card), then every leaf's stage 2 reduces the whole buffer. Returns the
+    ratios as a [rows] float32 tensor on the leaves' device."""
+    hyper = dict(beta1=beta1, beta2=beta2, eps=eps,
+                 weight_decay=weight_decay)
+    ws, gs, ms, vs = ([x] if isinstance(x, torch.Tensor) else list(x)
+                      for x in (w, g, m, v))
+    dev = ws[0].device
+    if dev.type == "cuda":
+        for leaf in zip(ws, gs, ms, vs):
+            _check(*leaf, scalars, rows)
+        blocks = [grid_blocks(x.numel() // rows, rows) for x in ws]
+    elif dev.type == "cpu":
+        blocks = [1] * len(ws)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    nparts = sum(blocks)
+    partials = torch.empty(2 * rows * nparts, dtype=torch.float32,
+                           device=dev)
+    us = [torch.empty_like(x) for x in ws]
+    r = torch.empty(rows, dtype=torch.float32, device=dev)
+    off = 0
+    for leaf, u, b in zip(zip(ws, gs, ms, vs), us, blocks):
+        stage1(*leaf, scalars, u, partials[off:], **hyper, rows=rows,
+               nparts=nparts)
+        off += b
+    for x, u in zip(ws, us):
+        stage2(x, u, partials, r, lr=lr, rows=rows)
     return r
 
 
@@ -83,22 +113,28 @@ def _stream(t: torch.Tensor) -> int:
 
 def stage1_flops(w, *args, **kwargs) -> float:
     """FLOPs of one stage-1 call, as its plain version's ops count them
-    (``core/characterize.py``): 15 elementwise ops an element."""
-    return 15.0 * w.numel()
+    (``core/characterize.py``): 15 elementwise ops an element, and the two
+    squared norms (4 an element)."""
+    return 19.0 * w.numel()
 
 
-def stage2_flops(w, *args, **kwargs) -> float:
-    """FLOPs of one stage-2 call: the two squared norms (4 an element),
-    the update (2 an element) and 9 scalar ops for the ratio."""
-    return 6.0 * w.numel() + 9.0
+def stage2_flops(w, u, partials, *args, rows: int = 1, **kwargs) -> float:
+    """FLOPs of one stage-2 call: the reduction of the partials (one add
+    a partial), 9 scalar ops a row for the ratio, and the update (2 an
+    element)."""
+    return 2.0 * w.numel() + partials.numel() + 9.0 * rows
 
 
 @optrace.kernel_op("lamb_stage1", stage1_flops)
 def stage1(w, g, m, v, scalars, u, partials, *, beta1: float, beta2: float,
-           eps: float, weight_decay: float) -> None:
+           eps: float, weight_decay: float, rows: int = 1,
+           nparts: Optional[int] = None) -> None:
     """Stage 1 on checked tensors (``lamb_update_`` checks): m, v in place,
-    u written; on the card also ``partials`` [2 * grid_blocks(n)], on the
-    CPU (the plain version) ``partials`` is None."""
+    u written, and row r's squared norms of w and u into ``partials[r *
+    nparts + b]`` and ``[rows * nparts + r * nparts + b]``, b the CTA (0
+    on the CPU, where the plain version runs); ``partials`` starts at this
+    leaf's offset in its group's buffer, ``nparts`` (default: this leaf's
+    own CTAs a row) is the group's."""
     if w.device.type == "cpu":
         m_new, v_new, u_new = ref.lamb_stage1(
             w, g, m, v, ginv=scalars[0], c1=scalars[1], c2=scalars[2],
@@ -106,29 +142,41 @@ def stage1(w, g, m, v, scalars, u, partials, *, beta1: float, beta2: float,
         m.copy_(m_new)
         v.copy_(v_new)
         u.copy_(u_new)
+        nparts = 1 if nparts is None else nparts
+        wsq, usq = ref.sq_norms(w, u, rows)
+        partials[:rows * nparts:nparts] = wsq
+        partials[rows * nparts:2 * rows * nparts:nparts] = usq
         return
-    n = w.numel()
-    fn = _build.bind(_LIB, "lamb_stage1", 7, 3, 6)
+    n = w.numel() // rows
+    blocks = grid_blocks(n, rows)
+    fn = _build.bind(_LIB, "lamb_stage1", 7, 5, 6)
     err = fn(w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-             scalars.data_ptr(), u.data_ptr(), partials.data_ptr(), n,
-             grid_blocks(n), int(g.dtype == torch.float32), beta1,
-             1.0 - beta1, beta2, 1.0 - beta2, eps, weight_decay, _stream(w))
+             scalars.data_ptr(), u.data_ptr(), partials.data_ptr(), n, rows,
+             blocks, blocks if nparts is None else nparts,
+             int(g.dtype == torch.float32), beta1, 1.0 - beta1, beta2,
+             1.0 - beta2, eps, weight_decay, _stream(w))
     _build.check(err, "lamb_stage1")
     LAUNCHES["lamb_stage1"] += 1
 
 
 @optrace.kernel_op("lamb_stage2", stage2_flops)
-def stage2(w, u, partials, r, *, lr: float) -> None:
-    """Stage 2: the leaf's trust ratio into ``r`` [1] (on the card from
-    stage 1's partials), and w -= lr * r * u in place."""
+def stage2(w, u, partials, r, *, lr: float, rows: int = 1) -> None:
+    """Stage 2: each row's trust ratio into ``r`` [rows], and w -= lr * r
+    * u in place. The ratio comes from the group's whole buffer of stage
+    1's partials, ``2 * rows * nparts`` of them: row r reduces the
+    ``nparts`` w^2 sums at ``partials[r * nparts]`` and the u^2 sums
+    ``rows * nparts`` further on."""
+    nparts = partials.numel() // (2 * rows)
     if w.device.type == "cpu":
-        ratio = ref.trust_ratio(w, u)
-        w.copy_(ref.lamb_stage2(w, u, lr=lr, r=ratio))
-        r.copy_(ratio.reshape(1))
+        wsq, usq = partials.view(2, rows, nparts).sum(2)
+        ratio = ref.ratio(wsq, usq)
+        w.copy_(ref.lamb_stage2(w, u, lr=lr,
+                                r=ratio[0] if rows == 1 else ratio))
+        r.copy_(ratio)
         return
-    n = w.numel()
-    fn = _build.bind(_LIB, "lamb_stage2", 4, 2, 1)
+    fn = _build.bind(_LIB, "lamb_stage2", 4, 4, 1)
     err = fn(w.data_ptr(), u.data_ptr(), partials.data_ptr(), r.data_ptr(),
-             n, grid_blocks(n), lr, _stream(w))
+             w.numel() // rows, rows, grid_blocks(w.numel() // rows, rows),
+             nparts, lr, _stream(w))
     _build.check(err, "lamb_stage2")
     LAUNCHES["lamb_stage2"] += 1

@@ -8,8 +8,11 @@ hand-written sm_90a kernels or raise. ``LAUNCHES`` counts kernel launches.
 ``norm_plan`` splits a row of the two decode-shaped kernels
 (``decode_residual_norm``, ``gated_rmsnorm``) over threads, registers and
 CTAs, from the shape alone.
-``fused_residual_layernorm`` has a gradient: its backward is the plain
-version's (``_grad.PlainBackward``), as JAX differentiates its reference.
+Every wrapper has a gradient on the card: ``fused_residual_layernorm``
+always, ``decode_residual_norm`` and ``gated_rmsnorm`` whenever an input
+requires one (the fused pre-norm training block, the mamba mixer in
+training); the backward is the plain version's (``_grad.PlainBackward``),
+as JAX differentiates its reference.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 
 from ...core import optrace
 from .. import _build
-from .._grad import PlainBackward
+from .._grad import PlainBackward, wants_grad
 from . import ref
 
 LAUNCHES = {"decode_residual_norm": 0, "fused_residual_layernorm": 0,
@@ -137,7 +140,8 @@ def decode_residual_norm(y: torch.Tensor, x: torch.Tensor,
     ``bias`` are ``[D]`` in the activations' dtype (bfloat16 on the card).
     On the card any D up to ``_RESNORM_MAX_D``: the register path where
     ``norm_plan`` finds one and every base is 16-byte aligned, else the
-    wide variant."""
+    wide variant. Differentiable where an input requires a gradient (the
+    fused pre-norm training block): backward is the plain version's."""
     if x.device.type == "cpu":
         return ref.decode_residual_norm(y, x, scale, bias, kind=kind, eps=eps)
     if x.device.type != "cuda":
@@ -158,6 +162,18 @@ def decode_residual_norm(y: torch.Tensor, x: torch.Tensor,
                              f"on {x.device}")
     if d > _RESNORM_MAX_D:
         raise ValueError(f"D = {d} does not fit the kernel's shared row")
+    kernel = functools.partial(_resnorm_kernel, kind=kind, eps=eps)
+    if wants_grad(y, x, scale, bias):
+        plain = functools.partial(ref.decode_residual_norm, kind=kind,
+                                  eps=eps)
+        return PlainBackward.apply(kernel, plain, y, x, scale, bias)
+    return kernel(y, x, scale, bias)
+
+
+def _resnorm_kernel(y: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                    bias: Optional[torch.Tensor], *, kind: str,
+                    eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    shape, d = x.shape, x.shape[-1]
     x2d = x.reshape(-1, d).contiguous()
     y2d = y.reshape(-1, d).contiguous()
     h = torch.empty_like(x2d)
@@ -271,7 +287,9 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
     silu(z)) * scale``, any leading shape with the channel dim C last. On
     the card y, z and scale are bfloat16, C a multiple of 8, and y and z
     may be row-strided views (z is a column slice of the in_proj
-    output); the result is a new contiguous tensor of y's shape."""
+    output); the result is a new contiguous tensor of y's shape.
+    Differentiable where an input requires a gradient (the mamba mixer in
+    training): backward is the plain version's."""
     if y.device.type == "cpu":
         return ref.gated_rmsnorm(y, z, scale, eps=eps)
     if y.device.type != "cuda":
@@ -288,9 +306,21 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
     if c % 8 or c > _GATED_MAX_C:
         raise ValueError(f"C = {c}: the kernel takes a multiple of 8 up to "
                          f"{_GATED_MAX_C} (its shared row)")
-    y2d, z2d = _rows(y, "y", c), _rows(z, "z", c)
+    _rows(y, "y", c)             # the kernel's stride checks, raised here
+    _rows(z, "z", c)
     if not scale.is_contiguous() or scale.data_ptr() % 16:
         raise ValueError("scale must be contiguous and 16-byte aligned")
+    kernel = functools.partial(_gated_kernel, eps=eps)
+    if wants_grad(y, z, scale):
+        plain = functools.partial(ref.gated_rmsnorm, eps=eps)
+        return PlainBackward.apply(kernel, plain, y, z, scale)
+    return kernel(y, z, scale)
+
+
+def _gated_kernel(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float) -> torch.Tensor:
+    c = y.shape[-1]
+    y2d, z2d = _rows(y, "y", c), _rows(z, "z", c)
     out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
     rows = y2d.shape[0]
     if rows:

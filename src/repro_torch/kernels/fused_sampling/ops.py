@@ -21,6 +21,7 @@ import torch
 
 from ...core import optrace
 from .. import _build
+from .._grad import refuse_grad
 from ..fused_lm_head import ref as head_ref
 from . import ref
 
@@ -201,6 +202,7 @@ def filter_logits(lg: torch.Tensor, top_k: torch.Tensor,
     ``cluster_plan``."""
     if lg.device.type == "cpu":
         return ref.filter_logits_bisect(lg, top_k, top_p)
+    refuse_grad("filter_logits", lg)
     _check_logits(lg)
     _check_row("top_k", top_k, torch.int32, lg)
     _check_row("top_p", top_p, torch.float32, lg)

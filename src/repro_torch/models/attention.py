@@ -125,24 +125,13 @@ def _chunk_mask(sq: int, chunk: int, j: int, *, causal: bool, q_offset: int,
                         kv_len=kv_len)
 
 
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool, chunk: int, q_offset: int = 0,
-                      kv_len: Optional[torch.Tensor] = None,
-                      window: int = 0) -> torch.Tensor:
-    """Online-softmax attention over KV chunks (the forward of JAX's
-    ``chunked_attention``; its custom VJP is not ported). The peak live score
-    tile is [B, Hq, Sq, chunk], never [Sq, Sk]. K/V are zero-padded to a
-    chunk multiple and the tail masked through ``kv_len``. p is rounded to
-    the model dtype before p V, as in JAX."""
+def _chunked_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: Optional[torch.Tensor], causal: bool,
+                     chunk: int, q_offset: int, window: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``_chunked_fwd_impl`` on K/V already a chunk multiple ->
+    (out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] fp32)."""
     b, sq, hq, d = q.shape
-    sk = k.shape[1]
-    if sk % chunk:
-        pad = chunk - sk % chunk
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        tail = torch.full((b,), sk, dtype=torch.int64, device=q.device)
-        kv_len = tail if kv_len is None else torch.minimum(
-            kv_len.to(q.device).long(), tail)
     scale = 1.0 / torch.sqrt(torch.full((), float(d), dtype=torch.float32,
                                         device=q.device))
     o = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
@@ -162,8 +151,87 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         pv = _gqa_values(p.to(q.dtype), vj)                # [B,Sq,Hq,D]
         o = o * alpha[..., None] + pv.transpose(1, 2).float()
         m = m_new
-    o = o / torch.clamp_min(l, 1e-30)[..., None]
-    return o.transpose(1, 2).to(q.dtype)
+    l = torch.clamp_min(l, 1e-30)
+    out = (o / l[..., None]).transpose(1, 2).to(q.dtype)
+    return out, m + torch.log(l)
+
+
+class _ChunkedAttn(torch.autograd.Function):
+    """JAX's ``_chunked_attn`` custom VJP (``repro.models.attention``):
+    the forward keeps only q, k, v, kv_len, the output and the row
+    log-sum-exp; the backward recomputes one [B, Hq, Sq, chunk] score tile
+    at a time with the forward's masks, so no chunk's tile outlives its
+    step in either direction (autodiff of the forward loop would save
+    every chunk's tiles). The backward's products run in fp32 on the
+    upcast inputs, as JAX's; dq, dk, dv are rounded once into their
+    inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal: bool, chunk: int,
+                q_offset: int, window: int):
+        out, lse = _chunked_forward(q, k, v, kv_len, causal, chunk,
+                                    q_offset, window)
+        ctx.save_for_backward(q, k, v, kv_len, out, lse)
+        ctx.args = (causal, chunk, q_offset, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_len, out, lse = ctx.saved_tensors
+        causal, chunk, q_offset, window = ctx.args
+        b, sq, hq, d = q.shape
+        hkv = k.shape[2]
+        g = hq // hkv
+        scale = 1.0 / torch.sqrt(torch.full((), float(d),
+                                            dtype=torch.float32,
+                                            device=q.device))
+        do_f = do.float()
+        do_g = do_f.reshape(b, sq, hkv, g, d)
+        delta = (do_f * out.float()).sum(dim=-1).transpose(1, 2)  # [B,Hq,Sq]
+        delta = delta.reshape(b, hkv, g, sq)[..., None]
+        qf = q.float().reshape(b, sq, hkv, g, d)
+        dq = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32,
+                         device=q.device)
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        for j in range(k.shape[1] // chunk):
+            cols = slice(j * chunk, (j + 1) * chunk)
+            kj, vj = k[:, cols], v[:, cols]
+            s = _gqa_scores(q, kj).float() * scale       # [B,Hq,Sq,C]
+            s = _chunk_mask(sq, chunk, j, causal=causal, q_offset=q_offset,
+                            window=window, kv_len=kv_len, scores=s)
+            pg = torch.exp(s - lse[..., None]).reshape(b, hkv, g, sq, chunk)
+            dv[:, cols] = torch.einsum("bhgqc,bqhgd->bchd", pg,
+                                       do_g).to(v.dtype)
+            dp = torch.einsum("bqhgd,bchd->bhgqc", do_g, vj.float())
+            ds = pg * (dp - delta) * scale
+            dq = dq + torch.einsum("bhgqc,bchd->bqhgd", ds, kj.float())
+            dk[:, cols] = torch.einsum("bhgqc,bqhgd->bchd", ds,
+                                       qf).to(k.dtype)
+        return (dq.reshape(b, sq, hq, d).to(q.dtype), dk, dv,
+                None, None, None, None, None)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk: int, q_offset: int = 0,
+                      kv_len: Optional[torch.Tensor] = None,
+                      window: int = 0) -> torch.Tensor:
+    """Online-softmax attention over KV chunks with JAX's flash-style
+    custom VJP (``_ChunkedAttn``). The peak live score tile is [B, Hq, Sq,
+    chunk], never [Sq, Sk], forward and backward. K/V are zero-padded to a
+    chunk multiple and the tail masked through ``kv_len``. p is rounded to
+    the model dtype before p V, as in JAX."""
+    b = q.shape[0]
+    sk = k.shape[1]
+    if sk % chunk:
+        pad = chunk - sk % chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        tail = torch.full((b,), sk, dtype=torch.int64, device=q.device)
+        kv_len = tail if kv_len is None else torch.minimum(
+            kv_len.to(q.device).long(), tail)
+    return _ChunkedAttn.apply(q, k, v, kv_len, causal, chunk, q_offset,
+                              window)
 
 
 def attention_core(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,

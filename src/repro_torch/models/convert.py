@@ -16,9 +16,11 @@ a list too; a decoder block keeps ``ln_x`` and ``xattn`` (separate ``wq``,
 JAX: callers hand in ``np.asarray`` leaves.
 ``to_jax_layout`` goes back, for any tree in the port's layout (params,
 or the optimizer's ``m``, ``v`` and ``master``), so tests can hold the two
-trainers' states side by side; ``caches_from_jax`` unstacks the JAX static
-engine's caches the same way (whisper's ``cross_k`` / ``cross_v`` with a
-layer's ``k`` / ``v``), so tests compare cache contents.
+trainers' states side by side; ``state_to_jax`` and ``load_state_`` do the
+same for a whole trainer state in its own dtypes, the layout a checkpoint
+holds (``repro_torch.checkpoint``); ``caches_from_jax`` unstacks the JAX
+static engine's caches the same way (whisper's ``cross_k`` / ``cross_v``
+with a layer's ``k`` / ``v``), so tests compare cache contents.
 """
 from __future__ import annotations
 
@@ -51,9 +53,9 @@ def _unstack(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
         def take(tree, z):
             if isinstance(tree, dict):
                 return {k: take(v, z) for k, v in tree.items()}
-            return np.asarray(tree)[z]
+            return tree[z]
 
-        nper = np.asarray(leaves(blocks)[0]).shape[0]
+        nper = leaves(blocks)[0].shape[0]
         periods = [take(blocks, z) for z in range(nper)]
     return [layer for per in periods for layer in _period_layers(per)]
 
@@ -109,29 +111,85 @@ def _numpy(tree: Any) -> Any:
     return tree.detach().float().cpu().numpy()
 
 
-def to_jax_layout(params: Params, period: int = 1) -> Dict[str, Any]:
-    """The port's tree -> the JAX package's, as float32 numpy, for a stack
-    whose period is ``period`` layers (``transformer.period_length``):
-    ``blocks.layer_<i>`` with a leading ``[L / period]`` axis on every
-    leaf (the scanned layout of ``repro.models.transformer``), or, for a
-    stack of one period of several layers (which JAX does not scan),
-    ``blocks.period_0.layer_<i>``. Whisper's ``enc_blocks`` (period 1)
-    go back the same way."""
+def _host(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+STACKS = ("blocks", "enc_blocks")
+
+
+def to_jax_layout(params: Params, period: int = 1,
+                  keep_dtype: bool = False) -> Dict[str, Any]:
+    """The port's tree -> the JAX package's, for a stack whose period is
+    ``period`` layers (``transformer.period_length``), as float32 numpy
+    or, with ``keep_dtype``, as CPU tensors in their own dtypes (copies,
+    the form a checkpoint saves): ``blocks.layer_<i>`` with a leading
+    ``[L / period]`` axis on every leaf (the scanned layout of
+    ``repro.models.transformer``), or, for a stack of one period (which
+    JAX does not scan), ``blocks.period_0.layer_<i>``. Whisper's
+    ``enc_blocks`` (period 1) go back the same way."""
     stacks = {"blocks": period, "enc_blocks": 1}
-    out = {k: _numpy(v) for k, v in params.items() if k not in stacks}
+    conv = _host if keep_dtype else _numpy
+    out = {k: conv(v) for k, v in params.items() if k not in stacks}
 
     def stack(*trees):
         if isinstance(trees[0], dict):
             return {k: stack(*(t[k] for t in trees)) for k in trees[0]}
-        return np.stack(trees)
+        return torch.stack(trees) if keep_dtype else np.stack(trees)
     for name, per in stacks.items():
         if name not in params:
             continue
-        layers = [_numpy(b) for b in params[name]]
-        if len(layers) == per > 1:
+        layers = [conv(b) for b in params[name]]
+        if len(layers) == per:
             out[name] = {"period_0": {f"layer_{i}": layers[i]
                                       for i in range(per)}}
         else:
             out[name] = {f"layer_{i}": stack(*layers[i::per])
                          for i in range(per)}
     return out
+
+
+def state_to_jax(state: Any, period: int = 1) -> Any:
+    """A trainer state (or any tree of dicts) -> JAX's layout as CPU
+    tensors in their own dtypes: every dict holding a ``blocks`` or
+    ``enc_blocks`` list (the params, the optimizer's ``m``, ``v`` and
+    ``master``) through ``to_jax_layout``, every other leaf copied."""
+    if isinstance(state, dict):
+        if any(isinstance(state.get(k), list) for k in STACKS):
+            return to_jax_layout(state, period, keep_dtype=True)
+        return {k: state_to_jax(v, period) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return state.detach().to("cpu", copy=True)
+    return torch.as_tensor(np.array(state, copy=True))
+
+
+def load_state_(state: Any, tree: Any) -> None:
+    """Copy ``tree`` (JAX's layout, tensors or numpy arrays) into the
+    port's ``state`` in place (``copy_``: every tensor keeps its address,
+    so a captured step stays valid). Shapes and dtypes must match; the
+    stacks are unstacked as ``from_jax_params`` unstacks them."""
+    if isinstance(state, dict):
+        if set(state) != set(tree):
+            raise ValueError(f"keys {sorted(state)} against the "
+                             f"checkpoint's {sorted(tree)}")
+        for k, v in state.items():
+            src = tree[k]
+            if k in STACKS and isinstance(v, list):
+                src = _unstack(src)
+            load_state_(v, src)
+    elif isinstance(state, list):
+        if len(state) != len(tree):
+            raise ValueError(f"{len(state)} layers against the "
+                             f"checkpoint's {len(tree)}")
+        for v, src in zip(state, tree):
+            load_state_(v, src)
+    else:
+        src = torch.as_tensor(tree)
+        if src.shape != state.shape or src.dtype != state.dtype:
+            raise ValueError(f"checkpoint leaf {src.dtype} "
+                             f"{tuple(src.shape)} against the state's "
+                             f"{state.dtype} {tuple(state.shape)}")
+        with torch.no_grad():
+            state.copy_(src)

@@ -177,8 +177,8 @@ def encode(arch: ArchConfig, params: Params,
     s = x.shape[1]
     x = x + sinusoidal_positions(s, arch.d_model, dtype, x.device)
     positions = torch.arange(s, device=x.device)[None]
-    x = tf.apply_stack(arch, params["enc_blocks"], x, positions,
-                       causal=False)
+    x, _ = tf.apply_stack(arch, params["enc_blocks"], x, positions,
+                          causal=False)
     return apply_norm(arch.norm, params["enc_final_norm"], x)
 
 
@@ -196,22 +196,23 @@ def logits(arch: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(arch: ArchConfig, params: Params,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The training forward -> fp32 logits [B, S, Vp]. ``batch`` may carry
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward -> (fp32 logits [B, S, Vp], the auxiliary
+    loss: the MoE layers' Switch losses summed, an fp32 scalar, 0 for
+    every other family), as JAX's ``Model.forward``. ``batch`` may carry
     ``mrope_positions`` [3, B, S] (qwen2-vl) and must carry
-    ``frontend_embeddings`` [B, Senc, D] for an encdec arch. (JAX also
-    returns an auxiliary loss: 0 for the dense family; a MoE's Switch loss
-    is left out, so ``loss`` refuses a MoE.)"""
+    ``frontend_embeddings`` [B, Senc, D] for an encdec arch."""
     tokens = batch["tokens"]
     x = embed(arch, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     enc_out = encode(arch, params, batch["frontend_embeddings"]) \
         if arch.family == "encdec" else None
-    x = tf.apply_stack(arch, params["blocks"], x, positions,
-                       causal=not arch.bidirectional,
-                       mrope_positions=batch.get("mrope_positions"),
-                       enc_out=enc_out)
-    return logits(arch, params, x)
+    x, aux = tf.apply_stack(arch, params["blocks"], x, positions,
+                            causal=not arch.bidirectional,
+                            mrope_positions=batch.get("mrope_positions"),
+                            enc_out=enc_out)
+    return logits(arch, params, x), aux
 
 
 def cross_entropy(lg: torch.Tensor, targets: torch.Tensor,
@@ -233,14 +234,14 @@ def cross_entropy(lg: torch.Tensor, targets: torch.Tensor,
 
 def loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """-> (loss, metrics {loss, accuracy}): the masked cross entropy."""
-    if arch.moe is not None:
-        raise NotImplementedError(
-            f"{arch.name}: training a MoE (its Switch loss) is not ported")
-    lg = forward(arch, params, batch)
+    """-> (ce + aux, metrics {loss, ce, aux, accuracy}): the masked cross
+    entropy plus the auxiliary loss, as JAX's ``Model.loss``."""
+    lg, aux = forward(arch, params, batch)
     with scope("loss"):
         ce, acc = cross_entropy(lg, batch["targets"], batch.get("loss_mask"))
-    return ce, {"loss": ce.detach(), "accuracy": acc}
+    total = ce + aux
+    return total, {"loss": total.detach(), "ce": ce.detach(),
+                   "aux": aux.detach(), "accuracy": acc}
 
 
 class Model:

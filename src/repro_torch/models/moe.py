@@ -123,8 +123,10 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
               eff_capacity: Optional[int] = None, aux_loss: bool = True
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x [B, S, D] -> (y [B, S, D], the Switch load-balancing loss, fp32
-    scalar; None when ``aux_loss`` is False, as the serving paths ask:
-    JAX's jitted serving steps drop it as dead code). Each batch row
+    scalar, differentiable through the router's probabilities: the
+    training forward adds it to the loss, as JAX's; None when
+    ``aux_loss`` is False, as the serving paths ask: JAX's jitted serving
+    steps drop it as dead code). Each batch row
     routes on its own with ``capacity_per_row(S)`` slots an expert, so a
     decode step ([slots, 1, D]) gives every slot one slot an expert and
     drops nothing."""

@@ -10,12 +10,12 @@ period of one layer, jamba one of 8). A block holds ``moe`` in place of
 with each batch row routed on its own (a decode step's slots are rows of
 one token, as in JAX), the Switch loss left out on the serving paths.
 Caches, page pools and mamba slot state are updated in place (see
-``models.attention`` and ``models.ssm``), so the stacks return only
-activations.
+``models.attention`` and ``models.ssm``), so the serving stacks return
+only activations.
 
 Training blocks (``apply_block``, ``apply_stack``): pre-norm, or BERT's
-post-norm; attention or mamba mixers, MLP or MoE tails (the port trains
-the dense family; the others run the forward only); qwen2-vl's M-RoPE
+post-norm; attention or mamba mixers, MLP or MoE tails, each block
+returning its MoE's Switch loss beside the activations; qwen2-vl's M-RoPE
 positions (``mrope_positions``) and, in a whisper decoder block, a
 cross-attention sublayer (``ln_x``, ``xattn``) over the encoder output
 ``enc_out`` between the mixer and the MLP. The static engine's decoder
@@ -76,15 +76,23 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
                 fused: Optional[bool] = None,
                 mixer: str = "attn",
                 mrope_positions: Optional[torch.Tensor] = None,
-                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                enc_out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm (or BERT post-norm) block over x [B, S, D], its mixer
     attention or mamba, its tail an MLP or a MoE (none for mamba2); a
     block with ``xattn`` given ``enc_out`` [B, Senc, D] attends to it
-    after the mixer. Only the activations are returned: the dense family
-    has no auxiliary loss (JAX's is 0 for it), and the port does not train
-    a MoE (its Switch loss is left out)."""
+    after the mixer. Returns ``(x, aux)``: ``aux`` is the MoE's Switch
+    loss (fp32 scalar; 0 for any other tail), as JAX's ``apply_block``.
+
+    ``fused`` (None = ``REPRO_FUSED_BLOCKS``) routes the post-norm add +
+    norm sites through ``fused_residual_layernorm``, the gelu MLP's bias +
+    activation through ``bias_gelu`` and, in a pre-norm block, the mixer's
+    residual add + ln2 through ``decode_residual_norm`` (JAX's
+    ``fuse_pre_ln2``): not for a mamba2 block (it has no ln2) nor where a
+    cross-attention sits between the two sites."""
     if fused is None:
         fused = fused_blocks_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def mix(h):
         if mixer == "mamba":
@@ -100,23 +108,31 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
                 rms=arch.norm == "rmsnorm")
         return apply_norm(arch.norm, ln, res + y)
 
-    def cross(x):
-        if enc_out is None or "xattn" not in p:
-            return x
-        return x + _cross(arch, p, x, attn_lib.project_enc_kv(
-            arch, p["xattn"], enc_out))
+    def tail(h):
+        if "moe" in p:
+            return moe_lib.apply_moe(arch, p["moe"], h)
+        return apply_mlp(arch.mlp, p["mlp"], h, fused=fused), aux
 
+    cross = enc_out is not None and "xattn" in p
+    h = None
     if arch.post_norm:
-        x = cross(add_norm(p["ln1"], mix(x), x))
-        return add_norm(p["ln2"], _ffn(arch, p, x, fused=fused), x)
-    if fused:
-        raise NotImplementedError(
-            "the fused pre-norm training block (decode_residual_norm with a "
-            "gradient) is not ported")
-    x = cross(x + mix(apply_norm(arch.norm, p["ln1"], x)))
+        x = add_norm(p["ln1"], mix(x), x)
+    elif fused and "ln2" in p and not cross:
+        h, x = ln_ops.decode_residual_norm(
+            mix(apply_norm(arch.norm, p["ln1"], x)), x, p["ln2"]["scale"],
+            p["ln2"].get("bias"), kind=arch.norm)
+    else:
+        x = x + mix(apply_norm(arch.norm, p["ln1"], x))
+    if cross:
+        x = x + _cross(arch, p, x, attn_lib.project_enc_kv(
+            arch, p["xattn"], enc_out))
     if "ln2" not in p:                  # mamba2 blocks have no MLP
-        return x
-    return x + _ffn(arch, p, apply_norm(arch.norm, p["ln2"], x))
+        return x, aux
+    if arch.post_norm:
+        y, aux = tail(x)
+        return add_norm(p["ln2"], y, x), aux
+    y, aux = tail(apply_norm(arch.norm, p["ln2"], x) if h is None else h)
+    return x + y, aux
 
 
 def _cross(arch: ArchConfig, p: Params, x: torch.Tensor,
@@ -131,12 +147,19 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
                 positions: torch.Tensor, causal: bool,
                 fused: Optional[bool] = None,
                 mrope_positions: Optional[torch.Tensor] = None,
-                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Every block in turn; with ``arch.remat`` each block is recomputed in
-    the backward pass, so only its [B, S, D] input stays alive."""
+                enc_out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every block in turn -> ``(x, aux)``, the blocks' auxiliary losses
+    summed a period at a time and the periods in order, as JAX's
+    ``apply_period`` and scan sum them; with ``arch.remat`` each block is
+    recomputed in the backward pass, so only its [B, S, D] input stays
+    alive."""
     if fused is None:
         fused = fused_blocks_enabled()
-    for p, kind in zip(blocks, _stack_kinds(arch, len(blocks))):
+    period = period_length(arch)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (p, kind) in enumerate(zip(blocks,
+                                      _stack_kinds(arch, len(blocks)))):
         blk = functools.partial(apply_block, arch, positions=positions,
                                 causal=causal, fused=fused, mixer=kind,
                                 mrope_positions=mrope_positions,
@@ -145,12 +168,15 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
             # no RNG state saved: no block draws random numbers, and saving
             # it would read the generator inside a captured training step;
             # a recorder's recompute runs under the forward's scopes
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 blk, p, x, use_reentrant=False, preserve_rng_state=False,
                 context_fn=optrace.checkpoint_contexts)
         else:
-            x = blk(p, x)
-    return x
+            x, aux = blk(p, x)
+        per = aux if i % period == 0 else per + aux
+        if i % period == period - 1 or i == len(blocks) - 1:
+            total = total + per
+    return x, total
 
 
 def period_length(arch: ArchConfig) -> int:

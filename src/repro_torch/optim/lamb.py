@@ -6,18 +6,25 @@
               u = m c1 / (sqrt(v c2) + eps) + wd w
   Stage 2     r = ||w|| / ||u|| per layer;  w <- w - lr r u
 
-The port keeps one tensor per layer, so the per-layer norms are per-leaf
-norms. With master weights (paper section 3.2.1) the optimizer holds an
-fp32 copy of every parameter, updates it, and casts it into the bf16 model
-parameter. ``use_fused_kernel`` routes Stage 1 + 2 through the two CUDA
-kernels of ``kernels.fused_lamb``; otherwise they run as plain PyTorch.
-State and parameters are updated in place under ``torch.no_grad()`` (JAX
-returns new arrays and donates the old ones).
+The trust ratios follow JAX's ``_layer_axes``: one per (layer, expert)
+row. The port keeps one tensor per layer, so a leaf takes one ratio, a MoE
+expert leaf ``[E, ...]`` one an expert (``trust_layout``), and a leaf of
+whisper's encoder one shared with the same leaf of every other encoder
+layer: JAX stacks the encoder's layers into one leaf whose layer axis
+``_layer_axes`` does not mark (it marks ``blocks`` only). With master
+weights (paper section 3.2.1) the optimizer holds an fp32 copy of every
+parameter, updates it, and casts it into the bf16 model parameter.
+``use_fused_kernel`` routes Stage 1 + 2 through the two CUDA kernels of
+``kernels.fused_lamb``, one launch of each a leaf; otherwise they run as
+plain PyTorch (``lamb_stage12``). Either takes a group of leaves that
+share their ratios, a lone leaf a group of one. State and parameters are
+updated in place under ``torch.no_grad()`` (JAX returns new arrays and
+donates the old ones).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,6 +68,35 @@ def init(cfg: LambConfig, params) -> Dict:
     return state
 
 
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    elif isinstance(tree, list):
+        for i, t in enumerate(tree):
+            yield from _paths(t, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def trust_layout(params) -> List[Tuple[int, Optional[tuple]]]:
+    """For each leaf of ``params`` in ``tree.leaves`` order, ``(rows,
+    group)``: the leaf's trust ratios are one a row of its leading
+    ``rows`` (a MoE expert leaf's experts; else 1, the whole leaf), and
+    leaves with the same ``group`` (not None) share one ratio (a leaf of
+    whisper's encoder stack, across its layers, where it has more than
+    one)."""
+    stacked = len(params.get("enc_blocks", ())) > 1
+    out = []
+    for path, leaf in _paths(params):
+        rows = leaf.shape[0] if "experts" in path[:-1] and leaf.dim() >= 2 \
+            else 1
+        group = path[:1] + path[2:] \
+            if stacked and path[0] == "enc_blocks" else None
+        out.append((rows, group))
+    return out
+
+
 def update(cfg: LambConfig, grads, state: Dict, params) -> Tuple:
     """One LAMB step, in place on ``params`` and ``state``; returns them."""
     with scope("lamb"):
@@ -83,18 +119,27 @@ def _update(cfg: LambConfig, grads, state: Dict, params) -> Tuple:
     ps = tree.leaves(params)
     masters = tree.leaves(state["master"]) if "master" in state \
         else [None] * len(ps)
-    for p, g, m, v, w in zip(ps, tree.leaves(grads), tree.leaves(state["m"]),
-                             tree.leaves(state["v"]), masters):
-        if w is None:
-            w = p if p.dtype == torch.float32 else p.float()
+    ws = [w if w is not None else (p if p.dtype == torch.float32
+                                   else p.float())
+          for p, w in zip(ps, masters)]
+    leaves = list(zip(ws, tree.leaves(grads), tree.leaves(state["m"]),
+                      tree.leaves(state["v"])))
+    layout = trust_layout(params)
+    groups: Dict[object, List[int]] = {}        # a lone leaf: a group of one
+    for i, (_, group) in enumerate(layout):
+        groups.setdefault(i if group is None else group, []).append(i)
+    for idx in groups.values():
+        w, g, m, v = ([leaves[i][k] for i in idx] for k in range(4))
+        rows = layout[idx[0]][0]
         if cfg.use_fused_kernel:
-            fused.lamb_update_(w, g.contiguous(), m, v, scalars, **hyper)
-        else:
-            w_new, m_new, v_new, _ = plain.lamb_stage12(
-                w, g, m, v, ginv=ginv, c1=c1, c2=c2, **hyper)
-            w.copy_(w_new)
-            m.copy_(m_new)
-            v.copy_(v_new)
+            fused.lamb_update_(w, [x.contiguous() for x in g], m, v,
+                               scalars, rows=rows, **hyper)
+            continue
+        w_new, m_new, v_new, _ = plain.lamb_stage12(
+            w, g, m, v, ginv=ginv, c1=c1, c2=c2, rows=rows, **hyper)
+        for dst, src in zip(w + m + v, w_new + m_new + v_new):
+            dst.copy_(src)
+    for p, w in zip(ps, ws):
         if w is not p:
             p.copy_(w)          # the cast into the model's dtype
     return params, state

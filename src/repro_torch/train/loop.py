@@ -1,6 +1,15 @@
-"""The training loop with a step-time monitor. Counterpart of
-``repro.train.loop`` (``LoopConfig``, ``StepMonitor``, ``train_loop``);
-checkpointing is not ported.
+"""The training loop with a step-time monitor and checkpoint/restart.
+Counterpart of ``repro.train.loop`` (``LoopConfig``, ``StepMonitor``,
+``train_loop``): every ``ckpt_every`` steps an asynchronous save (the
+state copied to host memory before the next step is queued, written in a
+background thread) with the data step to resume from, and a final save at
+``max_steps``; ``start_step`` resumes the data pipeline where a restored
+checkpoint left it. The manager (which keeps the newest ``keep``) is the
+caller's, as is ``ckpt_tree``: the state -> the tree a checkpoint holds.
+The launcher, which knows the arch, passes JAX's layout
+(``models.convert.state_to_jax`` at the stack's period); JAX's
+``LoopConfig.ckpt_dir``, which makes a manager inside the loop, has no
+counterpart.
 
 Metrics stay on the device for one step: reading the current step's
 metrics (``float`` of a CUDA tensor) would make the host wait for the card
@@ -17,13 +26,14 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
+from ..checkpoint import CheckpointManager
 from ..data import SyntheticPipeline
 
 
 @dataclasses.dataclass
 class LoopConfig:
     max_steps: int = 100
-    ckpt_dir: Optional[str] = None  # checkpointing: not ported (raises)
+    ckpt_every: int = 50
     log_every: int = 10
     step_deadline_s: float = 0.0    # watchdog: abort past this (0 = off)
     straggler_factor: float = 3.0   # a straggler: step > factor * EWMA
@@ -62,12 +72,14 @@ class StepMonitor:
 
 
 def train_loop(step_fn: Callable, state: Any, data: SyntheticPipeline,
-               cfg: LoopConfig, start_step: int = 0, ckpt: Any = None,
+               cfg: LoopConfig, start_step: int = 0,
+               ckpt: Optional[CheckpointManager] = None,
+               ckpt_tree: Callable[[Any], Any] = lambda s: s,
                log: Callable[[str], None] = print) -> Dict[str, Any]:
-    """Run training; returns ``{"state", "history", "monitor"}`` with one
-    history entry (plain floats) per step."""
-    if ckpt is not None or cfg.ckpt_dir:
-        raise NotImplementedError("checkpointing not ported")
+    """Run (or resume from ``start_step``) training; returns ``{"state",
+    "history", "monitor"}`` with one history entry (plain floats) per
+    step. ``ckpt`` saves ``ckpt_tree(state)`` every ``cfg.ckpt_every``
+    steps and at the end."""
 
     def _abort():
         log("[watchdog] step deadline exceeded; aborting for a scheduler "
@@ -108,5 +120,12 @@ def train_loop(step_fn: Callable, state: Any, data: SyntheticPipeline,
                 f"loss={done.get('loss', float('nan')):.4f} "
                 f"acc={done.get('accuracy', 0.0):.3f} "
                 f"{done['dt'] * 1e3:.0f}ms")
+        if ckpt and (step + 1) % cfg.ckpt_every == 0:
+            ckpt.save_async(step + 1, ckpt_tree(state),
+                            extra={"data_step": step + 1})
     _materialize()
+    if ckpt:
+        ckpt.wait()
+        ckpt.save(cfg.max_steps, ckpt_tree(state),
+                  extra={"data_step": cfg.max_steps})
     return {"state": state, "history": history, "monitor": monitor}

@@ -89,7 +89,7 @@ def test_forward_with_frontend_embeddings_matches_jax(pair):
         "frontend_embeddings": jnp.asarray(frames)})[0]
     got = model_lib.forward(t_model.arch, t_model.params, {
         "tokens": torch.as_tensor(toks),
-        "frontend_embeddings": torch.as_tensor(frames)})
+        "frontend_embeddings": torch.as_tensor(frames)})[0]
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=0, atol=1e-4)
 

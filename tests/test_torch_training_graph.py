@@ -78,7 +78,7 @@ def test_static_buffer_step_equals_the_eager_step_bitwise(fused,
         batch = data.batch(step)
         _, got = bundle.fn(graphed, batch)
         _, want = bundle.eager(eager, batch)
-        assert list(got) == ["loss", "accuracy", "grad_norm"]
+        assert list(got) == ["loss", "ce", "aux", "accuracy", "grad_norm"]
         for k in want:
             assert torch.equal(got[k], want[k]), (step, k)
     assert set(graphed["opt"]) == {"m", "v", "master", "step"}

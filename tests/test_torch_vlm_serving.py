@@ -164,7 +164,7 @@ def test_forward_with_mrope_positions_matches_jax(pair):
         "tokens": jnp.asarray(toks), "mrope_positions": jnp.asarray(mp)})[0]
     got = model_lib.forward(t_model.arch, t_model.params, {
         "tokens": torch.as_tensor(toks),
-        "mrope_positions": torch.as_tensor(mp)})
+        "mrope_positions": torch.as_tensor(mp)})[0]
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=0, atol=1e-4)
     # the biases reach the output: zeroing them moves the logits
@@ -174,7 +174,7 @@ def test_forward_with_mrope_positions_matches_jax(pair):
          for k, v in blk.items()} for blk in t_model.params["blocks"]]}
     moved = model_lib.forward(t_model.arch, zeroed, {
         "tokens": torch.as_tensor(toks),
-        "mrope_positions": torch.as_tensor(mp)})
+        "mrope_positions": torch.as_tensor(mp)})[0]
     assert (moved - got).abs().max() > 1e-2
 
 
