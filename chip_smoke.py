@@ -365,6 +365,13 @@ ATTN_ULPS = 2.0                # attention tolerance, in bf16 ulps (8
                                # rounding its fp32 result to bf16 (half an
                                # ulp)
 ATTN_TOL = f"{ATTN_ULPS:g} bf16 ulps of each query row's largest |output|"
+LSE_ULPS = 16.0                # the flash kernel's row log-sum-exp, in fp32
+                               # ulps of max(|lse|, 1) of the plain
+                               # version's: its scores' products summed in
+                               # another order, m kept in log2 units and
+                               # ex2.approx (2^-22 relative) in l; a row
+                               # with no valid key exactly the masked score
+LSE_TOL = f"{LSE_ULPS:g} fp32 ulps of max(|lse|, 1); empty rows exactly"
 SEED = 0
 
 
@@ -710,14 +717,24 @@ def _flash_case(gen, dev, name, spec, heads, block_kv):
     kw = dict(causal=causal, q_offset=off, kv_len=kv_len, window=win,
               block_kv=block_kv)
     out = ops.flash_attention(q, k, v, **kw)
-    plain = ref.flash_attention_fwd(
+    plain, plain_lse = ref.flash_attention_fwd(
         *(t.float().transpose(1, 2) for t in (q, k, v)), kv_len,
-        causal=causal, q_offset=off, window=win,
-        block_kv=block_kv).transpose(1, 2)
+        causal=causal, q_offset=off, window=win, block_kv=block_kv,
+        return_lse=True)
+    plain = plain.transpose(1, 2)
     torch.cuda.synchronize()
     err, ulps = _attn_err(out, plain, f"flash_attention ({name})")
     del plain
+    # the training forward's lse beside the same output
+    out_l, lse = ops.flash_attention_with_lse(q, k, v, **kw)
+    if not torch.equal(out_l, out):
+        _fail(f"flash_attention ({name}): the output written beside the "
+              "lse differs from the output alone")
+    lse_err, lse_ulps, empty = _lse_err(lse, plain_lse, name)
+    del out_l, lse, plain_lse
     ms = _time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
+    ms_lse = _time_ms(lambda: ops.flash_attention_with_lse(q, k, v, **kw),
+                      10)
     dev_ms = _profiled_ms(lambda: ops.flash_attention(q, k, v, **kw),
                           ("flash_fwd_kernel",), iters=5)
     plain_ms = _time_ms(lambda: ref.flash_attention_fwd(
@@ -745,17 +762,44 @@ def _flash_case(gen, dev, name, spec, heads, block_kv):
         "q_offset": off, "window": win, "kv_len": lens,
         "qkv_views": strided},
         "max_abs_err": err, "tol": ATTN_TOL, "max_err_row_ulps": ulps,
-        "ms": ms,
+        "lse_max_abs_err": lse_err, "lse_max_ulps": lse_ulps,
+        "lse_tol": LSE_TOL, "lse_empty_rows": empty, "ms": ms,
+        "ms_with_lse": ms_lse,
         "profiler_device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "library_device_ms": library_device_ms, "valid_pairs": pairs}
 
 
+def _lse_err(lse: torch.Tensor, plain: torch.Tensor, name: str):
+    """Hold the kernel's row log-sum-exp to LSE_ULPS fp32 ulps of the plain
+    version's max(|lse|, 1), and a row with no valid key (the plain lse at
+    the masked score) exactly. Returns the max abs error over the rows
+    with a key, the worst in its ulps and the count of empty rows."""
+    from repro_torch.kernels.flash_attention import ref
+    empty = plain <= 0.5 * ref.NEG_INF
+    if not torch.equal(lse[empty], plain[empty]):
+        _fail(f"flash_attention ({name}): the lse of a row with no valid key "
+              f"is not the plain version's {ref.NEG_INF}")
+    keyed = ~empty
+    diff = (lse[keyed] - plain[keyed]).abs()
+    top = plain[keyed].abs().clamp_min(1.0)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 23)
+    err = diff.max().item() if diff.numel() else 0.0
+    ulps = (diff / ulp).max().item() if diff.numel() else 0.0
+    if not ulps <= LSE_ULPS:
+        _fail(f"flash_attention ({name}): lse {ulps} fp32 ulps of max(|lse|, "
+              f"1) from the plain version's > {LSE_ULPS} (max abs {err})")
+    return err, ulps, int(empty.sum())
+
+
 def _print_flash(rows):
     print("[flash] " + "; ".join(
         f"{r['case']}: err {r['max_abs_err']:.3e} "
-        f"({r['max_err_row_ulps']:.3f} row ulps), "
+        f"({r['max_err_row_ulps']:.3f} row ulps), lse "
+        f"{r['lse_max_abs_err']:.3e} ({r['lse_max_ulps']:.2f} fp32 ulps; "
+        f"{r['lse_empty_rows']} empty rows exact; with it "
+        f"{r['ms_with_lse']:.4f} ms), "
         f"{r['ms']:.4f} ms (device {r['profiler_device_ms']}), bound "
         f"{r['bound_ms']:.4f} ({r['bound_by']}), plain {r['plain_ms']:.3f}, "
         f"SDPA {r['library_ms']:.4f} (device {r['library_device_ms']})"
@@ -3075,11 +3119,33 @@ def check_moe_logits(model, rng, dev):
     return worst, out
 
 
+def _layer_ms(fn, iters: int = 20):
+    """A layer of many kernels, a call: (CUDA events over ``iters`` eager
+    calls, CUDA events over ``iters`` replays of the call captured as one
+    CUDA graph). The replay runs the layer's kernels back to back with no
+    host launch between them, so its time is the layer's device time;
+    the profiler cannot give it (its window over the MoE layer never held
+    the same whole number of records a call, PRs 24-30)."""
+    eager = _time_ms(fn, iters)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    replay = _time_ms(graph.replay, iters)
+    del graph
+    return eager, replay
+
+
 def check_moe_layer(model, dev):
     """One MoE layer of the model called twice on the same input, at the
     decode shape [8, 1, D] and a prefill chunk's [1, 64, D]: bitwise equal
-    outputs (gathers, no float atomics). Device ms a call beside the bytes
-    of its experts' weights read once."""
+    outputs (gathers, no float atomics). The time a call (eager, and as
+    a graph replay: its device time, ``_layer_ms``) beside the bytes of
+    its experts' weights read once."""
     from repro_torch.models import moe as moe_lib
     arch = model.arch
     p = next(b["moe"] for b in model.params["blocks"] if "moe" in b)
@@ -3097,14 +3163,15 @@ def check_moe_layer(model, dev):
             if not (torch.isfinite(y1).all() and torch.equal(y1, y2)):
                 _fail(f"{arch.name}: one MoE layer at [{b}, {s}] is not "
                       "bitwise repeatable (or not finite)")
-            out[f"device_ms_[{b}, {s}]"] = _profiled_ms(
-                lambda: moe_lib.apply_moe(arch, p, x, aux_loss=False),
-                ("",), 5)
+            ev, dms = _layer_ms(
+                lambda: moe_lib.apply_moe(arch, p, x, aux_loss=False))
+            out[f"device_ms_[{b}, {s}]"] = dms
+            out[f"events_ms_[{b}, {s}]"] = ev
     print(f"[moe] {arch.name} one MoE layer ({arch.moe.num_experts} experts "
           f"of {arch.moe.expert_ff}, top-{arch.moe.top_k}, "
           f"{arch.moe.num_shared_experts} shared) bitwise repeatable at [8, "
-          f"1] and [1, 64]; device ms a call and the bound of its experts' "
-          f"bytes: {out}")
+          f"1] and [1, 64]; ms a call (device: a graph replay; events: "
+          f"eager) and the bound of its experts' bytes: {out}")
     return out
 
 
@@ -5067,6 +5134,16 @@ def check_scale_mask_softmax(dev):
 # restart on the card at smoke size.
 FAMILY_STEPS = 6
 LONG_SEQ, LONG_STEPS, LONG_CHUNK = 4096, 3, 1024
+FLASH_LOSS_ULPS = 0.1   # flash step 1's loss against the chunked forward's
+                        # on the same state and batch, in bf16 ulps of the
+                        # loss: the two attentions differ in p's rounding
+                        # (bf16 before p V in the chunked path, fp32 in the
+                        # kernel), a bf16 ulp or so an element, averaged
+                        # over 4096 tokens. A sanity gate: a loss after a
+                        # few steps from a random init barely sees the
+                        # mask; the one layer's dq/dk/dv and lse checks
+                        # decide
+FLASH_GRAPH_LAYERS = 2  # the graphed-against-eager flash check's depth
 CKPT_BATCH, CKPT_SEQ, CKPT_STEPS = 4, 32, 4
 # step 1 fused (decode_residual_norm, the LAMB kernels) against the unfused
 # plain step from the same weights: each updated bf16 param leaf within 1
@@ -5300,10 +5377,14 @@ def training_norm_shapes(dev):
 def attention_tiles(dev):
     """One llama attention layer at B1 S4096 (24 / 8 heads of 128, bf16,
     causal, chunks of LONG_CHUNK), forward then backward: through the
-    chunked VJP and through autodiff of the same forward loop. The bytes
-    still held after the forward (what each saves for its backward) and
-    the peak above the inputs; a score tile is [1, 24, 4096, 1024] fp32.
-    The VJP must hold less than one tile."""
+    chunked VJP, through autodiff of the same forward loop and through the
+    flash kernel's Function (its lse beside the output, the chunked
+    backward over LONG_CHUNK tiles). The bytes still held after the
+    forward (what each saves for its backward) and the peak above the
+    inputs; a score tile is [1, 24, 4096, 1024] fp32. The VJP and the
+    flash Function must hold less than one tile, and the flash dq / dk /
+    dv must lie within BLOCK_REL_L2 of the chunked VJP's."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import attention as attn_lib
     gen = torch.Generator(device=dev).manual_seed(SEED + 61)
     q = torch.randn((1, LONG_SEQ, 24, 128), generator=gen, device=dev)
@@ -5332,8 +5413,15 @@ def attention_tiles(dev):
         q, k, v, causal=True, chunk=LONG_CHUNK))
     o2, g2 = run("autodiff", lambda: attn_lib._chunked_forward(
         q, k, v, None, True, LONG_CHUNK, 0, 0)[0])
+    n0 = flash_ops.LAUNCHES["flash_attention"]
+    o3, g3 = run("flash", lambda: flash_ops.flash_attention(
+        q, k, v, causal=True, block_kv=LONG_CHUNK))
+    out["flash_launches"] = flash_ops.LAUNCHES["flash_attention"] - n0
     out["max_rel_l2_grads"] = max(_rel_l2(a, b) for a, b in zip(g1, g2))
     out["outputs_bitwise"] = torch.equal(o1, o2)
+    out["flash_rel_l2_grads_vs_vjp"] = [_rel_l2(a, b)
+                                        for a, b in zip(g3, g1)]
+    out["flash_rel_l2_out_vs_vjp"] = _rel_l2(o3, o1)
     print(f"[chunked vjp] one llama layer's attention, B1 S{LONG_SEQ}, "
           f"chunks of {LONG_CHUNK} (a score tile {tile / 2**20:.0f} MiB): "
           f"held after the forward {out['vjp']['held_after_forward'] / 2**20:.1f}"
@@ -5344,8 +5432,27 @@ def attention_tiles(dev):
           f"{out['autodiff']['peak_above_inputs'] / 2**20:.1f} MiB; outputs "
           f"bitwise {out['outputs_bitwise']}, dq/dk/dv rel L2 "
           f"{out['max_rel_l2_grads']:.2e}")
+    fl = out["flash"]
+    print(f"[flash vjp] the same layer through the flash Function "
+          f"({out['flash_launches']} kernel launch): held after the forward "
+          f"{fl['held_after_forward'] / 2**20:.1f} MiB (out and lse; the "
+          f"chunked VJP {out['vjp']['held_after_forward'] / 2**20:.1f}), "
+          f"peak above the inputs {fl['peak_above_inputs'] / 2**20:.1f} "
+          f"MiB; against the chunked VJP: out rel L2 "
+          f"{out['flash_rel_l2_out_vs_vjp']:.2e}, dq/dk/dv rel L2 "
+          + ", ".join(f"{x:.2e}" for x in out["flash_rel_l2_grads_vs_vjp"])
+          + f" (tol {BLOCK_REL_L2})")
     if not out["vjp"]["held_after_forward"] < tile:
         _fail("the chunked VJP held a score tile or more after its forward")
+    if not (fl["held_after_forward"] < tile and out["flash_launches"] == 1):
+        _fail(f"the flash Function held {fl['held_after_forward']} bytes "
+              f"after its forward (a tile {tile}) in "
+              f"{out['flash_launches']} launches")
+    if not max(out["flash_rel_l2_grads_vs_vjp"]
+               + [out["flash_rel_l2_out_vs_vjp"]]) <= BLOCK_REL_L2:
+        _fail(f"flash Function against the chunked VJP: out and dq/dk/dv "
+              f"rel L2 {out['flash_rel_l2_out_vs_vjp']}, "
+              f"{out['flash_rel_l2_grads_vs_vjp']} > {BLOCK_REL_L2}")
     if not out["max_rel_l2_grads"] <= BLOCK_REL_L2:
         _fail(f"chunked VJP gradients against autodiff of the loop: rel L2 "
               f"{out['max_rel_l2_grads']} > {BLOCK_REL_L2}")
@@ -5484,8 +5591,14 @@ def llama_training(dev, norms):
           f"{[round(x, 4) for x in long['losses']]}, wall {long['wall']:.2f}"
           f" s, peak {long['peak'] / 2**30:.2f} GiB "
           f"({(long['peak'] - long['base']) / 2**30:.2f} above the state)")
-    _free(run, long)
+    t_flash = time.perf_counter()
+    flash = flash_training(arch, run, long)
+    flash_s = time.perf_counter() - t_flash
+    _free(run, long, flash)
     tiles = attention_tiles(dev)
+    t_flash = time.perf_counter()
+    flash["graphed"] = flash_graphed(arch)
+    flash["added_s"] = flash_s + time.perf_counter() - t_flash
     return {"n_params": n_params, "n_leaves": n_leaves, "step1": step1,
             "losses": run["losses"], "eager_losses": eager_losses,
             "grad_norms": run["grad_norms"], "step_s": run["step_s"],
@@ -5495,8 +5608,108 @@ def llama_training(dev, norms):
             "per_step": want, "launches": run["launches"],
             "long": {"losses": long["losses"], "wall": long["wall"],
                      "peak": long["peak"], "held_at_start": long["base"],
-                     "chunked_calls": calls["n"], "tiles": tiles},
+                     "chunked_calls": calls["n"], "tiles": tiles,
+                     "flash": {k: v for k, v in flash.items()
+                               if k not in ("bundle", "state", "step_fn",
+                                            "data")}},
             "init_s": init_s}
+
+
+def flash_training(arch, run, long):
+    """B1 S4096 through the flash kernel (``attn_impl="flash"``: its
+    Function, forward kernel with the lse, chunked backward) on the state
+    the chunked run left: LONG_STEPS eager fused steps, exactly 2 x layers
+    flash launches a step (each block's forward and its recompute), and
+    step 1's loss against the chunked forward's loss on the same state and
+    batch within FLASH_LOSS_ULPS bf16 ulps; the step times beside the
+    chunked run's."""
+    from repro_torch import tree
+    from repro_torch.models import model as model_lib
+    flash_arch = dataclasses.replace(arch, attn_impl="flash")
+    start = FAMILY_STEPS + LONG_STEPS
+    data = _family_data(arch, 1, LONG_SEQ)
+    first = {k: torch.as_tensor(v).cuda()
+             for k, v in data.batch(start).items()}
+    os.environ["REPRO_FUSED_BLOCKS"] = "1"
+    with torch.no_grad():
+        chunked_loss = model_lib.loss(arch, run["state"]["params"],
+                                      first)[0].item()
+    del first
+    bundle = _family_bundle(flash_arch, True, 1, LONG_SEQ)
+    fl = _family_run(f"llama3.2-3b S{LONG_SEQ} flash", flash_arch, True,
+                     graphed=False, steps=LONG_STEPS, batch=1, seq=LONG_SEQ,
+                     state=run["state"], bundle=bundle, start=start,
+                     data=data)
+    n_leaves = len(tree.leaves(run["state"]["params"]))
+    want = {"decode_residual_norm": 2 * arch.num_layers,
+            "flash_attention": 2 * arch.num_layers,
+            "lamb_stage1": n_leaves, "lamb_stage2": n_leaves}
+    _expect(fl, want, f"llama3.2-3b S{LONG_SEQ} flash")
+    gap = abs(fl["losses"][0] - chunked_loss) \
+        / _bf16_ulp(torch.tensor(chunked_loss)).item()
+    step = (fl["wall"] / LONG_STEPS, long["wall"] / LONG_STEPS)
+    print(f"[train llama flash] B1 S{LONG_SEQ}, {LONG_STEPS} eager fused "
+          f"steps with attn_impl='flash' on the state the chunked run left: "
+          f"losses {[round(x, 4) for x in fl['losses']]}; step 1 "
+          f"{fl['losses'][0]!r} against the chunked forward's "
+          f"{chunked_loss!r} on the same state and batch ({gap:.3f} bf16 "
+          f"ulps, tol {FLASH_LOSS_ULPS}); "
+          f"{fl['launches'].get('flash_attention', 0)}"
+          f" flash launches ({want['flash_attention']} a step); "
+          f"{step[0]:.3f} s a step (wall / steps) against the chunked "
+          f"run's {step[1]:.3f} in this call; peak "
+          f"{fl['peak'] / 2**30:.2f} GiB "
+          f"({(fl['peak'] - fl['base']) / 2**30:.2f} above the state)")
+    if not gap <= FLASH_LOSS_ULPS:
+        _fail(f"flash step 1 loss {fl['losses'][0]} is {gap} bf16 ulps from "
+              f"the chunked forward's {chunked_loss} (tol "
+              f"{FLASH_LOSS_ULPS})")
+    fl.update(chunked_loss=chunked_loss, loss_gap_bf16_ulps=gap,
+              step_s=step[0], chunked_step_s=step[1], per_step=want)
+    return fl
+
+
+def flash_graphed(arch):
+    """The flash Function inside a captured training step: llama3.2-3b at
+    full width cut to FLASH_GRAPH_LAYERS layers, B1 S4096, 3 fused steps
+    through ``bundle.fn`` (step 1 the warm-up, step 2 the capture and its
+    replay, step 3 a replay) and 3 through ``bundle.eager`` from the same seeded weights:
+    losses, grad norms and every state leaf bitwise equal, and exactly 2 x
+    layers flash launches a step on both (a replay adds what its capture
+    counted)."""
+    from repro_torch import tree
+    cut = dataclasses.replace(arch, attn_impl="flash",
+                              num_layers=FLASH_GRAPH_LAYERS)
+    runs = {}
+    for graphed in (True, False):
+        r = _family_run(f"llama3.2-3b {FLASH_GRAPH_LAYERS}L S{LONG_SEQ} "
+                        "flash", cut, True, graphed=graphed, steps=3,
+                        batch=1, seq=LONG_SEQ)
+        n_leaves = len(tree.leaves(r["state"]["params"]))
+        _expect(r, {"decode_residual_norm": 2 * cut.num_layers,
+                    "flash_attention": 2 * cut.num_layers,
+                    "lamb_stage1": n_leaves, "lamb_stage2": n_leaves},
+                f"llama {FLASH_GRAPH_LAYERS}L flash "
+                f"{'graphed' if graphed else 'eager'}")
+        g = r["bundle"].fn
+        runs[graphed] = {"losses": r["losses"],
+                         "grad_norms": r["grad_norms"],
+                         "digest": _state_digest(r["state"]),
+                         "captures": g.captures, "replays": g.replays}
+        _free(r)
+    a, b = runs[True], runs[False]
+    same = (a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"]
+            and a["digest"] == b["digest"])
+    print(f"[train llama flash] {FLASH_GRAPH_LAYERS} layers at full width, "
+          f"B1 S{LONG_SEQ}: 3 graphed steps ({a['captures']} capture, "
+          f"{a['replays']} replays) bitwise the 3 eager ones: {same} (losses "
+          f"{[round(x, 4) for x in a['losses']]}; digests of "
+          f"{len(a['digest'])} state leaves)")
+    if not (same and (a["captures"], a["replays"]) == (1, 2)):
+        _fail(f"flash graphed steps against eager: bitwise {same}, "
+              f"{a['captures']} captures, {a['replays']} replays")
+    return {"losses": a["losses"], "bitwise": same,
+            "captures": a["captures"], "replays": a["replays"]}
 
 
 def mamba_training(dev):
@@ -5671,6 +5884,389 @@ def train_families_phase(dev, marks):
             "mamba2-1.3b": mamba, "checkpoint": ckpt, "phase_s": secs}
 
 
+# ------------------------------------------------------------ phase 9 ---
+# Tensor-parallel continuous serving: llama3.2-3b at full width and depth,
+# tp=2 ranks (one process each) against tp=1 on the same seeded weights.
+TP = 2
+TP_LOGIT_REL_L2 = 0.05   # the first final chunk's logits, tp=2 against
+                         # tp=1: the row-parallel products are fp32 sums of
+                         # two bf16-input halves where tp=1 runs one bf16
+                         # GEMM (a bf16 rounding a reduce site, 56 a pass),
+                         # as the logits checks' 0.05 elsewhere
+TP_MARGIN = 0.25         # a greedy fork is a near-tie where tp=1's top-2
+                         # logit margin at the first differing token is
+                         # under this (logits of std about 1)
+TP_DRAW_WINDOW = 0.05    # a sampled fork is a draw near an edge of the
+                         # CDF: tp=1's and tp=2's tokens at the first
+                         # differing token must both own an interval of the
+                         # dense reference's filtered distribution within
+                         # this of the request's uniform (logits that differ
+                         # by bf16 reassociation move an edge of a 40-token
+                         # top-k distribution at T 0.8 by about 0.01); a
+                         # wrong seed or position draws a far token
+TP_PEAK_SLACK = 256 << 20  # a rank's peak over its own baseline against
+                           # tp=1's less (1 - 1/tp) of the blocks' bytes:
+                           # the fp32 partial sums and the rank's half of
+                           # the pools fit well inside this
+
+
+def _nbytes(tensors) -> int:
+    """The bytes of the storages behind ``tensors``, each counted once (a
+    view keeps its whole storage alive)."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
+def _draw_window(logits, sp, position, dev):
+    """The plain draw at a sampled fork, on the dense reference's logits:
+    -> (the request's uniform at ``position``, the tokens whose interval of
+    the filtered distribution lies within TP_DRAW_WINDOW of it). The draw
+    takes the first token whose prefix mass exceeds u, so a token's
+    interval is [prefix before it, prefix through it)."""
+    from repro_torch.kernels.fused_lm_head import ref as head_ref
+    from repro_torch.kernels.fused_sampling import ref as samp_ref
+    lg = samp_ref.filter_logits_ref(
+        logits.float()[None] / sp.temperature,
+        torch.tensor([sp.top_k], dtype=torch.int32, device=dev),
+        torch.tensor([sp.top_p], dtype=torch.float32, device=dev))[0]
+    u = head_ref.row_uniforms(torch.tensor([sp.seed]),
+                              torch.tensor([position])).item()
+    p = torch.softmax(lg.double(), dim=0)
+    hi = p.cumsum(0)
+    lo = hi - p
+    near = (p > 0) & (lo < u + TP_DRAW_WINDOW) & (hi > u - TP_DRAW_WINDOW)
+    return u, near.nonzero().flatten().tolist()
+
+
+def row_parallel_products(arch, dev):
+    """One row-parallel partial product at tp=2 at llama's decode rows (8)
+    and a prefill chunk (64), for ``wo`` [q_dim / 2, D] and ``w2`` [F / 2,
+    D] in bf16: the fp32 product of upcast copies of x and w (JAX's
+    expression taken literally) against the GEMM with an fp32 output that
+    ``layers.row_parallel_dense`` runs, each timed by CUDA events over 100
+    calls, and their largest difference over the largest |y| (the same
+    exact products summed in another order)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = {}
+    for name, k in (("wo", arch.q_dim // TP), ("w2", arch.d_ff // TP)):
+        w = (torch.randn((k, arch.d_model), generator=gen, device=dev)
+             / math.sqrt(k)).bfloat16()
+        for m in (8, 64):
+            x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+
+            def upcast(x=x, w=w):
+                return x.float() @ w.float()
+
+            def fp32_out(x=x, w=w):
+                return torch.mm(x, w, out_dtype=torch.float32)
+            a, b = upcast(), fp32_out()
+            rel = ((a - b).abs().max() / a.abs().max()).item()
+            if not rel <= 1e-3:
+                _fail(f"row-parallel {name} [{m}, {k}]: the fp32-output "
+                      f"GEMM differs from the upcast product by {rel}")
+            rows[f"{name} [{m}, {k}] x [{k}, {arch.d_model}]"] = {
+                "upcast_ms": _time_ms(upcast, 100),
+                "fp32_out_ms": _time_ms(fp32_out, 100), "max_rel": rel}
+    print(f"[tp] row-parallel partial product, bf16 x and w: upcast copies "
+          f"against one GEMM with an fp32 output (ms, CUDA events): "
+          + "; ".join(f"{k} {v['upcast_ms']:.5f} / {v['fp32_out_ms']:.5f}"
+                      f" (rel {v['max_rel']:.2e})" for k, v in rows.items()))
+    return rows
+
+
+def _tp_modes(nccl: bool):
+    """(label, fused decode, decode_steps): the captured loop at tp > 1
+    needs nccl (gloo's collectives cannot be captured)."""
+    modes = [("fused N=1", True, 1), ("unfused N=1", False, 1)]
+    return modes + ([("fused N=4", True, 4)] if nccl else [])
+
+
+def _tp_serve(group, rank, device, modes):
+    """One rank of the TP phase (``group`` None: the tp=1 reference, in
+    this process): llama3.2-3b at full width from the seeded init, the
+    serving trace through ``ContinuousEngine(tp, group)`` in each mode,
+    every launch counter set to 0 just before a run and read just after,
+    the launches split between decode and prefill, the selection flags
+    counted, the first final chunk's logits kept (unfused), and the
+    engine's counters and ``tp_stats()``."""
+    import faulthandler
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch import tree
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import sharding
+    from repro_torch.serving import ContinuousEngine
+    # a rank that hangs in a collective shows where (its threads' stacks
+    # on stderr) before the phase's timeout stops it
+    faulthandler.dump_traceback_later(240)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = 1 if group is None else dist.get_world_size(group)
+    arch = get_config("llama3.2-3b")
+    base = torch.cuda.memory_allocated(device)
+    model = Model.init(arch, torch.Generator(device=device).manual_seed(SEED),
+                       device=device, shard=None if tp == 1 else (rank, tp))
+    blocks = model.params["blocks"]
+    split = [] if tp == 1 else [
+        t for t, d in zip(tree.leaves(blocks),
+                          tree.leaves(sharding.serving_param_spec(blocks)))
+        if d is not None]
+    weights = {"all": _nbytes(tree.leaves(model.params)),
+               "blocks": _nbytes(tree.leaves(blocks)),
+               "blocks_split": _nbytes(split)}
+    out = {}
+    for label, fused, n in modes:
+        engine = ContinuousEngine(
+            model, num_slots=8, num_pages=MULTI_PAGES, page_size=16,
+            max_seq_len=512 + 32 + 16, prefill_chunk=64, fused_decode=fused,
+            decode_steps=n, tp=tp, group=group)
+        phase = {"decode": dict.fromkeys(_snapshot(), 0),
+                 "prefill": dict.fromkeys(_snapshot(), 0)}
+        flags = {"sampled": 0, "filtered": 0, "sampled_final": 0,
+                 "filtered_final": 0}
+        first = {}
+        decode_fn = engine._decode if n == 1 else engine._decode_multi
+        prefill_fn, logits_fn = engine._prefill, model._logits
+
+        def decode(*a, sampled, filtered, fn=decode_fn):
+            flags["sampled"] += bool(sampled)
+            flags["filtered"] += bool(filtered)
+            return _counted(phase["decode"], fn)(*a, sampled=sampled,
+                                                 filtered=filtered)
+
+        def prefill(*a, final, fn=prefill_fn, **kw):
+            sp = a[5]
+            if final and not sp.greedy:
+                flags["sampled_final"] += 1
+                flags["filtered_final"] += bool(sp.filtered)
+            return _counted(phase["prefill"], fn)(*a, final=final, **kw)
+
+        def probed_logits(x):
+            lg = logits_fn(x)
+            if "logits" not in first and x.shape[:2] == (1, 1):
+                # numpy: a tensor would cross to the parent by a shared
+                # memory handle that dies with this process
+                first["logits"] = lg[0, 0].float().cpu().numpy()
+            return lg
+        if n == 1:
+            engine._decode = decode
+        else:
+            engine._decode_multi = decode
+        engine._prefill = prefill
+        if not fused:
+            model._logits = probed_logits
+        _zero_counters()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res = engine.run(trace(arch, SEED))
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        model.__dict__.pop("_logits", None)
+        out[label] = {
+            "tokens": {u: r["tokens"] for u, r in res.items()},
+            "ttft_s": float(np.mean([r["token_times"][0]
+                                     for r in res.values()])),
+            "wall": wall, "launches": {k: dict(v) for k, v in phase.items()},
+            "flags": flags, "logits": first.get("logits"),
+            "counters": {k: getattr(engine, k) for k in (
+                "steps", "decode_dispatches", "prefills", "prefill_chunks",
+                "cow_copies", "collective_bytes")},
+            "tp_stats": engine.tp_stats(), "weights": weights,
+            "peak": torch.cuda.max_memory_allocated(device) - base,
+            "backend": None if group is None else dist.get_backend(group)}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[tp] rank {rank} of {tp}: {label} served in {wall:.3f} s",
+              flush=True)
+    faulthandler.cancel_dump_traceback_later()
+    return out
+
+
+def _tp_expect_launches(run, arch, fused, label):
+    """(d): exact launches from the rank's own steps, chunks and flags."""
+    c, f, ph = run["counters"], run["flags"], run["launches"]
+    layers = arch.num_layers
+    want = {"decode": {"paged_decode_attention": layers * c["steps"]},
+            "prefill": {"paged_prefill_attention":
+                        layers * c["prefill_chunks"]}}
+    if fused:
+        want["decode"].update(decode_residual_norm=layers * c["steps"],
+                              head_tokens=c["steps"])
+        want["prefill"].update(
+            decode_residual_norm=layers * c["prefill_chunks"],
+            head_tokens=c["prefills"])
+    else:
+        want["decode"].update(filter_logits=f["filtered"],
+                              draw_tokens=f["sampled"])
+        want["prefill"].update(filter_logits=f["filtered_final"],
+                               draw_tokens=f["sampled_final"])
+    for where in ("decode", "prefill"):
+        got = {k: v for k, v in ph[where].items() if v}
+        exp = {k: v for k, v in want[where].items() if v}
+        if got != exp:
+            _fail(f"tp {label}: launches in {where} {got}, expected {exp}")
+
+
+def tp_phase(dev, smi):
+    """Phase 9: tensor-parallel serving. With two or more cards, tp=2 over
+    nccl (a card a rank): fused N=1, unfused and fused N=4 (the captured
+    loop with its collectives); with one card, two ranks share it over
+    gloo, fused and unfused at N=1 (nccl and the loop at tp > 1 not
+    exercised). Each rank builds only its shards (``Model.init(...,
+    shard=)``). Gates: (a) every rank's streams bitwise rank 0's; (b) the
+    first final chunk's logits within TP_LOGIT_REL_L2 of tp=1's; (c) the
+    streams equal tp=1's but for a fork at a near-tie: greedy, tp=1's
+    top-2 margin under TP_MARGIN there; sampled, both tokens within
+    TP_DRAW_WINDOW of the draw's uniform on tp=1's CDF; (d) exact launches
+    a rank from its steps and chunks (28 paged calls a step and a chunk;
+    fused: 28 norms, one head); (e) ``collective_bytes`` JAX's formula;
+    (f) a rank's split block leaves 1 / tp of tp=1's bytes, and its peak
+    under tp=1's less (1 - 1/tp) of the blocks (TP_PEAK_SLACK). Then the
+    row-parallel partial product timed both ways."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+    from repro_torch.models.model import Model
+    cards = torch.cuda.device_count()
+    nccl = cards >= TP
+    backend = "nccl" if nccl else "gloo"
+    modes = _tp_modes(nccl)
+    print(f"[tp] {cards} card(s): tp={TP} over {backend}"
+          + ("" if nccl else " (two ranks share cuda:0; nccl and the "
+             "captured loop at tp > 1 not exercised: they need a card a "
+             "rank)") + f"; modes {[m[0] for m in modes]}")
+    arch = get_config("llama3.2-3b")
+    t0 = time.perf_counter()
+    ref = _tp_serve(None, 0, dev, modes)
+    t1 = time.perf_counter()
+    ranks = mesh.spawn(_tp_serve, TP, modes, backend=backend,
+                       device=None if nccl else str(dev), timeout=300)
+    t2 = time.perf_counter()
+    psums = 2 * arch.num_layers
+    per = lambda n: psums * n * arch.d_model * 4 * 2 * (TP - 1) // TP  # noqa
+    out = {"backend": backend, "cards": cards, "card": smi,
+           "tp1_s": t1 - t0, "tp2_s": t2 - t1, "modes": {}}
+    reqs = trace(arch, SEED)
+    ref_model = []
+
+    def ref_logits(uid, toks):
+        """tp=1's dense plain forward (the same seeded weights) after
+        request ``uid``'s prompt and ``toks``: the last position's logits."""
+        if not ref_model:
+            ref_model.append(Model.init(arch, torch.Generator(
+                device=dev).manual_seed(SEED), device=dev))
+        with torch.inference_mode():
+            return dense_reference_logits(ref_model[0], torch.tensor(
+                [list(reqs[uid].prompt) + toks], device=dev)).float()
+
+    for label, fused, _ in modes:
+        lead, one = ranks[0][label], ref[label]
+        # (a)
+        for r, rk in enumerate(ranks[1:], 1):
+            if rk[label]["tokens"] != lead["tokens"]:
+                _fail(f"tp {label}: rank {r}'s streams differ from rank 0's")
+        # (d), each rank
+        for rk in ranks:
+            _tp_expect_launches(rk[label], arch, fused, label)
+        _tp_expect_launches(one, arch, fused, f"{label} tp=1")
+        # (e)
+        c = lead["counters"]
+        want_bytes = c["steps"] * per(8) + c["prefill_chunks"] * per(64)
+        if c["collective_bytes"] != want_bytes:
+            _fail(f"tp {label}: collective_bytes {c['collective_bytes']}, "
+                  f"JAX's formula {want_bytes}")
+        # (c): a fork from tp=1 at a near-tie: greedy, tp=1's top-2 margin
+        # under TP_MARGIN; sampled, both tokens' intervals near the uniform
+        forks, draws = [], []
+        for uid, want in one["tokens"].items():
+            got = lead["tokens"][uid]
+            if got == want:
+                continue
+            step = next(i for i, (x, y) in enumerate(zip(want, got))
+                        if x != y)
+            lg = ref_logits(uid, want[:step])
+            sp = reqs[uid].sampling
+            if sp.greedy:
+                top2 = torch.topk(lg, 2).values
+                margin = (top2[0] - top2[1]).item()
+                forks.append({"uid": uid, "step": step, "margin": margin})
+                if not margin < TP_MARGIN:
+                    _fail(f"tp {label}: greedy request {uid} forks from "
+                          f"tp=1 at token {step} where tp=1's top-2 margin "
+                          f"is {margin} >= {TP_MARGIN}")
+                continue
+            u, near = _draw_window(lg, sp, len(reqs[uid].prompt) + step, dev)
+            draws.append({"uid": uid, "step": step, "u": u,
+                          "tokens": [want[step], got[step]], "near": near})
+            if want[step] not in near or got[step] not in near:
+                _fail(f"tp {label}: sampled request {uid} forks from tp=1 "
+                      f"at token {step} ({want[step]} / {got[step]}), not "
+                      f"both within {TP_DRAW_WINDOW} of the draw's uniform "
+                      f"{u} on tp=1's CDF (tokens there: {near})")
+        # a rank holds its shards only: the split leaves' bytes 1 / tp of
+        # tp=1's, and its peak below tp=1's by the rest of the blocks
+        w1 = one["weights"]
+        cap = one["peak"] - (TP - 1) * w1["blocks"] // TP + TP_PEAK_SLACK
+        for r, rk in enumerate(ranks):
+            w = rk[label]["weights"]
+            if w["blocks_split"] * TP + w["blocks"] - w["blocks_split"] \
+                    != w1["blocks"]:
+                _fail(f"tp {label}: rank {r}'s blocks {w} are not 1 / {TP} "
+                      f"of tp=1's {w1['blocks']} bytes beside the "
+                      "replicated leaves")
+            if not rk[label]["peak"] <= cap:
+                _fail(f"tp {label}: rank {r}'s peak {rk[label]['peak']} "
+                      f"bytes over tp=1's {one['peak']} less "
+                      f"{TP - 1}/{TP} of the blocks' {w1['blocks']}")
+        row = {"wall_tp1": one["wall"], "wall_tp2": lead["wall"],
+               "ttft_tp1_s": one["ttft_s"], "ttft_tp2_s": lead["ttft_s"],
+               "counters": c, "tp_stats": lead["tp_stats"],
+               "tp1_tp_stats": one["tp_stats"], "peak_rank0": lead["peak"],
+               "peak_tp1": one["peak"], "weights_rank0": lead["weights"],
+               "weights_tp1": w1, "greedy_forks": forks,
+               "sampled_forks": draws,
+               "streams_equal_tp1": sum(lead["tokens"][u] == w for u, w in
+                                        one["tokens"].items()),
+               "launches_rank0": lead["launches"]}
+        if not fused:
+            # (b)
+            rel = _rel_l2(torch.from_numpy(lead["logits"]),
+                          torch.from_numpy(one["logits"]))
+            row["first_logits_rel_l2"] = rel
+            if not rel <= TP_LOGIT_REL_L2:
+                _fail(f"tp {label}: the first final chunk's logits rel L2 "
+                      f"{rel} from tp=1's > {TP_LOGIT_REL_L2}")
+        out["modes"][label] = row
+        st = lead["tp_stats"]
+        shown = [{k: d[k] for k in ("uid", "step", "u", "tokens")}
+                 for d in draws]
+        print(f"[tp] {label}: tp=2 ({backend}) {lead['wall']:.3f} s against "
+              f"tp=1 {one['wall']:.3f} s (TTFT {lead['ttft_s'] * 1e3:.1f} / "
+              f"{one['ttft_s'] * 1e3:.1f} ms); streams equal tp=1's "
+              f"{row['streams_equal_tp1']} of {len(one['tokens'])}, greedy "
+              f"forks {forks}, sampled forks {shown} (each within "
+              f"{TP_DRAW_WINDOW} of u); every rank's streams "
+              f"bitwise rank 0's; weights a rank {lead['weights']['all']} B "
+              f"against tp=1's {w1['all']}, peak over the rank's baseline "
+              f"{lead['peak']} against tp=1's {one['peak']} (cap {cap}); "
+              f"launches exact a rank (decode "
+              f"{_nonzero(lead['launches']['decode'])}); collective_bytes {c['collective_bytes']} = JAX's formula;"
+              f" tp_stats {st}; KV bytes a rank "
+              f"{st['per_device']['kv_bytes']} against tp=1's "
+              f"{one['tp_stats']['per_device']['kv_bytes']}"
+              + (f"; first final chunk's logits rel L2 "
+                 f"{row['first_logits_rel_l2']:.3e}" if not fused else "")
+              + f"; {smi}")
+    del ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["row_parallel"] = row_parallel_products(arch, dev)
+    print(f"[tp] phase: tp=1 reference {out['tp1_s']:.1f} s, tp=2 ranks "
+          f"(spawn, init and serves) {out['tp2_s']:.1f} s")
+    return out
+
+
 UNTIED_GEMV = "head_gemv_wgmma_kernel"   # pass 1 of an untied head
 
 DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
@@ -5681,6 +6277,14 @@ DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
                 "gated_rmsnorm": ("gated_rmsnorm_kernel",),
                 "head_tokens": ("head_gemv_kernel", "head_epilogue_kernel"),
                 "head_tokens_untied": (UNTIED_GEMV, "head_epilogue_kernel")}
+
+
+def _new_slice_s(marks, families) -> float:
+    """Seconds of the flash-training additions to phase 8b (the llama
+    phase's share) and the tensor-parallel phase."""
+    keys = list(marks)
+    tp_s = marks["tp"] - marks[keys[keys.index("tp") - 1]]
+    return tp_s + families["llama3.2-3b"]["long"]["flash"]["added_s"]
 
 
 def main() -> int:
@@ -5819,6 +6423,8 @@ def main() -> int:
     training["characterize"] = characterize_phase(training)
     marks["characterize"] = time.perf_counter()
     families = train_families_phase(dev, marks)
+    tensor_parallel = tp_phase(dev, smi)
+    marks["tp"] = time.perf_counter()
     prev = t_start
     spans = []
     for name, t in marks.items():
@@ -5835,7 +6441,9 @@ def main() -> int:
           f"registry's last archs (their kernel checks, command-r-35b, "
           f"mistral-large-123b, llama4-maverick-400b-a17b) "
           f"{arch_phase:.1f}; the training families (llama3.2-3b, "
-          f"mamba2-1.3b, checkpoint) {families['phase_s']:.1f}")
+          f"mamba2-1.3b, checkpoint) {families['phase_s']:.1f}; the "
+          f"flash training and tensor-parallel additions "
+          f"{_new_slice_s(marks, families):.1f}")
     # the kernels on the training families' paths: their launches there
     # and their numbers at the training shapes
     llama_t, mamba_t = families["llama3.2-3b"], families["mamba2-1.3b"]
@@ -5896,6 +6504,21 @@ def main() -> int:
                 "unfused_head_ms", "profiler_device_ms_by_step",
                 "ctas_a_row", "random_rows_clear_margin")}
             r["launches_mamba2_serve"] = mamba["launches"]["head_tokens"]
+    flash_long = llama_t["long"]["flash"]
+    flash_row["training"] = {
+        "launches_llama_training_flash": flash_long["launches"][
+            "flash_attention"],
+        "launches_per_step": flash_long["per_step"]["flash_attention"],
+        "launches_path": f"llama3.2-3b B1 S{LONG_SEQ}, {LONG_STEPS} eager "
+                         "fused steps with attn_impl='flash' (a forward and "
+                         "its recompute a layer)",
+        "step_s": flash_long["step_s"],
+        "chunked_step_s": flash_long["chunked_step_s"],
+        "loss_gap_bf16_ulps": flash_long["loss_gap_bf16_ulps"],
+        "layer": {k: llama_t["long"]["tiles"][k] for k in (
+            "flash", "flash_rel_l2_grads_vs_vjp", "flash_rel_l2_out_vs_vjp",
+            "vjp")},
+        "graphed": flash_long["graphed"]}
     flash_row.update(
         launches=static["greedy"]["launches_prefill"]
         + static["greedy"]["launches_decode"],
@@ -6013,6 +6636,7 @@ def main() -> int:
             k: v for k, v in arch_kernels.items()
             if k not in ("head", "wide")}, "phase_s": arch_phase},
         "training_families": families,
+        "tensor_parallel": tensor_parallel,
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

@@ -79,6 +79,7 @@ constexpr int kAtom = 64;           // bf16 in one 128-byte swizzle row
 constexpr int kRowBytes = 128;
 constexpr float kNegInf = -1e30f;   // masked score, as the Pallas kernel
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 16;
 // p V products left in flight while the softmax runs: 1 at D 64; 0 at D
 // 128, where p's fragments and o beside S spill (see Registers above)
@@ -89,6 +90,7 @@ struct Params {
   const int* kv_len;
   const int* order;                 // items: qtile * (B * Hq) + b * Hq + h
   bf16* out;
+  float* lse;                       // [B, Hq, Sq] or null: not written
   int n_items, b, hq, hkv, sq, sk, q_offset, window, causal;
   float scale_log2;                 // D^-0.5 * log2(e)
 };
@@ -631,12 +633,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       pin(o);
       if (lane == 0) mbar_arrive(v_empty + 8 * v_stage);
 
-      // o / l, rounded to bf16 once; out is contiguous [B, Sq, Hq, D]
+      // o / l, rounded to bf16 once; out is contiguous [B, Sq, Hq, D].
+      // With lse, one lane of the row's quad writes its natural log-sum-
+      // exp m ln 2 + ln l (m is in log2 units); a row with no valid key
+      // keeps m at the masked score, whose lse is the masked score itself
+      // (-1e30 + ln l rounds to it in fp32), as the plain version's
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int r = row_w + g + 8 * hr;
         if (r >= p.sq) continue;
         const float inv = 1.f / fmaxf(l[hr], 1e-30f);
+        if (p.lse != nullptr && t4 == 0)
+          p.lse[(static_cast<long long>(it.b) * p.hq + it.h) * p.sq + r] =
+              m[hr] == kNegInf
+                  ? kNegInf
+                  : fmaf(m[hr], kLn2, logf(fmaxf(l[hr], 1e-30f)));
         bf16* dst = p.out +
                     ((static_cast<long long>(it.b) * p.sq + r) * p.hq + it.h) *
                         D + 2 * t4;
@@ -727,10 +738,12 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 // sequence, head; D contiguous, strides multiples of 8, 16-byte aligned
 // bases), kv_len [B] int32, order [n_items] int32 (every (query tile of 128,
 // batch, head) once, as ops.work_order builds it), out contiguous [B, Sq,
-// Hq, D] bf16. D is 64 or 128; Hq a multiple of Hkv; Sk > 0.
+// Hq, D] bf16, lse null or contiguous [B, Hq, Sq] fp32 (each row's natural
+// log-sum-exp of its scaled scores). D is 64 or 128; Hq a multiple of Hkv;
+// Sk > 0.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_len,
-    const void* order, void* out, int b, int hq, int hkv, int sq, int sk,
+    const void* order, void* out, void* lse, int b, int hq, int hkv, int sq, int sk,
     int d, int q_offset, int window, int causal, int n_items, int q_sb,
     int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb, int v_ss,
     int v_sh, float scale, void* stream) {
@@ -744,8 +757,8 @@ extern "C" int flash_attention_fwd(
   if (err != 0) return err;
   const Params p{static_cast<const int*>(kv_len),
                  static_cast<const int*>(order), static_cast<bf16*>(out),
-                 n_items, b, hq, hkv, sq, sk, q_offset, window, causal,
-                 scale * kLog2e};
+                 static_cast<float*>(lse), n_items, b, hq, hkv, sq, sk,
+                 q_offset, window, causal, scale * kLog2e};
   return d == 128 ? launch<128>(tq, tk, tv, p, stream)
                   : launch<64>(tq, tk, tv, p, stream);
 }

@@ -4,8 +4,16 @@
 Dispatch is on the tensors' device: CPU tensors take the plain PyTorch
 version in ``ref.py``; CUDA tensors launch the hand-written sm_90a kernel or
 raise (bf16 only, head dim 64 or 128). There is no fallback from one to the
-other. There is no backward: a call that autograd would record raises on
-either device. ``LAUNCHES`` counts the kernel's launches (plain calls do not count).
+other. ``LAUNCHES`` counts the kernel's launches (plain calls do not count).
+
+Gradients: where autograd would record the call (grad mode on and q, k or
+v requiring a gradient), the call is the autograd Function ``_FlashAttn``.
+Its forward is the kernel (the plain version on the CPU) with each query
+row's log-sum-exp written beside the output, and it saves q, k, v, kv_len,
+the output and the lse; its backward is ``ref.flash_attention_bwd``, JAX's
+chunked-attention backward in plain PyTorch over ``block_kv``-key tiles
+(the JAX package's flash kernel has no VJP, so there is no backward kernel
+to port). Without a gradient nothing is written but the output.
 
 Layout is the model's, as ``repro.kernels.flash_attention.ops``: q [B, Sq,
 Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]. The kernel reads q, k and v
@@ -29,7 +37,7 @@ import torch
 
 from ...core import optrace
 from .. import _build
-from .._grad import refuse_grad
+from .._grad import wants_grad
 from . import ref
 
 LAUNCHES = {"flash_attention": 0}
@@ -87,15 +95,18 @@ def _order_on(device: torch.device, b, hq, sq, sk, causal, q_offset, window):
 
 
 def _launch(q, k, v, kv_len, order, out, *, causal, q_offset, window,
-            lib: str = _LIB) -> None:
+            lse: Optional[torch.Tensor] = None, lib: str = _LIB) -> None:
     """One launch of ``flash_attention_fwd`` from the library ``lib`` under
     ``build/repro_torch/`` on tensors ``_check`` has passed: the one place
-    that spells the kernel's C signature. Counts nothing."""
+    that spells the kernel's C signature. ``lse`` (contiguous [B, Hq, Sq]
+    fp32) receives the rows' log-sum-exp; None writes none. Counts
+    nothing."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    fn = _build.bind(lib, "flash_attention_fwd", 6, 19, 1)
+    fn = _build.bind(lib, "flash_attention_fwd", 7, 19, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-             order.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk, d,
+             order.data_ptr(), out.data_ptr(),
+             0 if lse is None else lse.data_ptr(), b, hq, hkv, sq, sk, d,
              int(q_offset), int(window), int(bool(causal)), order.numel(),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
@@ -160,6 +171,86 @@ def flash_attention_flops(q, k, v, *, causal: bool, q_offset: int = 0,
     return total
 
 
+def _forward(q, k, v, kv_len, *, causal, q_offset, window, block_kv,
+             with_lse: bool):
+    """The forward on q's device: the plain version on the CPU, else one
+    kernel launch (none for Sk 0) -> out, or (out, lse [B, Hq, Sq] fp32)
+    with ``with_lse``."""
+    b, sq, hq, d = q.shape
+    if q.device.type == "cpu":
+        res = ref.flash_attention_fwd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len,
+            causal=causal, q_offset=q_offset, window=window,
+            block_kv=block_kv, return_lse=with_lse)
+        if not with_lse:
+            return res.transpose(1, 2)
+        return res[0].transpose(1, 2), res[1]
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, kv_len)
+    sk = k.shape[1]
+    lse = torch.empty((b, hq, sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
+    if sk == 0:         # no key: the plain version's 0 / max(0, 1e-30)
+        out = torch.zeros((b, sq, hq, d), dtype=q.dtype, device=q.device)
+        if with_lse:
+            lse.fill_(ref.NEG_INF)
+            return out, lse
+        return out
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    order = _order_on(q.device, b, hq, sq, sk, bool(causal), int(q_offset),
+                      int(window))
+    _launch(q, k, v, kv_len, order, out, causal=causal, q_offset=q_offset,
+            window=window, lse=lse)
+    LAUNCHES["flash_attention"] += 1
+    return (out, lse) if with_lse else out
+
+
+class _FlashAttn(torch.autograd.Function):
+    """The forward kernel with its lse; JAX's chunked backward
+    (``ref.flash_attention_bwd``) from what it saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal: bool, q_offset: int,
+                window: int, block_kv: int):
+        out, lse = _forward(q, k, v, kv_len, causal=causal,
+                            q_offset=q_offset, window=window,
+                            block_kv=block_kv, with_lse=True)
+        ctx.save_for_backward(q, k, v, kv_len, out, lse)
+        ctx.args = (causal, q_offset, window, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, q_offset, window, block_kv = ctx.args
+        return ref.flash_attention_bwd(
+            *ctx.saved_tensors, do, causal=causal, q_offset=q_offset,
+            window=window, block_kv=block_kv) + (None,) * 5
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool,
+                             q_offset: int = 0,
+                             kv_len: Optional[torch.Tensor] = None,
+                             window: int = 0, block_kv: int = 512):
+    """``flash_attention``'s forward, recorded by no autograd, returning
+    ``(out, lse)``: the output and each query row's log-sum-exp [B, Hq,
+    Sq] fp32, as the training forward saves them."""
+    with torch.no_grad():
+        return _forward(q, k, v, _lengths(q, k, kv_len), causal=causal,
+                        q_offset=q_offset, window=window, block_kv=block_kv,
+                        with_lse=True)
+
+
+def _lengths(q, k, kv_len):
+    """kv_len as the forward takes it: int32 [B] on q's device (all Sk
+    where None)."""
+    if kv_len is None:
+        return torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
+                          device=q.device)
+    return kv_len if q.device.type == "cpu" else kv_len.to(torch.int32)
+
+
 @optrace.kernel_op("flash_attention", flash_attention_flops)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: int = 0,
@@ -167,32 +258,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_kv: int = 512) -> torch.Tensor:
     """q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D] (model layout); kv_len [B]
     valid keys per batch row (None: all Sk) -> [B, Sq, Hq, D] in q's
-    dtype. ``block_kv`` sets the plain version's key tile only: the CUDA
-    kernel always streams 128-key tiles."""
-    b = q.shape[0]
-    if kv_len is None:
-        kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
-                            device=q.device)
-    # on both devices, so the CPU refuses what the card refuses
-    refuse_grad("the flash attention kernel (training with "
-                "attn_impl='flash')", q, k, v)
-    if q.device.type == "cpu":
-        return ref.flash_attention_fwd(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len,
-            causal=causal, q_offset=q_offset, window=window,
-            block_kv=block_kv).transpose(1, 2)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    kv_len = kv_len.to(torch.int32)
-    _check(q, k, v, kv_len)
-    _, sq, hq, d = q.shape
-    sk = k.shape[1]
-    if sk == 0:         # no key: the plain version's 0 / max(0, 1e-30)
-        return torch.zeros((b, sq, hq, d), dtype=q.dtype, device=q.device)
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
-    order = _order_on(q.device, b, hq, sq, sk, bool(causal), int(q_offset),
-                      int(window))
-    _launch(q, k, v, kv_len, order, out, causal=causal, q_offset=q_offset,
-            window=window)
-    LAUNCHES["flash_attention"] += 1
-    return out
+    dtype. ``block_kv`` sets the plain version's key tile, and the
+    backward's: the CUDA kernel always streams 128-key tiles. Where
+    autograd would record the call, it is ``_FlashAttn`` (gradients to q,
+    k and v)."""
+    kv_len = _lengths(q, k, kv_len)
+    if wants_grad(q, k, v):
+        return _FlashAttn.apply(q, k, v, kv_len, bool(causal), int(q_offset),
+                                int(window), int(block_kv))
+    return _forward(q, k, v, kv_len, causal=causal, q_offset=q_offset,
+                    window=window, block_kv=block_kv, with_lse=False)

@@ -13,10 +13,22 @@ against. It computes what the Pallas kernel
 - GQA by grouping the query heads of one KV head (K/V are not repeated).
 
 Unlike the Pallas kernel it takes any Sq and Sk: the last tile is shorter.
+With ``return_lse`` it also returns each query row's log-sum-exp, as the
+kernel writes it for the backward.
+
+``flash_attention_bwd`` is the backward of ``ops.flash_attention``: the
+JAX package has no backward kernel (its flash kernel has no VJP at all), so
+the port's backward is plain PyTorch, JAX's chunked-attention backward
+(``models.attention.tiled_attention_bwd``, the oracle JAX's ``ref.py``
+imports from its ``models/attention.py`` too) over ``block_kv``-key tiles.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+from ...models.attention import empty_rows, tiled_attention_bwd
 
 NEG_INF = -1e30
 
@@ -24,9 +36,10 @@ NEG_INF = -1e30
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: torch.Tensor, *, causal: bool,
                         q_offset: int = 0, window: int = 0,
-                        block_kv: int = 512) -> torch.Tensor:
+                        block_kv: int = 512, return_lse: bool = False):
     """q [B, Hq, Sq, D]; k/v [B, Hkv, Sk, D]; kv_len [B] -> [B, Hq, Sq, D]
-    in q's dtype."""
+    in q's dtype; with ``return_lse`` also the rows' log-sum-exp m + log l
+    [B, Hq, Sq] fp32 (NEG_INF for a row with no valid key)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -57,5 +70,27 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * alpha + p.sum(dim=-1)
         o = o * alpha[..., None] + p @ vj
         m = m_new
-    o = o / torch.clamp_min(l, 1e-30)[..., None]
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    l = torch.clamp_min(l, 1e-30)
+    o = (o / l[..., None]).reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (m + torch.log(l)).reshape(b, hq, sq)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                        q_offset: int = 0, window: int = 0,
+                        block_kv: int = 512
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of the flash forward in the model layout: q [B, Sq, Hq,
+    D], k/v [B, Sk, Hkv, D], kv_len [B], the forward's output ``out`` [B,
+    Sq, Hq, D] and ``lse`` [B, Hq, Sq], the output's gradient ``do`` ->
+    (dq, dk, dv) in the inputs' dtypes. K/V are not padded: the last key
+    tile keeps its true width. Rows with no valid key take autodiff's
+    gradient of the forward (V averaged over all Sk keys; none to q or k)."""
+    empty = empty_rows(q.shape[1], kv_len, causal=causal, q_offset=q_offset,
+                       window=window)
+    return tiled_attention_bwd(q, k, v, kv_len, out, lse, do, causal=causal,
+                               chunk=block_kv, q_offset=q_offset,
+                               window=window, empty=empty)

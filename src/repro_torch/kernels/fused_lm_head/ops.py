@@ -57,6 +57,17 @@ class UntiedPlan(NamedTuple):
     smem_bytes: int              # dynamic shared memory of a CTA
 
 
+RED_TILE = ref.RED_TILE          # the canonical reduction tile (JAX's)
+
+
+def tp_fusable(vocab: int, tp: int) -> bool:
+    """JAX's gate of the fused decode at ``tp`` (``repro.kernels.
+    fused_lm_head.ops.tp_fusable``): a vocab shard must be whole reduction
+    tiles. The port runs the whole head on every rank, but keeps the gate
+    so that both engines pick the same path."""
+    return tp <= 1 or (vocab % tp == 0 and (vocab // tp) % RED_TILE == 0)
+
+
 def stage_bytes(panel: int) -> int:
     """Bytes of a ring stage: ``UNTIED_BK`` K rows of ``panel`` tiles."""
     return panel * UNTIED_BK * UNTIED_TILE * 2

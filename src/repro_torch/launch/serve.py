@@ -6,6 +6,9 @@
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --device cuda
     python -m repro_torch.launch.serve --arch qwen2-vl-2b --engine continuous
     python -m repro_torch.launch.serve --arch whisper-base --device cuda
+    python -m repro_torch.launch.serve --engine continuous --tp 2
+    python -m repro_torch.launch.serve --engine continuous --tp 2 \
+        --dist-backend gloo --smoke --device cpu
 
 Counterpart of ``repro.launch.serve`` with ``--engine {static,continuous}``
 (static by default, as in JAX):
@@ -22,14 +25,21 @@ static      the fixed-batch driver: one dense KV cache (or mamba state) of
             splits the prefill into encoder, cross K/V fill and decoder.
             ``run_static(model, args)`` takes a model built by the
             caller, so any config can be served.
-continuous  ``ContinuousEngine`` with ``--tp 1``: paged KV cache, chunked
+continuous  ``ContinuousEngine``: paged KV cache, chunked
             prefill, prefix cache, fused decode on or off
             (``--fused-decode`` / ``--no-fused-decode``; unset follows
             ``REPRO_FUSED_DECODE``, default on). ``--decode-steps N`` runs
             up to N decode iterations per host dispatch (on the card, CUDA
             graph replays of one iteration) with the streams of N=1, and
             prints a ``decode-steps=N`` line: dispatches against decode
-            steps and why the dispatches came back.
+            steps and why the dispatches came back. ``--tp N`` serves
+            with N tensor-parallel ranks, one process each, over
+            ``--dist-backend`` (``nccl``, a card a rank, the default on
+            the card; ``gloo``, the only backend for ``--device cpu``, or
+            ranks sharing one card): the launcher spawns the ranks itself,
+            or each is a process that ``torchrun --nproc-per-node N``
+            started. Rank 0 prints the lines; every rank checks that its
+            streams equal rank 0's.
 
 ``--sampler {fused,ref}`` picks the top-k / top-p filter of the sampler in
 both engines: the kernel (the default) or the sort-based oracle; unset
@@ -55,6 +65,7 @@ printed.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -175,10 +186,14 @@ def run_static(model: Model, args) -> dict:
             "t_decode": t_decode}
 
 
-def run_continuous(model: Model, args) -> dict:
+def run_continuous(model: Model, args, group=None) -> dict:
     """Serve the batch through ``ContinuousEngine``; ``args`` may carry
-    ``decode_steps`` (default 1) and ``sampler``."""
+    ``decode_steps`` (default 1), ``sampler`` and ``tp`` (default 1: one
+    device; above it this process is one rank of ``group``, whose ranks
+    all call this with the same arguments)."""
     arch, device = model.arch, model.device
+    tp = getattr(args, "tp", 1)
+    lead = group is None or torch.distributed.get_rank(group) == 0
     decode_steps = getattr(args, "decode_steps", 1)
     b, plen, glen = args.batch, args.prompt_len, args.gen_len
     prompt = _prompts(args, arch)
@@ -191,7 +206,7 @@ def run_continuous(model: Model, args) -> dict:
         prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk or None,
         fused_sampling=_fused(args), decode_steps=decode_steps,
-        fused_decode=args.fused_decode)
+        fused_decode=args.fused_decode, tp=tp, group=group)
     reqs = [Request(uid=i, prompt=[int(t) for t in prompt[i]],
                     max_new_tokens=glen,
                     sampling=SamplingParams(
@@ -203,6 +218,18 @@ def run_continuous(model: Model, args) -> dict:
     _sync(device)
     wall = time.perf_counter() - t0
     out = np.stack([np.asarray(results[i]["tokens"]) for i in range(b)])
+    stats = {}
+    if tp > 1:
+        streams = [None] * tp
+        torch.distributed.all_gather_object(streams, out.tolist(),
+                                            group=group)
+        if any(s != streams[0] for s in streams):
+            raise RuntimeError(f"tp={tp}: the ranks' streams differ from "
+                               "rank 0's")
+        tps = stats["tp_stats"] = engine.tp_stats()
+        stats["ranks_equal"] = True
+    if not lead:
+        return {"tokens": out, **stats}
     print(f"[serve/continuous] {arch.name} on {device}: {b} requests x "
           f"{glen} tokens in {wall * 1e3:.1f}ms ({out.size / wall:.1f} tok/s, "
           f"{engine.steps} decode steps, {engine.prefills} prefills, "
@@ -222,7 +249,15 @@ def run_continuous(model: Model, args) -> dict:
               f"{engine.decode_dispatches} host dispatches for "
               f"{engine.steps} decode steps "
               f"(exits: {dict(engine.decode_exits)})")
-    return {"tokens": out, "wall": wall, "steps": engine.steps,
+    if tp > 1:
+        print(f"[serve/continuous] tp={tp}: "
+              f"{tps['collective_bytes_per_device'] / 1e6:.2f} MB "
+              f"all-reduced per device, "
+              f"{tps['per_device']['kv_bytes'] / 1e6:.2f} MB KV per device "
+              f"({tps['per_device']['pages_in_use']} pages, head-sharded); "
+              f"{torch.distributed.get_backend(group)}, every rank's "
+              "streams equal rank 0's")
+    return {"tokens": out, "wall": wall, "steps": engine.steps, **stats,
             "decode_dispatches": engine.decode_dispatches,
             "decode_exits": dict(engine.decode_exits),
             "fused_sampling": engine.fused_sampling,
@@ -234,13 +269,74 @@ def run_continuous(model: Model, args) -> dict:
             "cached_prefill_tokens": engine.cached_prefill_tokens}
 
 
-def run(args) -> dict:
-    """Build the seeded model on ``args.device`` and serve it with
-    ``args.engine``."""
-    device = resolve_device(args.device)
+def serve_jobs(group, rank, device, jobs, threads=None) -> list:
+    """One rank's body (``launch.mesh.spawn``'s ``fn``) for a list of
+    serving jobs, each a dict: ``arch``, ``params`` (the port's weight tree
+    as numpy arrays, the same on every rank), ``requests`` and ``engine``
+    (more ``ContinuousEngine`` keywords; ``tp`` and ``group`` are the
+    group's). Only the rank's shards of the blocks reach ``device``.
+    ``threads`` pins torch's CPU threads. Returns, a job, the streams (uid
+    -> tokens), the engine's counters and ``tp_stats()``."""
+    from .. import tree
+    if threads:
+        torch.set_num_threads(threads)
+    tp = torch.distributed.get_world_size(group) if group is not None else 1
+    out = []
+    for job in jobs:
+        model = Model(job["arch"], tree.map(torch.as_tensor, job["params"]))
+        if tp > 1:
+            model = model.sharded(rank, tp)
+        model = Model(model.arch, tree.map(lambda t: t.to(device),
+                                           model.params), model.shard)
+        engine = ContinuousEngine(model, tp=tp, group=group, **job["engine"])
+        res = engine.run(list(job["requests"]))
+        out.append({
+            "tokens": {u: r["tokens"] for u, r in res.items()},
+            "counters": {k: getattr(engine, k) for k in (
+                "steps", "decode_dispatches", "prefills", "prefill_chunks",
+                "cow_copies", "collective_bytes", "fused_decode")},
+            "tp_stats": engine.tp_stats()})
+    return out
+
+
+def _seeded_model(args, device, shard=None) -> Model:
     arch = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Model.init(arch, gen, device=device)
+    return Model.init(arch, gen, device=device, shard=shard)
+
+
+def _serve_rank(group, rank, device, args) -> dict:
+    """One rank of ``--tp N``: the rank's shards of the seeded model (the
+    whole model's slices) on this rank's device, served by
+    ``run_continuous``."""
+    return run_continuous(_seeded_model(args, device, (rank, args.tp)),
+                          args, group)
+
+
+def run(args) -> dict:
+    """Build the seeded model on ``args.device`` and serve it with
+    ``args.engine``; with ``args.tp`` > 1 as that many ranks (spawned
+    here, or this process one of ``torchrun``'s) -> rank 0's result."""
+    tp = getattr(args, "tp", 1)
+    if tp > 1:
+        from . import mesh
+        backend = args.dist_backend
+        # nccl: a card a rank (make_tp_group picks it); gloo: every rank
+        # on --device
+        device = None if backend == "nccl" else str(resolve_device(
+            args.device))
+        if "RANK" in os.environ:            # torchrun started this rank
+            group, rank, dev = mesh.make_tp_group(tp, backend=backend,
+                                                  device=device)
+            return _serve_rank(group, rank, dev, args)
+        if resolve_device(args.device).type == "cuda":
+            from ..kernels import _build
+            if any(_build._stale(n) for n in _build.sources()):
+                _build.build_all()  # once, before the ranks would race
+        return mesh.spawn(_serve_rank, tp, args, backend=backend,
+                          device=device)[0]
+    device = resolve_device(args.device)
+    model = _seeded_model(args, device)
     if args.engine == "static":
         return run_static(model, args)
     return run_continuous(model, args)
@@ -279,6 +375,18 @@ def main(argv=None) -> dict:
                          "them as CUDA graph replays on the card with one "
                          "host synchronisation, the streams of N=1 "
                          "(continuous engine only)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks, one process each "
+                         "(continuous engine only; must divide the query "
+                         "heads and either divide or be a multiple of the "
+                         "KV heads, the latter replicating KV shards; MoE "
+                         "experts shard expert-parallel)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="the ranks' torch.distributed backend at --tp > 1: "
+                         "nccl (a card a rank; the default on cuda) or gloo "
+                         "(the only one for --device cpu; on cuda the ranks "
+                         "share one card)")
     ap.add_argument("--fused-decode", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="fused decode: the ln2 add + norm and the LM head "
@@ -298,6 +406,16 @@ def main(argv=None) -> dict:
     if args.decode_steps > 1 and args.engine != "continuous":
         ap.error("--decode-steps requires --engine continuous (the static "
                  "engine decodes in lock-step, one token per dispatch)")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.tp > 1 and args.engine != "continuous":
+        ap.error("--tp requires --engine continuous")
+    cpu = torch.device(args.device).type == "cpu"
+    if args.dist_backend is None:
+        args.dist_backend = "gloo" if cpu else "nccl"
+    elif args.dist_backend == "nccl" and cpu:
+        ap.error("--dist-backend nccl runs on cards; --device cpu takes "
+                 "gloo")
     if args.fused_decode is not None and args.engine != "continuous":
         ap.error("--fused-decode requires --engine continuous (the static "
                  "driver always materializes full logits)")

@@ -21,7 +21,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.optrace import scope
-from .layers import Params, apply_mrope, apply_rope, dense
+from .layers import (Params, apply_mrope, apply_rope, dense,
+                     row_parallel_dense)
 
 NEG_INF = -1e30
 
@@ -115,12 +116,12 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _gqa_values(p, v)
 
 
-def _chunk_mask(sq: int, chunk: int, j: int, *, causal: bool, q_offset: int,
+def _chunk_mask(sq: int, j0: int, n: int, *, causal: bool, q_offset: int,
                 window: int, kv_len, scores: torch.Tensor) -> torch.Tensor:
-    """Causal / window / cache-length masking of one [B, Hq, Sq, chunk]
-    score tile (key chunk ``j``)."""
+    """Causal / window / cache-length masking of one [B, Hq, Sq, n] score
+    tile, the keys ``j0 .. j0 + n - 1``."""
     rows = torch.arange(sq, device=scores.device)[:, None] + q_offset
-    cols = j * chunk + torch.arange(chunk, device=scores.device)[None, :]
+    cols = j0 + torch.arange(n, device=scores.device)[None, :]
     return _mask_scores(scores, rows, cols, causal=causal, window=window,
                         kv_len=kv_len)
 
@@ -142,8 +143,9 @@ def _chunked_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kj = k[:, j * chunk:(j + 1) * chunk]
         vj = v[:, j * chunk:(j + 1) * chunk]
         s = _gqa_scores(q, kj).float() * scale            # [B,Hq,Sq,chunk]
-        s = _chunk_mask(sq, chunk, j, causal=causal, q_offset=q_offset,
-                        window=window, kv_len=kv_len, scores=s)
+        s = _chunk_mask(sq, j * chunk, chunk, causal=causal,
+                        q_offset=q_offset, window=window, kv_len=kv_len,
+                        scores=s)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -177,39 +179,82 @@ class _ChunkedAttn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, kv_len, out, lse = ctx.saved_tensors
         causal, chunk, q_offset, window = ctx.args
-        b, sq, hq, d = q.shape
-        hkv = k.shape[2]
-        g = hq // hkv
-        scale = 1.0 / torch.sqrt(torch.full((), float(d),
-                                            dtype=torch.float32,
-                                            device=q.device))
-        do_f = do.float()
-        do_g = do_f.reshape(b, sq, hkv, g, d)
-        delta = (do_f * out.float()).sum(dim=-1).transpose(1, 2)  # [B,Hq,Sq]
-        delta = delta.reshape(b, hkv, g, sq)[..., None]
-        qf = q.float().reshape(b, sq, hkv, g, d)
-        dq = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32,
-                         device=q.device)
-        dk = torch.empty_like(k)
-        dv = torch.empty_like(v)
-        for j in range(k.shape[1] // chunk):
-            cols = slice(j * chunk, (j + 1) * chunk)
-            kj, vj = k[:, cols], v[:, cols]
-            s = _gqa_scores(q, kj).float() * scale       # [B,Hq,Sq,C]
-            s = _chunk_mask(sq, chunk, j, causal=causal, q_offset=q_offset,
-                            window=window, kv_len=kv_len, scores=s)
-            pg = torch.exp(s - lse[..., None]).reshape(b, hkv, g, sq, chunk)
-            dv[:, cols] = torch.einsum("bhgqc,bqhgd->bchd", pg,
-                                       do_g).to(v.dtype)
-            dp = torch.einsum("bqhgd,bchd->bhgqc", do_g, vj.float())
-            ds = pg * (dp - delta) * scale
-            dq = dq + torch.einsum("bhgqc,bchd->bqhgd", ds, kj.float())
-            dk[:, cols] = torch.einsum("bhgqc,bqhgd->bchd", ds,
-                                       qf).to(k.dtype)
-        return (dq.reshape(b, sq, hq, d).to(q.dtype), dk, dv,
-                None, None, None, None, None)
+        return tiled_attention_bwd(*ctx.saved_tensors, do, causal=causal,
+                                   chunk=chunk, q_offset=q_offset,
+                                   window=window) + (None,) * 5
+
+
+def empty_rows(sq: int, kv_len: torch.Tensor, *, causal: bool,
+               q_offset: int, window: int) -> torch.Tensor:
+    """[B, Sq] bool: the query rows that these masks leave without a valid
+    key (``kv_len`` [B] the valid keys of each batch row)."""
+    pos = torch.arange(sq, device=kv_len.device) + q_offset
+    lens = kv_len.long()[:, None]
+    hi = torch.minimum(lens, pos + 1) if causal else lens
+    lo = (pos - window + 1).clamp_min(0) if window > 0 \
+        else torch.zeros_like(pos)
+    return hi <= lo
+
+
+def tiled_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len: Optional[torch.Tensor], out: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool, chunk: int, q_offset: int = 0,
+                        window: int = 0,
+                        empty: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """JAX's ``_chunked_attn_bwd``: -> (dq, dk, dv) in the inputs' dtypes,
+    for q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], the forward's output and
+    row log-sum-exp ``lse`` [B, Hq, Sq] and the output's gradient ``do``.
+    It recomputes one [B, Hq, Sq, chunk] score tile at a time with the
+    forward's masks; the last tile is shorter where Sk is not a multiple
+    of ``chunk``. The products run in fp32 on the upcast inputs; dq is
+    summed over the tiles in fp32 and rounded once, each tile's dk and dv
+    rounded once.
+
+    A row with no valid key averages V over all Sk keys in the forward
+    (every score the finite NEG_INF), but its lse rounds to NEG_INF in
+    fp32, so ``exp(s - lse)`` is 1 for every key, not 1 / Sk. With
+    ``empty`` ([B, Sq] bool, ``empty_rows``) such rows take p = 1 / Sk
+    and no score gradient (their scores are constants), which is
+    autodiff's gradient of the forward; without it (the chunked path, as
+    JAX's) they keep JAX's values."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / torch.sqrt(torch.full((), float(d), dtype=torch.float32,
+                                        device=q.device))
+    do_f = do.float()
+    do_g = do_f.reshape(b, sq, hkv, g, d)
+    delta = (do_f * out.float()).sum(dim=-1).transpose(1, 2)  # [B,Hq,Sq]
+    delta = delta.reshape(b, hkv, g, sq)[..., None]
+    qf = q.float().reshape(b, sq, hkv, g, d)
+    dq = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if empty is not None:
+        empty = empty[:, None, None, :, None]                # [B,1,1,Sq,1]
+    for j0 in range(0, sk, chunk):
+        n = min(chunk, sk - j0)
+        cols = slice(j0, j0 + n)
+        kj, vj = k[:, cols], v[:, cols]
+        s = _gqa_scores(q, kj).float() * scale           # [B,Hq,Sq,n]
+        s = _chunk_mask(sq, j0, n, causal=causal, q_offset=q_offset,
+                        window=window, kv_len=kv_len, scores=s)
+        pg = torch.exp(s - lse[..., None]).reshape(b, hkv, g, sq, n)
+        if empty is not None:
+            pg = torch.where(empty, 1.0 / sk, pg)
+        dv[:, cols] = torch.einsum("bhgqc,bqhgd->bchd", pg,
+                                   do_g).to(v.dtype)
+        dp = torch.einsum("bqhgd,bchd->bhgqc", do_g, vj.float())
+        ds = pg * (dp - delta) * scale
+        if empty is not None:
+            ds = torch.where(empty, 0.0, ds)
+        dq = dq + torch.einsum("bhgqc,bchd->bqhgd", ds, kj.float())
+        dk[:, cols] = torch.einsum("bhgqc,bqhgd->bchd", ds, qf).to(k.dtype)
+    return dq.reshape(b, sq, hq, d).to(q.dtype), dk, dv
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -369,11 +414,15 @@ def paged_prefill_attention_layer(arch: ArchConfig, p: Params,
                                   page_row: torch.Tensor, start: int,
                                   total_len: int,
                                   mrope_positions: Optional[torch.Tensor]
-                                  = None) -> torch.Tensor:
+                                  = None, group=None) -> torch.Tensor:
     """One prompt chunk x [1, C, D] of a single sequence (row i at position
     ``start + i``; rows at or past ``total_len`` are padding). Its K/V rows
     are written into ``cache`` in place (padding rows and rows past the
-    allocated pages go to the null page 0); returns the layer output."""
+    allocated pages go to the null page 0); returns the layer output.
+    Under tensor parallelism (``group``) the rank's weights project its
+    own query and KV heads, ``cache`` holds those heads of every page, and
+    the output projection is row-parallel (``row_parallel_dense``), the
+    layer's one collective."""
     from ..kernels.decode_attention import ops as pd_ops
     _, c, _ = x.shape
     page_size = cache["k"].shape[1]
@@ -393,7 +442,8 @@ def paged_prefill_attention_layer(arch: ArchConfig, p: Params,
     o = pd_ops.paged_prefill_attention(q[0].contiguous(), cache["k"],
                                        cache["v"], page_row, start,
                                        total_len)
-    return dense(o.reshape(1, c, -1), p["wo"], p.get("bo"))
+    return row_parallel_dense(o.reshape(1, c, -1), p["wo"], p.get("bo"),
+                              group)
 
 
 def paged_decode_attention_layer(arch: ArchConfig, p: Params,
@@ -401,11 +451,13 @@ def paged_decode_attention_layer(arch: ArchConfig, p: Params,
                                  page_table: torch.Tensor,
                                  seq_lens: torch.Tensor,
                                  mrope_positions: Optional[torch.Tensor]
-                                 = None) -> torch.Tensor:
+                                 = None, group=None) -> torch.Tensor:
     """One-token decode x [B, 1, D] against the paged cache. ``seq_lens``
     [B] = tokens already cached (the new token's position); inactive slots
     carry 0, write to the null page and produce output the engine never
-    reads. The new K/V rows are written into ``cache`` in place."""
+    reads. The new K/V rows are written into ``cache`` in place. Under
+    tensor parallelism (``group``) as the prefill layer: the rank's heads,
+    their page shard, one reduce."""
     from ..kernels.decode_attention import ops as pd_ops
     b = x.shape[0]
     page_size = cache["k"].shape[1]
@@ -419,4 +471,5 @@ def paged_decode_attention_layer(arch: ArchConfig, p: Params,
     cache["v"].index_put_((pids, offs), v[:, 0])
     o = pd_ops.paged_decode_attention(q[:, 0].contiguous(), cache["k"],
                                       cache["v"], page_table, seq_lens + 1)
-    return dense(o.reshape(b, 1, -1), p["wo"], p.get("bo"))
+    return row_parallel_dense(o.reshape(b, 1, -1), p["wo"], p.get("bo"),
+                              group)

@@ -11,6 +11,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..core.optrace import scope
 
@@ -29,6 +30,34 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def row_parallel_dense(x: torch.Tensor, w: torch.Tensor,
+                       b: Optional[torch.Tensor] = None,
+                       group=None) -> torch.Tensor:
+    """``dense`` of a row-parallel projection (attention's ``wo``, the
+    MLP's ``w2``). One device: the plain dense. Under tensor parallelism
+    (``group``) the rank's ``w`` rows meet only its share of ``x``'s
+    features, so the product is a partial sum: it is reduced across the
+    ranks in fp32 (``all_reduce``) and the replicated bias is added once,
+    after the reduce, as JAX's ``psum`` sites do. JAX writes the sum as
+    ``x.astype(f32) @ w.astype(f32)``, which XLA fuses; here a 16-bit
+    ``x`` and ``w`` on the card meet in one tensor-core GEMM with an fp32
+    output (their products are exact in fp32, so only the summation order
+    differs) and no fp32 copy of the weight is made; elsewhere (the CPU,
+    fp32) the fp32 product."""
+    if group is None:
+        return dense(x, w, b)
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and \
+            w.dtype == x.dtype:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = x.float() @ w.float()
+    dist.all_reduce(y, group=group)
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
@@ -180,17 +209,18 @@ def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor, theta: float,
 
 
 def apply_mlp(kind: str, p: Params, x: torch.Tensor, *,
-              fused: bool = False) -> torch.Tensor:
-    """Feed-forward block (single device: no tensor-parallel reduce).
-    ``fused`` routes a gelu MLP's bias + activation through
-    ``kernels.bias_gelu`` (the dense without its bias, then one kernel);
-    swiglu has no such epilogue and ignores it."""
+              fused: bool = False, group=None) -> torch.Tensor:
+    """Feed-forward block. ``fused`` routes a gelu MLP's bias + activation
+    through ``kernels.bias_gelu`` (the dense without its bias, then one
+    kernel); swiglu has no such epilogue and ignores it. Under tensor
+    parallelism (``group``) the weights are the rank's Megatron shards,
+    w1 / w3 column-parallel and w2 row-parallel (``row_parallel_dense``)."""
     with scope("mlp"):
-        return _apply_mlp(kind, p, x, fused=fused)
+        return _apply_mlp(kind, p, x, fused=fused, group=group)
 
 
 def _apply_mlp(kind: str, p: Params, x: torch.Tensor, *,
-               fused: bool = False) -> torch.Tensor:
+               fused: bool = False, group=None) -> torch.Tensor:
     if kind == "swiglu":
         h = silu(dense(x, p["w1"], p.get("b1"))) * dense(x, p["w3"],
                                                          p.get("b3"))
@@ -202,4 +232,4 @@ def _apply_mlp(kind: str, p: Params, x: torch.Tensor, *,
             h = gelu(dense(x, p["w1"], p.get("b1")))
     else:
         raise ValueError(kind)
-    return dense(h, p["w2"], p.get("b2"))
+    return row_parallel_dense(h, p["w2"], p.get("b2"), group)

@@ -30,16 +30,21 @@ except that the stacked ``blocks`` become a list with one dict per layer:
     encdec: enc_blocks[l] (attention blocks as above), enc_final_norm, and
                decoder blocks[l] with ln_x and xattn.{wq [D, q], wk, wv
                [D, kv], wo [q, D]} (+ bq, bk, bv, bo) besides their own
+    a tensor-parallel rank's blocks (``Model.shard``): attn.{wq, wk, wv}
+               split from wqkv and column-sliced, wo, mlp.w2 and the
+               experts row- or expert-sliced (``parallel.sharding``)
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig, torch_dtype
 from ..core.optrace import scope
+from ..parallel import sharding
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -61,10 +66,16 @@ def _zeros(n: int, device, dtype) -> torch.Tensor:
 
 
 def init_params(arch: ArchConfig, gen: torch.Generator, device,
-                dtype: torch.dtype) -> Params:
+                dtype: torch.dtype,
+                block_fn: Optional[Callable[[Params], Params]] = None
+                ) -> Params:
     """Random weights with the JAX package's distributions (not its bits:
     a parity test converts the JAX weights instead, see ``convert``).
-    Biases start at zero, as in JAX."""
+    Biases start at zero, as in JAX. ``block_fn`` maps each decoder block
+    as soon as it is made (the generator's draws are unchanged), so that
+    only its result outlives the next block's init."""
+    if block_fn is None:
+        block_fn = lambda blk: blk  # noqa: E731
     if arch.mlp not in ("swiglu", "gelu"):
         raise NotImplementedError(
             f"{arch.name}: the port initializes swiglu/gelu MLPs only")
@@ -80,8 +91,8 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
                            for _ in range(arch.enc_layers)]
         p["enc_final_norm"] = init_norm(arch.norm, d, dtype, device)
     period = len(tf.layer_kinds(arch))
-    p["blocks"] = [_init_block(gen, arch, layer % period, device, dtype,
-                               cross=encdec)
+    p["blocks"] = [block_fn(_init_block(gen, arch, layer % period, device,
+                                        dtype, cross=encdec))
                    for layer in range(arch.num_layers)]
     p["final_norm"] = init_norm(arch.norm, d, dtype, device)
     if not arch.tie_embeddings:
@@ -92,6 +103,11 @@ def init_params(arch: ArchConfig, gen: torch.Generator, device,
                     "bias": _zeros(d, device, dtype),
                     "ln": init_norm(arch.norm, d, dtype, device)}
     return p
+
+
+def _shard_block(arch: ArchConfig, rank: int, tp: int,
+                 blk: Params) -> Params:
+    return sharding.serving_shards([blk], arch, rank, tp)[0]
 
 
 def _init_attn(gen: torch.Generator, arch: ArchConfig, device,
@@ -245,21 +261,47 @@ def loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
 
 
 class Model:
-    """Architecture + weights on one device."""
+    """Architecture + weights on one device. ``shard`` is ``(rank, tp)``
+    where the decoder blocks hold only that rank's tensor-parallel serving
+    shards (``parallel.sharding.serving_shards``), None where every weight
+    is whole."""
 
-    def __init__(self, arch: ArchConfig, params: Params):
+    def __init__(self, arch: ArchConfig, params: Params,
+                 shard: Optional[Tuple[int, int]] = None):
         self.arch = arch
         self.params = params
+        self.shard = shard
         self.dtype = torch_dtype(arch.dtype)
         self.device = params["embed"]["embedding"].device
 
     @classmethod
     def init(cls, arch: ArchConfig, generator: torch.Generator,
-             device="cuda") -> "Model":
+             device="cuda",
+             shard: Optional[Tuple[int, int]] = None) -> "Model":
         """Seeded random weights built directly on ``device`` in the
-        config's dtype; ``generator`` must live on that device."""
+        config's dtype; ``generator`` must live on that device. With
+        ``shard=(rank, tp)`` each block is cut to the rank's shards as soon
+        as it is made, so the device holds one whole block at a time, never
+        the whole stack; the shards are the whole model's slices bit for
+        bit (the same draws)."""
+        block_fn = None
+        if shard is not None:
+            block_fn = functools.partial(_shard_block, arch, *shard)
         return cls(arch, init_params(arch, generator, resolve_device(device),
-                                     torch_dtype(arch.dtype)))
+                                     torch_dtype(arch.dtype), block_fn),
+                   shard)
+
+    def sharded(self, rank: int, tp: int) -> "Model":
+        """This whole model's rank ``rank`` of ``tp``: the decoder blocks
+        cut to the rank's serving shards, every other leaf the same tensor.
+        The whole blocks stay this model's: drop it to free them."""
+        if self.shard is not None:
+            raise ValueError(f"the model already holds rank {self.shard[0]}"
+                             f" of {self.shard[1]}'s shards")
+        params = dict(self.params)
+        params["blocks"] = sharding.serving_shards(params["blocks"],
+                                                   self.arch, rank, tp)
+        return Model(self.arch, params, (rank, tp))
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, S] -> [B, S, D] in the compute dtype (rope models add

@@ -1,7 +1,11 @@
 """Token-choice MoE with sort-based capacity dispatch (drop on overflow).
 Counterpart of ``repro.models.moe`` (``capacity_per_row``, ``init_moe``,
-``_route_indices``, ``apply_moe``) on one device: no ``tp_axis`` (expert
-parallelism is not ported).
+``_route_indices``, ``apply_moe``), its serving tensor parallelism
+included: with a process ``group`` each rank owns ``E / tp`` contiguous
+experts (the leading dim of its ``experts`` leaves), the routing is
+replicated, each rank dispatches, runs and combines only the capacity slots
+of its experts, and the partial combines meet in one fp32 ``all_reduce``,
+the layer's one collective (JAX's ``psum``).
 
 The routing is JAX's, per batch row: softmax of the fp32 router logits,
 top-k, the weights renormalised, the ``S * k`` choices sorted by expert
@@ -27,6 +31,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ArchConfig, MoEConfig
 from ..core.optrace import scope
@@ -120,8 +125,8 @@ def _route_indices(logits: torch.Tensor, moe: MoEConfig, capacity: int,
 
 
 def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
-              eff_capacity: Optional[int] = None, aux_loss: bool = True
-              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+              eff_capacity: Optional[int] = None, aux_loss: bool = True,
+              group=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x [B, S, D] -> (y [B, S, D], the Switch load-balancing loss, fp32
     scalar, differentiable through the router's probabilities: the
     training forward adds it to the loss, as JAX's; None when
@@ -129,17 +134,21 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
     steps drop it as dead code). Each batch row
     routes on its own with ``capacity_per_row(S)`` slots an expert, so a
     decode step ([slots, 1, D]) gives every slot one slot an expert and
-    drops nothing."""
+    drops nothing. With ``group`` (serving tensor parallelism) the
+    rank's ``experts`` hold its ``E / tp`` experts and its ``shared``
+    experts are Megatron shards; the routed and shared partial sums are
+    reduced in one fp32 ``all_reduce``."""
     with scope("moe"):
-        return _apply_moe(arch, p, x, eff_capacity, aux_loss)
+        return _apply_moe(arch, p, x, eff_capacity, aux_loss, group)
 
 
 def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
-               eff_capacity: Optional[int], aux_loss: bool
+               eff_capacity: Optional[int], aux_loss: bool, group=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     moe = arch.moe
     b, s, d = x.shape
-    e, k = moe.num_experts, moe.top_k
+    k = moe.top_k
+    e = p["experts"]["w1"].shape[0]     # the experts this rank owns
     cap = capacity_per_row(s, moe)
     # the router's product in fp32 on the fp32 values of its (model dtype)
     # weights, as JAX computes x.astype(f32) @ router; TF32 stays off
@@ -148,6 +157,13 @@ def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
     r = _route(logits, moe, cap, eff_capacity)
     dev = x.device
     n = s * k
+    if group is not None:
+        # rebase the global capacity slots onto this rank's experts; the
+        # slots of other ranks' experts fold into the overflow sentinel,
+        # so they neither dispatch nor combine here
+        slot = r["slot"] - dist.get_rank(group) * e * cap
+        valid = r["valid"] & (slot >= 0) & (slot < e * cap)
+        r = dict(r, slot=torch.where(valid, slot, e * cap), valid=valid)
 
     # dispatch: the sorted choice that fills each capacity slot (kept
     # choices hold distinct slots; dropped ones all hit the sentinel,
@@ -189,11 +205,16 @@ def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
         sh = p["shared"]
         hs = silu(x @ sh["w1"].to(x.dtype)) * (x @ sh["w3"].to(x.dtype))
         y = y + hs @ sh["w2"].to(x.dtype)
+    if group is not None:
+        y32 = y.float()
+        dist.all_reduce(y32, group=group)
+        y = y32.to(x.dtype)
     if not aux_loss:
         return y, None
     # Switch-style load-balancing loss: E * sum_e f_e * P_e
     probs = torch.softmax(logits, dim=-1)
     top1 = probs.argmax(dim=-1)
-    f = torch.nn.functional.one_hot(top1, e).float().mean(dim=(0, 1))
+    f = torch.nn.functional.one_hot(top1, moe.num_experts).float().mean(
+        dim=(0, 1))
     pmean = probs.mean(dim=(0, 1))
-    return y, e * (f * pmean).sum() * moe.aux_loss_weight
+    return y, moe.num_experts * (f * pmean).sum() * moe.aux_loss_weight

@@ -62,13 +62,16 @@ def fused_blocks_enabled() -> bool:
 
 
 def _ffn(arch: ArchConfig, p: Params, h: torch.Tensor, *,
-         fused: bool = False, moe_cap: Optional[int] = None) -> torch.Tensor:
+         fused: bool = False, moe_cap: Optional[int] = None,
+         group=None) -> torch.Tensor:
     """A block's MLP, or its MoE where it holds one (the Switch loss left
-    out; ``moe_cap`` tightens the MoE's capacity)."""
+    out; ``moe_cap`` tightens the MoE's capacity); under serving tensor
+    parallelism (``group``) the Megatron MLP or the expert-parallel MoE,
+    each with its one reduce."""
     if "moe" in p:
         return moe_lib.apply_moe(arch, p["moe"], h, moe_cap,
-                                 aux_loss=False)[0]
-    return apply_mlp(arch.mlp, p["mlp"], h, fused=fused)
+                                 aux_loss=False, group=group)[0]
+    return apply_mlp(arch.mlp, p["mlp"], h, fused=fused, group=group)
 
 
 def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
@@ -241,16 +244,17 @@ def _decode_block_mix(arch: ArchConfig, blk: Params, x: torch.Tensor,
 
 
 def _decode_block_ffn(arch: ArchConfig, blk: Params, x: torch.Tensor,
-                      moe_cap: Optional[int] = None) -> torch.Tensor:
+                      moe_cap: Optional[int] = None,
+                      group=None) -> torch.Tensor:
     """Pre- or post-norm MLP or MoE tail of a block with its residual add
     (none for a block without ln2: mamba2's have no MLP). ``moe_cap`` (a
     prefill chunk's): the full prompt's capacity, so the drops match the
     static engine's full-prompt dispatch rather than a bucket inflated by
-    the chunk's padded shape."""
+    the chunk's padded shape. ``group``: serving tensor parallelism."""
     if "ln2" not in blk:
         return x
     h = x if arch.post_norm else apply_norm(arch.norm, blk["ln2"], x)
-    y = _ffn(arch, blk, h, moe_cap=moe_cap)
+    y = _ffn(arch, blk, h, moe_cap=moe_cap, group=group)
     return apply_norm(arch.norm, blk["ln2"], x + y) if arch.post_norm \
         else x + y
 
@@ -265,59 +269,66 @@ def _fused_residual_norm(arch: ArchConfig, ln: Params, d: torch.Tensor,
 
 
 def _fused_block_delta(arch: ArchConfig, blk: Params, h: torch.Tensor,
-                       moe_cap: Optional[int] = None) -> torch.Tensor:
+                       moe_cap: Optional[int] = None,
+                       group=None) -> torch.Tensor:
     """MLP or MoE tail of a fused block: the residual *delta*, whose add is
     deferred to the layer's end."""
-    return _ffn(arch, blk, h, moe_cap=moe_cap)
+    return _ffn(arch, blk, h, moe_cap=moe_cap, group=group)
 
 
 def _period(arch: ArchConfig, blk: Params, x: torch.Tensor,
             mix: Callable[[torch.Tensor], torch.Tensor],
-            fused: bool, moe_cap: Optional[int] = None) -> torch.Tensor:
+            fused: bool, moe_cap: Optional[int] = None,
+            group=None) -> torch.Tensor:
     """One layer around the mixer ``mix``: unfused, or the fused body (ln1
     norm, mixer, fused add + ln2 norm, MLP delta, boundary add). A mamba2
     block has no ln2 and no MLP: its fused body's pending delta is the
     mixer output itself, folded by the boundary add, so with a period of
     one layer fused and unfused are the same operations and no
     ``decode_residual_norm`` runs (fused decode changes only the head).
-    The fused body is pre-norm only, as JAX's."""
+    The fused body is pre-norm only, as JAX's. ``group``: serving tensor
+    parallelism, for the MLP or MoE tail (the mixer takes it itself)."""
     if fused:
         assert not arch.post_norm, (arch.name, "fused decode is pre-norm only")
     if not fused or "ln2" not in blk:
         x = _decode_block_mix(arch, blk, x, mix)
-        return _decode_block_ffn(arch, blk, x, moe_cap)
+        return _decode_block_ffn(arch, blk, x, moe_cap, group)
     h = apply_norm(arch.norm, blk["ln1"], x)
     h2, x = _fused_residual_norm(arch, blk["ln2"], mix(h), x)
-    return x + _fused_block_delta(arch, blk, h2, moe_cap)
+    return x + _fused_block_delta(arch, blk, h2, moe_cap, group)
 
 
 def paged_decode_period(arch: ArchConfig, blk: Params, cache: Params,
                         x: torch.Tensor, page_table: torch.Tensor,
                         seq_lens: torch.Tensor, active: torch.Tensor,
-                        kind: str = "attn",
-                        fused: bool = False) -> torch.Tensor:
+                        kind: str = "attn", fused: bool = False,
+                        group=None) -> torch.Tensor:
     """One layer of single-token decode, dispatched on its mixer ``kind``.
     ``active`` [S] (``seq_lens > 0``) guards a mamba layer's state rows:
-    attention routes an idle slot's write to the null page instead."""
+    attention routes an idle slot's write to the null page instead.
+    ``group``: serving tensor parallelism (attention on the rank's heads,
+    the tail's shards; a mamba mixer is replicated and reduces nothing)."""
     def mix(h):
         if kind == "attn":
             return attn_lib.paged_decode_attention_layer(
-                arch, blk["attn"], h, cache, page_table, seq_lens)
+                arch, blk["attn"], h, cache, page_table, seq_lens,
+                group=group)
         return ssm_lib.paged_decode_mamba_layer(arch, blk["mamba"], h, cache,
                                                 active)
-    return _period(arch, blk, x, mix, fused)
+    return _period(arch, blk, x, mix, fused, group=group)
 
 
 def paged_decode_stack(arch: ArchConfig, blocks: List[Params],
                        caches: List[Params], x: torch.Tensor,
                        page_table: torch.Tensor, seq_lens: torch.Tensor,
-                       fused: bool = False) -> torch.Tensor:
+                       fused: bool = False, group=None) -> torch.Tensor:
     """Single-token decode x [B, 1, D] through every layer. A slot with
-    seq_len 0 is empty or mid-prefill: its state is left as it was."""
+    seq_len 0 is empty or mid-prefill: its state is left as it was.
+    ``group``: serving tensor parallelism."""
     active = seq_lens > 0
     for blk, cache, kind in zip(blocks, caches, _stack_kinds(arch)):
         x = paged_decode_period(arch, blk, cache, x, page_table, seq_lens,
-                                active, kind, fused)
+                                active, kind, fused, group)
     return x
 
 
@@ -332,7 +343,8 @@ EXIT_PAGES = 4      # slot's next K/V write would fall past its allocated pages
 def paged_decode_loop_step(arch: ArchConfig, blocks: List[Params],
                            caches: List[Params], carry: Params, *,
                            horizon: int, embed, unembed=None, select=None,
-                           fused_head=None, probe: bool = False) -> None:
+                           fused_head=None, probe: bool = False,
+                           group=None) -> None:
     """One iteration of the multi-step decode loop, the counterpart of the
     body and condition of ``repro.models.transformer.paged_decode_loop``'s
     ``lax.while_loop``, in place over the tensors of ``carry``:
@@ -364,7 +376,9 @@ def paged_decode_loop_step(arch: ArchConfig, blocks: List[Params],
     then ``fused_head(x, positions) -> (tokens, ok rows)`` or
     ``select(unembed(x), positions)``, at stream positions ``lens + 1``,
     so every draw's (seed, position) key, and so every token, is the one
-    ``decode_steps=1`` draws. Nothing here reads a value on the host."""
+    ``decode_steps=1`` draws. Nothing here reads a value on the host.
+    ``group``: serving tensor parallelism (the iteration's collectives are
+    the stack's reduces; the tokens need none)."""
     i, tok, lens = carry["i"], carry["tokens"], carry["lens"]
     active = carry["active"] != 0
     reasons, page_limit = carry["reasons"], carry["page_limit"]
@@ -376,7 +390,7 @@ def paged_decode_loop_step(arch: ArchConfig, blocks: List[Params],
     seq_lens = torch.where(live_s, lens, zero)
     x = embed(tok[:, None])
     x = paged_decode_stack(arch, blocks, caches, x, page_table, seq_lens,
-                           fused=fused_head is not None)
+                           fused=fused_head is not None, group=group)
     if fused_head is not None:
         new, ok_rows = fused_head(x, seq_lens + 1)
         rows_ok = ok_rows | ~active
@@ -406,37 +420,41 @@ def paged_decode_loop_step(arch: ArchConfig, blocks: List[Params],
 def paged_prefill_period(arch: ArchConfig, blk: Params, cache: Params,
                          x: torch.Tensor, page_row: torch.Tensor, start: int,
                          total_len: int, slot: int = 0, kind: str = "attn",
-                         fused: bool = False,
-                         moe_cap: Optional[int] = None) -> torch.Tensor:
+                         fused: bool = False, moe_cap: Optional[int] = None,
+                         group=None) -> torch.Tensor:
     """One layer of one prompt chunk, dispatched on its mixer ``kind``:
     attention writes K/V into the sequence's pages, mamba advances the
     state in the sequence's ``slot`` row; a MoE tail drops at ``moe_cap``
-    (the full prompt's capacity) where it is given."""
+    (the full prompt's capacity) where it is given. ``group``: serving
+    tensor parallelism."""
     def mix(h):
         if kind == "attn":
             return attn_lib.paged_prefill_attention_layer(
-                arch, blk["attn"], h, cache, page_row, start, total_len)
+                arch, blk["attn"], h, cache, page_row, start, total_len,
+                group=group)
         return ssm_lib.paged_prefill_mamba_layer(arch, blk["mamba"], h,
                                                  cache, slot, start,
                                                  total_len)
-    return _period(arch, blk, x, mix, fused, moe_cap)
+    return _period(arch, blk, x, mix, fused, moe_cap, group)
 
 
 def paged_prefill_stack(arch: ArchConfig, blocks: List[Params],
                         caches: List[Params], x: torch.Tensor,
                         page_row: torch.Tensor, start: int,
                         total_len: int, slot: int = 0,
-                        fused: bool = False,
-                        moe_cap: Optional[int] = None) -> torch.Tensor:
+                        fused: bool = False, moe_cap: Optional[int] = None,
+                        group=None) -> torch.Tensor:
     """Chunked prefill: one prompt chunk x [1, C, D] of one sequence through
     every layer, its K/V written straight into the sequence's pages, its
     mamba state into its slot's rows, its MoE layers dropping at the full
     context's capacity ``moe_cap`` (host-computed by the engine; the
     chunk's own bucket where None). The chunk's trailing padding routes
-    too, but the stable expert sort keeps it behind every real token."""
+    too, but the stable expert sort keeps it behind every real token.
+    ``group``: serving tensor parallelism."""
     for blk, cache, kind in zip(blocks, caches, _stack_kinds(arch)):
         x = paged_prefill_period(arch, blk, cache, x, page_row, start,
-                                 total_len, slot, kind, fused, moe_cap)
+                                 total_len, slot, kind, fused, moe_cap,
+                                 group)
     return x
 
 

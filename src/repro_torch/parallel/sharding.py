@@ -1,0 +1,196 @@
+"""The serving engine's tensor-parallel layout (Megatron): counterpart of the
+serving part of ``repro.parallel.sharding`` (``_SERVING_TP_RULES``,
+``_SERVING_EXPERT_RULES``, ``serving_param_pspecs``,
+``PAGED_STATE_LEAVES``, ``paged_pool_pspecs``). JAX names a mesh axis for
+each dim of a leaf; the port's mesh is one axis of ``tp`` ranks, so a
+leaf's spec is the one dim that is split across the ranks, or None where
+every rank holds the whole leaf. ``shard_params`` cuts each rank's
+contiguous slices; ``serving_shards`` takes a block list from the whole
+model's layout (fused qkv, ``Hkv`` KV heads) to a rank's. A rank keeps only
+its shards: ``models.model.Model.init(..., shard=(rank, tp))`` cuts each
+block as soon as it is made. The training layout (ZeRO, the data axis) is
+not here.
+
+Replicated: the embedding, the LM head, the norms, the router, mamba
+mixers and the biases of the row-parallel projections (``bo``, ``b2``),
+which are added once, after the reduce. So every rank computes the same
+logits and draws the same tokens, with no collective.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+# leaf name -> the split dim counted from the end: -1 column-parallel (the
+# output features, head-major, so rank i's block holds its heads), -2
+# row-parallel (partial sums, reduced across the ranks)
+_SERVING_TP_RULES: Dict[str, int] = {
+    "wq": -1, "wk": -1, "wv": -1,
+    "bq": -1, "bk": -1, "bv": -1,
+    "wo": -2,
+    "w1": -1, "w3": -1,
+    "b1": -1, "b3": -1,
+    "w2": -2,
+}
+
+# under an "experts" parent the matrices carry a leading [E, ...] expert
+# dim: each rank owns E / tp whole experts ("shared" experts are a dense
+# MLP and take the rules above)
+_SERVING_EXPERT_RULES: Dict[str, int] = {"w1": -3, "w3": -3, "w2": -3}
+
+# leaf names of the serving decode state: the per-page KV pools [P, page,
+# Hkv, Dh] and the per-slot mamba state
+PAGED_STATE_LEAVES = ("k", "v")
+SLOT_STATE_LEAVES = ("conv", "state")
+
+
+def map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], tree: Any,
+                  path: Tuple[str, ...] = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves of a nested dict / list tree;
+    ``path`` holds the dict keys and list indices (as strings) above the
+    leaf."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def _map_attn(tree, fn):
+    """``tree`` (dicts and the per-layer block lists) with every
+    self-attention's parameter dict ``attn`` replaced by ``fn(attn)``."""
+    if isinstance(tree, list):
+        return [_map_attn(t, fn) for t in tree]
+    if not isinstance(tree, dict):
+        return tree
+    return {k: fn(dict(v)) if k == "attn" and isinstance(v, dict)
+            else _map_attn(v, fn) for k, v in tree.items()}
+
+
+def split_fused_qkv(params, arch):
+    """Every attention block's fused ``wqkv`` / ``bqkv`` replaced by the
+    equivalent ``wq / wk / wv`` (``bq / bk / bv``) column slices, as JAX's
+    ``_split_fused_qkv``: head sharding needs each projection's columns
+    head-major and contiguous, and a slice of the fused feature dim would
+    mix q and kv columns. Exact: each output column's product is
+    unchanged."""
+    cuts = [arch.q_dim, arch.kv_dim, arch.kv_dim]
+
+    def split(p):
+        for fused, names in (("wqkv", ("wq", "wk", "wv")),
+                             ("bqkv", ("bq", "bk", "bv"))):
+            if fused in p:
+                p.update(zip(names, torch.split(p.pop(fused), cuts, dim=-1)))
+        return p
+    return _map_attn(params, split)
+
+
+def replicate_kv_heads(params, arch, rep: int):
+    """Every K/V projection's head blocks repeated ``rep`` times, head-major
+    (new head j holds old head j // rep), so that the column-parallel slice
+    of ``tp > Hkv`` ranks gives each rank one whole KV head: rank i's query
+    heads all group onto old KV head i // rep, the block it receives. The
+    GQA math is unchanged, at rep x the KV memory (the engine's
+    ``tp_stats``)."""
+    hd = arch.resolved_head_dim
+
+    def rep_heads(p):
+        for name in ("wk", "wv", "bk", "bv"):
+            if name in p:
+                w = p[name]
+                r = torch.repeat_interleave(
+                    w.reshape(w.shape[:-1] + (w.shape[-1] // hd, hd)), rep,
+                    dim=-2)
+                p[name] = r.reshape(w.shape[:-1] + (w.shape[-1] * rep,))
+        return p
+    return _map_attn(params, rep_heads)
+
+
+def kv_replication(arch, tp: int) -> int:
+    """The copies of each KV head a ``tp``-way split needs: ``tp // Hkv``
+    where ``tp > Hkv`` (each rank then holds one whole head), else 1 (the
+    engine's checks refuse a ``tp`` that neither divides nor is divided by
+    ``Hkv``)."""
+    hkv = arch.num_kv_heads
+    return tp // hkv if hkv and hkv % tp else 1
+
+
+def serving_shards(blocks, arch, rank: int, tp: int):
+    """Rank ``rank``'s serving layout of a list of blocks in the whole
+    model's layout: fused qkv split, KV heads replicated where ``tp >
+    Hkv``, then each split leaf's slice (``shard_params``); the rest of a
+    block (norms, row-parallel biases, mamba mixers, the router) is
+    returned as it is."""
+    blocks = split_fused_qkv(blocks, arch)
+    rep = kv_replication(arch, tp)
+    if rep > 1:
+        blocks = replicate_kv_heads(blocks, arch, rep)
+    return shard_params(blocks, serving_param_spec(blocks), rank, tp)
+
+
+def serving_param_spec(params: Any) -> Any:
+    """For every leaf the dim that the ranks split (non-negative), or None
+    where it is replicated. A fused ``wqkv`` / ``bqkv`` raises: a slice of
+    the fused feature dim would mix q and kv columns (the engine splits it
+    first, ``split_fused_qkv``)."""
+    def leaf_spec(path, leaf):
+        name = path[-1]
+        if name in ("wqkv", "bqkv"):
+            raise ValueError("fused qkv cannot be head-sharded; split into "
+                             f"wq/wk/wv first ({'/'.join(path)})")
+        if "experts" in path[:-1] and name in _SERVING_EXPERT_RULES:
+            dim = _SERVING_EXPERT_RULES[name]
+        else:
+            dim = _SERVING_TP_RULES.get(name)
+        if dim is None:
+            return None
+        if leaf.dim() < -dim:
+            raise ValueError(f"{'/'.join(path)} {tuple(leaf.shape)} has no "
+                             f"dim {dim}")
+        return leaf.dim() + dim
+    return map_with_path(leaf_spec, params)
+
+
+def paged_pool_spec(pools: Any) -> Any:
+    """For every leaf of the engine's decode state the dim the ranks split:
+    a KV pool's head axis (``PAGED_STATE_LEAVES``, always ndim - 2), so
+    each rank holds the same pages, its heads of each; None for mamba's
+    slot state (``SLOT_STATE_LEAVES``: the mixer is replicated). Page ids
+    stay global, so one host allocator and page table drive every rank."""
+    def leaf_spec(path, leaf):
+        name = path[-1]
+        if name in PAGED_STATE_LEAVES:
+            return leaf.dim() - 2
+        if name in SLOT_STATE_LEAVES:
+            return None
+        raise KeyError(f"no serving-state sharding rule for "
+                       f"{'/'.join(path)}")
+    return map_with_path(leaf_spec, pools)
+
+
+def shard_params(params: Any, spec: Any, rank: int, tp: int) -> Any:
+    """Rank ``rank``'s parameters: each split leaf's ``rank``-th of ``tp``
+    contiguous slices along its spec's dim (a copy in a storage of its
+    own: a leading-dim slice of a contiguous leaf is already contiguous,
+    and as a view it would keep the whole leaf alive), every other leaf as
+    it is (the same tensor)."""
+    def take(leaf: torch.Tensor, dim: Optional[int]):
+        if dim is None:
+            return leaf
+        n = leaf.shape[dim]
+        if n % tp:
+            raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not "
+                             f"split into {tp}")
+        return leaf.narrow(dim, rank * (n // tp), n // tp).clone(
+            memory_format=torch.contiguous_format)
+
+    def walk(tree, sp):
+        if isinstance(tree, dict):
+            return {k: walk(v, sp[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, s) for v, s in zip(tree, sp)]
+        return take(tree, sp)
+    return walk(params, spec)

@@ -70,11 +70,36 @@ Python branches on the ``sampled`` / ``filtered`` flags, keyed as JAX keys
 its jit cache; ``trace_stats()`` counts the variants the traffic exercised
 and their traces (a graph capture on the card, a first use otherwise).
 
-Not ported yet (each raises ``NotImplementedError``): ``tp > 1`` and fused
-decode with a logit softcap.
+Tensor parallelism (``tp > 1``) runs one engine a rank, each in its own
+process, over a ``torch.distributed`` group (``group``; see
+``launch.mesh.make_tp_group``), as JAX runs one engine under ``shard_map``
+over a ("model",) mesh. The engine checks the arch against ``tp`` first, in
+JAX's order and with JAX's messages, before it touches a group. The model
+it is given holds only the rank's Megatron shards (``Model.init(...,
+shard=(rank, tp))`` or ``model.sharded(rank, tp)``, through
+``parallel.sharding.serving_shards``: a fused ``wqkv`` split, each KV head
+repeated ``tp // Hkv`` times where ``tp > Hkv``, each split leaf sliced),
+so no rank holds a whole block: attention on its ``Hq /
+tp`` query and ``Hkv * kv_rep / tp`` KV heads, a page pool holding those
+heads of every page (page ids global, so each rank's host allocator, prefix
+index and scheduler make the same decisions), the MLP column- then
+row-parallel, MoE experts ``E / tp`` a rank, mamba mixers replicated.
+Each attention output and MLP or MoE tail ends in one fp32
+``all_reduce`` (JAX's ``psum`` sites). The embedding, the norms and the
+LM head stay replicated: every rank runs the whole head (the fused
+``head_tokens`` kernel or the unfused head and sampler) on the replicated
+hidden state, so every rank's tokens are the tokens tp=1 selects from the
+same x, with no collective. The scheduler's clock is rank 0's: each read
+of it is broadcast (``_clock``), so every rank admits, preempts and
+sleeps at the same iterations, and ``token_times`` are rank 0's.
+``collective_bytes`` and ``tp_stats()`` are JAX's accounting.
+
+Not ported yet (raises ``NotImplementedError``): fused decode with a
+logit softcap.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 from collections import deque
@@ -82,14 +107,17 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..analysis.sanitize import (check_engine, check_finite_probe,
                                  sanitize_enabled)
 from ..kernels.fused_lm_head import ops as head_ops
+from ..models import ssm as ssm_lib
 from ..models import transformer as tf
-from ..models.layers import apply_norm
+from ..models.layers import apply_norm, pad_vocab
 from ..models.model import Model
 from ..models.moe import capacity_per_row
+from ..parallel import sharding as shardlib
 from .graphs import DecodeLoop
 from .kv_cache import pages_needed
 from .sampling import (fused_decode_enabled, fused_sampling_enabled,
@@ -114,12 +142,75 @@ def _not_ported(what: str, slice_: str) -> NotImplementedError:
                                f"({slice_})")
 
 
+def _check_tp(arch, tp: int, has_attn: bool) -> int:
+    """JAX's checks of ``tp`` against the arch, in JAX's order and with its
+    messages (``ValueError`` where JAX asserts), made before any process
+    group is touched -> ``kv_rep``, the copies of each KV head (``tp //
+    Hkv`` where ``tp > Hkv``, else 1)."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1: {tp}")
+    if tp == 1:
+        return 1
+    if arch.moe is not None:
+        if arch.moe.num_experts % tp:
+            raise ValueError(f"tp={tp} must divide the expert count "
+                             f"({arch.moe.num_experts}) — expert-parallel "
+                             "layout")
+        if arch.moe.num_shared_experts:
+            shared_ff = (arch.moe.expert_ff or arch.d_ff) \
+                * arch.moe.num_shared_experts
+            if shared_ff % tp:
+                raise ValueError(f"{(shared_ff, tp)}: tp must divide the "
+                                 "shared experts' width")
+    if has_attn:
+        if arch.num_heads % tp:
+            raise ValueError(f"tp={tp} must divide query heads "
+                             f"({arch.num_heads}) — head-sharded layout")
+        hkv = arch.num_kv_heads
+        if hkv % tp and tp % hkv:
+            raise ValueError(f"tp={tp} must divide the KV heads ({hkv}) or "
+                             "be a multiple of them (KV-head replication)")
+    if arch.d_ff and arch.d_ff % tp:
+        raise ValueError(f"{(arch.d_ff, tp)}: tp must divide d_ff")
+    return shardlib.kv_replication(arch, tp) if has_attn else 1
+
+
+def _tp_group(group, tp: int):
+    """The engine's group of ``tp`` ranks -> (group, this rank): ``group``,
+    or the default group where ``torch.distributed`` is initialized; none
+    is made here (``launch.mesh.make_tp_group`` makes one)."""
+    if group is None:
+        if not dist.is_initialized():
+            raise ValueError(
+                f"tp={tp} needs {tp} ranks, found 1: run one engine a rank "
+                f"in a process group of {tp} (launch.mesh.make_tp_group) "
+                "and pass it as group")
+        group = dist.group.WORLD
+    n = dist.get_world_size(group)
+    if n != tp:
+        raise ValueError(f"tp={tp} needs {tp} ranks, found {n}")
+    return group, dist.get_rank(group)
+
+
+def _check_shard(model: Model, rank: int, tp: int) -> None:
+    """A rank of ``tp`` serves a model that holds its own shards only
+    (``Model.shard``), never the whole blocks."""
+    if model.shard == (rank, tp):
+        return
+    held = "every weight whole" if model.shard is None else \
+        "rank %d of %d's shards" % model.shard
+    raise ValueError(f"tp={tp}: rank {rank} serves its own shards of the "
+                     f"weights, and the model holds {held}; build them with "
+                     f"Model.init(..., shard=({rank}, {tp})) or "
+                     f"model.sharded({rank}, {tp})")
+
+
 class ContinuousEngine:
     def __init__(self, model: Model, *, num_slots: int = 8,
                  num_pages: int = 256, page_size: int = 16,
                  max_seq_len: int = 512, prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None, tp: int = 1,
-                 sanitize: Optional[bool] = None,
+                 group=None, sanitize: Optional[bool] = None,
                  fused_sampling: Optional[bool] = None,
                  decode_steps: int = 1,
                  fused_decode: Optional[bool] = None):
@@ -140,11 +231,9 @@ class ContinuousEngine:
             if arch.window != 0:
                 raise ValueError("paged decode-attention has no "
                                  "sliding-window masking yet")
-        if tp != 1:
-            raise _not_ported(f"tensor parallelism (tp={tp})",
-                              "a later slice ports TP serving")
         if decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1: {decode_steps}")
+        self.kv_rep = _check_tp(arch, tp, self.has_attn)
         want_fd = fused_decode_enabled() if fused_decode is None \
             else bool(fused_decode)
         self.fused_decode_off_reason: Optional[str] = None
@@ -155,6 +244,10 @@ class ContinuousEngine:
             elif arch.mlm_transform:
                 self.fused_decode_off_reason = \
                     "fused decode does not support MLM-transform heads"
+            elif not head_ops.tp_fusable(pad_vocab(arch.vocab_size), tp):
+                self.fused_decode_off_reason = (
+                    f"vocab shard {pad_vocab(arch.vocab_size)}/{tp} does not "
+                    f"land on the {head_ops.RED_TILE}-wide reduction tile")
         self.fused_decode = want_fd and self.fused_decode_off_reason is None
         if self.fused_decode and arch.logit_softcap > 0:
             raise _not_ported("fused decode with a logit softcap",
@@ -185,7 +278,39 @@ class ContinuousEngine:
                                    page_size=page_size,
                                    max_pages_per_seq=self.max_pages_per_seq,
                                    prefix_cache=prefix_cache)
-        self.pools = tf.init_serving_state(arch, num_pages, page_size,
+        # ---- tensor parallelism: one engine a rank of ``group`` ----------
+        self.tp = tp
+        # reduces a layer period: one an attention output, one an MLP / MoE
+        # tail (mamba mixers are replicated and reduce nothing)
+        self._psums_per_step = sum(
+            (1 if kind == "attn" else 0) + (0 if arch.family == "ssm" else 1)
+            for kind in kinds) * (arch.num_layers // len(kinds))
+        self.collective_bytes = 0       # analytic TP wire bytes per rank
+        self.group, self.rank = None, 0
+        blocks = model.params["blocks"]
+        pool_arch = arch
+        if tp > 1:
+            self.group, self.rank = _tp_group(group, tp)
+            _check_shard(model, self.rank, tp)
+            # the clock's broadcast: from the group's rank 0, through the
+            # card under nccl (which moves only card tensors)
+            self._clock_from = (
+                dist.get_global_rank(self.group, 0),
+                self.device if dist.get_backend(self.group) == "nccl"
+                else torch.device("cpu"))
+            # each rank's pools hold its heads of every page
+            pool_arch = dataclasses.replace(
+                arch, num_kv_heads=arch.num_kv_heads * self.kv_rep // tp)
+            if decode_steps > 1 and self.device.type == "cuda" and \
+                    dist.get_backend(self.group) != "nccl":
+                raise ValueError(
+                    f"decode_steps={decode_steps} at tp={tp} captures the "
+                    f"decode iteration with its collectives in a CUDA "
+                    f"graph, which the {dist.get_backend(self.group)!r} "
+                    "backend cannot be captured in; use nccl (a card a "
+                    "rank) or decode_steps=1")
+        self.blocks = blocks
+        self.pools = tf.init_serving_state(pool_arch, num_pages, page_size,
                                            num_slots, model.dtype,
                                            self.device)
         self.steps = 0                  # decode steps executed
@@ -214,7 +339,8 @@ class ContinuousEngine:
         self._sampling_host = self._null_host
         self._sampling_args = self._null_sampling
         self._loop = DecodeLoop(num_slots, self.max_pages_per_seq,
-                                self.decode_steps, self.device) \
+                                self.decode_steps, self.device,
+                                group=self.group) \
             if self.decode_steps > 1 else None
 
     # -------------------------------------------------------------- helpers --
@@ -228,6 +354,28 @@ class ContinuousEngine:
     def _ints(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                device=self.device)
+
+    def _clock(self, value: float) -> float:
+        """The scheduler's clock reading ``value`` as every rank sees it:
+        at tp > 1 rank 0's, broadcast (one float64), so that every rank
+        admits, preempts and sleeps at the same iterations and records
+        rank 0's token times."""
+        if self.group is None:
+            return value
+        src, dev = self._clock_from
+        t = torch.tensor([value], dtype=torch.float64, device=dev)
+        dist.broadcast(t, src=src, group=self.group)
+        return float(t.item())
+
+    def _tp_collective_bytes(self, positions: int) -> int:
+        """JAX's analytic wire bytes a rank for one step's reduces: one
+        fp32 [positions, d_model] ring all-reduce a reduce site (attention
+        output, MLP output or MoE combine; mamba mixers none), each moving
+        2 (tp - 1) / tp of its payload a rank."""
+        if self.tp <= 1:
+            return 0
+        payload = positions * self.arch.d_model * 4
+        return self._psums_per_step * payload * 2 * (self.tp - 1) // self.tp
 
     def _note_trace(self, key: Tuple) -> None:
         """Record a first use of the step variant ``key``."""
@@ -292,9 +440,9 @@ class ContinuousEngine:
                           self.fused_decode))
         pt, sl = self._ints(page_table), self._ints(seq_lens)
         x = self.model._embed(self._ints(tokens)[:, None])
-        x = tf.paged_decode_stack(self.arch, self.model.params["blocks"],
-                                  self.pools, x, pt, sl,
-                                  fused=self.fused_decode)
+        x = tf.paged_decode_stack(self.arch, self.blocks, self.pools, x, pt,
+                                  sl, fused=self.fused_decode,
+                                  group=self.group)
         where, probes = f"decode step {self.steps}", []
         if self.fused_decode:
             tok, ok = self._fused_head(x, sl + 1, *sampling_args,
@@ -338,9 +486,9 @@ class ContinuousEngine:
         samp = (c["seeds"], c["temps"], c["top_k"], c["top_p"])
         flags = {"sampled": sampled, "filtered": filtered}
         step = functools.partial(
-            tf.paged_decode_loop_step, self.arch,
-            self.model.params["blocks"], self.pools, c, horizon=horizon,
-            embed=self.model._embed, probe=self.sanitize)
+            tf.paged_decode_loop_step, self.arch, self.blocks, self.pools, c,
+            horizon=horizon, embed=self.model._embed, probe=self.sanitize,
+            group=self.group)
         if self.fused_decode:
             step = functools.partial(step, fused_head=lambda x, pos:
                                      self._fused_head(x, pos, *samp, **flags))
@@ -377,10 +525,10 @@ class ContinuousEngine:
                           self.fused_sampling and filtered,
                           self.fused_decode))
         x = self.model._embed(self._ints(chunk))
-        x = tf.paged_prefill_stack(self.arch, self.model.params["blocks"],
-                                   self.pools, x, self._ints(page_row), start,
-                                   end, slot, fused=self.fused_decode,
-                                   moe_cap=moe_cap)
+        x = tf.paged_prefill_stack(self.arch, self.blocks, self.pools, x,
+                                   self._ints(page_row), start, end, slot,
+                                   fused=self.fused_decode, moe_cap=moe_cap,
+                                   group=self.group)
         if not final:
             if not self.sanitize:
                 return None, None
@@ -455,6 +603,8 @@ class ContinuousEngine:
             seq.prefilled = end
             self.prefill_chunks += 1
             self.prefill_tokens += end - start
+            self.collective_bytes += self._tp_collective_bytes(
+                self.prefill_chunk)
             if final:
                 self._prefilling.popleft()
                 self.prefills += 1
@@ -483,7 +633,8 @@ class ContinuousEngine:
         skip = 0.0                      # simulated idle time (frozen time_fn)
 
         def now() -> float:
-            return time_fn() - t0 + skip
+            # rank 0's reading at tp > 1
+            return self._clock(time_fn() - t0 + skip)
 
         def finish(seq: SequenceState) -> None:
             # context[:-1] is what is in the pages (the last generated
@@ -626,6 +777,8 @@ class ContinuousEngine:
                                        filtered=filtered)
                 self.steps += 1
                 self.decode_dispatches += 1
+                self.collective_bytes += self._tp_collective_bytes(
+                    self.num_slots)
                 t_tok = now()
                 for slot in slots:
                     seq = sched.running[slot]
@@ -646,6 +799,8 @@ class ContinuousEngine:
                 sampled=sampled, filtered=filtered)
             self.steps += k
             self.decode_dispatches += 1
+            self.collective_bytes += k * self._tp_collective_bytes(
+                self.num_slots)
             for name, bit in (("eos", tf.EXIT_EOS),
                               ("token_budget", tf.EXIT_BUDGET),
                               ("page_budget", tf.EXIT_PAGES)):
@@ -683,6 +838,41 @@ class ContinuousEngine:
     @property
     def pages_in_use(self) -> int:
         return self.scheduler.allocator.used_count
+
+    def tp_stats(self) -> Dict[str, object]:
+        """Tensor-parallel accounting, JAX's keys. Page ids are global
+        under head sharding, so each rank holds its heads of every page in
+        use: its pages equal the global count, its KV bytes are 1 / tp of
+        them (times ``kv_rep`` where tp > Hkv replicates KV heads). Mamba
+        layers hold no pages; their replicated slot state is
+        ``ssm_state_bytes``. ``collective_bytes_per_device`` is the
+        analytic ring all-reduce wire traffic a rank of the reduces."""
+        arch = self.arch
+        kinds = tf.layer_kinds(arch)
+        nper = arch.num_layers // len(kinds)
+        n_attn = sum(k == "attn" for k in kinds) * nper
+        n_mamba = len(kinds) * nper - n_attn
+        itemsize = self.model.dtype.itemsize
+        page_bytes = (self.page_size * arch.num_kv_heads
+                      * arch.resolved_head_dim * 2 * n_attn * itemsize)
+        ssm_bytes = 0
+        if n_mamba:
+            sc = arch.ssm
+            ssm_bytes = n_mamba * self.num_slots * (
+                ssm_lib.num_ssm_heads(arch) * sc.state_dim * sc.head_dim * 4
+                + (sc.conv_width - 1) * ssm_lib.conv_channels(arch)
+                * itemsize)
+        return {
+            "tp": self.tp,
+            "kv_head_replication": self.kv_rep,
+            "collective_bytes_per_device": self.collective_bytes,
+            "per_device": {
+                "pages_in_use": self.pages_in_use,
+                "kv_bytes": self.pages_in_use * page_bytes * self.kv_rep
+                // self.tp,
+                "ssm_state_bytes": ssm_bytes,
+            },
+        }
 
     def trace_stats(self) -> Dict[str, int]:
         """Variant accounting, JAX's keys: ``variants`` is the number of

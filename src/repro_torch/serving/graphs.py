@@ -29,6 +29,14 @@ and of the page pools (the paged kernels' TMA descriptors are encoded at
 capture from the pools' base addresses), so a dispatch whose pools have
 moved recaptures, and the engine's ``trace_stats()["excess"]`` counts it.
 
+Under tensor parallelism (``group``) the iteration holds the stack's
+``all_reduce`` calls, and under nccl the capture holds them too. The
+group's communicator is warmed up by one eager collective before the first
+capture (a collective's first call sets up its communicator, which a
+capture cannot do). The engine refuses ``decode_steps > 1`` on card
+tensors under another backend: gloo's collectives run on the host and
+cannot be captured.
+
 The capture and the launch accounting are ``repro_torch.graphs``'s:
 a replay adds the launches its capture counted, so ``LAUNCHES`` stays
 exact. ``replays`` counts graph replays. On the CPU there is no graph:
@@ -40,6 +48,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from .. import graphs
 from ..graphs import Captured
@@ -51,9 +60,10 @@ class DecodeLoop:
     iterations, on ``device``; on a CUDA device also the captured graphs."""
 
     def __init__(self, num_slots: int, max_pages: int, horizon: int,
-                 device: torch.device):
+                 device: torch.device, group=None):
         s, n = num_slots, horizon
-        self.horizon, self.device = horizon, device
+        self.horizon, self.device, self.group = horizon, device, group
+        self._warm = group is None
         sizes = [("seeds", 2 * s), ("temps", s), ("top_p", s), ("top_k", s),
                  ("page_table", s * max_pages), ("active", s),
                  ("budget", s), ("page_limit", s), ("eos_ids", s),
@@ -129,6 +139,12 @@ class DecodeLoop:
         entry = self.graphs.get(key)
         captured = entry is None or entry.pools != pools
         if captured:
+            if not self._warm:
+                # the communicator is set up by its first collective, which
+                # must not be inside a capture
+                torch.distributed.all_reduce(
+                    torch.zeros(1, device=self.device), group=self.group)
+                self._warm = True
             graphs.warm_up(step, self._side_stream())   # iteration 0
             k -= 1
             entry = self.graphs[key] = self._capture(step, pools)

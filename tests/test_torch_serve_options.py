@@ -115,8 +115,8 @@ def model():
 
 def test_engine_options_follow_jax(model, monkeypatch):
     """``sanitize`` and ``fused_sampling`` default to the environment and
-    an argument beats it; ``decode_steps`` must be >= 1; tp is not
-    ported."""
+    an argument beats it; ``decode_steps`` must be >= 1; tp > 1 needs a
+    process group of that many ranks."""
     kw = dict(num_slots=2, num_pages=8, page_size=4)
     monkeypatch.setenv("REPRO_FUSED_SAMPLING", "0")
     monkeypatch.setenv("REPRO_SANITIZE", "1")
@@ -129,5 +129,5 @@ def test_engine_options_follow_jax(model, monkeypatch):
         "variants": 0, "traces": 0, "excess": 0}
     with pytest.raises(ValueError, match="decode_steps"):
         ContinuousEngine(model, decode_steps=0, **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="tp=2 needs 2 ranks"):
         ContinuousEngine(model, tp=2, decode_steps=4, sanitize=True, **kw)

@@ -169,10 +169,11 @@ def test_overlong_request_error_and_eos_match_jax(pair):
 @pytest.mark.parametrize("kw", [{"tp": 2}, {"tp": 2, "decode_steps": 4},
                                 {"tp": 2, "sanitize": True}])
 def test_unported_engine_options_raise(pair, kw):
-    """Tensor parallelism is not ported, whatever the other options (the
-    multi-step loop and the sanitizer are: test_torch_multistep.py and
-    test_torch_sanitize.py)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Tensor parallelism runs one engine a rank of a process group
+    (``tests/test_torch_tp_serving.py``), whatever the other options: in a
+    process with no group an engine at tp=2 raises, with JAX's "needs N
+    devices, found M" form, before it builds anything."""
+    with pytest.raises(ValueError, match="tp=2 needs 2 ranks, found 1"):
         ContinuousEngine(pair[2], num_slots=2, num_pages=8, page_size=4, **kw)
 
 
