@@ -52,7 +52,9 @@ Phases, each printing one line (any failure exits non-zero):
      at both sizes beside F.gelu's and the byte bound,
      and both LAMB stages on the wqkv, embedding and bias shapes and a
      ragged 4099 (m', v' within 2 fp32 ulps, the trust ratio within 1e-5
-     relative); and the mamba mixer's gated RMSNorm at mamba2's width
+     relative), and on a dp=2 rank's ZeRO shards of the embedding ([1,
+     15663104]) and of an expert leaf ([8, 1441792]) in one call of the
+     shard path; and the mamba mixer's gated RMSNorm at mamba2's width
      (C 4096) on 8, 64, 1 and 300 rows and at jamba's C 8192 on 8 and 300,
      z read in place from an in_proj row, within 1 bf16 ulp of the row's
      largest |output|, one device kernel a call (device time and the
@@ -322,6 +324,24 @@ Phases, each printing one line (any failure exits non-zero):
      checkpointing run's own tensors (no new capture), each bitwise the
      uninterrupted run, and save_async followed at once by the next step:
      the checkpoint holds the state before it, bitwise;
+  8c. after the tensor-parallel serving phase (tp_phase), data-parallel
+     ZeRO-1 training (dp_phase): full-width bert-large B8 S128, fused
+     (REPRO_FUSED_BLOCKS=1, the LAMB kernels), fp32 master weights; dp=1
+     with zero1=True against zero1=False (step-1 loss bitwise, params
+     within STEP1_PARAM_ULPS), then dp=2: two gloo ranks sharing the card
+     (launch.mesh.spawn with a ("data",) mesh), 4 rows a rank, 4 eager
+     steps: the ranks' params bitwise equal after every step, the step-1
+     loss within STEP1_LOSS_ULPS of dp=1's and the step-1 params within
+     STEP1_PARAM_ULPS of dp=1's computation of the same split step and of
+     dp=1's own step as a master update rel-L2 a flat leaf within
+     UPDATE_REL_L2 (with a dropped-rank control beyond it), a
+     rank's m / v / master bytes exactly half of dp=1's, LAMB launches a
+     step equal to dp=1's and the collectives a step equal to
+     train.steps.zero_collectives, the bytes reduce-scattered and
+     all-gathered (dp-1)/dp (4 + 2) N_flat beside core.distmodel's
+     replicated all-reduce, the step times and peaks printed; nccl with a
+     card a rank (the step captured) and llama3.2-3b only where the call
+     has two cards;
   9. one JSON line of per-kernel numbers (times from CUDA events; the
      untied head its own entry; each kernel of phase 6c's paths with its
      numbers at the new shapes under "vlm_encdec_shapes" or, for flash,
@@ -333,8 +353,9 @@ Phases, each printing one line (any failure exits non-zero):
      under "vlm_encdec" the qwen2-vl and whisper phases and under
      "registry_archs" phase 6d's, under "training_families" phase 8b's;
      rows 4, 8, 9 and 11 also carry their launches and numbers on the
-     training families' paths); a [time] line before it gives the seconds
-     of every phase.
+     training families' paths, rows 8 and 9 their ZeRO shards' check and
+     their launches on the dp=2 path; "data_parallel" phase 8c's numbers);
+     a [time] line before it gives the seconds of every phase.
 TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
 fp32. Every bound reads the card's peaks from repro_torch.core.roofline
 (H100, H100_FP32).
@@ -4161,8 +4182,9 @@ def check_lamb(dev):
     m', v' within 2 fp32 ulps (they follow the plain version's operation
     order), the trust ratio within 1e-5 relative (sums in another order),
     w' within 2^-22 of the leaf's largest |w|; then one ratio a row of an
-    expert leaf and one over a group of leaves, held the same way. Timed
-    at bert-large's embedding."""
+    expert leaf and one over a group of leaves, held the same way, and a
+    dp=2 rank's ZeRO shards (``check_lamb_shards``). Timed at bert-large's
+    embedding."""
     from repro_torch.kernels.fused_lamb import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
@@ -4251,6 +4273,12 @@ def check_lamb(dev):
                  f"{group_rel:.3e}, w' max abs {group_w:.3e}")
     r_err = max(r_err, rows_rel, group_rel)
     del group, want_w, want_m, want_v
+    zero_shards = check_lamb_shards(dev, gen, sc, lr, hyper, mv_close)
+    lines.append(f"ZeRO dp={DP} shards {zero_shards['shapes']}: r rel "
+                 f"{zero_shards['ratio_rel_err']:.3e}, w' max abs "
+                 f"{zero_shards['w_max_abs_err']:.3e}")
+    r_err = max(r_err, zero_shards["ratio_rel_err"])
+    w_err = max(w_err, zero_shards["w_max_abs_err"])
     w, g, m, v = keep
     n = w.numel()
     u = torch.empty_like(w)
@@ -4279,6 +4307,7 @@ def check_lamb(dev):
                                                       "g bf16"}
     return [dict(common, name="lamb_stage1",
                  replaces="src/repro/kernels/fused_lamb/kernel.py:49",
+                 zero_shards=zero_shards,
                  max_abs_err=mv_err, tol="m', v' within 2 fp32 ulps",
                  ms=ms1, profiler_device_ms_per_call=dev1, plain_ms=plain1,
                  bound_ms=b1, bound_by=by1),
@@ -4288,6 +4317,50 @@ def check_lamb(dev):
                  tol="trust ratio 1e-5 relative; w' 2^-22 of max |w|",
                  ms=ms2, profiler_device_ms_per_call=dev2, plain_ms=plain2,
                  bound_ms=b2, bound_by=by2)]
+
+
+def check_lamb_shards(dev, gen, sc, lr, hyper, mv_close):
+    """Both LAMB stages on a data-parallel rank's ZeRO shards, the way the
+    dp phase's step runs them (``ops.lamb_update_shards_``, one buffer of
+    partial norms for every leaf): rank 0 of dp=DP's shard of bert-large's
+    embedding flat leaf ([1, 31326208] -> [1, 15663104], one row) and of
+    deepseek-moe-16b's expert leaf cut to 8 experts ([8, 2883584] -> [8,
+    1441792], a row an expert), g fp32 as the reduce-scatter leaves it,
+    each against its plain version (``ref.lamb_stage12`` with the leaf's
+    rows): m'/v' within 2 fp32 ulps, the ratio 1e-5 relative, w' 2^-22 of
+    the leaf's largest |w|. No exchange: one rank alone, the same launches
+    and buffer layout as the phase's."""
+    from repro_torch.kernels.fused_lamb import ops, ref
+    shapes = ((1, 31326208 // DP), (8, 2883584 // DP))
+    leaves = []
+    for shape in shapes:
+        leaves.append((0.02 * torch.randn(shape, generator=gen, device=dev),
+                       1e-3 * torch.randn(shape, generator=gen, device=dev),
+                       1e-4 * torch.randn(shape, generator=gen, device=dev),
+                       1e-7 * torch.rand(shape, generator=gen, device=dev),
+                       shape[0]))
+    want = [ref.lamb_stage12(w, g, m, v, ginv=sc[0], c1=sc[1], c2=sc[2],
+                             lr=lr, rows=rows, **hyper)
+            for w, g, m, v, rows in leaves]
+    ratios = ops.lamb_update_shards_(leaves, sc, lr=lr, **hyper)
+    torch.cuda.synchronize()
+    rel = max((r.reshape(-1) / pr.reshape(-1) - 1).abs().max().item()
+              for r, (_, _, _, pr) in zip(ratios, want))
+    werr = max((leaf[0] - pw).abs().max().item()
+               for leaf, (pw, _, _, _) in zip(leaves, want))
+    ok = all(mv_close(leaf[2], pm) and mv_close(leaf[3], pv)
+             and (leaf[0] - pw).abs().max() <= 2.0 ** -22 * pw.abs().max()
+             for leaf, (pw, pm, pv, _) in zip(leaves, want))
+    if not (ok and rel <= 1e-5):
+        _fail(f"lamb on ZeRO shards {shapes}: m'/v' beyond 2 fp32 ulps or "
+              f"w' beyond 2^-22 of max |w| (w' max abs {werr}), or ratio "
+              f"rel err {rel} > 1e-5")
+    del leaves, want
+    torch.cuda.empty_cache()
+    return {"shapes": [list(s) for s in shapes], "ratio_rel_err": rel,
+            "w_max_abs_err": werr, "dp": DP,
+            "tol": "m', v' within 2 fp32 ulps; ratio 1e-5 relative; w' "
+                   "2^-22 of max |w|"}
 
 
 def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -6267,6 +6340,487 @@ def tp_phase(dev, smi):
     return out
 
 
+# ----------------------------------------------------------- phase 8c ---
+# Data-parallel ZeRO-1 training: bert-large at full width, B8 S128, the
+# fused configuration (REPRO_FUSED_BLOCKS=1, the LAMB kernels, fp32 master
+# weights), dp=1 in this process, then dp=2 ranks.
+DP, DP_STEPS = 2, 4
+DP1_STEPS = 8        # dp=1's runs: seven steps to time after the first
+# dp=2's step-1 update of the fp32 master weights against dp=1's own, a
+# flat leaf at a time: ||du_2 - du_1|| / ||du_1||. The ranks run their
+# rows' forward and backward at B4, one device at B8, and the bf16 backward
+# is not batch-invariant (other GEMM shapes round other partial sums), so
+# the two whole-batch gradients differ by far more than one rounding where
+# a sum cancels; LAMB's first step is about lr r sign(g), and each flipped
+# sign moves an element by 2 lr r. The limit sits between two readings on
+# the H100 (PERF.md): dp=1's computation of the split step (the ranks'
+# shapes in one process) reaches 0.0828 at its worst leaf, and a control
+# step with rank 1's gradients dropped no less than 0.2765 at its best.
+UPDATE_REL_L2 = 0.15
+
+
+def _dp_train(mesh, rank, device, spec):
+    """One rank's (``mesh`` None: one device's) run of the dp phase:
+    bert-large (or ``spec["arch"]``) from the seeded fp32 init, LAMB at
+    1e-3, ``spec["steps"]`` steps through ``bundle.eager`` (``graphed``:
+    ``bundle.fn``), each ended by reading its loss. A step's LAMB launches,
+    collectives by kind and bytes, host time and a digest of the bf16
+    params are kept; step 1's params are saved to ``spec["save"]`` and held
+    against each file of ``spec["refs"]`` (the largest gap over the leaves
+    in bf16 ulps of the leaf's largest |value|, and that leaf); the
+    optimizer's m / v / master bytes and the peak memory above the
+    state's."""
+    import faulthandler
+    from repro_torch import tree
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.fused_lamb import ops as lamb_ops
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import zero
+    from repro_torch.parallel import collectives
+    from repro_torch.train.steps import build_train_step, zero_collectives
+    faulthandler.dump_traceback_later(240)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["REPRO_FUSED_BLOCKS"] = "1"
+    dev = torch.device(device)
+    arch = get_config(spec.get("arch", "bert-large"))
+    run = RunConfig(arch=arch, shape=ShapeConfig(
+        "dp", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
+        optimizer="lamb", learning_rate=1e-3, zero1=spec["zero1"],
+        fused_optimizer_kernel=True, master_weights=True)
+    bundle = build_train_step(run, dev, mesh=mesh)
+    state = bundle.init(params=init_params(
+        arch, torch.Generator(device=dev).manual_seed(SEED), dev,
+        torch.float32))
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = SyntheticPipeline(DataConfig(
+        vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, objective="mlm" if arch.bidirectional
+        else "causal", seed=SEED))
+    step_fn = bundle.fn if spec.get("graphed") else bundle.eager
+    opt_bytes = {k: sum(t.numel() * t.element_size()
+                        for t in tree.leaves(state["opt"][k]))
+                 for k in ("m", "v", "master")}
+    master0 = ([t.cpu() for t in tree.leaves(state["opt"]["master"])]
+               if spec.get("update") else None)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = {"losses": [], "grad_norms": [], "step_s": [], "lamb": [],
+           "collectives": [], "digests": [], "opt_bytes": opt_bytes,
+           "rank": rank, "backend": None if mesh is None else
+           torch.distributed.get_backend(), "gaps": {}}
+    kinds = ("all_reduce", "reduce_scatter", "all_gather",
+             "reduce_scatter_bytes", "all_gather_bytes", "all_reduce_bytes")
+    for i in range(spec["steps"]):
+        lamb0 = dict(lamb_ops.LAUNCHES)
+        coll0 = {k: collectives.COUNTS[k] for k in kinds}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, met = step_fn(state, data.batch(i))
+        out["losses"].append(float(met["loss"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["grad_norms"].append(float(met["grad_norm"]))
+        out["lamb"].append({k: lamb_ops.LAUNCHES[k] - lamb0[k]
+                            for k in lamb0})
+        out["collectives"].append({k: collectives.COUNTS[k] - coll0[k]
+                                   for k in kinds})
+        params = tree.leaves(state["params"])
+        out["digests"].append(_state_digest(params))
+        if i == 0 and spec.get("save"):
+            torch.save([p.detach().cpu() for p in params], spec["save"])
+        for name, path in (spec.get("refs", {}).items() if i == 0 else ()):
+            ref = torch.load(path)
+            gaps = [_ulp_gap(a, b.to(dev)) for a, b in zip(params, ref)]
+            worst = int(np.argmax(gaps))
+            path = list(zero.leaf_paths(state["params"]))[worst][0]
+            out["gaps"][name] = {"bf16_ulps": gaps[worst],
+                                 "leaf": "/".join(map(str, path))}
+            del ref
+        if i == 0 and master0 is not None:
+            out["update_sq"] = _update_sq(
+                bundle.plan, master0, state["opt"]["master"], spec, dev)
+            del master0
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_above_state"] = out["peak"] - base
+    out["n_params"] = sum(p.numel() for p in tree.leaves(state["params"]))
+    plan = bundle.plan
+    out["flat_elements"] = plan.flat_elements if plan else None
+    out["flat_paths"] = [u.path for u in plan.units] if plan else None
+    out["leaf_paths"] = [p for p, _ in zero.leaf_paths(state["params"])]
+    out["shards"] = ([[u.rows, u.padded // plan.dp] for u in plan.units]
+                     if plan else None)
+    out["stated"] = zero_collectives(run, plan.dp) if plan else None
+    out["graph"] = ({"captures": bundle.fn.captures,
+                     "replays": bundle.fn.replays}
+                    if spec.get("graphed") else None)
+    faulthandler.cancel_dump_traceback_later()
+    del state, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_sq(plan, master0, master, spec, dev) -> list:
+    """Step 1's update of this rank's fp32 master shards (``master`` less
+    ``master0``): saved whole to ``spec["update"]["path"]`` with
+    ``"save"`` (one device), else held against this rank's columns of the
+    one saved there: for every flat leaf (sum of the difference's squares,
+    sum of the saved update's squares). ``master0`` and the saved update
+    stay on the host and come to the card a leaf at a time, so the peak
+    memory read after the steps is the step's own."""
+    from repro_torch import tree
+    from repro_torch.optim import zero
+    save = spec["update"]["save"]
+    ref = [None] * len(master0) if save else torch.load(
+        spec["update"]["path"])
+    out = []
+    for u, a, b, r in zip(plan.units, tree.leaves(master), master0, ref):
+        d = a - b.to(dev)
+        if save:
+            out.append(d.cpu())
+            continue
+        lo, hi = zero.shard_range(u.padded, plan.rank, plan.dp)
+        r = r[:, lo:hi].to(dev)
+        out.append((float(torch.sum(torch.square(d - r))),
+                    float(torch.sum(torch.square(r)))))
+    if save:
+        torch.save(out, spec["update"]["path"])
+        return []
+    return out
+
+
+def _dp_split_step1(dev, paths):
+    """dp=DP's step 1 computed in one process (dp=1's state): each rank's
+    rows' bf16 gradients (the masked mean over the whole batch's count,
+    the forward and backward at the ranks' B / DP rows) flattened and
+    summed in fp32 in rank order (the reduce-scatter's sum of DP terms),
+    the clip over the whole flat buffer and the LAMB kernels on the whole
+    flat leaves, then the cast; step 1's params saved to
+    ``paths["split"]``. Returned, against dp=1's own step (its master
+    update saved at ``paths["update"]``): each flat leaf's master update
+    rel-L2 for this split step and, as the control that the limit
+    catches a fault, for a step whose reduce dropped rank 1's
+    gradients; and each parameter leaf's gradient rel-L2, the ranks' sum
+    against the whole batch's at B rows."""
+    from repro_torch import tree
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import grad as grad_lib
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.steps import build_train_step
+    os.environ["REPRO_FUSED_BLOCKS"] = "1"
+    arch = get_config("bert-large")
+    run = RunConfig(arch=arch, shape=ShapeConfig(
+        "dp", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
+        optimizer="lamb", learning_rate=1e-3, zero1=True,
+        fused_optimizer_kernel=True, master_weights=True)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in SyntheticPipeline(
+        DataConfig(vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH, objective="mlm",
+                   seed=SEED)).batch(0).items()}
+    denom = torch.clamp_min(batch["loss_mask"].float().sum(), 1.0)
+    rows = TRAIN_BATCH // DP
+    ref = [r.to(dev) for r in torch.load(paths["update"])]
+
+    def step(ranks):
+        """Step 1 from the seeded init with the gradients of ``ranks``'
+        rows summed in the flat layout -> (its params, each flat leaf's
+        master update rel-L2 against dp=1's, each parameter leaf's
+        gradient rel-L2, all ranks' sum against the whole batch's)."""
+        bundle = build_train_step(run, dev)
+        state = bundle.init(params=init_params(
+            arch, torch.Generator(device=dev).manual_seed(SEED), dev,
+            torch.float32))
+        plan, params = bundle.plan, state["params"]
+        leaves = tree.leaves(params)
+        master0 = [t.clone() for t in tree.leaves(state["opt"]["master"])]
+        acc = plan.accumulator(dev)
+        summed = None
+        for r in range(DP):
+            mb = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+            loss, _ = model_lib.loss(arch, params, mb, None, denom)
+            g = torch.autograd.grad(loss, leaves)
+            summed = ([x.float() for x in g] if summed is None else
+                      [s_ + x.float() for s_, x in zip(summed, g)])
+            if r in ranks:
+                plan.accumulate_(acc, g)
+        loss, _ = model_lib.loss(arch, params, batch, None, denom)
+        whole = torch.autograd.grad(loss, leaves)
+        grad_rel = [_rel_l2(a, b) for a, b in zip(summed, whole)]
+        del summed, whole
+        (g,), _ = grad_lib.clip_by_global_norm([acc], run.grad_clip)
+        make_optimizer(run).update(plan.views(g), state["opt"], params,
+                                   plan)
+        upd = [_rel_l2(m - m0, r) for m, m0, r in zip(
+            tree.leaves(state["opt"]["master"]), master0, ref)]
+        return [p.detach() for p in leaves], upd, grad_rel
+
+    params, split, grad_rel = step(range(DP))
+    torch.save([p.cpu() for p in params], paths["split"])
+    del params
+    _, dropped, _ = step((0,))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"split": split, "dropped_rank": dropped, "grad": grad_rel}
+
+
+def _dp_nccl(mesh, rank, device, specs):
+    """A nccl rank (a card of its own): each spec of ``specs`` in turn."""
+    return [_dp_train(mesh, rank, device, sp) for sp in specs]
+
+
+def dp_phase(dev, smi):
+    """Phase 8c: data-parallel ZeRO-1 training, bert-large B8 S128 fused.
+    (a) dp=1 zero1=True against zero1=False from the same weights and
+    batches: the step-1 loss bitwise, every updated bf16 param leaf within
+    STEP1_PARAM_ULPS of its largest |value| (the norms' partials summed in
+    another order). (b) dp=2, two gloo ranks sharing the card, 4 rows a
+    rank, DP_STEPS eager steps: the ranks' params bitwise equal after
+    every step (digests), the step-1 loss within STEP1_LOSS_ULPS of
+    dp=1's, the step-1 params within STEP1_PARAM_ULPS of dp=1's
+    computation of the same split step (``_dp_split_step1``: the ranks'
+    bf16 gradients summed in fp32), the step-1 master update within
+    UPDATE_REL_L2 of dp=1's own a flat leaf (rel-L2; the split step's
+    readings printed, and a control step with rank 1's gradients dropped
+    beyond the limit), the losses finite and falling. (c)
+    a rank's m, v and master bytes exactly 1/dp of dp=1's;
+    its peak printed beside dp=1's. (d) LAMB launches a rank a step equal
+    dp=1's; the collectives a step by kind equal ``zero_collectives``. (e)
+    the bytes reduce-scattered and all-gathered a rank a step equal
+    (dp - 1)/dp (4 + 2) N_flat (N_flat: the flat layout's elements, the
+    parameters and their padding), beside ``core.distmodel``'s replicated
+    all-reduce of the paper. (f) the step times (dp=2's bound by gloo's
+    host round trips: not a speed figure); with two or more cards, nccl
+    with a card a rank, the step captured (``bundle.fn``), and
+    llama3.2-3b at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import distmodel
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, "build", "dp_phase")
+    os.makedirs(tmp, exist_ok=True)
+    paths = {n: os.path.join(tmp, f"{n}.pt")
+             for n in ("replicated", "dp1", "split", "update")}
+    rep = _dp_train(None, 0, dev, {"zero1": False, "steps": DP1_STEPS,
+                                   "save": paths["replicated"]})
+    one = _dp_train(None, 0, dev, {"zero1": True, "steps": DP1_STEPS,
+                                   "save": paths["dp1"],
+                                   "refs": {"replicated":
+                                            paths["replicated"]},
+                                   "update": {"path": paths["update"],
+                                              "save": True}})
+    split = _dp_split_step1(dev, paths)
+
+    def spread(rel, paths_):
+        i = int(np.argmax(rel))
+        return (f"max {rel[i]:.4g} ({'/'.join(map(str, paths_[i]))}), "
+                f"median {float(np.median(rel)):.4g}")
+    print(f"[dp] against dp=1's own step, a flat leaf at a time: dp=1's "
+          f"computation of the dp={DP} split step, master update rel-L2 "
+          f"{spread(split['split'], one['flat_paths'])}, its gradient sum "
+          f"against the whole batch's, rel-L2 a parameter leaf "
+          f"{spread(split['grad'], one['leaf_paths'])}; control, the step "
+          f"with rank 1's gradients dropped, update rel-L2 min "
+          f"{min(split['dropped_rank']):.4g}, median "
+          f"{float(np.median(split['dropped_rank'])):.4g} (limit "
+          f"{UPDATE_REL_L2}); {smi}", flush=True)
+    t1 = time.perf_counter()
+    ranks = mesh_lib.spawn(_dp_train, DP, {
+        "zero1": True, "steps": DP_STEPS,
+        "refs": {"split": paths["split"], "dp1": paths["dp1"]},
+        "update": {"path": paths["update"], "save": False}},
+        backend="gloo", device=str(dev), mesh=((DP,), ("data",)),
+        timeout=600)
+    t2 = time.perf_counter()
+    arch = get_config("bert-large")
+    loss_ulp = _bf16_ulp(torch.tensor(one["losses"][0])).item()
+    # (a)
+    if one["losses"][0] != rep["losses"][0]:
+        _fail(f"dp=1 zero1 step-1 loss {one['losses'][0]!r} is not the "
+              f"replicated step's {rep['losses'][0]!r}")
+    gap_a = one["gaps"]["replicated"]["bf16_ulps"]
+    if not gap_a <= STEP1_PARAM_ULPS:
+        _fail(f"dp=1 zero1 step-1 params {gap_a} bf16 ulps from the "
+              f"replicated step's (tol {STEP1_PARAM_ULPS})")
+    # (b)
+    lead = ranks[0]
+    for r in ranks[1:]:
+        if r["digests"] != lead["digests"] or r["losses"] != lead["losses"]:
+            _fail(f"dp={DP}: rank {r['rank']}'s params or losses differ "
+                  "from rank 0's")
+    loss_gap = abs(lead["losses"][0] - one["losses"][0]) / loss_ulp
+    gap_b = max(r["gaps"]["split"]["bf16_ulps"] for r in ranks)
+    if not (loss_gap <= STEP1_LOSS_ULPS and gap_b <= STEP1_PARAM_ULPS):
+        _fail(f"dp={DP} step 1: loss {loss_gap} bf16 ulps from dp=1's (tol "
+              f"{STEP1_LOSS_ULPS}), params {gap_b} bf16 ulps from dp=1's "
+              f"computation of the ranks' split step (tol "
+              f"{STEP1_PARAM_ULPS})")
+    # a flat leaf's rel-L2 over the ranks' columns, as _rel_l2 of the whole
+    direct = [math.sqrt(sum(n for n, _ in sq)
+                        / max(sum(d for _, d in sq), 1e-60))
+              for sq in zip(*(r["update_sq"] for r in ranks))]
+    worst = int(np.argmax(direct))
+    if not direct[worst] <= UPDATE_REL_L2:
+        _fail(f"dp={DP} step 1: the master update's rel-L2 to dp=1's own "
+              f"step {direct[worst]} at "
+              f"{'/'.join(map(str, one['flat_paths'][worst]))} (limit "
+              f"{UPDATE_REL_L2}); {spread(direct, one['flat_paths'])}")
+    control = min(split["dropped_rank"])
+    if not control > UPDATE_REL_L2:
+        _fail(f"the control step without rank 1's gradients lands within "
+              f"the limit {UPDATE_REL_L2} of dp=1's at a flat leaf (update "
+              f"rel-L2 {control}): the gate would not see a dropped reduce "
+              "there")
+    losses = lead["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        _fail(f"dp={DP} losses {losses}: not finite and falling")
+    # (c)
+    for r in ranks:
+        for k, b in r["opt_bytes"].items():
+            if b * DP != one["opt_bytes"][k]:
+                _fail(f"rank {r['rank']}'s {k} holds {b} bytes, dp=1's "
+                      f"{one['opt_bytes'][k]}: not 1/{DP}")
+    # (d)
+    for r in ranks:
+        for i, (lamb, coll) in enumerate(zip(r["lamb"], r["collectives"])):
+            if lamb != one["lamb"][i]:
+                _fail(f"rank {r['rank']} step {i + 1}: LAMB launches {lamb}, "
+                      f"dp=1's {one['lamb'][i]}")
+            got = {k: coll[k] for k in r["stated"]}
+            if got != r["stated"]:
+                _fail(f"rank {r['rank']} step {i + 1}: collectives {got}, "
+                      f"stated {r['stated']}")
+    # (e)
+    n_flat = lead["flat_elements"]
+    want_rs = (DP - 1) * 4 * n_flat // DP
+    want_ag = (DP - 1) * 2 * n_flat // DP
+    for r in ranks:
+        for c in r["collectives"]:
+            if (c["reduce_scatter_bytes"], c["all_gather_bytes"]) != \
+                    (want_rs, want_ag):
+                _fail(f"rank {r['rank']}: {c['reduce_scatter_bytes']} bytes "
+                      f"reduce-scattered and {c['all_gather_bytes']} "
+                      f"all-gathered a step, (dp-1)/dp (4 + 2) N_flat gives "
+                      f"{want_rs} and {want_ag}")
+    model = distmodel.data_parallel(arch, TRAIN_BATCH // DP, TRAIN_SEQ, DP,
+                                    overlap=False)
+    ring = 2 * (DP - 1) / DP * model.comm_bytes
+    n = lead["n_params"]
+    step_one = float(np.median(one["step_s"][1:]))
+    step_two = float(np.median(lead["step_s"][1:]))
+    cards = torch.cuda.device_count()
+    print(f"[dp] bert-large B{TRAIN_BATCH} S{TRAIN_SEQ} fused, LAMB kernels, "
+          f"fp32 master; {n} parameters, {n_flat} flat elements (padding "
+          f"{n_flat - n}, {(n_flat - n) / n:.2e} of them); (a) dp=1 zero1 "
+          f"vs replicated: step-1 loss {one['losses'][0]!r} bitwise, params "
+          f"within {gap_a:.3f} bf16 ulps (tol {STEP1_PARAM_ULPS}); (b) "
+          f"dp={DP} over gloo, two ranks on one card, {DP_STEPS} eager steps: "
+          f"ranks bitwise equal every step, losses "
+          f"{[round(x, 5) for x in losses]} against dp=1's "
+          f"{[round(x, 5) for x in one['losses'][:DP_STEPS]]}, step-1 loss "
+          f"{loss_gap:.3f} bf16 ulps from dp=1's; step-1 params "
+          f"{gap_b:.3f} bf16 ulps from dp=1's computation of the ranks' "
+          f"split step (tol {STEP1_PARAM_ULPS}) and "
+          f"{max(r['gaps']['dp1']['bf16_ulps'] for r in ranks):.3f} from "
+          f"dp=1's own step; against dp=1's own step the master update "
+          f"rel-L2 a flat leaf {spread(direct, one['flat_paths'])} (limit "
+          f"{UPDATE_REL_L2}; the ranks' rows run at B{TRAIN_BATCH // DP}, "
+          f"whose bf16 backward rounds other partial sums than B"
+          f"{TRAIN_BATCH}'s, and LAMB's first step is about lr r sign(g)); "
+          f"{smi}")
+    print(f"[dp] (c) optimizer bytes a rank {lead['opt_bytes']} = 1/{DP} of "
+          f"dp=1's {one['opt_bytes']}; peak memory rank 0 "
+          f"{lead['peak'] / 2**30:.3f} GiB ({lead['peak_above_state'] / 2**30:.3f}"
+          f" above its state) against dp=1's {one['peak'] / 2**30:.3f} GiB "
+          f"({one['peak_above_state'] / 2**30:.3f}); (d) LAMB launches a "
+          f"step {lead['lamb'][0]} = dp=1's; collectives a step "
+          f"{ {k: lead['collectives'][0][k] for k in lead['stated']} } = "
+          f"stated {lead['stated']}; (e) a rank a step reduce-scatters "
+          f"{want_rs} B and all-gathers {want_ag} B = (dp-1)/dp (4 + 2) "
+          f"N_flat = {(DP - 1) * 6 * n_flat // DP} B, against the paper's "
+          f"replicated gradient all-reduce (core.distmodel.data_parallel "
+          f"comm_bytes {model.comm_bytes:.0f} B x ring 2(dp-1)/dp) "
+          f"{ring:.0f} B; {smi}")
+    step_rep = float(np.median(rep["step_s"][1:]))
+    print(f"[dp] (f) step time (host, each step ended by reading its "
+          f"loss; medians of steps 2-{DP1_STEPS} at dp=1, 2-{DP_STEPS} at "
+          f"dp={DP}): dp=1 replicated (zero1=False) {step_rep * 1e3:.1f} "
+          f"ms, dp=1 zero1 {step_one * 1e3:.1f} ms (steps "
+          f"{[round(t * 1e3, 1) for t in rep['step_s']]} and "
+          f"{[round(t * 1e3, 1) for t in one['step_s']]}), "
+          f"dp={DP} over gloo {step_two * 1e3:.1f} ms: bound by gloo's host "
+          f"round trips (every collective copies through host memory), not "
+          f"a speed figure; {smi}")
+    out = {"card": smi, "cards": cards, "backend": "gloo",
+           "n_params": n, "flat_elements": n_flat,
+           "dp1_replicated": {k: rep[k] for k in ("losses", "grad_norms",
+                                                  "step_s")},
+           "split_vs_dp1_update_rel_l2": split["split"],
+           "dropped_rank_vs_dp1_update_rel_l2": split["dropped_rank"],
+           "split_vs_dp1_grad_rel_l2": split["grad"],
+           "dp2_vs_dp1_update_rel_l2": direct,
+           "flat_paths": ["/".join(map(str, p)) for p in one["flat_paths"]],
+           "dp1": {k: one[k] for k in (
+               "losses", "grad_norms", "step_s", "opt_bytes", "peak",
+               "peak_above_state", "lamb", "gaps")},
+           "dp2": {k: lead[k] for k in (
+               "losses", "grad_norms", "step_s", "opt_bytes", "peak",
+               "peak_above_state", "lamb", "collectives", "stated", "gaps",
+               "shards")},
+           "dp2_rank_peaks": [r["peak"] for r in ranks],
+           "bytes_a_step": {"reduce_scatter": want_rs, "all_gather": want_ag,
+                            "distmodel_allreduce_ring": ring},
+           "step_ms": {"dp1_replicated": step_rep * 1e3,
+                       "dp1": step_one * 1e3, "dp2_gloo": step_two * 1e3},
+           "dp1_s": t1 - t0, "dp2_s": t2 - t1}
+    if cards >= DP:
+        t3 = time.perf_counter()
+        nccl = mesh_lib.spawn(
+            _dp_nccl, DP, [{"zero1": True, "steps": DP_STEPS,
+                            "graphed": True},
+                           {"zero1": True, "steps": 2, "graphed": True,
+                            "arch": "llama3.2-3b"}],
+            backend="nccl", mesh=((DP,), ("data",)), timeout=900)
+        for name, i in (("bert-large", 0), ("llama3.2-3b", 1)):
+            a = nccl[0][i]
+            if any(r[i]["digests"] != a["digests"] for r in nccl[1:]) or \
+                    not all(math.isfinite(x) for x in a["losses"]):
+                _fail(f"dp={DP} over nccl, {name}: ranks differ or a loss "
+                      f"is not finite ({a['losses']})")
+        b = nccl[0][0]
+        gap = abs(b["losses"][0] - lead["losses"][0]) / loss_ulp
+        if not gap <= STEP1_LOSS_ULPS:
+            _fail(f"dp={DP} over nccl: step-1 loss {gap} bf16 ulps from "
+                  "gloo's")
+        out["nccl"] = {name: {k: nccl[0][i][k] for k in (
+            "losses", "step_s", "peak", "graph", "opt_bytes")}
+            for name, i in (("bert-large", 0), ("llama3.2-3b", 1))}
+        print(f"[dp] nccl, a card a rank, the step captured: bert-large "
+              f"losses {b['losses']} (graph {b['graph']}), step "
+              f"{np.median(b['step_s'][2:]) * 1e3:.1f} ms; llama3.2-3b "
+              f"losses {nccl[0][1]['losses']}; {time.perf_counter() - t3:.1f}"
+              " s")
+    else:
+        print(f"[dp] {cards} card: nccl with a card a rank, its captured "
+              f"step and llama3.2-3b at dp={DP} were not run (they need "
+              f"{DP} cards; llama's training state alone is about 42 GiB at "
+              f"dp=1)")
+        out["nccl"] = "not run: one card"
+    for path in paths.values():
+        os.remove(path)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[dp] phase {out['phase_s']:.1f} s (dp=1 runs {t1 - t0:.1f} s, "
+          f"dp={DP} spawn and steps {t2 - t1:.1f} s)")
+    return out
+
+
 UNTIED_GEMV = "head_gemv_wgmma_kernel"   # pass 1 of an untied head
 
 DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
@@ -6425,6 +6979,8 @@ def main() -> int:
     families = train_families_phase(dev, marks)
     tensor_parallel = tp_phase(dev, smi)
     marks["tp"] = time.perf_counter()
+    data_parallel = dp_phase(dev, smi)
+    marks["dp"] = time.perf_counter()
     prev = t_start
     spans = []
     for name, t in marks.items():
@@ -6443,7 +6999,8 @@ def main() -> int:
           f"{arch_phase:.1f}; the training families (llama3.2-3b, "
           f"mamba2-1.3b, checkpoint) {families['phase_s']:.1f}; the "
           f"flash training and tensor-parallel additions "
-          f"{_new_slice_s(marks, families):.1f}")
+          f"{_new_slice_s(marks, families):.1f}; the data-parallel ZeRO-1 "
+          f"phase {marks['dp'] - marks['tp']:.1f}")
     # the kernels on the training families' paths: their launches there
     # and their numbers at the training shapes
     llama_t, mamba_t = families["llama3.2-3b"], families["mamba2-1.3b"]
@@ -6545,6 +7102,15 @@ def main() -> int:
             sum(v[0] for v in hits) / sum(v[1] for v in hits)
             if hits else None)
     for r in train_rows:
+        if r["name"].startswith("lamb_stage"):
+            dp2 = data_parallel["dp2"]
+            r["zero1_dp2"] = {
+                "shard_shapes": dp2["shards"],
+                "launches_per_step_a_rank": dp2["lamb"][0][r["name"]],
+                "launches_rank0": sum(s[r["name"]] for s in dp2["lamb"]),
+                "launches_path": f"bert-large dp={DP} ZeRO-1 over gloo, "
+                                 f"{DP_STEPS} eager fused steps, rank 0"}
+    for r in train_rows:
         name = r["name"]
         r["launches"] = training["fused"]["launches"][name]
         r["launches_path"] = (f"fused training, {TRAIN_STEPS} steps "
@@ -6637,6 +7203,7 @@ def main() -> int:
             if k not in ("head", "wide")}, "phase_s": arch_phase},
         "training_families": families,
         "tensor_parallel": tensor_parallel,
+        "data_parallel": data_parallel,
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

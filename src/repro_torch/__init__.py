@@ -16,7 +16,11 @@ is its own copy. What it carries today:
 - training on one device (``launch.train``): every arch of the registry,
   MLM where the arch is bidirectional, else causal, each step after the
   second one replay of a captured CUDA graph on the card, with
-  checkpoint/restart in JAX's file format (``checkpoint``);
+  checkpoint/restart in JAX's file format (``checkpoint``); and, with
+  ZeRO-1 (``optim.zero``, JAX's default layout), on the data axis of a
+  mesh of ranks (``build_train_step(run, mesh=launch.mesh.make_mesh(...))``),
+  beside JAX's compressed and hierarchical collectives and its GPipe
+  pipeline (``parallel``);
 - the paper's analytical model and its operator-level characterization
   (``core``): ``core.characterize.analyze(fn, *args)`` runs ``fn`` once
   and prices every op it ran, bucketed by the paper's taxonomy and by
@@ -35,7 +39,8 @@ with twelve hand-written sm_90a kernels:
 - ``kernels.fused_lm_head``: the LM head with token selection
 - ``kernels.bias_gelu``: the GeLU MLP's bias + activation
 - ``kernels.fused_lamb``: LAMB's two stages, one parameter leaf a call
-  (one trust ratio a layer, a MoE expert leaf one an expert)
+  (one trust ratio a layer, a MoE expert leaf one an expert), or a
+  data-parallel rank's columns of the ZeRO flat leaves
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.

@@ -205,7 +205,7 @@ class RunConfig:
     optimizer: str = "lamb"         # lamb | adamw | sgd
     learning_rate: float = 1e-3
     weight_decay: float = 0.01
-    zero1: bool = True              # ZeRO layout: not ported (raises)
+    zero1: bool = True              # the ZeRO-1 flat optimizer layout
     fused_optimizer_kernel: bool = False   # route LAMB through the kernels
     # bf16 model params + fp32 master copies in the optimizer (paper
     # section 3.2.1); False = everything fp32

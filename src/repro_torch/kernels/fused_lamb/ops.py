@@ -2,7 +2,9 @@
 update, in place, of one leaf or of leaves that share their trust ratios
 (whisper's encoder layers, one leaf in JAX's stacked tree), one ratio a
 row (``rows``: a MoE expert leaf's experts; 1, the whole leaf, for every
-other leaf).
+other leaf) (``lamb_update_``); or of a data-parallel rank's columns of
+the ZeRO flat leaves, the partial norms summed across the ranks between
+the two stages (``lamb_update_shards_``).
 
 CPU tensors take the plain version (``ref.lamb_stage1``, the squared norms,
 the trust ratio and ``ref.lamb_stage2``, with the card's layout of partial
@@ -105,6 +107,49 @@ def lamb_update_(w, g, m, v, scalars: torch.Tensor, *, beta1: float,
     for x, u in zip(ws, us):
         stage2(x, u, partials, r, lr=lr, rows=rows)
     return r
+
+
+def lamb_update_shards_(leaves, scalars: torch.Tensor, *, beta1: float,
+                        beta2: float, eps: float, weight_decay: float,
+                        lr: float, exchange=None) -> list:
+    """LAMB Stage 1 + 2 on a data-parallel rank's shards of the ZeRO flat
+    leaves: ``leaves`` holds ``(w, g, m, v, rows)`` a flat leaf, each
+    tensor this rank's ``[rows, cols]`` columns of it. Every leaf's stage 1
+    writes its rows' partial norms into its own region of one buffer,
+    ``exchange(buffer)`` (the data group's all-reduce: every rank's shards
+    are the same size, so the buffer is laid out the same way on every
+    rank) runs once, and every leaf's stage 2 reduces its region: one
+    trust ratio a row over the whole row, all ranks' columns. Returns the
+    ratios, one [rows] tensor a leaf."""
+    hyper = dict(beta1=beta1, beta2=beta2, eps=eps,
+                 weight_decay=weight_decay)
+    dev = leaves[0][0].device
+    if dev.type == "cuda":
+        for w, g, m, v, rows in leaves:
+            _check(w, g, m, v, scalars, rows)
+        blocks = [grid_blocks(w.numel() // rows, rows)
+                  for w, *_, rows in leaves]
+    elif dev.type == "cpu":
+        blocks = [1] * len(leaves)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    sizes = [2 * leaf[4] * b for leaf, b in zip(leaves, blocks)]
+    partials = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    us = [torch.empty_like(leaf[0]) for leaf in leaves]
+    off = 0
+    for (w, g, m, v, rows), u, b, n in zip(leaves, us, blocks, sizes):
+        stage1(w, g, m, v, scalars, u, partials[off:off + n], **hyper,
+               rows=rows, nparts=b)
+        off += n
+    if exchange is not None:
+        exchange(partials)
+    ratios, off = [], 0
+    for (w, *_, rows), u, n in zip(leaves, us, sizes):
+        r = torch.empty(rows, dtype=torch.float32, device=dev)
+        stage2(w, u, partials[off:off + n], r, lr=lr, rows=rows)
+        ratios.append(r)
+        off += n
+    return ratios
 
 
 def _stream(t: torch.Tensor) -> int:

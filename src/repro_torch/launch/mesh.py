@@ -1,7 +1,11 @@
-"""The tensor-parallel process group of the serving engine. Counterpart of
-``repro.launch.mesh.make_tp_mesh``: JAX builds a 1-D ("model",) mesh over
-the devices of one process; the port runs one process a rank, PyTorch's
-idiom, and the ranks meet in a ``torch.distributed`` process group.
+"""Process groups and meshes. Counterpart of ``repro.launch.mesh``
+(``make_tp_mesh``, ``make_mesh``, ``make_host_mesh``): JAX builds a mesh
+over the devices of one process; the port runs one process a rank,
+PyTorch's idiom, and the ranks meet in a ``torch.distributed`` process
+group. ``make_tp_group`` is the serving engine's group of ``tp`` ranks;
+``make_mesh`` lays the world's ranks out on a grid of named axes
+(``torch.distributed.device_mesh``), one process group a line of each
+axis, as the trainer's data axis needs. ``spawn`` starts the ranks.
 
 The backend is always the caller's: ``"nccl"`` puts each rank on a card of
 its own (``cuda:<local rank>``), ``"gloo"`` runs the collectives on the
@@ -10,11 +14,12 @@ share. Nothing here picks or changes a backend or a device.
 """
 from __future__ import annotations
 
+import math
 import os
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -100,11 +105,54 @@ def _card(rank: int, device) -> torch.device:
     return card
 
 
-def _rank_main(fn, tp, rank, init_method, backend, device, args, results):
-    """A spawned rank: join the group, run ``fn``, report to the parent."""
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str,
+              device=None, rank: Optional[int] = None,
+              init_method: Optional[str] = None):
+    """A mesh of ``prod(shape)`` ranks with the named ``axes`` (JAX's
+    ``make_mesh``): a ``DeviceMesh`` whose ``get_group(axis)`` is this
+    rank's line along ``axis``, a process group on ``backend``. The world
+    group is joined or made as ``make_tp_group`` does (``rank``,
+    ``init_method`` or ``torchrun``'s environment); rank r sits at the
+    row-major position r of ``shape``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {shape} against axes {axes}")
+    make_tp_group(math.prod(shape), backend=backend, device=device,
+                  rank=rank, init_method=init_method)
+    return init_device_mesh("cuda" if backend == "nccl" else "cpu", shape,
+                            mesh_dim_names=axes)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, **kw):
+    """A (data, model) mesh of gloo ranks on the CPU, for tests (JAX's
+    ``make_host_mesh``)."""
+    return make_mesh((data, model), ("data", "model"), backend="gloo", **kw)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> its size (an empty dict for no mesh: one device)."""
+    if mesh is None:
+        return {}
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_coords(mesh) -> Dict[str, int]:
+    """Axis name -> this rank's index along it."""
+    if mesh is None:
+        return {}
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _rank_main(fn, tp, rank, init_method, backend, device, mesh, args,
+               results):
+    """A spawned rank: join the group (and lay out the mesh), run ``fn``,
+    report to the parent."""
     try:
         group, rank, dev = make_tp_group(tp, backend=backend, device=device,
                                          rank=rank, init_method=init_method)
+        if mesh is not None:
+            group = make_mesh(*mesh, backend=backend, device=device)
         results.put((rank, True, fn(group, rank, dev, *args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -115,20 +163,25 @@ def _rank_main(fn, tp, rank, init_method, backend, device, args, results):
 
 
 def spawn(fn: Callable[..., Any], tp: int, *args: Any, backend: str,
-          device=None, timeout: float = 3600.0) -> List[Any]:
+          device=None, mesh: Optional[Tuple[Sequence[int], Sequence[str]]]
+          = None, timeout: float = 3600.0) -> List[Any]:
     """Run ``fn(group, rank, device, *args)`` in ``tp`` new processes (the
-    ``spawn`` start method), each a rank of a new group made by
-    ``make_tp_group`` over ``tcp://127.0.0.1:<free port>``; returns every
-    rank's return value (picklable) in rank order. A rank that raises
-    stops the others (they may wait in a collective) and the error is
-    raised here with its traceback. ``fn`` and ``args`` must pickle."""
+    ``spawn`` start method), each a rank of a new world of ``tp`` ranks
+    made by ``make_tp_group`` over ``tcp://127.0.0.1:<free port>``; with
+    ``mesh=(shape, axes)`` (``prod(shape) == tp``) ``group`` is the rank's
+    ``make_mesh(shape, axes)`` instead of the world. Returns every rank's
+    return value (picklable) in rank order. A rank that raises stops the
+    others (they may wait in a collective) and the error is raised here
+    with its traceback. ``fn`` and ``args`` must pickle."""
+    if mesh is not None and math.prod(mesh[0]) != tp:
+        raise ValueError(f"a mesh of shape {tuple(mesh[0])} for {tp} ranks")
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.SimpleQueue()
     init = f"tcp://127.0.0.1:{free_port()}"
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, tp, r, init, backend, device, args,
-                               results), daemon=True)
+                         args=(fn, tp, r, init, backend, device, mesh,
+                               args, results), daemon=True)
              for r in range(tp)]
     for p in procs:
         p.start()

@@ -155,7 +155,18 @@ def state_to_jax(state: Any, period: int = 1) -> Any:
     """A trainer state (or any tree of dicts) -> JAX's layout as CPU
     tensors in their own dtypes: every dict holding a ``blocks`` or
     ``enc_blocks`` list (the params, the optimizer's ``m``, ``v`` and
-    ``master``) through ``to_jax_layout``, every other leaf copied."""
+    ``master``) through ``to_jax_layout``, every other leaf copied. A
+    ZeRO-1 state (``m`` in the flat layout) raises: JAX's trainer never
+    checkpoints one (its launcher passes ``zero1=False``)."""
+    if isinstance(state, dict) and "params" in state \
+            and "m" in state.get("opt", {}):
+        shapes = [[t.shape for t in leaves(x)]
+                  for x in (state["params"], state["opt"]["m"])]
+        if shapes[0] != shapes[1]:
+            raise NotImplementedError(
+                "a ZeRO-1 optimizer state (flat shards) is not "
+                "checkpointed: JAX's trainer never writes one (its "
+                "launcher passes zero1=False)")
     if isinstance(state, dict):
         if any(isinstance(state.get(k), list) for k in STACKS):
             return to_jax_layout(state, period, keep_dtype=True)

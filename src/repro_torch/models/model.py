@@ -212,13 +212,15 @@ def logits(arch: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(arch: ArchConfig, params: Params,
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], data_group=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward -> (fp32 logits [B, S, Vp], the auxiliary
     loss: the MoE layers' Switch losses summed, an fp32 scalar, 0 for
     every other family), as JAX's ``Model.forward``. ``batch`` may carry
     ``mrope_positions`` [3, B, S] (qwen2-vl) and must carry
-    ``frontend_embeddings`` [B, Senc, D] for an encdec arch."""
+    ``frontend_embeddings`` [B, Senc, D] for an encdec arch. With a
+    ``data_group`` (``batch`` this rank's rows of a data-parallel batch)
+    the Switch losses are the whole batch's (``moe.apply_moe``)."""
     tokens = batch["tokens"]
     x = embed(arch, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
@@ -227,34 +229,44 @@ def forward(arch: ArchConfig, params: Params,
     x, aux = tf.apply_stack(arch, params["blocks"], x, positions,
                             causal=not arch.bidirectional,
                             mrope_positions=batch.get("mrope_positions"),
-                            enc_out=enc_out)
+                            enc_out=enc_out, data_group=data_group)
     return logits(arch, params, x), aux
 
 
 def cross_entropy(lg: torch.Tensor, targets: torch.Tensor,
-                  mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  mask=None, denom=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean cross entropy and accuracy over every column of the
     padded vocab (as ``repro.models.model._ce_pieces``). JAX's custom VJP
-    there shards the backward; its math is autodiff's, used here."""
+    there shards the backward; its math is autodiff's, used here.
+    ``denom`` (default: the mask's count, at least 1) divides the sums: a
+    data-parallel rank passes the whole batch's count, so its ce and
+    accuracy are its shares of the batch's."""
     lg = lg.float()
     lse = torch.logsumexp(lg, dim=-1)
     target_logit = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
     ll = target_logit - lse
     correct = (target_logit >= lg.max(dim=-1).values).float()
     m = torch.ones_like(ll) if mask is None else mask.float()
-    denom = torch.clamp_min(m.sum(), 1.0)
+    if denom is None:
+        denom = torch.clamp_min(m.sum(), 1.0)
     ce = -(ll * m).sum() / denom
     acc = (correct * m).sum() / denom
     return ce, acc.detach()
 
 
-def loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
+def loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+         group=None, denom=None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (ce + aux, metrics {loss, ce, aux, accuracy}): the masked cross
-    entropy plus the auxiliary loss, as JAX's ``Model.loss``."""
-    lg, aux = forward(arch, params, batch)
+    entropy plus the auxiliary loss, as JAX's ``Model.loss``. A
+    data-parallel rank passes its data ``group`` and the whole batch's
+    mask count ``denom``: then ce and accuracy (and loss) are the rank's
+    shares, which sum over the group to the batch's, and aux is the
+    batch's; the gradients of the ranks' losses sum to the batch loss's."""
+    lg, aux = forward(arch, params, batch, group)
     with scope("loss"):
-        ce, acc = cross_entropy(lg, batch["targets"], batch.get("loss_mask"))
+        ce, acc = cross_entropy(lg, batch["targets"], batch.get("loss_mask"),
+                                denom)
     total = ce + aux
     return total, {"loss": total.detach(), "ce": ce.detach(),
                    "aux": aux.detach(), "accuracy": acc}

@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from ..configs.base import ArchConfig, MoEConfig
 from ..core.optrace import scope
+from ..parallel import collectives
 from .layers import Params, dense_init, gelu, silu
 
 
@@ -126,7 +127,8 @@ def _route_indices(logits: torch.Tensor, moe: MoEConfig, capacity: int,
 
 def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
               eff_capacity: Optional[int] = None, aux_loss: bool = True,
-              group=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+              group=None, data_group=None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x [B, S, D] -> (y [B, S, D], the Switch load-balancing loss, fp32
     scalar, differentiable through the router's probabilities: the
     training forward adds it to the loss, as JAX's; None when
@@ -137,13 +139,20 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
     drops nothing. With ``group`` (serving tensor parallelism) the
     rank's ``experts`` hold its ``E / tp`` experts and its ``shared``
     experts are Megatron shards; the routed and shared partial sums are
-    reduced in one fp32 ``all_reduce``."""
+    reduced in one fp32 ``all_reduce``. With a ``data_group`` (x this
+    rank's rows of a data-parallel batch) the Switch loss is the whole
+    batch's: E * sum_e f_e * P_e is not linear in the batch, so the
+    router's counts and probability sums are summed over the group
+    (``collectives.global_sum``, one ``all_reduce``) before it; the
+    dispatch stays the rank's own (the capacity is a row's)."""
     with scope("moe"):
-        return _apply_moe(arch, p, x, eff_capacity, aux_loss, group)
+        return _apply_moe(arch, p, x, eff_capacity, aux_loss, group,
+                          data_group)
 
 
 def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
-               eff_capacity: Optional[int], aux_loss: bool, group=None
+               eff_capacity: Optional[int], aux_loss: bool, group=None,
+               data_group=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     moe = arch.moe
     b, s, d = x.shape
@@ -214,7 +223,13 @@ def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
     # Switch-style load-balancing loss: E * sum_e f_e * P_e
     probs = torch.softmax(logits, dim=-1)
     top1 = probs.argmax(dim=-1)
-    f = torch.nn.functional.one_hot(top1, moe.num_experts).float().mean(
-        dim=(0, 1))
-    pmean = probs.mean(dim=(0, 1))
+    onehot = torch.nn.functional.one_hot(top1, moe.num_experts).float()
+    if data_group is None:
+        f = onehot.mean(dim=(0, 1))
+        pmean = probs.mean(dim=(0, 1))
+    else:
+        sums = collectives.global_sum(torch.cat(
+            [onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1))]), data_group)
+        tokens = b * s * dist.get_world_size(data_group)
+        f, pmean = (sums / tokens).split(moe.num_experts)
     return y, moe.num_experts * (f * pmean).sum() * moe.aux_loss_weight

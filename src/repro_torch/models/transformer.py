@@ -79,13 +79,14 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
                 fused: Optional[bool] = None,
                 mixer: str = "attn",
                 mrope_positions: Optional[torch.Tensor] = None,
-                enc_out: Optional[torch.Tensor] = None
+                enc_out: Optional[torch.Tensor] = None, data_group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm (or BERT post-norm) block over x [B, S, D], its mixer
     attention or mamba, its tail an MLP or a MoE (none for mamba2); a
     block with ``xattn`` given ``enc_out`` [B, Senc, D] attends to it
     after the mixer. Returns ``(x, aux)``: ``aux`` is the MoE's Switch
-    loss (fp32 scalar; 0 for any other tail), as JAX's ``apply_block``.
+    loss (fp32 scalar; 0 for any other tail), as JAX's ``apply_block``;
+    with a ``data_group`` the whole data-parallel batch's.
 
     ``fused`` (None = ``REPRO_FUSED_BLOCKS``) routes the post-norm add +
     norm sites through ``fused_residual_layernorm``, the gelu MLP's bias +
@@ -113,7 +114,8 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
 
     def tail(h):
         if "moe" in p:
-            return moe_lib.apply_moe(arch, p["moe"], h)
+            return moe_lib.apply_moe(arch, p["moe"], h,
+                                     data_group=data_group)
         return apply_mlp(arch.mlp, p["mlp"], h, fused=fused), aux
 
     cross = enc_out is not None and "xattn" in p
@@ -150,7 +152,7 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
                 positions: torch.Tensor, causal: bool,
                 fused: Optional[bool] = None,
                 mrope_positions: Optional[torch.Tensor] = None,
-                enc_out: Optional[torch.Tensor] = None
+                enc_out: Optional[torch.Tensor] = None, data_group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every block in turn -> ``(x, aux)``, the blocks' auxiliary losses
     summed a period at a time and the periods in order, as JAX's
@@ -166,7 +168,7 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
         blk = functools.partial(apply_block, arch, positions=positions,
                                 causal=causal, fused=fused, mixer=kind,
                                 mrope_positions=mrope_positions,
-                                enc_out=enc_out)
+                                enc_out=enc_out, data_group=data_group)
         if arch.remat and torch.is_grad_enabled():
             # no RNG state saved: no block draws random numbers, and saving
             # it would read the generator inside a captured training step;

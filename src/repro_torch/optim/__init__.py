@@ -1,13 +1,14 @@
 """Optimizer registry: ``make_optimizer(run)`` -> an ``Optimizer`` with
 ``init(params)`` and ``update(grads, state, params)``. Counterpart of
-``repro.optim`` for the replicated layout (``zero1=False``)."""
+``repro.optim``; LAMB and AdamW with ``zero1`` take the ZeRO layout's
+``plan`` (``zero.Plan``: the trainer's, or one device by default)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Tuple
 
 from ..configs.base import RunConfig
-from . import adamw, grad, lamb, sgd
+from . import adamw, grad, lamb, sgd, zero
 
 _MODS = {"lamb": lamb, "adamw": adamw, "sgd": sgd}
 
@@ -17,11 +18,13 @@ class Optimizer:
     name: str
     cfg: Any
 
-    def init(self, params):
-        return _MODS[self.name].init(self.cfg, params)
+    def init(self, params, plan=None):
+        kw = {} if plan is None else {"plan": plan}
+        return _MODS[self.name].init(self.cfg, params, **kw)
 
-    def update(self, grads, state, params) -> Tuple:
-        return _MODS[self.name].update(self.cfg, grads, state, params)
+    def update(self, grads, state, params, plan=None) -> Tuple:
+        kw = {} if plan is None else {"plan": plan}
+        return _MODS[self.name].update(self.cfg, grads, state, params, **kw)
 
 
 def make_optimizer(run: RunConfig) -> Optimizer:
@@ -42,4 +45,5 @@ def make_optimizer(run: RunConfig) -> Optimizer:
     return Optimizer(run.optimizer, cfg)
 
 
-__all__ = ["Optimizer", "make_optimizer", "adamw", "grad", "lamb", "sgd"]
+__all__ = ["Optimizer", "make_optimizer", "adamw", "grad", "lamb", "sgd",
+           "zero"]

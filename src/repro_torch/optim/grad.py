@@ -1,64 +1,101 @@
 """Gradient utilities: global-norm clipping and micro-batch accumulation
-(paper section 4.2). Counterpart of ``repro.optim.grad``."""
+(paper section 4.2). Counterpart of ``repro.optim.grad``; with a ZeRO
+``plan`` the gradients accumulate in its flat fp32 layout (JAX's
+``transform`` of ``train/steps.py``), and with a data group the norm of a
+rank's shards is summed across the group."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import tree
+from ..parallel import collectives
 
 Batch = Dict[str, torch.Tensor]
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32, on the device."""
-    norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
-             for g in tree.leaves(grads)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(grads, group=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32, on the device;
+    with ``group`` (each rank holding its shards of the gradients) the sum
+    of squares is summed over the group (one scalar ``all_reduce``)."""
+    norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                         for g in tree.leaves(grads)])
+    if group is None:
+        return torch.linalg.vector_norm(norms)
+    sq = torch.sum(torch.square(norms)).reshape(1)
+    return torch.sqrt(collectives.all_reduce(sq, group)[0])
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, group=None):
     """-> (grads scaled by min(1, max_norm / norm), each back in its dtype;
     the norm). No host read: the scale stays a device scalar."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, group)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
     return tree.map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
+def _batch_dim(key: str) -> int:
+    return 1 if key == "mrope_positions" else 0
+
+
+def split_microbatches(batch: Batch, num_micro: int) -> List[Batch]:
+    """The batch dim split into ``num_micro`` equal micro-batches, in
+    order (the leading dim; axis 1 of ``mrope_positions`` [3, B, S], so
+    its three streams stay together), as JAX's ``split``."""
+    if num_micro == 1:
+        return [batch]
+    b = next(v.shape[_batch_dim(k)] for k, v in batch.items())
+    if b % num_micro:
+        raise ValueError(f"batch {b} is not divisible into {num_micro} "
+                         "micro-batches")
+    return [{k: v.chunk(num_micro, dim=_batch_dim(k))[i]
+             for k, v in batch.items()} for i in range(num_micro)]
+
+
 def accumulate_microbatches(loss_fn: Callable, params, batch: Batch,
-                            num_micro: int) -> Tuple[object, Dict]:
+                            num_micro: int, plan=None,
+                            local: Optional[Callable] = None
+                            ) -> Tuple[object, Dict]:
     """Gradients of ``loss_fn(params, batch) -> (loss, metrics)`` with
     respect to every leaf of ``params``. With ``num_micro > 1`` the batch
-    dim is split (the leading one; axis 1 of ``mrope_positions`` [3, B,
-    S], so its three streams stay together), one micro-batch's forward and
+    is split (``split_microbatches``), one micro-batch's forward and
     backward run at a time (a Python loop in place of JAX's ``lax.scan``),
-    the gradients are averaged in fp32 and the metrics averaged."""
+    the gradients are averaged in fp32 and the metrics averaged.
+    ``local`` maps the list of micro-batches to this rank's (a
+    data-parallel step's rows of each). With a ZeRO ``plan`` the
+    gradients accumulate into ``plan.accumulator``'s flat fp32 buffer,
+    returned as it is (each rank's own sum, not yet reduced)."""
     leaves = tree.leaves(params)
 
     def grads_of(mb):
         loss, metrics = loss_fn(params, mb)
         return torch.autograd.grad(loss, leaves), metrics
 
-    if num_micro == 1:
-        grads, metrics = grads_of(batch)
-        return tree.unflatten(params, list(grads)), metrics
-    def batch_dim(k):
-        return 1 if k == "mrope_positions" else 0
-
-    b = next(v.shape[batch_dim(k)] for k, v in batch.items())
-    if b % num_micro:
-        raise ValueError(f"batch {b} is not divisible into {num_micro} "
-                         "micro-batches")
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for p in leaves]
+    micro = split_microbatches(batch, num_micro)
+    if local is not None:
+        micro = local(micro)
     seen = []
-    for i in range(num_micro):
-        mb = {k: v.chunk(num_micro, dim=batch_dim(k))[i]
-              for k, v in batch.items()}
-        grads, metrics = grads_of(mb)
-        for a, g in zip(acc, grads):
-            a.add_(g.float() / num_micro)
-        seen.append(metrics)
-    metrics = {k: torch.stack([m[k] for m in seen]).mean() for k in seen[0]}
-    return tree.unflatten(params, acc), metrics
+    if plan is not None:
+        acc = plan.accumulator(leaves[0].device)
+        for mb in micro:
+            grads, metrics = grads_of(mb)
+            plan.accumulate_(acc, grads, num_micro)
+            seen.append(metrics)
+        out = acc
+    elif num_micro == 1:
+        grads, metrics = grads_of(micro[0])
+        return tree.unflatten(params, list(grads)), metrics
+    else:
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        for mb in micro:
+            grads, metrics = grads_of(mb)
+            for a, g in zip(acc, grads):
+                a.add_(g.float() / num_micro)
+            seen.append(metrics)
+        out = tree.unflatten(params, acc)
+    if num_micro == 1:
+        return out, seen[0]
+    return out, {k: torch.stack([m[k] for m in seen]).mean()
+                 for k in seen[0]}

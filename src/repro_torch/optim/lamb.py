@@ -20,6 +20,16 @@ plain PyTorch (``lamb_stage12``). Either takes a group of leaves that
 share their ratios, a lone leaf a group of one. State and parameters are
 updated in place under ``torch.no_grad()`` (JAX returns new arrays and
 donates the old ones).
+
+With ``zero1`` (JAX's default) ``m``, ``v`` and ``master`` are held in the
+ZeRO flat layout (``optim.zero``): one ``[rows, padded]`` fp32 leaf a
+group of leaves that share their ratios, a row a ratio, or with a data
+group a rank's ``[rows, padded / dp]`` columns of it (``zero.Plan``). The
+rank updates only its columns: each row's squared norms are summed across
+the ranks (one ``all_reduce`` of every leaf's partials between Stage 1 and
+Stage 2), so the trust ratio stays one a row over the whole row; the
+padding columns (g = m = v = w = 0, so u = 0) add nothing to a norm. The
+new parameters reach every rank through the plan's ``all_gather``.
 """
 from __future__ import annotations
 
@@ -32,6 +42,9 @@ from .. import tree
 from ..core.optrace import scope
 from ..kernels.fused_lamb import ops as fused
 from ..kernels.fused_lamb import ref as plain
+from ..parallel import collectives
+from . import grad as grad_lib
+from . import zero
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,37 +59,29 @@ class LambConfig:
     master_weights: bool = True
 
 
-def _check(cfg: LambConfig) -> None:
-    if cfg.zero1:
-        raise NotImplementedError("LAMB zero1=True: the ZeRO layout not "
-                                  "ported (launch/train.py passes False)")
-
-
-def init(cfg: LambConfig, params) -> Dict:
+def init(cfg: LambConfig, params, plan: Optional[zero.Plan] = None) -> Dict:
     """``{m, v}`` fp32 zeros shaped like the params, ``step`` 0 and, with
-    master weights, ``master``: an fp32 copy of every parameter."""
-    _check(cfg)
+    master weights, ``master``: an fp32 copy of every parameter. With
+    ``zero1`` the three in ``plan``'s flat layout (default: one device),
+    this rank's columns of each flat leaf."""
+    first = tree.leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if cfg.zero1:
+        plan = plan or zero.Plan(params)
+        state = {"m": plan.zeros(first.device),
+                 "v": plan.zeros(first.device), "step": step}
+        if cfg.master_weights:
+            state["master"] = plan.state(plan.shards(params))
+        return state
 
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    first = tree.leaves(params)[0]
     state = {"m": tree.map(zeros, params), "v": tree.map(zeros, params),
-             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+             "step": step}
     if cfg.master_weights:
         state["master"] = tree.map(
             lambda p: p.detach().to(torch.float32, copy=True), params)
     return state
-
-
-def _paths(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], prefix + (k,))
-    elif isinstance(tree, list):
-        for i, t in enumerate(tree):
-            yield from _paths(t, prefix + (i,))
-    else:
-        yield prefix, tree
 
 
 def trust_layout(params) -> List[Tuple[int, Optional[tuple]]]:
@@ -85,31 +90,76 @@ def trust_layout(params) -> List[Tuple[int, Optional[tuple]]]:
     ``rows`` (a MoE expert leaf's experts; else 1, the whole leaf), and
     leaves with the same ``group`` (not None) share one ratio (a leaf of
     whisper's encoder stack, across its layers, where it has more than
-    one)."""
-    stacked = len(params.get("enc_blocks", ())) > 1
-    out = []
-    for path, leaf in _paths(params):
-        rows = leaf.shape[0] if "experts" in path[:-1] and leaf.dim() >= 2 \
-            else 1
-        group = path[:1] + path[2:] \
-            if stacked and path[0] == "enc_blocks" else None
-        out.append((rows, group))
+    one): JAX's ``_layer_axes``, the rows of ``zero.flat_leaves``."""
+    out = [None] * len(tree.leaves(params))
+    for u in zero.flat_leaves(params)[1]:
+        for i in u.members:
+            out[i] = (u.rows, u.path if u.spans else None)
     return out
 
 
-def update(cfg: LambConfig, grads, state: Dict, params) -> Tuple:
-    """One LAMB step, in place on ``params`` and ``state``; returns them."""
+def update(cfg: LambConfig, grads, state: Dict, params,
+           plan: Optional[zero.Plan] = None) -> Tuple:
+    """One LAMB step, in place on ``params`` and ``state``; returns them.
+    With ``zero1`` the state is in ``plan``'s layout and ``grads`` either
+    this rank's flat gradient shards (a list, one a flat leaf: the
+    trainer's) or, on one device, gradients shaped like the params."""
     with scope("lamb"):
+        if cfg.zero1:
+            return _update_zero(cfg, grads, state, params,
+                                plan or zero.Plan(params))
         return _update(cfg, grads, state, params)
+
+
+def _bias_corrections(cfg, state: Dict):
+    state["step"].add_(1)
+    t = state["step"].float()
+    return (1.0 / (1.0 - torch.pow(cfg.beta1, t)),
+            1.0 / (1.0 - torch.pow(cfg.beta2, t)))
+
+
+@torch.no_grad()
+def _update_zero(cfg: LambConfig, grads, state: Dict, params,
+                 plan: zero.Plan) -> Tuple:
+    c1, c2 = _bias_corrections(cfg, state)
+    gs = plan.grad_shards(grads)
+    norm = grad_lib.global_norm(gs, plan.group)
+    ginv = 1.0 / torch.clamp_min(norm, 1e-12)
+    hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
+                 weight_decay=cfg.weight_decay, lr=cfg.learning_rate)
+    ws = tree.leaves(state["master"]) if "master" in state \
+        else plan.shards(params)
+    ms, vs = tree.leaves(state["m"]), tree.leaves(state["v"])
+    rows = [u.rows for u in plan.units]
+    exchange = None if plan.group is None else \
+        (lambda buf: collectives.all_reduce(buf, plan.group))
+    if cfg.use_fused_kernel:
+        fused.lamb_update_shards_(
+            list(zip(ws, gs, ms, vs, rows)),
+            torch.stack([ginv, c1, c2]).float(), exchange=exchange, **hyper)
+    else:
+        hyper.pop("lr")
+        new = [plain.lamb_stage1(w, g, m, v, ginv=ginv, c1=c1, c2=c2,
+                                 **hyper) for w, g, m, v in zip(ws, gs, ms,
+                                                                 vs)]
+        sq = torch.cat([torch.cat(plain.sq_norms(w, u, r))
+                        for w, (_, _, u), r in zip(ws, new, rows)])
+        if exchange is not None:
+            exchange(sq)
+        off = 0
+        for w, m, v, (m_new, v_new, u), r in zip(ws, ms, vs, new, rows):
+            ratio = plain.ratio(sq[off:off + r], sq[off + r:off + 2 * r])
+            off += 2 * r
+            w.copy_(plain.lamb_stage2(w, u, lr=cfg.learning_rate, r=ratio))
+            m.copy_(m_new)
+            v.copy_(v_new)
+    plan.gather_params_(params, ws)
+    return params, state
 
 
 @torch.no_grad()
 def _update(cfg: LambConfig, grads, state: Dict, params) -> Tuple:
-    _check(cfg)
-    state["step"].add_(1)
-    t = state["step"].float()
-    c1 = 1.0 / (1.0 - torch.pow(cfg.beta1, t))
-    c2 = 1.0 / (1.0 - torch.pow(cfg.beta2, t))
+    c1, c2 = _bias_corrections(cfg, state)
     gn = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
                       for g in tree.leaves(grads)])
     ginv = 1.0 / torch.clamp_min(torch.linalg.vector_norm(gn), 1e-12)

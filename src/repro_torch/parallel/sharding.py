@@ -8,8 +8,15 @@ every rank holds the whole leaf. ``shard_params`` cuts each rank's
 contiguous slices; ``serving_shards`` takes a block list from the whole
 model's layout (fused qkv, ``Hkv`` KV heads) to a rank's. A rank keeps only
 its shards: ``models.model.Model.init(..., shard=(rank, tp))`` cuts each
-block as soon as it is made. The training layout (ZeRO, the data axis) is
-not here.
+block as soon as it is made.
+
+The training layout's data axis is here too (``TRAIN_RULES``,
+``batch_pspecs``, ``opt_state_pspecs``, ``flat_grad_pspec``): a training
+spec has one entry a dim, the mesh axis (or tuple of axes) that dim is
+split over, or None, as JAX's ``PartitionSpec``; ``local_slice`` cuts a rank's block of a dim split
+over several axes in JAX's order (the first axis major). The trainer's
+ZeRO plan (``optim.zero.Plan``) cuts every flat optimizer leaf and the
+step every micro-batch with them.
 
 Replicated: the embedding, the LM head, the norms, the router, mamba
 mixers and the biases of the row-parallel projections (``bo``, ``b2``),
@@ -18,7 +25,7 @@ logits and draws the same tokens, with no collective.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -194,3 +201,103 @@ def shard_params(params: Any, spec: Any, rank: int, tp: int) -> Any:
             return [walk(v, s) for v, s in zip(tree, sp)]
         return take(tree, sp)
     return walk(params, spec)
+
+
+# ------------------------------------------------------------------ training --
+Spec = Tuple[Any, ...]      # a mesh axis, a tuple of axes or None a dim
+
+# JAX's logical-axis table at its defaults (``make_rules()``): logical name
+# -> the mesh axis (or axes) it is split over, None where it is replicated.
+# The port trains over the data axis only, so its specs read "batch",
+# "experts" and "opt_flat"; a model axis above 1 is refused by the step.
+TRAIN_RULES: Dict[str, Any] = {
+    "batch": ("data",),
+    "seq": "model",
+    "cache_seq": "model",
+    "embed": None,
+    "q_heads": "model",
+    "kv": None,
+    "vocab": "model",
+    "fsdp": "data",
+    "tensor": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "opt_flat": ("data", "model"),      # ZeRO-1 optimizer states
+    "none": None,
+}
+
+
+def spec(*logical: Optional[str]) -> Spec:
+    """Logical names (None: replicated) -> a spec through ``TRAIN_RULES``."""
+    return tuple(TRAIN_RULES.get(name) if name else None for name in logical)
+
+
+def batch_pspecs(batch: Mapping[str, Any]) -> Dict[str, Spec]:
+    """Input batches: the batch dim over the data axis, the rest whole;
+    ``mrope_positions`` [3, B, S] splits its dim 1."""
+    out = {}
+    for name, v in batch.items():
+        if name == "mrope_positions":
+            out[name] = spec(None, "batch", None)
+        elif v.ndim >= 1:
+            out[name] = spec("batch", *([None] * (v.ndim - 1)))
+        else:
+            out[name] = ()
+    return out
+
+
+def _flat_spec(path: Tuple, leaf) -> Spec:
+    if leaf.ndim == 2 and "experts" in path:
+        return (TRAIN_RULES["experts"], "data")
+    return (None,) * (leaf.ndim - 1) + (TRAIN_RULES["opt_flat"],)
+
+
+def opt_state_pspecs(state: Mapping[str, Any], params_specs,
+                     zero1: bool) -> Dict[str, Any]:
+    """Optimizer-state specs. ``zero1``: every flat leaf's columns over
+    ``opt_flat`` (an expert leaf ``[E, padded]``: E over the experts'
+    axis, the columns over data); else ``m`` / ``v`` mirror
+    ``params_specs``. ``step`` is replicated."""
+    out = {}
+    for k, v in state.items():
+        if k == "step":
+            out[k] = ()
+        elif zero1:
+            out[k] = map_with_path(_flat_spec, v)
+        else:
+            out[k] = params_specs
+    return out
+
+
+def flat_grad_pspec(leaf) -> Spec:
+    """The spec of a flat-layout gradient-accumulation leaf: the columns
+    over ``opt_flat`` (the port's flat leaves are ``[rows, padded]``, one
+    a layer, so JAX's ``[L, E, padded]`` expert case does not arise)."""
+    return (None,) * (leaf.ndim - 1) + (TRAIN_RULES["opt_flat"],)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def local_slice(sp: Spec, shape: Sequence[int],
+                axis_sizes: Mapping[str, int],
+                coords: Mapping[str, int]) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of ``shape`` under ``sp``: a dim split
+    over axes (a, b) has ``size(a) * size(b)`` equal blocks, and the rank
+    at coordinates (i, j) holds block ``i * size(b) + j``. An axis the
+    mesh lacks has size 1; a dim that does not split evenly raises."""
+    out = []
+    for i, n in enumerate(shape):
+        entry = sp[i] if i < len(sp) else None
+        parts, index = 1, 0
+        for a in _axes(entry):
+            s = axis_sizes.get(a, 1)
+            parts, index = parts * s, index * s + coords.get(a, 0)
+        if n % parts:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"into {parts} over {entry}")
+        out.append(slice(index * (n // parts), (index + 1) * (n // parts)))
+    return tuple(out)

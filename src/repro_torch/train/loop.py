@@ -17,6 +17,9 @@ before the next step is queued. Each step instead reads the previous
 step's metrics after dispatching its own, so the card always has work
 queued behind the wait, while ``dt`` still measures the card's step time
 (attributed one step late).
+
+With a data-parallel ``group`` only its rank 0 logs and keeps the history
+(the metrics are the whole batch's on every rank); the step is the same.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import os
 import threading
 import time
 from typing import Any, Callable, Dict, Optional
+
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
 from ..data import SyntheticPipeline
@@ -75,11 +80,16 @@ def train_loop(step_fn: Callable, state: Any, data: SyntheticPipeline,
                cfg: LoopConfig, start_step: int = 0,
                ckpt: Optional[CheckpointManager] = None,
                ckpt_tree: Callable[[Any], Any] = lambda s: s,
-               log: Callable[[str], None] = print) -> Dict[str, Any]:
+               log: Callable[[str], None] = print,
+               group=None) -> Dict[str, Any]:
     """Run (or resume from ``start_step``) training; returns ``{"state",
     "history", "monitor"}`` with one history entry (plain floats) per
-    step. ``ckpt`` saves ``ckpt_tree(state)`` every ``cfg.ckpt_every``
-    steps and at the end."""
+    step (none on a rank of ``group`` other than 0, which logs nothing).
+    ``ckpt`` saves ``ckpt_tree(state)`` every ``cfg.ckpt_every`` steps and
+    at the end."""
+    lead = group is None or dist.get_rank(group) == 0
+    if not lead:
+        log = lambda s: None  # noqa: E731
 
     def _abort():
         log("[watchdog] step deadline exceeded; aborting for a scheduler "
@@ -128,4 +138,5 @@ def train_loop(step_fn: Callable, state: Any, data: SyntheticPipeline,
         ckpt.wait()
         ckpt.save(cfg.max_steps, ckpt_tree(state),
                   extra={"data_step": cfg.max_steps})
-    return {"state": state, "history": history, "monitor": monitor}
+    return {"state": state, "history": history if lead else [],
+            "monitor": monitor}

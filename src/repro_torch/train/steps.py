@@ -1,5 +1,6 @@
 """Building the train step. Counterpart of ``repro.train.steps``
-(``StepBundle``, ``build_train_step``) on one device.
+(``StepBundle``, ``build_train_step``), on one device or, with ZeRO-1, on
+the data axis of a mesh.
 
 Mixed precision (paper section 3.2.1): the parameters are initialized in
 ``arch.param_dtype`` (fp32); with ``run.master_weights`` the optimizer
@@ -16,6 +17,23 @@ batch copied into new device tensors. The three parts of a step are
 ``/clip``, ``/update``; a replay's host work is ``/stage`` and
 ``/replay``), so a profile splits the host's time between them; with no
 profiler running they cost about a microsecond each.
+
+With ``run.zero1`` (JAX's default) LAMB and AdamW keep their state in the
+ZeRO flat layout (``optim.zero.Plan``, made by ``init``), and the
+gradients accumulate in it. Given a ``mesh`` whose ``data`` axis holds dp
+ranks, each rank runs the step on the same global batch: micro-batch i is
+JAX's (rows ``[i B / M, (i + 1) B / M)``), and the rank takes its 1 / dp
+of its rows (``sharding.batch_pspecs``); the masked mean of the loss
+divides by the whole micro-batch's mask count (one ``all_reduce`` of the
+counts before the forwards). Then one ``reduce_scatter`` sums the flat
+gradients and leaves each rank its columns, the clip and the optimizer run
+on those shards (LAMB's norms summed across the ranks), and one
+``all_gather`` of the updated parameters, in their dtype, makes every
+rank's parameters whole again: ``zero_collectives`` states the count.
+The metrics (``ce``, ``accuracy``, ``loss``) are the global batch's. On the
+card over nccl the step is captured as ever; a gloo group's collectives run
+on the host and cannot be captured, so there ``bundle.fn`` runs every step
+eagerly.
 """
 from __future__ import annotations
 
@@ -24,14 +42,18 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from .. import graphs, resolve_device, tree
 from ..configs.base import RunConfig, torch_dtype
 from ..graphs import Captured
+from ..launch import mesh as mesh_lib
 from ..models import model as model_lib
+from ..models.transformer import period_length
 from ..optim import grad as grad_lib
-from ..optim import make_optimizer
+from ..optim import make_optimizer, zero
+from ..parallel import collectives, sharding
 
 
 class StepGraph:
@@ -51,10 +73,14 @@ class StepGraph:
     A graph belongs to one state and one batch shape: a call with another
     state's tensors (their addresses) or another shape starts again from
     the warm-up. ``captures`` and ``replays`` count graphs captured and
-    replayed, ``pool_bytes`` the device memory their captures reserved."""
+    replayed, ``pool_bytes`` the device memory their captures reserved.
+    With ``capture=False`` (a step whose collectives run on the host)
+    every call runs the step eagerly on the buffers, as on the CPU."""
 
-    def __init__(self, step: Callable, device: torch.device):
+    def __init__(self, step: Callable, device: torch.device,
+                 capture: bool = True):
         self.step, self.device = step, device
+        self.capture = capture
         self.inputs: Dict[str, torch.Tensor] = {}
         self.names: List[str] = []
         self.out: Optional[torch.Tensor] = None
@@ -79,7 +105,7 @@ class StepGraph:
             for k, t in host.items():
                 self.inputs[k].copy_(t.pin_memory() if cuda else t,
                                      non_blocking=cuda)
-        if not cuda:
+        if not (cuda and self.capture):
             self._run(state)
         elif fresh:
             graphs.warm_up(lambda: self._run(state), self._side_stream())
@@ -116,31 +142,110 @@ class StepBundle:
     fn: StepGraph       # (state, batch) -> (state, metrics on the device)
     init: Callable      # (seed=0, params=None) -> state
     eager: Callable     # fn's step uncaptured, on new device tensors
+    plan: Optional[zero.Plan] = None    # the ZeRO layout, set by init
 
 
-def build_train_step(run: RunConfig, device="cuda") -> StepBundle:
+def zero_collectives(run: RunConfig, dp: int) -> Dict[str, int]:
+    """The collectives one ZeRO step runs on each rank of a data group of
+    dp ranks, by kind: ``all_reduce`` for the micro-batches' mask counts
+    (1), the clip's norm (1 where ``grad_clip`` > 0), LAMB's gradient norm
+    and its partial norms (2), the metrics (1), and one a MoE layer a
+    micro-batch for the Switch loss's sums, twice under ``remat`` (the
+    recompute runs it again); one ``reduce_scatter`` and one
+    ``all_gather``. None at dp = 1."""
+    if dp == 1:
+        return {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    arch = run.arch
+    moe = sum(arch.is_moe_layer(i) for i in range(arch.num_layers))
+    return {"all_reduce": 2 + (run.grad_clip > 0)
+            + 2 * (run.optimizer == "lamb") + moe * run.shape.microbatches
+            * (2 if arch.remat else 1),
+            "reduce_scatter": 1, "all_gather": 1}
+
+
+def _data_axis(run: RunConfig, mesh):
+    """(dp, this rank's index on the data axis, the data group or None) of
+    ``mesh``, refusing what is not ported: another axis of more than one
+    rank, or dp > 1 without ZeRO."""
+    sizes = mesh_lib.axis_sizes(mesh)
+    wide = {a: n for a, n in sizes.items() if a != "data" and n > 1}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide}: training over the model axis (tensor "
+            "parallelism, FSDP, experts) or a pod axis is not ported; the "
+            "data axis only")
+    dp = sizes.get("data", 1)
+    if dp > 1 and not (run.zero1 and run.optimizer in ("lamb", "adamw")):
+        raise NotImplementedError(
+            f"dp={dp} with zero1={run.zero1} and {run.optimizer}: data "
+            "parallelism is ported for ZeRO-1 (zero1=True, lamb or adamw)")
+    if dp == 1:
+        return 1, 0, None
+    return dp, mesh_lib.axis_coords(mesh)["data"], mesh.get_group("data")
+
+
+def build_train_step(run: RunConfig, device="cuda",
+                     mesh=None) -> StepBundle:
+    """The train step of ``run`` on ``device``; with ``mesh`` (a
+    ``launch.mesh.make_mesh`` mesh) this rank's step on its data axis."""
     arch, shape = run.arch, run.shape
-    if run.zero1:
-        raise NotImplementedError("zero1=True: the ZeRO layout not ported "
-                                  "(launch/train.py passes zero1=False)")
     device = resolve_device(device)
     opt = make_optimizer(run)
+    zero1 = run.zero1 and run.optimizer in ("lamb", "adamw")
+    dp, rank, group = _data_axis(run, mesh)
 
     def loss_fn(params, batch):
-        return model_lib.loss(arch, params, batch)
+        if group is None:
+            return model_lib.loss(arch, params, batch)
+        mb, denom = batch
+        return model_lib.loss(arch, params, mb, group, denom)
+
+    def local(micro: List[Dict[str, torch.Tensor]]):
+        """This rank's rows of each micro-batch, each with the
+        micro-batch's mask count over every rank (one all_reduce)."""
+        specs = sharding.batch_pspecs(micro[0])
+        mine = [{k: v[sharding.local_slice(specs[k], v.shape, {"data": dp},
+                                           {"data": rank})]
+                 for k, v in mb.items()} for mb in micro]
+        counts = torch.stack([mb["loss_mask"].float().sum()
+                              if "loss_mask" in mb else
+                              torch.ones_like(mb["targets"],
+                                              dtype=torch.float32).sum()
+                              for mb in mine])
+        denoms = torch.clamp_min(collectives.all_reduce(counts, group), 1.0)
+        return list(zip(mine, denoms.unbind()))
+
+    def global_metrics(metrics: Dict) -> Dict:
+        """The ranks' shares of ce and accuracy summed (one all_reduce);
+        the loss the batch's ce plus its aux."""
+        part = collectives.all_reduce(torch.stack(
+            [metrics["ce"], metrics["accuracy"]]).float(), group)
+        return dict(metrics, loss=part[0] + metrics["aux"], ce=part[0],
+                    accuracy=part[1])
 
     def step(state: Dict, batch: Dict[str, torch.Tensor]) -> Dict:
         params = state["params"]
+        plan = bundle.plan
+        if zero1 and plan is None:
+            raise ValueError("a ZeRO step runs on the state its bundle's "
+                             "init made")
         with record_function("train_step/grads"):
             grads, metrics = grad_lib.accumulate_microbatches(
-                loss_fn, params, batch, shape.microbatches)
+                loss_fn, params, batch, shape.microbatches, plan=plan,
+                local=None if group is None else local)
+            if plan is not None:        # this rank's chunk, one tensor
+                grads = [plan.reduce_scatter(grads)]
+            if group is not None:
+                metrics = global_metrics(metrics)
         if run.grad_clip > 0:
             with record_function("train_step/clip"):
-                grads, gnorm = grad_lib.clip_by_global_norm(grads,
-                                                            run.grad_clip)
+                grads, gnorm = grad_lib.clip_by_global_norm(
+                    grads, run.grad_clip, group)
             metrics = dict(metrics, grad_norm=gnorm)
         with record_function("train_step/update"):
-            opt.update(grads, state["opt"], params)
+            if plan is not None:
+                grads = plan.views(grads[0])
+            opt.update(grads, state["opt"], params, plan)
         return metrics
 
     def to_device(v: np.ndarray) -> torch.Tensor:
@@ -156,16 +261,27 @@ def build_train_step(run: RunConfig, device="cuda") -> StepBundle:
 
     def init(seed: int = 0, params=None) -> Dict:
         """Seeded random parameters in ``arch.param_dtype``, or a copy of
-        ``params`` (the port's layout, e.g. converted JAX weights)."""
+        ``params`` (the port's layout, e.g. converted JAX weights); with
+        ZeRO the optimizer state is this rank's shards of the flat layout
+        (every rank makes the same parameters from the same seed)."""
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
             params = model_lib.init_params(arch, gen, device,
                                            torch_dtype(arch.param_dtype))
-        state = {"opt": opt.init(params)}
+        if zero1:
+            bundle.plan = zero.Plan(
+                params, period=period_length(arch),
+                layer_rows=run.optimizer == "lamb", dp=dp, rank=rank,
+                group=group)
+        state = {"opt": opt.init(params, bundle.plan)}
         dtype = torch_dtype(arch.dtype) if run.master_weights else None
         state["params"] = tree.map(
             lambda p: p.detach().to(device=device, dtype=dtype or p.dtype,
                                     copy=True).requires_grad_(True), params)
         return state
 
-    return StepBundle(fn=StepGraph(step, device), init=init, eager=eager)
+    # gloo's collectives run on the host: no CUDA graph can hold them
+    host = group is not None and dist.get_backend(group) == "gloo"
+    bundle = StepBundle(fn=StepGraph(step, device, capture=not host),
+                        init=init, eager=eager)
+    return bundle

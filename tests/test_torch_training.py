@@ -9,9 +9,11 @@ converted with ``from_jax_params``.
   (``REPRO_FUSED_BLOCKS``; on the CPU both sides run the kernels' plain
   versions);
 - three steps of ``build_train_step`` against JAX's (``zero1=False``, as
-  its trainer): LAMB with the fused kernels' path on and off, with master
+  its trainer, and ``zero1=True``, its step builder's default, on one
+  device): LAMB with the fused kernels' path on and off, with master
   weights on and off, and AdamW; params, ``m``, ``v`` and ``master``
-  within 1e-5 absolute / 1e-4 relative. One exception, AdamW's params
+  (with ``zero1`` in JAX's flat shapes, padding included) within 1e-5
+  absolute / 1e-4 relative. One exception, AdamW's params
   where JAX's first gradient is below 1e-7 (10 eps; about a sixth of the
   elements here, among them the key bias, whose exact gradient is 0):
   AdamW's first step there is g / (|g| + eps), which turns the two
@@ -43,7 +45,9 @@ from repro_torch import tree
 from repro_torch.configs import RunConfig, ShapeConfig, smoke_config
 from repro_torch.data import DataConfig, SyntheticPipeline
 from repro_torch.models import model as model_lib
-from repro_torch.models.convert import from_jax_params, to_jax_layout
+from repro_torch.models.convert import (from_jax_params, state_to_jax,
+                                        to_jax_layout)
+from repro_torch.optim import zero
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.steps import build_train_step
 
@@ -155,7 +159,15 @@ CASES = [dict(optimizer="lamb", fused_optimizer_kernel=False,
          dict(optimizer="lamb", fused_optimizer_kernel=False,
               master_weights=False),
          dict(optimizer="adamw", fused_optimizer_kernel=False,
-              master_weights=True)]
+              master_weights=True),
+         dict(optimizer="lamb", fused_optimizer_kernel=False,
+              master_weights=True, zero1=True),
+         dict(optimizer="lamb", fused_optimizer_kernel=True,
+              master_weights=True, zero1=True),
+         dict(optimizer="lamb", fused_optimizer_kernel=True,
+              master_weights=False, zero1=True),
+         dict(optimizer="adamw", fused_optimizer_kernel=False,
+              master_weights=True, zero1=True)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(
@@ -167,7 +179,7 @@ def test_three_train_steps_match_jax(setup, case):
         first = {k: jnp.asarray(v) for k, v in data.batch(0).items()}
         g0 = jax.grad(lambda p: model.loss(p, first)[0])(params)
         loose = jax.tree.map(lambda g: np.abs(np.asarray(g)) < 1e-7, g0)
-    kw = dict(learning_rate=1e-3, zero1=False, **case)
+    kw = dict({"learning_rate": 1e-3, "zero1": False}, **case)
     j_run = JaxRunConfig(arch=j_arch, shape=JaxShapeConfig(
         "t", seq_len=S, global_batch=B, kind="train"), **kw)
     t_run = RunConfig(arch=t_arch, shape=ShapeConfig(
@@ -191,8 +203,10 @@ def test_three_train_steps_match_jax(setup, case):
     for k in ("m", "v", "master"):
         assert (k in t_state["opt"]) == (k in jp["opt"]), k
         if k in jp["opt"]:
-            _assert_trees_close(to_jax_layout(t_state["opt"][k]),
-                                jp["opt"][k], k)
+            # with zero1 in JAX's flat shapes, padding included
+            got = zero.to_jax_layout(t_state["opt"][k], bundle.plan) \
+                if kw["zero1"] else to_jax_layout(t_state["opt"][k])
+            _assert_trees_close(got, jp["opt"][k], k)
     assert int(t_state["opt"]["step"]) == int(jp["opt"]["step"]) == 3
 
 
@@ -242,14 +256,17 @@ def test_trainer_learns_end_to_end_on_cpu():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """What the trainer still refuses: the ZeRO layout (``zero1=True``).
-    A gradient through the flash kernel, refused until its backward was
-    ported, now trains (``tests/test_torch_flash_grad.py`` holds it
-    against JAX's)."""
+    """What the trainer still refuses: a checkpoint of a ZeRO state (JAX's
+    trainer never writes one: its launcher passes ``zero1=False``, as the
+    port's does). The ZeRO layout itself, refused until it was ported, now
+    trains (``tests/test_torch_zero.py``, ``test_torch_dp_training.py``);
+    so does a gradient through the flash kernel
+    (``tests/test_torch_flash_grad.py`` holds it against JAX's)."""
     _, t_arch = _archs()
     run = RunConfig(arch=t_arch, shape=ShapeConfig("t", 8, 2, "train"))
+    bundle = build_train_step(run, device="cpu")
     with pytest.raises(NotImplementedError, match="ZeRO"):
-        build_train_step(run, device="cpu")
+        state_to_jax(bundle.init(0))
     flash = dataclasses.replace(smoke_config("llama3.2-3b"),
                                 attn_impl="flash")
     bundle = build_train_step(RunConfig(
