@@ -342,6 +342,26 @@ Phases, each printing one line (any failure exits non-zero):
      replicated all-reduce, the step times and peaks printed; nccl with a
      card a rank (the step captured) and llama3.2-3b only where the call
      has two cards;
+  8d. after 8c, training on a (data, model) mesh (mp_phase) under
+     make_rules()'s defaults (tensor, sequence and expert parallelism,
+     FSDP), gloo ranks sharing the card: rows 4 and 6-9 held once against
+     their plain versions at their TP shapes; bert-large (full width and
+     depth, B8 S128, fused, LAMB kernels, fp32 master) on (1, 2), 3 eager
+     steps, and on (2, 2), 2 steps: the step-1 loss within
+     STEP1_LOSS_ULPS of dp=1's (8c); against dp=1's own step 1, a leaf:
+     the master update within TP_UPDATE_REL_L2 (its median within
+     TP_UPDATE_MEDIAN_REL_L2), m (the normalized gradient) within
+     TP_MOMENT_REL_L2, the update's norm within TP_UPDATE_NORM_REL of
+     dp=1's where w != 0 (a control step with model rank 1's partial sums
+     dropped beyond the update limit at every leaf, and one with
+     MP_PLANTED_LEAF's model-axis gradient sum dropped failing a gate
+     there), the ranks holding a block of a leaf bitwise equal after
+     every step, launches a step equal to tp=1's, the collectives equal
+     train.steps.zero_collectives; deepseek-moe-16b at full width with 2
+     of 28 layers on (1, 2), 2 steps, 32 experts a rank holding half the
+     expert bytes, row 4's launches a step equal to 2 a layer; a rank's
+     bytes, ring bytes beside core.distmodel.model_parallel's, step times
+     and peaks printed; nccl only where the call has two cards;
   9. one JSON line of per-kernel numbers (times from CUDA events; the
      untied head its own entry; each kernel of phase 6c's paths with its
      numbers at the new shapes under "vlm_encdec_shapes" or, for flash,
@@ -354,7 +374,9 @@ Phases, each printing one line (any failure exits non-zero):
      "registry_archs" phase 6d's, under "training_families" phase 8b's;
      rows 4, 8, 9 and 11 also carry their launches and numbers on the
      training families' paths, rows 8 and 9 their ZeRO shards' check and
-     their launches on the dp=2 path; "data_parallel" phase 8c's numbers);
+     their launches on the dp=2 path, rows 6-9 their TP shapes and
+     launches under "model_parallel"; "data_parallel" phase 8c's numbers,
+     "model_parallel" phase 8d's);
      a [time] line before it gives the seconds of every phase.
 TF32 is off for matmuls and cuDNN (torch.backends), so fp32 references are
 fp32. Every bound reads the card's peaks from repro_torch.core.roofline
@@ -478,28 +500,39 @@ def _bound(nbytes: float, flops: float, fp32: bool = False):
 
 
 # ---------------------------------------------------------------- phase 3 ---
+KERNEL_WINDOWS = 10     # profiler windows _kernels_a_call may take
+
+
 def _kernels_a_call(fn, name):
     """Fail unless one call of ``fn`` launches exactly the device kernels
     ``DEVICE_NAMES[name]``, one each (torch.profiler; the call is made once
-    before, outside the window). A window with no device record at all,
-    which the profiler delivers now and then in a process's first window,
-    is taken again, up to three times."""
+    before, outside the window). The profiler now and then drops a
+    window's records, all of them or some: a window that holds fewer
+    records than the call's kernels, each of them one it should launch, is
+    taken again, up to KERNEL_WINDOWS windows, a little later each time. A
+    window that holds a kernel the call should not launch, or more
+    records than its kernels, fails at once: a profiler drops records but
+    does not make them up."""
     from torch.profiler import ProfilerActivity, profile
+    want = DEVICE_NAMES[name]
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(KERNEL_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         seen = [e.key for e in prof.key_averages() for _ in range(e.count)
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if seen:
+        stray = [k for k in seen if not any(n in k for n in want)]
+        if stray or len(seen) > len(want):
             break
-    want = DEVICE_NAMES[name]
-    if len(seen) != len(want) or not all(any(n in k for k in seen)
-                                         for n in want):
-        _fail(f"{name}: one call launched {seen} on the card, not one "
-              f"kernel each named {want}")
+        if len(seen) == len(want) and all(any(n in k for k in seen)
+                                          for n in want):
+            return
+        time.sleep(0.1 * (attempt + 1))
+    _fail(f"{name}: one call launched {seen} on the card, not one kernel "
+          f"each named {want} (window {attempt + 1} of at most "
+          f"{KERNEL_WINDOWS}; the profiler's dropped windows are retaken)")
 
 
 def _paged_decode_case(arch, rng, dev, seq_lens, max_pages):
@@ -4319,7 +4352,7 @@ def check_lamb(dev):
                  bound_ms=b2, bound_by=by2)]
 
 
-def check_lamb_shards(dev, gen, sc, lr, hyper, mv_close):
+def check_lamb_shards(dev, gen, sc, lr, hyper, mv_close, shapes=None):
     """Both LAMB stages on a data-parallel rank's ZeRO shards, the way the
     dp phase's step runs them (``ops.lamb_update_shards_``, one buffer of
     partial norms for every leaf): rank 0 of dp=DP's shard of bert-large's
@@ -4331,7 +4364,7 @@ def check_lamb_shards(dev, gen, sc, lr, hyper, mv_close):
     the leaf's largest |w|. No exchange: one rank alone, the same launches
     and buffer layout as the phase's."""
     from repro_torch.kernels.fused_lamb import ops, ref
-    shapes = ((1, 31326208 // DP), (8, 2883584 // DP))
+    shapes = shapes or ((1, 31326208 // DP), (8, 2883584 // DP))
     leaves = []
     for shape in shapes:
         leaves.append((0.02 * torch.randn(shape, generator=gen, device=dev),
@@ -6443,6 +6476,9 @@ def _dp_train(mesh, rank, device, spec):
             out["update_sq"] = _update_sq(
                 bundle.plan, master0, state["opt"]["master"], spec, dev)
             del master0
+            if spec["update"].get("m_path"):     # phase 8d's reference
+                torch.save([t.cpu() for t in tree.leaves(state["opt"]["m"])],
+                           spec["update"]["m_path"])
     out["peak"] = torch.cuda.max_memory_allocated(dev)
     out["peak_above_state"] = out["peak"] - base
     out["n_params"] = sum(p.numel() for p in tree.leaves(state["params"]))
@@ -6497,7 +6533,7 @@ def _dp_split_step1(dev, paths):
     rows' bf16 gradients (the masked mean over the whole batch's count,
     the forward and backward at the ranks' B / DP rows) flattened and
     summed in fp32 in rank order (the reduce-scatter's sum of DP terms),
-    the clip over the whole flat buffer and the LAMB kernels on the whole
+    the clip over the flat leaves and the LAMB kernels on the whole
     flat leaves, then the cast; step 1's params saved to
     ``paths["split"]``. Returned, against dp=1's own step (its master
     update saved at ``paths["update"]``): each flat leaf's master update
@@ -6553,9 +6589,9 @@ def _dp_split_step1(dev, paths):
         whole = torch.autograd.grad(loss, leaves)
         grad_rel = [_rel_l2(a, b) for a, b in zip(summed, whole)]
         del summed, whole
-        (g,), _ = grad_lib.clip_by_global_norm([acc], run.grad_clip)
-        make_optimizer(run).update(plan.views(g), state["opt"], params,
-                                   plan)
+        grads, _ = grad_lib.clip_by_global_norm(plan.views(acc),
+                                                run.grad_clip)
+        make_optimizer(run).update(grads, state["opt"], params, plan)
         upd = [_rel_l2(m - m0, r) for m, m0, r in zip(
             tree.leaves(state["opt"]["master"]), master0, ref)]
         return [p.detach() for p in leaves], upd, grad_rel
@@ -6607,7 +6643,7 @@ def dp_phase(dev, smi):
     tmp = os.path.join(here, "build", "dp_phase")
     os.makedirs(tmp, exist_ok=True)
     paths = {n: os.path.join(tmp, f"{n}.pt")
-             for n in ("replicated", "dp1", "split", "update")}
+             for n in ("replicated", "dp1", "split", "update", "m")}
     rep = _dp_train(None, 0, dev, {"zero1": False, "steps": DP1_STEPS,
                                    "save": paths["replicated"]})
     one = _dp_train(None, 0, dev, {"zero1": True, "steps": DP1_STEPS,
@@ -6615,7 +6651,8 @@ def dp_phase(dev, smi):
                                    "refs": {"replicated":
                                             paths["replicated"]},
                                    "update": {"path": paths["update"],
-                                              "save": True}})
+                                              "save": True,
+                                              "m_path": paths["m"]}})
     split = _dp_split_step1(dev, paths)
 
     def spread(rel, paths_):
@@ -6813,11 +6850,638 @@ def dp_phase(dev, smi):
               f"{DP} cards; llama's training state alone is about 42 GiB at "
               f"dp=1)")
         out["nccl"] = "not run: one card"
-    for path in paths.values():
-        os.remove(path)
+    for name, path in paths.items():
+        if name not in ("update", "m"):     # phase 8d reads these two
+            os.remove(path)
+    out["update_path"], out["m_path"] = paths["update"], paths["m"]
     out["phase_s"] = time.perf_counter() - t0
     print(f"[dp] phase {out['phase_s']:.1f} s (dp=1 runs {t1 - t0:.1f} s, "
           f"dp={DP} spawn and steps {t2 - t1:.1f} s)")
+    return out
+
+
+# ----------------------------------------------------------- phase 8d ---
+# Training on a (data, model) mesh: bert-large at full width and depth, B8
+# S128, fused blocks and the LAMB kernels, fp32 master, make_rules()'s
+# defaults (tensor, sequence and expert parallelism, FSDP), gloo ranks
+# sharing the card; deepseek-moe-16b at full width with 2 of its layers.
+MP_STEPS, MP4_STEPS, MP_MOE_STEPS, MP_MOE_LAYERS = 3, 2, 2, 2
+# the (1, 2) step-1 update of the fp32 master weights against dp=1's own
+# step (phase 8c), a parameter leaf at a time: ||du_tp - du_1|| / ||du_1||.
+# Predicted in PERF.md before the first reading; the control step (model
+# rank 1's partial sums dropped at every exit of the tensor-parallel
+# region) must land beyond it at every leaf.
+TP_UPDATE_REL_L2 = 0.15
+# LAMB's step 1 is about lr r sign(g), so that gate reads sign flips of
+# cancelling sums and is loose for most leaves. Three tighter gates, each
+# predicted in PERF.md before its first reading: the median leaf's update
+# rel-L2 (the control's median reads 1.408); step 1's m, which is
+# (1 - beta1) g / ||g||, the gradient itself, rel-L2 a leaf; and the norm
+# of each update whose trust ratio comes from norms (w != 0), which a
+# right ratio makes lr ||w|| exactly, so a ratio off by 1e-3 shows.
+TP_UPDATE_MEDIAN_REL_L2 = 0.05
+TP_MOMENT_REL_L2 = 0.05
+TP_UPDATE_NORM_REL = 1e-3
+# the planted fault: this leaf's gradient left as model rank r's partial
+# sum (its model-axis sum dropped); it must fail a gate at that leaf
+MP_PLANTED_LEAF = "blocks/0/attn/bo"
+
+
+def _mp_train(mesh, rank, device, specs):
+    """One rank's runs of phase 8d, ``specs`` in turn (a list: each a
+    dict with ``arch``, ``layers`` (None: all), ``steps``, ``rules``
+    (``make_rules`` keywords), ``ref`` (the files of dp=1's param-shaped
+    step-1 master update and ``m``, or None), ``control`` (model rank 1's
+    partial sums dropped at every ``Parallel.exit``) and ``plant`` (a
+    leaf whose gradient keeps the rank's partial sum: its model-axis sum
+    dropped)). Each from the seeded fp32 init, LAMB at 1e-3, eager steps
+    each ended by reading its loss; kept a step: the loss, grad norm,
+    launches of the training kernels, the collectives by kind and their
+    ring bytes, the host time and a digest of each bf16 param block; the
+    rank's bytes (params, m, v, master, the experts' params), its peak
+    memory, and against ``ref`` each leaf's sums on this rank's block
+    (``_mp_update_sums``)."""
+    import faulthandler
+    from repro_torch import tree
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.bias_gelu import ops as bg_ops
+    from repro_torch.kernels.fused_lamb import ops as lamb_ops
+    from repro_torch.kernels.fused_layernorm import ops as ln_ops
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.train.steps import build_train_step, zero_collectives
+    faulthandler.dump_traceback_later(300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["REPRO_FUSED_BLOCKS"] = "1"
+    dev = torch.device(device)
+    outs = []
+    kinds = ("all_reduce", "reduce_scatter", "all_gather",
+             "all_reduce_bytes", "reduce_scatter_bytes", "all_gather_bytes")
+    counters = (ln_ops.LAUNCHES, bg_ops.LAUNCHES, lamb_ops.LAUNCHES)
+    for spec in specs:
+        arch = get_config(spec["arch"])
+        if spec["layers"]:
+            arch = dataclasses.replace(arch, num_layers=spec["layers"])
+        run = RunConfig(arch=arch, shape=ShapeConfig(
+            "mp", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
+            optimizer="lamb", learning_rate=1e-3, zero1=True,
+            fused_optimizer_kernel=True, master_weights=True)
+        bundle = build_train_step(run, dev, mesh=mesh,
+                                  rules=sharding.make_rules(**spec["rules"]))
+        state = bundle.init(params=init_params(
+            arch, torch.Generator(device=dev).manual_seed(SEED), dev,
+            torch.float32))
+        gc.collect()
+        torch.cuda.empty_cache()
+        plan, ax = bundle.plan, bundle.mesh
+        data = SyntheticPipeline(DataConfig(
+            vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH, objective="mlm" if arch.bidirectional
+            else "causal", seed=SEED))
+
+        def nbytes(t):
+            return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+        out = {"arch": arch.name, "layers": arch.num_layers,
+               "rules": spec["rules"], "coords": ax.coords,
+               "sizes": ax.sizes, "specs": bundle.specs,
+               "control": spec.get("control", False),
+               "bytes": {"params": nbytes(state["params"]),
+                         **{k: nbytes(state["opt"][k])
+                            for k in ("m", "v", "master")},
+                         "experts": sum(
+                             t.numel() * t.element_size()
+                             for path, t in sharding.leaf_items(
+                                 state["params"]) if "experts" in path)},
+               "stated": zero_collectives(run, ax.dp, ax.tp, ax.rules,
+                                          bundle.specs),
+               "losses": [], "grad_norms": [], "step_s": [], "launches": [],
+               "collectives": [], "digests": []}
+        master0 = plan.blocks(state["opt"]["master"], state["params"]) \
+            if spec.get("ref") else None
+        if spec.get("plant"):
+            paths = ["/".join(p) for p, _ in
+                     sharding.leaf_items(bundle.specs)]
+            bundle.partial.remove(paths.index(spec["plant"]))
+        restore = None
+        if spec.get("control"):
+            restore = collectives.Parallel.exit
+
+            def dropped(self, y, _exit=restore):
+                return _exit(self, y * 0 if self.mrank == 1 else y)
+            collectives.Parallel.exit = dropped
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(spec["steps"]):
+            before = [dict(c) for c in counters]
+            coll0 = {k: collectives.COUNTS[k] for k in kinds}
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, met = bundle.eager(state, data.batch(i))
+            out["losses"].append(float(met["loss"]))
+            out["step_s"].append(time.perf_counter() - t0)
+            out["grad_norms"].append(float(met["grad_norm"]))
+            out["launches"].append({k: c[k] - b[k] for c, b in
+                                    zip(counters, before) for k in c})
+            out["collectives"].append({k: collectives.COUNTS[k] - coll0[k]
+                                       for k in kinds})
+            out["digests"].append(_state_digest(state["params"]))
+            if i == 0 and master0 is not None:
+                out["update_sq"] = _mp_update_sums(
+                    bundle, state, master0, spec["ref"], arch, dev)
+                master0 = None
+        if restore is not None:
+            collectives.Parallel.exit = restore
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+        out["units"] = [[u.rows, plan.cols(i)]
+                        for i, u in enumerate(plan.units)]
+        outs.append(out)
+        del state, bundle, plan
+        gc.collect()
+        torch.cuda.empty_cache()
+    faulthandler.cancel_dump_traceback_later()
+    return outs
+
+
+def _mp_update_sums(bundle, state, master0, ref, arch, dev) -> list:
+    """Step 1 against dp=1's on this rank's block of every leaf, each a
+    dict of sums: ``sq`` / ``ref_sq`` / ``own_sq``, the squares of the
+    master update's difference, of dp=1's update and of this one;
+    ``w_sq``, the squares of the weights before the step; ``flips``, the
+    elements whose update has the other sign than dp=1's, ``flip_sq``
+    their share of ``sq`` and ``flip_m``, the sum of their dp=1 |m|;
+    ``m_sq`` / ``m_ref_sq``, the squares of step 1's ``m`` difference and
+    of dp=1's ``m``; ``n``, the elements."""
+    from repro_torch import tree
+    from repro_torch.parallel import sharding
+    plan, ax = bundle.plan, bundle.mesh
+    upd = tree.leaves(plan.blocks(state["opt"]["master"], state["params"]))
+    mom = tree.leaves(plan.blocks(state["opt"]["m"], state["params"]))
+    refs = [torch.load(ref[k]) for k in ("update", "m")]
+    out = []
+    for (path, sp), a, b, m, r, rm in zip(
+            sharding.leaf_items(bundle.specs), upd, tree.leaves(master0),
+            mom, *refs):
+        idx = sharding.train_block_index(path, r.shape, sp, arch, ax.sizes,
+                                         ax.coords)
+        r, rm = r[idx].to(dev), rm[idx].to(dev)
+        d = a - b
+        flip = d * r < 0
+        gap = torch.square(d - r)
+        out.append({k: float(v) for k, v in {
+            "sq": gap.sum(), "ref_sq": torch.square(r).sum(),
+            "own_sq": torch.square(d).sum(),
+            "w_sq": torch.square(b).sum(), "flips": flip.sum(),
+            "flip_sq": gap[flip].sum(), "flip_m": rm.abs()[flip].sum(),
+            "m_sq": torch.square(m - rm).sum(),
+            "m_ref_sq": torch.square(rm).sum(), "n": r.numel()}.items()})
+    return out
+
+
+def _mp_leaf_readings(held) -> dict:
+    """A leaf's step-1 readings from the sums of the ranks holding its
+    distinct blocks: the update rel-L2, the m rel-L2, the update norm's
+    ratio to dp=1's (None where the weights are 0: the ratio is then 1 by
+    definition), the share of elements whose update sign flips, those
+    flips' share of the squared gap, and their mean dp=1 |m| over the
+    leaf's RMS |m| (and the flips and elements themselves)."""
+    tot = {k: sum(r[k] for r in held) for k in held[0]}
+    return {
+        "update": math.sqrt(tot["sq"] / max(tot["ref_sq"], 1e-60)),
+        "m": math.sqrt(tot["m_sq"] / max(tot["m_ref_sq"], 1e-60)),
+        "norm": (math.sqrt(tot["own_sq"] / max(tot["ref_sq"], 1e-60))
+                 if tot["w_sq"] > 0 else None),
+        "flips": tot["flips"], "n": tot["n"],
+        "flip_share": tot["flips"] / tot["n"],
+        "flip_gap_share": tot["flip_sq"] / max(tot["sq"], 1e-60),
+        "flip_m_over_rms": (tot["flip_m"] / max(tot["flips"], 1)
+                            / max(math.sqrt(tot["m_ref_sq"] / tot["n"]),
+                                  1e-60))}
+
+
+def _distinct(ranks, j, axes_of):
+    """The ranks holding distinct blocks of leaf ``j`` (one a block)."""
+    seen, out = set(), []
+    for r in ranks:
+        key = tuple(r["coords"][a] for a in axes_of)
+        if key not in seen:
+            seen.add(key)
+            out.append(r)
+    return out
+
+
+def _leaf_axes(sp) -> list:
+    from repro_torch.parallel import sharding
+    return sorted({a for e in sp for a in sharding._axes(e)})
+
+
+def _mp_kernel_checks(dev) -> dict:
+    """Rows 4 and 6-9 at their shapes on the TP path, each held once
+    against its plain version with phase 3's tolerances: the add +
+    layernorm on a rank's [B S / tp, 1024] rows at tp 2 (and at the (2, 2)
+    mesh's [B S / (dp tp), 1024]), bias + GeLU on [B S / dp, 4096 / tp]
+    for both meshes, deepseek's add + RMSNorm (row 4) on a (1, 2) rank's
+    [B S / tp, 2048] rows, the LAMB stages on a rank's shards (the (2, 2)
+    mesh's FSDP slice of the embedding, a norm's ZeRO columns, and
+    deepseek's 32 experts of a (1, 2) rank); event and device times
+    beside the byte bounds (the profiler's window may fail: then null)."""
+    from repro_torch.kernels.bias_gelu import ops as bg, ref as bg_ref
+    from repro_torch.kernels.fused_layernorm import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    d, out = 1024, {}
+    for rows in (TRAIN_BATCH * TRAIN_SEQ // 2, TRAIN_BATCH * TRAIN_SEQ // 4):
+        x = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        r = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+        s = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                   device=dev)).bfloat16()
+        b = (0.1 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
+        y = ops.fused_residual_layernorm(x, r, s, b)
+        p = ref.fused_residual_layernorm(x, r, s, b)
+        pre = ref.fused_residual_layernorm(x, r, s)
+        diff = (y.float() - p.float()).abs()
+        if not bool((diff <= _ln_tol(p, pre)).all()):
+            _fail(f"fused_residual_layernorm [{rows}, {d}] (TP rows): "
+                  f"beyond 1 bf16 ulp of its plain version (max abs "
+                  f"{diff.max().item()})")
+        bound, by = _bound(3 * rows * d * 2 + 2 * d * 2, 10.0 * rows * d,
+                           fp32=True)
+        out[f"fused_residual_layernorm [{rows}, {d}]"] = {
+            "max_abs_err": diff.max().item(),
+            "ms": _time_ms(lambda: ops.fused_residual_layernorm(x, r, s, b),
+                           200),
+            "device_ms": _profiled_ms(
+                lambda: ops.fused_residual_layernorm(x, r, s, b),
+                ("resln_kernel",)), "bound_ms": bound, "bound_by": by}
+    f = 4096 // 2
+    for rows in (TRAIN_BATCH * TRAIN_SEQ, TRAIN_BATCH * TRAIN_SEQ // 2):
+        b = (0.5 * torch.randn((f,), generator=gen, device=dev)).bfloat16()
+        x = (2 * torch.randn((rows, f), generator=gen,
+                             device=dev)).bfloat16()
+        y = bg.bias_gelu(x, b).float()
+        h = x.float() + b.float()
+        p32 = bg_ref.bias_gelu(x.float(), b.float()).bfloat16().float()
+        diff = (y - p32).abs()
+        if not bool((diff <= _bf16_ulp(p32) + h.abs() * GELU_TAIL).all()):
+            _fail(f"bias_gelu [{rows}, {f}] (TP columns): beyond 1 bf16 ulp "
+                  f"+ |h| 2^-22 of its plain version in fp32 (max abs "
+                  f"{diff.max().item()})")
+        bound, by = _bound(2 * rows * f * 2 + f * 2, 9.0 * rows * f,
+                           fp32=True)
+        out[f"bias_gelu [{rows}, {f}]"] = {
+            "max_abs_err": diff.max().item(),
+            "ms": _time_ms(lambda: bg.bias_gelu(x, b), 200),
+            "device_ms": _profiled_ms(lambda: bg.bias_gelu(x, b),
+                                      ("bias_gelu_kernel",)),
+            "bound_ms": bound, "bound_by": by}
+        del x, y, h, p32, diff
+    # deepseek's pre-norm blocks on a (1, 2) rank's sequence shard
+    rows, d = TRAIN_BATCH * TRAIN_SEQ // 2, 2048
+    x = torch.randn((rows, d), generator=gen, device=dev).bfloat16()
+    y = (0.5 * torch.randn((rows, d), generator=gen, device=dev)).bfloat16()
+    sc = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
+    h, x2 = ops.decode_residual_norm(y, x, sc, kind="rmsnorm")
+    ph, px2 = ref.decode_residual_norm(y, x, sc, kind="rmsnorm")
+    diff = (h.float() - ph.float()).abs()
+    if not torch.equal(x2.view(torch.int16), px2.view(torch.int16)) or \
+            not bool((diff <= _bf16_ulp(ph)).all()):
+        _fail(f"decode_residual_norm [{rows}, {d}] (TP rows): x + y not "
+              f"bitwise or the norm off by more than 1 bf16 ulp (max abs "
+              f"{diff.max().item()})")
+    # x, y read, x + y and the norm written; the scale read
+    bound, by = _bound(4 * rows * d * 2 + d * 2, 5.0 * rows * d, fp32=True)
+    out[f"decode_residual_norm [{rows}, {d}]"] = {
+        "max_abs_err": diff.max().item(),
+        "ms": _time_ms(lambda: ops.decode_residual_norm(
+            y, x, sc, kind="rmsnorm"), 200),
+        "device_ms": _profiled_ms(lambda: ops.decode_residual_norm(
+            y, x, sc, kind="rmsnorm"), DEVICE_NAMES["decode_residual_norm"]),
+        "bound_ms": bound, "bound_by": by}
+    del x, y, h, x2, ph, px2, diff
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
+    sc = torch.tensor([0.7, 10.0, 1000.0], device=dev)
+
+    def mv_close(a, p):
+        ulp = torch.exp2(torch.floor(torch.log2(p.abs().clamp_min(
+            2.0 ** -126))) - 23)
+        return bool(((a - p).abs() <= 2 * ulp).all())
+    shapes = ((1, 30592 // 2 * 1024 // 2), (1, 1024 // 2),
+              (32, 2048 * 1408))
+    out["lamb shards"] = check_lamb_shards(dev, gen, sc, 1e-3, hyper,
+                                           mv_close, shapes=shapes)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_phase(dev, smi, dp_out, tp1_per_step):
+    """Phase 8d: training on a (data, model) mesh, gloo ranks sharing the
+    card. (a) (1, 2): bert-large MP_STEPS eager steps; deepseek-moe-16b
+    at MP_MOE_LAYERS layers, MP_MOE_STEPS steps, 32 experts a rank; a
+    control step of bert-large with model rank 1's partial sums dropped;
+    and one with MP_PLANTED_LEAF's model-axis gradient sum dropped. (b)
+    (2, 2): bert-large MP4_STEPS steps, FSDP live. Gated: the step-1 loss
+    within STEP1_LOSS_ULPS of dp=1's (phase 8c, the same weights and
+    batch); against dp=1's own step 1, a leaf (over the ranks' distinct
+    blocks): the master update within TP_UPDATE_REL_L2 and its median
+    within TP_UPDATE_MEDIAN_REL_L2, m within TP_MOMENT_REL_L2, and the
+    update's norm within 1 +- TP_UPDATE_NORM_REL of dp=1's where w != 0;
+    the first control beyond the update limit at every leaf, the planted
+    leaf failing a gate on each model rank; the ranks holding the same
+    block of a leaf bitwise equal after every step; the training kernels'
+    launches a step equal to tp=1's (phase 8), deepseek's equal to its
+    stated count; the collectives a step by kind equal
+    ``zero_collectives``; deepseek's expert bytes a rank half of the
+    whole; losses finite. Printed: a rank's bytes, the collectives' ring
+    bytes beside ``core.distmodel.model_parallel``'s, step times, peaks.
+    With two or more cards, nccl at (1, 2) with a card a rank."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import distmodel
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import zero
+    t0 = time.perf_counter()
+    kern = _mp_kernel_checks(dev)
+    # dp=1's step-1 master update and m, param-shaped (their flat leaves
+    # unflattened)
+    arch = get_config("bert-large")
+    shapes = init_params(arch, torch.Generator(device=dev).manual_seed(SEED),
+                         dev, torch.bfloat16)
+    tp1_param_bytes = sum(t.numel() * t.element_size()
+                          for t in tree.leaves(shapes))
+    plan = zero.Plan(shapes, layer_rows=True)
+    ref = {}
+    for k in ("update", "m"):
+        ref[k] = os.path.join(os.path.dirname(dp_out[f"{k}_path"]),
+                              f"{k}_params.pt")
+        flat = [t.to(dev) for t in torch.load(dp_out[f"{k}_path"])]
+        torch.save([t.cpu() for t in tree.leaves(
+            plan.blocks(plan.state(flat), shapes))], ref[k])
+        os.remove(dp_out[f"{k}_path"])
+    del shapes, plan, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    bert = {"arch": "bert-large", "layers": None, "rules": {}}
+    two = mesh_lib.spawn(_mp_train, 2, [
+        dict(bert, steps=MP_STEPS, ref=ref),
+        dict(bert, steps=1, ref=ref, control=True),
+        {"arch": "deepseek-moe-16b", "layers": MP_MOE_LAYERS,
+         "rules": {}, "steps": MP_MOE_STEPS, "ref": None},
+        dict(bert, steps=1, ref=ref, plant=MP_PLANTED_LEAF)],
+        backend="gloo", device=str(dev), mesh=((1, 2), ("data", "model")),
+        timeout=600)
+    t2 = time.perf_counter()
+    four = mesh_lib.spawn(_mp_train, 4, [dict(bert, steps=MP4_STEPS,
+                                              ref=ref)],
+                          backend="gloo", device=str(dev),
+                          mesh=((2, 2), ("data", "model")), timeout=600)
+    t3 = time.perf_counter()
+    for path in ref.values():
+        os.remove(path)
+    dp1_loss = dp_out["dp1"]["losses"][0]
+    loss_ulp = _bf16_ulp(torch.tensor(dp1_loss)).item()
+
+    def check_run(ranks, i, name):
+        runs = [r[i] for r in ranks]
+        lead = runs[0]
+        for r in runs[1:]:
+            if r["losses"] != lead["losses"]:
+                _fail(f"{name}: ranks' losses differ")
+        specs = lead["specs"]
+        from repro_torch.parallel import sharding
+        items = sharding.leaf_items(specs)
+        for step in range(len(lead["digests"])):
+            for j, (path, sp) in enumerate(items):
+                axes = _leaf_axes(sp)
+                seen = {}
+                for r in runs:
+                    key = tuple(r["coords"][a] for a in axes)
+                    dg = r["digests"][step][j]
+                    if seen.setdefault(key, dg) != dg:
+                        _fail(f"{name} step {step + 1}: the ranks holding "
+                              f"block {key} of {'/'.join(path)} differ")
+        for r in runs:
+            for k, c in enumerate(r["collectives"]):
+                got = {kk: c[kk] for kk in r["stated"]}
+                if got != r["stated"]:
+                    _fail(f"{name} step {k + 1} rank {r['coords']}: "
+                          f"collectives {got}, stated {r['stated']}")
+        if not all(math.isfinite(x) for x in lead["losses"]):
+            _fail(f"{name}: losses {lead['losses']}")
+        return lead, _readings(runs), ["/".join(p) for p, _ in items]
+
+    def _readings(runs):
+        """Each leaf's step-1 readings (``_mp_leaf_readings``) over the
+        ranks holding its distinct blocks, by kind; None without a
+        reference."""
+        if "update_sq" not in runs[0]:
+            return None
+        from repro_torch.parallel import sharding
+        per = [_mp_leaf_readings([r["update_sq"][j] for r in _distinct(
+            runs, j, _leaf_axes(sp))]) for j, (_, sp) in enumerate(
+                sharding.leaf_items(runs[0]["specs"]))]
+        return {k: [x[k] for x in per] for k in per[0]}
+
+    def gates(rd):
+        """The step-1 gates a run's readings ``rd`` fail, by name, each
+        with its worst leaf index and reading."""
+        out = {}
+        worst = int(np.argmax(rd["update"]))
+        if not rd["update"][worst] <= TP_UPDATE_REL_L2:
+            out["update"] = (worst, rd["update"][worst])
+        med = float(np.median(rd["update"]))
+        if not med <= TP_UPDATE_MEDIAN_REL_L2:
+            out["update median"] = (None, med)
+        worst = int(np.argmax(rd["m"]))
+        if not rd["m"][worst] <= TP_MOMENT_REL_L2:
+            out["m"] = (worst, rd["m"][worst])
+        dev_ = [abs(x - 1) if x is not None else -1.0 for x in rd["norm"]]
+        worst = int(np.argmax(dev_))
+        if not dev_[worst] <= TP_UPDATE_NORM_REL:
+            out["update norm"] = (worst, rd["norm"][worst])
+        return out
+
+    results = {}
+    for label, ranks, i in (("(1, 2)", two, 0), ("(2, 2)", four, 0)):
+        lead, rd, paths = check_run(ranks, i, f"bert-large {label}")
+        gap = abs(lead["losses"][0] - dp1_loss) / loss_ulp
+        if not gap <= STEP1_LOSS_ULPS:
+            _fail(f"bert-large {label}: step-1 loss {lead['losses'][0]} is "
+                  f"{gap} bf16 ulps from dp=1's {dp1_loss} (tol "
+                  f"{STEP1_LOSS_ULPS})")
+        for name, (j, x) in gates(rd).items():
+            _fail(f"bert-large {label}: step-1 {name} reads {x}"
+                  + (f" at {paths[j]}" if j is not None else "")
+                  + f" (limits: update {TP_UPDATE_REL_L2}, its median "
+                  f"{TP_UPDATE_MEDIAN_REL_L2}, m {TP_MOMENT_REL_L2}, norm "
+                  f"ratio 1 +- {TP_UPDATE_NORM_REL})")
+        update = rd["update"]
+        for k, per in enumerate(lead["launches"]):
+            for name, want in tp1_per_step.items():
+                if per[name] != want:
+                    _fail(f"bert-large {label} step {k + 1}: {name} "
+                          f"{per[name]} launches, tp=1's {want}")
+        results[label] = {"lead": lead, "update": update, "paths": paths,
+                          "readings": rd, "loss_gap_ulps": gap,
+                          "peaks": [r[i]["peak"] for r in ranks]}
+    control, crd, cpaths = check_run(two, 1, "bert-large control")
+    cupdate = crd["update"]
+    best = int(np.argmin(cupdate))
+    if not cupdate[best] > TP_UPDATE_REL_L2:
+        _fail(f"the control step (model rank 1's partial sums dropped) "
+              f"lands within {TP_UPDATE_REL_L2} of dp=1's update at "
+              f"{cpaths[best]} ({cupdate[best]}): the gate would not see it")
+    # the planted fault: the ranks hold other values of the leaf, so each
+    # model rank's own reading of it is judged
+    j = cpaths.index(MP_PLANTED_LEAF)
+    planted = [_mp_leaf_readings([r[3]["update_sq"][j]]) for r in two]
+    caught = [sorted(k for k, (jj, _) in gates(
+        {k: [p[k]] for k in p}).items() if jj is not None)
+        for p in planted]
+    if not all(caught):
+        _fail(f"the planted fault ({MP_PLANTED_LEAF}'s model-axis sum "
+              f"dropped) fails no gate on a model rank: {planted}")
+    moe, _, _ = check_run(two, 2, "deepseek-moe-16b (1, 2)")
+    ds = dataclasses.replace(get_config("deepseek-moe-16b"),
+                             num_layers=MP_MOE_LAYERS)
+    moe_layers = sum(ds.is_moe_layer(i) for i in range(ds.num_layers))
+    eff = ds.moe.expert_ff or ds.d_ff
+    whole_experts = moe_layers * 3 * ds.moe.num_experts * ds.d_model * eff * 2
+    if moe["bytes"]["experts"] * 2 != whole_experts:
+        _fail(f"deepseek (1, 2): a rank holds {moe['bytes']['experts']} "
+              f"expert bytes, not half of the whole {whole_experts}")
+    # its pre-norm blocks: a mixer add + ln2 a layer (twice under remat),
+    # on the rank's B S / tp rows; a LAMB stage a flat leaf
+    moe_want = {"decode_residual_norm": (2 if ds.remat else 1)
+                * ds.num_layers, "fused_residual_layernorm": 0,
+                "bias_gelu": 0, "lamb_stage1": len(moe["units"]),
+                "lamb_stage2": len(moe["units"])}
+    for k, per in enumerate(moe["launches"]):
+        got = {name: per[name] for name in moe_want}
+        if got != moe_want:
+            _fail(f"deepseek (1, 2) step {k + 1}: launches {got}, stated "
+                  f"{moe_want}")
+    one = dp_out["dp1"]
+    lead2, lead4 = results["(1, 2)"]["lead"], results["(2, 2)"]["lead"]
+    model = distmodel.model_parallel(arch, TRAIN_BATCH, TRAIN_SEQ, 2)
+
+    def spread(rel, names):
+        i = int(np.argmax(rel))
+        return (f"max {rel[i]:.4g} ({names[i]}), median "
+                f"{float(np.median(rel)):.4g}")
+
+    def ring(c):
+        return {k: c[f"{k}_bytes"] for k in ("all_reduce", "reduce_scatter",
+                                              "all_gather")}
+    for label in ("(1, 2)", "(2, 2)"):
+        res = results[label]
+        ld = res["lead"]
+        print(f"[mp] bert-large {label} (data, model) over gloo, ranks on "
+              f"one card, make_rules() defaults, B{TRAIN_BATCH} "
+              f"S{TRAIN_SEQ}, fused, LAMB kernels, fp32 master: losses "
+              f"{[round(x, 5) for x in ld['losses']]} (dp=1 "
+              f"{[round(x, 5) for x in one['losses'][:len(ld['losses'])]]}); "
+              f"step-1 loss {res['loss_gap_ulps']:.3f} bf16 ulps from "
+              f"dp=1's; master update rel-L2 against dp=1's a leaf "
+              f"{spread(res['update'], res['paths'])} (limit "
+              f"{TP_UPDATE_REL_L2}); ranks holding a block bitwise equal "
+              f"every step; launches a step {ld['launches'][0]} (tp=1 "
+              f"{tp1_per_step}); collectives a step "
+              f"{ {k: ld['collectives'][0][k] for k in ld['stated']} } = "
+              f"stated; ring bytes a rank a step {ring(ld['collectives'][0])}"
+              f"; rank bytes {ld['bytes']} against dp=1's params "
+              f"{tp1_param_bytes} and optimizer bytes {one['opt_bytes']}; step "
+              f"{[round(t * 1e3, 1) for t in ld['step_s']]} ms (gloo host "
+              f"round trips: not a speed figure); peaks "
+              f"{[round(p / 2**30, 3) for p in res['peaks']]} GiB (dp=1 "
+              f"{one['peak'] / 2**30:.3f}); {smi}", flush=True)
+    print(f"[mp] the paper's M1 (core.distmodel.model_parallel(bert-large, "
+          f"{TRAIN_BATCH}, {TRAIN_SEQ}, 2)): comm_bytes "
+          f"{model.comm_bytes:.0f} B (4 activation all-reduces a layer, "
+          f"fp32, no remat, no embedding or cross entropy); the (1, 2) "
+          f"step's ring bytes a rank {ring(lead2['collectives'][0])}: "
+          f"sequence parallelism turns each all-reduce into a reduce-"
+          f"scatter and an all-gather (the same ring bytes), remat "
+          f"re-runs the forward's, and the vocab-parallel embedding, "
+          f"logits, cross entropy and the partial gradients' sum add "
+          f"theirs; control: update rel-L2 min {cupdate[best]:.4g} "
+          f"({cpaths[best]}), median {float(np.median(cupdate)):.4g}, m "
+          f"rel-L2 min {min(crd['m']):.4g}; planted ({MP_PLANTED_LEAF}'s "
+          f"model-axis sum dropped), model ranks 0 / 1: update rel-L2 "
+          f"{planted[0]['update']:.4g} / {planted[1]['update']:.4g}, m "
+          f"rel-L2 {planted[0]['m']:.4g} / {planted[1]['m']:.4g}, gates "
+          f"failed {caught}")
+    for label in ("(1, 2)", "(2, 2)"):
+        rd, names = results[label]["readings"], results[label]["paths"]
+        norm = [abs(x - 1) for x in rd["norm"] if x is not None]
+        w = int(np.argmax(rd["update"]))
+        print(f"[mp] bert-large {label} step 1 against dp=1's, a leaf: m "
+              f"rel-L2 {spread(rd['m'], names)} (limit {TP_MOMENT_REL_L2});"
+              f" update median {float(np.median(rd['update'])):.4g} (limit "
+              f"{TP_UPDATE_MEDIAN_REL_L2}); |update norm ratio - 1| max "
+              f"{max(norm):.3e} over the {len(norm)} leaves with w != 0 "
+              f"(limit {TP_UPDATE_NORM_REL}); worst update leaf "
+              f"{names[w]}: {rd['flips'][w]:.0f} of {rd['n'][w]:.0f} "
+              f"elements flip sign, carrying "
+              f"{rd['flip_gap_share'][w]:.4f} of its squared gap, their "
+              f"dp=1 |m| {rd['flip_m_over_rms'][w]:.4g} of the leaf's RMS; "
+              f"all leaves: flips {spread(rd['flip_share'], names)}; {smi}")
+    print(f"[mp] deepseek-moe-16b (1, 2), {MP_MOE_LAYERS} of "
+          f"{get_config('deepseek-moe-16b').num_layers} layers (depth cut "
+          f"to fit the phase), full width, 32 experts a rank: losses "
+          f"{[round(x, 5) for x in moe['losses']]}, grad norms "
+          f"{[round(x, 4) for x in moe['grad_norms']]}, rank bytes "
+          f"{moe['bytes']} (experts half the whole's {whole_experts}); "
+          f"collectives a step {moe['collectives'][0]}; step "
+          f"{[round(t * 1e3, 1) for t in moe['step_s']]} ms; {smi}")
+    print("[mp] kernels at TP shapes: " + "; ".join(
+        f"{k}: max abs err {v['max_abs_err']:.3e}, events {v['ms']:.5f} "
+        f"ms, device {_ms(v['device_ms'])} ms, bound {v['bound_ms']:.6f}"
+        for k, v in kern.items() if k != "lamb shards")
+        + f"; LAMB shards {kern['lamb shards']['shapes']}: ratio rel "
+        f"{kern['lamb shards']['ratio_rel_err']:.3e}")
+    cards = torch.cuda.device_count()
+    out = {"card": smi, "cards": cards, "backend": "gloo",
+           "kernels": kern, "control_update_rel_l2": cupdate,
+           "tp1_param_bytes": tp1_param_bytes,
+           "distmodel_m1_comm_bytes": model.comm_bytes,
+           "deepseek_moe_16b": {k: moe[k] for k in (
+               "layers", "losses", "grad_norms", "step_s", "bytes",
+               "collectives", "stated", "peak", "units", "launches")},
+           "planted": {"leaf": MP_PLANTED_LEAF, "model_ranks": planted,
+                       "gates_failed": caught},
+           "spawn_s": {"(1, 2)": t2 - t1, "(2, 2)": t3 - t2}}
+    for label, res in results.items():
+        ld = res["lead"]
+        out[label] = {"losses": ld["losses"], "grad_norms": ld["grad_norms"],
+                      "step_s": ld["step_s"], "bytes": ld["bytes"],
+                      "launches": ld["launches"],
+                      "collectives": ld["collectives"],
+                      "stated": ld["stated"], "peaks": res["peaks"],
+                      "update_rel_l2": res["update"],
+                      "step1_readings": {k: res["readings"][k] for k in
+                                         ("m", "norm", "flips")},
+                      "loss_gap_bf16_ulps": res["loss_gap_ulps"]}
+    out["leaf_paths"] = results["(1, 2)"]["paths"]
+    if cards >= 2:
+        t4 = time.perf_counter()
+        nccl = mesh_lib.spawn(_mp_train, 2, [dict(bert, steps=2, ref=None)],
+                              backend="nccl",
+                              mesh=((1, 2), ("data", "model")), timeout=600)
+        lead, _, _ = check_run(nccl, 0, "bert-large (1, 2) nccl")
+        out["nccl"] = {k: lead[k] for k in ("losses", "step_s", "peak")}
+        print(f"[mp] nccl (1, 2), a card a rank: losses {lead['losses']}, "
+              f"step {[round(t * 1e3, 1) for t in lead['step_s']]} ms; "
+              f"{time.perf_counter() - t4:.1f} s")
+    else:
+        out["nccl"] = "not run: one card"
+        print(f"[mp] {cards} card: nccl with a card a rank was not run "
+              f"(it needs 2 cards)")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[mp] phase {out['phase_s']:.1f} s (kernel checks and the "
+          f"reference {t1 - t0:.1f} s, (1, 2) spawn {t2 - t1:.1f} s, (2, 2) "
+          f"spawn {t3 - t2:.1f} s)")
     return out
 
 
@@ -6981,6 +7645,8 @@ def main() -> int:
     marks["tp"] = time.perf_counter()
     data_parallel = dp_phase(dev, smi)
     marks["dp"] = time.perf_counter()
+    model_parallel = mp_phase(dev, smi, data_parallel, training["per_step"])
+    marks["mp"] = time.perf_counter()
     prev = t_start
     spans = []
     for name, t in marks.items():
@@ -7000,7 +7666,8 @@ def main() -> int:
           f"mamba2-1.3b, checkpoint) {families['phase_s']:.1f}; the "
           f"flash training and tensor-parallel additions "
           f"{_new_slice_s(marks, families):.1f}; the data-parallel ZeRO-1 "
-          f"phase {marks['dp'] - marks['tp']:.1f}")
+          f"phase {marks['dp'] - marks['tp']:.1f}; the model-axis training "
+          f"phase {marks['mp'] - marks['dp']:.1f}")
     # the kernels on the training families' paths: their launches there
     # and their numbers at the training shapes
     llama_t, mamba_t = families["llama3.2-3b"], families["mamba2-1.3b"]
@@ -7013,6 +7680,15 @@ def main() -> int:
                 launches_llama_training=llama_t["launches"][r["name"]],
                 launches_per_step=llama_t["per_step"][r["name"]],
                 launches_path=f"llama3.2-3b, {fam_path}")
+            ds_mp = model_parallel["deepseek_moe_16b"]
+            r["model_parallel"] = dict(
+                {k: v for k, v in model_parallel["kernels"].items()
+                 if k.startswith(r["name"])},
+                launches_per_step={"(1, 2)": ds_mp["launches"][0][
+                    r["name"]]},
+                launches_path=f"deepseek-moe-16b at {MP_MOE_LAYERS} "
+                              "layers on a (1, 2) mesh of gloo ranks, eager "
+                              "fused steps, rank 0")
     for r in mamba_rows:
         r["training"] = dict(
             families["norm_shapes"]["gated_rmsnorm"],
@@ -7111,6 +7787,18 @@ def main() -> int:
                 "launches_path": f"bert-large dp={DP} ZeRO-1 over gloo, "
                                  f"{DP_STEPS} eager fused steps, rank 0"}
     for r in train_rows:
+        mp_shapes = {k: v for k, v in model_parallel["kernels"].items()
+                     if k.startswith(r["name"])}
+        if r["name"].startswith("lamb_stage"):
+            mp_shapes = {"shard_shapes": model_parallel["kernels"][
+                "lamb shards"]["shapes"]}
+        r["model_parallel"] = dict(
+            mp_shapes, launches_per_step={
+                mesh: model_parallel[mesh]["launches"][0][r["name"]]
+                for mesh in ("(1, 2)", "(2, 2)")},
+            launches_path="bert-large on (data, model) meshes of gloo "
+                          "ranks, eager fused steps, rank 0")
+    for r in train_rows:
         name = r["name"]
         r["launches"] = training["fused"]["launches"][name]
         r["launches_path"] = (f"fused training, {TRAIN_STEPS} steps "
@@ -7204,6 +7892,7 @@ def main() -> int:
         "training_families": families,
         "tensor_parallel": tensor_parallel,
         "data_parallel": data_parallel,
+        "model_parallel": model_parallel,
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

@@ -116,9 +116,9 @@ def lamb_update_shards_(leaves, scalars: torch.Tensor, *, beta1: float,
     leaves: ``leaves`` holds ``(w, g, m, v, rows)`` a flat leaf, each
     tensor this rank's ``[rows, cols]`` columns of it. Every leaf's stage 1
     writes its rows' partial norms into its own region of one buffer,
-    ``exchange(buffer)`` (the data group's all-reduce: every rank's shards
-    are the same size, so the buffer is laid out the same way on every
-    rank) runs once, and every leaf's stage 2 reduces its region: one
+    ``exchange(buffer, sizes)`` (the mesh's all-reduce: every rank's
+    shards are the same size, so the buffer is laid out the same way on
+    every rank; ``sizes`` the leaves' regions in order) runs once, and every leaf's stage 2 reduces its region: one
     trust ratio a row over the whole row, all ranks' columns. Returns the
     ratios, one [rows] tensor a leaf."""
     hyper = dict(beta1=beta1, beta2=beta2, eps=eps,
@@ -142,7 +142,7 @@ def lamb_update_shards_(leaves, scalars: torch.Tensor, *, beta1: float,
                rows=rows, nparts=b)
         off += n
     if exchange is not None:
-        exchange(partials)
+        exchange(partials, sizes)
     ratios, off = [], 0
     for (w, *_, rows), u, n in zip(leaves, us, sizes):
         r = torch.empty(rows, dtype=torch.float32, device=dev)

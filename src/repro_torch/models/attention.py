@@ -303,10 +303,14 @@ def attention_core(arch: ArchConfig, q: torch.Tensor, k: torch.Tensor,
 
 def apply_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    mrope_positions: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    mrope_positions: Optional[torch.Tensor] = None,
+                    par=None) -> torch.Tensor:
     """Self-attention over the full sequence x [B, S, D] (training, and
-    whisper's bidirectional encoder)."""
+    whisper's bidirectional encoder). On a training mesh with a model axis
+    (``par``) the rank's heads (``_rank_attention``)."""
+    if par is not None and par.model is not None:
+        return _rank_attention(arch, p, x, positions, causal,
+                               mrope_positions, par)
     b, s, _ = x.shape
     with scope("attn_qkv"):
         q, k, v = qkv_project(arch, p, x)
@@ -315,6 +319,75 @@ def apply_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
         o = attention_core(arch, q, k, v, causal=causal)
     with scope("attn_out"):
         return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
+
+
+def _rank_kv_weight(arch: ArchConfig, w: torch.Tensor,
+                    b: Optional[torch.Tensor], par
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                               torch.Tensor, Optional[torch.Tensor]]:
+    """Where the model axis outnumbers the KV heads, a rank's block of the
+    fused ``wqkv`` holds ``kv_dim / tp`` columns of a KV head its query
+    heads share with other ranks. Every rank's K/V columns (and bias
+    entries, as an extra row) are gathered over the model axis and the
+    rank keeps the head its queries read (``r Hkv / tp``); the gather's
+    reduce-scatter backward sums the gradients of the ranks that read a
+    head into the ranks that hold its columns. -> (wk, bk, wv, bv) of
+    that head."""
+    tp, hd = par.tp, arch.resolved_head_dim
+    kvl = arch.kv_dim // tp
+    kv = w[:, arch.q_dim // tp:]
+    if b is not None:
+        kv = torch.cat([kv, b[arch.q_dim // tp:][None].to(kv.dtype)], 0)
+    from ..parallel import collectives
+    every = collectives.gather_seq(kv[None].contiguous(), par.model,
+                                   dim=0)                 # [tp, D(+1), 2kvl]
+    head = par.mrank * arch.num_kv_heads // tp
+    rows = every.shape[1]
+
+    def cols(part):
+        whole = every[:, :, part * kvl:(part + 1) * kvl]
+        whole = whole.permute(1, 0, 2).reshape(rows, tp * kvl)
+        return whole[:, head * hd:(head + 1) * hd]
+    k, v = cols(0), cols(1)
+    if b is None:
+        return k, None, v, None
+    return k[:-1], k[-1], v[:-1], v[-1]
+
+
+def _rank_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
+                    positions: torch.Tensor, causal: bool,
+                    mrope_positions: Optional[torch.Tensor],
+                    par) -> torch.Tensor:
+    """A model rank's heads of the training self-attention: x enters the
+    tensor-parallel region (``par.enter``: the whole sequence), the rank's
+    block of the fused ``wqkv`` (its query heads' q columns and their K/V
+    heads' k and v columns, ``parallel.sharding.train_block_index``)
+    projects its Hq / tp query heads and Hkv / tp KV heads (one KV head,
+    gathered, where tp > Hkv: ``_rank_kv_weight``), RoPE / M-RoPE at the
+    whole sequence's positions, the attention of those heads, the rank's
+    rows of ``wo`` give a partial sum that leaves the region
+    (``par.exit``), and the replicated ``bo`` is added once, after."""
+    tp, hd = par.tp, arch.resolved_head_dim
+    x = par.enter(x)
+    b, s, _ = x.shape
+    ql, kvl = arch.q_dim // tp, arch.kv_dim // tp
+    w, bias = p["wqkv"], p.get("bqkv")
+    with scope("attn_qkv"):
+        if arch.num_kv_heads % tp == 0:
+            qkv = dense(x, w, bias)
+            q, k, v = torch.split(qkv, [ql, kvl, kvl], dim=-1)
+        else:
+            q = dense(x, w[:, :ql], None if bias is None else bias[:ql])
+            wk, bk, wv, bv = _rank_kv_weight(arch, w, bias, par)
+            k, v = dense(x, wk, bk), dense(x, wv, bv)
+        q = q.reshape(b, s, -1, hd)
+        k, v = k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
+        q, k = position_encode(arch, q, k, positions, mrope_positions)
+    with scope("attn_core"):
+        o = attention_core(arch, q, k, v, causal=causal)
+    with scope("attn_out"):
+        y = par.exit(dense(o.reshape(b, s, ql), p["wo"]))
+        return y + p["bo"].to(y.dtype) if "bo" in p else y
 
 
 def apply_cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,

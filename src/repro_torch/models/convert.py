@@ -21,6 +21,13 @@ same for a whole trainer state in its own dtypes, the layout a checkpoint
 holds (``repro_torch.checkpoint``); ``caches_from_jax`` unstacks the JAX
 static engine's caches the same way (whisper's ``cross_k`` / ``cross_v``
 with a layer's ``k`` / ``v``), so tests compare cache contents.
+
+A training mesh's ranks each hold a block of every leaf
+(``parallel.sharding.train_blocks`` cuts them from a whole tree);
+``assemble`` puts the ranks' blocks (their params, or their optimizer
+state made param-shaped by ``optim.zero.Plan.blocks``) back together, for
+the tests. ``state_to_jax`` refuses such a state: JAX's
+launcher never writes one.
 """
 from __future__ import annotations
 
@@ -151,13 +158,48 @@ def to_jax_layout(params: Params, period: int = 1,
     return out
 
 
+def assemble(blocks: List[Any], coords: List[Dict[str, int]], specs: Any,
+             arch: ArchConfig, axis_sizes: Dict[str, int]) -> Any:
+    """Whole leaves from every mesh rank's blocks: ``blocks[i]`` (a tree of
+    tensors or numpy arrays, rank i's blocks) is written into each whole
+    leaf at its index (``sharding.train_block_index``); ranks that hold
+    the same block write it in turn (the tests hold them equal on their
+    own). Returns a tree of CPU tensors."""
+    from ..parallel import sharding
+    out: Dict[tuple, torch.Tensor] = {}
+    items = [sharding.leaf_items(b) for b in blocks]
+    for j, (path, sp) in enumerate(sharding.leaf_items(specs)):
+        first = torch.as_tensor(np.asarray(items[0][j][1]))
+        shape = []
+        for d, n in enumerate(first.shape):
+            parts = 1
+            for a in sharding._axes(sp[d] if d < len(sp) else None):
+                parts *= axis_sizes.get(a, 1)
+            shape.append(n * parts)
+        whole = torch.zeros(shape, dtype=first.dtype)
+        for rank_items, c in zip(items, coords):
+            idx = sharding.train_block_index(path, shape, sp, arch,
+                                             axis_sizes, c)
+            whole[idx] = torch.as_tensor(np.asarray(rank_items[j][1]))
+        out[path] = whole
+
+    def build(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: build(v, path + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [build(v, path + (str(i),)) for i, v in enumerate(tree)]
+        return out[path]
+    return build(specs)
+
+
 def state_to_jax(state: Any, period: int = 1) -> Any:
     """A trainer state (or any tree of dicts) -> JAX's layout as CPU
     tensors in their own dtypes: every dict holding a ``blocks`` or
     ``enc_blocks`` list (the params, the optimizer's ``m``, ``v`` and
     ``master``) through ``to_jax_layout``, every other leaf copied. A
     ZeRO-1 state (``m`` in the flat layout) raises: JAX's trainer never
-    checkpoints one (its launcher passes ``zero1=False``)."""
+    checkpoints one (its launcher passes ``zero1=False``), nor does it
+    write a training mesh's blocks."""
     if isinstance(state, dict) and "params" in state \
             and "m" in state.get("opt", {}):
         shapes = [[t.shape for t in leaves(x)]

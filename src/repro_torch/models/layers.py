@@ -123,6 +123,19 @@ def embed_tokens(p: Params, tokens: torch.Tensor,
     return p["embedding"].to(dtype)[tokens]
 
 
+def vocab_parallel_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                          rank: int, dtype: torch.dtype) -> torch.Tensor:
+    """The embedding rows of ``tokens`` that a model rank's vocab slice
+    ``table`` [Vp / tp, D] holds (rank r holds rows ``[r Vp / tp, (r + 1)
+    Vp / tp)``), zeros for the other tokens: the ranks' lookups sum to the
+    whole table's, exactly (one row and zeros)."""
+    v = table.shape[0]
+    local = tokens - rank * v
+    inside = (local >= 0) & (local < v)
+    rows = table.to(dtype)[local.clamp(0, v - 1)]
+    return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+
 def unembed(p: Params, x: torch.Tensor,
             tied_embedding: Optional[torch.Tensor],
             softcap: float = 0.0) -> torch.Tensor:
@@ -209,27 +222,40 @@ def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor, theta: float,
 
 
 def apply_mlp(kind: str, p: Params, x: torch.Tensor, *,
-              fused: bool = False, group=None) -> torch.Tensor:
+              fused: bool = False, group=None, par=None) -> torch.Tensor:
     """Feed-forward block. ``fused`` routes a gelu MLP's bias + activation
     through ``kernels.bias_gelu`` (the dense without its bias, then one
     kernel); swiglu has no such epilogue and ignores it. Under tensor
     parallelism (``group``) the weights are the rank's Megatron shards,
-    w1 / w3 column-parallel and w2 row-parallel (``row_parallel_dense``)."""
+    w1 / w3 column-parallel and w2 row-parallel (``row_parallel_dense``).
+    On a training mesh with a model axis (``par``, a
+    ``parallel.collectives.Parallel``) the same shards in training: x
+    enters the tensor-parallel region (``par.enter``: gathered by sequence,
+    or copied with its gradient summed), the rank's partial product leaves
+    it (``par.exit``), and the replicated ``b2`` is added once, after."""
     with scope("mlp"):
+        if par is not None and par.model is not None:
+            h = _hidden(kind, p, par.enter(x), fused)
+            y = par.exit(dense(h, p["w2"]))
+            return y + p["b2"].to(y.dtype) if "b2" in p else y
         return _apply_mlp(kind, p, x, fused=fused, group=group)
+
+
+def _hidden(kind: str, p: Params, x: torch.Tensor,
+            fused: bool) -> torch.Tensor:
+    """The MLP's activations before w2."""
+    if kind == "swiglu":
+        return silu(dense(x, p["w1"], p.get("b1"))) * dense(x, p["w3"],
+                                                            p.get("b3"))
+    if kind == "gelu":
+        if fused:
+            from ..kernels.bias_gelu import ops as bg_ops
+            return bg_ops.bias_gelu(dense(x, p["w1"]), p.get("b1"))
+        return gelu(dense(x, p["w1"], p.get("b1")))
+    raise ValueError(kind)
 
 
 def _apply_mlp(kind: str, p: Params, x: torch.Tensor, *,
                fused: bool = False, group=None) -> torch.Tensor:
-    if kind == "swiglu":
-        h = silu(dense(x, p["w1"], p.get("b1"))) * dense(x, p["w3"],
-                                                         p.get("b3"))
-    elif kind == "gelu":
-        if fused:
-            from ..kernels.bias_gelu import ops as bg_ops
-            h = bg_ops.bias_gelu(dense(x, p["w1"]), p.get("b1"))
-        else:
-            h = gelu(dense(x, p["w1"], p.get("b1")))
-    else:
-        raise ValueError(kind)
-    return row_parallel_dense(h, p["w2"], p.get("b2"), group)
+    return row_parallel_dense(_hidden(kind, p, x, fused), p["w2"],
+                              p.get("b2"), group)

@@ -44,14 +44,14 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig, torch_dtype
 from ..core.optrace import scope
-from ..parallel import sharding
+from ..parallel import collectives, sharding
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from . import transformer as tf
 from .layers import (Params, apply_norm, dense, dense_init, embed_tokens,
                      gelu, init_norm, pad_vocab, sinusoidal_positions,
-                     unembed)
+                     unembed, vocab_parallel_lookup)
 
 
 def _normal(gen: torch.Generator, shape, device, dtype) -> torch.Tensor:
@@ -169,16 +169,32 @@ def _init_ffn(gen: torch.Generator, arch: ArchConfig, i: int, device,
     return {"mlp": mlp}
 
 
-def embed(arch: ArchConfig, params: Params,
-          tokens: torch.Tensor) -> torch.Tensor:
+def _full(par, w: torch.Tensor) -> torch.Tensor:
+    return w if par is None else par.full(w)
+
+
+def embed(arch: ArchConfig, params: Params, tokens: torch.Tensor,
+          par=None) -> torch.Tensor:
     """tokens [B, S] -> [B, S, D] in the compute dtype, plus the learned
-    position rows 0 .. S-1 where the arch has them."""
+    position rows 0 .. S-1 where the arch has them. On a training mesh
+    (``par``) the embedding's FSDP slices are gathered first and, with a
+    model axis, the table is vocab-parallel (JAX's ("tensor", "fsdp")
+    spec): each rank looks up the tokens of its vocab slice
+    (``vocab_parallel_lookup``), and the ranks' rows meet in
+    ``par.exit`` (a rank's rows of the sequence under sequence
+    parallelism, which then take their own position rows)."""
     dtype = torch_dtype(arch.dtype)
     with scope("embed"):
-        x = embed_tokens(params["embed"], tokens.long(), dtype)
+        table = _full(par, params["embed"]["embedding"])
+        if par is None or par.model is None:
+            x = table.to(dtype)[tokens.long()]
+            s0, s1 = 0, tokens.shape[1]
+        else:
+            x = par.exit(vocab_parallel_lookup(table, tokens.long(),
+                                               par.mrank, dtype))
+            s0, s1 = par.rows(tokens.shape[1])
         if arch.pos_emb == "learned":
-            x = x + params["pos"]["pos_embedding"][:tokens.shape[1]].to(
-                dtype)
+            x = x + params["pos"]["pos_embedding"][s0:s1].to(dtype)
         return x
 
 
@@ -198,21 +214,37 @@ def encode(arch: ArchConfig, params: Params,
     return apply_norm(arch.norm, params["enc_final_norm"], x)
 
 
-def logits(arch: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def logits(arch: ArchConfig, params: Params, x: torch.Tensor,
+           par=None) -> torch.Tensor:
     """Final norm (+ BERT's MLM transform) + LM head: [B, S, D] -> fp32
-    logits [B, S, Vp]."""
+    logits [B, S, Vp]. On a training mesh with a model axis (``par``) the
+    logits are the rank's vocab slice [B, S, Vp / tp] (the tied head is
+    the vocab-parallel embedding's transpose, an untied head's columns
+    its "tensor" dim), and the rows are whole, as JAX unshards the
+    sequence before the head: under sequence parallelism the normed rows
+    are gathered, else the head's input is ``copy_to``'d so the partial
+    gradients of the ranks' vocab slices are summed."""
     with scope("logits"):
+        model = par is not None and par.model is not None
         x = apply_norm(arch.norm, params["final_norm"], x)
+        if model and par.seq:
+            x = collectives.gather_seq(x, par.model)
         if arch.mlm_transform:
             mlm = params["mlm"]
-            x = gelu(dense(x, mlm["dense"], mlm["bias"]))
+            x = gelu(dense(x, _full(par, mlm["dense"]), mlm["bias"]))
             x = apply_norm(arch.norm, mlm["ln"], x)
-        tied = params["embed"]["embedding"] if arch.tie_embeddings else None
-        return unembed(params.get("out", {}), x, tied, arch.logit_softcap)
+        if model and not par.seq:
+            x = collectives.copy_to(x, par.model)
+        tied = _full(par, params["embed"]["embedding"]) \
+            if arch.tie_embeddings else None
+        out = params.get("out", {})
+        if "head" in out:
+            out = {"head": _full(par, out["head"])}
+        return unembed(out, x, tied, arch.logit_softcap)
 
 
 def forward(arch: ArchConfig, params: Params,
-            batch: Dict[str, torch.Tensor], data_group=None
+            batch: Dict[str, torch.Tensor], data_group=None, par=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward -> (fp32 logits [B, S, Vp], the auxiliary
     loss: the MoE layers' Switch losses summed, an fp32 scalar, 0 for
@@ -220,17 +252,20 @@ def forward(arch: ArchConfig, params: Params,
     ``mrope_positions`` [3, B, S] (qwen2-vl) and must carry
     ``frontend_embeddings`` [B, Senc, D] for an encdec arch. With a
     ``data_group`` (``batch`` this rank's rows of a data-parallel batch)
-    the Switch losses are the whole batch's (``moe.apply_moe``)."""
+    the Switch losses are the whole batch's (``moe.apply_moe``). On a
+    training mesh (``par``) each rank runs its share of the layers
+    (``transformer.apply_block``) and the logits are its vocab slice."""
     tokens = batch["tokens"]
-    x = embed(arch, params, tokens)
+    x = embed(arch, params, tokens, par)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     enc_out = encode(arch, params, batch["frontend_embeddings"]) \
         if arch.family == "encdec" else None
     x, aux = tf.apply_stack(arch, params["blocks"], x, positions,
                             causal=not arch.bidirectional,
                             mrope_positions=batch.get("mrope_positions"),
-                            enc_out=enc_out, data_group=data_group)
-    return logits(arch, params, x), aux
+                            enc_out=enc_out, data_group=data_group,
+                            par=par)
+    return logits(arch, params, x, par), aux
 
 
 def cross_entropy(lg: torch.Tensor, targets: torch.Tensor,
@@ -254,19 +289,84 @@ def cross_entropy(lg: torch.Tensor, targets: torch.Tensor,
     return ce, acc.detach()
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """JAX's ``_ce_loss`` custom VJP on a model rank's vocab slice of the
+    fp32 logits [B, S, V / tp] (``_ce_pieces`` / ``_ce_loss_bwd``): the
+    row max (an all-reduce of the ranks' maxima), then one all-reduce of
+    each row's sum of exp(logit - max) and its target logit (the rank
+    holding the target adds it, the others 0) give lse and the target
+    logit; accuracy compares the target logit with the global max. Every
+    padded column takes part, as in JAX. The backward is local:
+    (softmax - onehot) * mask / denom on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, lg, targets, m, denom, group, lo):
+        v = lg.shape[-1]
+        gmax = collectives.all_reduce(lg.amax(dim=-1), group,
+                                      op=torch.distributed.ReduceOp.MAX)
+        local = targets.long() - lo
+        inside = (local >= 0) & (local < v)
+        picked = torch.gather(lg, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+        both = collectives.all_reduce(torch.stack([
+            torch.exp(lg - gmax[..., None]).sum(dim=-1),
+            torch.where(inside, picked, torch.zeros_like(picked))]), group)
+        lse = gmax + torch.log(both[0])
+        target_logit = both[1]
+        ll = target_logit - lse
+        correct = (target_logit >= gmax).float()
+        ce = -(ll * m).sum() / denom
+        acc = (correct * m).sum() / denom
+        ctx.save_for_backward(lg, lse, local, inside, m, denom)
+        return ce, acc
+
+    @staticmethod
+    def backward(ctx, g_ce, g_acc):
+        lg, lse, local, inside, m, denom = ctx.saved_tensors
+        dl = torch.exp(lg - lse[..., None])
+        onehot = torch.zeros_like(dl).scatter_(
+            -1, local.clamp(0, lg.shape[-1] - 1)[..., None],
+            inside[..., None].to(dl.dtype))
+        return ((dl - onehot) * (g_ce * m / denom)[..., None],
+                None, None, None, None, None)
+
+
+def vocab_parallel_cross_entropy(lg: torch.Tensor, targets: torch.Tensor,
+                                 mask=None, denom=None, *, group, rank: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cross_entropy`` of the model rank ``rank``'s vocab slice ``lg``
+    [B, S, Vp / tp] (``_VocabParallelCE``): the same masked means, every
+    model rank the same values."""
+    lg = lg.float()
+    m = torch.ones(targets.shape, dtype=torch.float32, device=lg.device) \
+        if mask is None else mask.float()
+    if denom is None:
+        denom = torch.clamp_min(m.sum(), 1.0)
+    denom = torch.as_tensor(denom, dtype=torch.float32, device=lg.device)
+    ce, acc = _VocabParallelCE.apply(lg, targets, m, denom, group,
+                                     rank * lg.shape[-1])
+    return ce, acc.detach()
+
+
 def loss(arch: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
-         group=None, denom=None
+         group=None, denom=None, par=None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (ce + aux, metrics {loss, ce, aux, accuracy}): the masked cross
     entropy plus the auxiliary loss, as JAX's ``Model.loss``. A
     data-parallel rank passes its data ``group`` and the whole batch's
     mask count ``denom``: then ce and accuracy (and loss) are the rank's
     shares, which sum over the group to the batch's, and aux is the
-    batch's; the gradients of the ranks' losses sum to the batch loss's."""
-    lg, aux = forward(arch, params, batch, group)
+    batch's; the gradients of the ranks' losses sum to the batch loss's.
+    On a training mesh with a model axis (``par``) the cross entropy is
+    vocab-parallel (``vocab_parallel_cross_entropy``)."""
+    lg, aux = forward(arch, params, batch, group, par)
     with scope("loss"):
-        ce, acc = cross_entropy(lg, batch["targets"], batch.get("loss_mask"),
-                                denom)
+        if par is not None and par.model is not None:
+            ce, acc = vocab_parallel_cross_entropy(
+                lg, batch["targets"], batch.get("loss_mask"), denom,
+                group=par.model, rank=par.mrank)
+        else:
+            ce, acc = cross_entropy(lg, batch["targets"],
+                                    batch.get("loss_mask"), denom)
     total = ce + aux
     return total, {"loss": total.detach(), "ce": ce.detach(),
                    "aux": aux.detach(), "accuracy": acc}

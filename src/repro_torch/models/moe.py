@@ -127,7 +127,7 @@ def _route_indices(logits: torch.Tensor, moe: MoEConfig, capacity: int,
 
 def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
               eff_capacity: Optional[int] = None, aux_loss: bool = True,
-              group=None, data_group=None
+              group=None, data_group=None, par=None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x [B, S, D] -> (y [B, S, D], the Switch load-balancing loss, fp32
     scalar, differentiable through the router's probabilities: the
@@ -144,33 +144,32 @@ def apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
     batch's: E * sum_e f_e * P_e is not linear in the batch, so the
     router's counts and probability sums are summed over the group
     (``collectives.global_sum``, one ``all_reduce``) before it; the
-    dispatch stays the rank's own (the capacity is a row's)."""
+    dispatch stays the rank's own (the capacity is a row's). On a training
+    mesh with a model axis (``par``) see ``_train_moe``."""
     with scope("moe"):
+        if par is not None and par.model is not None:
+            return _train_moe(arch, p, x, par, data_group)
         return _apply_moe(arch, p, x, eff_capacity, aux_loss, group,
                           data_group)
 
 
-def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
-               eff_capacity: Optional[int], aux_loss: bool, group=None,
-               data_group=None
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    moe = arch.moe
+def _routed(arch: ArchConfig, p: Params, x: torch.Tensor,
+            r: Dict[str, torch.Tensor], cap: int,
+            rank: Optional[int] = None) -> torch.Tensor:
+    """The routed experts' combine [B, S, D] for routing ``r`` over x [B,
+    S, D]: with ``rank`` the experts ``p`` holds are that rank's ``E_l``
+    contiguous ones (the others' slots fold into the overflow sentinel),
+    so the combine is the rank's partial sum."""
     b, s, d = x.shape
-    k = moe.top_k
+    k = arch.moe.top_k
     e = p["experts"]["w1"].shape[0]     # the experts this rank owns
-    cap = capacity_per_row(s, moe)
-    # the router's product in fp32 on the fp32 values of its (model dtype)
-    # weights, as JAX computes x.astype(f32) @ router; TF32 stays off
-    # (PyTorch's default for matmuls), so it is a true fp32 product
-    logits = x.float() @ p["router"].float()                  # [B, S, E]
-    r = _route(logits, moe, cap, eff_capacity)
     dev = x.device
     n = s * k
-    if group is not None:
+    if rank is not None:
         # rebase the global capacity slots onto this rank's experts; the
         # slots of other ranks' experts fold into the overflow sentinel,
         # so they neither dispatch nor combine here
-        slot = r["slot"] - dist.get_rank(group) * e * cap
+        slot = r["slot"] - rank * e * cap
         valid = r["valid"] & (slot >= 0) & (slot < e * cap)
         r = dict(r, slot=torch.where(valid, slot, e * cap), valid=valid)
 
@@ -209,27 +208,115 @@ def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
+    return y
 
+
+def _shared(p: Params, x: torch.Tensor) -> torch.Tensor:
+    sh = p["shared"]
+    hs = silu(x @ sh["w1"].to(x.dtype)) * (x @ sh["w3"].to(x.dtype))
+    return hs @ sh["w2"].to(x.dtype)
+
+
+def _switch_loss(moe: MoEConfig, logits: torch.Tensor, groups,
+                 tokens: int) -> torch.Tensor:
+    """E * sum_e f_e * P_e over ``tokens`` tokens, of which ``logits``
+    [..., E] hold this rank's; the counts and probability sums summed over
+    each group of ``groups`` (``global_sum``) where there are any."""
+    probs = torch.softmax(logits, dim=-1)
+    top1 = probs.argmax(dim=-1)
+    onehot = torch.nn.functional.one_hot(top1, moe.num_experts).float()
+    lead = tuple(range(logits.dim() - 1))
+    if not groups:
+        f = onehot.mean(dim=lead)
+        pmean = probs.mean(dim=lead)
+    else:
+        sums = torch.cat([onehot.sum(dim=lead), probs.sum(dim=lead)])
+        for g in groups:
+            sums = collectives.global_sum(sums, g)
+        f, pmean = (sums / tokens).split(moe.num_experts)
+    return moe.num_experts * (f * pmean).sum() * moe.aux_loss_weight
+
+
+def _apply_moe(arch: ArchConfig, p: Params, x: torch.Tensor,
+               eff_capacity: Optional[int], aux_loss: bool, group=None,
+               data_group=None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    moe = arch.moe
+    b, s, d = x.shape
+    cap = capacity_per_row(s, moe)
+    # the router's product in fp32 on the fp32 values of its (model dtype)
+    # weights, as JAX computes x.astype(f32) @ router; TF32 stays off
+    # (PyTorch's default for matmuls), so it is a true fp32 product
+    logits = x.float() @ p["router"].float()                  # [B, S, E]
+    r = _route(logits, moe, cap, eff_capacity)
+    y = _routed(arch, p, x, r, cap,
+                None if group is None else dist.get_rank(group))
     if "shared" in p:
-        sh = p["shared"]
-        hs = silu(x @ sh["w1"].to(x.dtype)) * (x @ sh["w3"].to(x.dtype))
-        y = y + hs @ sh["w2"].to(x.dtype)
+        y = y + _shared(p, x)
     if group is not None:
         y32 = y.float()
         dist.all_reduce(y32, group=group)
         y = y32.to(x.dtype)
     if not aux_loss:
         return y, None
-    # Switch-style load-balancing loss: E * sum_e f_e * P_e
-    probs = torch.softmax(logits, dim=-1)
-    top1 = probs.argmax(dim=-1)
-    onehot = torch.nn.functional.one_hot(top1, moe.num_experts).float()
-    if data_group is None:
-        f = onehot.mean(dim=(0, 1))
-        pmean = probs.mean(dim=(0, 1))
+    groups = [] if data_group is None else [data_group]
+    tokens = b * s * (1 if data_group is None
+                      else dist.get_world_size(data_group))
+    return y, _switch_loss(moe, logits, groups, tokens)
+
+
+def _train_moe(arch: ArchConfig, p: Params, x: torch.Tensor, par,
+               data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer on a training mesh with a model axis (JAX's
+    ``_apply_moe_inner`` under ``make_rules``). Each row is routed whole,
+    so the capacity and drops are a whole row's as in JAX: under sequence
+    parallelism the rank's rows are gathered first (``par.enter``), and
+    the router's product runs on the whole row on every rank.
+
+    - Expert parallelism (``par.experts``): the rank holds E / tp
+      experts, dispatches and combines their capacity slots only, and its
+      partial combine plus its Megatron share of the shared experts
+      leaves the region in one collective (``par.exit``). Without
+      sequence parallelism the routing reads the logits through
+      ``copy_to``, so their gradient, a partial sum over the ranks'
+      experts, is summed.
+    - Without it every rank holds every expert and computes the whole
+      combine; under sequence parallelism it keeps its rows of it (the
+      gradient of the rest stays with the other ranks), and only the
+      shared experts' partial sum is reduced.
+
+    The Switch loss is the whole batch's: under sequence parallelism each
+    rank counts its own rows and the sums meet over the data and model
+    groups (``global_sum``: each rank's gradient is its rows' share);
+    otherwise every model rank counts every row, over the data group only.
+    """
+    moe = arch.moe
+    seq = par.seq
+    xf = par.enter(x) if seq else x                         # [B, S, D]
+    b, s, d = xf.shape
+    cap = capacity_per_row(s, moe)
+    logits = xf.float() @ p["router"].float()
+    groups = [g for g in (data_group,) if g is not None]
+    tokens = b * s * par.dp
+    if seq:
+        s0, s1 = par.rows(s)
+        aux = _switch_loss(moe, logits[:, s0:s1], groups + [par.model],
+                           tokens)
     else:
-        sums = collectives.global_sum(torch.cat(
-            [onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1))]), data_group)
-        tokens = b * s * dist.get_world_size(data_group)
-        f, pmean = (sums / tokens).split(moe.num_experts)
-    return y, moe.num_experts * (f * pmean).sum() * moe.aux_loss_weight
+        aux = _switch_loss(moe, logits, groups, tokens)
+    if par.experts:
+        if not seq:
+            xf = collectives.copy_to(xf, par.model)
+            logits = collectives.copy_to(logits, par.model)
+        r = _route(logits, moe, cap)
+        y = _routed(arch, p, xf, r, cap, par.mrank)
+        if "shared" in p:
+            y = y + _shared(p, xf)
+        return par.exit(y), aux
+    routed = _routed(arch, p, xf, _route(logits, moe, cap), cap)
+    if seq:
+        routed = routed[:, s0:s1]
+    if "shared" not in p:
+        return routed, aux
+    ys = _shared(p, xf if seq else collectives.copy_to(xf, par.model))
+    return par.exit(ys) + routed, aux

@@ -79,8 +79,8 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
                 fused: Optional[bool] = None,
                 mixer: str = "attn",
                 mrope_positions: Optional[torch.Tensor] = None,
-                enc_out: Optional[torch.Tensor] = None, data_group=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                enc_out: Optional[torch.Tensor] = None, data_group=None,
+                par=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm (or BERT post-norm) block over x [B, S, D], its mixer
     attention or mamba, its tail an MLP or a MoE (none for mamba2); a
     block with ``xattn`` given ``enc_out`` [B, Senc, D] attends to it
@@ -93,9 +93,18 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
     activation through ``bias_gelu`` and, in a pre-norm block, the mixer's
     residual add + ln2 through ``decode_residual_norm`` (JAX's
     ``fuse_pre_ln2``): not for a mamba2 block (it has no ln2) nor where a
-    cross-attention sits between the two sites."""
+    cross-attention sits between the two sites.
+
+    On a training mesh (``par``, a ``parallel.collectives.Parallel``) the
+    block first gathers its FSDP slices (so a recomputed block gathers
+    again); x is then the residual stream as the mesh holds it (a rank's
+    rows under sequence parallelism), the norms and residual adds run on
+    it, and the attention and MLP or MoE are the rank's tensor- or
+    expert-parallel share."""
     if fused is None:
         fused = fused_blocks_enabled()
+    if par is not None:
+        p = par.gather_params(p)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def mix(h):
@@ -103,7 +112,8 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
             return ssm_lib.apply_mamba(arch, p["mamba"], h)
         return attn_lib.apply_attention(arch, p["attn"], h, positions,
                                         causal=causal,
-                                        mrope_positions=mrope_positions)
+                                        mrope_positions=mrope_positions,
+                                        par=par)
 
     def add_norm(ln: Params, y: torch.Tensor, res: torch.Tensor):
         if fused:
@@ -115,8 +125,8 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
     def tail(h):
         if "moe" in p:
             return moe_lib.apply_moe(arch, p["moe"], h,
-                                     data_group=data_group)
-        return apply_mlp(arch.mlp, p["mlp"], h, fused=fused), aux
+                                     data_group=data_group, par=par)
+        return apply_mlp(arch.mlp, p["mlp"], h, fused=fused, par=par), aux
 
     cross = enc_out is not None and "xattn" in p
     h = None
@@ -152,13 +162,14 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
                 positions: torch.Tensor, causal: bool,
                 fused: Optional[bool] = None,
                 mrope_positions: Optional[torch.Tensor] = None,
-                enc_out: Optional[torch.Tensor] = None, data_group=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                enc_out: Optional[torch.Tensor] = None, data_group=None,
+                par=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every block in turn -> ``(x, aux)``, the blocks' auxiliary losses
     summed a period at a time and the periods in order, as JAX's
     ``apply_period`` and scan sum them; with ``arch.remat`` each block is
     recomputed in the backward pass, so only its [B, S, D] input stays
-    alive."""
+    alive (a rank's [B, S / tp, D] rows under sequence parallelism, JAX's
+    residual constrained to ("batch", "seq", "embed") between blocks)."""
     if fused is None:
         fused = fused_blocks_enabled()
     period = period_length(arch)
@@ -168,7 +179,8 @@ def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,
         blk = functools.partial(apply_block, arch, positions=positions,
                                 causal=causal, fused=fused, mixer=kind,
                                 mrope_positions=mrope_positions,
-                                enc_out=enc_out, data_group=data_group)
+                                enc_out=enc_out, data_group=data_group,
+                                par=par)
         if arch.remat and torch.is_grad_enabled():
             # no RNG state saved: no block draws random numbers, and saving
             # it would read the generator inside a captured training step;

@@ -1,8 +1,10 @@
 """Gradient utilities: global-norm clipping and micro-batch accumulation
 (paper section 4.2). Counterpart of ``repro.optim.grad``; with a ZeRO
 ``plan`` the gradients accumulate in its flat fp32 layout (JAX's
-``transform`` of ``train/steps.py``), and with a data group the norm of a
-rank's shards is summed across the group."""
+``transform`` of ``train/steps.py``), and with a group the norm of a
+rank's shards is summed across the group: on a mesh with a model axis
+the whole mesh, each leaf's squares weighed by ``weights`` so that a leaf
+every model rank holds whole counts once (``zero.Plan.count``)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Tuple
@@ -15,22 +17,29 @@ from ..parallel import collectives
 Batch = Dict[str, torch.Tensor]
 
 
-def global_norm(grads, group=None) -> torch.Tensor:
+def global_norm(grads, group=None,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32, on the device;
     with ``group`` (each rank holding its shards of the gradients) the sum
-    of squares is summed over the group (one scalar ``all_reduce``)."""
+    of squares is summed over the group (one scalar ``all_reduce``), each
+    leaf's squares times its entry of ``weights`` (fp32, on the device)
+    where given."""
     norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
                          for g in tree.leaves(grads)])
     if group is None:
         return torch.linalg.vector_norm(norms)
-    sq = torch.sum(torch.square(norms)).reshape(1)
+    sq = torch.square(norms)
+    if weights is not None:
+        sq = sq * weights
+    sq = torch.sum(sq).reshape(1)
     return torch.sqrt(collectives.all_reduce(sq, group)[0])
 
 
-def clip_by_global_norm(grads, max_norm: float, group=None):
+def clip_by_global_norm(grads, max_norm: float, group=None,
+                        weights: Optional[torch.Tensor] = None):
     """-> (grads scaled by min(1, max_norm / norm), each back in its dtype;
     the norm). No host read: the scale stays a device scalar."""
-    norm = global_norm(grads, group)
+    norm = global_norm(grads, group, weights)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
     return tree.map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -55,7 +64,8 @@ def split_microbatches(batch: Batch, num_micro: int) -> List[Batch]:
 
 def accumulate_microbatches(loss_fn: Callable, params, batch: Batch,
                             num_micro: int, plan=None,
-                            local: Optional[Callable] = None
+                            local: Optional[Callable] = None,
+                            reduce: Optional[Callable] = None
                             ) -> Tuple[object, Dict]:
     """Gradients of ``loss_fn(params, batch) -> (loss, metrics)`` with
     respect to every leaf of ``params``. With ``num_micro > 1`` the batch
@@ -65,12 +75,15 @@ def accumulate_microbatches(loss_fn: Callable, params, batch: Batch,
     ``local`` maps the list of micro-batches to this rank's (a
     data-parallel step's rows of each). With a ZeRO ``plan`` the
     gradients accumulate into ``plan.accumulator``'s flat fp32 buffer,
-    returned as it is (each rank's own sum, not yet reduced)."""
+    returned as it is (each rank's own sum, not yet reduced). ``reduce``
+    maps each micro-batch's gradients (a list in ``tree.leaves`` order)
+    before they are added (the model axis's sum of partial gradients)."""
     leaves = tree.leaves(params)
 
     def grads_of(mb):
         loss, metrics = loss_fn(params, mb)
-        return torch.autograd.grad(loss, leaves), metrics
+        grads = torch.autograd.grad(loss, leaves)
+        return (grads if reduce is None else reduce(list(grads))), metrics
 
     micro = split_microbatches(batch, num_micro)
     if local is not None:

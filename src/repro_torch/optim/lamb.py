@@ -29,7 +29,12 @@ rank updates only its columns: each row's squared norms are summed across
 the ranks (one ``all_reduce`` of every leaf's partials between Stage 1 and
 Stage 2), so the trust ratio stays one a row over the whole row; the
 padding columns (g = m = v = w = 0, so u = 0) add nothing to a norm. The
-new parameters reach every rank through the plan's ``all_gather``.
+new parameters reach every rank through the plan's ``all_gather``. On a
+mesh with a model axis the global norm sums over the whole mesh, a leaf
+every model rank holds counted once, and a row's partials are summed over
+the ranks that hold other parts of that row (``_exchange``: the data axis,
+and the model axis for a tensor-parallel leaf), so a row's ratio is the
+whole (layer, expert) row's however the leaf is split.
 """
 from __future__ import annotations
 
@@ -123,7 +128,8 @@ def _update_zero(cfg: LambConfig, grads, state: Dict, params,
                  plan: zero.Plan) -> Tuple:
     c1, c2 = _bias_corrections(cfg, state)
     gs = plan.grad_shards(grads)
-    norm = grad_lib.global_norm(gs, plan.group)
+    norm = grad_lib.global_norm(gs, plan.norm_group,
+                                plan.weights(gs[0].device))
     ginv = 1.0 / torch.clamp_min(norm, 1e-12)
     hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
                  weight_decay=cfg.weight_decay, lr=cfg.learning_rate)
@@ -131,8 +137,8 @@ def _update_zero(cfg: LambConfig, grads, state: Dict, params,
         else plan.shards(params)
     ms, vs = tree.leaves(state["m"]), tree.leaves(state["v"])
     rows = [u.rows for u in plan.units]
-    exchange = None if plan.group is None else \
-        (lambda buf: collectives.all_reduce(buf, plan.group))
+    exchange = None if plan.norm_group is None else \
+        (lambda buf, sizes: _exchange(plan, buf, sizes))
     if cfg.use_fused_kernel:
         fused.lamb_update_shards_(
             list(zip(ws, gs, ms, vs, rows)),
@@ -145,7 +151,7 @@ def _update_zero(cfg: LambConfig, grads, state: Dict, params,
         sq = torch.cat([torch.cat(plain.sq_norms(w, u, r))
                         for w, (_, _, u), r in zip(ws, new, rows)])
         if exchange is not None:
-            exchange(sq)
+            exchange(sq, [2 * r for r in rows])
         off = 0
         for w, m, v, (m_new, v_new, u), r in zip(ws, ms, vs, new, rows):
             ratio = plain.ratio(sq[off:off + r], sq[off + r:off + 2 * r])
@@ -155,6 +161,25 @@ def _update_zero(cfg: LambConfig, grads, state: Dict, params,
             v.copy_(v_new)
     plan.gather_params_(params, ws)
     return params, state
+
+
+def _exchange(plan: zero.Plan, buf: torch.Tensor, sizes: List[int]) -> None:
+    """Sum the partial squared norms ``buf`` (each flat leaf's region
+    ``sizes`` long, in ``plan.units`` order) over the ranks that hold
+    other parts of the same rows: the data group (the ZeRO columns and
+    FSDP slices), then, on a mesh with a model axis, the model group for
+    the leaves the model axis splits within their rows (``plan.row_sum``;
+    the other regions keep their own values: a leaf every model rank
+    holds whole, or an expert-parallel leaf, whose model ranks hold other
+    rows)."""
+    if plan.group is not None:
+        collectives.all_reduce(buf, plan.group)
+    if plan.row_sum is None:
+        return
+    keep = plan.weights(buf.device, sizes, "row_sum")
+    part = buf * keep
+    collectives.all_reduce(part, plan.model_group)
+    buf.copy_(part + buf * (1.0 - keep))
 
 
 @torch.no_grad()

@@ -34,6 +34,19 @@ of every flat leaf (``shard_range``, cut by ``parallel.sharding``'s
 ``reduce_scatter`` hand each rank its columns of every leaf, and the one
 ``all_gather`` of the updated parameters. ``to_jax_layout`` writes a
 state tree in JAX's flat shapes (the tests' comparison).
+
+On a (data, model) mesh the layout is not JAX's ``opt_flat`` over (data,
+model) but one over a rank's blocks with the same bytes a rank: a rank's
+plan covers its tensor-parallel block of every leaf. A block the rules
+leave whole over the data axis is ZeRO-sharded over the data ranks as
+above (its flat columns); an FSDP block (a dim over the data axis) is its
+own flat leaf, the rank's slice flattened, held whole (``Plan.local``):
+the FSDP gather's reduce-scatter already leaves the rank its slice's
+gradient summed over the data axis, and the update is written straight
+back into the slice, so such a leaf takes no part in the plan's
+reduce-scatter and all-gather. A leaf split over both axes then costs a
+rank 1 / (dp tp) of its m, v and master, as JAX's layout does; a leaf
+every model rank holds whole costs it 1 / dp.
 """
 from __future__ import annotations
 
@@ -198,23 +211,52 @@ class Plan:
 
     ``dp`` ranks share the layout, this one is ``rank`` and ``group`` is
     their process group (None for one device); the trainer reads them off
-    its mesh's data axis. Every flat leaf is cut by its spec
-    (``sharding.opt_state_pspecs`` for the state, ``flat_grad_pspec`` for
-    the gradients; both split the columns over ``opt_flat``), so this rank
-    holds columns ``shard_range(padded, rank, dp)`` of each of its rows:
-    a contiguous ``[rows, padded / dp]`` shard. The gradient buffer is
-    packed as ``[dp, chunk]``, rank r's ``chunk`` its shards of every leaf
-    one after another (``offsets``), so a ``reduce_scatter`` of the buffer
+    its mesh's data axis. Every flat leaf is cut by its spec under the
+    step's ``rules`` (``sharding.opt_state_pspecs`` for the state,
+    ``flat_grad_pspec`` for the gradients; both split the columns over
+    ``opt_flat``), so this rank holds columns ``shard_range(padded, rank,
+    dp)`` of each of its rows: a contiguous ``[rows, padded / dp]`` shard.
+    The gradient buffer is packed as ``[dp, chunk]``, rank r's ``chunk``
+    its shards of every leaf one after another (``offsets``), so a
+    ``reduce_scatter`` of the buffer
     gives each rank exactly its shards, contiguous; the updated parameters
     travel back the same way, in their own dtype, through one
     ``all_gather`` (``gather_params_``). ``pieces`` says where each
     parameter leaf's columns fall in the rank blocks, so gradients and
     parameters move between their own tensors and the buffers with no
-    padded copy."""
+    padded copy.
+
+    On a mesh with a model axis ``params`` is this rank's tree of blocks
+    (``parallel.sharding.train_blocks``), and two more things hold:
+
+    - ``local`` names the leaves (their indices in ``tree.leaves`` order)
+      that are FSDP slices, a dim split over the data axis. Such a leaf's
+      flat leaf is its own slice, flattened and padded, whole on this rank
+      (``[rows, padded]``): its gradient reaches the rank already summed
+      over the data axis (the FSDP gather's reduce-scatter), its update is
+      written straight into the slice, and neither takes part in the
+      plan's collectives. The ``[dp, zchunk]`` packed buffer holds the
+      other flat leaves; ``lchunk`` elements after it hold the local ones.
+      A rank's optimizer bytes are then 1 / (dp tp) of a leaf split over
+      both axes, as JAX's ``opt_flat`` gives, and 1 / dp of a replicated
+      one.
+    - ``split`` says how the model axis splits each leaf: 0 not at all
+      (every model rank holds it whole), 1 within its rows (the ranks hold
+      other columns of the same trust-ratio rows), 2 across them (an
+      expert-parallel leaf: the ranks hold other experts, other rows).
+      ``norm_group`` is the group over which squared norms are summed (the
+      whole mesh) and ``model_group`` the model axis's. ``count`` weighs
+      each flat leaf's squared norms before the sum over the mesh: 1 for a
+      split leaf, and for a leaf every model rank holds whole, 1 on model
+      rank 0 and 0 on the others, so it is counted once; ``row_sum``
+      marks the flat leaves whose per-row partial norms are summed over
+      the model axis too (split 1)."""
 
     def __init__(self, params, *, period: int = 1, layer_rows: bool = True,
                  dp: int = 1, rank: int = 0, group=None,
-                 multiple: int = PAD_MULTIPLE):
+                 multiple: int = PAD_MULTIPLE, local: Sequence[int] = (),
+                 split: Optional[Sequence[int]] = None, norm_group=None,
+                 model_group=None, mrank: int = 0, rules=None):
         self.struct, self.units = flat_leaves(
             params, period=period, layer_rows=layer_rows, multiple=multiple)
         self.period = period
@@ -222,30 +264,79 @@ class Plan:
                        if isinstance(params.get(k), list)}
         check_dp(dp, multiple)
         self.dp, self.rank, self.group = dp, rank, group
+        local = set(local)
+        self.local = []
+        for u in self.units:
+            inside = {i in local for i in u.members}
+            if len(inside) > 1:
+                raise ValueError(f"{u.path}: a flat leaf whose members are "
+                                 "FSDP slices and whole leaves")
+            self.local.append(inside.pop())
         sizes, coords = {"data": dp}, {"data": rank}
         specs = tree.leaves(sharding.opt_state_pspecs(
-            {"m": self.struct}, None, True)["m"])
-        for u, spec in zip(self.units, specs):
+            {"m": self.struct}, None, True, rules)["m"])
+        for u, spec, lo in zip(self.units, specs, self.local):
+            if lo:
+                continue
             got = sharding.local_slice(spec, u.shape, sizes, coords)
             want = (slice(0, u.rows),
                     slice(*shard_range(u.padded, rank, dp)))
             if got != want or want != sharding.local_slice(
-                    sharding.flat_grad_pspec(u), u.shape, sizes, coords):
+                    sharding.flat_grad_pspec(u, rules=rules), u.shape,
+                    sizes, coords):
                 raise ValueError(f"{u.path}: the state's slice {got} and "
                                  "the gradient's must be the columns "
                                  f"{want[1]} of every row")
-        self.offsets, off = [], 0
-        for u in self.units:
-            self.offsets.append(off)
-            off += u.rows * (u.padded // dp)
-        self.chunk = off            # elements of this rank's shards
-        self.pieces = [_pieces(u, dp) for u in self.units]
+        self.offsets, z, l_ = [], 0, 0
+        for u, lo in zip(self.units, self.local):
+            if lo:
+                self.offsets.append(l_)
+                l_ += u.rows * u.padded
+            else:
+                self.offsets.append(z)
+                z += u.rows * (u.padded // dp)
+        self.zchunk, self.lchunk = z, l_
+        self.chunk = z + l_         # elements of this rank's shards
+        self.pieces = [_pieces(u, 1 if lo else dp)
+                       for u, lo in zip(self.units, self.local)]
+        self.norm_group = group if norm_group is None else norm_group
+        self.model_group = model_group
+        self.count = self.row_sum = None
+        self._weights: Dict[tuple, torch.Tensor] = {}
+        if split is not None and model_group is not None:
+            self.count = [float(mrank == 0 or split[u.members[0]] > 0)
+                          for u in self.units]
+            self.row_sum = [float(split[u.members[0]] == 1)
+                            for u in self.units]
+
+    def weights(self, device, sizes: Optional[Sequence[int]] = None,
+                of: str = "count") -> Optional[torch.Tensor]:
+        """``count`` (or ``row_sum``) as an fp32 tensor on ``device``, one
+        entry a flat leaf, or each repeated over its ``sizes`` entries;
+        made once (a captured step reads the same tensor), None without a
+        model axis."""
+        values = getattr(self, of)
+        if values is None:
+            return None
+        key = (of, str(device), None if sizes is None else tuple(sizes))
+        if key not in self._weights:
+            t = torch.tensor(values, dtype=torch.float32)
+            if sizes is not None:
+                t = torch.repeat_interleave(t, torch.tensor(list(sizes)))
+            self._weights[key] = t.to(device)
+        return self._weights[key]
 
     # ------------------------------------------------------------ layout --
     @property
     def flat_elements(self) -> int:
-        """The elements of every flat leaf, padding included: dp x chunk."""
-        return self.dp * self.chunk
+        """The elements of every flat leaf this rank's plan spans, padding
+        included: dp x zchunk + lchunk."""
+        return self.dp * self.zchunk + self.lchunk
+
+    def cols(self, i: int) -> int:
+        """Columns of flat leaf ``i``'s shard on this rank."""
+        u = self.units[i]
+        return u.padded if self.local[i] else u.padded // self.dp
 
     def state(self, values: List[Any]) -> Any:
         """A state tree (``struct``'s shape) holding ``values``, one a flat
@@ -256,23 +347,23 @@ class Plan:
         """A state tree of fp32 zeros, this rank's shard of every flat
         leaf (LAMB's and AdamW's ``m`` and ``v`` at init)."""
         return self.state([torch.zeros(
-            (u.rows, u.padded // self.dp), dtype=torch.float32,
-            device=device) for u in self.units])
+            (u.rows, self.cols(i)), dtype=torch.float32, device=device)
+            for i, u in enumerate(self.units)])
 
     def shards(self, params) -> List[torch.Tensor]:
-        """This rank's fp32 ``[rows, padded / dp]`` shard of every flat
-        leaf of ``params`` (a tree of the parameters' structure), each a
-        tensor of its own, zero in the padding."""
+        """This rank's fp32 shard of every flat leaf of ``params`` (a tree
+        of the parameters' structure), each a tensor of its own, zero in
+        the padding."""
         leaves = tree.leaves(params)
         out = []
-        for u, pieces in zip(self.units, self.pieces):
-            shard = torch.zeros((u.rows, u.padded // self.dp),
-                                dtype=torch.float32,
+        for i, (u, pieces) in enumerate(zip(self.units, self.pieces)):
+            shard = torch.zeros((u.rows, self.cols(i)), dtype=torch.float32,
                                 device=leaves[u.members[0]].device)
+            mine = 0 if self.local[i] else self.rank
             for j, cuts in zip(u.members, pieces):
                 x = leaves[j].detach().reshape(u.rows, -1)
                 for s, e, b, lo, hi in cuts:
-                    if b == self.rank:
+                    if b == mine:
                         shard[:, lo:hi] = x[:, s:e]
             out.append(shard)
         return out
@@ -291,18 +382,38 @@ class Plan:
         return self.shards(grads)
 
     def views(self, buf: torch.Tensor) -> List[torch.Tensor]:
-        """The ``[rows, padded / dp]`` views of a ``[chunk]`` buffer packed
-        in this rank's order."""
-        return [buf[o:o + u.rows * (u.padded // self.dp)].view(
-            u.rows, u.padded // self.dp)
-            for u, o in zip(self.units, self.offsets)]
+        """The shard views of a ``[chunk]`` buffer packed in this rank's
+        order (the packed shards, then the local ones)."""
+        return [self._rank_region(buf, i)[0]
+                for i in range(len(self.units))]
+
+    def _rank_region(self, buf: torch.Tensor, i: int) -> torch.Tensor:
+        """Flat leaf ``i``'s ``[1, rows, cols]`` region of a rank layout
+        buffer ``[chunk]``."""
+        u, o = self.units[i], self.offsets[i]
+        if self.local[i]:
+            o += self.zchunk
+        n = u.rows * self.cols(i)
+        return buf[o:o + n].view(1, u.rows, self.cols(i))
+
+    def _packed_region(self, acc: torch.Tensor, i: int) -> torch.Tensor:
+        """Flat leaf ``i``'s ``[blocks, rows, cols]`` region of a packed
+        buffer ``[dp * zchunk + lchunk]`` (one block a rank; one for a
+        local leaf)."""
+        u, o, pd = self.units[i], self.offsets[i], self.cols(i)
+        if self.local[i]:
+            o += self.dp * self.zchunk
+            return acc[o:o + u.rows * pd].view(1, u.rows, pd)
+        rows2d = acc[:self.dp * self.zchunk].view(self.dp, self.zchunk)
+        return rows2d[:, o:o + u.rows * pd].view(self.dp, u.rows, pd)
 
     # -------------------------------------------------------- gradients --
     def accumulator(self, device) -> torch.Tensor:
-        """A zeroed fp32 gradient buffer ``[dp * chunk]``, rank r's shards
-        of every flat leaf in its r-th ``chunk``."""
-        return torch.zeros(self.dp * self.chunk, dtype=torch.float32,
-                           device=device)
+        """A zeroed fp32 gradient buffer ``[dp * zchunk + lchunk]``, rank
+        r's shards of every packed flat leaf in its r-th ``zchunk``, the
+        local flat leaves after them."""
+        return torch.zeros(self.dp * self.zchunk + self.lchunk,
+                           dtype=torch.float32, device=device)
 
     def accumulate_(self, acc: torch.Tensor, grads: Sequence[torch.Tensor],
                     num_micro: int = 1) -> None:
@@ -310,10 +421,8 @@ class Plan:
         ``tree.leaves`` order) into ``acc`` in the flat layout, in fp32,
         divided by ``num_micro`` as JAX's accumulation divides them (not
         at 1): each leaf's columns straight into their rank blocks."""
-        rows2d = acc.view(self.dp, self.chunk)
-        for u, off, pieces in zip(self.units, self.offsets, self.pieces):
-            pd = u.padded // self.dp
-            dst = rows2d[:, off:off + u.rows * pd].view(self.dp, u.rows, pd)
+        for i, (u, pieces) in enumerate(zip(self.units, self.pieces)):
+            dst = self._packed_region(acc, i)
             for j, cuts in zip(u.members, pieces):
                 g = grads[j].reshape(u.rows, -1)
                 if num_micro > 1:
@@ -322,37 +431,52 @@ class Plan:
                     dst[b, :, lo:hi].add_(g[:, s:e])
 
     def reduce_scatter(self, acc: torch.Tensor) -> torch.Tensor:
-        """Sum ``acc`` over the data group and keep this rank's ``chunk``:
-        one ``reduce_scatter`` (``acc`` itself at dp=1)."""
+        """Sum the packed part of ``acc`` over the data group and keep
+        this rank's ``zchunk`` of it, the local part after it: one
+        ``reduce_scatter`` (``acc`` itself at dp=1)."""
         if self.dp == 1:
             return acc
         out = torch.empty(self.chunk, dtype=acc.dtype, device=acc.device)
-        collectives.reduce_scatter(out, acc, self.group)
+        collectives.reduce_scatter(out[:self.zchunk],
+                                   acc[:self.dp * self.zchunk], self.group)
+        out[self.zchunk:].copy_(acc[self.dp * self.zchunk:])
+        return out
+
+    def blocks(self, flat_tree, like) -> Any:
+        """A state tree of this rank's flat shards (``struct``'s shape:
+        ``m``, ``v`` or ``master``) as fp32 tensors shaped like the
+        parameters ``like`` (the rank's blocks), through the same
+        ``all_gather`` as ``gather_params_`` (a collective: every rank of
+        the data group calls it)."""
+        out = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), like)
+        self.gather_params_(out, tree.leaves(flat_tree))
         return out
 
     # --------------------------------------------------------- parameters --
     @torch.no_grad()
     def gather_params_(self, params, shards: Sequence[torch.Tensor]) -> None:
         """Write the updated fp32 ``shards`` (one a flat leaf, this rank's
-        columns) into every rank's whole parameters, in place: each shard
-        cast to the parameters' dtype, packed, one ``all_gather`` of the
-        packed buffer over the data group, and every rank copies each
-        leaf's rows out of it (so all ranks hold the same bits)."""
+        columns) into every rank's parameters, in place: each shard cast
+        to the parameters' dtype, packed, one ``all_gather`` of the packed
+        part over the data group, and every rank copies each leaf's rows
+        out of it (so all ranks hold the same bits); a local leaf's shard
+        is its own slice, copied in place."""
         leaves = tree.leaves(params)
         dtype = leaves[0].dtype
         buf = torch.empty(self.chunk, dtype=dtype, device=leaves[0].device)
         for v, s in zip(self.views(buf), shards):
             v.copy_(s)
-        if self.dp == 1:
+        if self.dp == 1 or not self.zchunk:
             full = buf
         else:
-            full = torch.empty(self.dp * self.chunk, dtype=dtype,
-                               device=buf.device)
-            collectives.all_gather(full, buf, self.group)
-        rows2d = full.view(self.dp, self.chunk)
-        for u, off, pieces in zip(self.units, self.offsets, self.pieces):
-            pd = u.padded // self.dp
-            src = rows2d[:, off:off + u.rows * pd].view(self.dp, u.rows, pd)
+            full = torch.empty(self.dp * self.zchunk + self.lchunk,
+                               dtype=dtype, device=buf.device)
+            collectives.all_gather(full[:self.dp * self.zchunk],
+                                   buf[:self.zchunk], self.group)
+            full[self.dp * self.zchunk:].copy_(buf[self.zchunk:])
+        for i, (u, pieces) in enumerate(zip(self.units, self.pieces)):
+            src = self._packed_region(full, i)
             for j, cuts in zip(u.members, pieces):
                 x = leaves[j].view(u.rows, -1)
                 for s, e, b, lo, hi in cuts:

@@ -10,11 +10,18 @@ model's layout (fused qkv, ``Hkv`` KV heads) to a rank's. A rank keeps only
 its shards: ``models.model.Model.init(..., shard=(rank, tp))`` cuts each
 block as soon as it is made.
 
-The training layout's data axis is here too (``TRAIN_RULES``,
-``batch_pspecs``, ``opt_state_pspecs``, ``flat_grad_pspec``): a training
-spec has one entry a dim, the mesh axis (or tuple of axes) that dim is
-split over, or None, as JAX's ``PartitionSpec``; ``local_slice`` cuts a rank's block of a dim split
-over several axes in JAX's order (the first axis major). The trainer's
+The training rules are here too, the counterpart of the training half of
+``repro.parallel.sharding``: ``make_rules`` (JAX's logical-axis table and
+its options; ``TRAIN_RULES`` its defaults), ``_PARAM_RULES`` /
+``_EXPERT_RULES`` / ``param_pspecs`` (a spec for every leaf of every
+arch, by name), ``_sanitize`` / ``sanitize_spec`` / ``sanitize_tree`` (a
+dim an axis does not divide stays whole), ``batch_pspecs``,
+``opt_state_pspecs`` and ``flat_grad_pspec``. A training spec has one
+entry a dim, the mesh axis (or tuple of axes) that dim is split over, or
+None, as JAX's ``PartitionSpec``; ``local_slice`` cuts a rank's block of
+a dim split over several axes in JAX's order (the first axis major), and
+``train_block_index`` / ``train_blocks`` cut a rank's block of every
+leaf, the fused ``wqkv`` by heads (its q, k and v columns). The trainer's
 ZeRO plan (``optim.zero.Plan``) cuts every flat optimizer leaf and the
 step every micro-batch with them.
 
@@ -205,75 +212,209 @@ def shard_params(params: Any, spec: Any, rank: int, tp: int) -> Any:
 
 # ------------------------------------------------------------------ training --
 Spec = Tuple[Any, ...]      # a mesh axis, a tuple of axes or None a dim
+Rules = Dict[str, Any]
 
-# JAX's logical-axis table at its defaults (``make_rules()``): logical name
-# -> the mesh axis (or axes) it is split over, None where it is replicated.
-# The port trains over the data axis only, so its specs read "batch",
-# "experts" and "opt_flat"; a model axis above 1 is refused by the step.
-TRAIN_RULES: Dict[str, Any] = {
-    "batch": ("data",),
-    "seq": "model",
-    "cache_seq": "model",
-    "embed": None,
-    "q_heads": "model",
-    "kv": None,
-    "vocab": "model",
-    "fsdp": "data",
-    "tensor": "model",
-    "experts": "model",
-    "expert_mlp": None,
-    "opt_flat": ("data", "model"),      # ZeRO-1 optimizer states
-    "none": None,
+
+def make_rules(multi_pod: bool = False, *, seq_parallel: bool = True,
+               fsdp: bool = True, expert_parallel: bool = True,
+               overrides: Sequence[Tuple[str, Optional[str]]] = ()
+               ) -> Rules:
+    """JAX's logical-axis table: logical name -> the mesh axis (or axes)
+    it is split over, None where it is replicated. ``seq_parallel`` puts
+    the residual stream's sequence on the model axis, ``fsdp`` one big dim
+    of every weight matrix on the data axis, ``expert_parallel`` the
+    experts on the model axis (else each expert's FF dim, ``expert_mlp``);
+    ``overrides`` are (name, axis) pairs applied last."""
+    rules: Rules = {
+        "batch": ("pod", "data") if multi_pod else ("data",),
+        "seq": "model" if seq_parallel else None,
+        "cache_seq": "model",
+        "embed": None,
+        "q_heads": "model",
+        "kv": None,
+        "vocab": "model",
+        "fsdp": "data" if fsdp else None,
+        "tensor": "model",
+        "experts": "model" if expert_parallel else None,
+        "expert_mlp": None if expert_parallel else "model",
+        "opt_flat": ("data", "model"),      # ZeRO-1 optimizer states
+        "none": None,
+    }
+    for name, axis in overrides:
+        rules[name] = axis
+    return rules
+
+
+TRAIN_RULES: Rules = make_rules()
+
+
+def spec(*logical: Optional[str], rules: Optional[Rules] = None) -> Spec:
+    """Logical names (None: replicated) -> a spec through ``rules``
+    (default ``TRAIN_RULES``)."""
+    rules = TRAIN_RULES if rules is None else rules
+    return tuple(rules.get(name) if name else None for name in logical)
+
+
+# leaf name -> logical axes of its trailing dims (JAX's table): column-
+# parallel weights put their output features on "tensor", row-parallel
+# their input features; the other big dim streams over "fsdp"
+_PARAM_RULES: Dict[str, Tuple[Optional[str], ...]] = {
+    "embedding": ("tensor", "fsdp"),     # [V, D] vocab-sharded
+    "pos_embedding": (None, None),
+    "head": ("fsdp", "tensor"),          # [D, V]
+    "wqkv": ("fsdp", "tensor"),
+    "wq": ("fsdp", "tensor"),
+    "wk": ("fsdp", "tensor"),
+    "wv": ("fsdp", "tensor"),
+    "wo": ("tensor", "fsdp"),
+    "bqkv": ("tensor",),
+    "bq": ("tensor",),
+    "bk": ("tensor",),
+    "bv": ("tensor",),
+    "bo": (None,),
+    "w1": ("fsdp", "tensor"),
+    "w3": ("fsdp", "tensor"),
+    "w2": ("tensor", "fsdp"),
+    "b1": ("tensor",),
+    "b3": ("tensor",),
+    "b2": (None,),
+    "router": ("fsdp", None),
+    "in_proj": ("fsdp", "tensor"),
+    "out_proj": ("tensor", "fsdp"),
+    "conv": (None, "tensor"),
+    "A_log": (None,),
+    "D": (None,),
+    "dt_bias": (None,),
+    "norm_scale": (None,),
+    "scale": (None,),
+    "bias": (None,),
+    "dense": ("fsdp", None),
+}
+
+# under an "experts" parent: [E, D, F] / [E, F, D], E over the experts'
+# axis, D streamed over "fsdp", each expert's FF dim whole
+_EXPERT_RULES: Dict[str, Tuple[Optional[str], ...]] = {
+    "w1": ("experts", "fsdp", None),
+    "w3": ("experts", "fsdp", None),
+    "w2": ("experts", None, "fsdp"),
 }
 
 
-def spec(*logical: Optional[str]) -> Spec:
-    """Logical names (None: replicated) -> a spec through ``TRAIN_RULES``."""
-    return tuple(TRAIN_RULES.get(name) if name else None for name in logical)
+def _leaf_spec(path: Tuple[str, ...], leaf, rules: Optional[Rules] = None
+               ) -> Spec:
+    name = path[-1]
+    in_experts = "experts" in path[:-1]
+    table = _EXPERT_RULES if (in_experts and name in _EXPERT_RULES) \
+        else _PARAM_RULES
+    if name not in table:
+        raise KeyError(f"no sharding rule for parameter {'/'.join(path)}")
+    logical = table[name]
+    pad = leaf.ndim - len(logical)
+    if pad < 0:
+        raise ValueError(f"{'/'.join(path)} {tuple(leaf.shape)} has fewer "
+                         f"dims than its rule {logical}")
+    return spec(*([None] * pad + list(logical)), rules=rules)
 
 
-def batch_pspecs(batch: Mapping[str, Any]) -> Dict[str, Spec]:
+def param_pspecs(params: Any, rules: Optional[Rules] = None) -> Any:
+    """The spec tree of a parameter tree (JAX's ``param_pspecs``): each
+    leaf's spec by its name (``_PARAM_RULES``; ``_EXPERT_RULES`` under
+    ``experts``), leading dims beyond the rule replicated."""
+    return map_with_path(lambda path, leaf: _leaf_spec(path, leaf, rules),
+                         params)
+
+
+def _sanitize(sp: Spec, shape: Sequence[int],
+              axis_sizes: Mapping[str, int]) -> Spec:
+    """Each dim keeps the axes of its entry that still divide it, in
+    order (JAX's ``_sanitize``): a dim an axis does not divide stays
+    whole over that axis."""
+    out = []
+    for i, axes in enumerate(tuple(sp) + (None,) * (len(shape) - len(sp))):
+        if axes is None:
+            out.append(None)
+            continue
+        kept, size = [], 1
+        for a in _axes(axes):
+            s = axis_sizes[a]
+            if shape[i] % (size * s) == 0:
+                kept.append(a)
+                size *= s
+        out.append(tuple(kept) if len(kept) > 1
+                   else (kept[0] if kept else None))
+    return tuple(out)
+
+
+def sanitize_spec(sp: Spec, shape: Sequence[int],
+                  axis_sizes: Optional[Mapping[str, int]]) -> Spec:
+    """``sp`` without the mesh axes that do not divide their dims of
+    ``shape``; with no mesh (``axis_sizes`` None) ``sp`` as it is."""
+    if axis_sizes is None:
+        return sp
+    return _sanitize(sp, shape, axis_sizes)
+
+
+def sanitize_tree(specs: Any, structs: Any,
+                  axis_sizes: Optional[Mapping[str, int]]) -> Any:
+    """``sanitize_spec`` over a spec tree and the matching tree of
+    leaves (anything with a ``shape``)."""
+    if isinstance(specs, dict):
+        return {k: sanitize_tree(v, structs[k], axis_sizes)
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [sanitize_tree(v, t, axis_sizes)
+                for v, t in zip(specs, structs)]
+    return sanitize_spec(specs, structs.shape, axis_sizes)
+
+
+def batch_pspecs(batch: Mapping[str, Any],
+                 rules: Optional[Rules] = None) -> Dict[str, Spec]:
     """Input batches: the batch dim over the data axis, the rest whole;
     ``mrope_positions`` [3, B, S] splits its dim 1."""
     out = {}
     for name, v in batch.items():
         if name == "mrope_positions":
-            out[name] = spec(None, "batch", None)
+            out[name] = spec(None, "batch", None, rules=rules)
         elif v.ndim >= 1:
-            out[name] = spec("batch", *([None] * (v.ndim - 1)))
+            out[name] = spec("batch", *([None] * (v.ndim - 1)), rules=rules)
         else:
             out[name] = ()
     return out
 
 
-def _flat_spec(path: Tuple, leaf) -> Spec:
-    if leaf.ndim == 2 and "experts" in path:
-        return (TRAIN_RULES["experts"], "data")
-    return (None,) * (leaf.ndim - 1) + (TRAIN_RULES["opt_flat"],)
+def _flat_spec(path: Tuple, leaf, rules: Optional[Rules] = None) -> Spec:
+    rules = TRAIN_RULES if rules is None else rules
+    if "experts" in path and leaf.ndim == 2:    # [E, flat]
+        return (rules["experts"], "data")
+    return (None,) * (leaf.ndim - 1) + (rules.get("opt_flat",
+                                                  ("data", "model")),)
 
 
 def opt_state_pspecs(state: Mapping[str, Any], params_specs,
-                     zero1: bool) -> Dict[str, Any]:
-    """Optimizer-state specs. ``zero1``: every flat leaf's columns over
-    ``opt_flat`` (an expert leaf ``[E, padded]``: E over the experts'
-    axis, the columns over data); else ``m`` / ``v`` mirror
-    ``params_specs``. ``step`` is replicated."""
+                     zero1: bool, rules: Optional[Rules] = None
+                     ) -> Dict[str, Any]:
+    """Optimizer-state specs (JAX's). ``zero1``: every flat leaf's
+    columns over ``opt_flat`` (an expert leaf ``[E, padded]``: E over the
+    experts' axis, the columns over data); else
+    ``m`` / ``v`` mirror ``params_specs``. ``step`` is replicated."""
     out = {}
     for k, v in state.items():
         if k == "step":
             out[k] = ()
         elif zero1:
-            out[k] = map_with_path(_flat_spec, v)
+            out[k] = map_with_path(
+                lambda path, leaf: _flat_spec(path, leaf, rules), v)
         else:
             out[k] = params_specs
     return out
 
 
-def flat_grad_pspec(leaf) -> Spec:
-    """The spec of a flat-layout gradient-accumulation leaf: the columns
-    over ``opt_flat`` (the port's flat leaves are ``[rows, padded]``, one
-    a layer, so JAX's ``[L, E, padded]`` expert case does not arise)."""
-    return (None,) * (leaf.ndim - 1) + (TRAIN_RULES["opt_flat"],)
+def flat_grad_pspec(leaf, rules: Optional[Rules] = None) -> Spec:
+    """The spec of a flat-layout gradient-accumulation leaf (the port's
+    are 2-D): the columns over ``opt_flat``."""
+    rules = TRAIN_RULES if rules is None else rules
+    return (None,) * (leaf.ndim - 1) + (rules.get("opt_flat",
+                                                  ("data", "model")),)
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -301,3 +442,76 @@ def local_slice(sp: Spec, shape: Sequence[int],
                              f"into {parts} over {entry}")
         out.append(slice(index * (n // parts), (index + 1) * (n // parts)))
     return tuple(out)
+
+
+def split_dims(sp: Spec, axis: str) -> Tuple[int, ...]:
+    """The dims of a (sanitized) spec split over ``axis``."""
+    return tuple(i for i, e in enumerate(sp) if axis in _axes(e))
+
+
+def leaf_items(tree: Any, path: Tuple[str, ...] = ()) -> list:
+    """(path, leaf) of every leaf of a dict / list tree in the order
+    ``repro_torch.tree.leaves`` walks it (dict keys sorted); a path holds
+    the dict keys and list indices as strings. A tuple is a leaf (a
+    spec)."""
+    if isinstance(tree, dict):
+        return [it for k in sorted(tree)
+                for it in leaf_items(tree[k], path + (str(k),))]
+    if isinstance(tree, list):
+        return [it for i, v in enumerate(tree)
+                for it in leaf_items(v, path + (str(i),))]
+    return [(path, tree)]
+
+
+def _fused_qkv_columns(arch, n: int, tp: int, r: int) -> torch.Tensor:
+    """The columns of a fused ``wqkv`` / ``bqkv`` of ``n`` columns (q,
+    then k, then v) that model rank ``r`` of ``tp`` holds: its share of
+    each of the three, so that its block is its query heads' q columns
+    and their K/V heads' k and v columns (where ``tp`` > Hkv, its
+    ``kv_dim / tp`` columns of the one KV head its query heads read)."""
+    q, kv = arch.q_dim, arch.kv_dim
+    if n != q + 2 * kv or q % tp or kv % tp:
+        raise ValueError(f"fused qkv of {n} columns (q {q}, kv {kv}) does "
+                         f"not split into {tp} ranks' heads")
+    parts = [torch.arange(off + r * w // tp, off + (r + 1) * w // tp)
+             for off, w in ((0, q), (q, kv), (q + kv, kv))]
+    return torch.cat(parts)
+
+
+def train_block_index(path: Tuple[str, ...], shape: Sequence[int],
+                      sp: Spec, arch, axis_sizes: Mapping[str, int],
+                      coords: Mapping[str, int]) -> Tuple[Any, ...]:
+    """The index of this rank's block of a whole training leaf under its
+    sanitized spec ``sp``: ``local_slice``'s contiguous blocks, except the
+    model-split dim of a fused ``wqkv`` / ``bqkv``, indexed by the rank's
+    q, k and v columns (``_fused_qkv_columns``)."""
+    index = list(local_slice(sp, shape, axis_sizes, coords))
+    if path[-1] in ("wqkv", "bqkv"):
+        d = len(shape) - 1
+        if "model" in _axes(sp[d]):
+            if _axes(sp[d]) != ("model",):
+                raise NotImplementedError(f"{'/'.join(path)}: fused qkv "
+                                          f"columns split over {sp[d]}")
+            index[d] = _fused_qkv_columns(arch, shape[d],
+                                          axis_sizes["model"],
+                                          coords["model"])
+    return tuple(index)
+
+
+def train_blocks(params: Any, specs: Any, arch,
+                 axis_sizes: Mapping[str, int],
+                 coords: Mapping[str, int]) -> Any:
+    """This rank's block of every whole leaf of ``params`` under the
+    sanitized ``specs`` (each a copy in a storage of its own)."""
+    def cut(path, leaf):
+        sp = _at(specs, path)
+        idx = train_block_index(path, leaf.shape, sp, arch, axis_sizes,
+                                coords)
+        return leaf[idx].clone(memory_format=torch.contiguous_format)
+    return map_with_path(cut, params)
+
+
+def _at(tree: Any, path: Tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree

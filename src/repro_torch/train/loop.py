@@ -18,8 +18,9 @@ step's metrics after dispatching its own, so the card always has work
 queued behind the wait, while ``dt`` still measures the card's step time
 (attributed one step late).
 
-With a data-parallel ``group`` only its rank 0 logs and keeps the history
-(the metrics are the whole batch's on every rank); the step is the same.
+With a ``group`` (a data group, or any group of a training mesh) only the
+mesh's rank 0 logs and keeps the history (the metrics are the whole
+batch's on every rank); the step is the same.
 """
 from __future__ import annotations
 
@@ -84,10 +85,11 @@ def train_loop(step_fn: Callable, state: Any, data: SyntheticPipeline,
                group=None) -> Dict[str, Any]:
     """Run (or resume from ``start_step``) training; returns ``{"state",
     "history", "monitor"}`` with one history entry (plain floats) per
-    step (none on a rank of ``group`` other than 0, which logs nothing).
+    step (none on a rank other than the mesh's rank 0 when ``group`` is
+    given: it logs nothing).
     ``ckpt`` saves ``ckpt_tree(state)`` every ``cfg.ckpt_every`` steps and
     at the end."""
-    lead = group is None or dist.get_rank(group) == 0
+    lead = group is None or dist.get_rank() == 0
     if not lead:
         log = lambda s: None  # noqa: E731
 

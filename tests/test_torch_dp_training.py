@@ -20,8 +20,9 @@ AdamW once:
 - the collectives a step by kind equal ``zero_collectives``;
 - ``train_loop`` with the data group logs and keeps history on rank 0
   only;
-- a mesh with a model axis of 2 is refused (tensor-parallel training is
-  not ported), and so is a dp that does not divide 256.
+- what a mesh's step still refuses: an ssm arch on a model axis of 2 and
+  a pod axis of 2 (``tests/test_torch_tp_training.py`` trains the model
+  axis), and a dp that does not divide 256.
 
 The JAX steps are computed while the ranks train (the spawn runs in a
 thread).
@@ -181,9 +182,15 @@ def test_train_loop_logs_on_rank_0_only():
 
 
 def test_model_axis_is_refused():
+    """The model axis trains the dense, moe and vlm families; an ssm arch
+    on it and a pod axis are refused, naming what is missing."""
     ranks, _ = _runs()
     for r in ranks:
-        assert "model axis" in r["model_axis_refusal"]
+        ssm = r["refusals"]["ssm model axis"]
+        assert ssm is not None and "model axis of 2" in ssm \
+            and "per-segment split" in ssm
+        pod = r["refusals"]["pod axis"]
+        assert pod is not None and "pod axis" in pod and "'pod': 2" in pod
 
 
 class _Mesh:

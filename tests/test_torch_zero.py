@@ -17,7 +17,8 @@ on it, one device, against the JAX package on the same numpy inputs:
   row, as JAX's kernel reduces it), w, m, v within 1e-6;
 - a rank's shards and its blocks of the gradient buffer at dp 2, 4 and 8
   are its columns of the one-device flat leaves, bitwise;
-- the training rules and specs are JAX's defaults;
+- the training rules and specs are JAX's defaults, with each option
+  of ``make_rules``; the train step refuses a table it cannot honour;
 - a ZeRO ``build_train_step`` at dp=1 gives ``m``, ``v`` and ``master`` of
   the shapes JAX's ``init`` gives.
 """
@@ -256,6 +257,23 @@ def test_train_step_state_has_jax_shapes():
     assert bundle.plan.period == period_length(t_arch)
 
 
+@pytest.mark.parametrize("kw", [{"multi_pod": True},
+                                {"overrides": (("opt_flat", "data"),)},
+                                {"overrides": (("tensor", None),)}],
+                         ids=["multi_pod", "opt_flat", "tensor"])
+def test_train_step_refuses_rules_it_cannot_honour(kw):
+    """The step honours the ``make_rules`` tables of its three options
+    (the meshes' tests run them) and refuses any other table before it
+    builds anything."""
+    from repro_torch.configs import RunConfig, ShapeConfig, smoke_config
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.steps import build_train_step
+    run = RunConfig(arch=smoke_config("llama3.2-3b"), shape=ShapeConfig(
+        "t", seq_len=8, global_batch=2, kind="train"))
+    with pytest.raises(NotImplementedError, match="multi_pod and overrides"):
+        build_train_step(run, device="cpu", rules=make_rules(**kw))
+
+
 def test_training_rules_and_specs_are_jax():
     """``TRAIN_RULES`` JAX's default table; ``batch_pspecs``,
     ``opt_state_pspecs`` and ``flat_grad_pspec`` JAX's specs under it (a
@@ -305,3 +323,126 @@ def test_local_slice_cuts_the_rank_blocks():
         slice(0, 2), slice(0, 8))
     with pytest.raises(ValueError, match="does not split"):
         sh.local_slice(("data",), (6,), sizes, {"data": 0})
+
+
+RULE_OPTIONS = [{}, {"multi_pod": True}, {"seq_parallel": False},
+                {"fsdp": False}, {"expert_parallel": False},
+                {"overrides": (("opt_flat", ("data", "model")),
+                               ("seq", None))}]
+
+
+@pytest.mark.parametrize("kw", RULE_OPTIONS,
+                         ids=["defaults", "multi_pod", "no_seq", "no_fsdp",
+                              "no_experts", "overrides"])
+def test_make_rules_options_are_jax(kw):
+    """``make_rules`` with each option is JAX's table; ``batch_pspecs``,
+    the expert case of ``opt_state_pspecs`` and ``flat_grad_pspec`` under
+    it are JAX's specs."""
+    from jax.sharding import Mesh
+    from repro.parallel import sharding as jsh
+    from repro_torch.parallel import sharding as sh
+    rules = sh.make_rules(**kw)
+    assert rules == jsh.make_rules(**kw)
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                ("data", "model"))
+    batch = {"tokens": np.zeros((4, 8)),
+             "mrope_positions": np.zeros((3, 4, 8))}
+    state = {"m": {"blocks": {"layer_0": {"moe": {"experts": {
+        "w1": np.zeros((4, 256))}}}}, "embed": {
+        "embedding": np.zeros((1, 512))}}, "step": np.zeros(())}
+    flat = np.zeros((4, 256))
+    with jsh.activate(mesh, jsh.make_rules(**kw)):
+        jbatch = jsh.batch_pspecs(batch)
+        jopt = jsh.opt_state_pspecs(state, None, True)
+        jflat = jsh.flat_grad_pspec(
+            (jax.tree_util.DictKey("experts"),), flat)
+
+    def one(sp):        # PartitionSpec writes a one-axis tuple as the axis
+        return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                     for e in sp)
+    assert {k: one(v) for k, v in sh.batch_pspecs(batch, rules).items()} \
+        == {k: one(v) for k, v in jbatch.items()}
+    opt = sh.opt_state_pspecs(state, None, True, rules)
+    for path in (("blocks", "layer_0", "moe", "experts", "w1"),
+                 ("embed", "embedding")):
+        got, want = opt["m"], jopt["m"]
+        for k in path:
+            got, want = got[k], want[k]
+        assert one(got) == one(want), path
+    assert one(sh.flat_grad_pspec(flat, rules)) == one(jflat)
+
+
+@pytest.mark.parametrize("kw", [{}, {"expert_parallel": False,
+                                     "fsdp": False}],
+                         ids=["defaults", "no_experts_no_fsdp"])
+def test_param_pspecs_of_every_arch_are_jax(kw):
+    """``param_pspecs`` of every registry arch's smoke params is JAX's on
+    JAX's tree, leaf for leaf (JAX's scan axis a leading replicated dim);
+    sanitized over a (16, 16) mesh, the same specs."""
+    from jax.sharding import Mesh
+    from repro.configs import REGISTRY
+    from repro.configs import smoke_config as jax_smoke_config
+    from repro.models import build_model
+    from repro.parallel import sharding as jsh
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.transformer import period_length
+    from repro_torch.parallel import sharding as sh
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                ("data", "model"))
+    sizes = {"data": 16, "model": 16}
+    for name in REGISTRY:
+        arch = smoke_config(name)
+        params = model_lib.init_params(arch, torch.Generator().manual_seed(0),
+                                       "cpu", torch.float32)
+        jparams = jax.eval_shape(
+            lambda m=build_model(jax_smoke_config(name)): m.init(
+                jax.random.key(0)))
+        with jsh.activate(mesh, jsh.make_rules(**kw)):
+            jspecs = jsh.param_pspecs(jparams)
+        specs = sh.param_pspecs(params, sh.make_rules(**kw))
+        stacks = {k: len(params[k]) for k in zero.STACKS
+                  if isinstance(params.get(k), list)}
+        for (path, sp), (_, leaf) in zip(zero.leaf_paths(specs),
+                                         zero.leaf_paths(params)):
+            jpath, _ = zero.jax_path(path, stacks, period_length(arch))
+            node, jleaf = jspecs, jparams
+            for k in jpath:
+                node, jleaf = node[str(k)], jleaf[str(k)]
+            want = tuple(node)
+            want = want + (None,) * (jleaf.ndim - len(want))
+            pad = len(want) - len(sp)
+            assert want[:pad] == (None,) * pad and want[pad:] == sp, (
+                name, path, sp, want)
+            got = sh.sanitize_spec(sp, leaf.shape, sizes)
+            jgot = tuple(jsh._sanitize(node, jleaf.shape, sizes))
+            jgot = jgot + (None,) * (jleaf.ndim - len(jgot))
+            assert jgot[pad:] == got, (name, path, got, jgot)
+
+
+SANITIZE_CASES = [
+    (("data", None), (1, 16), {"data": 16, "model": 16}),
+    (("data",), (7,), {"data": 16, "model": 16}),
+    (("data", "model"), (32, 32), {"data": 16, "model": 16}),
+    ((("data", "model"),), (16,), {"data": 16, "model": 16}),
+    (("model",), (8, 12), {"data": 8, "model": 4}),
+    (("data", "model"), (7, 12), {"data": 8, "model": 4}),
+    ((("data", "model"),), (8,), {"data": 8, "model": 4}),
+    ((("model", "data"),), (8,), {"data": 8, "model": 4}),
+    ((None, "model"), (3, 5), {"data": 8, "model": 4}),
+    (("model",), (5,), {"model": 1}),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SANITIZE_CASES)))
+def test_sanitize_is_jax(case):
+    """``_sanitize`` on JAX's own cases (``tests/test_sharding.py``) gives
+    JAX's specs; ``sanitize_spec`` with no mesh is the identity."""
+    from jax.sharding import PartitionSpec as P
+    from repro.parallel import sharding as jsh
+    from repro_torch.parallel import sharding as sh
+    spec, shape, sizes = SANITIZE_CASES[case]
+    want = tuple(jsh._sanitize(P(*spec), shape, sizes))
+    want = want + (None,) * (len(shape) - len(want))
+    assert sh._sanitize(spec, shape, sizes) == want
+    assert sh.sanitize_spec(spec, shape, None) == spec

@@ -1,6 +1,8 @@
 """What the port's multi-rank tests run in each rank (``launch.mesh.spawn``
 pickles these by name, so they live in a module that imports neither JAX
 nor a test file)."""
+import os
+
 import torch
 import torch.distributed as dist
 
@@ -13,6 +15,7 @@ from repro_torch.models.transformer import period_length
 from repro_torch.optim import zero
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import pipeline
+from repro_torch.parallel.sharding import make_rules
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.steps import build_train_step, zero_collectives
 
@@ -24,8 +27,8 @@ def train_cases(mesh, rank, device, cases, steps):
     and its ``m`` / ``v`` / ``master`` shards in JAX's layout, the
     collectives a step by kind, and the counts ``zero_collectives``
     states. Then two steps of the last case through ``train_loop`` with
-    the data group (what it logged and kept), and the refusal of a mesh
-    with a model axis."""
+    the data group (what it logged and kept), and the refusals that
+    remain (``_refusals``)."""
     torch.set_num_threads(1)
     out = []
     for case in cases:
@@ -56,14 +59,71 @@ def train_cases(mesh, rank, device, cases, steps):
         global_batch=run.shape.global_batch)), LoopConfig(
         max_steps=2, log_every=1), log=logs.append,
         group=mesh.get_group("data"))
-    try:
-        wide = mesh_lib.make_host_mesh(data=1, model=2)
-        build_train_step(run, device="cpu", mesh=wide)
-        refusal = None
-    except NotImplementedError as e:
-        refusal = str(e)
-    return {"cases": out, "model_axis_refusal": refusal,
+    return {"cases": out, "refusals": _refusals(run),
             "loop": {"history": len(looped["history"]), "logs": len(logs)}}
+
+
+def _refusals(run):
+    """What a mesh's step still refuses, before any collective: an ssm
+    arch on a model axis of 2, and a pod axis of 2 (two ranks either
+    way)."""
+    from repro_torch.configs import smoke_config
+    out = {}
+    for name, shape, axes, arch in (
+            ("ssm model axis", (1, 2), ("data", "model"),
+             smoke_config("mamba2-1.3b")),
+            ("pod axis", (2, 1, 1), ("pod", "data", "model"), run.arch)):
+        try:
+            build_train_step(run.replace(arch=arch), device="cpu",
+                             mesh=mesh_lib.make_mesh(shape, axes,
+                                                     backend="gloo"))
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def tp_train_cases(mesh, rank, device, cases, steps):
+    """Each case (as ``train_cases``, with ``rules``: ``make_rules``
+    keywords, and ``fused_blocks``) trained ``steps`` steps on a (data,
+    model) mesh: its metrics and collectives a step, the counts
+    ``zero_collectives`` states, the rank's coordinates, the sanitized
+    specs, and its blocks of the params and of ``m`` / ``v`` / ``master``
+    (param-shaped through ``Plan.blocks``), as numpy."""
+    torch.set_num_threads(1)
+    out = []
+    for case in cases:
+        os.environ["REPRO_FUSED_BLOCKS"] = "1" if case["fused_blocks"] \
+            else "0"
+        arch = case["arch"]
+        run = RunConfig(arch=arch, shape=ShapeConfig(**case["shape"]),
+                        **case["run"])
+        bundle = build_train_step(run, device="cpu", mesh=mesh,
+                                  rules=make_rules(**case["rules"]))
+        state = bundle.init(params=tree.map(torch.from_numpy,
+                                            case["params"]))
+        metrics, counts = [], []
+        for i in range(steps):
+            before = dict(C.COUNTS)
+            state, met = bundle.fn(state, case["batches"][i])
+            counts.append({k: C.COUNTS[k] - before[k] for k in
+                           ("all_reduce", "reduce_scatter", "all_gather")})
+            metrics.append({k: float(v) for k, v in met.items()})
+        ax = bundle.mesh
+
+        def host(t):
+            return t.detach().numpy()
+        out.append({
+            "metrics": metrics, "counts": counts,
+            "stated": zero_collectives(run, ax.dp, ax.tp, ax.rules,
+                                       bundle.specs),
+            "coords": ax.coords, "sizes": ax.sizes, "specs": bundle.specs,
+            "params": tree.map(host, state["params"]),
+            "opt": {k: tree.map(host, bundle.plan.blocks(
+                state["opt"][k], state["params"]))
+                for k in ("m", "v", "master") if k in state["opt"]}})
+    os.environ.pop("REPRO_FUSED_BLOCKS", None)
+    return out
 
 
 def collective_cases(mesh, rank, device, x, pipe_x, ws, num_micro):
