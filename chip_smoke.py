@@ -5818,17 +5818,60 @@ def flash_graphed(arch):
             "captures": a["captures"], "replays": a["replays"]}
 
 
+def _mpf_dir() -> str:
+    """Where phase 8b leaves mamba2's step-1 reference for phase 8e (a
+    git-ignored directory under build/)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "mp_families")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _eager_with_reference(name, arch, paths, steps=FAMILY_STEPS):
+    """The eager run of ``_family_run`` (``steps`` steps) in two calls on
+    one state, step 1 then the rest, step 1's master update and m saved in
+    between (param-shaped fp32 on the host, ``paths["update"]`` and
+    ``paths["m"]``), for phase 8e's mesh runs to be held against; the two
+    calls' losses, norms and launches joined."""
+    from repro_torch import tree
+    bundle = _family_bundle(arch, True)
+    state = bundle.init(SEED)
+    master0 = [t.detach().to("cpu", copy=True)
+               for t in tree.leaves(state["opt"]["master"])]
+    first = _family_run(name, arch, True, graphed=False, steps=1,
+                        state=state, bundle=bundle)
+    torch.save([a.detach().cpu() - b for a, b in zip(
+        tree.leaves(state["opt"]["master"]), master0)], paths["update"])
+    del master0
+    torch.save([t.detach().cpu() for t in tree.leaves(state["opt"]["m"])],
+               paths["m"])
+    if steps == 1:
+        return first
+    rest = _family_run(name, arch, True, graphed=False,
+                       steps=steps - 1, state=state, bundle=bundle,
+                       start=1, data=first["data"])
+    launches = dict(first["launches"])
+    for k, v in rest["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return dict(rest, losses=first["losses"] + rest["losses"],
+                grad_norms=first["grad_norms"] + rest["grad_norms"],
+                launches=launches)
+
+
 def mamba_training(dev):
     """mamba2-1.3b at full width and depth, B8 S128: 6 steps graphed and 6
     eager from the same seeded weights, both states held and compared
     bitwise; exact launches a step (48 gated norms a pass, twice with the
     recompute; one LAMB launch of each stage a leaf); the replayed step
-    profiled."""
+    profiled. The eager run's step-1 master update and m are saved for
+    phase 8e (``_eager_with_reference``)."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     arch = get_config("mamba2-1.3b")
     run = _family_run("mamba2-1.3b", arch, True)
-    eager = _family_run("mamba2-1.3b", arch, True, graphed=False)
+    ref = {k: os.path.join(_mpf_dir(), f"mamba2_{k}.pt")
+           for k in ("update", "m")}
+    eager = _eager_with_reference("mamba2-1.3b", arch, ref)
     leaf_sizes = [t.numel() for t in tree.leaves(run["state"]["params"])]
     n_leaves = len(leaf_sizes)
     want = {"gated_rmsnorm": 2 * arch.num_layers, "lamb_stage1": n_leaves,
@@ -5870,7 +5913,8 @@ def mamba_training(dev):
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / run["step_s"],
            "steady_step_ms": steady, "peak": run["peak"],
            "held_at_start": run["base"], "graph": graph,
-           "profile": prof, "per_step": want, "launches": run["launches"]}
+           "profile": prof, "per_step": want, "launches": run["launches"],
+           "ref": dict(ref, loss=eager["losses"][0])}
     _free(run)
     return out
 
@@ -6392,6 +6436,18 @@ DP1_STEPS = 8        # dp=1's runs: seven steps to time after the first
 UPDATE_REL_L2 = 0.15
 
 
+def _train_data(arch):
+    """The mesh phases' seeded batches of ``arch``: B8 S128, MLM for a
+    bidirectional arch, else causal; frame embeddings [B, Senc, D] for an
+    encdec one."""
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    return SyntheticPipeline(DataConfig(
+        vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, objective="mlm" if arch.bidirectional
+        else "causal", seed=SEED, frames=(arch.enc_seq_len, arch.d_model)
+        if arch.family == "encdec" else None))
+
+
 def _dp_train(mesh, rank, device, spec):
     """One rank's (``mesh`` None: one device's) run of the dp phase:
     bert-large (or ``spec["arch"]``) from the seeded fp32 init, LAMB at
@@ -6406,7 +6462,6 @@ def _dp_train(mesh, rank, device, spec):
     import faulthandler
     from repro_torch import tree
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
-    from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.kernels.fused_lamb import ops as lamb_ops
     from repro_torch.models.model import init_params
     from repro_torch.optim import zero
@@ -6428,15 +6483,13 @@ def _dp_train(mesh, rank, device, spec):
         torch.float32))
     gc.collect()
     torch.cuda.empty_cache()
-    data = SyntheticPipeline(DataConfig(
-        vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_BATCH, objective="mlm" if arch.bidirectional
-        else "causal", seed=SEED))
+    data = _train_data(arch)
     step_fn = bundle.fn if spec.get("graphed") else bundle.eager
     opt_bytes = {k: sum(t.numel() * t.element_size()
                         for t in tree.leaves(state["opt"][k]))
                  for k in ("m", "v", "master")}
-    master0 = ([t.cpu() for t in tree.leaves(state["opt"]["master"])]
+    master0 = ([t.detach().to("cpu", copy=True)
+                for t in tree.leaves(state["opt"]["master"])]
                if spec.get("update") else None)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6904,10 +6957,10 @@ def _mp_train(mesh, rank, device, specs):
     import faulthandler
     from repro_torch import tree
     from repro_torch.configs import RunConfig, ShapeConfig, get_config
-    from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.kernels.bias_gelu import ops as bg_ops
     from repro_torch.kernels.fused_lamb import ops as lamb_ops
     from repro_torch.kernels.fused_layernorm import ops as ln_ops
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models.model import init_params
     from repro_torch.parallel import collectives, sharding
     from repro_torch.train.steps import build_train_step, zero_collectives
@@ -6928,7 +6981,9 @@ def _mp_train(mesh, rank, device, specs):
             "mp", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
             optimizer="lamb", learning_rate=1e-3, zero1=True,
             fused_optimizer_kernel=True, master_weights=True)
-        bundle = build_train_step(run, dev, mesh=mesh,
+        on = mesh if spec.get("mesh") is None else mesh_lib.make_mesh(
+            *spec["mesh"], backend=torch.distributed.get_backend())
+        bundle = build_train_step(run, dev, mesh=on,
                                   rules=sharding.make_rules(**spec["rules"]))
         state = bundle.init(params=init_params(
             arch, torch.Generator(device=dev).manual_seed(SEED), dev,
@@ -6936,10 +6991,7 @@ def _mp_train(mesh, rank, device, specs):
         gc.collect()
         torch.cuda.empty_cache()
         plan, ax = bundle.plan, bundle.mesh
-        data = SyntheticPipeline(DataConfig(
-            vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ,
-            global_batch=TRAIN_BATCH, objective="mlm" if arch.bidirectional
-            else "causal", seed=SEED))
+        data = _train_data(arch)
 
         def nbytes(t):
             return sum(x.numel() * x.element_size() for x in tree.leaves(t))
@@ -6955,9 +7007,9 @@ def _mp_train(mesh, rank, device, specs):
                              for path, t in sharding.leaf_items(
                                  state["params"]) if "experts" in path)},
                "stated": zero_collectives(run, ax.dp, ax.tp, ax.rules,
-                                          bundle.specs),
+                                          bundle.specs, ax.pods),
                "losses": [], "grad_norms": [], "step_s": [], "launches": [],
-               "collectives": [], "digests": []}
+               "collectives": [], "digests": [], "shard_digests": []}
         master0 = plan.blocks(state["opt"]["master"], state["params"]) \
             if spec.get("ref") else None
         if spec.get("plant"):
@@ -6965,10 +7017,18 @@ def _mp_train(mesh, rank, device, specs):
                      sharding.leaf_items(bundle.specs)]
             bundle.partial.remove(paths.index(spec["plant"]))
         restore = None
-        if spec.get("control"):
-            restore = collectives.Parallel.exit
+        if spec.get("control") == "statistic":
+            # model rank 1's share of the gated norm's row statistic
+            restore = (ln_ops, "gated_rmsnorm_partial",
+                       ln_ops.gated_rmsnorm_partial)
+            if ax.coords["model"] == 1:
+                ln_ops.gated_rmsnorm_partial = \
+                    lambda y, z, _f=restore[2]: _f(y, z) * 0
+        elif spec.get("control"):
+            restore = (collectives.Parallel, "exit",
+                       collectives.Parallel.exit)
 
-            def dropped(self, y, _exit=restore):
+            def dropped(self, y, _exit=restore[2]):
                 return _exit(self, y * 0 if self.mrank == 1 else y)
             collectives.Parallel.exit = dropped
         torch.cuda.synchronize(dev)
@@ -6987,12 +7047,15 @@ def _mp_train(mesh, rank, device, specs):
             out["collectives"].append({k: collectives.COUNTS[k] - coll0[k]
                                        for k in kinds})
             out["digests"].append(_state_digest(state["params"]))
+            if ax.pods > 1:
+                out["shard_digests"].append({k: _state_digest(
+                    state["opt"][k]) for k in ("m", "v", "master")})
             if i == 0 and master0 is not None:
                 out["update_sq"] = _mp_update_sums(
                     bundle, state, master0, spec["ref"], arch, dev)
                 master0 = None
         if restore is not None:
-            collectives.Parallel.exit = restore
+            setattr(*restore)
         out["peak"] = torch.cuda.max_memory_allocated(dev)
         out["units"] = [[u.rows, plan.cols(i)]
                         for i, u in enumerate(plan.units)]
@@ -7018,25 +7081,31 @@ def _mp_update_sums(bundle, state, master0, ref, arch, dev) -> list:
     plan, ax = bundle.plan, bundle.mesh
     upd = tree.leaves(plan.blocks(state["opt"]["master"], state["params"]))
     mom = tree.leaves(plan.blocks(state["opt"]["m"], state["params"]))
-    refs = [torch.load(ref[k]) for k in ("update", "m")]
+    refs = [torch.load(ref[k], mmap=True) for k in ("update", "m")]
     out = []
     for (path, sp), a, b, m, r, rm in zip(
             sharding.leaf_items(bundle.specs), upd, tree.leaves(master0),
             mom, *refs):
         idx = sharding.train_block_index(path, r.shape, sp, arch, ax.sizes,
                                          ax.coords)
-        r, rm = r[idx].to(dev), rm[idx].to(dev)
-        d = a - b
-        flip = d * r < 0
-        gap = torch.square(d - r)
-        out.append({k: float(v) for k, v in {
-            "sq": gap.sum(), "ref_sq": torch.square(r).sum(),
-            "own_sq": torch.square(d).sum(),
-            "w_sq": torch.square(b).sum(), "flips": flip.sum(),
-            "flip_sq": gap[flip].sum(), "flip_m": rm.abs()[flip].sum(),
-            "m_sq": torch.square(m - rm).sum(),
-            "m_ref_sq": torch.square(rm).sum(), "n": r.numel()}.items()})
+        out.append(_step1_sums(a, b, m, r[idx].to(dev), rm[idx].to(dev)))
     return out
+
+
+def _step1_sums(a, b, m, r, rm) -> dict:
+    """``_mp_update_sums``' sums of one block: master ``a`` after step 1,
+    ``b`` before it, step 1's ``m``; the reference's update ``r`` and m
+    ``rm``."""
+    d = a - b
+    flip = d * r < 0
+    gap = torch.square(d - r)
+    return {k: float(v) for k, v in {
+        "sq": gap.sum(), "ref_sq": torch.square(r).sum(),
+        "own_sq": torch.square(d).sum(),
+        "w_sq": torch.square(b).sum(), "flips": flip.sum(),
+        "flip_sq": gap[flip].sum(), "flip_m": rm.abs()[flip].sum(),
+        "m_sq": torch.square(m - rm).sum(),
+        "m_ref_sq": torch.square(rm).sum(), "n": r.numel()}.items()}
 
 
 def _mp_leaf_readings(held) -> dict:
@@ -7045,11 +7114,13 @@ def _mp_leaf_readings(held) -> dict:
     ratio to dp=1's (None where the weights are 0: the ratio is then 1 by
     definition), the share of elements whose update sign flips, those
     flips' share of the squared gap, and their mean dp=1 |m| over the
-    leaf's RMS |m| (and the flips and elements themselves)."""
+    leaf's RMS |m| (and the flips and elements themselves); the RMS of
+    dp=1's m."""
     tot = {k: sum(r[k] for r in held) for k in held[0]}
     return {
         "update": math.sqrt(tot["sq"] / max(tot["ref_sq"], 1e-60)),
         "m": math.sqrt(tot["m_sq"] / max(tot["m_ref_sq"], 1e-60)),
+        "m_ref_rms": math.sqrt(tot["m_ref_sq"] / tot["n"]),
         "norm": (math.sqrt(tot["own_sq"] / max(tot["ref_sq"], 1e-60))
                  if tot["w_sq"] > 0 else None),
         "flips": tot["flips"], "n": tot["n"],
@@ -7173,6 +7244,84 @@ def _mp_kernel_checks(dev) -> dict:
     return out
 
 
+def _mp_check_run(ranks, i, name):
+    """A run of ``_mp_train`` (index ``i`` of every rank's list): the
+    ranks' losses equal, the ranks holding the same block of a leaf
+    bitwise equal after every step, the collectives a step by kind equal
+    the stated ones, the losses finite -> (rank 0's run, its step-1
+    readings, the leaf paths)."""
+    runs = [r[i] for r in ranks]
+    lead = runs[0]
+    for r in runs[1:]:
+        if r["losses"] != lead["losses"]:
+            _fail(f"{name}: ranks' losses differ")
+    specs = lead["specs"]
+    from repro_torch.parallel import sharding
+    items = sharding.leaf_items(specs)
+    for step in range(len(lead["digests"])):
+        for j, (path, sp) in enumerate(items):
+            axes = _leaf_axes(sp)
+            seen = {}
+            for r in runs:
+                key = tuple(r["coords"][a] for a in axes)
+                dg = r["digests"][step][j]
+                if seen.setdefault(key, dg) != dg:
+                    _fail(f"{name} step {step + 1}: the ranks holding "
+                          f"block {key} of {'/'.join(path)} differ")
+    for r in runs:
+        for k, c in enumerate(r["collectives"]):
+            got = {kk: c[kk] for kk in r["stated"]}
+            if got != r["stated"]:
+                _fail(f"{name} step {k + 1} rank {r['coords']}: "
+                      f"collectives {got}, stated {r['stated']}")
+    if not all(math.isfinite(x) for x in lead["losses"]):
+        _fail(f"{name}: losses {lead['losses']}")
+    return lead, _mp_readings(runs), ["/".join(p) for p, _ in items]
+
+
+def _mp_readings(runs):
+    """Each leaf's step-1 readings (``_mp_leaf_readings``) over the
+    ranks holding its distinct blocks, by kind; None without a
+    reference."""
+    if "update_sq" not in runs[0]:
+        return None
+    from repro_torch.parallel import sharding
+    per = [_mp_leaf_readings([r["update_sq"][j] for r in _distinct(
+        runs, j, _leaf_axes(sp))]) for j, (_, sp) in enumerate(
+            sharding.leaf_items(runs[0]["specs"]))]
+    return {k: [x[k] for x in per] for k in per[0]}
+
+
+def _mp_limits(limits=None) -> dict:
+    """Phase 8d's step-1 limits by gate name, ``limits`` replacing any."""
+    return dict({"update": TP_UPDATE_REL_L2,
+                 "update median": TP_UPDATE_MEDIAN_REL_L2,
+                 "m": TP_MOMENT_REL_L2, "update norm": TP_UPDATE_NORM_REL},
+                **(limits or {}))
+
+
+def _mp_gates(rd, limits=None):
+    """The step-1 gates a run's readings ``rd`` fail under
+    ``_mp_limits(limits)``, by name, each with its worst leaf index and
+    reading."""
+    lim = _mp_limits(limits)
+    out = {}
+    worst = int(np.argmax(rd["update"]))
+    if not rd["update"][worst] <= lim["update"]:
+        out["update"] = (worst, rd["update"][worst])
+    med = float(np.median(rd["update"]))
+    if not med <= lim["update median"]:
+        out["update median"] = (None, med)
+    worst = int(np.argmax(rd["m"]))
+    if not rd["m"][worst] <= lim["m"]:
+        out["m"] = (worst, rd["m"][worst])
+    dev_ = [abs(x - 1) if x is not None else -1.0 for x in rd["norm"]]
+    worst = int(np.argmax(dev_))
+    if not dev_[worst] <= lim["update norm"]:
+        out["update norm"] = (worst, rd["norm"][worst])
+    return out
+
+
 def mp_phase(dev, smi, dp_out, tp1_per_step):
     """Phase 8d: training on a (data, model) mesh, gloo ranks sharing the
     card. (a) (1, 2): bert-large MP_STEPS eager steps; deepseek-moe-16b
@@ -7242,75 +7391,15 @@ def mp_phase(dev, smi, dp_out, tp1_per_step):
     dp1_loss = dp_out["dp1"]["losses"][0]
     loss_ulp = _bf16_ulp(torch.tensor(dp1_loss)).item()
 
-    def check_run(ranks, i, name):
-        runs = [r[i] for r in ranks]
-        lead = runs[0]
-        for r in runs[1:]:
-            if r["losses"] != lead["losses"]:
-                _fail(f"{name}: ranks' losses differ")
-        specs = lead["specs"]
-        from repro_torch.parallel import sharding
-        items = sharding.leaf_items(specs)
-        for step in range(len(lead["digests"])):
-            for j, (path, sp) in enumerate(items):
-                axes = _leaf_axes(sp)
-                seen = {}
-                for r in runs:
-                    key = tuple(r["coords"][a] for a in axes)
-                    dg = r["digests"][step][j]
-                    if seen.setdefault(key, dg) != dg:
-                        _fail(f"{name} step {step + 1}: the ranks holding "
-                              f"block {key} of {'/'.join(path)} differ")
-        for r in runs:
-            for k, c in enumerate(r["collectives"]):
-                got = {kk: c[kk] for kk in r["stated"]}
-                if got != r["stated"]:
-                    _fail(f"{name} step {k + 1} rank {r['coords']}: "
-                          f"collectives {got}, stated {r['stated']}")
-        if not all(math.isfinite(x) for x in lead["losses"]):
-            _fail(f"{name}: losses {lead['losses']}")
-        return lead, _readings(runs), ["/".join(p) for p, _ in items]
-
-    def _readings(runs):
-        """Each leaf's step-1 readings (``_mp_leaf_readings``) over the
-        ranks holding its distinct blocks, by kind; None without a
-        reference."""
-        if "update_sq" not in runs[0]:
-            return None
-        from repro_torch.parallel import sharding
-        per = [_mp_leaf_readings([r["update_sq"][j] for r in _distinct(
-            runs, j, _leaf_axes(sp))]) for j, (_, sp) in enumerate(
-                sharding.leaf_items(runs[0]["specs"]))]
-        return {k: [x[k] for x in per] for k in per[0]}
-
-    def gates(rd):
-        """The step-1 gates a run's readings ``rd`` fail, by name, each
-        with its worst leaf index and reading."""
-        out = {}
-        worst = int(np.argmax(rd["update"]))
-        if not rd["update"][worst] <= TP_UPDATE_REL_L2:
-            out["update"] = (worst, rd["update"][worst])
-        med = float(np.median(rd["update"]))
-        if not med <= TP_UPDATE_MEDIAN_REL_L2:
-            out["update median"] = (None, med)
-        worst = int(np.argmax(rd["m"]))
-        if not rd["m"][worst] <= TP_MOMENT_REL_L2:
-            out["m"] = (worst, rd["m"][worst])
-        dev_ = [abs(x - 1) if x is not None else -1.0 for x in rd["norm"]]
-        worst = int(np.argmax(dev_))
-        if not dev_[worst] <= TP_UPDATE_NORM_REL:
-            out["update norm"] = (worst, rd["norm"][worst])
-        return out
-
     results = {}
     for label, ranks, i in (("(1, 2)", two, 0), ("(2, 2)", four, 0)):
-        lead, rd, paths = check_run(ranks, i, f"bert-large {label}")
+        lead, rd, paths = _mp_check_run(ranks, i, f"bert-large {label}")
         gap = abs(lead["losses"][0] - dp1_loss) / loss_ulp
         if not gap <= STEP1_LOSS_ULPS:
             _fail(f"bert-large {label}: step-1 loss {lead['losses'][0]} is "
                   f"{gap} bf16 ulps from dp=1's {dp1_loss} (tol "
                   f"{STEP1_LOSS_ULPS})")
-        for name, (j, x) in gates(rd).items():
+        for name, (j, x) in _mp_gates(rd).items():
             _fail(f"bert-large {label}: step-1 {name} reads {x}"
                   + (f" at {paths[j]}" if j is not None else "")
                   + f" (limits: update {TP_UPDATE_REL_L2}, its median "
@@ -7325,7 +7414,7 @@ def mp_phase(dev, smi, dp_out, tp1_per_step):
         results[label] = {"lead": lead, "update": update, "paths": paths,
                           "readings": rd, "loss_gap_ulps": gap,
                           "peaks": [r[i]["peak"] for r in ranks]}
-    control, crd, cpaths = check_run(two, 1, "bert-large control")
+    control, crd, cpaths = _mp_check_run(two, 1, "bert-large control")
     cupdate = crd["update"]
     best = int(np.argmin(cupdate))
     if not cupdate[best] > TP_UPDATE_REL_L2:
@@ -7336,13 +7425,13 @@ def mp_phase(dev, smi, dp_out, tp1_per_step):
     # model rank's own reading of it is judged
     j = cpaths.index(MP_PLANTED_LEAF)
     planted = [_mp_leaf_readings([r[3]["update_sq"][j]]) for r in two]
-    caught = [sorted(k for k, (jj, _) in gates(
+    caught = [sorted(k for k, (jj, _) in _mp_gates(
         {k: [p[k]] for k in p}).items() if jj is not None)
         for p in planted]
     if not all(caught):
         _fail(f"the planted fault ({MP_PLANTED_LEAF}'s model-axis sum "
               f"dropped) fails no gate on a model rank: {planted}")
-    moe, _, _ = check_run(two, 2, "deepseek-moe-16b (1, 2)")
+    moe, _, _ = _mp_check_run(two, 2, "deepseek-moe-16b (1, 2)")
     ds = dataclasses.replace(get_config("deepseek-moe-16b"),
                              num_layers=MP_MOE_LAYERS)
     moe_layers = sum(ds.is_moe_layer(i) for i in range(ds.num_layers))
@@ -7469,7 +7558,7 @@ def mp_phase(dev, smi, dp_out, tp1_per_step):
         nccl = mesh_lib.spawn(_mp_train, 2, [dict(bert, steps=2, ref=None)],
                               backend="nccl",
                               mesh=((1, 2), ("data", "model")), timeout=600)
-        lead, _, _ = check_run(nccl, 0, "bert-large (1, 2) nccl")
+        lead, _, _ = _mp_check_run(nccl, 0, "bert-large (1, 2) nccl")
         out["nccl"] = {k: lead[k] for k in ("losses", "step_s", "peak")}
         print(f"[mp] nccl (1, 2), a card a rank: losses {lead['losses']}, "
               f"step {[round(t * 1e3, 1) for t in lead['step_s']]} ms; "
@@ -7485,6 +7574,528 @@ def mp_phase(dev, smi, dp_out, tp1_per_step):
     return out
 
 
+# ----------------------------------------------------------- phase 8e ---
+# The model axis for the ssm, hybrid and encdec families and the pod axis
+# in training, gloo ranks sharing the card, B8 S128, fused blocks and the
+# LAMB kernels, fp32 master, against mesh-free steps from the same seeded
+# weights and batches, with phase 8d's gates: mamba2-1.3b on (1, 2) at
+# all 48 layers against phase 8b's step 1, beside a witness (a control
+# step there, with model rank 1's share of the gated norm's statistic
+# dropped, must fail the m gate); whisper-base on (1, 2) and (2, 2) against its own
+# mesh-free step 1; bert-large on a
+# (2, 2, 1) (pod, data, model) mesh under make_rules(multi_pod=True,
+# fsdp=False) against phase 8c's dp=1 loss, the pods' ZeRO shards bitwise
+# equal after every step. jamba-v0.1-52b is held to JAX on the CPU only:
+# two of its layers hold about 3.7 B parameters, about 52 GB at 14 bytes
+# a parameter, too much for two ranks sharing one card.
+MPF_STEPS = 2
+# mamba2's witness: one device's step 1 with the (1, 2) mesh's two partial
+# sums a layer copied in (``_mamba_mesh_sums``: out_proj's model-rank
+# halves as fp32 products summed and rounded once, in_proj's input
+# gradient likewise), against phase 8b's. Only the order of two fp32 sums
+# a layer differs from 8b's step, and 48 layers carry a change of one
+# bf16 rounding into every later one, so where the witness's readings
+# exceed phase 8d's constants the mesh's are held within this factor of
+# them (the largest leaf's update and m, the median leaf's update)
+MPF_WITNESS_FACTOR = 2.0
+# the split statistic's partial sums against their plain version: 2048
+# positive fp32 terms a row summed in another order
+SPLIT_SQ_REL = 2.0 ** -14
+# leaves whose exact gradient is 0, held out of the step-1 gates (their
+# readings printed): a cross-attention's key bias shifts every score of a
+# query by the same amount, which the softmax cancels, so its m and its
+# update are rounding noise on both sides (the CPU tests hold such a
+# leaf within 1e-2, tests/test_torch_train_families.py). That its
+# gradient is noise is read on the card: its reference m's RMS must stay
+# under MPF_ZERO_GRAD_RMS of the median gated leaf's
+MPF_ZERO_GRAD = ("xattn/bk",)
+MPF_ZERO_GRAD_RMS = 0.1
+
+
+class _MeshSumsIn(torch.autograd.Function):
+    """u @ w, the gradient of u as the (1, 2) mesh sums it: each model
+    rank's columns of w (``sharding._mamba_columns``) give an fp32
+    partial product, the two summed and rounded once."""
+    @staticmethod
+    def forward(ctx, u, w, cols):
+        ctx.save_for_backward(u, w)
+        ctx.cols = cols
+        return u @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        u, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gu = sum(torch.mm(g2[:, c], w[:, c].t(), out_dtype=torch.float32)
+                 for c in ctx.cols)
+        return (gu.to(u.dtype).reshape(u.shape),
+                u.reshape(-1, u.shape[-1]).t() @ g2, None)
+
+
+class _MeshSumsOut(torch.autograd.Function):
+    """y @ w as the (1, 2) mesh sums it: each model rank's half of y's
+    columns (its heads) times its rows of w in fp32, the two summed and
+    rounded once; the gradients one device's."""
+    @staticmethod
+    def forward(ctx, y, w):
+        ctx.save_for_backward(y, w)
+        y2, h = y.reshape(-1, y.shape[-1]), w.shape[0] // 2
+        out = torch.mm(y2[:, :h], w[:h], out_dtype=torch.float32) + \
+            torch.mm(y2[:, h:], w[h:], out_dtype=torch.float32)
+        return out.to(y.dtype).reshape(*y.shape[:-1], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        return (g @ w.t(), y.reshape(-1, y.shape[-1]).t()
+                @ g.reshape(-1, g.shape[-1]))
+
+
+def _mamba_mesh_sums(arch, p, u):
+    """``models.ssm._apply_mamba`` with the (1, 2) mesh's two partial
+    sums (``_MeshSumsIn``, ``_MeshSumsOut``); everything else one
+    device's."""
+    from repro_torch.models import ssm
+    from repro_torch.parallel import sharding
+    s = arch.ssm
+    bsz, seq, _ = u.shape
+    h, inner = ssm.num_ssm_heads(arch), ssm.inner_dim(arch)
+    w = p["in_proj"].to(u.dtype)
+    cols = [sharding._mamba_columns(arch, "in_proj", w.shape[1], 2, r).to(
+        u.device) for r in range(2)]
+    z, xin, b, c, dt = ssm._split_proj(arch, _MeshSumsIn.apply(u, w, cols))
+    xbc = ssm.silu(ssm._causal_conv(torch.cat([xin, b, c], dim=-1),
+                                    p["conv"]))
+    xin, b, c = ssm._conv_split(arch, xbc)
+    dt = ssm.softplus(dt.float() + p["dt_bias"][None, None, :])
+    xh = xin.reshape(bsz, seq, h, s.head_dim)
+    y, _ = ssm.ssd_chunked(
+        xh, dt, -torch.exp(p["A_log"]),
+        b.reshape(bsz, seq, s.ngroups, s.state_dim),
+        c.reshape(bsz, seq, s.ngroups, s.state_dim), min(s.chunk, seq))
+    y = y + xh * p["D"][None, None, :, None].to(y.dtype)
+    y = ssm._gated_rmsnorm(y.reshape(bsz, seq, inner), z, p["norm_scale"])
+    return _MeshSumsOut.apply(y, p["out_proj"].to(u.dtype))
+
+
+def _mamba_witness(arch, ref) -> dict:
+    """One device's eager step 1 of mamba2 through ``_mamba_mesh_sums``
+    against phase 8b's (``ref``: its param-shaped update and m files and
+    its loss) -> the readings a leaf (``_mp_leaf_readings``, by kind),
+    the leaves' paths and the loss's gap in bf16 ulps."""
+    from repro_torch import tree
+    from repro_torch.models import ssm
+    from repro_torch.parallel import sharding
+    keep = ssm._apply_mamba
+    ssm._apply_mamba = _mamba_mesh_sums
+    try:
+        bundle = _family_bundle(arch, True)
+        state = bundle.init(SEED)
+        master0 = [t.detach().clone()
+                   for t in tree.leaves(state["opt"]["master"])]
+        one = _family_run("mamba2-1.3b", arch, True, graphed=False,
+                          steps=1, state=state, bundle=bundle)
+    finally:
+        ssm._apply_mamba = keep
+    refs = [torch.load(ref[k], mmap=True) for k in ("update", "m")]
+    per = [_mp_leaf_readings([_step1_sums(a, b, m, r.to(a.device),
+                                          rm.to(a.device))])
+           for a, b, m, r, rm in zip(tree.leaves(state["opt"]["master"]),
+                                     master0, tree.leaves(state["opt"]["m"]),
+                                     *refs)]
+    gap = abs(one["losses"][0] - ref["loss"]) / _bf16_ulp(
+        torch.tensor(ref["loss"])).item()
+    paths = ["/".join(p) for p, _ in sharding.leaf_items(state["params"])]
+    _free(one)
+    del state, bundle, master0, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"readings": {k: [x[k] for x in per] for k in per[0]},
+            "paths": paths, "loss_gap_ulps": gap}
+
+
+def _split_gated_checks(dev) -> list:
+    """Row 11's split entries at a (1, 2) rank's mamba2 columns: y [B8 x
+    S128, 4096 / 2], z in place as columns of the rank's in_proj rows
+    [1024, 8512 / 2]. Two input sets stand for the two model ranks'
+    columns of the same rows: each rank's ``gated_rmsnorm_partial``
+    within SPLIT_SQ_REL of its plain version, ``gated_rmsnorm_apply`` on
+    the summed statistic within 1 bf16 ulp of its plain version on the
+    same inputs (of the row's largest |output|), and the two ranks'
+    outputs within 1 bf16 ulp of the whole-row plain ``gated_rmsnorm``;
+    one device kernel a call; each entry's events and device time over
+    ROTATE input sets beside its byte bound, its plain version and a
+    library call on a precomputed gated product -> the two kernels' rows
+    of the JSON line (launches filled in by the phase)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_layernorm import ops, ref
+    from repro_torch.models import ssm
+    from repro_torch.parallel import sharding
+    arch, tp = get_config("mamba2-1.3b"), 2
+    rows, c = TRAIN_BATCH * TRAIN_SEQ, ssm.inner_dim(arch) // tp
+    width = sum(sharding.mamba_segments(arch, "in_proj")) // tp
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    sets = [(torch.randn((rows, c), generator=gen, device=dev).bfloat16(),
+             (2 * torch.randn((rows, width), generator=gen, device=dev)
+              ).bfloat16()[:, :c]) for _ in range(ROTATE)]
+    scales = [(1 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+               ).bfloat16() for _ in range(tp)]
+    sq = [ops.gated_rmsnorm_partial(y, z) for y, z in sets[:tp]]
+    psq = [ref.gated_rmsnorm_partial(y, z) for y, z in sets[:tp]]
+    sq_rel = max(((a - b).abs() / b.abs()).max().item()
+                 for a, b in zip(sq, psq))
+    if not sq_rel <= SPLIT_SQ_REL:
+        _fail(f"gated_rmsnorm_partial [{rows}, {c}]: {sq_rel} relative "
+              f"from its plain version (tol {SPLIT_SQ_REL})")
+    total = sq[0] + sq[1]
+    outs, err = [], 0.0
+    for (y, z), s in zip(sets[:tp], scales):
+        o = ops.gated_rmsnorm_apply(y, z, total, s, c=tp * c)
+        p = ref.gated_rmsnorm_apply(y, z, total, s, tp * c).float()
+        diff = (o.float() - p).abs()
+        if not bool((diff <= _bf16_ulp(p.abs().amax(dim=-1, keepdim=True))
+                     ).all()):
+            _fail(f"gated_rmsnorm_apply [{rows}, {c}]: beyond 1 bf16 ulp "
+                  f"of the row's largest |output| (max abs "
+                  f"{diff.max().item()})")
+        err = max(err, diff.max().item())
+        outs.append(o)
+    whole = ref.gated_rmsnorm(
+        torch.cat([y for y, _ in sets[:tp]], -1),
+        torch.cat([z for _, z in sets[:tp]], -1), torch.cat(scales)).float()
+    gap = (torch.cat(outs, -1).float() - whole).abs()
+    if not bool((gap <= _bf16_ulp(whole.abs().amax(dim=-1, keepdim=True))
+                 ).all()):
+        _fail(f"gated_rmsnorm split over {tp} ranks' columns: beyond 1 bf16 "
+              f"ulp of the whole row's plain version (max abs "
+              f"{gap.max().item()})")
+    y0, z0 = sets[0]
+    s0 = scales[0]
+    _kernels_a_call(lambda: ops.gated_rmsnorm_partial(y0, z0),
+                    "gated_rmsnorm_partial")
+    _kernels_a_call(lambda: ops.gated_rmsnorm_apply(y0, z0, total, s0,
+                                                    c=tp * c),
+                    "gated_rmsnorm_apply")
+    gated = [(a * (b * torch.sigmoid(b)),) for a, b in sets]
+    fns = {
+        "gated_rmsnorm_partial": (
+            _cycling(ops.gated_rmsnorm_partial, sets),
+            lambda: ref.gated_rmsnorm_partial(y0, z0),
+            _cycling(lambda g: torch.linalg.vector_norm(
+                g, dim=-1, dtype=torch.float32), gated),
+            "torch.linalg.vector_norm of the precomputed bf16 gated "
+            "product, fp32 (the root of the sum, not the gate)",
+            # y, z read; the fp32 sums written
+            _bound(2 * rows * c * 2 + rows * 4, 8.0 * rows * c, fp32=True),
+            sq_rel),
+        "gated_rmsnorm_apply": (
+            _cycling(lambda a, b: ops.gated_rmsnorm_apply(
+                a, b, total, s0, c=tp * c), sets),
+            lambda: ref.gated_rmsnorm_apply(y0, z0, total, s0, tp * c),
+            _cycling(lambda g: F.rms_norm(g, (c,), s0, 1e-5), gated),
+            "F.rms_norm of the precomputed bf16 gated product: the norm "
+            "with its own statistic, not the gate",
+            # y, z, the statistic and the scale read; the output written
+            _bound(3 * rows * c * 2 + c * 2 + rows * 4, 9.0 * rows * c,
+                   fp32=True), err)}
+    out = []
+    for name, (fn, plain, lib, note, (bound, by), e) in fns.items():
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_layernorm/csrc/"
+                      "gated_rmsnorm.cu",
+            "replaces": "src/repro/kernels/fused_layernorm/kernel.py:127",
+            "shape": [rows, c], "row_columns": tp * c,
+            "max_abs_err": e if name.endswith("apply") else max(
+                (a - b).abs().max().item() for a, b in zip(sq, psq)),
+            "max_rel_err": None if name.endswith("apply") else e,
+            "tol": ("1 bf16 ulp of the row's largest |output|"
+                    if name.endswith("apply") else f"{SPLIT_SQ_REL} relative"),
+            "ms": _time_ms(fn, 200),
+            "device_ms": _profiled_ms(fn, DEVICE_NAMES[name], 50),
+            "plain_ms": _time_ms(plain, 20), "bound_ms": bound,
+            "bound_by": by, "library_ms": _profiled_ms(lib, ("",), 50),
+            "library_note": note, "input_sets": ROTATE,
+            "plan": ops.norm_plan(rows, c, True)})
+    del sets, gated
+    torch.cuda.empty_cache()
+    print("[mp8e] row 11 on a (1, 2) rank's mamba2 columns, each over "
+          f"{ROTATE} input sets (device ms; events; bound; plain; library "
+          "device ms): " + "; ".join(
+              f"{r['name']} {r['shape']} {_ms(r['device_ms'])} "
+              f"({r['ms']:.5f}; bound {r['bound_ms']:.6f} by "
+              f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library "
+              f"{_ms(r['library_ms'])}; plan {r['plan']})" for r in out)
+          + f"; the two ranks' outputs within 1 bf16 ulp of the whole row's "
+          f"plain version; partial sums {sq_rel:.3e} relative")
+    return out
+
+
+def _param_shaped(arch, flat_paths: dict, out_paths: dict, dev) -> None:
+    """A one-device ZeRO step's flat step-1 files (``_dp_train``'s update
+    and m) written param-shaped, as phase 8d makes phase 8c's."""
+    from repro_torch import tree
+    from repro_torch.models.model import init_params
+    from repro_torch.models.transformer import period_length
+    from repro_torch.optim import zero
+    shapes = init_params(arch, torch.Generator(device=dev).manual_seed(SEED),
+                         dev, torch.bfloat16)
+    plan = zero.Plan(shapes, period=period_length(arch), layer_rows=True)
+    for k, path in flat_paths.items():
+        flat = [t.to(dev) for t in torch.load(path)]
+        torch.save([t.cpu() for t in tree.leaves(
+            plan.blocks(plan.state(flat), shapes))], out_paths[k])
+        os.remove(path)
+    del shapes, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mpf_expect(run, want: dict, what: str) -> None:
+    """Each step's launches of every counted kernel equal ``want`` (0 for
+    every kernel it does not name)."""
+    for k, per in enumerate(run["launches"]):
+        got = {n: c for n, c in per.items() if c}
+        if got != {n: c for n, c in want.items() if c}:
+            _fail(f"{what} step {k + 1}: launches {got}, stated {want}")
+
+
+def mp_families_phase(dev, smi, families, dp_out, tp1_per_step,
+                      split_rows):
+    """Phase 8e (see its constants above). Gated: each run's step-1 loss
+    within STEP1_LOSS_ULPS of its reference's; against the reference's
+    step 1, a leaf (over the ranks' distinct blocks): the update's norm
+    within 1 +- TP_UPDATE_NORM_REL where w != 0, the master update within
+    TP_UPDATE_REL_L2, its median within TP_UPDATE_MEDIAN_REL_L2, m within
+    TP_MOMENT_REL_L2 (mamba2's three within MPF_WITNESS_FACTOR of its
+    witness's readings where those are larger, ``_mamba_witness``; a leaf of MPF_ZERO_GRAD held out, its reference m's
+    RMS under MPF_ZERO_GRAD_RMS of the median gated leaf's); the control
+    failing the m gate; the
+    ranks holding a block bitwise equal after every step, the pods'
+    ZeRO shards too; the collectives a step by kind equal
+    ``zero_collectives`` (the pod's all-reduce included); the launches a
+    step those the paths state. ``split_rows``: row 11's split entries
+    held to their plain versions (``_split_gated_checks``, run with phase
+    3's kernel checks, where a short profiler window still records its
+    kernels); their launches are this phase's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.transformer import layer_kinds
+    t0 = time.perf_counter()
+    mamba = get_config("mamba2-1.3b")
+    m_ref = families["mamba2-1.3b"]["ref"]
+    wit = _mamba_witness(mamba, m_ref)
+    wrd = wit["readings"]
+    m_limits = _mp_limits({
+        "update": max(TP_UPDATE_REL_L2,
+                      MPF_WITNESS_FACTOR * max(wrd["update"])),
+        "update median": max(TP_UPDATE_MEDIAN_REL_L2, MPF_WITNESS_FACTOR
+                             * float(np.median(wrd["update"]))),
+        "m": max(TP_MOMENT_REL_L2, MPF_WITNESS_FACTOR * max(wrd["m"]))})
+    w_arch = get_config("whisper-base")
+    w_ref = {k: os.path.join(_mpf_dir(), f"whisper_{k}.pt")
+             for k in ("update", "m")}
+    flat = {k: os.path.join(_mpf_dir(), f"whisper_flat_{k}.pt")
+            for k in ("update", "m")}
+    w_one = _dp_train(None, 0, dev, {
+        "arch": "whisper-base", "zero1": True, "steps": 1,
+        "update": {"path": flat["update"], "save": True,
+                   "m_path": flat["m"]}})
+    _param_shaped(w_arch, flat, w_ref, dev)
+    t1 = time.perf_counter()
+    whisper = {"arch": "whisper-base", "layers": None, "rules": {},
+               "steps": MPF_STEPS, "ref": w_ref}
+    m_spec = {"arch": "mamba2-1.3b", "layers": None,
+              "rules": {}, "steps": MPF_STEPS,
+              "ref": {k: m_ref[k] for k in ("update", "m")}}
+    two = mesh_lib.spawn(_mp_train, 2, [
+        m_spec, dict(m_spec, steps=1, control="statistic"),
+        whisper], backend="gloo", device=str(dev),
+        mesh=((1, 2), ("data", "model")), timeout=600)
+    t2 = time.perf_counter()
+    four = mesh_lib.spawn(_mp_train, 4, [
+        dict(whisper, mesh=((2, 2), ("data", "model"))),
+        {"arch": "bert-large", "layers": None, "steps": MPF_STEPS,
+         "ref": None, "rules": {"multi_pod": True, "fsdp": False},
+         "mesh": ((2, 2, 1), ("pod", "data", "model"))}],
+        backend="gloo", device=str(dev), timeout=600)
+    t3 = time.perf_counter()
+    for path in [w_ref[k] for k in ("update", "m")] + [
+            m_ref["update"], m_ref["m"]]:
+        os.remove(path)
+    results = {}
+    for label, ranks, i, ref_loss in (
+            ("mamba2-1.3b (1, 2)", two, 0, m_ref["loss"]),
+            ("whisper-base (1, 2)", two, 2, w_one["losses"][0]),
+            ("whisper-base (2, 2)", four, 0, w_one["losses"][0]),
+            ("bert-large (2, 2, 1)", four, 1, dp_out["dp1"]["losses"][0])):
+        lead, rd, paths = _mp_check_run(ranks, i, label)
+        held = {}
+        if rd:
+            keep = [not p.endswith(MPF_ZERO_GRAD) for p in paths]
+            rms = float(np.median([x for x, on in zip(rd["m_ref_rms"], keep)
+                                   if on]))
+            held = {p: {"update": rd["update"][j], "m": rd["m"][j],
+                        "ref_m_rms_share": rd["m_ref_rms"][j] / rms}
+                    for j, p in enumerate(paths) if not keep[j]}
+            for p, x in held.items():
+                if not x["ref_m_rms_share"] <= MPF_ZERO_GRAD_RMS:
+                    _fail(f"{label}: {p}, held out as an exact zero "
+                          f"gradient, has a reference m RMS "
+                          f"{x['ref_m_rms_share']:.4g} of the median gated "
+                          f"leaf's (limit {MPF_ZERO_GRAD_RMS})")
+            rd = {k: [x for x, on in zip(v, keep) if on]
+                  for k, v in rd.items()}
+            paths = [p for p, on in zip(paths, keep) if on]
+        gap = abs(lead["losses"][0] - ref_loss) / _bf16_ulp(
+            torch.tensor(ref_loss)).item()
+        if not gap <= STEP1_LOSS_ULPS:
+            _fail(f"{label}: step-1 loss {lead['losses'][0]} is {gap} bf16 "
+                  f"ulps from the reference's {ref_loss} (tol "
+                  f"{STEP1_LOSS_ULPS})")
+        limits = m_limits if label == "mamba2-1.3b (1, 2)" else None
+        failed = _mp_gates(rd, limits) if rd else {}
+        for name, (j, x) in failed.items():
+            _fail(f"{label}: step-1 {name} reads {x}"
+                  + (f" at {paths[j]}" if j is not None else "")
+                  + f" (limits {_mp_limits(limits)})")
+        results[label] = {"lead": lead, "readings": rd, "paths": paths,
+                          "loss_gap_ulps": gap, "ref_loss": ref_loss,
+                          "held_out": held,
+                          "peaks": [r[i]["peak"] for r in ranks]}
+    # the pods: the ranks at the same (data, model) coordinates hold the
+    # same ZeRO shards after every step
+    pod_runs = [r[1] for r in four]
+    for step in range(MPF_STEPS):
+        seen = {}
+        for r in pod_runs:
+            key = (r["coords"]["data"], r["coords"]["model"])
+            dg = r["shard_digests"][step]
+            if seen.setdefault(key, dg) != dg:
+                _fail(f"bert-large (2, 2, 1) step {step + 1}: the pods' "
+                      f"ZeRO shards at {key} differ")
+    if results["bert-large (2, 2, 1)"]["lead"]["stated"]["all_reduce"] < 1:
+        _fail("bert-large (2, 2, 1): no pod all-reduce stated")
+    control, crd, cpaths = _mp_check_run(two, 1, "mamba2-1.3b control")
+    caught = _mp_gates(crd, m_limits)
+    if "m" not in caught:
+        _fail(f"the control step (model rank 1's gated-norm statistic "
+              f"dropped) passes the m gate: m rel-L2 at most "
+              f"{max(crd['m']):.4g} (limit {m_limits['m']:.4g})")
+    # launches a step, by path
+    m_lead = results["mamba2-1.3b (1, 2)"]["lead"]
+    m_layers = mamba.num_layers
+    rr = 2 if mamba.remat else 1
+    _mpf_expect(m_lead, {"gated_rmsnorm_partial": rr * m_layers,
+                         "gated_rmsnorm_apply": rr * m_layers,
+                         "lamb_stage1": len(m_lead["units"]),
+                         "lamb_stage2": len(m_lead["units"])},
+                "mamba2-1.3b (1, 2)")
+    for label in ("whisper-base (1, 2)", "whisper-base (2, 2)"):
+        ld = results[label]["lead"]
+        rw = 2 if w_arch.remat else 1
+        _mpf_expect(ld, {"decode_residual_norm": rw * w_arch.enc_layers,
+                         "bias_gelu": rw * (w_arch.enc_layers
+                                            + w_arch.num_layers),
+                         "lamb_stage1": len(ld["units"]),
+                         "lamb_stage2": len(ld["units"])}, label)
+    _mpf_expect(results["bert-large (2, 2, 1)"]["lead"], tp1_per_step,
+                "bert-large (2, 2, 1)")
+    for r in split_rows:
+        r["launches"] = sum(per[r["name"]] for per in m_lead["launches"])
+        r["launches_per_step"] = m_lead["launches"][0][r["name"]]
+        r["launches_path"] = (f"mamba2-1.3b at {m_layers} layers on a (1, 2) "
+                              f"mesh of gloo ranks, {MPF_STEPS} eager fused "
+                              "steps, rank 0 (a forward and its recompute "
+                              "a layer)")
+
+    def spread(rel, names):
+        i = int(np.argmax(rel))
+        return (f"max {rel[i]:.4g} ({names[i]}), median "
+                f"{float(np.median(rel)):.4g}")
+
+    def ring(c):
+        return {k: c[f"{k}_bytes"] for k in ("all_reduce", "reduce_scatter",
+                                              "all_gather")}
+    for label, res in results.items():
+        ld, rd = res["lead"], res["readings"]
+        text = (f"[mp8e] {label} over gloo, ranks on one card, "
+                f"{'make_rules(multi_pod=True, fsdp=False)' if 'bert' in label else 'make_rules() defaults'}, "
+                f"B{TRAIN_BATCH} S{TRAIN_SEQ}, {ld['layers']} layers, fused,"
+                f" LAMB kernels, fp32 master: losses "
+                f"{[round(x, 5) for x in ld['losses']]}; step-1 loss "
+                f"{res['loss_gap_ulps']:.3f} bf16 ulps from the reference's "
+                f"{res['ref_loss']:.5f}")
+        if rd:
+            norm = [abs(x - 1) for x in rd["norm"] if x is not None]
+            text += (f"; step 1 against the reference, a leaf: update "
+                     f"rel-L2 {spread(rd['update'], res['paths'])}, m rel-L2"
+                     f" {spread(rd['m'], res['paths'])}"
+                     f", |update norm ratio - 1| max {max(norm):.3e}")
+            if res["held_out"]:
+                text += (f" (held out, exact gradient 0, with the share of "
+                         f"the median gated leaf's reference m RMS: "
+                         f"{ {p: {k: round(v, 4) for k, v in x.items()} for p, x in res['held_out'].items()} })")
+        text += (f"; ranks holding a block bitwise equal every step"
+                 + ("; the pods' ZeRO shards bitwise equal every step"
+                    if "bert" in label else "")
+                 + f"; launches a step {ld['launches'][0]}; collectives a "
+                 f"step {ld['collectives'][0]} = stated; ring bytes a rank "
+                 f"a step {ring(ld['collectives'][0])}; rank bytes "
+                 f"{ld['bytes']}; step {[round(t * 1e3, 1) for t in ld['step_s']]}"
+                 f" ms (gloo host round trips: not a speed figure); peaks "
+                 f"{[round(p / 2**30, 3) for p in res['peaks']]} GiB; {smi}")
+        print(text, flush=True)
+    print(f"[mp8e] mamba2-1.3b witness: one device's step 1 with the (1, 2) "
+          f"mesh's two partial sums a layer copied in (fp32, rounded once)"
+          f", against phase 8b's: loss {wit['loss_gap_ulps']:.3f} bf16 "
+          f"ulps; update rel-L2 {spread(wrd['update'], wit['paths'])}, m rel-L2 "
+          f"{spread(wrd['m'], wit['paths'])}; the mesh's limits (phase 8d's "
+          f"constants, or {MPF_WITNESS_FACTOR}x the witness's readings "
+          f"where larger): { {k: round(v, 4) for k, v in m_limits.items()} }",
+          flush=True)
+    print(f"[mp8e] control at {m_layers} layers, model rank 1's gated-norm statistic dropped: m "
+          f"rel-L2 min {min(crd['m']):.4g}, median "
+          f"{float(np.median(crd['m'])):.4g}; gates failed "
+          f"{sorted(caught)}; jamba-v0.1-52b not run on the card (two "
+          f"layers, {sum(k == 'mamba' for k in layer_kinds(get_config('jamba-v0.1-52b')))}"
+          f" of 8 a period mamba, hold about 3.7 B parameters: about 52 GB "
+          f"at 14 bytes a parameter before gradients and activations, for "
+          f"two ranks on one 80 GB card); held to JAX on the CPU")
+    out = {"card": smi, "backend": "gloo", "kernels": split_rows,
+           "control": {"m_rel_l2": crd["m"], "gates_failed":
+                       sorted(caught)},
+           "mamba2_witness": {
+               "loss_gap_bf16_ulps": wit["loss_gap_ulps"],
+               "update": wrd["update"], "m": wrd["m"], "norm": wrd["norm"],
+               "flips": wrd["flips"], "limits": m_limits},
+           "whisper_dp1": {k: w_one[k] for k in ("losses", "step_s",
+                                                 "peak", "opt_bytes")},
+           "spawn_s": {"(1, 2)": t2 - t1, "(2, 2) and (2, 2, 1)": t3 - t2},
+           "jamba": "not run on the card: about 52 GB of state for two "
+                    "layers on two ranks sharing one card"}
+    for label, res in results.items():
+        ld = res["lead"]
+        out[label] = {k: ld[k] for k in (
+            "layers", "losses", "grad_norms", "step_s", "bytes", "launches",
+            "collectives", "stated", "peak", "units")}
+        out[label].update(peaks=res["peaks"],
+                          loss_gap_bf16_ulps=res["loss_gap_ulps"],
+                          held_out=res["held_out"])
+        if res["readings"]:
+            out[label]["step1_readings"] = {
+                k: res["readings"][k] for k in (
+                    "update", "m", "norm", "flips", "n",
+                    "flip_gap_share", "flip_m_over_rms")}
+            out[label]["leaf_paths"] = res["paths"]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[mp8e] phase {out['phase_s']:.1f} s (the references "
+          f"{t1 - t0:.1f} s, (1, 2) spawn "
+          f"{t2 - t1:.1f} s, (2, 2) and (2, 2, 1) spawn {t3 - t2:.1f} s)")
+    return out
+
+
 UNTIED_GEMV = "head_gemv_wgmma_kernel"   # pass 1 of an untied head
 
 DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
@@ -7493,6 +8104,8 @@ DEVICE_NAMES = {"filter_logits": ("filter_kernel",),
                 "paged_prefill_attention": ("prefill_kernel",),
                 "decode_residual_norm": ("resnorm_kernel",),
                 "gated_rmsnorm": ("gated_rmsnorm_kernel",),
+                "gated_rmsnorm_partial": ("gated_rmsnorm_partial_kernel",),
+                "gated_rmsnorm_apply": ("gated_rmsnorm_apply_kernel",),
                 "head_tokens": ("head_gemv_kernel", "head_epilogue_kernel"),
                 "head_tokens_untied": (UNTIED_GEMV, "head_epilogue_kernel")}
 
@@ -7553,6 +8166,9 @@ def main() -> int:
     # its own rng: the later phases draw from ``rng``
     moe_kernels = moe_kernel_checks(dev, np.random.default_rng(SEED + 30))
     mamba_rows = [check_gated_rmsnorm(get_config("mamba2-1.3b"), dev)]
+    # phase 8e's row 11 split entries, profiled here: after the serving
+    # phases' long traces a short profiler window records no kernel
+    split_rows = _split_gated_checks(dev)
     train_rows = [check_residual_layernorm(dev), check_bias_gelu(dev)]
     train_rows += check_lamb(dev)
     torch.cuda.empty_cache()
@@ -7647,6 +8263,9 @@ def main() -> int:
     marks["dp"] = time.perf_counter()
     model_parallel = mp_phase(dev, smi, data_parallel, training["per_step"])
     marks["mp"] = time.perf_counter()
+    mp_families = mp_families_phase(dev, smi, families, data_parallel,
+                                    training["per_step"], split_rows)
+    marks["mp families"] = time.perf_counter()
     prev = t_start
     spans = []
     for name, t in marks.items():
@@ -7667,7 +8286,9 @@ def main() -> int:
           f"flash training and tensor-parallel additions "
           f"{_new_slice_s(marks, families):.1f}; the data-parallel ZeRO-1 "
           f"phase {marks['dp'] - marks['tp']:.1f}; the model-axis training "
-          f"phase {marks['mp'] - marks['dp']:.1f}")
+          f"phase {marks['mp'] - marks['dp']:.1f}; the families' model "
+          f"axis and the pod axis (8e) "
+          f"{marks['mp families'] - marks['mp']:.1f}")
     # the kernels on the training families' paths: their launches there
     # and their numbers at the training shapes
     llama_t, mamba_t = families["llama3.2-3b"], families["mamba2-1.3b"]
@@ -7798,6 +8419,18 @@ def main() -> int:
                 for mesh in ("(1, 2)", "(2, 2)")},
             launches_path="bert-large on (data, model) meshes of gloo "
                           "ranks, eager fused steps, rank 0")
+    fam_steps = {label: mp_families[label]["launches"][0] for label in (
+        "mamba2-1.3b (1, 2)", "whisper-base (1, 2)", "whisper-base (2, 2)",
+        "bert-large (2, 2, 1)")}
+    for r in rows + mamba_rows + train_rows:
+        per = {label: launches[r["name"]]
+               for label, launches in fam_steps.items()
+               if launches.get(r["name"])}
+        if per:
+            r["model_parallel_families"] = {
+                "launches_per_step": per,
+                "launches_path": "phase 8e's meshes of gloo ranks, eager "
+                                 "fused steps, rank 0"}
     for r in train_rows:
         name = r["name"]
         r["launches"] = training["fused"]["launches"][name]
@@ -7856,7 +8489,8 @@ def main() -> int:
         "losses", "grad_norms", "step_s", "wall", "peak", "peak_above_start",
         "graph")} for run in ("fused", "fused_eager", "unfused")}
     print(json.dumps({"kernels": rows + [flash_row] + mamba_rows + train_rows
-                      + [softmax_row, moe["row"]] + arch_rows,
+                      + [softmax_row, moe["row"]] + arch_rows
+                      + mp_families["kernels"],
                       "training": dict(
         trained, profile=training["profile"],
         steady_step_ms=training["steady_step_ms"],
@@ -7893,6 +8527,8 @@ def main() -> int:
         "tensor_parallel": tensor_parallel,
         "data_parallel": data_parallel,
         "model_parallel": model_parallel,
+        "model_parallel_families": {k: v for k, v in mp_families.items()
+                                    if k != "kernels"},
         "sampled_step_launches": eager,
         "profiled_launches": {
             "llama3.2-3b fused": prof_launches,

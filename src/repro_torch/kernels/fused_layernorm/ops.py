@@ -13,6 +13,17 @@ always, ``decode_residual_norm`` and ``gated_rmsnorm`` whenever an input
 requires one (the fused pre-norm training block, the mamba mixer in
 training); the backward is the plain version's (``_grad.PlainBackward``),
 as JAX differentiates its reference.
+
+On a training mesh's model axis a rank holds ``inner / tp`` columns of
+each row of the gated norm, whose statistic is the whole row's:
+``gated_rmsnorm(..., group=)`` runs it in two launches of two more entries
+of ``gated_rmsnorm.cu`` (``gated_rmsnorm_partial``: each row's fp32 sum of
+squares over the rank's columns; ``gated_rmsnorm_apply``: the rank's
+columns scaled by the sum over the group), with one all-reduce of the
+[rows] partials between them. Its backward (``_SplitNorm``) is the plain
+version's autograd written out over the rank's columns
+(``ref.gated_rmsnorm_split_grads``), with one all-reduce of each row's sum
+of g * scale * gate: it rounds as the whole row's backward rounds.
 """
 from __future__ import annotations
 
@@ -20,14 +31,16 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ...core import optrace
 from .. import _build
-from .._grad import PlainBackward, wants_grad
+from .._grad import PlainBackward, refuse_grad, wants_grad
 from . import ref
 
 LAUNCHES = {"decode_residual_norm": 0, "fused_residual_layernorm": 0,
-            "gated_rmsnorm": 0}
+            "gated_rmsnorm": 0, "gated_rmsnorm_partial": 0,
+            "gated_rmsnorm_apply": 0}
 
 _LIB = "residual_norm"
 _TRAIN_LIB = "residual_layernorm"
@@ -280,36 +293,55 @@ def _rows(t: torch.Tensor, name: str, c: int) -> torch.Tensor:
     return t2
 
 
+def _check_gated(y: torch.Tensor, z: torch.Tensor,
+                 scale: Optional[torch.Tensor]) -> None:
+    """The gated kernels' checks on card tensors (``scale`` None: the
+    partial sums, which read no scale)."""
+    c = y.shape[-1]
+    for name, t in (("y", y), ("z", z), ("scale", scale)):
+        if t is not None and (t.dtype != torch.bfloat16
+                              or t.device != y.device):
+            raise TypeError(f"the kernel takes bfloat16 tensors on "
+                            f"{y.device}; {name} is {t.dtype} on {t.device}")
+    if z.shape != y.shape or (scale is not None
+                              and tuple(scale.shape) != (c,)):
+        raise ValueError(f"y {tuple(y.shape)}, z {tuple(z.shape)} and scale "
+                         f"{None if scale is None else tuple(scale.shape)} "
+                         "must be [..., C], [..., C] and [C]")
+    if c % 8 or c > _GATED_MAX_C:
+        raise ValueError(f"C = {c}: the kernel takes a multiple of 8 up to "
+                         f"{_GATED_MAX_C} (its shared row)")
+    _rows(y, "y", c)             # the kernel's stride checks, raised here
+    _rows(z, "z", c)
+    if scale is not None and (not scale.is_contiguous()
+                              or scale.data_ptr() % 16):
+        raise ValueError("scale must be contiguous and 16-byte aligned")
+
+
 @optrace.kernel_op("gated_rmsnorm", gated_rmsnorm_flops)
 def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
-                  eps: float = 1e-5) -> torch.Tensor:
+                  eps: float = 1e-5, group=None) -> torch.Tensor:
     """SiLU-gated RMSNorm (the mamba mixer epilogue): ``rmsnorm(y *
     silu(z)) * scale``, any leading shape with the channel dim C last. On
     the card y, z and scale are bfloat16, C a multiple of 8, and y and z
     may be row-strided views (z is a column slice of the in_proj
     output); the result is a new contiguous tensor of y's shape.
     Differentiable where an input requires a gradient (the mamba mixer in
-    training): backward is the plain version's."""
+    training): backward is the plain version's.
+
+    With ``group`` (a model axis's group of tp > 1 ranks) y, z and scale
+    are this rank's C columns of rows of ``tp C``: the row statistic is
+    summed over the group between ``gated_rmsnorm_partial`` and
+    ``gated_rmsnorm_apply``, and the backward sums each row's sum of g *
+    scale * gate over it too (``_SplitNorm``). Without it, the one-launch
+    kernel."""
+    if group is not None and dist.get_world_size(group) > 1:
+        return _SplitNorm.apply(y, z, scale, group, eps)
     if y.device.type == "cpu":
         return ref.gated_rmsnorm(y, z, scale, eps=eps)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
-    c = y.shape[-1]
-    for name, t in (("y", y), ("z", z), ("scale", scale)):
-        if t.dtype != torch.bfloat16 or t.device != y.device:
-            raise TypeError(f"the kernel takes bfloat16 tensors on "
-                            f"{y.device}; {name} is {t.dtype} on {t.device}")
-    if z.shape != y.shape or tuple(scale.shape) != (c,):
-        raise ValueError(f"y {tuple(y.shape)}, z {tuple(z.shape)} and scale "
-                         f"{tuple(scale.shape)} must be [..., C], [..., C] "
-                         "and [C]")
-    if c % 8 or c > _GATED_MAX_C:
-        raise ValueError(f"C = {c}: the kernel takes a multiple of 8 up to "
-                         f"{_GATED_MAX_C} (its shared row)")
-    _rows(y, "y", c)             # the kernel's stride checks, raised here
-    _rows(z, "z", c)
-    if not scale.is_contiguous() or scale.data_ptr() % 16:
-        raise ValueError("scale must be contiguous and 16-byte aligned")
+    _check_gated(y, z, scale)
     kernel = functools.partial(_gated_kernel, eps=eps)
     if wants_grad(y, z, scale):
         plain = functools.partial(ref.gated_rmsnorm, eps=eps)
@@ -340,3 +372,111 @@ def _launch_gated(y2d, z2d, scale, out, eps: float,
                     y2d.stride(0), z2d.stride(0), *plan, float(eps),
                     torch.cuda.current_stream(y2d.device).cuda_stream),
                  "gated_rmsnorm")
+
+
+class _SplitNorm(torch.autograd.Function):
+    """``gated_rmsnorm`` over a rank's columns (its ``group`` path):
+    forward the two split entries with one all-reduce of the row sums
+    between them; backward ``ref.gated_rmsnorm_split_grads`` with one
+    all-reduce of each row's sum of g * scale * gate."""
+
+    @staticmethod
+    def forward(ctx, y, z, scale, group, eps):
+        from ...parallel import collectives
+        c = y.shape[-1] * dist.get_world_size(group)
+        sq = collectives.all_reduce(gated_rmsnorm_partial(y, z), group)
+        ctx.save_for_backward(y, z, scale, sq)
+        ctx.group, ctx.c, ctx.eps = group, c, eps
+        return gated_rmsnorm_apply(y, z, sq, scale, c=c, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...parallel import collectives
+        y, z, scale, sq = ctx.saved_tensors
+        dy, dz, dscale = ref.gated_rmsnorm_split_grads(
+            y, z, scale, sq, g, ctx.c, ctx.eps,
+            psum=lambda t: collectives.all_reduce(t, ctx.group))
+        return dy, dz, dscale, None, None
+
+
+def gated_rmsnorm_partial(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Each row's fp32 sum of squares of ``y * silu(z)`` (the gate rounded
+    as ``gated_rmsnorm`` rounds it) over the columns given: [..., C] ->
+    [...] float32. On the card the kernel entry of the same name, with
+    ``gated_rmsnorm``'s checks and plan. Not differentiable by itself:
+    ``gated_rmsnorm(..., group=)`` differentiates the pair."""
+    if y.device.type == "cpu":
+        return ref.gated_rmsnorm_partial(y, z)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    refuse_grad("gated_rmsnorm_partial", y, z)
+    _check_gated(y, z, None)
+    return _partial_kernel(y, z)
+
+
+def gated_rmsnorm_apply(y: torch.Tensor, z: torch.Tensor, sq: torch.Tensor,
+                        scale: torch.Tensor, *, c: int,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """The columns given of rows of ``c`` columns in all, normed by each
+    row's sum of squares over all of them, ``sq`` [...] float32:
+    ``y * silu(z) * rsqrt(sq / c + eps) * scale`` in y's dtype. On the
+    card the kernel entry of the same name; not differentiable by itself,
+    as ``gated_rmsnorm_partial``."""
+    if y.device.type == "cpu":
+        return ref.gated_rmsnorm_apply(y, z, sq, scale, c, eps)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    refuse_grad("gated_rmsnorm_apply", y, z, sq, scale)
+    _check_gated(y, z, scale)
+    if sq.dtype != torch.float32 or sq.shape != y.shape[:-1] \
+            or sq.device != y.device:
+        raise ValueError(f"sq must be float32 {tuple(y.shape[:-1])} on "
+                         f"{y.device}, got {sq.dtype} {tuple(sq.shape)}")
+    return _apply_kernel(y, z, sq, scale, c_total=c, eps=eps)
+
+
+def _split_plan(rows: int, c: int, name: str) -> Tuple[int, int, int]:
+    """``norm_plan`` of a split entry, which has no wide variant: a row
+    of ``c`` columns without a register plan is refused."""
+    plan = norm_plan(rows, c, True)
+    if plan == NORM_WIDE:
+        raise ValueError(f"{name}: no register plan covers a row of {c} "
+                         f"columns (the split entries have no wide variant)")
+    return plan
+
+
+def _partial_kernel(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    c = y.shape[-1]
+    y2d, z2d = _rows(y, "y", c), _rows(z, "z", c)
+    sq = torch.empty(y.shape[:-1], dtype=torch.float32, device=y.device)
+    rows = y2d.shape[0]
+    if rows:
+        fn = _build.bind(_GATED_LIB, "gated_rmsnorm_partial", 3, 7)
+        _build.check(fn(y2d.data_ptr(), z2d.data_ptr(), sq.data_ptr(), rows,
+                        c, y2d.stride(0), z2d.stride(0),
+                        *_split_plan(rows, c, "gated_rmsnorm_partial"),
+                        torch.cuda.current_stream(y.device).cuda_stream),
+                     "gated_rmsnorm_partial")
+        LAUNCHES["gated_rmsnorm_partial"] += 1
+    return sq
+
+
+def _apply_kernel(y: torch.Tensor, z: torch.Tensor, sq: torch.Tensor,
+                  scale: torch.Tensor, *, c_total: int,
+                  eps: float) -> torch.Tensor:
+    c = y.shape[-1]
+    y2d, z2d = _rows(y, "y", c), _rows(z, "z", c)
+    sq = sq.contiguous()
+    out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    rows = y2d.shape[0]
+    if rows:
+        fn = _build.bind(_GATED_LIB, "gated_rmsnorm_apply", 5, 8, 1)
+        _build.check(fn(y2d.data_ptr(), z2d.data_ptr(), scale.data_ptr(),
+                        sq.data_ptr(), out.data_ptr(), rows, c, c_total,
+                        y2d.stride(0), z2d.stride(0),
+                        *_split_plan(rows, c, "gated_rmsnorm_apply"),
+                        float(eps),
+                        torch.cuda.current_stream(y.device).cuda_stream),
+                     "gated_rmsnorm_apply")
+        LAUNCHES["gated_rmsnorm_apply"] += 1
+    return out

@@ -321,23 +321,23 @@ def apply_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
         return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
 
 
-def _rank_kv_weight(arch: ArchConfig, w: torch.Tensor,
+def _rank_kv_weight(arch: ArchConfig, kv: torch.Tensor,
                     b: Optional[torch.Tensor], par
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                torch.Tensor, Optional[torch.Tensor]]:
     """Where the model axis outnumbers the KV heads, a rank's block of the
-    fused ``wqkv`` holds ``kv_dim / tp`` columns of a KV head its query
-    heads share with other ranks. Every rank's K/V columns (and bias
-    entries, as an extra row) are gathered over the model axis and the
-    rank keeps the head its queries read (``r Hkv / tp``); the gather's
-    reduce-scatter backward sums the gradients of the ranks that read a
-    head into the ranks that hold its columns. -> (wk, bk, wv, bv) of
-    that head."""
+    K/V projections (``kv`` [D, 2 kv_dim / tp]: its k columns, then its v
+    columns, and ``b`` their biases) holds ``kv_dim / tp`` columns of a
+    KV head its query heads share with other ranks. Every rank's K/V
+    columns (and bias entries, as an extra row) are gathered over the
+    model axis and the rank keeps the head its queries read (``r Hkv /
+    tp``); the gather's reduce-scatter backward sums the gradients of the
+    ranks that read a head into the ranks that hold its columns. -> (wk,
+    bk, wv, bv) of that head."""
     tp, hd = par.tp, arch.resolved_head_dim
     kvl = arch.kv_dim // tp
-    kv = w[:, arch.q_dim // tp:]
     if b is not None:
-        kv = torch.cat([kv, b[arch.q_dim // tp:][None].to(kv.dtype)], 0)
+        kv = torch.cat([kv, b[None].to(kv.dtype)], 0)
     from ..parallel import collectives
     every = collectives.gather_seq(kv[None].contiguous(), par.model,
                                    dim=0)                 # [tp, D(+1), 2kvl]
@@ -378,7 +378,8 @@ def _rank_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
             q, k, v = torch.split(qkv, [ql, kvl, kvl], dim=-1)
         else:
             q = dense(x, w[:, :ql], None if bias is None else bias[:ql])
-            wk, bk, wv, bv = _rank_kv_weight(arch, w, bias, par)
+            wk, bk, wv, bv = _rank_kv_weight(
+                arch, w[:, ql:], None if bias is None else bias[ql:], par)
             k, v = dense(x, wk, bk), dense(x, wv, bv)
         q = q.reshape(b, s, -1, hd)
         k, v = k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
@@ -391,29 +392,51 @@ def _rank_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
 
 
 def apply_cross_attention(arch: ArchConfig, p: Params, x: torch.Tensor,
-                          enc_kv: Tuple[torch.Tensor, torch.Tensor]
-                          ) -> torch.Tensor:
+                          enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                          par=None) -> torch.Tensor:
     """Whisper's cross-attention: queries from x [B, S, D] against the
     encoder's K/V [B, Senc, Hkv, Dh], no mask (above ``attn_chunk`` keys the
-    chunked path or the flash kernel, as ``attention_core`` picks)."""
-    b, s, _ = x.shape
+    chunked path or the flash kernel, as ``attention_core`` picks). On a
+    training mesh with a model axis (``par``) the rank's heads: x enters
+    the tensor-parallel region, ``wq``'s rank columns give its Hq / tp
+    query heads, ``enc_kv`` holds its KV heads (``project_enc_kv`` with
+    ``par``), ``wo``'s rank rows give a partial sum that leaves the
+    region, and the replicated ``bo`` is added once, after."""
     hd = arch.resolved_head_dim
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, arch.num_heads, hd)
+    model = par is not None and par.model is not None
+    if model:
+        x = par.enter(x)
+    b, s, _ = x.shape
+    q = dense(x, p["wq"], p.get("bq"))
+    q = q.reshape(b, s, q.shape[-1] // hd, hd)
     k, v = enc_kv
     o = attention_core(arch, q, k, v, causal=False)
-    return dense(o.reshape(b, s, arch.q_dim), p["wo"], p.get("bo"))
+    o = o.reshape(b, s, q.shape[2] * hd)
+    if not model:
+        return dense(o, p["wo"], p.get("bo"))
+    y = par.exit(dense(o, p["wo"]))
+    return y + p["bo"].to(y.dtype) if "bo" in p else y
 
 
-def project_enc_kv(arch: ArchConfig, p: Params, enc_out: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The encoder output [B, Senc, D] -> cross K, V [B, Senc, Hkv, Dh]."""
+def project_enc_kv(arch: ArchConfig, p: Params, enc_out: torch.Tensor,
+                   par=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output [B, Senc, D] -> cross K, V [B, Senc, Hkv, Dh].
+    On a training mesh with a model axis (``par``) ``enc_out`` is the whole
+    sequence as every model rank holds it (``model.enter_encoder``) and
+    the K/V are the rank's Hkv / tp heads, or, where tp > Hkv, the one
+    head its query heads read (``_rank_kv_weight``)."""
     b, s, _ = enc_out.shape
     hd = arch.resolved_head_dim
-    k = dense(enc_out, p["wk"], p.get("bk")).reshape(b, s, arch.num_kv_heads,
-                                                     hd)
-    v = dense(enc_out, p["wv"], p.get("bv")).reshape(b, s, arch.num_kv_heads,
-                                                     hd)
-    return k, v
+    wk, bk, wv, bv = p["wk"], p.get("bk"), p["wv"], p.get("bv")
+    if par is not None and par.model is not None \
+            and arch.num_kv_heads % par.tp:
+        wk, bk, wv, bv = _rank_kv_weight(
+            arch, torch.cat([wk, wv], dim=-1),
+            None if bk is None else torch.cat([bk, bv]), par)
+    k = dense(enc_out, wk, bk)
+    v = dense(enc_out, wv, bv)
+    return (k.reshape(b, s, k.shape[-1] // hd, hd),
+            v.reshape(b, s, v.shape[-1] // hd, hd))
 
 
 def init_kv_cache(arch: ArchConfig, batch: int, max_len: int,

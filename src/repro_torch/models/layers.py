@@ -14,6 +14,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.optrace import scope
+from ..parallel.collectives import wide_product
 
 Params = Dict[str, object]
 
@@ -41,19 +42,12 @@ def row_parallel_dense(x: torch.Tensor, w: torch.Tensor,
     features, so the product is a partial sum: it is reduced across the
     ranks in fp32 (``all_reduce``) and the replicated bias is added once,
     after the reduce, as JAX's ``psum`` sites do. JAX writes the sum as
-    ``x.astype(f32) @ w.astype(f32)``, which XLA fuses; here a 16-bit
-    ``x`` and ``w`` on the card meet in one tensor-core GEMM with an fp32
-    output (their products are exact in fp32, so only the summation order
-    differs) and no fp32 copy of the weight is made; elsewhere (the CPU,
-    fp32) the fp32 product."""
+    ``x.astype(f32) @ w.astype(f32)``, which XLA fuses; here
+    ``parallel.collectives.wide_product``: no fp32 copy of a 16-bit
+    weight on the card."""
     if group is None:
         return dense(x, w, b)
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and \
-            w.dtype == x.dtype:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
-    else:
-        y = x.float() @ w.float()
+    y = wide_product(x, w)
     dist.all_reduce(y, group=group)
     if b is not None:
         y = y + b.float()

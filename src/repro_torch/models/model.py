@@ -199,19 +199,37 @@ def embed(arch: ArchConfig, params: Params, tokens: torch.Tensor,
 
 
 def encode(arch: ArchConfig, params: Params,
-           frontend_embeddings: torch.Tensor) -> torch.Tensor:
+           frontend_embeddings: torch.Tensor, par=None) -> torch.Tensor:
     """Whisper's encoder over the stub frontend's frame embeddings [B,
     Senc, D]: sinusoidal rows added in the compute dtype, the
     bidirectional stack (its attention above ``attn_chunk`` frames chunked
-    or flash, as ``attn_impl`` says), the final norm -> [B, Senc, D]."""
+    or flash, as ``attn_impl`` says), the final norm -> [B, Senc, D]. On
+    a training mesh (``par``) the blocks are the rank's share and, under
+    sequence parallelism, the residual stream is the rank's rows of the
+    frames (``par.rows``), each with its own sinusoidal row: -> [B, Senc
+    / tp, D]."""
     dtype = torch_dtype(arch.dtype)
     x = frontend_embeddings.to(dtype)
     s = x.shape[1]
-    x = x + sinusoidal_positions(s, arch.d_model, dtype, x.device)
+    s0, s1 = (0, s) if par is None else par.rows(s)
+    x = x[:, s0:s1] + sinusoidal_positions(s, arch.d_model, dtype,
+                                           x.device)[s0:s1]
     positions = torch.arange(s, device=x.device)[None]
     x, _ = tf.apply_stack(arch, params["enc_blocks"], x, positions,
-                          causal=False)
+                          causal=False, par=par)
     return apply_norm(arch.norm, params["enc_final_norm"], x)
+
+
+def enter_encoder(enc_out: torch.Tensor, par) -> torch.Tensor:
+    """The encoder output as every decoder block's cross-attention reads
+    it on a training mesh with a model axis: the whole sequence on every
+    model rank, entering the tensor-parallel region once for all blocks
+    (``par.enter``: gathered from its sequence shards under sequence
+    parallelism, else ``copy_to``: the K/V projections of the ranks'
+    heads give partial gradients, summed over the model axis)."""
+    if par is None or par.model is None:
+        return enc_out
+    return par.enter(enc_out)
 
 
 def logits(arch: ArchConfig, params: Params, x: torch.Tensor,
@@ -258,7 +276,8 @@ def forward(arch: ArchConfig, params: Params,
     tokens = batch["tokens"]
     x = embed(arch, params, tokens, par)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-    enc_out = encode(arch, params, batch["frontend_embeddings"]) \
+    enc_out = enter_encoder(encode(arch, params,
+                                   batch["frontend_embeddings"], par), par) \
         if arch.family == "encdec" else None
     x, aux = tf.apply_stack(arch, params["blocks"], x, positions,
                             causal=not arch.bidirectional,

@@ -297,7 +297,7 @@ def _train_moe(arch: ArchConfig, p: Params, x: torch.Tensor, par,
     cap = capacity_per_row(s, moe)
     logits = xf.float() @ p["router"].float()
     groups = [g for g in (data_group,) if g is not None]
-    tokens = b * s * par.dp
+    tokens = b * s * par.dp * par.pods
     if seq:
         s0, s1 = par.rows(s)
         aux = _switch_loss(moe, logits[:, s0:s1], groups + [par.model],

@@ -17,6 +17,11 @@ The JAX serving layers return new state pools; here the per-slot pools are
 updated in place, as the attention layers write their K/V pages in place.
 The mixer's epilogue is ``kernels.fused_layernorm.ops.gated_rmsnorm``: its
 plain version for CPU tensors, the CUDA kernel for tensors on the card.
+
+On a training mesh with a model axis (``apply_mamba``'s ``par``) a rank
+runs the mixer on its H / tp heads (``_rank_mamba``), holding 1 / tp of
+every segment of ``in_proj`` and ``conv`` (``parallel.sharding.
+_mamba_columns``) and its rows of ``out_proj``.
 """
 from __future__ import annotations
 
@@ -202,10 +207,64 @@ def _conv_split(arch: ArchConfig, xbc: torch.Tensor):
     return torch.split(xbc, [inner, gn, gn], dim=-1)
 
 
-def apply_mamba(arch: ArchConfig, p: Params, u: torch.Tensor) -> torch.Tensor:
-    """Full-sequence mamba2 block. u [B, S, D] -> [B, S, D]."""
+def apply_mamba(arch: ArchConfig, p: Params, u: torch.Tensor,
+                par=None) -> torch.Tensor:
+    """Full-sequence mamba2 block. u [B, S, D] -> [B, S, D]; on a training
+    mesh with a model axis (``par``) the rank's heads (``_rank_mamba``)."""
     with scope("mamba"):
+        if par is not None and par.model is not None:
+            return _rank_mamba(arch, p, u, par)
         return _apply_mamba(arch, p, u)
+
+
+def _rank_mamba(arch: ArchConfig, p: Params, u: torch.Tensor, par
+                ) -> torch.Tensor:
+    """A model rank's heads of the training mixer, JAX's under ("fsdp",
+    "tensor") ``in_proj``, (None, "tensor") ``conv`` and ("tensor",
+    "fsdp") ``out_proj``: u enters the tensor-parallel region (the whole
+    sequence) and meets the rank's ``in_proj`` block (``par.column``: its
+    gradient summed from the ranks' fp32 partials), which gives its z, x
+    and dt columns (its heads) and 1 / tp of the B and C columns; the causal conv and SiLU run on its channels (depthwise: no
+    exchange); B and C are gathered over the model axis in fp32 (their
+    gradient reduce-scattered back); the SSD scan runs the rank's heads,
+    with the whole ``A_log``, ``D`` and ``dt_bias`` indexed by them; the
+    gated norm's row statistic is summed over the model axis
+    (``gated_rmsnorm(..., group=)``), with ``norm_scale``'s rank columns;
+    ``out_proj``'s rank rows give an fp32 partial sum that leaves the
+    region (``par.row``), rounded once after the sum. The whole leaves' gradients are then partial sums
+    over the model ranks (the trainer sums them)."""
+    from ..parallel import collectives
+    s = arch.ssm
+    tp, r = par.tp, par.mrank
+    h, inner = num_ssm_heads(arch), inner_dim(arch)
+    gn = s.ngroups * s.state_dim
+    hl, il, gl = h // tp, inner // tp, gn // tp
+    zxbcdt = par.column(u, p["in_proj"].to(u.dtype))
+    bsz, seq, _ = zxbcdt.shape
+    z, xin, b, c, dt = torch.split(zxbcdt, [il, il, gl, gl, hl], dim=-1)
+    xbc = silu(_causal_conv(torch.cat([xin, b, c], dim=-1), p["conv"]))
+    xin, bc = torch.split(xbc, [il, 2 * gl], dim=-1)
+    # gathered in fp32, as the scan reads them: the gradient of B and C,
+    # a sum over every head, then reaches the model dtype in one rounding
+    # after the reduce-scatter, not one a rank's share of the heads
+    every = collectives.gather_seq(bc.float(), par.model, dim=2)
+    every = every.reshape(bsz, seq, tp, 2, gl)
+    b = every[:, :, :, 0].reshape(bsz, seq, s.ngroups, s.state_dim)
+    c = every[:, :, :, 1].reshape(bsz, seq, s.ngroups, s.state_dim)
+    # the groups the rank's heads read (each group serves H / G heads)
+    per = h // s.ngroups
+    g0, g1 = r * hl // per, ((r + 1) * hl - 1) // per + 1
+    heads = slice(r * hl, (r + 1) * hl)
+    dt = softplus(dt.float() + p["dt_bias"][heads][None, None, :])
+    a = -torch.exp(p["A_log"][heads])
+    xh = xin.reshape(bsz, seq, hl, s.head_dim)
+    y, _ = ssd_chunked(xh, dt, a, b[:, :, g0:g1], c[:, :, g0:g1],
+                       min(s.chunk, seq))
+    y = y + xh * p["D"][heads][None, None, :, None].to(y.dtype)
+    y = ln_ops.gated_rmsnorm(y.reshape(bsz, seq, il), z,
+                             p["norm_scale"][r * il:(r + 1) * il],
+                             eps=1e-5, group=par.model)
+    return par.row(y, p["out_proj"].to(u.dtype))
 
 
 def _apply_mamba(arch: ArchConfig, p: Params, u: torch.Tensor

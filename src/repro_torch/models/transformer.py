@@ -99,8 +99,9 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
     block first gathers its FSDP slices (so a recomputed block gathers
     again); x is then the residual stream as the mesh holds it (a rank's
     rows under sequence parallelism), the norms and residual adds run on
-    it, and the attention and MLP or MoE are the rank's tensor- or
-    expert-parallel share."""
+    it, and the attention or mamba mixer, the cross-attention and the MLP
+    or MoE are the rank's tensor- or expert-parallel share (``enc_out``
+    then the whole encoder sequence, as ``model.forward`` passes it)."""
     if fused is None:
         fused = fused_blocks_enabled()
     if par is not None:
@@ -109,7 +110,7 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
 
     def mix(h):
         if mixer == "mamba":
-            return ssm_lib.apply_mamba(arch, p["mamba"], h)
+            return ssm_lib.apply_mamba(arch, p["mamba"], h, par)
         return attn_lib.apply_attention(arch, p["attn"], h, positions,
                                         causal=causal,
                                         mrope_positions=mrope_positions,
@@ -140,7 +141,7 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
         x = x + mix(apply_norm(arch.norm, p["ln1"], x))
     if cross:
         x = x + _cross(arch, p, x, attn_lib.project_enc_kv(
-            arch, p["xattn"], enc_out))
+            arch, p["xattn"], enc_out, par), par)
     if "ln2" not in p:                  # mamba2 blocks have no MLP
         return x, aux
     if arch.post_norm:
@@ -151,11 +152,12 @@ def apply_block(arch: ArchConfig, p: Params, x: torch.Tensor,
 
 
 def _cross(arch: ArchConfig, p: Params, x: torch.Tensor,
-           enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+           enc_kv: Tuple[torch.Tensor, torch.Tensor], par=None
+           ) -> torch.Tensor:
     """A decoder block's cross-attention delta: ``ln_x`` then attention
-    to the encoder's K/V."""
+    to the encoder's K/V (the rank's heads on a training mesh, ``par``)."""
     return attn_lib.apply_cross_attention(
-        arch, p["xattn"], apply_norm(arch.norm, p["ln_x"], x), enc_kv)
+        arch, p["xattn"], apply_norm(arch.norm, p["ln_x"], x), enc_kv, par)
 
 
 def apply_stack(arch: ArchConfig, blocks: List[Params], x: torch.Tensor,

@@ -250,13 +250,21 @@ class Plan:
       split leaf, and for a leaf every model rank holds whole, 1 on model
       rank 0 and 0 on the others, so it is counted once; ``row_sum``
       marks the flat leaves whose per-row partial norms are summed over
-      the model axis too (split 1)."""
+      the model axis too (split 1).
+
+    On a mesh with a pod axis (``pod_group``) the layout stays within a
+    pod, as JAX's ``opt_state_pspecs`` keeps ZeRO off the pod axis: every
+    pod holds the same shards, and ``reduce_scatter`` sums the rank's
+    reduced chunk over the pod axis too (one ``all_reduce``, the middle
+    step of ``collectives.hierarchical_psum``), so that each pod updates
+    the same shards with the whole batch's gradients."""
 
     def __init__(self, params, *, period: int = 1, layer_rows: bool = True,
                  dp: int = 1, rank: int = 0, group=None,
                  multiple: int = PAD_MULTIPLE, local: Sequence[int] = (),
                  split: Optional[Sequence[int]] = None, norm_group=None,
-                 model_group=None, mrank: int = 0, rules=None):
+                 model_group=None, mrank: int = 0, rules=None,
+                 pod_group=None):
         self.struct, self.units = flat_leaves(
             params, period=period, layer_rows=layer_rows, multiple=multiple)
         self.period = period
@@ -264,6 +272,7 @@ class Plan:
                        if isinstance(params.get(k), list)}
         check_dp(dp, multiple)
         self.dp, self.rank, self.group = dp, rank, group
+        self.pod_group = pod_group
         local = set(local)
         self.local = []
         for u in self.units:
@@ -433,13 +442,19 @@ class Plan:
     def reduce_scatter(self, acc: torch.Tensor) -> torch.Tensor:
         """Sum the packed part of ``acc`` over the data group and keep
         this rank's ``zchunk`` of it, the local part after it: one
-        ``reduce_scatter`` (``acc`` itself at dp=1)."""
+        ``reduce_scatter`` (``acc`` itself at dp=1); then, with a pod
+        group, the whole chunk summed over the pods (one ``all_reduce``)."""
         if self.dp == 1:
-            return acc
-        out = torch.empty(self.chunk, dtype=acc.dtype, device=acc.device)
-        collectives.reduce_scatter(out[:self.zchunk],
-                                   acc[:self.dp * self.zchunk], self.group)
-        out[self.zchunk:].copy_(acc[self.dp * self.zchunk:])
+            out = acc
+        else:
+            out = torch.empty(self.chunk, dtype=acc.dtype,
+                              device=acc.device)
+            collectives.reduce_scatter(out[:self.zchunk],
+                                       acc[:self.dp * self.zchunk],
+                                       self.group)
+            out[self.zchunk:].copy_(acc[self.dp * self.zchunk:])
+        if self.pod_group is not None:
+            collectives.all_reduce(out, self.pod_group)
         return out
 
     def blocks(self, flat_tree, like) -> Any:

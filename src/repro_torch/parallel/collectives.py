@@ -25,7 +25,12 @@ with the collective its gradient needs:
   entry and exit under sequence parallelism, the residual stream a rank's
   1 / tp of the rows;
 - ``gather_fsdp``: FSDP's weight gather, an all-gather over the data axis
-  forward and a reduce-scatter of the gradient backward.
+  forward and a reduce-scatter of the gradient backward;
+- ``Parallel.column`` / ``Parallel.row``: the entry and the exit fused
+  with the product they meet, so that the partial sums the model axis
+  adds are the ranks' fp32 products, rounded once after the sum (the
+  mamba mixer's ``in_proj`` and ``out_proj``, whose 48-layer stack
+  carries any extra rounding of a layer into every other).
 
 A reduce of a 16-bit tensor runs in fp32 and is rounded once; the
 gathered and scattered tensors come back contiguous (the kernels take
@@ -173,6 +178,66 @@ class _Scatter(torch.autograd.Function):
         return _gather(g, ctx.dim, ctx.group), None, None
 
 
+def wide_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w over x's last dim in fp32: a 16-bit x and w on the card meet
+    in one tensor-core GEMM with an fp32 output (their products are exact
+    in fp32, so only the order of the sum differs from one GEMM over the
+    whole dim), elsewhere the fp32 product."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and \
+            w.dtype == x.dtype:
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    return x.float() @ w.float()
+
+
+def _weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient of w in x @ w: x^T g over every leading dim."""
+    return x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+
+
+class _ColumnProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, group, seq):
+        ctx.group, ctx.seq = group, seq
+        xs = _gather(x, 1, group) if seq else x
+        ctx.save_for_backward(xs, w)
+        return xs @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, w = ctx.saved_tensors
+        part = wide_product(g, w.t())
+        gx = _scatter(part, 1, ctx.group) if ctx.seq \
+            else _reduce(part, ctx.group)
+        return gx.to(xs.dtype), _weight_grad(xs, g), None, None
+
+
+class _WideProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, w):
+        ctx.save_for_backward(y, w)
+        return wide_product(y, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = g.to(y.dtype)
+        return g @ w.t(), _weight_grad(y, g)
+
+
+class _Exit(torch.autograd.Function):
+    # saves nothing, so a block's recompute stops before it
+    @staticmethod
+    def forward(ctx, part, group, seq, dtype):
+        ctx.group, ctx.seq = group, seq
+        out = _scatter(part, 1, group) if seq else _reduce(part, group)
+        return out.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather(g, 1, ctx.group) if ctx.seq else g), None, None, None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """x as it is; its gradient summed over ``group``."""
     return _CopyTo.apply(x, group)
@@ -207,15 +272,18 @@ class Parallel:
     """The training mesh as the layers see it. ``model`` and ``data`` are
     this rank's groups along the two axes (None where the axis has one
     rank), ``tp`` / ``dp`` their sizes and ``mrank`` this rank's
-    coordinate on the model axis; ``seq`` says the residual stream is split over
-    the model axis by sequence (``rules["seq"]``), ``experts`` that a MoE
-    layer's experts are (``rules["experts"]``); ``fsdp`` maps the id of
-    every parameter tensor that holds an FSDP slice to its split dim."""
+    coordinate on the model axis; ``pods`` is the pod axis's size (the
+    batch rows split over pod x data); ``seq`` says the residual stream
+    is split over the model axis by sequence (``rules["seq"]``),
+    ``experts`` that a MoE layer's experts are (``rules["experts"]``);
+    ``fsdp`` maps the id of every parameter tensor that holds an FSDP
+    slice to its split dim (over the data axis, within a pod)."""
     model: Any = None
     tp: int = 1
     mrank: int = 0
     data: Any = None
     dp: int = 1
+    pods: int = 1
     seq: bool = False
     experts: bool = False
     fsdp: Dict[int, int] = dataclasses.field(default_factory=dict)
@@ -251,6 +319,25 @@ class Parallel:
             return y
         return scatter_seq(y, self.model) if self.seq \
             else reduce_from(y, self.model)
+
+    def column(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``enter(x) @ w`` for the rank's columns ``w``, with the
+        gradient of x summed over the model axis from the ranks' fp32
+        partial products, so it is rounded to x's dtype once, as one
+        device's product over every column is."""
+        if self.model is None:
+            return x @ w
+        return _ColumnProduct.apply(x, w, self.model, self.seq)
+
+    def row(self, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``exit(y @ w)`` for the rank's rows ``w``, the ranks' partial
+        products summed in fp32 and rounded to y's dtype once, as one
+        device's product over every row is (``exit`` of a 16-bit product
+        rounds each rank's partial first)."""
+        if self.model is None:
+            return y @ w
+        return _Exit.apply(_WideProduct.apply(y, w), self.model,
+                           self.seq, y.dtype)
 
     def rows(self, s: int) -> Tuple[int, int]:
         """This rank's rows [s0, s1) of a sequence of ``s`` rows in the

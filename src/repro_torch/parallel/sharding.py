@@ -19,16 +19,22 @@ dim an axis does not divide stays whole), ``batch_pspecs``,
 ``opt_state_pspecs`` and ``flat_grad_pspec``. A training spec has one
 entry a dim, the mesh axis (or tuple of axes) that dim is split over, or
 None, as JAX's ``PartitionSpec``; ``local_slice`` cuts a rank's block of
-a dim split over several axes in JAX's order (the first axis major), and
-``train_block_index`` / ``train_blocks`` cut a rank's block of every
-leaf, the fused ``wqkv`` by heads (its q, k and v columns). The trainer's
+a dim split over several axes in JAX's order (the first axis major: the
+batch over (pod, data) under ``multi_pod``), and ``train_block_index`` /
+``train_blocks`` cut a rank's block of every leaf, the fused ``wqkv`` by
+heads (its q, k and v columns) and a mamba mixer's fused ``in_proj`` and
+``conv`` by segments. The trainer's
 ZeRO plan (``optim.zero.Plan``) cuts every flat optimizer leaf and the
 step every micro-batch with them.
 
-Replicated: the embedding, the LM head, the norms, the router, mamba
-mixers and the biases of the row-parallel projections (``bo``, ``b2``),
-which are added once, after the reduce. So every rank computes the same
-logits and draws the same tokens, with no collective.
+In serving, replicated: the embedding, the LM head, the norms, the
+router, mamba mixers and the biases of the row-parallel projections
+(``bo``, ``b2``), which are added once, after the reduce. So every rank
+computes the same logits and draws the same tokens, with no collective.
+In training the rules split a mamba mixer too: ``in_proj`` and ``conv``
+by the rank's heads and its share of the B and C columns
+(``_mamba_columns``), ``out_proj`` by rows; ``A_log``, ``D``,
+``dt_bias`` and ``norm_scale`` stay whole.
 """
 from __future__ import annotations
 
@@ -478,23 +484,64 @@ def _fused_qkv_columns(arch, n: int, tp: int, r: int) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def mamba_segments(arch, leaf: str) -> Tuple[int, ...]:
+    """The widths of the segments of a mamba mixer's fused last dim, in
+    order: ``in_proj`` [z | x | B | C | dt] (JAX's ``_split_proj``),
+    ``conv`` [x | B | C]."""
+    s = arch.ssm
+    inner = s.expand * arch.d_model
+    gn, h = s.ngroups * s.state_dim, inner // s.head_dim
+    if leaf == "in_proj":
+        return (inner, inner, gn, gn, h)
+    return (inner, gn, gn)
+
+
+def _mamba_columns(arch, leaf: str, n: int, tp: int, r: int
+                   ) -> torch.Tensor:
+    """The columns of a mamba ``in_proj`` or ``conv`` of ``n`` columns
+    that model rank ``r`` of ``tp`` holds: 1 / tp of every segment
+    (``mamba_segments``), rank-major within each. For z, x and dt that is
+    the columns of the rank's H / tp heads (a head's P channels are
+    contiguous, head-major); B and C (G N columns each, one group in
+    every registry config) have no head to follow, so each rank takes
+    1 / tp of them and the layer gathers them whole (``models.ssm``). The
+    block is then exactly 1 / tp of the leaf, as JAX's ("fsdp",
+    "tensor") and (None, "tensor") specs say, and the conv stays
+    depthwise on the rank's own channels."""
+    widths = mamba_segments(arch, leaf)
+    if n != sum(widths) or any(w % tp for w in widths):
+        raise NotImplementedError(
+            f"mamba {leaf} of {n} columns (segments {widths}) does not "
+            f"split into {tp} ranks' heads and B / C columns")
+    parts, off = [], 0
+    for w in widths:
+        parts.append(torch.arange(off + r * w // tp, off + (r + 1) * w // tp))
+        off += w
+    return torch.cat(parts)
+
+
 def train_block_index(path: Tuple[str, ...], shape: Sequence[int],
                       sp: Spec, arch, axis_sizes: Mapping[str, int],
                       coords: Mapping[str, int]) -> Tuple[Any, ...]:
     """The index of this rank's block of a whole training leaf under its
     sanitized spec ``sp``: ``local_slice``'s contiguous blocks, except the
-    model-split dim of a fused ``wqkv`` / ``bqkv``, indexed by the rank's
-    q, k and v columns (``_fused_qkv_columns``)."""
+    model-split last dim of a fused ``wqkv`` / ``bqkv``, indexed by the
+    rank's q, k and v columns (``_fused_qkv_columns``), and of a mamba
+    ``in_proj`` / ``conv``, indexed by its share of each segment
+    (``_mamba_columns``)."""
     index = list(local_slice(sp, shape, axis_sizes, coords))
-    if path[-1] in ("wqkv", "bqkv"):
+    fused = path[-1] in ("wqkv", "bqkv")
+    mamba = len(path) > 1 and path[-2] == "mamba" \
+        and path[-1] in ("in_proj", "conv")
+    if fused or mamba:
         d = len(shape) - 1
         if "model" in _axes(sp[d]):
             if _axes(sp[d]) != ("model",):
-                raise NotImplementedError(f"{'/'.join(path)}: fused qkv "
+                raise NotImplementedError(f"{'/'.join(path)}: fused "
                                           f"columns split over {sp[d]}")
-            index[d] = _fused_qkv_columns(arch, shape[d],
-                                          axis_sizes["model"],
-                                          coords["model"])
+            tp, r = axis_sizes["model"], coords["model"]
+            index[d] = _fused_qkv_columns(arch, shape[d], tp, r) if fused \
+                else _mamba_columns(arch, path[-1], shape[d], tp, r)
     return tuple(index)
 
 

@@ -35,18 +35,26 @@ card over nccl the step is captured as ever; a gloo group's collectives run
 on the host and cannot be captured, so there ``bundle.fn`` runs every step
 eagerly.
 
-On a mesh whose ``model`` axis holds tp > 1 ranks (the dense, moe and vlm
-families) the step is JAX's under ``make_rules``: each rank holds its
-block of every leaf under the sanitized ``param_pspecs`` (``state_specs``;
-the model ranks of a data coordinate see the same rows), the layers run
-the rank's heads, MLP columns and experts with the collectives GSPMD
-derives written out (``parallel.collectives``: Megatron's entry and exit
-of the tensor-parallel region, by sequence under ``seq_parallel``, FSDP's
-weight gathers, the vocab-parallel embedding, logits and cross entropy),
-and ``zero_collectives`` states what a step runs. ``_mesh_axes`` is the
-one place that reads the mesh and the rules, and refuses what is not
-ported (a pod axis; a model axis for the ssm, hybrid and encdec
-families; a rules table the layers do not honour).
+On a mesh whose ``model`` axis holds tp > 1 ranks (every family: dense,
+moe, vlm, ssm, hybrid and encdec) the step is JAX's under ``make_rules``:
+each rank holds its block of every leaf under the sanitized
+``param_pspecs`` (``state_specs``; the model ranks of a data coordinate
+see the same rows), the layers run the rank's heads, MLP columns, mamba
+heads and experts with the collectives GSPMD derives written out
+(``parallel.collectives``: Megatron's entry and exit of the tensor-
+parallel region, by sequence under ``seq_parallel``, FSDP's weight
+gathers, the vocab-parallel embedding, logits and cross entropy, a mamba
+layer's B and C gather and its gated norm's row statistic, the encoder
+output's entry into the cross-attention), and ``zero_collectives``
+states what a step runs. A ``pod`` axis (``make_rules(multi_pod=True)``)
+splits the batch rows over (pod, data), pod-major; the ZeRO layout stays
+within a pod and is replicated across pods, as JAX's
+``opt_state_pspecs`` says, so each step adds one all-reduce of the
+rank's reduced shard over the pod axis (the middle step of
+``hierarchical_psum``) and the norms sum over one pod's ranks.
+``_mesh_axes`` is the one place that reads the mesh and the rules, and
+refuses what is not ported (an axis of another name; a rules table other
+than ``make_rules``' options, such as an ``overrides`` table).
 """
 from __future__ import annotations
 
@@ -167,15 +175,20 @@ class StepBundle:
 @dataclasses.dataclass
 class MeshAxes:
     """The mesh as a train step reads it (``_mesh_axes``): the axes'
-    sizes and this rank's coordinates, the rules, and the groups: ``data``
-    and ``model`` (None where the axis has one rank) and ``norms``, the
-    group over which the optimizer sums squared norms (the data group, or
-    the whole mesh where the model axis is wider than one rank)."""
+    sizes and this rank's coordinates, the rules, and the groups: ``data``,
+    ``model`` and ``pod`` (None where the axis has one rank); ``batch``,
+    the ranks sharing a model coordinate, over which the batch rows split
+    ((pod, data); None where that is one rank); and ``norms``, the group
+    over which the optimizer sums squared norms (the data group, or one
+    pod's (data, model) ranks where the model axis is wider than one
+    rank: every pod holds the same shards after the pod's all-reduce)."""
     sizes: Dict[str, int]
     coords: Dict[str, int]
     rules: Dict[str, Any]
     data: Any = None
     model: Any = None
+    pod: Any = None
+    batch: Any = None
     norms: Any = None
 
     @property
@@ -185,6 +198,10 @@ class MeshAxes:
     @property
     def tp(self) -> int:
         return self.sizes.get("model", 1)
+
+    @property
+    def pods(self) -> int:
+        return self.sizes.get("pod", 1)
 
     def parallel(self, params=None, specs=None) -> collectives.Parallel:
         """The layers' view (``collectives.Parallel``); with a rank's
@@ -198,6 +215,7 @@ class MeshAxes:
         return collectives.Parallel(
             model=self.model, tp=self.tp,
             mrank=self.coords.get("model", 0), data=self.data, dp=self.dp,
+            pods=self.pods,
             seq=self.tp > 1 and self.rules.get("seq") == "model",
             experts=self.tp > 1 and self.rules.get("experts") == "model",
             fsdp=fsdp)
@@ -218,143 +236,242 @@ def state_specs(params, rules, axis_sizes) -> Any:
 
 def zero_collectives(run: RunConfig, dp: int, tp: int = 1,
                      rules: Optional[Dict[str, Any]] = None,
-                     specs: Any = None) -> Dict[str, int]:
-    """The collectives one ZeRO step runs on each rank of a mesh of dp x
-    tp ranks, by kind. On the data axis: ``all_reduce`` for the
-    micro-batches' mask counts (1) and the metrics (1), one a MoE layer a
-    micro-batch for the Switch loss's sums (twice under ``remat``: the
-    recompute runs it again); one ``reduce_scatter`` and one
-    ``all_gather`` of the flat layout; over the data axis, or the whole
-    mesh with a model axis: the clip's norm (1 where ``grad_clip`` > 0),
-    LAMB's gradient norm and its partial norms (2). None at dp = tp = 1.
+                     specs: Any = None, pods: int = 1) -> Dict[str, int]:
+    """The collectives one ZeRO step runs on each rank of a mesh of pods x
+    dp x tp ranks, by kind. Over the batch's ranks ((pod, data)): the
+    micro-batches' mask counts (1 all-reduce) and the metrics (1), one a
+    MoE layer a micro-batch for the Switch loss's sums (twice under
+    ``remat``: the recompute runs it again). On the data axis one
+    ``reduce_scatter`` and one ``all_gather`` of the flat layout; over the
+    pod axis one all-reduce of the reduced shards; over the data axis, or
+    a pod's (data, model) ranks with a model axis: the clip's norm (1
+    where ``grad_clip`` > 0), LAMB's gradient norm and its partial norms
+    (2, and 1 more over the model axis where both are wider than one
+    rank). None at pods = dp = tp = 1.
 
     With FSDP (``specs``, the sanitized specs of the whole leaves, with
     "data" on a dim) each sliced weight is gathered once a use (twice
-    under ``remat`` inside a block; the tied embedding is used twice) and
-    its gradient reduce-scattered once. With a model axis, a micro-batch
-    runs: the embedding's exit, each attention and MLP or MoE block's
-    entry and exit (``Parallel.enter`` / ``exit``: all-gather and reduce-
-    scatter under sequence parallelism, else an all-reduce in the
-    backward and one in the forward), an all-gather of the K/V columns a
-    layer where tp > Hkv, the logits' entry and the cross entropy's two
-    all-reduces; under sequence parallelism a MoE layer's Switch sums
-    over the model axis too, and one all-reduce of the leaves every model
-    rank holds whole (their gradients are partial sums there). A forward
+    under ``remat`` inside a block of either stack; the tied embedding is
+    used twice) and its gradient reduce-scattered once. With a model axis
+    a micro-batch runs, by ``_model_axis_collectives``: the embedding's
+    exit, every sublayer's entry and exit of the tensor-parallel region
+    (``Parallel.enter`` / ``exit``, or ``column`` / ``row`` around a
+    product: all-gather and reduce-scatter under
+    sequence parallelism, else an all-reduce in the backward and one in
+    the forward) and what runs inside it, the encoder output's entry
+    (encdec), the logits' entry and the cross entropy's two all-reduces,
+    and one all-reduce of the leaves every model rank holds whole whose
+    gradients are partial sums there (every such leaf under sequence
+    parallelism; a mamba mixer's whole leaves always). A forward
     collective inside a block runs twice under ``remat``; its backward
-    collective once. (Every MoE layer counts an exit: each registry MoE
-    has shared experts; one without them and without expert parallelism
-    would have none.)"""
-    if dp == 1 and tp == 1:
-        return {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    collective once."""
+    out = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    if dp == 1 and tp == 1 and pods == 1:
+        return out
     rules = STEP_RULES if rules is None else rules
     arch, m = run.arch, run.shape.microbatches
     rr = 2 if arch.remat else 1
     moe = sum(arch.is_moe_layer(i) for i in range(arch.num_layers))
-    seq = tp > 1 and rules.get("seq") == "model"
     lamb = run.optimizer == "lamb"
-    # the clip's norm, LAMB's norm and its partials' exchange (over the
-    # data axis, then the model axis where both are wider than one rank)
-    ar = (run.grad_clip > 0) + 2 * lamb + (lamb and dp > 1 and tp > 1)
-    rs = ag = 0
-    if dp > 1:      # the mask counts, the metrics, the Switch sums
-        ar += 2 + moe * m * rr
-        rs = ag = 1
+    if dp > 1 or tp > 1:    # the clip's norm, LAMB's norm and its partials
+        out["all_reduce"] += (run.grad_clip > 0) + 2 * lamb \
+            + (lamb and dp > 1 and tp > 1)
+    if dp > 1:
+        out["reduce_scatter"] += 1
+        out["all_gather"] += 1
+    if pods > 1:
+        out["all_reduce"] += 1
+    if dp * pods > 1:       # the mask counts, the metrics, the Switch sums
+        out["all_reduce"] += 2 + moe * m * rr
     if dp > 1 and specs is not None:
         for path, sp in sharding.leaf_items(specs):
             if not sharding.split_dims(sp, "data"):
                 continue
-            if path[0] == "blocks":
-                ag, rs = ag + rr * m, rs + m
+            if path[0] in ("blocks", "enc_blocks"):
+                uses = rr
             else:
                 uses = 2 if (path[-1] == "embedding"
                              and arch.tie_embeddings) else 1
-                ag, rs = ag + uses * m, rs + uses * m
-    if tp == 1:
-        return {"all_reduce": ar, "reduce_scatter": rs, "all_gather": ag}
-    # an attention and an MLP or MoE a layer, each with an entry and an
-    # exit; the recompute stops after the last op whose output the
-    # backward needs, so a pre-norm block's last exit (only added to the
-    # residual) runs once
-    sub = 2 * arch.num_layers
-    exits = rr * sub - (arch.num_layers if rr > 1 and not arch.post_norm
-                        else 0)
-    kv = arch.num_layers if arch.num_kv_heads % tp else 0
-    if seq:
-        # entry: all-gather fwd, reduce-scatter bwd; exit the reverse
-        ag += m * (rr * sub + sub + rr * kv + 1 + 1)   # + embed bwd, logits
-        rs += m * (sub + exits + kv + 1 + 1)           # + embed fwd, logits
-        ar += m * (2 + rr * moe + 1)     # CE, Switch sums, partial grads
-    else:
-        ag += m * rr * kv
-        rs += m * kv
-        experts = rules.get("experts") == "model"
-        copies = sub + (moe if experts else 0) + 1
-        ar += m * (exits + 1 + copies + 2)      # exits, embed; copies; CE
-    return {"all_reduce": ar, "reduce_scatter": rs, "all_gather": ag}
+            out["all_gather"] += uses * m
+            out["reduce_scatter"] += m if path[0] in (
+                "blocks", "enc_blocks") else uses * m
+    if tp > 1:
+        for k, v in _model_axis_collectives(arch, tp, rules).items():
+            out[k] += m * v
+    return out
+
+
+def _model_axis_collectives(arch, tp: int, rules) -> Dict[str, int]:
+    """The model axis's collectives of one micro-batch (tp > 1), by kind,
+    sublayer by sublayer (``zero_collectives``). The recompute of a block
+    stops after the last op whose output the backward needs, so a
+    pre-norm block's last exit (only added to the residual) runs once."""
+    seq = rules.get("seq") == "model"
+    experts = rules.get("experts") == "model"
+    rr = 2 if arch.remat else 1
+    c = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    fwd = "all_gather" if seq else None     # an entry's forward
+    bwd = "reduce_scatter" if seq else "all_reduce"
+    out_f = "reduce_scatter" if seq else "all_reduce"
+    out_b = "all_gather" if seq else None   # an exit's backward
+
+    def add(kind, n=1):
+        if kind is not None:
+            c[kind] += n
+
+    def sublayer(kind, times, last):
+        """One sublayer's collectives: forward ``times`` (the block's
+        recompute), its exit once more only where it is not ``last``."""
+        kv = arch.num_kv_heads and arch.num_kv_heads % tp
+        entry = exit_ = True
+        if kind == "moe":
+            shared = arch.moe.num_shared_experts > 0
+            entry = seq or experts or shared
+            exit_ = experts or shared
+            if not seq and experts:
+                add("all_reduce")       # the logits' copy into the region
+            if seq:
+                add("all_reduce", times)  # the Switch sums over the model
+        if entry:
+            add(fwd, times)
+            add(bwd)
+        if kind in ("attn", "cross") and kv:    # the K/V columns' gather
+            add("all_gather", times)
+            add("reduce_scatter")
+        if kind == "mamba":
+            add("all_gather", times)    # B and C
+            add("reduce_scatter")
+            add("all_reduce", times + 1)    # the gated norm's statistic
+        if exit_:
+            add(out_f, 1 if last else times)
+            add(out_b)
+
+    from ..models.transformer import _stack_kinds
+    stacks = [(_stack_kinds(arch), False)]
+    if arch.family == "encdec":
+        stacks.append((["attn"] * arch.enc_layers, None))
+    for kinds, cross in stacks:
+        for i, mixer in enumerate(kinds):
+            subs = [mixer]
+            if cross is False and arch.family == "encdec":
+                subs.append("cross")
+            if arch.family != "ssm":
+                subs.append("moe" if cross is False and arch.is_moe_layer(i)
+                            else "mlp")
+            for j, kind in enumerate(subs):
+                last = j == len(subs) - 1 and rr > 1 and not arch.post_norm
+                sublayer(kind, rr, last)
+    add(out_f)          # the embedding's exit
+    add(out_b)
+    add(fwd)            # the logits' entry
+    add(bwd)
+    if arch.family == "encdec":     # the encoder output's entry
+        add(fwd)
+        add(bwd)
+    add("all_reduce", 2)            # the cross entropy
+    if seq or "mamba" in _stack_kinds(arch):
+        add("all_reduce")           # the partial gradients' sum
+    return c
 
 
 def _check_rules(rules) -> None:
     """The layers honour the ``make_rules`` tables that differ only in
-    ``seq_parallel``, ``fsdp`` and ``expert_parallel``; any other table
-    (``multi_pod``, ``overrides``) is refused."""
-    for seq, fsdp, ep in itertools.product((True, False), repeat=3):
-        if rules == sharding.make_rules(seq_parallel=seq, fsdp=fsdp,
+    ``multi_pod``, ``seq_parallel``, ``fsdp`` and ``expert_parallel``; any
+    other table (an ``overrides`` one) is refused."""
+    for pod, seq, fsdp, ep in itertools.product((False, True), repeat=4):
+        if rules == sharding.make_rules(pod, seq_parallel=seq, fsdp=fsdp,
                                         expert_parallel=ep):
             return
     raise NotImplementedError(
-        f"rules {rules}: the train step honours make_rules(seq_parallel=, "
-        "fsdp=, expert_parallel=) tables only; multi_pod and overrides are "
-        "not ported")
+        f"rules {rules}: the train step honours make_rules(multi_pod=, "
+        "seq_parallel=, fsdp=, expert_parallel=) tables only; an overrides "
+        "table is not ported")
+
+
+AXES = ("pod", "data", "model")
 
 
 def _mesh_axes(run: RunConfig, mesh, rules) -> MeshAxes:
     """The one place that reads the mesh and the rules -> ``MeshAxes``,
-    refusing what is not ported: a pod axis (or any other) of more than
-    one rank, a rules table the layers do not honour, a model axis for
-    the ssm, hybrid and encdec families, head counts the model axis does
-    not split, and dp or tp > 1 without ZeRO."""
+    refusing what is not ported: an axis not named pod, data or model, a
+    pod axis of more than one rank under rules that do not split the
+    batch over it, a rules table the layers do not honour, head or mamba
+    segment counts the model axis does not split, and a mesh of more
+    than one rank without ZeRO. With a pod axis it makes two more kinds
+    of process group (``torch.distributed.new_group``, every rank making
+    every group in the same order): the (pod, data) ranks of each model
+    coordinate and, with a model axis, the (data, model) ranks of each
+    pod."""
     sizes = mesh_lib.axis_sizes(mesh)
     rules = dict(STEP_RULES if rules is None else rules)
-    wide = {a: n for a, n in sizes.items()
-            if a not in ("data", "model") and n > 1}
-    if wide:
+    other = {a: n for a, n in sizes.items() if a not in AXES}
+    if other:
         raise NotImplementedError(
-            f"mesh axes {wide}: training over a pod axis (the batch over "
-            "(pod, data), JAX's make_rules(multi_pod=True)) is not ported; "
-            "the data and model axes only")
+            f"mesh axes {other}: the train step reads the pod, data and "
+            "model axes only")
     _check_rules(rules)
     arch = run.arch
+    pods = sizes.get("pod", 1)
     dp, tp = sizes.get("data", 1), sizes.get("model", 1)
+    if pods > 1 and "pod" not in sharding._axes(rules["batch"]):
+        raise NotImplementedError(
+            f"a pod axis of {pods} under rules whose batch is "
+            f"{rules['batch']}: the pod axis trains under "
+            "make_rules(multi_pod=True)")
     if tp > 1:
-        if arch.family in ("ssm", "hybrid", "encdec"):
-            raise NotImplementedError(
-                f"{arch.name} ({arch.family}) on a model axis of {tp}: "
-                "tensor-parallel training of mamba mixers (the fused "
-                "in_proj columns and the conv need a per-segment split), "
-                "hybrid stacks and encoder-decoder cross-attention is not "
-                "ported; the dense, moe and vlm families only")
         hkv = arch.num_kv_heads
-        if arch.num_heads % tp or (hkv % tp and tp % hkv):
+        if arch.num_heads and (arch.num_heads % tp
+                               or (hkv % tp and tp % hkv)):
             raise NotImplementedError(
                 f"{arch.name}: {arch.num_heads} query and {hkv} KV heads "
                 f"over a model axis of {tp}: each rank's heads need tp to "
                 "divide Hq and to divide or be divided by Hkv")
-    if (dp > 1 or tp > 1) and not (run.zero1 and run.optimizer in
-                                   ("lamb", "adamw")):
+        if arch.ssm is not None:
+            widths = sharding.mamba_segments(arch, "in_proj")
+            if any(w % tp for w in widths):
+                raise NotImplementedError(
+                    f"{arch.name}: mamba segments {widths} (z, x, B, C, dt)"
+                    f" over a model axis of {tp}: tp must divide each")
+    if (pods > 1 or dp > 1 or tp > 1) and not (
+            run.zero1 and run.optimizer in ("lamb", "adamw")):
         raise NotImplementedError(
-            f"dp={dp}, tp={tp} with zero1={run.zero1} and {run.optimizer}: "
-            "mesh training is ported for ZeRO-1 (zero1=True, lamb or "
-            "adamw)")
-    axes = MeshAxes(sizes={"data": dp, "model": tp},
-                    coords={a: mesh_lib.axis_coords(mesh).get(a, 0)
-                            for a in ("data", "model")}, rules=rules)
+            f"pods={pods}, dp={dp}, tp={tp} with zero1={run.zero1} and "
+            f"{run.optimizer}: mesh training is ported for ZeRO-1 "
+            "(zero1=True, lamb or adamw)")
+    coords = mesh_lib.axis_coords(mesh)
+    axes = MeshAxes(sizes={"pod": pods, "data": dp, "model": tp},
+                    coords={a: coords.get(a, 0) for a in AXES}, rules=rules)
     if dp > 1:
         axes.data = mesh.get_group("data")
     if tp > 1:
         axes.model = mesh.get_group("model")
-        axes.norms = dist.group.WORLD
+    if pods > 1:
+        axes.pod = mesh.get_group("pod")
+        grid, names = mesh.mesh, list(mesh.mesh_dim_names)
+        for a in AXES:
+            if a not in names:
+                grid, names = grid.unsqueeze(-1), names + [a]
+        grid = grid.permute([names.index(a) for a in AXES])
+        me = dist.get_rank()
+        if dp > 1:
+            for mc in range(tp):
+                ranks = grid[:, :, mc].flatten().tolist()
+                g = dist.new_group(ranks)
+                if me in ranks:
+                    axes.batch = g
+        else:
+            axes.batch = axes.pod
+        if tp > 1:
+            for pc in range(pods):
+                ranks = grid[pc].flatten().tolist()
+                g = dist.new_group(ranks)
+                if me in ranks:
+                    axes.norms = g
+        else:
+            axes.norms = axes.data
     else:
-        axes.norms = axes.data
+        axes.batch = axes.data
+        axes.norms = dist.group.WORLD if tp > 1 else axes.data
     return axes
 
 
@@ -382,15 +499,24 @@ def _check_split(specs, whole_specs) -> None:
                 "layers split must split evenly")
 
 
+def _partial_leaf(path: tuple, seq: bool) -> bool:
+    """Whether the gradient of a leaf every model rank holds whole is a
+    partial sum over the model ranks: every such leaf under sequence
+    parallelism (a rank's rows), and a mamba mixer's whole leaves always
+    (a rank touches its heads' entries only)."""
+    return seq or (len(path) > 1 and path[-2] == "mamba"
+                   and path[-1] in ("A_log", "D", "dt_bias", "norm_scale"))
+
+
 def build_train_step(run: RunConfig, device="cuda", mesh=None,
                      rules: Optional[Dict[str, Any]] = None) -> StepBundle:
     """The train step of ``run`` on ``device``; with ``mesh`` (a
-    ``launch.mesh.make_mesh`` mesh with ``data`` and ``model`` axes) this
-    rank's step under ``rules`` (JAX's ``make_rules`` table; default
-    ``STEP_RULES``, ZeRO-1 with whole weights on the data axis), the
-    counterpart of JAX's jit of ``build_train_step(run).fn`` with
-    ``in_shardings`` from ``state_specs`` under ``sh.activate(mesh,
-    rules)``.
+    ``launch.mesh.make_mesh`` mesh with ``data`` and ``model`` axes, and a
+    ``pod`` axis under ``make_rules(multi_pod=True)``) this rank's step
+    under ``rules`` (JAX's ``make_rules`` table; default ``STEP_RULES``,
+    ZeRO-1 with whole weights on the data axis), the counterpart of JAX's
+    jit of ``build_train_step(run).fn`` with ``in_shardings`` from
+    ``state_specs`` under ``sh.activate(mesh, rules)``.
 
     On a model axis above one rank each rank holds only its block of
     every leaf under the sanitized ``param_pspecs`` (``sharding.
@@ -398,15 +524,19 @@ def build_train_step(run: RunConfig, device="cuda", mesh=None,
     axis, the "fsdp" dim over the data axis. The layers compute the
     rank's share (``collectives.Parallel``), the gradients of the leaves
     every model rank holds whole are summed over the model axis where
-    they are partial (under sequence parallelism), and the ZeRO plan
-    shards the rest (``zero.Plan``'s ``local`` and ``count``)."""
+    they are partial (``_partial_leaf``), and the ZeRO plan shards the
+    rest (``zero.Plan``'s ``local`` and ``count``). Over a pod axis the
+    pods hold the same blocks and shards, their rows differ, and the
+    plan all-reduces each rank's reduced shard over the pod axis."""
     arch, shape = run.arch, run.shape
     device = resolve_device(device)
     opt = make_optimizer(run)
     zero1 = run.zero1 and run.optimizer in ("lamb", "adamw")
     axes = _mesh_axes(run, mesh, rules)
-    dp, rank, group = axes.dp, axes.coords["data"], axes.data
-    on_mesh = dp > 1 or axes.tp > 1
+    dp, rank, group = axes.dp, axes.coords["data"], axes.batch
+    on_mesh = dp > 1 or axes.tp > 1 or axes.pods > 1
+    rows_sizes = {"pod": axes.pods, "data": dp}
+    rows_coords = {a: axes.coords[a] for a in rows_sizes}
 
     def loss_fn(params, batch, par):
         if group is None:
@@ -415,11 +545,12 @@ def build_train_step(run: RunConfig, device="cuda", mesh=None,
         return model_lib.loss(arch, params, mb, group, denom, par)
 
     def local(micro: List[Dict[str, torch.Tensor]]):
-        """This rank's rows of each micro-batch, each with the
-        micro-batch's mask count over every rank (one all_reduce)."""
+        """This rank's rows of each micro-batch (over (pod, data), pod-
+        major), each with the micro-batch's mask count over every rank
+        (one all_reduce over the batch's ranks)."""
         specs = sharding.batch_pspecs(micro[0], axes.rules)
-        mine = [{k: v[sharding.local_slice(specs[k], v.shape, {"data": dp},
-                                           {"data": rank})]
+        mine = [{k: v[sharding.local_slice(specs[k], v.shape, rows_sizes,
+                                           rows_coords)]
                  for k, v in mb.items()} for mb in micro]
         counts = torch.stack([mb["loss_mask"].float().sum()
                               if "loss_mask" in mb else
@@ -505,22 +636,25 @@ def build_train_step(run: RunConfig, device="cuda", mesh=None,
             bundle.specs = specs
             params = sharding.train_blocks(params, specs, arch, axes.sizes,
                                            axes.coords)
-            flat = tree.leaves(specs)
+            items = sharding.leaf_items(specs)
             if dp > 1:
-                local_ids = [i for i, sp in enumerate(flat)
+                local_ids = [i for i, (_, sp) in enumerate(items)
                              if sharding.split_dims(sp, "data")]
-            split = [_model_split(sp) for sp in flat]
-            bundle.partial = [i for i, sp in enumerate(split) if not sp] \
-                if axes.model is not None and axes.rules.get("seq") \
-                == "model" else []
+            split = [_model_split(sp) for _, sp in items]
+            seq = axes.rules.get("seq") == "model"
+            bundle.partial = [
+                i for i, ((path, _), sp) in enumerate(zip(items, split))
+                if not sp and _partial_leaf(path, seq)] \
+                if axes.model is not None else []
         if zero1:
             bundle.plan = zero.Plan(
                 params, period=period_length(arch),
                 layer_rows=run.optimizer == "lamb", dp=dp, rank=rank,
-                group=group, local=local_ids, split=split,
+                group=axes.data, local=local_ids, split=split,
                 rules=axes.rules,
                 norm_group=axes.norms if axes.tp > 1 else None,
-                model_group=axes.model, mrank=axes.coords["model"])
+                model_group=axes.model, mrank=axes.coords["model"],
+                pod_group=axes.pod)
         state = {"opt": opt.init(params, bundle.plan)}
         dtype = torch_dtype(arch.dtype) if run.master_weights else None
         state["params"] = tree.map(
@@ -529,8 +663,8 @@ def build_train_step(run: RunConfig, device="cuda", mesh=None,
         return state
 
     # gloo's collectives run on the host: no CUDA graph can hold them
-    first = next((g for g in (axes.data, axes.model) if g is not None),
-                 None)
+    first = next((g for g in (axes.data, axes.model, axes.pod)
+                  if g is not None), None)
     host = first is not None and dist.get_backend(first) == "gloo"
     bundle = StepBundle(fn=StepGraph(step, device, capture=not host),
                         init=init, eager=eager, mesh=axes)

@@ -20,9 +20,12 @@ AdamW once:
 - the collectives a step by kind equal ``zero_collectives``;
 - ``train_loop`` with the data group logs and keeps history on rank 0
   only;
-- what a mesh's step still refuses: an ssm arch on a model axis of 2 and
-  a pod axis of 2 (``tests/test_torch_tp_training.py`` trains the model
-  axis), and a dp that does not divide 256.
+- what a mesh's step still refuses: a rules table made with
+  ``overrides``, an axis not named pod, data or model, and a pod axis
+  under rules that do not split the batch over it
+  (``tests/test_torch_tp_training*.py`` train the model axis of every
+  family, ``tests/test_torch_pod_training.py`` the pod axis), and a dp
+  that does not divide 256.
 
 The JAX steps are computed while the ranks train (the spawn runs in a
 thread).
@@ -74,9 +77,12 @@ def _case(name, micro, opt, fused):
     t_arch = _fp32(smoke_config(name))
     params = tree.map(lambda t: t.numpy(), model_lib.init_params(
         t_arch, torch.Generator().manual_seed(0), "cpu", torch.float32))
+    frames = (t_arch.enc_seq_len, t_arch.d_model) \
+        if t_arch.family == "encdec" else None
     data = SyntheticPipeline(DataConfig(
         vocab_size=t_arch.vocab_size, seq_len=S, global_batch=B,
-        objective="mlm" if t_arch.bidirectional else "causal", seed=1))
+        objective="mlm" if t_arch.bidirectional else "causal", seed=1,
+        frames=frames))
     return {"arch": t_arch, "params": params,
             "shape": dict(name="t", seq_len=S, global_batch=B, kind="train",
                           microbatches=micro),
@@ -182,15 +188,20 @@ def test_train_loop_logs_on_rank_0_only():
 
 
 def test_model_axis_is_refused():
-    """The model axis trains the dense, moe and vlm families; an ssm arch
-    on it and a pod axis are refused, naming what is missing."""
+    """The model axis trains every family and the pod axis trains under
+    ``make_rules(multi_pod=True)``; what stays refused is an ``overrides``
+    rules table, an axis of another name, and a pod axis whose rules keep
+    the batch off it, each naming what is missing."""
     ranks, _ = _runs()
     for r in ranks:
-        ssm = r["refusals"]["ssm model axis"]
-        assert ssm is not None and "model axis of 2" in ssm \
-            and "per-segment split" in ssm
-        pod = r["refusals"]["pod axis"]
-        assert pod is not None and "pod axis" in pod and "'pod': 2" in pod
+        table = r["refusals"]["overrides rules"]
+        assert table is not None and "overrides table is not ported" in table
+        axis = r["refusals"]["unknown axis"]
+        assert axis is not None and "'stage': 2" in axis \
+            and "pod, data and model axes only" in axis
+        pod = r["refusals"]["pod axis without multi_pod"]
+        assert pod is not None and "pod axis of 2" in pod \
+            and "make_rules(multi_pod=True)" in pod
 
 
 class _Mesh:

@@ -257,21 +257,40 @@ def test_train_step_state_has_jax_shapes():
     assert bundle.plan.period == period_length(t_arch)
 
 
-@pytest.mark.parametrize("kw", [{"multi_pod": True},
+@pytest.mark.parametrize("kw", [{"multi_pod": True,
+                                 "overrides": (("vocab", None),)},
                                 {"overrides": (("opt_flat", "data"),)},
                                 {"overrides": (("tensor", None),)}],
                          ids=["multi_pod", "opt_flat", "tensor"])
 def test_train_step_refuses_rules_it_cannot_honour(kw):
-    """The step honours the ``make_rules`` tables of its three options
-    (the meshes' tests run them) and refuses any other table before it
-    builds anything."""
+    """The step honours the ``make_rules`` tables of its four options
+    (the meshes' tests run them, ``multi_pod`` among them) and refuses
+    any other table, such as a ``multi_pod`` one with an override,
+    before it builds anything."""
     from repro_torch.configs import RunConfig, ShapeConfig, smoke_config
     from repro_torch.parallel.sharding import make_rules
     from repro_torch.train.steps import build_train_step
     run = RunConfig(arch=smoke_config("llama3.2-3b"), shape=ShapeConfig(
         "t", seq_len=8, global_batch=2, kind="train"))
-    with pytest.raises(NotImplementedError, match="multi_pod and overrides"):
+    with pytest.raises(NotImplementedError,
+                       match="an overrides table is not ported"):
         build_train_step(run, device="cpu", rules=make_rules(**kw))
+
+
+@pytest.mark.parametrize("seq", [True, False])
+def test_train_step_honours_multi_pod_tables(seq):
+    """A ``make_rules(multi_pod=True)`` table is one the step honours
+    (``tests/test_torch_pod_training.py`` trains it over a pod axis); on
+    one device it is the step of one device."""
+    from repro_torch.configs import RunConfig, ShapeConfig, smoke_config
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.steps import build_train_step
+    run = RunConfig(arch=smoke_config("llama3.2-3b"), shape=ShapeConfig(
+        "t", seq_len=8, global_batch=2, kind="train"))
+    bundle = build_train_step(run, device="cpu", rules=make_rules(
+        multi_pod=True, seq_parallel=seq))
+    assert bundle.mesh.rules["batch"] == ("pod", "data")
+    assert bundle.mesh.batch is None and bundle.mesh.pods == 1
 
 
 def test_training_rules_and_specs_are_jax():

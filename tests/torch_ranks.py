@@ -64,17 +64,19 @@ def train_cases(mesh, rank, device, cases, steps):
 
 
 def _refusals(run):
-    """What a mesh's step still refuses, before any collective: an ssm
-    arch on a model axis of 2, and a pod axis of 2 (two ranks either
-    way)."""
-    from repro_torch.configs import smoke_config
+    """What a mesh's step still refuses, before any collective (two ranks
+    each way): a rules table made with ``overrides``, an axis of another
+    name, and a pod axis under rules that do not split the batch over it
+    (``make_rules(multi_pod=True)`` trains it)."""
     out = {}
-    for name, shape, axes, arch in (
-            ("ssm model axis", (1, 2), ("data", "model"),
-             smoke_config("mamba2-1.3b")),
-            ("pod axis", (2, 1, 1), ("pod", "data", "model"), run.arch)):
+    for name, shape, axes, rules in (
+            ("overrides rules", (2, 1), ("data", "model"),
+             make_rules(overrides=(("vocab", None),))),
+            ("unknown axis", (1, 2), ("data", "stage"), None),
+            ("pod axis without multi_pod", (2, 1, 1),
+             ("pod", "data", "model"), None)):
         try:
-            build_train_step(run.replace(arch=arch), device="cpu",
+            build_train_step(run, device="cpu", rules=rules,
                              mesh=mesh_lib.make_mesh(shape, axes,
                                                      backend="gloo"))
             out[name] = None
@@ -86,10 +88,11 @@ def _refusals(run):
 def tp_train_cases(mesh, rank, device, cases, steps):
     """Each case (as ``train_cases``, with ``rules``: ``make_rules``
     keywords, and ``fused_blocks``) trained ``steps`` steps on a (data,
-    model) mesh: its metrics and collectives a step, the counts
-    ``zero_collectives`` states, the rank's coordinates, the sanitized
-    specs, and its blocks of the params and of ``m`` / ``v`` / ``master``
-    (param-shaped through ``Plan.blocks``), as numpy."""
+    model) or (pod, data, model) mesh: its metrics and collectives a
+    step, the counts ``zero_collectives`` states, the rank's coordinates,
+    the sanitized specs, its blocks of the params and of ``m`` / ``v`` /
+    ``master`` (param-shaped through ``Plan.blocks``) and its flat
+    optimizer shards themselves (``shards``), as numpy."""
     torch.set_num_threads(1)
     out = []
     for case in cases:
@@ -116,14 +119,37 @@ def tp_train_cases(mesh, rank, device, cases, steps):
         out.append({
             "metrics": metrics, "counts": counts,
             "stated": zero_collectives(run, ax.dp, ax.tp, ax.rules,
-                                       bundle.specs),
+                                       bundle.specs, ax.pods),
             "coords": ax.coords, "sizes": ax.sizes, "specs": bundle.specs,
             "params": tree.map(host, state["params"]),
+            "shards": {k: [host(t) for t in tree.leaves(state["opt"][k])]
+                       for k in ("m", "v", "master") if k in state["opt"]},
             "opt": {k: tree.map(host, bundle.plan.blocks(
                 state["opt"][k], state["params"]))
                 for k in ("m", "v", "master") if k in state["opt"]}})
     os.environ.pop("REPRO_FUSED_BLOCKS", None)
     return out
+
+
+def step1_m(mesh, rank, device, case):
+    """One step of ``case`` (as ``tp_train_cases``' cases, its ``arch`` in
+    any dtype; fp32 master weights) on ``mesh`` (None: one device) under
+    ``make_rules()``: the loss and the rank's param-shaped blocks of step
+    1's ``m`` as float32 numpy, with its coordinates, sizes and specs."""
+    torch.set_num_threads(2)
+    os.environ["REPRO_FUSED_BLOCKS"] = "1"
+    run = RunConfig(arch=case["arch"], shape=ShapeConfig(**case["shape"]),
+                    master_weights=True, **case["run"])
+    bundle = build_train_step(run, device="cpu", mesh=mesh,
+                              rules=None if mesh is None else make_rules())
+    state = bundle.init(params=tree.map(torch.from_numpy, case["params"]))
+    state, met = bundle.fn(state, case["batches"][0])
+    os.environ.pop("REPRO_FUSED_BLOCKS", None)
+    return {"loss": float(met["loss"]), "coords": bundle.mesh.coords,
+            "sizes": bundle.mesh.sizes, "specs": bundle.specs,
+            "m": tree.map(lambda t: t.detach().float().numpy(),
+                          bundle.plan.blocks(state["opt"]["m"],
+                                             state["params"]))}
 
 
 def collective_cases(mesh, rank, device, x, pipe_x, ws, num_micro):
